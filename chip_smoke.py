@@ -1,0 +1,364 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (`src/repro_torch`) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases, each printed on its own line:
+
+1. the card: ``nvidia-smi`` name and power limit, torch's device name;
+2. the nvcc build of ``src/repro_torch/kernels/csrc/quant_pack.cu``;
+3. each of the four codec kernels against its plain PyTorch version on
+   the card, BIT-EXACT, at the serving slice's shapes (the decode hop
+   R=8, d=1600; KV rows R=8*25 per decode append, R=8*128*25 per
+   prefill append, R=8*160*25 per store read, d=64), at bits 2/4/8, a
+   ragged R, an odd d (the scalar path), a stochastic case with shared
+   noise and a bf16 read; then each kernel's median device time (CUDA
+   events around a CUDA graph of back-to-back launches), its byte bound
+   and the plain version's time;
+4. the serving path at full width and depth: ``gpt2-xl-paper`` (48
+   layers, d 1600), random weights from a seeded generator, batch 8,
+   prompt 128, 32 greedy decode steps, ``--stages 2 --mode aqsgd
+   --fw-bits 4 --kv-bits 8``, through `repro_torch.launch.serve` — with
+   the kernel launch counters set to 0 just before and read just after;
+5. a reference check on a small input: the SMOKE model on the card
+   (kernels) against the same weights on the CPU (plain versions),
+   teacher-forced, within the tolerances of tests/test_torch_slice.py.
+
+Then one JSON line with every kernel's numbers, the card's name and
+power limit, and as the last line ``{"ok": true, "device": {...}}``.
+Any failure raises and exits non-zero; with no CUDA device it exits 1
+and prints no result.  Imports nothing of JAX or of the JAX package.
+"""
+from __future__ import annotations
+
+import json
+import math
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
+F32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
+SOURCE = "src/repro_torch/kernels/csrc/quant_pack.cu"
+REPLACES = {
+    "delta_quantize_pack": "src/repro/kernels/quant_pack.py:190",
+    "dequant_unpack_accumulate": "src/repro/kernels/quant_pack.py:239",
+    "quantize_pack": "src/repro/kernels/quant_pack.py:278",
+    "unpack_dequant": "src/repro/kernels/quant_pack.py:320",
+}
+# float operations per element, counted from the kernels' source
+OPS_PER_ELEMENT = {
+    "delta_quantize_pack": 14,   # sub abs max | div add mul clip2 rint | pack2 | cvt mul fma
+    "dequant_unpack_accumulate": 5,  # shift and cvt mul fma
+    "quantize_pack": 10,         # abs max | div add mul clip2 rint | pack2
+    "unpack_dequant": 5,         # shift and cvt mul mul
+}
+# the slice (gpt2-xl-paper serving, as the main path drives it)
+BATCH, PROMPT, GEN = 8, 128, 32
+D_MODEL, KV_HEADS, HEAD_DIM = 1600, 25, 64
+CACHE_LEN = PROMPT + GEN
+SERVE_ARGS = ["--arch", "gpt2-xl-paper", "--stages", "2", "--mode", "aqsgd",
+              "--fw-bits", "4", "--kv-bits", "8", "--batch", str(BATCH),
+              "--prompt-len", str(PROMPT), "--gen", str(GEN),
+              "--device", "cuda", "--seed", "0"]
+# small-input reference check (tests/test_torch_slice.py's tolerances)
+PREFILL_ATOL, DECODE_ATOL, MAX_FLIP_FRACTION = 2e-5, 5e-3, 0.005
+
+
+def phase(tag: str, **kv) -> None:
+    print(f"[{tag}] " + " ".join(f"{k}={v}" for k, v in kv.items()),
+          flush=True)
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------------------
+# phase 3: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def _inputs(torch, name, rows, d, bits, *, seed, stochastic=False):
+    """Positional arguments of one kernel call."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    scale_rows = torch.logspace(-3, 2, rows, device="cuda")[:, None]
+
+    def normal():
+        return torch.randn(rows, d, generator=g, device="cuda") * scale_rows
+
+    u = torch.rand(rows, d, generator=g, device="cuda") if stochastic \
+        else None
+    if name == "delta_quantize_pack":
+        m = normal()
+        a = m + normal()
+        a[0] = m[0]                                  # an all-zero delta row
+        return a, m, u
+    if name == "quantize_pack":
+        x = normal()
+        x[0] = 0.0
+        return x, u
+    packed = torch.randint(0, 256, (rows, d * bits // 8), generator=g,
+                           device="cuda", dtype=torch.uint8)
+    scale = torch.rand(rows, 1, generator=g, device="cuda") + 1e-3
+    if name == "dequant_unpack_accumulate":
+        return packed, scale, normal()
+    return packed, scale
+
+
+def _plain(ref, name):
+    return {
+        "delta_quantize_pack":
+            lambda a, m, u=None, *, bits: ref.delta_quantize_pack_ref(
+                a, m, bits, u),
+        "dequant_unpack_accumulate":
+            lambda p, s, m, *, bits: ref.dequant_unpack_accumulate_ref(
+                p, s, m, bits),
+        "quantize_pack":
+            lambda x, u=None, *, bits: ref.quantize_pack_ref(x, bits, u),
+        "unpack_dequant":
+            lambda p, s, *, bits, **kw: ref.unpack_dequant_ref(p, s, bits,
+                                                               **kw),
+    }[name]
+
+
+def _outs(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
+def check_bit_exact(torch, qp, ref, name, rows, d, bits, **kw):
+    """Kernel vs plain version on the same inputs; returns max |diff|."""
+    stochastic = kw.pop("stochastic", False)
+    args = _inputs(torch, name, rows, d, bits, seed=rows + d + bits,
+                   stochastic=stochastic)
+    got = _outs(getattr(qp, name)(*args, bits=bits, **kw))
+    want = _outs(_plain(ref, name)(*args, bits=bits, **kw))
+    torch.cuda.synchronize()
+    err = 0.0
+    for g_, w_ in zip(got, want):
+        assert g_.shape == w_.shape and g_.dtype == w_.dtype, \
+            (name, g_.shape, w_.shape, g_.dtype, w_.dtype)
+        if not torch.equal(g_, w_):
+            bad = (g_ != w_).sum().item()
+            raise AssertionError(f"{name} rows={rows} d={d} bits={bits} "
+                                 f"{kw} stochastic={stochastic}: {bad} "
+                                 f"elements differ from the plain version")
+        err = max(err, (g_.double() - w_.double()).abs().max().item())
+    return err
+
+
+def _bytes(args, outs) -> int:
+    return sum(t.numel() * t.element_size()
+               for t in list(args) + list(outs) if t is not None)
+
+
+def device_ms(torch, fn, arg_sets, launches: int = 40, reps: int = 5):
+    """Median device time of one call: a CUDA graph of ``launches``
+    back-to-back calls cycling over ``arg_sets`` (distinct inputs, so a
+    large call reads from device memory, not L2), replayed ``reps``
+    times between CUDA events."""
+    for args in arg_sets:                       # warm-up, outside capture
+        fn(*args)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    keep = []
+    with torch.cuda.graph(graph):
+        for i in range(launches):
+            keep.append(fn(*arg_sets[i % len(arg_sets)]))
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / launches)
+    del graph, keep
+    return statistics.median(times)
+
+
+def time_kernel(torch, qp, ref, name, rows, d, bits):
+    """(ms, plain_ms, bound_ms, bound_by) at one main-path shape."""
+    one = _inputs(torch, name, rows, d, bits, seed=1)
+    outs = _outs(getattr(qp, name)(*one, bits=bits))
+    nbytes = _bytes(one, outs)
+    n_sets = max(1, min(16, math.ceil(120e6 / nbytes)))   # > 50 MB of L2
+    sets = [one] + [_inputs(torch, name, rows, d, bits, seed=2 + i)
+                    for i in range(n_sets - 1)]
+    ms = device_ms(torch, lambda *a: getattr(qp, name)(*a, bits=bits), sets)
+    plain = _plain(ref, name)
+    plain_ms = device_ms(torch, lambda *a: plain(*a, bits=bits), sets)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = rows * d * OPS_PER_ELEMENT[name] / F32_OPS_PER_S * 1e3
+    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+    return ms, plain_ms, max(bytes_ms, ops_ms), bound_by, nbytes
+
+
+def kernel_phase(torch, qp, ref):
+    hop, kv_append = (BATCH, D_MODEL), (BATCH * KV_HEADS, HEAD_DIM)
+    kv_prefill = (BATCH * PROMPT * KV_HEADS, HEAD_DIM)
+    kv_read = (BATCH * CACHE_LEN * KV_HEADS, HEAD_DIM)
+    # main shapes, a ragged R, and a d that is not a multiple of 4 (the
+    # scalar path; at 2 bits d must be a multiple of 4 codes per byte)
+    cases = []
+    for bits in (2, 4, 8):
+        odd = 0 if bits == 2 else 2
+        for name in ("delta_quantize_pack", "dequant_unpack_accumulate"):
+            cases += [(name, *hop, bits, {}), (name, 5, D_MODEL, bits, {}),
+                      (name, 3, 1600 + 4 - odd, bits, {})]
+        for name in ("quantize_pack", "unpack_dequant"):
+            cases += [(name, *kv_append, bits, {}),
+                      (name, 37, 64 + 4 - odd, bits, {})]
+    cases += [(n, *hop, b, {"stochastic": True})
+              for n in ("delta_quantize_pack",) for b in (2, 4, 8)]
+    cases += [("quantize_pack", *kv_append, b, {"stochastic": True})
+              for b in (2, 4, 8)]
+    cases += [("quantize_pack", *kv_prefill, 8, {}),
+              ("unpack_dequant", *kv_read, 8, {}),
+              ("unpack_dequant", *kv_read, 8,
+               {"out_dtype": torch.bfloat16})]
+    errs = {}
+    for name, rows, d, bits, kw in cases:
+        e = check_bit_exact(torch, qp, ref, name, rows, d, bits, **dict(kw))
+        errs[name] = max(errs.get(name, 0.0), e)
+    phase("kernels-bit-exact", cases=len(cases),
+          max_abs_err=json.dumps(errs))
+    main_shapes = {"delta_quantize_pack": (*hop, 4),
+                   "dequant_unpack_accumulate": (*hop, 4),
+                   "quantize_pack": (*kv_append, 8),
+                   "unpack_dequant": (*kv_read, 8)}
+    rows_out = {}
+    for name, (rows, d, bits) in main_shapes.items():
+        ms, plain_ms, bound_ms, bound_by, nbytes = time_kernel(
+            torch, qp, ref, name, rows, d, bits)
+        phase("kernel-time", name=name, rows=rows, d=d, bits=bits,
+              bytes=nbytes, ms=f"{ms:.6f}", plain_ms=f"{plain_ms:.6f}",
+              bound_ms=f"{bound_ms:.6f}", bound_by=bound_by,
+              library_ms=None)
+        rows_out[name] = {"name": name, "route": "cuda", "source": SOURCE,
+                          "replaces": REPLACES[name], "launches": 0,
+                          "max_abs_err": errs[name], "ms": ms,
+                          "plain_ms": plain_ms, "bound_ms": bound_ms,
+                          "bound_by": bound_by, "library_ms": None,
+                          "shape": [rows, d], "bits": bits}
+    return rows_out
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the port on the card against the port on the CPU
+# ---------------------------------------------------------------------------
+
+def reference_check(torch):
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.model import Transformer
+    from repro_torch.serving import DeltaHopCodec, KVCodec, quantize_caches
+
+    cfg = get_config("gpt2-xl-paper", smoke=True)
+    cpu = Transformer(cfg, device="cpu",
+                      generator=torch.Generator().manual_seed(0))
+    gpu = Transformer(cfg, device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    b, p, n = 2, 8, 6
+    toks = torch.randint(0, cfg.vocab_size, (b, p + n),
+                         generator=torch.Generator().manual_seed(1))
+    kv, hop = KVCodec(bits=8), DeltaHopCodec(mode="aqsgd", bits=4)
+
+    def run(model, dev):
+        c = quantize_caches(model.init_caches(b, p + n, torch.float32), kv)
+        c["hop_m"] = hop.init_state(1, b, cfg.d_model, device=dev)["m"]
+        t = toks.to(dev)
+        logits = []
+        for i, fn in enumerate([hop.boundary_fn(prefill=True)]
+                               + [hop.boundary_fn(prefill=False)] * n):
+            x = t[:, :p] if i == 0 else t[:, p + i - 1:p + i]
+            lg, c = model.forward_with_caches(x, c, logits_last_only=True,
+                                              num_stages=2, boundary_fn=fn,
+                                              kv_codec=kv)
+            logits.append(lg.cpu())
+        return logits, c
+
+    lc, cc = run(cpu, "cpu")
+    lg, cg = run(gpu, "cuda")
+    pre = (lc[0] - lg[0]).abs().max().item()
+    dec = max((x - y).abs().max().item() for x, y in zip(lc[1:], lg[1:]))
+    flips = total = 0
+    for name in ("k_codes", "v_codes"):
+        diff = (cc[name].int() - cg[name].cpu().int()).abs()
+        assert diff.max().item() <= 1, name
+        flips += int((diff > 0).sum())
+        total += diff.numel()
+    phase("reference-check", prefill_max_abs=pre, decode_max_abs=dec,
+          kv_code_flips=f"{flips}/{total}")
+    assert pre <= PREFILL_ATOL, pre
+    assert dec <= DECODE_ATOL, dec
+    assert flips <= MAX_FLIP_FRACTION * total, (flips, total)
+
+
+# ---------------------------------------------------------------------------
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    from repro_torch.kernels import build
+    from repro_torch.kernels import quant_pack as qp
+    from repro_torch.kernels import ref
+    from repro_torch.launch import serve
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # f32 matmuls in f32
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    smi = nvidia_smi_line()
+    kind = torch.cuda.get_device_name(0)
+    phase("card", nvidia_smi=f"'{smi}'", torch_device=f"'{kind}'",
+          count=torch.cuda.device_count(), torch=torch.__version__,
+          cuda=torch.version.cuda)
+
+    t0 = time.perf_counter()
+    lib = build.build("quant_pack")
+    build.load("quant_pack")
+    phase("build", seconds=f"{time.perf_counter() - t0:.1f}",
+          library=os.path.relpath(lib, ROOT))
+
+    kernels = kernel_phase(torch, qp, ref)
+
+    torch.cuda.reset_peak_memory_stats()
+    qp.reset_launches()
+    out = serve.main(SERVE_ARGS)
+    torch.cuda.synchronize()
+    launches = dict(qp.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    logits, tokens = out["logits"], out["tokens"]
+    phase("serve", prefill_s=f"{out['prefill_s']:.4f}",
+          decode_tok_s=f"{out['decode_tok_s']:.2f}",
+          peak_mem_gib=f"{peak / 2**30:.3f}", launches=json.dumps(launches),
+          decode_steps=GEN)
+    assert tokens.shape == (BATCH, GEN), tokens.shape
+    assert logits.shape == (BATCH, 1, 50257), logits.shape
+    assert torch.isfinite(logits).all().item(), "non-finite logits"
+    for name, n in launches.items():
+        assert n > 0, f"{name} was never launched on the main path"
+        kernels[name]["launches"] = n
+
+    reference_check(torch)
+    phase("done", seconds=f"{time.perf_counter() - t_start:.1f}")
+    print(json.dumps({"kernels": list(kernels.values())}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,210 @@
+"""`CommConfig`: one structured config for every inter-machine byte
+(port of `repro.comm.config`).
+
+Five planes, each a :class:`PlaneConfig`: ``fw`` (forward activations,
+and serving's decode hop), ``bw`` (backward activation gradients),
+``zbuf`` (stored message buffers), ``dp`` (data-parallel gradients) and
+``kv`` (the serving KV cache).  The JSON form (``to_json``/``from_json``,
+the ``--comm-config`` input) has the same keys and defaults as the JAX
+package's, so one config file drives both; the flat CLI flags
+(``add_cli_args``/``from_args``) are the ones ``serve`` takes.
+
+Differences from the JAX package: a plane's ``backend`` is
+``auto|reference|cuda``, and wire names are checked against the names
+the JAX registry defines (`WIRES`); the registry itself, with its byte
+models and collectives, is not ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+from dataclasses import dataclass, field
+
+MODES = ("fp32", "directq", "aqsgd")
+PLANE_FIELDS = ("fw", "bw", "zbuf", "dp", "kv")
+BACKEND_CHOICES = ("auto", "reference", "cuda")
+DEFAULT_DP_GROUP_D = 512
+# wire names per plane, the first being the plane's default
+WIRES = {"fw": ("ppermute",), "bw": ("ppermute",), "zbuf": ("hbm",),
+         "dp": ("ring", "psum", "ring-sharded", "fp16"),
+         "kv": ("paged",)}
+CHUNKABLE_DP_WIRES = ("ring", "ring-sharded")
+
+
+@dataclass(frozen=True)
+class PlaneConfig:
+    """Knobs of one communication plane.
+
+    ``bits=0`` means uncompressed/off.  ``wire`` names the plane's wire
+    (empty = the plane's default).  ``error_feedback`` and ``chunks``
+    are DP-plane knobs that `CommConfig` normalizes on the others;
+    ``group_d`` is the scale-group width (0 = default)."""
+    bits: int = 0
+    stochastic: bool = True
+    backend: str = "auto"
+    error_feedback: bool = True
+    wire: str = ""
+    group_d: int = 0
+    chunks: int = 1
+
+    def with_(self, **kw) -> "PlaneConfig":
+        return dataclasses.replace(self, **kw)
+
+
+def _plane(**kw):
+    return lambda: PlaneConfig(**kw)
+
+
+@dataclass(frozen=True)
+class CommConfig:
+    """The five communication planes plus the activation algorithm
+    ``mode`` (``aqsgd`` / ``directq`` / ``fp32``).  Construction
+    validates mode, backends, wire names and chunk counts, and fills
+    empty wire names with each plane's default."""
+    mode: str = "aqsgd"
+    fw: PlaneConfig = field(default_factory=_plane(bits=4))
+    bw: PlaneConfig = field(default_factory=_plane(bits=8))
+    zbuf: PlaneConfig = field(default_factory=_plane(stochastic=False))
+    dp: PlaneConfig = field(default_factory=_plane())
+    kv: PlaneConfig = field(default_factory=_plane(stochastic=False))
+    buffer_dtype: str = "float32"
+
+    def __post_init__(self):
+        if self.mode not in MODES:
+            raise ValueError(f"unknown mode {self.mode!r}; one of {MODES}")
+        if self.mode != "fp32" and not self.fw.bits:
+            raise ValueError("fw.bits=0 (uncompressed forward) requires "
+                             "mode='fp32'")
+        for fname in PLANE_FIELDS:
+            pc = getattr(self, fname)
+            if isinstance(pc, dict):
+                pc = PlaneConfig(**pc)
+            if not pc.wire:
+                pc = pc.with_(wire=WIRES[fname][0])
+            if pc.wire not in WIRES[fname]:
+                raise ValueError(f"unknown wire {pc.wire!r} on plane "
+                                 f"{fname!r}; known: "
+                                 f"{', '.join(WIRES[fname])}")
+            if pc.backend not in BACKEND_CHOICES:
+                raise ValueError(f"{fname}.backend={pc.backend!r}; one of "
+                                 f"{BACKEND_CHOICES}")
+            if fname == "dp" and not pc.group_d:
+                pc = pc.with_(group_d=DEFAULT_DP_GROUP_D)
+            if not isinstance(pc.chunks, int) \
+                    or isinstance(pc.chunks, bool) or pc.chunks < 1:
+                raise ValueError(f"{fname}.chunks={pc.chunks!r}: the chunk "
+                                 f"count must be a positive int")
+            if fname == "dp" and pc.chunks != 1 \
+                    and pc.wire not in CHUNKABLE_DP_WIRES:
+                raise ValueError(f"dp.chunks={pc.chunks} is not supported "
+                                 f"by wire {pc.wire!r}; chunkable wires: "
+                                 f"{', '.join(CHUNKABLE_DP_WIRES)}")
+            if fname != "dp":
+                pc = pc.with_(chunks=1, error_feedback=False)
+            if fname == "zbuf":
+                pc = pc.with_(stochastic=False)
+            object.__setattr__(self, fname, pc)
+
+    # -- JSON -------------------------------------------------------------
+
+    def to_dict(self) -> dict:
+        """Plain-dict form (all fields, stable keys)."""
+        return {"mode": self.mode, "buffer_dtype": self.buffer_dtype,
+                **{f: dataclasses.asdict(getattr(self, f))
+                   for f in PLANE_FIELDS}}
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "CommConfig":
+        """Inverse of `to_dict`; unknown keys (top-level or per-plane)
+        raise, so typos cannot silently no-op."""
+        d = dict(d)
+        kw = {top: d.pop(top) for top in ("mode", "buffer_dtype")
+              if top in d}
+        pfields = {f.name for f in dataclasses.fields(PlaneConfig)}
+        for fname in PLANE_FIELDS:
+            if fname not in d:
+                continue
+            sub = dict(d.pop(fname))
+            unknown = set(sub) - pfields
+            if unknown:
+                raise ValueError(f"unknown {fname} plane key(s) "
+                                 f"{sorted(unknown)}; known: "
+                                 f"{sorted(pfields)}")
+            kw[fname] = dataclasses.replace(getattr(CommConfig(), fname),
+                                            **sub)
+        if d:
+            raise ValueError(f"unknown CommConfig key(s) {sorted(d)}; "
+                             f"known: mode, buffer_dtype, "
+                             f"{', '.join(PLANE_FIELDS)}")
+        return cls(**kw)
+
+    def to_json(self, **kw) -> str:
+        """JSON form (the ``--comm-config`` input format)."""
+        return json.dumps(self.to_dict(), **kw)
+
+    @classmethod
+    def from_json(cls, s: str) -> "CommConfig":
+        """Parse `to_json` output (or any subset of its keys)."""
+        return cls.from_dict(json.loads(s))
+
+
+def add_cli_args(ap) -> None:
+    """Install the flat comm flags plus ``--comm-config`` on an argparse
+    parser (the flags of the JAX package's ``serve``)."""
+    ap.add_argument("--mode", default="aqsgd", choices=list(MODES),
+                    help="activation-boundary algorithm (fw plane)")
+    ap.add_argument("--fw-bits", type=int, default=4,
+                    help="forward activation code width")
+    ap.add_argument("--bw-bits", type=int, default=8,
+                    help="backward activation-gradient code width "
+                         "(0 = uncompressed)")
+    ap.add_argument("--buffer-bits", type=int, default=0,
+                    help="z-bit stored message buffers (0 = raw dtype)")
+    ap.add_argument("--dp-grad-bits", type=int, default=0,
+                    help="DP gradient code width (0 = off)")
+    ap.add_argument("--dp-wire", default="ring", choices=list(WIRES["dp"]),
+                    help="DP gradient collective")
+    ap.add_argument("--dp-grad-group", type=int, default=DEFAULT_DP_GROUP_D,
+                    help="DP gradient-bucket scale-group width")
+    ap.add_argument("--dp-chunks", type=int, default=1,
+                    help="DP ring chunk count (chunkable wires: "
+                         + ", ".join(CHUNKABLE_DP_WIRES) + ")")
+    ap.add_argument("--kv-bits", type=int, default=0,
+                    help="serving KV-cache code width (0 = raw cache "
+                         "dtype; quantize-on-append, "
+                         "dequantize-on-attend)")
+    ap.add_argument("--backend", default="auto",
+                    choices=list(BACKEND_CHOICES),
+                    help="boundary codec backend for every plane")
+    ap.add_argument("--no-stochastic", action="store_true",
+                    help="deterministic rounding on every plane")
+    ap.add_argument("--no-error-feedback", action="store_true",
+                    help="drop the DP carried-error state")
+    ap.add_argument("--comm-config", default="",
+                    help="full CommConfig as JSON — a literal string or a "
+                         "path to a .json file; overrides the flat comm "
+                         "flags above")
+
+
+def from_args(args) -> CommConfig:
+    """Build a `CommConfig` from parsed `add_cli_args` flags;
+    ``--comm-config`` wins wholesale when given."""
+    if args.comm_config:
+        src = args.comm_config
+        if os.path.exists(src):
+            with open(src) as f:
+                src = f.read()
+        return CommConfig.from_json(src)
+    common = dict(stochastic=not args.no_stochastic, backend=args.backend)
+    return CommConfig(
+        mode=args.mode,
+        fw=PlaneConfig(bits=args.fw_bits, **common),
+        bw=PlaneConfig(bits=args.bw_bits, **common),
+        zbuf=PlaneConfig(bits=args.buffer_bits, stochastic=False,
+                         backend=args.backend),
+        dp=PlaneConfig(bits=args.dp_grad_bits, wire=args.dp_wire,
+                       group_d=args.dp_grad_group, chunks=args.dp_chunks,
+                       error_feedback=not args.no_error_feedback, **common),
+        kv=PlaneConfig(bits=args.kv_bits, stochastic=False,
+                       backend=args.backend))

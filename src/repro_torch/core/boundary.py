@@ -1,0 +1,121 @@
+"""Backend-selectable AQ-SGD boundary ops (port of the activation-codec
+half of `repro.core.boundary`).
+
+Every codec crossing on the serving path goes through these ops, each
+on two bit-identical backends:
+
+* ``"cuda"``      — the hand-written kernels (`repro_torch.kernels.ops`):
+  one device pass per side;
+* ``"reference"`` — the plain PyTorch chain over
+  `repro_torch.core.quantization`, the correctness oracle.
+
+``"auto"`` resolves by the tensor's device: cuda for a CUDA tensor,
+reference otherwise.  Widths outside {2, 4, 8} always take the
+reference chain (the kernels implement only those).
+
+Stochastic rounding takes ONE uniform tensor ``u`` that feeds either
+backend, drawn here from a ``torch.Generator`` when the caller passes
+none, so the wire payload never depends on the backend.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.core import quantization as Q
+from repro_torch.kernels import ops as K
+from repro_torch.kernels.quant_pack import KERNEL_BITS
+
+BACKENDS = ("reference", "cuda")
+PACKABLE_BITS = (1, 2, 4, 8)       # dense byte-aligned wire packing
+
+
+def resolve_backend(backend: str, x: torch.Tensor,
+                    bits: Optional[int] = None) -> str:
+    """'auto' -> cuda iff ``x`` lies on a CUDA device; widths outside
+    KERNEL_BITS always resolve to the reference chain."""
+    if bits is not None and bits not in KERNEL_BITS:
+        return "reference"
+    if backend == "auto":
+        backend = "cuda" if x.is_cuda else "reference"
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; one of "
+                         f"{BACKENDS + ('auto',)}")
+    return backend
+
+
+def _noise(x: torch.Tensor, stochastic: bool, u, generator):
+    """The uniform noise of an encode op: None when deterministic, else
+    ``u`` or a fresh draw from ``generator``."""
+    if not stochastic:
+        return None
+    if u is not None:
+        return u
+    if generator is None:
+        raise ValueError("stochastic boundary ops need a noise tensor u "
+                         "or a torch.Generator")
+    return torch.rand(x.shape, generator=generator, dtype=torch.float32,
+                      device=x.device)
+
+
+def encode_delta(a, m, *, bits: int, stochastic: bool = False, u=None,
+                 generator=None, backend: str = "auto"):
+    """AQ-SGD sender: (a, m) -> (packed u8 (..., pw), scale f32 (..., 1),
+    m_new f32 (..., d)), m_new = m + dequant(codes).  Widths that do
+    not pack to whole bytes ship raw u8 codes."""
+    backend = resolve_backend(backend, a, bits)
+    u = _noise(a, stochastic, u, generator)
+    if backend == "cuda":
+        return K.boundary_compress(a, m, u, bits=bits)
+    m32 = m.float()
+    codes, scale = Q.quantize(a.float() - m32, bits, noise=u)
+    packed = Q.pack_codes(codes, bits) if bits in PACKABLE_BITS else codes
+    return packed, scale, Q.dequantize_accumulate(codes, scale, m32, bits)
+
+
+def decode_accumulate(packed, scale, m, *, bits: int,
+                      backend: str = "auto"):
+    """AQ-SGD receiver: m_new f32 = m + dequant(unpack(packed)) — the
+    sender's m_new bit for bit, so both buffer replicas agree."""
+    backend = resolve_backend(backend, m, bits)
+    if backend == "cuda":
+        return K.boundary_decompress(packed, scale, m, bits=bits)
+    codes = Q.unpack_codes(packed, bits, m.shape[-1]) \
+        if bits in PACKABLE_BITS else packed
+    return Q.dequantize_accumulate(codes, scale, m, bits)
+
+
+def encode(x, *, bits: int, stochastic: bool = False, u=None,
+           generator=None, backend: str = "auto"):
+    """Direct quantize-and-pack: (packed u8 (..., pw), scale f32
+    (..., 1)) — the DirectQ sender and the KV-cache append."""
+    backend = resolve_backend(backend, x, bits)
+    u = _noise(x, stochastic, u, generator)
+    if backend == "cuda":
+        return K.quantize_pack(x, u, bits=bits)
+    codes, scale = Q.quantize(x.float(), bits, noise=u)
+    packed = Q.pack_codes(codes, bits) if bits in PACKABLE_BITS else codes
+    return packed, scale
+
+
+def decode(packed, scale, *, bits: int, d: int,
+           dtype: torch.dtype = torch.float32, backend: str = "auto"):
+    """Inverse of `encode`: (..., pw) u8 + scales -> (..., d) values."""
+    backend = resolve_backend(backend, packed, bits)
+    if backend == "cuda":
+        return K.unpack_dequant(packed, scale, bits=bits,
+                                out_dtype=dtype)[..., :d]
+    codes = Q.unpack_codes(packed, bits, d) if bits in PACKABLE_BITS \
+        else packed
+    return Q.dequantize(codes, scale, bits, dtype)
+
+
+def roundtrip(x, *, bits: int, stochastic: bool = False, u=None,
+              generator=None, backend: str = "auto"):
+    """encode -> decode in x.dtype: the wire-faithful fake quant of the
+    DirectQ hop."""
+    packed, scale = encode(x, bits=bits, stochastic=stochastic, u=u,
+                           generator=generator, backend=backend)
+    return decode(packed, scale, bits=bits, d=x.shape[-1], dtype=x.dtype,
+                  backend=backend)

@@ -1,0 +1,99 @@
+"""Build the CUDA kernels at first use and load them with ctypes.
+
+``nvcc`` compiles each ``csrc/*.cu`` into a shared library with a plain
+C interface (no PyTorch headers, so a build takes seconds), under
+``build/repro_torch_kernels/`` at the repository root.  The library's
+name carries a hash of its source and flags, so an edited source
+rebuilds and an unchanged one loads the library already built.
+
+Flags: ``-gencode arch=compute_90a,code=sm_90a -std=c++17 -O3``, and
+deliberately no ``--use_fast_math`` or ``-prec-div=false``: the kernels
+promise bit parity with the JAX package and rely on IEEE division.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / \
+    "repro_torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_longlong
+_I = ctypes.c_int
+# C signature of every extern "C" launcher, by library
+SIGNATURES = {
+    "quant_pack": {
+        "rt_delta_quantize_pack": (_P, _P, _P, _P, _P, _P, _I64, _I64, _I, _I,
+                                   _P),
+        "rt_dequant_unpack_accumulate": (_P, _P, _P, _P, _I64, _I64, _I, _I,
+                                         _P),
+        "rt_quantize_pack": (_P, _P, _P, _P, _I64, _I64, _I, _I, _P),
+        "rt_unpack_dequant": (_P, _P, _P, _I64, _I64, _I, _I, _I, _P),
+    },
+}
+
+_LOCK = threading.Lock()
+_LOADED: dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler: on PATH, else under CUDA_HOME or
+    /usr/local/cuda."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found (PATH, CUDA_HOME, /usr/local/cuda): "
+                       "the CUDA kernels cannot be built on this machine")
+
+
+def library_path(name: str) -> Path:
+    """Where the library of ``csrc/<name>.cu`` is (or will be) built."""
+    src = (CSRC / f"{name}.cu").read_bytes()
+    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{tag[:16]}.so"
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless its library is already built.
+    The compiler writes a private file that is renamed into place, so
+    concurrent builders never load a half-written library."""
+    out = library_path(name)
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}) for {name}.cu:"
+                           f"\n{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, out)
+    return out
+
+
+def load(name: str) -> ctypes.CDLL:
+    """Build (at first use) and load one kernel library, with argtypes
+    and restype set on every launcher."""
+    with _LOCK:
+        lib = _LOADED.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(build(name)))
+            for fn, argtypes in SIGNATURES[name].items():
+                f = getattr(lib, fn)
+                f.argtypes = list(argtypes)
+                f.restype = ctypes.c_int
+            _LOADED[name] = lib
+        return lib

@@ -1,0 +1,347 @@
+// AQ-SGD boundary codec kernels for Hopper (sm_90a).
+//
+// Replaces four Pallas TPU kernels of src/repro/kernels/quant_pack.py:
+//   delta_quantize_pack        (quant_pack.py:190, _dqp_kernel)  -> encode_rows<BITS, true>
+//   dequant_unpack_accumulate  (quant_pack.py:239, _dua_kernel)  -> decode_flat<BITS, true, float>
+//   quantize_pack              (quant_pack.py:278, _qp_kernel)   -> encode_rows<BITS, false>
+//   unpack_dequant             (quant_pack.py:320, _ud_kernel)   -> decode_flat<BITS, false, OutT>
+//
+// What bounds them: bytes.  Each is a row codec doing ~10 float
+// operations per element, far below the ~20 operations per byte the
+// H100's float32 units need before arithmetic, not memory, is the
+// limit.  The least time is therefore the bytes moved (each input read
+// once, each output written once) over 3.35 TB/s: about 0.05 us for the
+// decode hop (R=8, d=1600) -- a launch-latency-bound call -- and about
+// 3 us for a KV-store read at batch 8, cache 160 (R=32000, d=64, ~10 MB).
+//
+// Design: the TPU kernels hold a 128-row tile in VMEM and walk a
+// sequential grid.  Here there is no tile and no order between blocks:
+//   * encoders: one warp per row, 8 rows per block, a grid over rows;
+//     the ragged last block is masked by whole warps.  The row absmax is
+//     a warp-shuffle max (exact in any order, so the scale is
+//     bit-identical), then each lane quantizes and packs whole output
+//     bytes, so no atomics are needed.
+//   * decoders need no reduction, so they are flat: a grid-stride loop
+//     over groups of 4 elements (or over packed bytes), each thread
+//     writing whole bytes and whole float4s.
+//   * loads and stores are vectorised (float4) where d % 4 == 0 and the
+//     pointers are 16-byte aligned; the wrapper decides and passes `vec`.
+//
+// Bit parity with the JAX package (jitted jnp and the Pallas kernels):
+//   * codes use rintf (round half to even, as jnp.round), never roundf;
+//   * the grid coordinate is (x / s + 1) * (lv / 2) with an IEEE
+//     division, clipped to [0, lv];
+//   * dequantize is ((2c - lv) * s) * f32(1/lv) -- XLA rewrites the
+//     division by the constant lv as that multiply under jit;
+//   * accumulate is fma((2c - lv) * s, f32(1/lv), m), rounded once, as
+//     XLA contracts m + dequant into one FMA;
+//   * every step is an explicit _rn intrinsic, so nvcc's contraction of
+//     a*b+c cannot change the rounding;
+//   * stochastic rounding reads u and bumps the code when
+//     u < y - floor(y), the comparison jax.random.bernoulli makes.
+//
+// Every launcher returns cudaGetLastError() as an int (0 = launched).
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kWarp = 32;
+constexpr int kRowsPerBlock = 8;
+constexpr int kThreads = kWarp * kRowsPerBlock;
+constexpr float kEps = 1e-12f;
+
+template <int BITS>
+struct Packed4;  // the bytes that hold 4 codes of BITS bits
+template <> struct Packed4<2> { using T = uint8_t; };
+template <> struct Packed4<4> { using T = uint16_t; };
+template <> struct Packed4<8> { using T = uint32_t; };
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = kWarp / 2; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float abs_max4(float4 v) {
+  return fmaxf(fmaxf(fabsf(v.x), fabsf(v.y)), fmaxf(fabsf(v.z), fabsf(v.w)));
+}
+
+__device__ __forceinline__ float4 sub4(float4 a, float4 b) {
+  return make_float4(__fsub_rn(a.x, b.x), __fsub_rn(a.y, b.y),
+                     __fsub_rn(a.z, b.z), __fsub_rn(a.w, b.w));
+}
+
+// One code on the b-bit grid.  u < 0 selects round-to-nearest-even
+// (callers pass -1 when there is no noise input; a uniform draw is >= 0).
+template <int BITS>
+__device__ __forceinline__ uint32_t quant_code(float x, float s, float u,
+                                               bool stochastic) {
+  constexpr float lv = float((1 << BITS) - 1);
+  // (x / s + 1) * (0.5 * lv): IEEE division, then add, then multiply,
+  // each rounded on its own as jnp computes them
+  float y = __fmul_rn(__fadd_rn(__fdiv_rn(x, s), 1.0f), 0.5f * lv);
+  y = fminf(fmaxf(y, 0.0f), lv);
+  float c;
+  if (stochastic) {
+    const float lo = floorf(y);
+    c = (u < __fsub_rn(y, lo)) ? __fadd_rn(lo, 1.0f) : lo;
+  } else {
+    c = rintf(y);  // ties to even, as jnp.round
+  }
+  return static_cast<uint32_t>(c);
+}
+
+// (2c - lv) * s, then * f32(1/lv) (or fused into m with one rounding)
+template <int BITS, bool ACC>
+__device__ __forceinline__ float dequant(uint32_t c, float s, float m) {
+  constexpr int lv = (1 << BITS) - 1;
+  const float rcp = __fdiv_rn(1.0f, float(lv));
+  const float p = __fmul_rn(float(int(2 * c) - lv), s);
+  return ACC ? __fmaf_rn(p, rcp, m) : __fmul_rn(p, rcp);
+}
+
+template <typename OutT> __device__ __forceinline__ OutT from_float(float v);
+template <> __device__ __forceinline__ float from_float<float>(float v) {
+  return v;
+}
+template <> __device__ __forceinline__ __nv_bfloat16
+from_float<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);  // round to nearest even, as torch casts
+}
+
+// ---------------------------------------------------------------------------
+// Encoders: x (or a - m) -> packed codes + row scale [+ m_new]
+// ---------------------------------------------------------------------------
+
+template <int BITS, bool DELTA>
+__global__ void __launch_bounds__(kThreads)
+encode_rows(const float* __restrict__ a, const float* __restrict__ m,
+            const float* __restrict__ u, uint8_t* __restrict__ packed,
+            float* __restrict__ scale, float* __restrict__ m_new,
+            int64_t rows, int64_t d, int vec) {
+  constexpr int k = 8 / BITS;  // codes per byte
+  const int lane = threadIdx.x % kWarp;
+  const int64_t row = int64_t(blockIdx.x) * kRowsPerBlock + threadIdx.x / kWarp;
+  if (row >= rows) return;  // whole warps leave together: shuffles stay full
+  const float* ar = a + row * d;
+  const float* mr = DELTA ? m + row * d : nullptr;
+  const float* ur = u ? u + row * d : nullptr;
+  uint8_t* pr = packed + row * (d / k);
+  float* nr = DELTA ? m_new + row * d : nullptr;
+  const bool stoch = u != nullptr;
+
+  // pass 1: row absmax of the delta (or of x)
+  float mx = 0.0f;
+  if (vec) {
+    const float4* a4 = reinterpret_cast<const float4*>(ar);
+    const float4* m4 = reinterpret_cast<const float4*>(mr);
+    for (int64_t g = lane; g < d / 4; g += kWarp) {
+      float4 x = a4[g];
+      if (DELTA) x = sub4(x, m4[g]);
+      mx = fmaxf(mx, abs_max4(x));
+    }
+  } else {
+    for (int64_t i = lane; i < d; i += kWarp) {
+      const float x = DELTA ? __fsub_rn(ar[i], mr[i]) : ar[i];
+      mx = fmaxf(mx, fabsf(x));
+    }
+  }
+  const float s = fmaxf(warp_max(mx), kEps);
+  if (lane == 0) scale[row] = s;
+
+  // pass 2: quantize, pack whole bytes, advance the buffer
+  if (vec) {
+    using P = typename Packed4<BITS>::T;
+    const float4* a4 = reinterpret_cast<const float4*>(ar);
+    const float4* m4 = reinterpret_cast<const float4*>(mr);
+    const float4* u4 = reinterpret_cast<const float4*>(ur);
+    for (int64_t g = lane; g < d / 4; g += kWarp) {
+      float4 mm = make_float4(0.f, 0.f, 0.f, 0.f);
+      float4 x = a4[g];
+      if (DELTA) {
+        mm = m4[g];
+        x = sub4(x, mm);
+      }
+      const float4 uu = stoch ? u4[g] : make_float4(0.f, 0.f, 0.f, 0.f);
+      const uint32_t c0 = quant_code<BITS>(x.x, s, uu.x, stoch);
+      const uint32_t c1 = quant_code<BITS>(x.y, s, uu.y, stoch);
+      const uint32_t c2 = quant_code<BITS>(x.z, s, uu.z, stoch);
+      const uint32_t c3 = quant_code<BITS>(x.w, s, uu.w, stoch);
+      // 4 codes fill 4*BITS/8 bytes, little-endian: code j at bit j*BITS
+      const uint32_t word = c0 | (c1 << BITS) | (c2 << (2 * BITS)) |
+                            (c3 << (3 * BITS));
+      reinterpret_cast<P*>(pr)[g] = static_cast<P>(word);
+      if (DELTA) {
+        reinterpret_cast<float4*>(nr)[g] = make_float4(
+            dequant<BITS, true>(c0, s, mm.x), dequant<BITS, true>(c1, s, mm.y),
+            dequant<BITS, true>(c2, s, mm.z), dequant<BITS, true>(c3, s, mm.w));
+      }
+    }
+  } else {
+    for (int64_t j = lane; j < d / k; j += kWarp) {  // one output byte
+      uint32_t byte = 0;
+#pragma unroll
+      for (int t = 0; t < k; ++t) {
+        const int64_t i = j * k + t;
+        const float mm = DELTA ? mr[i] : 0.0f;
+        const float x = DELTA ? __fsub_rn(ar[i], mm) : ar[i];
+        const uint32_t c = quant_code<BITS>(x, s, stoch ? ur[i] : 0.0f, stoch);
+        byte |= c << (t * BITS);
+        if (DELTA) nr[i] = dequant<BITS, true>(c, s, mm);
+      }
+      pr[j] = static_cast<uint8_t>(byte);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Decoders: packed codes + row scale [+ m] -> values
+// ---------------------------------------------------------------------------
+
+template <int BITS, bool ACC, typename OutT>
+__global__ void __launch_bounds__(256)
+decode_flat(const uint8_t* __restrict__ packed, const float* __restrict__ scale,
+            const float* __restrict__ m, OutT* __restrict__ out, int64_t rows,
+            int64_t d, int vec) {
+  constexpr int k = 8 / BITS;
+  constexpr uint32_t mask = (1u << BITS) - 1u;
+  const int64_t n = rows * d;
+  const int64_t stride = int64_t(gridDim.x) * blockDim.x;
+  const int64_t first = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (vec) {
+    // group g = elements 4g..4g+3 of the flat (rows, d) array; with
+    // d % 4 == 0 a group never straddles two rows
+    using P = typename Packed4<BITS>::T;
+    for (int64_t g = first; g < n / 4; g += stride) {
+      const float s = scale[(4 * g) / d];
+      const uint32_t word = reinterpret_cast<const P*>(packed)[g];
+      float mm[4] = {0.f, 0.f, 0.f, 0.f};
+      if (ACC) {
+        const float4 m4 = reinterpret_cast<const float4*>(m)[g];
+        mm[0] = m4.x; mm[1] = m4.y; mm[2] = m4.z; mm[3] = m4.w;
+      }
+      float v[4];
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+        v[t] = dequant<BITS, ACC>((word >> (t * BITS)) & mask, s, mm[t]);
+      OutT* o = out + 4 * g;
+      if constexpr (sizeof(OutT) == 4) {
+        *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
+      } else {
+#pragma unroll
+        for (int t = 0; t < 4; ++t) o[t] = from_float<OutT>(v[t]);
+      }
+    }
+  } else {
+    // one packed byte = k elements of one row (the wrapper checks d % k == 0)
+    for (int64_t j = first; j < n / k; j += stride) {
+      const int64_t i0 = j * k;
+      const float s = scale[i0 / d];
+      const uint32_t byte = packed[j];
+#pragma unroll
+      for (int t = 0; t < k; ++t) {
+        const float mm = ACC ? m[i0 + t] : 0.0f;
+        out[i0 + t] = from_float<OutT>(
+            dequant<BITS, ACC>((byte >> (t * BITS)) & mask, s, mm));
+      }
+    }
+  }
+}
+
+int encode_blocks(int64_t rows) {
+  return int((rows + kRowsPerBlock - 1) / kRowsPerBlock);
+}
+
+int decode_blocks(int64_t items) {
+  const int64_t b = (items + 255) / 256;
+  return int(b < 132 * 32 ? b : 132 * 32);  // grid-stride beyond 32 blocks/SM
+}
+
+template <bool DELTA>
+int launch_encode(const float* a, const float* m, const float* u,
+                  uint8_t* packed, float* scale, float* m_new, int64_t rows,
+                  int64_t d, int bits, int vec, cudaStream_t st) {
+  const dim3 grid(encode_blocks(rows)), block(kThreads);
+  switch (bits) {
+    case 2: encode_rows<2, DELTA><<<grid, block, 0, st>>>(a, m, u, packed, scale, m_new, rows, d, vec); break;
+    case 4: encode_rows<4, DELTA><<<grid, block, 0, st>>>(a, m, u, packed, scale, m_new, rows, d, vec); break;
+    case 8: encode_rows<8, DELTA><<<grid, block, 0, st>>>(a, m, u, packed, scale, m_new, rows, d, vec); break;
+    default: return int(cudaErrorInvalidValue);
+  }
+  return int(cudaGetLastError());
+}
+
+template <bool ACC, typename OutT>
+int launch_decode(const uint8_t* packed, const float* scale, const float* m,
+                  OutT* out, int64_t rows, int64_t d, int bits, int vec,
+                  cudaStream_t st) {
+  const int64_t items = vec ? rows * d / 4 : rows * d / (8 / bits);
+  const dim3 grid(decode_blocks(items)), block(256);
+  switch (bits) {
+    case 2: decode_flat<2, ACC, OutT><<<grid, block, 0, st>>>(packed, scale, m, out, rows, d, vec); break;
+    case 4: decode_flat<4, ACC, OutT><<<grid, block, 0, st>>>(packed, scale, m, out, rows, d, vec); break;
+    case 8: decode_flat<8, ACC, OutT><<<grid, block, 0, st>>>(packed, scale, m, out, rows, d, vec); break;
+    default: return int(cudaErrorInvalidValue);
+  }
+  return int(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// a, m, u: (rows, d) f32 (u may be null: round to nearest);
+// packed: (rows, d*bits/8) u8; scale: (rows,) f32; m_new: (rows, d) f32
+int rt_delta_quantize_pack(const void* a, const void* m, const void* u,
+                           void* packed, void* scale, void* m_new,
+                           long long rows, long long d, int bits, int vec,
+                           void* stream) {
+  return launch_encode<true>(
+      static_cast<const float*>(a), static_cast<const float*>(m),
+      static_cast<const float*>(u), static_cast<uint8_t*>(packed),
+      static_cast<float*>(scale), static_cast<float*>(m_new), rows, d, bits,
+      vec, static_cast<cudaStream_t>(stream));
+}
+
+// packed (rows, d*bits/8) u8, scale (rows,) f32, m (rows, d) f32 -> out f32
+int rt_dequant_unpack_accumulate(const void* packed, const void* scale,
+                                 const void* m, void* out, long long rows,
+                                 long long d, int bits, int vec,
+                                 void* stream) {
+  return launch_decode<true, float>(
+      static_cast<const uint8_t*>(packed), static_cast<const float*>(scale),
+      static_cast<const float*>(m), static_cast<float*>(out), rows, d, bits,
+      vec, static_cast<cudaStream_t>(stream));
+}
+
+// x, u: (rows, d) f32 (u may be null) -> packed u8, scale (rows,) f32
+int rt_quantize_pack(const void* x, const void* u, void* packed, void* scale,
+                     long long rows, long long d, int bits, int vec,
+                     void* stream) {
+  return launch_encode<false>(
+      static_cast<const float*>(x), nullptr, static_cast<const float*>(u),
+      static_cast<uint8_t*>(packed), static_cast<float*>(scale), nullptr,
+      rows, d, bits, vec, static_cast<cudaStream_t>(stream));
+}
+
+// packed (rows, d*bits/8) u8, scale (rows,) f32 -> out (rows, d), f32 or
+// bf16 (out_bf16 != 0)
+int rt_unpack_dequant(const void* packed, const void* scale, void* out,
+                      long long rows, long long d, int bits, int out_bf16,
+                      int vec, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const uint8_t* p = static_cast<const uint8_t*>(packed);
+  const float* s = static_cast<const float*>(scale);
+  if (out_bf16)
+    return launch_decode<false, __nv_bfloat16>(
+        p, s, nullptr, static_cast<__nv_bfloat16*>(out), rows, d, bits, vec,
+        st);
+  return launch_decode<false, float>(p, s, nullptr, static_cast<float*>(out),
+                                     rows, d, bits, vec, st);
+}
+
+}  // extern "C"

@@ -1,0 +1,56 @@
+"""Row-flattening wrappers around the codec kernels (port of the codec
+half of `repro.kernels.ops`).
+
+Callers pass any ``(..., d)`` batch shape; these flatten it to the
+kernels' ``(rows, d)`` layout and restore it on the outputs.  The CUDA
+kernels mask the ragged last block themselves, so unlike the Pallas
+wrappers nothing is padded.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import quant_pack as _qp
+
+
+def _rows(x: Optional[torch.Tensor], d: int) -> Optional[torch.Tensor]:
+    return None if x is None else x.reshape(-1, d).contiguous()
+
+
+def boundary_compress(a, m, u=None, *, bits: int):
+    """Sender side of an AQ-SGD boundary: (a, m) -> (packed, scale,
+    m_new) for any (..., d)."""
+    shape = a.shape
+    d = shape[-1]
+    packed, scale, m_new = _qp.delta_quantize_pack(
+        _rows(a, d), _rows(m, d), _rows(u, d), bits=bits)
+    return (packed.reshape(*shape[:-1], -1), scale.reshape(*shape[:-1], 1),
+            m_new.reshape(shape))
+
+
+def boundary_decompress(packed, scale, m, *, bits: int):
+    """Receiver side: m_new = m + dequant(unpack(packed))."""
+    shape = m.shape
+    out = _qp.dequant_unpack_accumulate(
+        _rows(packed, packed.shape[-1]), _rows(scale, 1),
+        _rows(m, shape[-1]), bits=bits)
+    return out.reshape(shape)
+
+
+def quantize_pack(x, u=None, *, bits: int):
+    """Fused absmax -> quantize -> pack for any (..., d) tensor."""
+    shape = x.shape
+    d = shape[-1]
+    packed, scale = _qp.quantize_pack(_rows(x, d), _rows(u, d), bits=bits)
+    return (packed.reshape(*shape[:-1], -1), scale.reshape(*shape[:-1], 1))
+
+
+def unpack_dequant(packed, scale, *, bits: int,
+                   out_dtype: torch.dtype = torch.float32):
+    """Fused unpack -> dequantize; inverse of `quantize_pack`."""
+    shape = packed.shape
+    out = _qp.unpack_dequant(_rows(packed, shape[-1]), _rows(scale, 1),
+                             bits=bits, out_dtype=out_dtype)
+    return out.reshape(*shape[:-1], out.shape[-1])

@@ -1,0 +1,172 @@
+"""Wrappers of the CUDA boundary-codec kernels (``csrc/quant_pack.cu``).
+
+One wrapper per kernel, on row-major ``(R, d)`` tensors:
+
+* `delta_quantize_pack`       — AQ-SGD sender (delta -> wire + m_new);
+* `dequant_unpack_accumulate` — AQ-SGD receiver (wire + m -> m_new);
+* `quantize_pack`             — DirectQ sender and KV-cache append;
+* `unpack_dequant`            — the matching receiver and KV-cache read.
+
+A tensor on the CPU goes to the plain version in `repro_torch.kernels.ref`.
+A CUDA tensor goes to the kernel, launched on the current stream, or
+the wrapper raises; nothing falls back.  `LAUNCHES` counts kernel
+launches per wrapper (the CPU path does not count), so a run can show
+that its path went through the kernels.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels import ref
+
+KERNEL_BITS = (2, 4, 8)
+
+# kernel launches per wrapper since the last `reset_launches`
+LAUNCHES = {"delta_quantize_pack": 0, "dequant_unpack_accumulate": 0,
+            "quantize_pack": 0, "unpack_dequant": 0}
+
+
+def reset_launches() -> None:
+    """Set every launch count to 0."""
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _on_cuda(*ts) -> bool:
+    """True if the (non-None) tensors all lie on one CUDA device, False
+    if all on the CPU; raises on a mix."""
+    devs = {t.device for t in ts if t is not None}
+    if len(devs) != 1:
+        raise ValueError(f"tensors on different devices: {sorted(map(str, devs))}")
+    dev = devs.pop()
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev.type == "cuda"
+
+
+def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple):
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def _check_bits(bits: int, d: int):
+    if bits not in KERNEL_BITS:
+        raise ValueError(f"the kernels implement bits {KERNEL_BITS}, "
+                         f"got {bits}")
+    if d % (8 // bits):
+        raise ValueError(f"d={d} is not a multiple of {8 // bits} "
+                         f"codes per byte at {bits} bits")
+
+
+def _vec(d: int, *ts) -> int:
+    """1 when the float4 paths apply: d % 4 == 0 and 16-byte aligned
+    data."""
+    return int(d % 4 == 0 and all(t.data_ptr() % 16 == 0
+                                  for t in ts if t is not None))
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _launch(name: str, fn: str, *args) -> None:
+    lib = build.load("quant_pack")
+    stream = torch.cuda.current_stream().cuda_stream
+    rc = getattr(lib, fn)(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn} failed to launch: CUDA error {rc}")
+    LAUNCHES[name] += 1
+
+
+def delta_quantize_pack(a: torch.Tensor, m: torch.Tensor,
+                        u: Optional[torch.Tensor] = None, *, bits: int):
+    """a, m (R, d) f32; u optional uniform noise (R, d) for stochastic
+    rounding.  Returns (packed (R, d*bits/8) u8, scale (R, 1) f32,
+    m_new (R, d) f32)."""
+    if not _on_cuda(a, m, u):
+        return ref.delta_quantize_pack_ref(a, m, bits, u)
+    r, d = a.shape
+    _check_bits(bits, d)
+    for t, n in ((a, "a"), (m, "m"), (u, "u")):
+        if t is not None:
+            _check(t, n, torch.float32, (r, d))
+    packed = torch.empty((r, d * bits // 8), dtype=torch.uint8,
+                         device=a.device)
+    scale = torch.empty((r, 1), dtype=torch.float32, device=a.device)
+    m_new = torch.empty_like(a)
+    if r:
+        _launch("delta_quantize_pack", "rt_delta_quantize_pack",
+                a.data_ptr(), m.data_ptr(), _ptr(u), packed.data_ptr(),
+                scale.data_ptr(), m_new.data_ptr(), r, d, bits,
+                _vec(d, a, m, u, packed, m_new))
+    return packed, scale, m_new
+
+
+def dequant_unpack_accumulate(packed: torch.Tensor, scale: torch.Tensor,
+                              m: torch.Tensor, *, bits: int) -> torch.Tensor:
+    """packed (R, d*bits/8) u8, scale (R, 1) f32, m (R, d) f32.
+    Returns m_new (R, d) f32 = m + dequant(unpack(packed)), one FMA."""
+    if not _on_cuda(packed, scale, m):
+        return ref.dequant_unpack_accumulate_ref(packed, scale, m, bits)
+    r, d = m.shape
+    _check_bits(bits, d)
+    _check(packed, "packed", torch.uint8, (r, d * bits // 8))
+    _check(scale, "scale", torch.float32, (r, 1))
+    _check(m, "m", torch.float32, (r, d))
+    out = torch.empty_like(m)
+    if r:
+        _launch("dequant_unpack_accumulate", "rt_dequant_unpack_accumulate",
+                packed.data_ptr(), scale.data_ptr(), m.data_ptr(),
+                out.data_ptr(), r, d, bits, _vec(d, packed, m, out))
+    return out
+
+
+def quantize_pack(x: torch.Tensor, u: Optional[torch.Tensor] = None, *,
+                  bits: int):
+    """x (R, d) f32; u optional uniform noise (R, d).  Returns
+    (packed (R, d*bits/8) u8, scale (R, 1) f32)."""
+    if not _on_cuda(x, u):
+        return ref.quantize_pack_ref(x, bits, u)
+    r, d = x.shape
+    _check_bits(bits, d)
+    _check(x, "x", torch.float32, (r, d))
+    if u is not None:
+        _check(u, "u", torch.float32, (r, d))
+    packed = torch.empty((r, d * bits // 8), dtype=torch.uint8,
+                         device=x.device)
+    scale = torch.empty((r, 1), dtype=torch.float32, device=x.device)
+    if r:
+        _launch("quantize_pack", "rt_quantize_pack", x.data_ptr(), _ptr(u),
+                packed.data_ptr(), scale.data_ptr(), r, d, bits,
+                _vec(d, x, u, packed))
+    return packed, scale
+
+
+def unpack_dequant(packed: torch.Tensor, scale: torch.Tensor, *, bits: int,
+                   out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """packed (R, pw) u8, scale (R, 1) f32 -> values (R, pw * 8/bits) in
+    out_dtype (float32 or bfloat16)."""
+    if not _on_cuda(packed, scale):
+        return ref.unpack_dequant_ref(packed, scale, bits, out_dtype)
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"unpack_dequant writes float32 or bfloat16, "
+                        f"not {out_dtype}")
+    r, pw = packed.shape
+    _check_bits(bits, 8 // bits)
+    d = pw * (8 // bits)
+    _check(packed, "packed", torch.uint8, (r, pw))
+    _check(scale, "scale", torch.float32, (r, 1))
+    out = torch.empty((r, d), dtype=out_dtype, device=packed.device)
+    if r:
+        _launch("unpack_dequant", "rt_unpack_dequant", packed.data_ptr(),
+                scale.data_ptr(), out.data_ptr(), r, d, bits,
+                int(out_dtype == torch.bfloat16), _vec(d, packed, out))
+    return out

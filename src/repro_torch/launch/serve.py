@@ -1,0 +1,138 @@
+"""Serving launcher: uniform-batch prefill + decode with the compressed
+serving plane (port of the uniform-batch path of `repro.launch.serve`).
+
+``--kv-bits`` switches the KV cache to packed codes + group scales and
+``--stages N`` routes the hidden state through N-1 delta-coded hops
+per token (`repro_torch.serving.delta`).  The comm flags and
+``--comm-config`` JSON are those of the JAX package, and the resolved
+config is echoed back as JSON.  The weights are a random init from
+``--seed``.
+
+Runs on CUDA unless ``--device cpu`` asks for the CPU; with no card and
+no such request it raises.
+
+Example (the paper's 1.5B model, full width and depth, on one card):
+  python -m repro_torch.launch.serve --arch gpt2-xl-paper --stages 2 \\
+      --mode aqsgd --fw-bits 4 --kv-bits 8 --batch 8 --prompt-len 128 \\
+      --gen 32
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from repro_torch.comm import config as comm_cli
+from repro_torch.configs.base import ARCHS, get_config
+from repro_torch.models.model import Transformer
+from repro_torch.serving import DeltaHopCodec, KVCodec, quantize_caches
+
+
+def resolve_device(name: str) -> torch.device:
+    """The device an entry point runs on: CUDA unless the caller asks
+    for the CPU; never a silent move to the CPU."""
+    dev = torch.device(name)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass --device cpu "
+                           "(device='cpu') to run on the CPU")
+    return dev
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
+    ap.add_argument("--arch", default="gpt2-xl-paper", choices=list(ARCHS))
+    ap.add_argument("--smoke", action="store_true")
+    comm_cli.add_cli_args(ap)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--stages", type=int, default=1,
+                    help="pipeline stage groups for decode; >1 routes "
+                         "the hidden state through delta-coded hops")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the random weights and prompt tokens")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device (default cuda; cpu runs the plain "
+                         "PyTorch codec)")
+    return ap
+
+
+def serve(args) -> dict:
+    """Run prefill + ``args.gen`` decode steps; returns the timings, the
+    generated tokens and the last logits."""
+    dev = resolve_device(args.device)
+    comm = comm_cli.from_args(args)
+    print("comm:", comm.to_json())
+    cfg = get_config(args.arch, smoke=args.smoke)
+    kv_codec = KVCodec.from_comm(comm)
+    hop = DeltaHopCodec.from_comm(comm) if args.stages > 1 else None
+    if hop is not None:
+        print(f"decode hop [{comm.mode}]: "
+              f"{hop.hop_bytes(args.batch, cfg.d_model)} B/token/boundary "
+              f"x {args.stages - 1} boundaries "
+              f"(fp32 {args.batch * cfg.d_model * 4} B)")
+    if kv_codec.bits:
+        per_tok = kv_codec.stored_bytes(
+            (1, 1, cfg.num_kv_heads, cfg.head_dim)) * 2 * cfg.num_layers
+        raw_tok = 2 * cfg.num_layers * cfg.num_kv_heads * cfg.head_dim * 4
+        print(f"kv cache: {per_tok} B/token stored "
+              f"({kv_codec.bits}-bit; raw f32 {raw_tok} B)")
+
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    model = Transformer(cfg, device=dev, generator=gen)
+    cache_len = args.prompt_len + args.gen
+    caches = model.init_caches(args.batch, cache_len, torch.float32)
+    caches = quantize_caches(caches, kv_codec)
+    if hop is not None:
+        caches["hop_m"] = hop.init_state(args.stages - 1, args.batch,
+                                         cfg.d_model, device=dev)["m"]
+    tokens = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
+                           generator=gen, device=dev)
+    kvc = kv_codec if kv_codec.bits else None
+    bfn_p = hop.boundary_fn(prefill=True) if hop is not None else None
+    bfn_d = hop.boundary_fn(prefill=False) if hop is not None else None
+
+    _sync(dev)
+    t0 = time.perf_counter()
+    logits, caches = model.forward_with_caches(
+        tokens, caches, logits_last_only=True, num_stages=args.stages,
+        boundary_fn=bfn_p, kv_codec=kvc)
+    _sync(dev)
+    t1 = time.perf_counter()
+    print(f"prefill {args.batch}x{args.prompt_len}: {t1 - t0:.3f}s")
+
+    out_tokens = []
+    tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+    for _ in range(args.gen):
+        out_tokens.append(tok)
+        logits, caches = model.forward_with_caches(
+            tok, caches, logits_last_only=True, num_stages=args.stages,
+            boundary_fn=bfn_d, kv_codec=kvc)
+        if args.temperature > 0:
+            probs = torch.softmax(logits[:, -1] / args.temperature, dim=-1)
+            tok = torch.multinomial(probs, 1, generator=gen)
+        else:
+            tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+    _sync(dev)
+    t2 = time.perf_counter()
+    generated = torch.cat(out_tokens, dim=1)
+    tok_s = args.gen * args.batch / (t2 - t1)
+    print(f"decode {args.gen} tokens: {t2 - t1:.3f}s ({tok_s:.1f} tok/s)")
+    print("sample token ids:", generated[0][:12].tolist())
+    return {"prefill_s": t1 - t0, "decode_s": t2 - t1, "decode_tok_s": tok_s,
+            "tokens": generated, "logits": logits}
+
+
+def main(argv=None) -> dict:
+    return serve(build_parser().parse_args(argv))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,162 @@
+"""The dense-family Transformer with KV caches and stage groups (port of
+the serving half of `repro.models.model`).
+
+`Transformer.forward_with_caches` is the unified prefill (S > 1) /
+decode (S = 1) step.  Its serving-plane hooks are the JAX package's:
+
+* ``num_stages``/``boundary_fn`` cut the layer stack into pipeline
+  stage groups and run ``boundary_fn(state, h, idx) -> (state, h)`` on
+  the hidden state between them (the compressed decode hop,
+  `repro_torch.serving.delta.DeltaHopCodec`); the hop's reference
+  buffers ride in the cache dict under ``"hop_m"`` (f32 (nb, B, 1, d));
+* a ``kv_codec`` with ``bits > 0`` switches the ``k``/``v`` stores to
+  the quantized layout (``{k,v}_codes``/``{k,v}_scale``,
+  `repro_torch.serving.kvcache`): each layer dequantizes its whole
+  store, attends with the step's fresh raw rows scattered in, then
+  encodes only those fresh rows back.
+
+Unlike the JAX package, caches are updated IN PLACE (a decode step
+writes B rows per layer instead of copying the whole store) and the
+write head ``caches["pos"]`` is a Python int.
+"""
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+
+
+class Block(nn.Module):
+    """One dense decoder layer: pre-norm attention + pre-norm MLP."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        self.norm1 = L.RMSNorm(cfg.d_model, cfg.norm_eps, device=device)
+        self.attn = L.Attention(cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                                cfg.head_dim, cfg.rope_theta,
+                                cfg.attn_softcap, device=device)
+        self.norm2 = L.RMSNorm(cfg.d_model, cfg.norm_eps, device=device)
+        self.ffn = L.MLP(cfg.d_model, cfg.d_ff, cfg.act, cfg.mlp_gated,
+                         device=device)
+
+    def forward(self, h, positions, window, k_cache, v_cache, cache_index):
+        """Returns (h, fresh_k, fresh_v)."""
+        a, k, v = self.attn(self.norm1(h), positions, window, k_cache,
+                            v_cache, cache_index)
+        h = h + a
+        return h + self.ffn(self.norm2(h)), k, v
+
+
+class Transformer(nn.Module):
+    """Dense-family decoder (``gpt2-xl-paper``): token embedding, a stack
+    of `Block`s, a final RMSNorm and logits tied to the embedding.
+
+    ``generator`` seeds a random init that follows the JAX package's
+    scales (N(0, 0.02) embedding, N(0, 1/fan_in) projections, zero
+    norms); without it the weights are left uninitialized, for
+    `repro_torch.weights.from_jax_params` to fill."""
+
+    def __init__(self, cfg: ModelConfig, *, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if cfg.family != "dense" or not cfg.tie_embeddings:
+            raise NotImplementedError(
+                f"{cfg.name}: the port runs the dense family with tied "
+                f"embeddings")
+        self.cfg = cfg
+        self.embed = nn.Parameter(torch.empty(cfg.vocab_size, cfg.d_model,
+                                              device=device))
+        self.layers = nn.ModuleList(Block(cfg, device=device)
+                                    for _ in range(cfg.num_layers))
+        self.final_norm = L.RMSNorm(cfg.d_model, cfg.norm_eps, device=device)
+        if generator is not None:
+            self.reset_parameters(generator)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        nn.init.normal_(self.embed, 0.0, 0.02, generator=generator)
+        for blk in self.layers:
+            blk.attn.reset_parameters(generator)
+            blk.ffn.reset_parameters(generator)
+
+    # -- embedding / head ---------------------------------------------------
+
+    def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
+        """tokens (B, S) -> (B, S, d)."""
+        return self.embed.to(self.cfg.torch_dtype)[tokens]
+
+    def lm_logits(self, h: torch.Tensor) -> torch.Tensor:
+        h = self.final_norm(h)
+        logits = h @ self.embed.t().to(h.dtype)
+        return L.softcap(logits.float(), self.cfg.final_softcap)
+
+    # -- caches -------------------------------------------------------------
+
+    def init_caches(self, batch_size: int, cache_len: int,
+                    dtype: torch.dtype = torch.bfloat16, device=None) -> dict:
+        """Zero raw caches for prefill/decode: k, v (L, B, Sc, Hk, hd)."""
+        cfg = self.cfg
+        device = device if device is not None else self.embed.device
+        shape = (cfg.num_layers, batch_size, cache_len, cfg.num_kv_heads,
+                 cfg.head_dim)
+        return {"pos": 0,
+                "k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+    # -- prefill / decode ---------------------------------------------------
+
+    @torch.no_grad()
+    def forward_with_caches(self, tokens: torch.Tensor, caches: dict, *,
+                            logits_last_only: bool = False,
+                            num_stages: int = 1,
+                            boundary_fn: Optional[Callable] = None,
+                            kv_codec=None):
+        """tokens (B, S).  Returns (logits (B, S or 1, V) f32, caches),
+        the caches updated in place (see the module docstring)."""
+        cfg = self.cfg
+        pos0 = caches["pos"]
+        quant = kv_codec is not None and bool(kv_codec.bits)
+        h = self.embed_tokens(tokens)
+        b, s = h.shape[0], h.shape[1]
+        positions = pos0 + torch.arange(s, dtype=torch.int32,
+                                        device=h.device).expand(b, s)
+        cache_len = caches["k_codes" if quant else "k"].shape[2]
+        n = cfg.num_layers
+        if n % num_stages:
+            raise ValueError(f"{n} layers do not split into {num_stages} "
+                             f"stage groups")
+        per = n // num_stages
+        boundary_state = {"m": caches["hop_m"]} if "hop_m" in caches \
+            else None
+
+        for i, blk in enumerate(self.layers):
+            window = cfg.layer_window(i, cache_len)
+            if quant:
+                ck = kv_codec.decode(caches["k_codes"][i],
+                                     caches["k_scale"][i], cfg.torch_dtype)
+                cv = kv_codec.decode(caches["v_codes"][i],
+                                     caches["v_scale"][i], cfg.torch_dtype)
+            else:
+                ck, cv = caches["k"][i], caches["v"][i]
+            h, fk, fv = blk(h, positions, window, ck, cv, pos0)
+            if quant:
+                # encode ONLY this step's fresh rows: old tokens keep
+                # their original single encoding
+                for name, fresh in (("k", fk), ("v", fv)):
+                    kv_codec.append(caches[name + "_codes"][i],
+                                    caches[name + "_scale"][i], fresh, pos0)
+            if boundary_fn is not None and (i + 1) % per == 0 \
+                    and i + 1 < n:
+                boundary_state, h = boundary_fn(boundary_state, h,
+                                                (i + 1) // per - 1)
+
+        caches["pos"] = pos0 + s
+        if boundary_state is not None:
+            caches["hop_m"] = boundary_state["m"]
+        if logits_last_only:
+            h = h[:, -1:]
+        return self.lm_logits(h), caches

@@ -1,0 +1,101 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked ``cuda``: each test asks the `card` fixture for the device and
+skips when there is none (decided inside the fixture, never at import,
+so every test worker collects the same tests).  On the card:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+The kernels must equal the plain versions bit for bit (which the CPU
+tests hold against the JAX package), on the vectorised path (d % 4 == 0)
+and the scalar path, ragged rows, stochastic rounding with shared noise,
+and both output types of the store read.
+"""
+import pytest
+import torch
+
+from repro_torch.core import boundary as TB
+from repro_torch.kernels import quant_pack as TP
+from repro_torch.kernels import ref as TR
+
+pytestmark = pytest.mark.cuda
+
+BITS = [2, 4, 8]
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the CUDA kernels have no CPU "
+                    "mode; their plain versions are tested on the CPU)")
+    return torch.device("cuda")
+
+
+def _x(rows, d, seed, dev):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(rows, d, generator=g, device=dev) \
+        * torch.logspace(-3, 2, rows, device=dev)[:, None]
+    x[0] = 0.0
+    return x
+
+
+def _dims(bits):
+    """(rows, d): the hop and KV shapes, ragged rows, and a d that is
+    not a multiple of 4 where the width allows it (the scalar path)."""
+    odd = [] if bits == 2 else [(7, 66), (3, 1602)]
+    return [(8, 1600), (200, 64), (37, 64), (1, 1600)] + odd
+
+
+def _equal(got, want):
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        assert torch.equal(g, w), (g != w).sum().item()
+
+
+@pytest.mark.parametrize("stochastic", [False, True])
+@pytest.mark.parametrize("bits", BITS)
+def test_encoders_match_plain(card, bits, stochastic):
+    for rows, d in _dims(bits):
+        m = _x(rows, d, 1, card)
+        a = m + _x(rows, d, 2, card)
+        u = torch.rand(rows, d, device=card) if stochastic else None
+        _equal(TP.delta_quantize_pack(a, m, u, bits=bits),
+               TR.delta_quantize_pack_ref(a, m, bits, u))
+        _equal(TP.quantize_pack(a, u, bits=bits),
+               TR.quantize_pack_ref(a, bits, u))
+
+
+@pytest.mark.parametrize("bits", BITS)
+def test_decoders_match_plain(card, bits):
+    for rows, d in _dims(bits):
+        packed = torch.randint(0, 256, (rows, d * bits // 8), device=card,
+                               dtype=torch.uint8)
+        scale = torch.rand(rows, 1, device=card) + 1e-3
+        m = _x(rows, d, 3, card)
+        _equal([TP.dequant_unpack_accumulate(packed, scale, m, bits=bits)],
+               [TR.dequant_unpack_accumulate_ref(packed, scale, m, bits)])
+        for dt in (torch.float32, torch.bfloat16):
+            _equal([TP.unpack_dequant(packed, scale, bits=bits,
+                                      out_dtype=dt)],
+                   [TR.unpack_dequant_ref(packed, scale, bits, dt)])
+
+
+def test_counters_and_checks(card):
+    TP.reset_launches()
+    x = _x(8, 64, 4, card)
+    p, s = TB.encode(x, bits=8)
+    TB.decode(p, s, bits=8, d=64)
+    TB.decode_accumulate(*TB.encode_delta(x, x * 0.5, bits=4)[:2], x,
+                         bits=4)
+    assert TP.LAUNCHES == {"delta_quantize_pack": 1,
+                           "dequant_unpack_accumulate": 1,
+                           "quantize_pack": 1, "unpack_dequant": 1}
+    with pytest.raises(TypeError):
+        TP.quantize_pack(x.double(), bits=8)
+    with pytest.raises(ValueError):
+        TP.quantize_pack(x.t(), bits=8)          # not contiguous
+    with pytest.raises(ValueError):
+        TP.quantize_pack(x, bits=3)
+    with pytest.raises(ValueError):
+        TP.quantize_pack(x, x.cpu(), bits=8)      # mixed devices
+    assert TP.LAUNCHES["quantize_pack"] == 1

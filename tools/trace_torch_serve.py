@@ -1,0 +1,136 @@
+#!/usr/bin/env python3
+"""Where a decode step of the PyTorch port's serving path spends its time.
+
+    python3 tools/trace_torch_serve.py [serve flags] [--trace-steps N]
+
+Sets up the same path as `repro_torch.launch.serve` (defaults: the
+chip run's ``gpt2-xl-paper`` at full width and depth, batch 8, prompt
+128, ``--stages 2 --mode aqsgd --fw-bits 4 --kv-bits 8``), prefills,
+warms up two decode steps, then traces ``--trace-steps`` steady decode
+steps under `torch.profiler` and prints one JSON line:
+
+* ``step_ms``: host wall time per step (synchronized), the ground truth;
+* ``device_busy_ms``: per step, the union of the CUDA kernels' device
+  intervals; ``device_idle_share`` = 1 - busy / wall;
+* ``kernel_launches``: device kernels per step;
+* ``top_kernels``: device time per step by kernel name;
+* ``top_host_ops``: self host time per step by PyTorch op.
+
+The traced run pays the profiler's own cost: ``step_ms_untraced`` is the
+same steps timed without it.  Needs a CUDA device.
+"""
+from __future__ import annotations
+
+import json
+import os
+import sys
+import time
+from collections import defaultdict
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+DEFAULTS = ["--arch", "gpt2-xl-paper", "--stages", "2", "--mode", "aqsgd",
+            "--fw-bits", "4", "--kv-bits", "8", "--batch", "8",
+            "--prompt-len", "128"]
+
+
+def _union_ms(intervals) -> float:
+    total, end = 0.0, float("-inf")
+    for a, b in sorted(intervals):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total / 1e3
+
+
+def main(argv=None) -> dict:
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.comm import config as comm_cli
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models.model import Transformer
+    from repro_torch.serving import DeltaHopCodec, KVCodec, quantize_caches
+
+    ap = serve.build_parser()
+    ap.add_argument("--trace-steps", type=int, default=8)
+    args = ap.parse_args(DEFAULTS + list(sys.argv[1:] if argv is None
+                                         else argv))
+    dev = serve.resolve_device(args.device)
+    if dev.type != "cuda":
+        raise RuntimeError("the trace measures the card: run with a CUDA "
+                           "device")
+    comm = comm_cli.from_args(args)
+    cfg = get_config(args.arch, smoke=args.smoke)
+    kv = KVCodec.from_comm(comm)
+    hop = DeltaHopCodec.from_comm(comm) if args.stages > 1 else None
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    model = Transformer(cfg, device=dev, generator=gen)
+    steps = 4 + 2 * args.trace_steps
+    caches = quantize_caches(model.init_caches(
+        args.batch, args.prompt_len + steps, torch.float32), kv)
+    if hop is not None:
+        caches["hop_m"] = hop.init_state(args.stages - 1, args.batch,
+                                         cfg.d_model, device=dev)["m"]
+    kw = dict(logits_last_only=True, num_stages=args.stages,
+              kv_codec=kv if kv.bits else None)
+    tokens = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
+                           generator=gen, device=dev)
+    logits, caches = model.forward_with_caches(
+        tokens, caches, boundary_fn=hop and hop.boundary_fn(prefill=True),
+        **kw)
+    bfn = hop and hop.boundary_fn(prefill=False)
+
+    def decode(n):
+        nonlocal logits, caches
+        for _ in range(n):
+            tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+            logits, caches = model.forward_with_caches(
+                tok, caches, boundary_fn=bfn, **kw)
+        torch.cuda.synchronize(dev)
+
+    decode(2)                                   # warm-up
+    t0 = time.perf_counter()
+    decode(args.trace_steps)
+    untraced = (time.perf_counter() - t0) * 1e3 / args.trace_steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        decode(args.trace_steps)
+        wall = (time.perf_counter() - t0) * 1e3 / args.trace_steps
+
+    n = args.trace_steps
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = _union_ms((e.time_range.start, e.time_range.end)
+                     for e in kernels) / n
+    by_kernel = defaultdict(lambda: [0.0, 0])
+    for e in kernels:
+        by_kernel[e.name][0] += e.time_range.elapsed_us() / 1e3 / n
+        by_kernel[e.name][1] += 1
+    host = sorted(((e.key, e.self_cpu_time_total / 1e3 / n, e.count // n)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CPU),
+                  key=lambda r: -r[1])
+    out = {
+        "device": torch.cuda.get_device_name(dev),
+        "config": {k: getattr(args, k) for k in (
+            "arch", "smoke", "stages", "mode", "fw_bits", "kv_bits", "batch",
+            "prompt_len")},
+        "trace_steps": n, "step_ms_untraced": untraced, "step_ms": wall,
+        "device_busy_ms": busy, "device_idle_share": 1.0 - busy / wall,
+        "kernel_launches": len(kernels) / n,
+        "top_kernels": [{"name": k[:90], "ms": v[0], "per_step": v[1] / n}
+                        for k, v in sorted(by_kernel.items(),
+                                           key=lambda kv: -kv[1][0])[:10]],
+        "top_host_ops": [{"op": k, "self_ms": ms, "per_step": c}
+                         for k, ms, c in host[:12]],
+    }
+    print(json.dumps(out, indent=1))
+    return out
+
+
+if __name__ == "__main__":
+    main()

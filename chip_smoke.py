@@ -7,24 +7,40 @@ Phases, each printed on its own line:
 
 1. the card: ``nvidia-smi`` name and power limit, torch's device name;
 2. the nvcc build of ``src/repro_torch/kernels/csrc/quant_pack.cu``;
-3. each of the four codec kernels against its plain PyTorch version on
-   the card, BIT-EXACT, at the serving slice's shapes (the decode hop
+3. each of the six codec kernels against its plain PyTorch version on
+   the card, BIT-EXACT, at the main paths' shapes (the decode hop
    R=8, d=1600; KV rows R=8*25 per decode append, R=8*128*25 per
-   prefill append, R=8*160*25 per store read, d=64), at bits 2/4/8, a
-   ragged R, an odd d (the scalar path), a stochastic case with shared
-   noise and a bf16 read; then each kernel's median device time (CUDA
-   events around a CUDA graph of back-to-back launches), its byte bound
-   and the plain version's time;
-4. the serving path at full width and depth: ``gpt2-xl-paper`` (48
-   layers, d 1600), random weights from a seeded generator, batch 8,
-   prompt 128, 32 greedy decode steps, ``--stages 2 --mode aqsgd
-   --fw-bits 4 --kv-bits 8``, through `repro_torch.launch.serve` — with
-   the kernel launch counters set to 0 just before and read just after;
-5. a reference check on a small input: the SMOKE model on the card
-   (kernels) against the same weights on the CPU (plain versions),
-   teacher-forced, within the tolerances of tests/test_torch_slice.py.
+   prefill append, R=8*160*25 per store read, d=64; the DP gradient
+   bucket R=877132, d=512), at bits 2/4/8, a ragged R, an odd d (the
+   scalar path), stochastic cases with shared noise, a bf16 read, both
+   ``pack`` variants, zero scale rows and n = 1/2/3/5 workers; then each
+   kernel's median device time (CUDA events around a CUDA graph of
+   back-to-back launches), its byte bound and the plain version's time;
+   the activation codecs the training path runs are also checked
+   bit-exact and timed at its shape (R=4*1024, d=1600);
+4. ``[serve]``: the serving path at full width and depth:
+   ``gpt2-xl-paper`` (48 layers, d 1600), random weights from a seeded
+   generator, batch 8, prompt 128, 32 greedy decode steps, ``--stages 2
+   --mode aqsgd --fw-bits 4 --kv-bits 8``, through
+   `repro_torch.launch.serve` — with the kernel launch counters set to
+   0 just before and read just after;
+5. a reference check of serving on a small input: the SMOKE model on the
+   card (kernels) against the same weights on the CPU (plain versions),
+   teacher-forced, within the tolerances of tests/test_torch_slice.py;
+6. ``[train]``: AQ-SGD fine-tuning with 4-bit DP gradients through
+   `repro_torch.training.simulated.train`: ``gpt2-xl-paper`` at full
+   width cut to 12 of its 48 layers (the full-depth training state does
+   not fit one 80 GB card), 4 stage groups, aqsgd fw 4 / bw 8, DP 4-bit
+   on the ``ring`` wire over 2 simulated workers, batch 8 x seq 1024,
+   16 samples, 6 steps (3 epochs, so the delta path runs from step 3),
+   seed 0 — the counters set to 0 just before and read just after;
+7. ``[train-reference-check]``: the SMOKE model, deterministic rounding
+   on every plane, 4 steps on the card (kernels) against the CPU (plain
+   versions) from the same weights.
 
-Then one JSON line with every kernel's numbers, the card's name and
+Then one JSON line with every kernel's numbers (``launches``: the
+count on the path its time was taken at, named by ``launches_path``;
+each path's own count in ``launches_by_path``), the card's name and
 power limit, and as the last line ``{"ok": true, "device": {...}}``.
 Any failure raises and exits non-zero; with no CUDA device it exits 1
 and prints no result.  Imports nothing of JAX or of the JAX package.
@@ -50,6 +66,8 @@ REPLACES = {
     "dequant_unpack_accumulate": "src/repro/kernels/quant_pack.py:239",
     "quantize_pack": "src/repro/kernels/quant_pack.py:278",
     "unpack_dequant": "src/repro/kernels/quant_pack.py:320",
+    "quantize_codes_scaled": "src/repro/kernels/quant_pack.py:480",
+    "dequant_sum_mean": "src/repro/kernels/quant_pack.py:434",
 }
 # float operations per element, counted from the kernels' source
 OPS_PER_ELEMENT = {
@@ -57,6 +75,8 @@ OPS_PER_ELEMENT = {
     "dequant_unpack_accumulate": 5,  # shift and cvt mul fma
     "quantize_pack": 10,         # abs max | div add mul clip2 rint | pack2
     "unpack_dequant": 5,         # shift and cvt mul mul
+    "quantize_codes_scaled": 9,  # max | div add mul clip2 floor sub cmp add
+    "dequant_sum_mean": 4,       # cvt mul sub | mul mul
 }
 # the slice (gpt2-xl-paper serving, as the main path drives it)
 BATCH, PROMPT, GEN = 8, 128, 32
@@ -68,6 +88,22 @@ SERVE_ARGS = ["--arch", "gpt2-xl-paper", "--stages", "2", "--mode", "aqsgd",
               "--device", "cuda", "--seed", "0"]
 # small-input reference check (tests/test_torch_slice.py's tolerances)
 PREFILL_ATOL, DECODE_ATOL, MAX_FLIP_FRACTION = 2e-5, 5e-3, 0.005
+# the training slice (gpt2-xl-paper at full width, 12 of 48 layers)
+TRAIN_LAYERS, TRAIN_STAGES, TRAIN_WORKERS = 12, 4, 2
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_SAMPLES, TRAIN_STEPS = 8, 1024, 16, 6
+DP_BUCKET = (877132, 512)      # 449,091,200 parameters in 512-wide rows
+TRAIN_ROWS = (TRAIN_BATCH // TRAIN_WORKERS * TRAIN_SEQ, D_MODEL)  # a worker
+# kernel launches per training step: 3 boundaries x 2 workers forward
+# (sender) and backward (gradient round trip); per worker one DP sender
+# and one n=1 decode for its carry, plus the n=2 mean
+TRAIN_LAUNCHES_PER_STEP = {"delta_quantize_pack": 6,
+                           "dequant_unpack_accumulate": 0,
+                           "quantize_pack": 6, "unpack_dequant": 6,
+                           "quantize_codes_scaled": 2,
+                           "dequant_sum_mean": 3}
+DP_KERNELS = ("quantize_codes_scaled", "dequant_sum_mean")
+# training reference check (tests/test_torch_train.py's tolerances)
+FIRST_STEP_RTOL, LATER_STEP_RTOL = 1e-5, 1e-3
 
 
 def phase(tag: str, **kv) -> None:
@@ -87,8 +123,9 @@ def nvidia_smi_line() -> str:
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def _inputs(torch, name, rows, d, bits, *, seed, stochastic=False):
-    """Positional arguments of one kernel call."""
+def _inputs(torch, name, rows, d, bits, *, seed, stochastic=False, n=1):
+    """Positional arguments of one kernel call (``n``: workers summed
+    into a dequant_sum_mean input)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     scale_rows = torch.logspace(-3, 2, rows, device="cuda")[:, None]
 
@@ -97,6 +134,20 @@ def _inputs(torch, name, rows, d, bits, *, seed, stochastic=False):
 
     u = torch.rand(rows, d, generator=g, device="cuda") if stochastic \
         else None
+    if name == "quantize_codes_scaled":
+        x = normal()
+        x[0] = 0.0
+        s = x.abs().amax(-1, keepdim=True) \
+            * (1.0 + torch.rand(rows, 1, generator=g, device="cuda"))
+        s[min(1, rows - 1)] = 0.0                    # clamps to 1e-12
+        return x, s, u
+    if name == "dequant_sum_mean":
+        hi = n * ((1 << bits) - 1) + 1
+        total = torch.randint(0, hi, (rows, d), generator=g, device="cuda",
+                              dtype=torch.int32)
+        scale = torch.rand(rows, 1, generator=g, device="cuda") + 1e-3
+        scale[min(1, rows - 1)] = 0.0
+        return total, scale
     if name == "delta_quantize_pack":
         m = normal()
         a = m + normal()
@@ -127,6 +178,11 @@ def _plain(ref, name):
         "unpack_dequant":
             lambda p, s, *, bits, **kw: ref.unpack_dequant_ref(p, s, bits,
                                                                **kw),
+        "quantize_codes_scaled":
+            lambda x, s, u=None, *, bits, pack=False:
+                ref.quantize_codes_scaled_ref(x, s, bits, u, pack),
+        "dequant_sum_mean":
+            lambda t, s, *, bits, n: ref.dequant_sum_mean_ref(t, s, bits, n),
     }[name]
 
 
@@ -138,7 +194,7 @@ def check_bit_exact(torch, qp, ref, name, rows, d, bits, **kw):
     """Kernel vs plain version on the same inputs; returns max |diff|."""
     stochastic = kw.pop("stochastic", False)
     args = _inputs(torch, name, rows, d, bits, seed=rows + d + bits,
-                   stochastic=stochastic)
+                   stochastic=stochastic, n=kw.get("n", 1))
     got = _outs(getattr(qp, name)(*args, bits=bits, **kw))
     want = _outs(_plain(ref, name)(*args, bits=bits, **kw))
     torch.cuda.synchronize()
@@ -164,7 +220,8 @@ def device_ms(torch, fn, arg_sets, launches: int = 40, reps: int = 5):
     """Median device time of one call: a CUDA graph of ``launches``
     back-to-back calls cycling over ``arg_sets`` (distinct inputs, so a
     large call reads from device memory, not L2), replayed ``reps``
-    times between CUDA events."""
+    times between CUDA events.  The graph keeps every call's outputs,
+    so callers pass fewer launches for calls of gigabytes."""
     for args in arg_sets:                       # warm-up, outside capture
         fn(*args)
     torch.cuda.synchronize()
@@ -186,17 +243,26 @@ def device_ms(torch, fn, arg_sets, launches: int = 40, reps: int = 5):
     return statistics.median(times)
 
 
-def time_kernel(torch, qp, ref, name, rows, d, bits):
-    """(ms, plain_ms, bound_ms, bound_by) at one main-path shape."""
-    one = _inputs(torch, name, rows, d, bits, seed=1)
-    outs = _outs(getattr(qp, name)(*one, bits=bits))
+def time_kernel(torch, qp, ref, name, rows, d, bits, stochastic=False,
+                **kw):
+    """(ms, plain_ms, bound_ms, bound_by, bytes) at one main-path shape
+    (``kw``: the call's other keywords, as the main path passes them)."""
+    one = _inputs(torch, name, rows, d, bits, seed=1, stochastic=stochastic,
+                  n=kw.get("n", 1))
+    outs = _outs(getattr(qp, name)(*one, bits=bits, **kw))
     nbytes = _bytes(one, outs)
     n_sets = max(1, min(16, math.ceil(120e6 / nbytes)))   # > 50 MB of L2
-    sets = [one] + [_inputs(torch, name, rows, d, bits, seed=2 + i)
+    sets = [one] + [_inputs(torch, name, rows, d, bits, seed=2 + i,
+                            stochastic=stochastic, n=kw.get("n", 1))
                     for i in range(n_sets - 1)]
-    ms = device_ms(torch, lambda *a: getattr(qp, name)(*a, bits=bits), sets)
+    launches = 40 if nbytes < 1e9 else 4
+    ms = device_ms(torch, lambda *a: getattr(qp, name)(*a, bits=bits, **kw),
+                   sets, launches)
     plain = _plain(ref, name)
-    plain_ms = device_ms(torch, lambda *a: plain(*a, bits=bits), sets)
+    plain_ms = device_ms(torch, lambda *a: plain(*a, bits=bits, **kw), sets,
+                         launches)
+    del sets, one, outs
+    torch.cuda.empty_cache()
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = rows * d * OPS_PER_ELEMENT[name] / F32_OPS_PER_S * 1e3
     bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
@@ -226,20 +292,47 @@ def kernel_phase(torch, qp, ref):
               ("unpack_dequant", *kv_read, 8, {}),
               ("unpack_dequant", *kv_read, 8,
                {"out_dtype": torch.bfloat16})]
+    # the gradient wire: both pack variants, deterministic and
+    # stochastic, a ragged R, the scalar path, n = 1/2/3/5, and the
+    # bucket the training path sends (zero scale rows throughout)
+    for bits in (2, 4, 8):
+        odd = 512 if bits == 2 else 514
+        for pack in (False, True):
+            for st in (False, True):
+                cases += [("quantize_codes_scaled", 37, 512, bits,
+                           {"pack": pack, "stochastic": st}),
+                          ("quantize_codes_scaled", 5, odd, bits,
+                           {"pack": pack, "stochastic": st})]
+        for n in (1, 2, 3, 5):
+            cases += [("dequant_sum_mean", 37, 512, bits, {"n": n}),
+                      ("dequant_sum_mean", 5, 514, bits, {"n": n})]
+    cases += [("quantize_codes_scaled", *DP_BUCKET, 4, {"stochastic": True}),
+              ("dequant_sum_mean", *DP_BUCKET, 4, {"n": 2})]
+    # the activation codecs at the training path's shape: one worker's
+    # boundary activations, 4-bit stochastic forward, 8-bit stochastic
+    # backward round trip
+    cases += [("delta_quantize_pack", *TRAIN_ROWS, 4, {"stochastic": True}),
+              ("quantize_pack", *TRAIN_ROWS, 8, {"stochastic": True}),
+              ("unpack_dequant", *TRAIN_ROWS, 8, {})]
     errs = {}
     for name, rows, d, bits, kw in cases:
         e = check_bit_exact(torch, qp, ref, name, rows, d, bits, **dict(kw))
         errs[name] = max(errs.get(name, 0.0), e)
     phase("kernels-bit-exact", cases=len(cases),
           max_abs_err=json.dumps(errs))
-    main_shapes = {"delta_quantize_pack": (*hop, 4),
-                   "dequant_unpack_accumulate": (*hop, 4),
-                   "quantize_pack": (*kv_append, 8),
-                   "unpack_dequant": (*kv_read, 8)}
+    # each kernel at its main path's shape (the serving slice's for the
+    # activation codecs; the DP bucket, stochastic, n=2 for the wire)
+    main_shapes = {"delta_quantize_pack": (*hop, 4, {}),
+                   "dequant_unpack_accumulate": (*hop, 4, {}),
+                   "quantize_pack": (*kv_append, 8, {}),
+                   "unpack_dequant": (*kv_read, 8, {}),
+                   "quantize_codes_scaled": (*DP_BUCKET, 4,
+                                             {"stochastic": True}),
+                   "dequant_sum_mean": (*DP_BUCKET, 4, {"n": 2})}
     rows_out = {}
-    for name, (rows, d, bits) in main_shapes.items():
+    for name, (rows, d, bits, kw) in main_shapes.items():
         ms, plain_ms, bound_ms, bound_by, nbytes = time_kernel(
-            torch, qp, ref, name, rows, d, bits)
+            torch, qp, ref, name, rows, d, bits, **kw)
         phase("kernel-time", name=name, rows=rows, d=d, bits=bits,
               bytes=nbytes, ms=f"{ms:.6f}", plain_ms=f"{plain_ms:.6f}",
               bound_ms=f"{bound_ms:.6f}", bound_by=bound_by,
@@ -250,6 +343,21 @@ def kernel_phase(torch, qp, ref):
                           "plain_ms": plain_ms, "bound_ms": bound_ms,
                           "bound_by": bound_by, "library_ms": None,
                           "shape": [rows, d], "bits": bits}
+    # the activation codecs also run on the training path, at its own
+    # shape: one worker's boundary activations (4 x 1024 tokens, d 1600),
+    # stochastic, 4-bit forward and 8-bit backward
+    for name, bits, kw in (("delta_quantize_pack", 4, {"stochastic": True}),
+                           ("quantize_pack", 8, {"stochastic": True}),
+                           ("unpack_dequant", 8, {})):
+        ms, plain_ms, bound_ms, bound_by, nbytes = time_kernel(
+            torch, qp, ref, name, *TRAIN_ROWS, bits, **kw)
+        phase("kernel-time", path="train", name=name, rows=TRAIN_ROWS[0],
+              d=D_MODEL, bits=bits, bytes=nbytes, ms=f"{ms:.6f}",
+              plain_ms=f"{plain_ms:.6f}", bound_ms=f"{bound_ms:.6f}",
+              bound_by=bound_by, library_ms=None)
+        rows_out[name]["train_shape"] = {
+            "shape": list(TRAIN_ROWS), "bits": bits, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
     return rows_out
 
 
@@ -304,6 +412,120 @@ def reference_check(torch):
 
 
 # ---------------------------------------------------------------------------
+# phases 6 and 7: AQ-SGD training with compressed DP gradients
+# ---------------------------------------------------------------------------
+
+def _train_config(sim, comm_mod, adamw, *, stochastic, stages, steps):
+    plane = comm_mod.PlaneConfig
+    kw = dict(stochastic=stochastic)
+    comm = comm_mod.CommConfig(mode="aqsgd", fw=plane(bits=4, **kw),
+                               bw=plane(bits=8, **kw),
+                               dp=plane(bits=4, wire="ring", **kw))
+    # the train launcher's optimizer defaults: lr 1e-3, warm-up
+    # max(steps // 20, 1), decay to 0 at the last step
+    return sim.SimTrainConfig(
+        num_stages=stages, comm=comm, dp_workers=TRAIN_WORKERS,
+        optimizer=adamw.AdamWConfig(lr=1e-3, warmup_steps=max(steps // 20,
+                                                              1),
+                                    total_steps=steps))
+
+
+def train_phase(torch, qp):
+    """The training main path at full width; returns its launches."""
+    from repro_torch.comm import config as comm_mod
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import Dataset, DatasetConfig
+    from repro_torch.optim import adamw
+    from repro_torch.training import simulated as sim
+
+    cfg = get_config("gpt2-xl-paper").with_(num_layers=TRAIN_LAYERS)
+    tcfg = _train_config(sim, comm_mod, adamw, stochastic=True,
+                         stages=TRAIN_STAGES, steps=TRAIN_STEPS)
+    ds = Dataset(DatasetConfig(num_samples=TRAIN_SAMPLES, seq_len=TRAIN_SEQ,
+                               vocab_size=cfg.vocab_size, seed=0))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    qp.reset_launches()
+    state, losses = sim.train(cfg, tcfg, ds, num_steps=TRAIN_STEPS,
+                              batch_size=TRAIN_BATCH, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    launches = dict(qp.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    step_s = statistics.median(state["step_seconds"][2:])
+    n_params = sum(p.numel() for p in state["model"].parameters())
+    phase("train", layers=TRAIN_LAYERS, d_model=cfg.d_model,
+          params=n_params, dp_bucket_rows=state["dp_error"].shape[1],
+          losses=json.dumps([round(x, 6) for x in losses]),
+          step_s=json.dumps([round(x, 4) for x in state["step_seconds"]]),
+          median_step_s_3_6=f"{step_s:.4f}",
+          tokens_per_s=f"{TRAIN_BATCH * TRAIN_SEQ / step_s:.1f}",
+          peak_mem_gib=f"{peak / 2**30:.3f}", launches=json.dumps(launches))
+    assert len(losses) == TRAIN_STEPS
+    assert all(math.isfinite(x) for x in losses), losses
+    assert state["dp_error"].shape == (TRAIN_WORKERS, *DP_BUCKET)
+    assert torch.isfinite(state["dp_error"]).all().item(), "carry not finite"
+    assert state["buffers"]["seen"].all().item(), "a sample never seen"
+    for name, per_step in TRAIN_LAUNCHES_PER_STEP.items():
+        assert launches[name] == per_step * TRAIN_STEPS, \
+            (name, launches[name], per_step * TRAIN_STEPS)
+    del state
+    torch.cuda.empty_cache()
+    return launches
+
+
+def train_reference_check(torch):
+    """The SMOKE trainer on the card (kernels) against the CPU (plain
+    versions), deterministic rounding on every plane, same weights."""
+    from repro_torch.comm import config as comm_mod
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import Dataset, DatasetConfig
+    from repro_torch.optim import adamw
+    from repro_torch.training import simulated as sim
+
+    cfg = get_config("gpt2-xl-paper", smoke=True)
+    steps, samples, seq, batch = 4, 8, 32, 4
+    tcfg = _train_config(sim, comm_mod, adamw, stochastic=False, stages=2,
+                         steps=steps)
+    batches = list(Dataset(DatasetConfig(
+        num_samples=samples, seq_len=seq, vocab_size=cfg.vocab_size)
+    ).batches(batch, steps))
+    cpu = sim.init_train_state(cfg, tcfg, samples, seq, device="cpu",
+                               generator=torch.Generator().manual_seed(0))
+    gpu = sim.init_train_state(
+        cfg, tcfg, samples, seq, device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(0))
+    gpu["model"].load_state_dict(cpu["model"].state_dict())
+
+    def run(state, dev):
+        gen = torch.Generator(device=dev).manual_seed(1)
+        losses, carry = [], None
+        for b in batches:
+            state, met = sim.train_step(state, sim.device_batch(b, dev), gen,
+                                        mcfg=cfg, tcfg=tcfg)
+            losses.append(float(met["loss"]))
+            if carry is None:
+                carry = state["dp_error"].cpu().clone()
+        return losses, carry
+
+    lc, ec = run(cpu, "cpu")
+    lg, eg = run(gpu, "cuda")
+    rel = [abs(a - b) / abs(a) for a, b in zip(lc, lg)]
+    diff = (ec - eg).abs()
+    # a DP code that flips moves the carry by a whole grid step (about
+    # twice the row's largest carry); anything else is ulp-level
+    flips = int((diff > 0.5 * ec.abs().amax(-1, keepdim=True)).sum())
+    phase("train-reference-check", losses_cpu=json.dumps(lc),
+          losses_card=json.dumps(lg), max_rel_loss_diff=max(rel),
+          carry_max_abs_diff_step1=diff.max().item(),
+          carry_flips_step1=f"{flips}/{diff.numel()}",
+          tolerance=f"step1 {FIRST_STEP_RTOL} later {LATER_STEP_RTOL} "
+                    f"flips <= {MAX_FLIP_FRACTION}")
+    assert rel[0] <= FIRST_STEP_RTOL, rel
+    assert max(rel[1:]) <= LATER_STEP_RTOL, rel
+    assert flips <= MAX_FLIP_FRACTION * diff.numel(), flips
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     import torch
@@ -346,11 +568,28 @@ def main() -> int:
     assert tokens.shape == (BATCH, GEN), tokens.shape
     assert logits.shape == (BATCH, 1, 50257), logits.shape
     assert torch.isfinite(logits).all().item(), "non-finite logits"
-    for name, n in launches.items():
-        assert n > 0, f"{name} was never launched on the main path"
-        kernels[name]["launches"] = n
-
+    serve_launches = launches
+    for name in ("delta_quantize_pack", "dequant_unpack_accumulate",
+                 "quantize_pack", "unpack_dequant"):
+        assert launches[name] > 0, \
+            f"{name} was never launched on the serving path"
     reference_check(torch)
+
+    train_launches = train_phase(torch, qp)
+    for name in TRAIN_LAUNCHES_PER_STEP:
+        if TRAIN_LAUNCHES_PER_STEP[name]:
+            assert train_launches[name] > 0, \
+                f"{name} was never launched on the training path"
+    train_reference_check(torch)
+    # a row's launches are those of the path its time was taken at:
+    # serving for the activation codecs, training for the DP wire
+    for name, row in kernels.items():
+        path = "train" if name in DP_KERNELS else "serve"
+        row["launches"] = {"serve": serve_launches,
+                           "train": train_launches}[path][name]
+        row["launches_path"] = path
+        row["launches_by_path"] = {"serve": serve_launches[name],
+                                   "train": train_launches[name]}
     phase("done", seconds=f"{time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": list(kernels.values())}))
     print(smi)

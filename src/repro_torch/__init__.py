@@ -6,7 +6,10 @@ counterpart is easy to find.  This package imports ``torch`` and never
 inputs.  The codec kernels are CUDA C++ for Hopper (``sm_90a``) under
 `repro_torch.kernels.csrc`, built with ``nvcc`` at first use.
 
-Ported so far: uniform-batch prefill + greedy decode of the dense
-family (``gpt2-xl-paper``) with the delta-coded pipeline hop
-(`serving.delta`) and the quantized KV cache (`serving.kvcache`).
+Ported so far, for the dense family (``gpt2-xl-paper``): uniform-batch
+prefill + greedy decode with the delta-coded pipeline hop
+(`serving.delta`) and the quantized KV cache (`serving.kvcache`); and
+the single-process AQ-SGD trainer (`training.simulated`) with
+error-feedback compressed data-parallel gradients
+(`core.grad_compress`).
 """

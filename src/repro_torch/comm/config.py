@@ -7,12 +7,14 @@ and serving's decode hop), ``bw`` (backward activation gradients),
 ``kv`` (the serving KV cache).  The JSON form (``to_json``/``from_json``,
 the ``--comm-config`` input) has the same keys and defaults as the JAX
 package's, so one config file drives both; the flat CLI flags
-(``add_cli_args``/``from_args``) are the ones ``serve`` takes.
+(``add_cli_args``/``from_args``) are the ones ``serve`` and ``train``
+take.
 
 Differences from the JAX package: a plane's ``backend`` is
 ``auto|reference|cuda``, and wire names are checked against the names
-the JAX registry defines (`WIRES`); the registry itself, with its byte
-models and collectives, is not ported yet.
+the JAX registry defines (`WIRES`).  The port's registry
+(`repro_torch.comm.wires`) holds only the wires ported so far;
+`CommConfig.dp_wire_spec` raises for a DP wire it does not hold.
 """
 from __future__ import annotations
 
@@ -21,10 +23,14 @@ import json
 import os
 from dataclasses import dataclass, field
 
+from repro_torch.comm import wires as W
+from repro_torch.core import grad_compress as GC
+from repro_torch.core.aqsgd import CompressionConfig
+
 MODES = ("fp32", "directq", "aqsgd")
 PLANE_FIELDS = ("fw", "bw", "zbuf", "dp", "kv")
 BACKEND_CHOICES = ("auto", "reference", "cuda")
-DEFAULT_DP_GROUP_D = 512
+DEFAULT_DP_GROUP_D = GC.DEFAULT_GROUP_D
 # wire names per plane, the first being the plane's default
 WIRES = {"fw": ("ppermute",), "bw": ("ppermute",), "zbuf": ("hbm",),
          "dp": ("ring", "psum", "ring-sharded", "fp16"),
@@ -106,6 +112,35 @@ class CommConfig:
                 pc = pc.with_(stochastic=False)
             object.__setattr__(self, fname, pc)
 
+    # -- derived views ----------------------------------------------------
+
+    @property
+    def activation(self) -> CompressionConfig:
+        """The activation planes as the `CompressionConfig` that
+        `core.aqsgd.apply_boundary` consumes (the codec backend is the
+        fw plane's; bw.bits=0 means an uncompressed backward)."""
+        return CompressionConfig(
+            mode=self.mode, fw_bits=self.fw.bits or 4,
+            bw_bits=self.bw.bits or 32, buffer_bits=self.zbuf.bits,
+            buffer_dtype=self.buffer_dtype,
+            stochastic=self.fw.stochastic, backend=self.fw.backend)
+
+    @property
+    def dp_group_d(self) -> int:
+        """The DP bucket's scale-group width (normalized at init)."""
+        return self.dp.group_d
+
+    @property
+    def dp_wire_spec(self) -> W.WireSpec:
+        """The registry spec of the configured DP wire."""
+        ported = W.wire_names()
+        if self.dp.wire not in ported:
+            raise NotImplementedError(
+                f"DP wire {self.dp.wire!r} is not ported yet (ROADMAP "
+                f"queue A, items 4-5: the ZeRO wire and the fp16 wire); "
+                f"ported: {', '.join(ported)}")
+        return W.get_wire(self.dp.wire)
+
     # -- JSON -------------------------------------------------------------
 
     def to_dict(self) -> dict:
@@ -151,7 +186,7 @@ class CommConfig:
 
 def add_cli_args(ap) -> None:
     """Install the flat comm flags plus ``--comm-config`` on an argparse
-    parser (the flags of the JAX package's ``serve``)."""
+    parser (the flags of the JAX package's ``serve`` and ``train``)."""
     ap.add_argument("--mode", default="aqsgd", choices=list(MODES),
                     help="activation-boundary algorithm (fw plane)")
     ap.add_argument("--fw-bits", type=int, default=4,

@@ -1,8 +1,11 @@
-"""Backend-selectable AQ-SGD boundary ops (port of the activation-codec
-half of `repro.core.boundary`).
+"""Backend-selectable AQ-SGD boundary ops (port of `repro.core.boundary`
+without the ring collective's ops).
 
-Every codec crossing on the serving path goes through these ops, each
-on two bit-identical backends:
+Every codec crossing goes through these ops: the activation boundary
+(`encode_delta`/`decode_accumulate`/`encode`/`decode`/`roundtrip`) and
+the data-parallel gradient wire (`encode_codes_with_scale`, the sender
+against a shared row scale, and `decode_sum_mean`, the receiver).  Each
+runs on two bit-identical backends:
 
 * ``"cuda"``      — the hand-written kernels (`repro_torch.kernels.ops`):
   one device pass per side;
@@ -119,3 +122,37 @@ def roundtrip(x, *, bits: int, stochastic: bool = False, u=None,
                            generator=generator, backend=backend)
     return decode(packed, scale, bits=bits, d=x.shape[-1], dtype=x.dtype,
                   backend=backend)
+
+
+def encode_codes_with_scale(x, scale, *, bits: int, stochastic: bool = False,
+                            u=None, generator=None, pack: bool = False,
+                            backend: str = "auto"):
+    """DP gradient-wire sender: int32 codes (..., d) of x against the
+    caller's row scale (every worker quantizes against the same shared
+    scale, so code sums dequantize to the exact mean).  ``pack`` also
+    returns the packed payload: (packed, codes).  The scale is clamped
+    at eps here, once, for both backends."""
+    backend = resolve_backend(backend, x, bits)
+    scale = torch.clamp(scale.float(), min=Q._EPS)
+    u = _noise(x, stochastic, u, generator)
+    if backend == "cuda":
+        return K.quantize_codes_scaled(x, scale, u, bits=bits, pack=pack)
+    codes, _ = Q.quantize(x.float(), bits, noise=u, scale=scale)
+    icodes = codes.to(torch.int32)
+    if pack:
+        packed = Q.pack_codes(codes, bits) if bits in PACKABLE_BITS \
+            else codes
+        return packed, icodes
+    return icodes
+
+
+def decode_sum_mean(total, scale, *, bits: int, n: int,
+                    backend: str = "auto"):
+    """DP gradient-wire receiver: int32 code sum over n workers + the
+    shared row scale -> their mean (f32)."""
+    if not isinstance(n, int) or n < 1:
+        raise ValueError(f"n must be a positive int, got {n!r}")
+    backend = resolve_backend(backend, total, bits)
+    if backend == "cuda":
+        return K.dequant_sum_mean(total, scale, bits=bits, n=n)
+    return Q.dequant_sum_mean(total, scale, bits, n)

@@ -160,3 +160,49 @@ def wire_bytes(shape: tuple, bits: int, scale_bytes: int = 4) -> int:
     *rows, n = shape
     nrows = int(functools.reduce(lambda a, b: a * b, rows, 1))
     return nrows * packed_width(n, bits) + nrows * scale_bytes
+
+
+# ---------------------------------------------------------------------------
+# Code sums over n workers — the data-parallel gradient wire.
+# ---------------------------------------------------------------------------
+
+SUM_WIRE_WIDTHS = (1, 2, 4, 8, 16, 32)
+
+
+def sum_wire_bits(bits: int, n: int) -> int:
+    """Narrowest packing width (in bits) holding any sum of n b-bit
+    codes: b + ceil(log2 n), rounded up to a packable width."""
+    if n < 1 or not 1 <= bits <= 8:
+        raise ValueError(f"need n >= 1 and bits in 1..8, got {bits}, {n}")
+    maxv = n * levels(bits)
+    for sw in SUM_WIRE_WIDTHS:
+        if maxv <= (1 << sw) - 1:
+            return sw
+    raise ValueError(f"code sums for bits={bits}, n={n} exceed 32 bits")
+
+
+def sum_packed_width(d: int, bits: int, n: int) -> int:
+    """Packed wire bytes per row of d code sums over n workers."""
+    sw = sum_wire_bits(bits, n)
+    if sw <= 8:
+        k = 8 // sw
+        return (d + k - 1) // k
+    return d * (sw // 8)
+
+
+def sum_mean_factor(bits: int, n: int) -> float:
+    """``f32(f32(1/lv) * f32(1/n))``: the one constant jitted JAX
+    multiplies by for ``((ic * s) / lv) / n`` (XLA folds both constant
+    divisions into it; neither ``1/(lv*n)`` nor two multiplies match)."""
+    one = np.float32(1.0)
+    return float((one / np.float32(levels(bits)))
+                 * (one / np.float32(n)))
+
+
+def dequant_sum_mean(total: torch.Tensor, scale: torch.Tensor, bits: int,
+                     n: int) -> torch.Tensor:
+    """Int32 code sum over n workers + shared row scale -> the mean of
+    their dequantized values, ``((2T - n*lv) * s) * sum_mean_factor``.
+    ``2T - n*lv`` is integer-exact in f32."""
+    p = (total.float() * 2.0 - float(n * levels(bits))) * scale
+    return p * sum_mean_factor(bits, n)

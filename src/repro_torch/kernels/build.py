@@ -29,6 +29,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C signature of every extern "C" launcher, by library
 SIGNATURES = {
     "quant_pack": {
@@ -38,6 +39,9 @@ SIGNATURES = {
                                          _P),
         "rt_quantize_pack": (_P, _P, _P, _P, _I64, _I64, _I, _I, _P),
         "rt_unpack_dequant": (_P, _P, _P, _I64, _I64, _I, _I, _I, _P),
+        "rt_quantize_codes_scaled": (_P, _P, _P, _P, _P, _I64, _I64, _I, _I,
+                                     _P),
+        "rt_dequant_sum_mean": (_P, _P, _P, _I64, _I64, _F, _F, _I, _P),
     },
 }
 

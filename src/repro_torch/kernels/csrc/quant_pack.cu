@@ -1,18 +1,25 @@
 // AQ-SGD boundary codec kernels for Hopper (sm_90a).
 //
-// Replaces four Pallas TPU kernels of src/repro/kernels/quant_pack.py:
+// Replaces six Pallas TPU kernels of src/repro/kernels/quant_pack.py:
 //   delta_quantize_pack        (quant_pack.py:190, _dqp_kernel)  -> encode_rows<BITS, true>
 //   dequant_unpack_accumulate  (quant_pack.py:239, _dua_kernel)  -> decode_flat<BITS, true, float>
 //   quantize_pack              (quant_pack.py:278, _qp_kernel)   -> encode_rows<BITS, false>
 //   unpack_dequant             (quant_pack.py:320, _ud_kernel)   -> decode_flat<BITS, false, OutT>
+//   dequant_sum_mean           (quant_pack.py:434, _dsm_kernel)  -> sum_mean_flat
+//   quantize_codes_scaled      (quant_pack.py:480, _qcs_kernel)  -> codes_scaled_flat<BITS, PACK>
+// The first four are the activation boundary's codecs; the last two are
+// the data-parallel gradient wire's sender (codes against a shared,
+// given row scale) and receiver (mean from an int32 code sum).
 //
 // What bounds them: bytes.  Each is a row codec doing ~10 float
 // operations per element, far below the ~20 operations per byte the
 // H100's float32 units need before arithmetic, not memory, is the
 // limit.  The least time is therefore the bytes moved (each input read
 // once, each output written once) over 3.35 TB/s: about 0.05 us for the
-// decode hop (R=8, d=1600) -- a launch-latency-bound call -- and about
-// 3 us for a KV-store read at batch 8, cache 160 (R=32000, d=64, ~10 MB).
+// decode hop (R=8, d=1600) -- a launch-latency-bound call -- about
+// 3 us for a KV-store read at batch 8, cache 160 (R=32000, d=64, ~10 MB),
+// and about 1.1-1.6 ms for the gradient wire over a 449M-parameter
+// bucket (R=877132, d=512: 8-12 bytes an element).
 //
 // Design: the TPU kernels hold a 128-row tile in VMEM and walk a
 // sequential grid.  Here there is no tile and no order between blocks:
@@ -23,7 +30,9 @@
 //     bytes, so no atomics are needed.
 //   * decoders need no reduction, so they are flat: a grid-stride loop
 //     over groups of 4 elements (or over packed bytes), each thread
-//     writing whole bytes and whole float4s.
+//     writing whole bytes and whole float4s.  The gradient wire's two
+//     kernels take the row scale as an input, so they need no
+//     reduction either and share that flat design.
 //   * loads and stores are vectorised (float4) where d % 4 == 0 and the
 //     pointers are 16-byte aligned; the wrapper decides and passes `vec`.
 //
@@ -38,7 +47,10 @@
 //   * every step is an explicit _rn intrinsic, so nvcc's contraction of
 //     a*b+c cannot change the rounding;
 //   * stochastic rounding reads u and bumps the code when
-//     u < y - floor(y), the comparison jax.random.bernoulli makes.
+//     u < y - floor(y), the comparison jax.random.bernoulli makes;
+//   * the mean of n workers is ((2T - n*lv) * s) * C with
+//     C = f32(f32(1/lv) * f32(1/n)), passed in by the caller: XLA folds
+//     the source's ((ic * s) / lv) / n into that one constant under jit.
 //
 // Every launcher returns cudaGetLastError() as an int (0 = launched).
 
@@ -252,6 +264,90 @@ decode_flat(const uint8_t* __restrict__ packed, const float* __restrict__ scale,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Gradient wire: codes against a given row scale; mean from a code sum
+// ---------------------------------------------------------------------------
+
+// int32 codes of x against max(s, eps) (+ the packed u8 payload with
+// PACK), one flat pass: groups of 4 elements with vec, else one packed
+// byte's worth (8/BITS elements) per item.
+template <int BITS, bool PACK>
+__global__ void __launch_bounds__(256)
+codes_scaled_flat(const float* __restrict__ x, const float* __restrict__ scale,
+                  const float* __restrict__ u, int32_t* __restrict__ codes,
+                  uint8_t* __restrict__ packed, int64_t rows, int64_t d,
+                  int vec) {
+  constexpr int k = 8 / BITS;
+  const int64_t n = rows * d;
+  const int64_t stride = int64_t(gridDim.x) * blockDim.x;
+  const int64_t first = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
+  const bool stoch = u != nullptr;
+  if (vec) {
+    using P = typename Packed4<BITS>::T;
+    for (int64_t g = first; g < n / 4; g += stride) {
+      const float s = fmaxf(scale[(4 * g) / d], kEps);
+      const float4 xx = reinterpret_cast<const float4*>(x)[g];
+      const float4 uu = stoch ? reinterpret_cast<const float4*>(u)[g]
+                              : make_float4(0.f, 0.f, 0.f, 0.f);
+      const uint32_t c0 = quant_code<BITS>(xx.x, s, uu.x, stoch);
+      const uint32_t c1 = quant_code<BITS>(xx.y, s, uu.y, stoch);
+      const uint32_t c2 = quant_code<BITS>(xx.z, s, uu.z, stoch);
+      const uint32_t c3 = quant_code<BITS>(xx.w, s, uu.w, stoch);
+      reinterpret_cast<int4*>(codes)[g] =
+          make_int4(int(c0), int(c1), int(c2), int(c3));
+      if (PACK) {
+        const uint32_t word = c0 | (c1 << BITS) | (c2 << (2 * BITS)) |
+                              (c3 << (3 * BITS));
+        reinterpret_cast<P*>(packed)[g] = static_cast<P>(word);
+      }
+    }
+  } else {
+    // one packed byte = k elements of one row (the wrapper checks d % k)
+    for (int64_t j = first; j < n / k; j += stride) {
+      const int64_t i0 = j * k;
+      const float s = fmaxf(scale[i0 / d], kEps);
+      uint32_t byte = 0;
+#pragma unroll
+      for (int t = 0; t < k; ++t) {
+        const uint32_t c = quant_code<BITS>(x[i0 + t], s,
+                                            stoch ? u[i0 + t] : 0.0f, stoch);
+        codes[i0 + t] = int(c);
+        byte |= c << (t * BITS);
+      }
+      if (PACK) packed[j] = static_cast<uint8_t>(byte);
+    }
+  }
+}
+
+__device__ __forceinline__ float sum_mean(int32_t t, float s, float nlv,
+                                          float c) {
+  // (T * 2 - n*lv) is integer-exact in f32, then * s, then * C
+  const float ic = __fsub_rn(__fmul_rn(__int2float_rn(t), 2.0f), nlv);
+  return __fmul_rn(__fmul_rn(ic, s), c);
+}
+
+// mean (rows, d) f32 from an int32 code sum over n workers
+__global__ void __launch_bounds__(256)
+sum_mean_flat(const int32_t* __restrict__ total,
+              const float* __restrict__ scale, float* __restrict__ out,
+              int64_t rows, int64_t d, float nlv, float c, int vec) {
+  const int64_t n = rows * d;
+  const int64_t stride = int64_t(gridDim.x) * blockDim.x;
+  const int64_t first = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (vec) {
+    for (int64_t g = first; g < n / 4; g += stride) {
+      const float s = scale[(4 * g) / d];
+      const int4 t = reinterpret_cast<const int4*>(total)[g];
+      reinterpret_cast<float4*>(out)[g] =
+          make_float4(sum_mean(t.x, s, nlv, c), sum_mean(t.y, s, nlv, c),
+                      sum_mean(t.z, s, nlv, c), sum_mean(t.w, s, nlv, c));
+    }
+  } else {
+    for (int64_t i = first; i < n; i += stride)
+      out[i] = sum_mean(total[i], scale[i / d], nlv, c);
+  }
+}
+
 int encode_blocks(int64_t rows) {
   return int((rows + kRowsPerBlock - 1) / kRowsPerBlock);
 }
@@ -285,6 +381,21 @@ int launch_decode(const uint8_t* packed, const float* scale, const float* m,
     case 2: decode_flat<2, ACC, OutT><<<grid, block, 0, st>>>(packed, scale, m, out, rows, d, vec); break;
     case 4: decode_flat<4, ACC, OutT><<<grid, block, 0, st>>>(packed, scale, m, out, rows, d, vec); break;
     case 8: decode_flat<8, ACC, OutT><<<grid, block, 0, st>>>(packed, scale, m, out, rows, d, vec); break;
+    default: return int(cudaErrorInvalidValue);
+  }
+  return int(cudaGetLastError());
+}
+
+template <bool PACK>
+int launch_codes_scaled(const float* x, const float* s, const float* u,
+                        int32_t* codes, uint8_t* packed, int64_t rows,
+                        int64_t d, int bits, int vec, cudaStream_t st) {
+  const int64_t items = vec ? rows * d / 4 : rows * d / (8 / bits);
+  const dim3 grid(decode_blocks(items)), block(256);
+  switch (bits) {
+    case 2: codes_scaled_flat<2, PACK><<<grid, block, 0, st>>>(x, s, u, codes, packed, rows, d, vec); break;
+    case 4: codes_scaled_flat<4, PACK><<<grid, block, 0, st>>>(x, s, u, codes, packed, rows, d, vec); break;
+    case 8: codes_scaled_flat<8, PACK><<<grid, block, 0, st>>>(x, s, u, codes, packed, rows, d, vec); break;
     default: return int(cudaErrorInvalidValue);
   }
   return int(cudaGetLastError());
@@ -342,6 +453,39 @@ int rt_unpack_dequant(const void* packed, const void* scale, void* out,
         st);
   return launch_decode<false, float>(p, s, nullptr, static_cast<float*>(out),
                                      rows, d, bits, vec, st);
+}
+
+// x, u: (rows, d) f32 (u may be null: round to nearest); scale (rows,)
+// f32, clamped at eps here -> codes (rows, d) i32 [+ packed (rows,
+// d*bits/8) u8 when packed is not null]
+int rt_quantize_codes_scaled(const void* x, const void* scale, const void* u,
+                             void* codes, void* packed, long long rows,
+                             long long d, int bits, int vec, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* xp = static_cast<const float*>(x);
+  const float* sp = static_cast<const float*>(scale);
+  const float* up = static_cast<const float*>(u);
+  int32_t* cp = static_cast<int32_t*>(codes);
+  if (packed)
+    return launch_codes_scaled<true>(xp, sp, up, cp,
+                                     static_cast<uint8_t*>(packed), rows, d,
+                                     bits, vec, st);
+  return launch_codes_scaled<false>(xp, sp, up, cp, nullptr, rows, d, bits,
+                                    vec, st);
+}
+
+// total (rows, d) i32 code sum over n workers, scale (rows,) f32 ->
+// out (rows, d) f32 = ((2T - n_lv) * s) * c; the caller passes
+// n_lv = n * (2**bits - 1) and c = f32(f32(1/lv) * f32(1/n))
+int rt_dequant_sum_mean(const void* total, const void* scale, void* out,
+                        long long rows, long long d, float n_lv, float c,
+                        int vec, void* stream) {
+  const int64_t items = vec ? rows * d / 4 : rows * d;
+  sum_mean_flat<<<decode_blocks(items), 256, 0,
+                  static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(total), static_cast<const float*>(scale),
+      static_cast<float*>(out), rows, d, n_lv, c, vec);
+  return int(cudaGetLastError());
 }
 
 }  // extern "C"

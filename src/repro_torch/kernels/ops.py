@@ -54,3 +54,24 @@ def unpack_dequant(packed, scale, *, bits: int,
     out = _qp.unpack_dequant(_rows(packed, shape[-1]), _rows(scale, 1),
                              bits=bits, out_dtype=out_dtype)
     return out.reshape(*shape[:-1], out.shape[-1])
+
+
+def quantize_codes_scaled(x, scale, u=None, *, bits: int, pack: bool = False):
+    """Codes against a given row scale for any (..., d) tensor: int32
+    codes, or (packed, codes) with ``pack``."""
+    shape = x.shape
+    d = shape[-1]
+    out = _qp.quantize_codes_scaled(_rows(x, d), _rows(scale, 1),
+                                    _rows(u, d), bits=bits, pack=pack)
+    if pack:
+        packed, codes = out
+        return packed.reshape(*shape[:-1], -1), codes.reshape(shape)
+    return out.reshape(shape)
+
+
+def dequant_sum_mean(total, scale, *, bits: int, n: int):
+    """Mean over n workers from an int32 code sum, any (..., d)."""
+    shape = total.shape
+    out = _qp.dequant_sum_mean(_rows(total, shape[-1]), _rows(scale, 1),
+                               bits=bits, n=n)
+    return out.reshape(shape)

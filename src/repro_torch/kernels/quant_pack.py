@@ -4,8 +4,13 @@ One wrapper per kernel, on row-major ``(R, d)`` tensors:
 
 * `delta_quantize_pack`       — AQ-SGD sender (delta -> wire + m_new);
 * `dequant_unpack_accumulate` — AQ-SGD receiver (wire + m -> m_new);
-* `quantize_pack`             — DirectQ sender and KV-cache append;
-* `unpack_dequant`            — the matching receiver and KV-cache read.
+* `quantize_pack`             — DirectQ sender, backward-gradient
+  quantize and KV-cache append;
+* `unpack_dequant`            — the matching receiver and KV-cache read;
+* `quantize_codes_scaled`     — data-parallel gradient sender: int32
+  codes against a given (shared) row scale, optionally packed too;
+* `dequant_sum_mean`          — its receiver: the mean over n workers
+  from their int32 code sum.
 
 A tensor on the CPU goes to the plain version in `repro_torch.kernels.ref`.
 A CUDA tensor goes to the kernel, launched on the current stream, or
@@ -19,6 +24,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import quantization as Q
 from repro_torch.kernels import build
 from repro_torch.kernels import ref
 
@@ -26,7 +32,8 @@ KERNEL_BITS = (2, 4, 8)
 
 # kernel launches per wrapper since the last `reset_launches`
 LAUNCHES = {"delta_quantize_pack": 0, "dequant_unpack_accumulate": 0,
-            "quantize_pack": 0, "unpack_dequant": 0}
+            "quantize_pack": 0, "unpack_dequant": 0,
+            "quantize_codes_scaled": 0, "dequant_sum_mean": 0}
 
 
 def reset_launches() -> None:
@@ -169,4 +176,51 @@ def unpack_dequant(packed: torch.Tensor, scale: torch.Tensor, *, bits: int,
         _launch("unpack_dequant", "rt_unpack_dequant", packed.data_ptr(),
                 scale.data_ptr(), out.data_ptr(), r, d, bits,
                 int(out_dtype == torch.bfloat16), _vec(d, packed, out))
+    return out
+
+
+def quantize_codes_scaled(x: torch.Tensor, scale: torch.Tensor,
+                          u: Optional[torch.Tensor] = None, *, bits: int,
+                          pack: bool = False):
+    """x (R, d) f32 against the given row scale (R, 1) f32 (clamped at
+    eps); u optional uniform noise (R, d).  Returns int32 codes (R, d),
+    or (packed (R, d*bits/8) u8, codes) with ``pack``."""
+    if not _on_cuda(x, scale, u):
+        return ref.quantize_codes_scaled_ref(x, scale, bits, u, pack)
+    r, d = x.shape
+    _check_bits(bits, d)
+    _check(x, "x", torch.float32, (r, d))
+    _check(scale, "scale", torch.float32, (r, 1))
+    if u is not None:
+        _check(u, "u", torch.float32, (r, d))
+    codes = torch.empty((r, d), dtype=torch.int32, device=x.device)
+    packed = torch.empty((r, d * bits // 8), dtype=torch.uint8,
+                         device=x.device) if pack else None
+    if r:
+        _launch("quantize_codes_scaled", "rt_quantize_codes_scaled",
+                x.data_ptr(), scale.data_ptr(), _ptr(u), codes.data_ptr(),
+                _ptr(packed), r, d, bits, _vec(d, x, u, codes, packed))
+    return (packed, codes) if pack else codes
+
+
+def dequant_sum_mean(total: torch.Tensor, scale: torch.Tensor, *,
+                     bits: int, n: int) -> torch.Tensor:
+    """total (R, d) int32 code sum over n workers, scale (R, 1) f32
+    shared.  Returns the mean (R, d) f32."""
+    if not isinstance(n, int) or n < 1:
+        raise ValueError(f"n must be a positive int, got {n!r}")
+    if not _on_cuda(total, scale):
+        return ref.dequant_sum_mean_ref(total, scale, bits, n)
+    r, d = total.shape
+    if bits not in KERNEL_BITS:
+        raise ValueError(f"the kernels implement bits {KERNEL_BITS}, "
+                         f"got {bits}")
+    _check(total, "total", torch.int32, (r, d))
+    _check(scale, "scale", torch.float32, (r, 1))
+    out = torch.empty((r, d), dtype=torch.float32, device=total.device)
+    if r:
+        _launch("dequant_sum_mean", "rt_dequant_sum_mean", total.data_ptr(),
+                scale.data_ptr(), out.data_ptr(), r, d,
+                float(n * Q.levels(bits)), Q.sum_mean_factor(bits, n),
+                _vec(d, total, out))
     return out

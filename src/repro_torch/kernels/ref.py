@@ -50,3 +50,23 @@ def unpack_dequant_ref(packed: torch.Tensor, scale: torch.Tensor, bits: int,
     d = packed.shape[-1] * Q.codes_per_byte(bits)
     return Q.dequantize(Q.unpack_codes(packed, bits, d), scale, bits,
                         out_dtype)
+
+
+def quantize_codes_scaled_ref(x: torch.Tensor, scale: torch.Tensor,
+                              bits: int, u: Optional[torch.Tensor] = None,
+                              pack: bool = False):
+    """Gradient-wire sender: codes against the given row scale (clamped
+    at eps), as int32; with ``pack`` also the packed payload.
+    Returns codes, or (packed, codes)."""
+    s = torch.clamp(scale.float(), min=Q._EPS)
+    codes, _ = Q.quantize(x.float(), bits, noise=u, scale=s)
+    if pack:
+        return Q.pack_codes(codes, bits), codes.to(torch.int32)
+    return codes.to(torch.int32)
+
+
+def dequant_sum_mean_ref(total: torch.Tensor, scale: torch.Tensor, bits: int,
+                         n: int) -> torch.Tensor:
+    """Gradient-wire receiver: the mean over n workers from their int32
+    code sum, ``((2T - n*lv) * s) * f32(f32(1/lv) * f32(1/n))``."""
+    return Q.dequant_sum_mean(total, scale, bits, n)

@@ -150,11 +150,13 @@ class Attention(nn.Module):
         nn.init.normal_(self.wo, 0.0, 1.0 / math.sqrt(self.wo.shape[0]),
                         generator=generator)
 
-    def forward(self, x, positions, window, k_cache, v_cache, cache_index):
+    def forward(self, x, positions, window, k_cache=None, v_cache=None,
+                cache_index=0):
         """x: (B, S, d).  k_cache, v_cache: (B, Sc, Hk, hd), written in
         place at ``cache_index`` with this step's fresh rows; attention
         runs over the whole cache (rows past the write head are masked
-        by the causal check).  Returns (out, fresh_k, fresh_v)."""
+        by the causal check).  Without caches (training) attention runs
+        over this call's own keys.  Returns (out, fresh_k, fresh_v)."""
         b, s, _ = x.shape
         dtype = x.dtype
         hk, hd = self.num_kv_heads, self.head_dim
@@ -163,11 +165,14 @@ class Attention(nn.Module):
         v = (x @ self.wv.to(dtype)).reshape(b, s, hk, hd)
         q = rope(q, positions, self.rope_theta)
         k = rope(k, positions, self.rope_theta)
-        k_cache[:, cache_index:cache_index + s] = k.to(k_cache.dtype)
-        v_cache[:, cache_index:cache_index + s] = v.to(v_cache.dtype)
-        sc = k_cache.shape[1]
-        k_pos = torch.arange(sc, dtype=torch.int32,
-                             device=x.device).expand(b, sc)
+        if k_cache is None:
+            k_cache, v_cache, k_pos = k, v, positions
+        else:
+            k_cache[:, cache_index:cache_index + s] = k.to(k_cache.dtype)
+            v_cache[:, cache_index:cache_index + s] = v.to(v_cache.dtype)
+            sc = k_cache.shape[1]
+            k_pos = torch.arange(sc, dtype=torch.int32,
+                                 device=x.device).expand(b, sc)
         kw = dict(q_pos=positions, k_pos=k_pos, window=window,
                   attn_softcap=self.attn_softcap)
         if s == 1:

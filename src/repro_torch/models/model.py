@@ -1,5 +1,11 @@
-"""The dense-family Transformer with KV caches and stage groups (port of
-the serving half of `repro.models.model`).
+"""The dense-family Transformer: training forward and loss, and serving
+with KV caches and stage groups (port of `repro.models.model`).
+
+`loss_fn` is the training forward over whole sequences, with autograd:
+`Transformer.trunk_forward` cuts the layer stack into ``num_stages``
+stage groups and runs ``boundary_fn(state, h, idx) -> (state, h)``
+between them, where the simulated trainer plugs in the AQ-SGD
+boundary (`repro_torch.core.aqsgd.apply_boundary`).
 
 `Transformer.forward_with_caches` is the unified prefill (S > 1) /
 decode (S = 1) step.  Its serving-plane hooks are the JAX package's:
@@ -43,7 +49,8 @@ class Block(nn.Module):
         self.ffn = L.MLP(cfg.d_model, cfg.d_ff, cfg.act, cfg.mlp_gated,
                          device=device)
 
-    def forward(self, h, positions, window, k_cache, v_cache, cache_index):
+    def forward(self, h, positions, window, k_cache=None, v_cache=None,
+                cache_index=0):
         """Returns (h, fresh_k, fresh_v)."""
         a, k, v = self.attn(self.norm1(h), positions, window, k_cache,
                             v_cache, cache_index)
@@ -93,6 +100,30 @@ class Transformer(nn.Module):
         h = self.final_norm(h)
         logits = h @ self.embed.t().to(h.dtype)
         return L.softcap(logits.float(), self.cfg.final_softcap)
+
+    # -- training forward ---------------------------------------------------
+
+    def trunk_forward(self, h: torch.Tensor, positions: torch.Tensor, *,
+                      num_stages: int = 1,
+                      boundary_fn: Optional[Callable] = None,
+                      boundary_state=None):
+        """The layer trunk over whole sequences.  h: (B, S, d) after the
+        embedding.  ``boundary_fn(state, h, idx) -> (state, h)`` runs
+        between stage groups (idx = 0 .. num_stages-2).  Returns
+        (h, boundary_state)."""
+        n = self.cfg.num_layers
+        if n % num_stages:
+            raise ValueError(f"{n} layers do not split into {num_stages} "
+                             f"stage groups")
+        per = n // num_stages
+        seq = h.shape[1]
+        for i, blk in enumerate(self.layers):
+            h, _, _ = blk(h, positions, self.cfg.layer_window(i, seq))
+            if boundary_fn is not None and (i + 1) % per == 0 \
+                    and i + 1 < n:
+                boundary_state, h = boundary_fn(boundary_state, h,
+                                                (i + 1) // per - 1)
+        return h, boundary_state
 
     # -- caches -------------------------------------------------------------
 
@@ -160,3 +191,29 @@ class Transformer(nn.Module):
         if logits_last_only:
             h = h[:, -1:]
         return self.lm_logits(h), caches
+
+
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
+                  mask: torch.Tensor) -> torch.Tensor:
+    """logits (B, S, V) f32; targets (B, S) int; mask (B, S) {0, 1}.
+    Mean negative log-likelihood over the unmasked tokens."""
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    nll = (lse - gold) * mask
+    return nll.sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def loss_fn(model: Transformer, batch: dict, *, num_stages: int = 1,
+            boundary_fn: Optional[Callable] = None, boundary_state=None):
+    """batch: tokens, targets, mask (B, S) tensors.  Returns (loss,
+    {"ce", "aux", "boundary_state"}); the dense family has no auxiliary
+    loss."""
+    h = model.embed_tokens(batch["tokens"])
+    b, s = h.shape[0], h.shape[1]
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=h.device).expand(b, s)
+    h, boundary_state = model.trunk_forward(
+        h, positions, num_stages=num_stages, boundary_fn=boundary_fn,
+        boundary_state=boundary_state)
+    ce = cross_entropy(model.lm_logits(h), batch["targets"], batch["mask"])
+    return ce, {"ce": ce, "aux": 0.0, "boundary_state": boundary_state}

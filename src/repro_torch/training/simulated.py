@@ -1,0 +1,225 @@
+"""Single-process simulation of AQ-SGD pipeline training (port of
+`repro.training.simulated`, without the ZeRO wire).
+
+The model trunk is cut into K stage groups; at each of the K-1
+boundaries the activation is replaced by the message m(ξ) (full
+precision on a sample's first visit, ``+= Q(Δ)`` after) and the
+backward activation gradient is quantized, exactly what the wire would
+carry (`repro_torch.core.aqsgd.apply_boundary`).
+
+DP gradient compression (Fig. 5, ``comm.dp.bits > 0``): the batch is
+split over ``dp_workers`` simulated workers, each worker's gradient
+tree goes into one ``(rows, group_d)`` bucket, and the configured DP
+wire's simulator (`WireSpec.sim_allreduce`, the error-feedback codec of
+`repro_torch.core.grad_compress`) returns the mean and the new
+carried errors, which `comm.faults.guard_dp_pair` checks before AdamW.
+
+Random numbers: the initial weights and every stochastic-rounding draw
+come from ONE `torch.Generator`, in a fixed order (weights, then per
+step: worker 0's forward boundaries, its backward boundaries in reverse,
+worker 1's, ..., then the DP wire's workers in order).  JAX's threefry
+stream is not reproduced, so stochastic runs match the JAX package
+statistically; deterministic runs match its loss stream within a
+tolerance (tests/test_torch_train.py).
+
+`train_step` marks its phases for `torch.profiler` (``train.*``
+ranges: each worker's forward, the DP wire, AdamW, the buffer writes;
+the backward runs on autograd's own thread, outside them); outside a
+profiler they cost a few microseconds.
+
+The training state is a dict: ``model`` (a `Transformer`), ``opt``
+(AdamW moments), ``buffers`` (AQ-SGD messages) and, with DP
+compression, ``dp_error`` ((workers, rows, group_d) f32).  Parameters,
+moments, buffers and carries are updated in place.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from typing import Optional
+
+import torch
+from torch.profiler import record_function
+
+from repro_torch.comm import faults
+from repro_torch.comm.config import CommConfig
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import aqsgd
+from repro_torch.core import grad_compress as GC
+from repro_torch.models import model as Mo
+from repro_torch.optim import adamw
+from repro_torch.weights import jax_leaf_names, jax_leaves, load_jax_params
+
+
+@dataclass(frozen=True)
+class SimTrainConfig:
+    """Simulated-trainer knobs.  All communication lives in ``comm``;
+    ``dp_workers`` is the simulated DP degree when ``comm.dp.bits``."""
+    num_stages: int = 4
+    comm: Optional[CommConfig] = None
+    optimizer: adamw.AdamWConfig = field(default_factory=adamw.AdamWConfig)
+    dp_workers: int = 1
+
+    def __post_init__(self):
+        if self.comm is None:
+            object.__setattr__(self, "comm", CommConfig())
+        if self.comm.dp.bits:
+            self.comm.dp_wire_spec      # raises for an unported wire
+        if self.dp_workers < 1:
+            raise ValueError(f"dp_workers={self.dp_workers} must be >= 1")
+
+
+def init_train_state(mcfg: ModelConfig, tcfg: SimTrainConfig,
+                     num_samples: int, seq_len: int, *,
+                     generator: torch.Generator, device) -> dict:
+    """Random weights from ``generator``, zero moments, buffers and
+    carries, all on ``device``."""
+    model = Mo.Transformer(mcfg, device=device, generator=generator)
+    params = dict(model.named_parameters())
+    state = {
+        "model": model,
+        "opt": adamw.init_opt_state(params),
+        "buffers": aqsgd.init_buffers(
+            tcfg.comm.activation, tcfg.num_stages - 1, num_samples,
+            seq_len, mcfg.d_model, device=device),
+    }
+    dpc = tcfg.comm.dp
+    if dpc.bits:
+        lay = GC.bucket_layout(jax_leaves(params), dpc.group_d)
+        state["dp_error"] = torch.zeros(
+            (tcfg.dp_workers, lay.rows, lay.group_d), dtype=torch.float32,
+            device=device)
+    return state
+
+
+def _loss_and_grads(model, tcfg, batch, m_all, seen_all, generator):
+    """Loss, metrics and gradients (name -> tensor) of one worker."""
+    cc = tcfg.comm.activation
+
+    def boundary_fn(bstate, h, idx):
+        m = m_all[idx] if m_all is not None else None
+        seen = seen_all[idx] if seen_all is not None else None
+        h2, m_new = aqsgd.apply_boundary(cc, h, m, seen,
+                                         generator=generator)
+        return bstate + (m_new,), h2
+
+    with record_function("train.forward"):
+        loss, metrics = Mo.loss_fn(model, batch,
+                                   num_stages=tcfg.num_stages,
+                                   boundary_fn=boundary_fn,
+                                   boundary_state=())
+    names = [n for n, _ in model.named_parameters()]
+    grads = torch.autograd.grad(loss, [model.get_parameter(n)
+                                       for n in names])
+    return loss.detach(), metrics, dict(zip(names, grads))
+
+
+def train_step(state: dict, batch: dict, generator: torch.Generator, *,
+               mcfg: ModelConfig, tcfg: SimTrainConfig):
+    """One AQ-SGD training step, in place.  batch: device tensors with
+    ``sample_ids``.  Returns (state, metrics) with loss, ce and aux as
+    device scalars."""
+    cc = tcfg.comm.activation
+    dpc = tcfg.comm.dp
+    model = state["model"]
+    bufs = state["buffers"]
+    ids = batch["sample_ids"]
+    nb = tcfg.num_stages - 1
+    if cc.mode == "aqsgd":
+        m_all = [aqsgd.read_buffer(cc, bufs, i, ids, mcfg.d_model)
+                 for i in range(nb)]
+        seen_all = [bufs["seen"][i][ids] for i in range(nb)]
+    else:
+        m_all = seen_all = None
+
+    w = tcfg.dp_workers if dpc.bits else 1
+    bsz = batch["tokens"].shape[0]
+    if bsz % w:
+        raise ValueError(f"batch {bsz} does not split over {w} workers")
+    b = bsz // w
+    gdicts, loss, ce, parts = [], 0.0, 0.0, []
+    for i in range(w):
+        sl = slice(i * b, (i + 1) * b)
+        sub = {k: v[sl] for k, v in batch.items()}
+        sub_m = [m[sl] for m in m_all] if m_all is not None else None
+        sub_s = [s[sl] for s in seen_all] if seen_all is not None else None
+        lw, met, g = _loss_and_grads(model, tcfg, sub, sub_m, sub_s,
+                                     generator)
+        gdicts.append(g)
+        loss = loss + lw / w
+        ce = ce + met["ce"].detach() / w
+        parts.append(met["boundary_state"])
+
+    params = dict(model.named_parameters())
+    if dpc.bits:
+        # the configured wire's simulator over the per-worker trees
+        spec = tcfg.comm.dp_wire_spec
+        trees = [jax_leaves(g) for g in gdicts]
+        del gdicts
+        lay = GC.bucket_layout(trees[0], dpc.group_d)
+        err_in = state["dp_error"] if dpc.error_feedback \
+            else torch.zeros_like(state["dp_error"])
+        with record_function("train.dp_allreduce"):
+            mean, new_err = spec.sim_allreduce(
+                trees, err_in, dpc.bits, stochastic=dpc.stochastic,
+                generator=generator, backend=dpc.backend, layout=lay)
+            del trees
+            # payload guard: NaN-poison a corrupt mean and the carry
+            mean, new_err = faults.guard_dp_pair(mean, new_err)
+        state["dp_error"] = new_err if dpc.error_feedback \
+            else torch.zeros_like(new_err)
+        names = [n for _, ns in jax_leaf_names(params) for n in ns]
+        pieces = [t for leaf in mean
+                  for t in (leaf if isinstance(leaf, list) else [leaf])]
+        grads = dict(zip(names, pieces))
+    else:
+        grads = gdicts[0]
+
+    with record_function("train.adamw"):
+        state["opt"] = adamw.apply_updates(tcfg.optimizer, params, grads,
+                                           state["opt"])
+    if cc.mode == "aqsgd":
+        with record_function("train.write_buffers"):
+            for j in range(nb):
+                m_new = torch.cat([parts[i][j] for i in range(w)], dim=0)
+                aqsgd.write_buffer(cc, bufs, j, ids, m_new)
+    return state, {"loss": loss, "ce": ce, "aux": 0.0}
+
+
+def device_batch(batch: dict, device) -> dict:
+    """A `Dataset` batch (numpy) as tensors on ``device``: token ids as
+    int64, the mask as f32."""
+    out = {}
+    for k, v in batch.items():
+        t = torch.from_numpy(v)
+        out[k] = (t.float() if k == "mask" else t.long()).to(device)
+    return out
+
+
+def train(mcfg: ModelConfig, tcfg: SimTrainConfig, dataset, *,
+          num_steps: int, batch_size: int, seed: int = 0, device="cuda",
+          log_every: int = 0, initial_params: Optional[dict] = None):
+    """Run the simulated trainer.  Returns (state, per-step losses);
+    ``state["step_seconds"]`` holds each step's wall time, measured to
+    the end of its device work.
+
+    initial_params: a JAX params pytree (numpy arrays) to start from,
+    the paper's fine-tuning setting, in place of the random init."""
+    device = torch.device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    state = init_train_state(mcfg, tcfg, dataset.num_samples,
+                             dataset.dc.seq_len, generator=gen,
+                             device=device)
+    if initial_params is not None:
+        load_jax_params(state["model"], initial_params)
+    losses, seconds = [], []
+    for step, batch in enumerate(dataset.batches(batch_size, num_steps)):
+        t0 = time.perf_counter()
+        state, metrics = train_step(state, device_batch(batch, device),
+                                    gen, mcfg=mcfg, tcfg=tcfg)
+        losses.append(float(metrics["loss"]))      # waits for the device
+        seconds.append(time.perf_counter() - t0)
+        if log_every and step % log_every == 0:
+            print(f"step {step:5d} loss {losses[-1]:.4f}", flush=True)
+    state["step_seconds"] = seconds
+    return state, losses

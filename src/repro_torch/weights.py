@@ -1,10 +1,12 @@
-"""Load the JAX package's parameters into the port's `Transformer`.
+"""Move parameters between the JAX package's layout and the port's.
 
 The JAX package keeps per-layer weights stacked along dim 0 under
 ``params["layers"]`` (a pytree of arrays); the port keeps one `Block`
 per layer.  `from_jax_params` takes that pytree as numpy arrays, keyed
 by the JAX names, and unstacks it leaf by leaf, so both packages
-compute with the same weights.
+compute with the same weights.  `jax_leaf_names` and `jax_leaves`
+give the port's parameters in ``jax.tree.leaves`` order, the order of
+the data-parallel gradient bucket (`repro_torch.core.grad_compress`).
 """
 from __future__ import annotations
 
@@ -49,4 +51,36 @@ def from_jax_params(np_tree: dict, cfg: ModelConfig, *,
                        f"{sorted(set(own) - set(state))}, unexpected "
                        f"{sorted(set(state) - set(own))}")
     model.load_state_dict({k: torch.tensor(v) for k, v in state.items()})
+    return model
+
+
+def jax_leaf_names(names) -> list:
+    """Group the port's parameter names into the JAX package's leaves,
+    in ``jax.tree.leaves`` order (dict keys sorted at every level):
+    ``[(jax_name, [port names])]``, where ``layers.<i>.<rest>`` for
+    every i forms the one stacked leaf ``layers.<rest>``, layer-major."""
+    groups: dict = {}
+    for name in names:
+        parts = name.split(".")
+        stacked = parts[0] == "layers"
+        key = ".".join(["layers"] + parts[2:]) if stacked else name
+        groups.setdefault(key, []).append(
+            (int(parts[1]) if stacked else 0, name))
+    return [(k, [n for _, n in sorted(groups[k])])
+            for k in sorted(groups, key=lambda k: tuple(k.split(".")))]
+
+
+def jax_leaves(params: dict) -> list:
+    """``params`` (name -> tensor, as ``named_parameters`` gives them)
+    as a tree in JAX leaf order: a tensor per top-level leaf and a list
+    of per-layer tensors per stacked ``layers.*`` leaf."""
+    return [[params[n] for n in names] if key.startswith("layers.")
+            else params[names[0]]
+            for key, names in jax_leaf_names(params)]
+
+
+def load_jax_params(model: Transformer, np_tree: dict) -> Transformer:
+    """Copy a JAX params pytree (numpy arrays) into an existing model,
+    in place (the trainer's ``initial_params``)."""
+    model.load_state_dict(from_jax_params(np_tree, model.cfg).state_dict())
     return model

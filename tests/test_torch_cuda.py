@@ -9,7 +9,8 @@ so every test worker collects the same tests).  On the card:
 The kernels must equal the plain versions bit for bit (which the CPU
 tests hold against the JAX package), on the vectorised path (d % 4 == 0)
 and the scalar path, ragged rows, stochastic rounding with shared noise,
-and both output types of the store read.
+both output types of the store read, and, for the gradient wire, both
+``pack`` variants, zero scale rows and several worker counts.
 """
 import pytest
 import torch
@@ -80,6 +81,26 @@ def test_decoders_match_plain(card, bits):
                    [TR.unpack_dequant_ref(packed, scale, bits, dt)])
 
 
+@pytest.mark.parametrize("bits", BITS)
+def test_gradient_wire_kernels_match_plain(card, bits):
+    """quantize_codes_scaled (pack on and off, deterministic and
+    stochastic, a zero scale row) and dequant_sum_mean (n 1/2/3/5)."""
+    for rows, d in _dims(bits) + [(300, 512)]:
+        x = _x(rows, d, 5, card)
+        s = x.abs().amax(-1, keepdim=True) * 1.5
+        s[min(1, rows - 1)] = 0.0                 # clamps to 1e-12
+        for u in (None, torch.rand(rows, d, device=card)):
+            for pack in (False, True):
+                got = TP.quantize_codes_scaled(x, s, u, bits=bits, pack=pack)
+                want = TR.quantize_codes_scaled_ref(x, s, bits, u, pack)
+                _equal(got if pack else [got], want if pack else [want])
+        for n in (1, 2, 3, 5):
+            total = torch.randint(0, n * ((1 << bits) - 1) + 1, (rows, d),
+                                  device=card, dtype=torch.int32)
+            _equal([TP.dequant_sum_mean(total, s, bits=bits, n=n)],
+                   [TR.dequant_sum_mean_ref(total, s, bits, n)])
+
+
 def test_counters_and_checks(card):
     TP.reset_launches()
     x = _x(8, 64, 4, card)
@@ -87,9 +108,13 @@ def test_counters_and_checks(card):
     TB.decode(p, s, bits=8, d=64)
     TB.decode_accumulate(*TB.encode_delta(x, x * 0.5, bits=4)[:2], x,
                          bits=4)
+    codes = TB.encode_codes_with_scale(x, s, bits=8)
+    TB.decode_sum_mean(codes, s, bits=8, n=1)
     assert TP.LAUNCHES == {"delta_quantize_pack": 1,
                            "dequant_unpack_accumulate": 1,
-                           "quantize_pack": 1, "unpack_dequant": 1}
+                           "quantize_pack": 1, "unpack_dequant": 1,
+                           "quantize_codes_scaled": 1,
+                           "dequant_sum_mean": 1}
     with pytest.raises(TypeError):
         TP.quantize_pack(x.double(), bits=8)
     with pytest.raises(ValueError):

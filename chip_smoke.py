@@ -7,7 +7,7 @@ Phases, each printed on its own line:
 
 1. the card: ``nvidia-smi`` name and power limit, torch's device name;
 2. the nvcc build of ``src/repro_torch/kernels/csrc/quant_pack.cu``;
-3. each of the six codec kernels against its plain PyTorch version on
+3. each of the nine codec kernels against its plain PyTorch version on
    the card, BIT-EXACT, at the main paths' shapes (the decode hop
    R=8, d=1600; KV rows R=8*25 per decode append, R=8*128*25 per
    prefill append, R=8*160*25 per store read, d=64; the DP gradient
@@ -17,7 +17,11 @@ Phases, each printed on its own line:
    kernel's median device time (CUDA events around a CUDA graph of
    back-to-back launches), its byte bound and the plain version's time;
    the activation codecs the training path runs are also checked
-   bit-exact and timed at its shape (R=4*1024, d=1600);
+   bit-exact and timed at its shape (R=4*1024, d=1600); the ring's
+   three kernels (accumulate, sum pack and unpack) at every sum width
+   (2/4/8/16/32 bits), ragged rows, the element path, and the
+   distributed path's shapes (a ring segment of 318554 rows, the
+   637107-row bucket, d=512, 4 bits, n=2);
 4. ``[serve]``: the serving path at full width and depth:
    ``gpt2-xl-paper`` (48 layers, d 1600), random weights from a seeded
    generator, batch 8, prompt 128, 32 greedy decode steps, ``--stages 2
@@ -36,7 +40,23 @@ Phases, each printed on its own line:
    seed 0 — the counters set to 0 just before and read just after;
 7. ``[train-reference-check]``: the SMOKE model, deterministic rounding
    on every plane, 4 steps on the card (kernels) against the CPU (plain
-   versions) from the same weights.
+   versions) from the same weights;
+8. ``[dist-train]``: the distributed GPipe trainer through
+   `repro_torch.launch.train.run_distributed` (what ``--distributed``
+   runs): ``gpt2-xl-paper`` at full width cut to 8 of its 48 layers, a
+   2 x 2 (data x model) mesh of four processes sharing the card over
+   gloo, 2 microbatches, batch 8 x seq 512, 16 samples, aqsgd fw 4 /
+   bw 8 stochastic, the 4-bit ``ring`` DP wire, 4 steps (steps 1-2 the
+   warm-up epoch, 3-4 compressed), lr 1e-3, the spec built from those
+   flags by the launcher — each rank's launch counts
+   set to 0 just before each step and read just after, summed over
+   ranks and steps; the replica checks (each stage's ``m_in`` equals
+   the upstream ``m_out``, the two copies of the tied embedding equal)
+   after every step, and the bytes each rank sent against the byte
+   models;
+9. ``[dist-reference-check]``: the same 2 x 2 mesh at SMOKE width (4
+   layers), deterministic rounding on every plane, 3 steps on the card
+   (kernels) against the CPU (plain versions) from the same seed.
 
 Then one JSON line with every kernel's numbers (``launches``: the
 count on the path its time was taken at, named by ``launches_path``;
@@ -68,7 +88,14 @@ REPLACES = {
     "unpack_dequant": "src/repro/kernels/quant_pack.py:320",
     "quantize_codes_scaled": "src/repro/kernels/quant_pack.py:480",
     "dequant_sum_mean": "src/repro/kernels/quant_pack.py:434",
+    "unpack_accumulate": "src/repro/kernels/quant_pack.py:528",
+    "pack_sums": "src/repro/kernels/quant_pack.py:579",
+    "unpack_sums": "src/repro/kernels/quant_pack.py:620",
 }
+# the ring's kernels do integer work only; their operations are counted
+# against the int32 rate outside the tensor cores, half the f32 rate
+# (64 int32 against 128 f32 lanes per SM and clock)
+INT32_OPS_PER_S = F32_OPS_PER_S / 2
 # float operations per element, counted from the kernels' source
 OPS_PER_ELEMENT = {
     "delta_quantize_pack": 14,   # sub abs max | div add mul clip2 rint | pack2 | cvt mul fma
@@ -77,7 +104,11 @@ OPS_PER_ELEMENT = {
     "unpack_dequant": 5,         # shift and cvt mul mul
     "quantize_codes_scaled": 9,  # max | div add mul clip2 floor sub cmp add
     "dequant_sum_mean": 4,       # cvt mul sub | mul mul
+    "unpack_accumulate": 3,      # shift and add (int32)
+    "pack_sums": 3,              # and shift or (int32)
+    "unpack_sums": 2,            # shift and (int32)
 }
+INT_KERNELS = ("unpack_accumulate", "pack_sums", "unpack_sums")
 # the slice (gpt2-xl-paper serving, as the main path drives it)
 BATCH, PROMPT, GEN = 8, 128, 32
 D_MODEL, KV_HEADS, HEAD_DIM = 1600, 25, 64
@@ -104,6 +135,24 @@ TRAIN_LAUNCHES_PER_STEP = {"delta_quantize_pack": 6,
 DP_KERNELS = ("quantize_codes_scaled", "dequant_sum_mean")
 # training reference check (tests/test_torch_train.py's tolerances)
 FIRST_STEP_RTOL, LATER_STEP_RTOL = 1e-5, 1e-3
+# the distributed slice (gpt2-xl-paper at full width, 8 of 48 layers,
+# a 2 x 2 mesh of processes on the one card)
+DIST_LAYERS, DIST_DATA, DIST_STAGES, DIST_MICRO = 8, 2, 2, 2
+DIST_BATCH, DIST_SEQ, DIST_SAMPLES, DIST_STEPS = 8, 512, 16, 4
+DIST_BUCKET = (637107, 512)    # 326,198,400 parameters in 512-wide rows
+DIST_SEG = 318554              # its ring segment over 2 data ranks
+DIST_TIMEOUT = 600
+# launches summed over the 4 ranks and 4 steps (2 warm-up, 2 compressed):
+# per compressed step and data rank, each microbatch crosses the one
+# boundary once forward (B1 at stage 0, B2 at stage 1) and once backward
+# (B3 at stage 1, B4 at stage 0); per step every rank runs the ring:
+# B5 (pack) once, B6 twice (carry n=1, mean n=2), B7 once (D-1 hops),
+# B8a and B8b once
+DIST_LAUNCHES = {"delta_quantize_pack": 8, "dequant_unpack_accumulate": 8,
+                 "quantize_pack": 8, "unpack_dequant": 8,
+                 "quantize_codes_scaled": 16, "dequant_sum_mean": 32,
+                 "unpack_accumulate": 16, "pack_sums": 16,
+                 "unpack_sums": 16}
 
 
 def phase(tag: str, **kv) -> None:
@@ -148,6 +197,21 @@ def _inputs(torch, name, rows, d, bits, *, seed, stochastic=False, n=1):
         scale = torch.rand(rows, 1, generator=g, device="cuda") + 1e-3
         scale[min(1, rows - 1)] = 0.0
         return total, scale
+    if name == "unpack_accumulate":
+        packed = torch.randint(0, 256, (rows, d * bits // 8), generator=g,
+                               device="cuda", dtype=torch.uint8)
+        acc = torch.randint(0, 1 << 20, (rows, d), generator=g,
+                            device="cuda", dtype=torch.int32)
+        return packed, acc
+    if name == "pack_sums":
+        hi = min(n * ((1 << bits) - 1), 2 ** 31 - 2) + 1
+        return (torch.randint(0, hi, (rows, d), generator=g, device="cuda",
+                              dtype=torch.int32),)
+    if name == "unpack_sums":
+        from repro_torch.core import quantization as Q
+        return (torch.randint(0, 256, (rows, Q.sum_packed_width(d, bits, n)),
+                              generator=g, device="cuda",
+                              dtype=torch.uint8),)
     if name == "delta_quantize_pack":
         m = normal()
         a = m + normal()
@@ -183,6 +247,10 @@ def _plain(ref, name):
                 ref.quantize_codes_scaled_ref(x, s, bits, u, pack),
         "dequant_sum_mean":
             lambda t, s, *, bits, n: ref.dequant_sum_mean_ref(t, s, bits, n),
+        "unpack_accumulate":
+            lambda p, a, *, bits: ref.unpack_accumulate_ref(p, a, bits),
+        "pack_sums": lambda t, *, bits, n: ref.pack_sums_ref(t, bits, n),
+        "unpack_sums": lambda p, *, bits, n: ref.unpack_sums_ref(p, bits, n),
     }[name]
 
 
@@ -243,13 +311,32 @@ def device_ms(torch, fn, arg_sets, launches: int = 40, reps: int = 5):
     return statistics.median(times)
 
 
+def _library(torch, name, bits, n):
+    """One PyTorch call that computes the kernel's function at these
+    widths, or None.  At a sum width of 8 bits the sum packer is a
+    narrowing cast and the unpacker a widening one."""
+    from repro_torch.core import quantization as Q
+    if name in ("pack_sums", "unpack_sums") \
+            and Q.sum_wire_bits(bits, n) == 8:
+        dtype = torch.uint8 if name == "pack_sums" else torch.int32
+        return lambda x: x.to(dtype)
+    return None
+
+
 def time_kernel(torch, qp, ref, name, rows, d, bits, stochastic=False,
                 **kw):
-    """(ms, plain_ms, bound_ms, bound_by, bytes) at one main-path shape
-    (``kw``: the call's other keywords, as the main path passes them)."""
+    """(ms, plain_ms, library_ms, bound_ms, bound_by, bytes) at one
+    main-path shape (``kw``: the call's other keywords, as the main path
+    passes them); library_ms is None where no one PyTorch call computes
+    the same function (`_library`), whose result is checked equal to
+    the kernel's before it is timed."""
     one = _inputs(torch, name, rows, d, bits, seed=1, stochastic=stochastic,
                   n=kw.get("n", 1))
     outs = _outs(getattr(qp, name)(*one, bits=bits, **kw))
+    library = _library(torch, name, bits, kw.get("n", 1))
+    if library is not None and not torch.equal(library(*one), outs[0]):
+        raise AssertionError(f"{name}: the library call differs from the "
+                             f"kernel")
     nbytes = _bytes(one, outs)
     n_sets = max(1, min(16, math.ceil(120e6 / nbytes)))   # > 50 MB of L2
     sets = [one] + [_inputs(torch, name, rows, d, bits, seed=2 + i,
@@ -261,12 +348,15 @@ def time_kernel(torch, qp, ref, name, rows, d, bits, stochastic=False,
     plain = _plain(ref, name)
     plain_ms = device_ms(torch, lambda *a: plain(*a, bits=bits, **kw), sets,
                          launches)
+    library_ms = None if library is None else \
+        device_ms(torch, library, sets, launches)
     del sets, one, outs
     torch.cuda.empty_cache()
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = rows * d * OPS_PER_ELEMENT[name] / F32_OPS_PER_S * 1e3
+    rate = INT32_OPS_PER_S if name in INT_KERNELS else F32_OPS_PER_S
+    ops_ms = rows * d * OPS_PER_ELEMENT[name] / rate * 1e3
     bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
-    return ms, plain_ms, max(bytes_ms, ops_ms), bound_by, nbytes
+    return ms, plain_ms, library_ms, max(bytes_ms, ops_ms), bound_by, nbytes
 
 
 def kernel_phase(torch, qp, ref):
@@ -314,6 +404,24 @@ def kernel_phase(torch, qp, ref):
     cases += [("delta_quantize_pack", *TRAIN_ROWS, 4, {"stochastic": True}),
               ("quantize_pack", *TRAIN_ROWS, 8, {"stochastic": True}),
               ("unpack_dequant", *TRAIN_ROWS, 8, {})]
+    # the ring: accumulate at bits 2/4/8, sum packers at every sum width
+    # (2, 4, 8, 16, 32 bits), ragged rows, the element path (an element
+    # count that is not a multiple of 4), and the distributed path's
+    # shapes: one ring segment (accumulate, pack) and the whole bucket
+    # (unpack), 4 bits, n = 2
+    for bits in (2, 4, 8):
+        cases += [("unpack_accumulate", 37, 512, bits, {}),
+                  ("unpack_accumulate", 3, 8 // bits * 3, bits, {})]
+    from repro_torch.core import quantization as Q
+    for bits, n in ((2, 1), (2, 3), (4, 2), (8, 2), (8, 300)):
+        sw = Q.sum_wire_bits(bits, n)              # 2, 4, 8, 16, 32
+        per_byte = 8 // sw if sw <= 8 else 1
+        cases += [(name, r, dd, bits, {"n": n})
+                  for name in ("pack_sums", "unpack_sums")
+                  for r, dd in ((37, 512), (3, per_byte))]
+    cases += [("unpack_accumulate", DIST_SEG, 512, 4, {}),
+              ("pack_sums", DIST_SEG, 512, 4, {"n": 2}),
+              ("unpack_sums", *DIST_BUCKET, 4, {"n": 2})]
     errs = {}
     for name, rows, d, bits, kw in cases:
         e = check_bit_exact(torch, qp, ref, name, rows, d, bits, **dict(kw))
@@ -328,20 +436,24 @@ def kernel_phase(torch, qp, ref):
                    "unpack_dequant": (*kv_read, 8, {}),
                    "quantize_codes_scaled": (*DP_BUCKET, 4,
                                              {"stochastic": True}),
-                   "dequant_sum_mean": (*DP_BUCKET, 4, {"n": 2})}
+                   "dequant_sum_mean": (*DP_BUCKET, 4, {"n": 2}),
+                   "unpack_accumulate": (DIST_SEG, 512, 4, {}),
+                   "pack_sums": (DIST_SEG, 512, 4, {"n": 2}),
+                   "unpack_sums": (*DIST_BUCKET, 4, {"n": 2})}
     rows_out = {}
     for name, (rows, d, bits, kw) in main_shapes.items():
-        ms, plain_ms, bound_ms, bound_by, nbytes = time_kernel(
+        ms, plain_ms, library_ms, bound_ms, bound_by, nbytes = time_kernel(
             torch, qp, ref, name, rows, d, bits, **kw)
         phase("kernel-time", name=name, rows=rows, d=d, bits=bits,
               bytes=nbytes, ms=f"{ms:.6f}", plain_ms=f"{plain_ms:.6f}",
               bound_ms=f"{bound_ms:.6f}", bound_by=bound_by,
-              library_ms=None)
+              library_ms=None if library_ms is None
+              else f"{library_ms:.6f}")
         rows_out[name] = {"name": name, "route": "cuda", "source": SOURCE,
                           "replaces": REPLACES[name], "launches": 0,
                           "max_abs_err": errs[name], "ms": ms,
                           "plain_ms": plain_ms, "bound_ms": bound_ms,
-                          "bound_by": bound_by, "library_ms": None,
+                          "bound_by": bound_by, "library_ms": library_ms,
                           "shape": [rows, d], "bits": bits}
     # the activation codecs also run on the training path, at its own
     # shape: one worker's boundary activations (4 x 1024 tokens, d 1600),
@@ -349,7 +461,7 @@ def kernel_phase(torch, qp, ref):
     for name, bits, kw in (("delta_quantize_pack", 4, {"stochastic": True}),
                            ("quantize_pack", 8, {"stochastic": True}),
                            ("unpack_dequant", 8, {})):
-        ms, plain_ms, bound_ms, bound_by, nbytes = time_kernel(
+        ms, plain_ms, _, bound_ms, bound_by, nbytes = time_kernel(
             torch, qp, ref, name, *TRAIN_ROWS, bits, **kw)
         phase("kernel-time", path="train", name=name, rows=TRAIN_ROWS[0],
               d=D_MODEL, bits=bits, bytes=nbytes, ms=f"{ms:.6f}",
@@ -526,6 +638,114 @@ def train_reference_check(torch):
 
 
 # ---------------------------------------------------------------------------
+# phases 8 and 9: the distributed trainer
+# ---------------------------------------------------------------------------
+
+def _dist_spec(torch, flags, *, layers):
+    """The spec ``python -m repro_torch.launch.train --distributed``
+    builds from ``flags`` (the launcher's defaults otherwise: lr 1e-3,
+    one warm-up epoch), with the depth cut to ``layers``."""
+    from repro_torch.launch import train as launch_train
+    args = launch_train.build_parser().parse_args(
+        ["--arch", "gpt2-xl-paper", "--distributed",
+         "--data-par", str(DIST_DATA), "--stages", str(DIST_STAGES),
+         "--microbatches", str(DIST_MICRO), "--mode", "aqsgd",
+         "--fw-bits", "4", "--bw-bits", "8", "--dp-grad-bits", "4",
+         "--dp-wire", "ring", "--seed", "0", *flags])
+    spec = launch_train.distributed_spec(args, torch.device(args.device))
+    spec["num_layers"] = layers
+    return spec
+
+
+def dist_phase(torch):
+    """The distributed main path at full width; returns its launches."""
+    from repro_torch.core import collectives as C
+    from repro_torch.core import quantization as Q
+    from repro_torch.launch import train as launch_train
+    from repro_torch.serving import DeltaHopCodec
+
+    spec = _dist_spec(torch, [
+        "--device", "cuda", "--steps", str(DIST_STEPS), "--batch",
+        str(DIST_BATCH), "--seq", str(DIST_SEQ), "--samples",
+        str(DIST_SAMPLES)], layers=DIST_LAYERS)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = launch_train.run_distributed(spec, timeout=DIST_TIMEOUT)
+    wall = time.perf_counter() - t0
+    losses = res[0]["losses"]
+    # a step lasts as long as its slowest rank
+    step_s = [max(r["step_seconds"][i] for r in res)
+              for i in range(DIST_STEPS)]
+    med = statistics.median(step_s[2:])
+    launches = {name: sum(st[name] for r in res for st in r["launches"])
+                for name in DIST_LAUNCHES}
+    d, mb = D_MODEL, DIST_BATCH // DIST_DATA // DIST_MICRO
+    hop = DeltaHopCodec(mode="aqsgd", bits=4).hop_bytes(mb * DIST_SEQ, d)
+    want = {"fw_warm": DIST_MICRO * mb * DIST_SEQ * d * 4,
+            "fw": DIST_MICRO * hop,
+            "bw": DIST_MICRO * Q.wire_bytes((mb, DIST_SEQ, d), 8),
+            "dp": C.ring_wire_bytes(DIST_BUCKET, 4, DIST_DATA)}
+    phase("dist-train", mesh=f"{DIST_DATA}x{DIST_STAGES}",
+          layers=DIST_LAYERS, d_model=d, dp_bucket=res[0]["dp_bucket"],
+          losses=json.dumps([round(x, 6) for x in losses]),
+          step_s=json.dumps([round(x, 4) for x in step_s]),
+          median_step_s_3_4=f"{med:.4f}",
+          tokens_per_s=f"{DIST_BATCH * DIST_SEQ / med:.1f}",
+          peak_mem_gib_by_rank=json.dumps(
+              [round(r["peak_mem_bytes"] / 2**30, 3) for r in res]),
+          launches=json.dumps(launches),
+          bytes_rank0_by_step=json.dumps(res[0]["bytes"]),
+          bytes_rank1_by_step=json.dumps(res[1]["bytes"]),
+          bytes_models=json.dumps(want),
+          replicas_rank1=json.dumps(res[1]["replicas"]),
+          phase_s_by_rank_step4=json.dumps(
+              [{k: round(v, 4) for k, v in r["phase_seconds"][-1].items()}
+               for r in res]),
+          wall_s=f"{wall:.1f}")
+    assert len(losses) == DIST_STEPS
+    assert all(math.isfinite(x) for x in losses), losses
+    assert all(r["losses"] == losses for r in res), "ranks disagree"
+    assert res[0]["warm_steps"] == 2
+    assert tuple(res[0]["dp_bucket"]) == DIST_BUCKET
+    for r in res:
+        for i, b in enumerate(r["bytes"]):
+            warm = i < 2
+            if r["model_rank"] == 0:
+                assert b["fw"] == (want["fw_warm"] if warm else want["fw"]), b
+            else:
+                assert b["bw"] == (want["fw_warm"] if warm else want["bw"]), b
+            assert b["dp"] == want["dp"], b
+        for rep in r["replicas"]:
+            if r["model_rank"] == DIST_STAGES - 1:
+                assert rep["m_in_equal"] is True, rep
+                assert rep["embed_equal"] is True, rep
+    assert launches == DIST_LAUNCHES, (launches, DIST_LAUNCHES)
+    return launches
+
+
+def dist_reference_check(torch):
+    """The 2 x 2 mesh at SMOKE width on the card (kernels) against the
+    CPU (plain versions), deterministic rounding, same seed."""
+    from repro_torch.launch import train as launch_train
+
+    losses = {}
+    for dev in ("cpu", "cuda"):
+        spec = _dist_spec(torch, [
+            "--device", dev, "--smoke", "--no-stochastic", "--steps", "3",
+            "--batch", "4", "--seq", "32", "--samples", "4"], layers=4)
+        res = launch_train.run_distributed(spec, timeout=DIST_TIMEOUT)
+        losses[dev] = res[0]["losses"]
+    rel = [abs(a - b) / abs(a) for a, b in zip(losses["cpu"],
+                                               losses["cuda"])]
+    phase("dist-reference-check", losses_cpu=json.dumps(losses["cpu"]),
+          losses_card=json.dumps(losses["cuda"]), rel_loss_diff=json.dumps(
+              rel), tolerance=f"step1 {FIRST_STEP_RTOL} later "
+                              f"{LATER_STEP_RTOL}")
+    assert rel[0] <= FIRST_STEP_RTOL, rel
+    assert max(rel[1:]) <= LATER_STEP_RTOL, rel
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     import torch
@@ -581,15 +801,23 @@ def main() -> int:
             assert train_launches[name] > 0, \
                 f"{name} was never launched on the training path"
     train_reference_check(torch)
+    dist_launches = dist_phase(torch)
+    for name in DIST_LAUNCHES:
+        assert dist_launches[name] > 0, \
+            f"{name} was never launched on the distributed path"
+    dist_reference_check(torch)
     # a row's launches are those of the path its time was taken at:
-    # serving for the activation codecs, training for the DP wire
+    # serving for the activation codecs, training for the DP wire, the
+    # distributed path for the ring's kernels
+    by_path = {"serve": serve_launches, "train": train_launches,
+               "dist": dist_launches}
     for name, row in kernels.items():
-        path = "train" if name in DP_KERNELS else "serve"
-        row["launches"] = {"serve": serve_launches,
-                           "train": train_launches}[path][name]
+        path = "dist" if name in INT_KERNELS else \
+            "train" if name in DP_KERNELS else "serve"
+        row["launches"] = by_path[path][name]
         row["launches_path"] = path
-        row["launches_by_path"] = {"serve": serve_launches[name],
-                                   "train": train_launches[name]}
+        row["launches_by_path"] = {p: by_path[p].get(name, 0)
+                                   for p in by_path}
     phase("done", seconds=f"{time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": list(kernels.values())}))
     print(smi)

@@ -8,8 +8,10 @@ inputs.  The codec kernels are CUDA C++ for Hopper (``sm_90a``) under
 
 Ported so far, for the dense family (``gpt2-xl-paper``): uniform-batch
 prefill + greedy decode with the delta-coded pipeline hop
-(`serving.delta`) and the quantized KV cache (`serving.kvcache`); and
-the single-process AQ-SGD trainer (`training.simulated`) with
+(`serving.delta`) and the quantized KV cache (`serving.kvcache`); the
+single-process AQ-SGD trainer (`training.simulated`) with
 error-feedback compressed data-parallel gradients
-(`core.grad_compress`).
+(`core.grad_compress`); and the distributed GPipe trainer
+(`training.pipeline`) over a process mesh (`launch.mesh`) with the
+compressed ring DP wire (`core.collectives`).
 """

@@ -1,11 +1,12 @@
 """Backend-selectable AQ-SGD boundary ops (port of `repro.core.boundary`
-without the ring collective's ops).
+without the legacy `encode_with_scale`/`decode_codes` pair).
 
 Every codec crossing goes through these ops: the activation boundary
 (`encode_delta`/`decode_accumulate`/`encode`/`decode`/`roundtrip`) and
 the data-parallel gradient wire (`encode_codes_with_scale`, the sender
-against a shared row scale, and `decode_sum_mean`, the receiver).  Each
-runs on two bit-identical backends:
+against a shared row scale, `decode_sum_mean`, the receiver, and the
+compressed ring's integer steps `accumulate_codes`, `pack_sums` and
+`unpack_sums`).  Each runs on two bit-identical backends:
 
 * ``"cuda"``      — the hand-written kernels (`repro_torch.kernels.ops`):
   one device pass per side;
@@ -156,3 +157,36 @@ def decode_sum_mean(total, scale, *, bits: int, n: int,
     if backend == "cuda":
         return K.dequant_sum_mean(total, scale, bits=bits, n=n)
     return Q.dequant_sum_mean(total, scale, bits, n)
+
+
+def accumulate_codes(packed, acc, *, bits: int, backend: str = "auto"):
+    """Ring accumulate step: acc + unpack(packed) in int32, one pass.
+    int32 adds are exact in any order, which keeps the ring
+    bit-identical to an all-reduce of the codes."""
+    backend = resolve_backend(backend, acc, bits)
+    if backend == "cuda":
+        return K.accumulate_codes(packed, acc, bits=bits)
+    d = acc.shape[-1]
+    codes = Q.unpack_codes(packed, bits, d) if bits in PACKABLE_BITS \
+        else packed
+    return acc + codes.to(torch.int32)
+
+
+def pack_sums(total, *, bits: int, n: int, backend: str = "auto"):
+    """Pack int32 code sums over n workers at `Q.sum_wire_bits(bits, n)`
+    bits: the ring's all-gather payload (b + ceil(log2 n) bits is the
+    price of exactness; re-quantizing the mean would not stay
+    bit-identical to the all-reduce)."""
+    backend = resolve_backend(backend, total, bits)
+    if backend == "cuda":
+        return K.pack_sums(total, bits=bits, n=n)
+    return Q.pack_sums(total, bits, n)
+
+
+def unpack_sums(packed, *, bits: int, n: int, d: int,
+                backend: str = "auto"):
+    """Inverse of `pack_sums`: u8 payload -> (..., d) int32 code sums."""
+    backend = resolve_backend(backend, packed, bits)
+    if backend == "cuda":
+        return K.unpack_sums(packed, bits=bits, n=n)[..., :d]
+    return Q.unpack_sums(packed, bits, n, d)

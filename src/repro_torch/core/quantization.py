@@ -206,3 +206,32 @@ def dequant_sum_mean(total: torch.Tensor, scale: torch.Tensor, bits: int,
     ``2T - n*lv`` is integer-exact in f32."""
     p = (total.float() * 2.0 - float(n * levels(bits))) * scale
     return p * sum_mean_factor(bits, n)
+
+
+def pack_sums(total: torch.Tensor, bits: int, n: int) -> torch.Tensor:
+    """int32 code sums over n workers -> dense u8 payload at
+    `sum_wire_bits(bits, n)` bits per sum along the last axis: the
+    ring's all-gather hop.  Widths up to 8 bits reuse the code packer
+    (a sum is below ``2**sw`` by construction); 16 and 32 bits split
+    each sum into little-endian bytes.  The arithmetic is int64, since
+    torch's ``uint32`` supports few operations."""
+    sw = sum_wire_bits(bits, n)
+    if sw <= 8:
+        return pack_codes(total.to(torch.uint8), sw)
+    shifts = torch.arange(sw // 8, dtype=torch.int64,
+                          device=total.device) * 8
+    t = total.to(torch.int64) & 0xFFFFFFFF
+    b = (t[..., None] >> shifts) & 0xFF
+    return b.reshape(*t.shape[:-1], -1).to(torch.uint8)
+
+
+def unpack_sums(packed: torch.Tensor, bits: int, n: int,
+                d: int) -> torch.Tensor:
+    """Inverse of `pack_sums`; d = original last-axis length.  int32."""
+    sw = sum_wire_bits(bits, n)
+    if sw <= 8:
+        return unpack_codes(packed, sw, d).to(torch.int32)
+    nb = sw // 8
+    shifts = torch.arange(nb, dtype=torch.int64, device=packed.device) * 8
+    b = packed.to(torch.int64).reshape(*packed.shape[:-1], -1, nb)
+    return (b << shifts).sum(dim=-1)[..., :d].to(torch.int32)

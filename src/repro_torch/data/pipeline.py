@@ -111,3 +111,30 @@ class Dataset:
                 done += 1
                 if done >= num_steps:
                     return
+
+
+def microbatch_major(batch: dict, microbatches: int) -> dict:
+    """A (B, ...) batch as the distributed trainer's (M, B/M, ...), the
+    layout of the JAX launcher's distributed path."""
+    out = {}
+    for k, v in batch.items():
+        b = v.shape[0]
+        if b % microbatches:
+            raise ValueError(f"batch {b} does not split into "
+                             f"{microbatches} microbatches")
+        out[k] = v.reshape(microbatches, b // microbatches, *v.shape[1:])
+    return out
+
+
+def data_shard(batch_mm: dict, data_par: int, data_rank: int) -> dict:
+    """Data rank ``data_rank``'s columns of a microbatch-major batch
+    (M, D*mb, ...): the contiguous block [d*mb, (d+1)*mb) of dim 1, as
+    the JAX package shards that dim over its data axis."""
+    out = {}
+    for k, v in batch_mm.items():
+        if v.shape[1] % data_par:
+            raise ValueError(f"microbatch {v.shape[1]} does not split "
+                             f"over {data_par} data ranks")
+        mb = v.shape[1] // data_par
+        out[k] = v[:, data_rank * mb:(data_rank + 1) * mb]
+    return out

@@ -4,7 +4,10 @@
 C interface (no PyTorch headers, so a build takes seconds), under
 ``build/repro_torch_kernels/`` at the repository root.  The library's
 name carries a hash of its source and flags, so an edited source
-rebuilds and an unchanged one loads the library already built.
+rebuilds and an unchanged one loads the library already built.  A
+build holds an exclusive lock on ``build/repro_torch_kernels/lock``,
+so processes started together (the ranks of a distributed run) compile
+each library once: the first builds it, the others wait and load it.
 
 Flags: ``-gencode arch=compute_90a,code=sm_90a -std=c++17 -O3``, and
 deliberately no ``--use_fast_math`` or ``-prec-div=false``: the kernels
@@ -13,6 +16,7 @@ promise bit parity with the JAX package and rely on IEEE division.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -42,6 +46,9 @@ SIGNATURES = {
         "rt_quantize_codes_scaled": (_P, _P, _P, _P, _P, _I64, _I64, _I, _I,
                                      _P),
         "rt_dequant_sum_mean": (_P, _P, _P, _I64, _I64, _F, _F, _I, _P),
+        "rt_unpack_accumulate": (_P, _P, _P, _I64, _I, _I, _P),
+        "rt_pack_sums": (_P, _P, _I64, _I, _I, _P),
+        "rt_unpack_sums": (_P, _P, _I64, _I, _I, _P),
     },
 }
 
@@ -71,20 +78,25 @@ def library_path(name: str) -> Path:
 
 
 def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless its library is already built.
-    The compiler writes a private file that is renamed into place, so
-    concurrent builders never load a half-written library."""
+    """Compile ``csrc/<name>.cu`` unless its library is already built,
+    under the build lock.  The compiler writes a private file that is
+    renamed into place, so no process loads a half-written library."""
     out = library_path(name)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}) for {name}.cu:"
-                           f"\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)
+    with open(BUILD_DIR / "lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)    # released when the file closes
+        if out.exists():                    # built while this one waited
+            return out
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}) for "
+                               f"{name}.cu:\n{proc.stdout}\n{proc.stderr}")
+        os.replace(tmp, out)
     return out
 
 

@@ -1,15 +1,22 @@
 // AQ-SGD boundary codec kernels for Hopper (sm_90a).
 //
-// Replaces six Pallas TPU kernels of src/repro/kernels/quant_pack.py:
+// Replaces nine Pallas TPU kernels of src/repro/kernels/quant_pack.py:
 //   delta_quantize_pack        (quant_pack.py:190, _dqp_kernel)  -> encode_rows<BITS, true>
 //   dequant_unpack_accumulate  (quant_pack.py:239, _dua_kernel)  -> decode_flat<BITS, true, float>
 //   quantize_pack              (quant_pack.py:278, _qp_kernel)   -> encode_rows<BITS, false>
 //   unpack_dequant             (quant_pack.py:320, _ud_kernel)   -> decode_flat<BITS, false, OutT>
 //   dequant_sum_mean           (quant_pack.py:434, _dsm_kernel)  -> sum_mean_flat
 //   quantize_codes_scaled      (quant_pack.py:480, _qcs_kernel)  -> codes_scaled_flat<BITS, PACK>
-// The first four are the activation boundary's codecs; the last two are
+//   unpack_accumulate          (quant_pack.py:528, _ua_kernel)   -> unpack_accumulate_flat<BITS>
+//   pack_sums                  (quant_pack.py:579, _ps_kernel)   -> pack_sums_flat<SW>
+//   unpack_sums                (quant_pack.py:620, _us_kernel)   -> unpack_sums_flat<SW>
+// The first four are the activation boundary's codecs; the next two are
 // the data-parallel gradient wire's sender (codes against a shared,
-// given row scale) and receiver (mean from an int32 code sum).
+// given row scale) and receiver (mean from an int32 code sum); the last
+// three are the compressed ring's integer steps: the reduce-scatter's
+// accumulate of an arriving packed segment into int32 code sums, the
+// all-gather's packing of those sums at SW = sum_wire_bits(bits, n)
+// bits (2, 4, 8, 16 or 32), and its inverse.
 //
 // What bounds them: bytes.  Each is a row codec doing ~10 float
 // operations per element, far below the ~20 operations per byte the
@@ -19,7 +26,9 @@
 // decode hop (R=8, d=1600) -- a launch-latency-bound call -- about
 // 3 us for a KV-store read at batch 8, cache 160 (R=32000, d=64, ~10 MB),
 // and about 1.1-1.6 ms for the gradient wire over a 449M-parameter
-// bucket (R=877132, d=512: 8-12 bytes an element).
+// bucket (R=877132, d=512: 8-12 bytes an element).  The ring's three
+// kernels do no float work at all (shifts, masks, one integer add), so
+// bytes bound them too: 8.5, 5 and 5 bytes an element at 4 bits, n = 2.
 //
 // Design: the TPU kernels hold a 128-row tile in VMEM and walk a
 // sequential grid.  Here there is no tile and no order between blocks:
@@ -35,6 +44,15 @@
 //     reduction either and share that flat design.
 //   * loads and stores are vectorised (float4) where d % 4 == 0 and the
 //     pointers are 16-byte aligned; the wrapper decides and passes `vec`.
+//   * the ring's three kernels have no scale and no reduction, and no
+//     packed byte straddles two rows (the wrappers check d % (8/SW)),
+//     so they are flat over the whole (rows, d) array: a grid-stride
+//     loop over groups of 4 elements, one int4 of codes or sums against
+//     4*SW/8 packed bytes (1, 2, 4, 8 or 16) moved as one word.  At SW
+//     16 and 32 the little-endian byte split of the JAX package is the
+//     same shift-and-or, in a 64-bit word (SW 16) or the int4 itself
+//     (SW 32).  Without `vec` an item is one element (one sum's bytes,
+//     or one output byte when packing).
 //
 // Bit parity with the JAX package (jitted jnp and the Pallas kernels):
 //   * codes use rintf (round half to even, as jnp.round), never roundf;
@@ -348,6 +366,130 @@ sum_mean_flat(const int32_t* __restrict__ total,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The compressed ring: accumulate packed codes into int32 sums; pack and
+// unpack the sums at SW bits
+// ---------------------------------------------------------------------------
+
+// the SW/2 bytes that hold 4 values of SW bits (SW <= 16)
+template <int NB> struct Word;
+template <> struct Word<1> { using T = uint8_t; };
+template <> struct Word<2> { using T = uint16_t; };
+template <> struct Word<4> { using T = uint32_t; };
+template <> struct Word<8> { using T = unsigned long long; };
+
+// values 4g..4g+3 of a packed SW-bit stream, as an int4
+template <int SW>
+__device__ __forceinline__ int4 unpack4(const uint8_t* __restrict__ p,
+                                        int64_t g) {
+  if constexpr (SW == 32) {
+    return reinterpret_cast<const int4*>(p)[g];
+  } else {
+    constexpr unsigned long long mask = (1ull << SW) - 1ull;
+    using W = typename Word<SW / 2>::T;
+    const unsigned long long w = reinterpret_cast<const W*>(p)[g];
+    return make_int4(int(w & mask), int((w >> SW) & mask),
+                     int((w >> (2 * SW)) & mask), int((w >> (3 * SW)) & mask));
+  }
+}
+
+// value i of a packed SW-bit stream
+template <int SW>
+__device__ __forceinline__ int unpack1(const uint8_t* __restrict__ p,
+                                       int64_t i) {
+  if constexpr (SW <= 8) {
+    constexpr int k = 8 / SW;
+    return int((uint32_t(p[i / k]) >> ((i % k) * SW)) & ((1u << SW) - 1u));
+  } else {
+    constexpr int nb = SW / 8;
+    uint32_t v = 0;
+#pragma unroll
+    for (int b = 0; b < nb; ++b) v |= uint32_t(p[i * nb + b]) << (8 * b);
+    return int(v);
+  }
+}
+
+// out = acc + unpack(packed): n int32 elements, BITS-bit codes
+template <int BITS>
+__global__ void __launch_bounds__(256)
+unpack_accumulate_flat(const uint8_t* __restrict__ packed,
+                       const int32_t* __restrict__ acc,
+                       int32_t* __restrict__ out, int64_t n, int vec) {
+  const int64_t stride = int64_t(gridDim.x) * blockDim.x;
+  const int64_t first = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (vec) {
+    for (int64_t g = first; g < n / 4; g += stride) {
+      const int4 c = unpack4<BITS>(packed, g);
+      const int4 a = reinterpret_cast<const int4*>(acc)[g];
+      reinterpret_cast<int4*>(out)[g] =
+          make_int4(a.x + c.x, a.y + c.y, a.z + c.z, a.w + c.w);
+    }
+  } else {
+    for (int64_t i = first; i < n; i += stride)
+      out[i] = acc[i] + unpack1<BITS>(packed, i);
+  }
+}
+
+// n int32 sums -> n*SW/8 packed bytes, little-endian within each word
+template <int SW>
+__global__ void __launch_bounds__(256)
+pack_sums_flat(const int32_t* __restrict__ total, uint8_t* __restrict__ out,
+               int64_t n, int vec) {
+  const int64_t stride = int64_t(gridDim.x) * blockDim.x;
+  const int64_t first = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (vec) {
+    for (int64_t g = first; g < n / 4; g += stride) {
+      const int4 t = reinterpret_cast<const int4*>(total)[g];
+      if constexpr (SW == 32) {
+        reinterpret_cast<int4*>(out)[g] = t;
+      } else {
+        constexpr unsigned long long mask = (1ull << SW) - 1ull;
+        const unsigned long long w =
+            (static_cast<unsigned long long>(uint32_t(t.x)) & mask) |
+            ((static_cast<unsigned long long>(uint32_t(t.y)) & mask) << SW) |
+            ((static_cast<unsigned long long>(uint32_t(t.z)) & mask)
+             << (2 * SW)) |
+            ((static_cast<unsigned long long>(uint32_t(t.w)) & mask)
+             << (3 * SW));
+        using W = typename Word<SW / 2>::T;
+        reinterpret_cast<W*>(out)[g] = static_cast<W>(w);
+      }
+    }
+  } else {
+    const int64_t nbytes = n * SW / 8;
+    for (int64_t j = first; j < nbytes; j += stride) {  // one output byte
+      uint32_t byte = 0;
+      if constexpr (SW <= 8) {
+        constexpr int k = 8 / SW;
+#pragma unroll
+        for (int t = 0; t < k; ++t)
+          byte |= (uint32_t(total[j * k + t]) & ((1u << SW) - 1u))
+                  << (t * SW);
+      } else {
+        constexpr int nb = SW / 8;
+        byte = (uint32_t(total[j / nb]) >> (8 * (j % nb))) & 0xFFu;
+      }
+      out[j] = static_cast<uint8_t>(byte);
+    }
+  }
+}
+
+// n*SW/8 packed bytes -> n int32 sums
+template <int SW>
+__global__ void __launch_bounds__(256)
+unpack_sums_flat(const uint8_t* __restrict__ packed,
+                 int32_t* __restrict__ out, int64_t n, int vec) {
+  const int64_t stride = int64_t(gridDim.x) * blockDim.x;
+  const int64_t first = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (vec) {
+    for (int64_t g = first; g < n / 4; g += stride)
+      reinterpret_cast<int4*>(out)[g] = unpack4<SW>(packed, g);
+  } else {
+    for (int64_t i = first; i < n; i += stride)
+      out[i] = unpack1<SW>(packed, i);
+  }
+}
+
 int encode_blocks(int64_t rows) {
   return int((rows + kRowsPerBlock - 1) / kRowsPerBlock);
 }
@@ -396,6 +538,47 @@ int launch_codes_scaled(const float* x, const float* s, const float* u,
     case 2: codes_scaled_flat<2, PACK><<<grid, block, 0, st>>>(x, s, u, codes, packed, rows, d, vec); break;
     case 4: codes_scaled_flat<4, PACK><<<grid, block, 0, st>>>(x, s, u, codes, packed, rows, d, vec); break;
     case 8: codes_scaled_flat<8, PACK><<<grid, block, 0, st>>>(x, s, u, codes, packed, rows, d, vec); break;
+    default: return int(cudaErrorInvalidValue);
+  }
+  return int(cudaGetLastError());
+}
+
+int launch_unpack_accumulate(const uint8_t* packed, const int32_t* acc,
+                             int32_t* out, int64_t n, int bits, int vec,
+                             cudaStream_t st) {
+  const dim3 grid(decode_blocks(vec ? n / 4 : n)), block(256);
+  switch (bits) {
+    case 2: unpack_accumulate_flat<2><<<grid, block, 0, st>>>(packed, acc, out, n, vec); break;
+    case 4: unpack_accumulate_flat<4><<<grid, block, 0, st>>>(packed, acc, out, n, vec); break;
+    case 8: unpack_accumulate_flat<8><<<grid, block, 0, st>>>(packed, acc, out, n, vec); break;
+    default: return int(cudaErrorInvalidValue);
+  }
+  return int(cudaGetLastError());
+}
+
+int launch_pack_sums(const int32_t* total, uint8_t* out, int64_t n, int sw,
+                     int vec, cudaStream_t st) {
+  const dim3 grid(decode_blocks(vec ? n / 4 : n * sw / 8)), block(256);
+  switch (sw) {
+    case 2: pack_sums_flat<2><<<grid, block, 0, st>>>(total, out, n, vec); break;
+    case 4: pack_sums_flat<4><<<grid, block, 0, st>>>(total, out, n, vec); break;
+    case 8: pack_sums_flat<8><<<grid, block, 0, st>>>(total, out, n, vec); break;
+    case 16: pack_sums_flat<16><<<grid, block, 0, st>>>(total, out, n, vec); break;
+    case 32: pack_sums_flat<32><<<grid, block, 0, st>>>(total, out, n, vec); break;
+    default: return int(cudaErrorInvalidValue);
+  }
+  return int(cudaGetLastError());
+}
+
+int launch_unpack_sums(const uint8_t* packed, int32_t* out, int64_t n,
+                       int sw, int vec, cudaStream_t st) {
+  const dim3 grid(decode_blocks(vec ? n / 4 : n)), block(256);
+  switch (sw) {
+    case 2: unpack_sums_flat<2><<<grid, block, 0, st>>>(packed, out, n, vec); break;
+    case 4: unpack_sums_flat<4><<<grid, block, 0, st>>>(packed, out, n, vec); break;
+    case 8: unpack_sums_flat<8><<<grid, block, 0, st>>>(packed, out, n, vec); break;
+    case 16: unpack_sums_flat<16><<<grid, block, 0, st>>>(packed, out, n, vec); break;
+    case 32: unpack_sums_flat<32><<<grid, block, 0, st>>>(packed, out, n, vec); break;
     default: return int(cudaErrorInvalidValue);
   }
   return int(cudaGetLastError());
@@ -486,6 +669,31 @@ int rt_dequant_sum_mean(const void* total, const void* scale, void* out,
       static_cast<const int32_t*>(total), static_cast<const float*>(scale),
       static_cast<float*>(out), rows, d, n_lv, c, vec);
   return int(cudaGetLastError());
+}
+
+// packed (n*bits/8,) u8 + acc (n,) i32 -> out (n,) i32 = acc + unpack
+int rt_unpack_accumulate(const void* packed, const void* acc, void* out,
+                         long long n, int bits, int vec, void* stream) {
+  return launch_unpack_accumulate(
+      static_cast<const uint8_t*>(packed), static_cast<const int32_t*>(acc),
+      static_cast<int32_t*>(out), n, bits, vec,
+      static_cast<cudaStream_t>(stream));
+}
+
+// total (n,) i32 sums -> out (n*sw/8,) u8, sw in {2, 4, 8, 16, 32}
+int rt_pack_sums(const void* total, void* out, long long n, int sw, int vec,
+                 void* stream) {
+  return launch_pack_sums(static_cast<const int32_t*>(total),
+                          static_cast<uint8_t*>(out), n, sw, vec,
+                          static_cast<cudaStream_t>(stream));
+}
+
+// packed (n*sw/8,) u8 -> out (n,) i32 sums
+int rt_unpack_sums(const void* packed, void* out, long long n, int sw,
+                   int vec, void* stream) {
+  return launch_unpack_sums(static_cast<const uint8_t*>(packed),
+                            static_cast<int32_t*>(out), n, sw, vec,
+                            static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -75,3 +75,25 @@ def dequant_sum_mean(total, scale, *, bits: int, n: int):
     out = _qp.dequant_sum_mean(_rows(total, shape[-1]), _rows(scale, 1),
                                bits=bits, n=n)
     return out.reshape(shape)
+
+
+def accumulate_codes(packed, acc, *, bits: int):
+    """Ring accumulate for any (..., d): acc + unpack(packed), int32."""
+    shape = acc.shape
+    out = _qp.unpack_accumulate(_rows(packed, packed.shape[-1]),
+                                _rows(acc, shape[-1]), bits=bits)
+    return out.reshape(shape)
+
+
+def pack_sums(total, *, bits: int, n: int):
+    """int32 code sums (..., d) -> u8 payload (..., sum_packed_width)."""
+    shape = total.shape
+    out = _qp.pack_sums(_rows(total, shape[-1]), bits=bits, n=n)
+    return out.reshape(*shape[:-1], out.shape[-1])
+
+
+def unpack_sums(packed, *, bits: int, n: int):
+    """Inverse of `pack_sums` over the full packed width."""
+    shape = packed.shape
+    out = _qp.unpack_sums(_rows(packed, shape[-1]), bits=bits, n=n)
+    return out.reshape(*shape[:-1], out.shape[-1])

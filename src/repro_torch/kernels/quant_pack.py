@@ -10,7 +10,11 @@ One wrapper per kernel, on row-major ``(R, d)`` tensors:
 * `quantize_codes_scaled`     — data-parallel gradient sender: int32
   codes against a given (shared) row scale, optionally packed too;
 * `dequant_sum_mean`          — its receiver: the mean over n workers
-  from their int32 code sum.
+  from their int32 code sum;
+* `unpack_accumulate`         — the compressed ring's reduce-scatter
+  step: an arriving packed segment added into int32 code sums;
+* `pack_sums` / `unpack_sums` — its all-gather payload: int32 code
+  sums packed at ``sum_wire_bits(bits, n)`` bits, and back.
 
 A tensor on the CPU goes to the plain version in `repro_torch.kernels.ref`.
 A CUDA tensor goes to the kernel, launched on the current stream, or
@@ -33,7 +37,8 @@ KERNEL_BITS = (2, 4, 8)
 # kernel launches per wrapper since the last `reset_launches`
 LAUNCHES = {"delta_quantize_pack": 0, "dequant_unpack_accumulate": 0,
             "quantize_pack": 0, "unpack_dequant": 0,
-            "quantize_codes_scaled": 0, "dequant_sum_mean": 0}
+            "quantize_codes_scaled": 0, "dequant_sum_mean": 0,
+            "unpack_accumulate": 0, "pack_sums": 0, "unpack_sums": 0}
 
 
 def reset_launches() -> None:
@@ -74,8 +79,8 @@ def _check_bits(bits: int, d: int):
 
 
 def _vec(d: int, *ts) -> int:
-    """1 when the float4 paths apply: d % 4 == 0 and 16-byte aligned
-    data."""
+    """1 when the 4-element (float4 / int4) paths apply: d % 4 == 0 and
+    16-byte aligned data."""
     return int(d % 4 == 0 and all(t.data_ptr() % 16 == 0
                                   for t in ts if t is not None))
 
@@ -223,4 +228,77 @@ def dequant_sum_mean(total: torch.Tensor, scale: torch.Tensor, *,
                 scale.data_ptr(), out.data_ptr(), r, d,
                 float(n * Q.levels(bits)), Q.sum_mean_factor(bits, n),
                 _vec(d, total, out))
+    return out
+
+
+def _check_sum_width(bits: int, n: int, d: int) -> int:
+    """The sums' wire width, checking bits and that no packed byte
+    straddles two rows."""
+    if bits not in KERNEL_BITS:
+        raise ValueError(f"the kernels implement bits {KERNEL_BITS}, "
+                         f"got {bits}")
+    if not isinstance(n, int) or n < 1:
+        raise ValueError(f"n must be a positive int, got {n!r}")
+    sw = Q.sum_wire_bits(bits, n)
+    if sw <= 8 and d % (8 // sw):
+        raise ValueError(f"d={d} is not a multiple of {8 // sw} sums per "
+                         f"byte at {sw} bits")
+    return sw
+
+
+def unpack_accumulate(packed: torch.Tensor, acc: torch.Tensor, *,
+                      bits: int) -> torch.Tensor:
+    """packed (R, pw) u8 codes, acc (R, pw * 8/bits) int32.  Returns
+    ``acc + unpack(packed)`` (R, d) int32, a new tensor."""
+    if not _on_cuda(packed, acc):
+        return ref.unpack_accumulate_ref(packed, acc, bits)
+    r, pw = packed.shape
+    _check_bits(bits, 8 // bits)
+    d = pw * (8 // bits)
+    _check(packed, "packed", torch.uint8, (r, pw))
+    _check(acc, "acc", torch.int32, (r, d))
+    out = torch.empty_like(acc)
+    if r * d:
+        _launch("unpack_accumulate", "rt_unpack_accumulate",
+                packed.data_ptr(), acc.data_ptr(), out.data_ptr(), r * d,
+                bits, _vec(r * d, packed, acc, out))
+    return out
+
+
+def pack_sums(total: torch.Tensor, *, bits: int, n: int) -> torch.Tensor:
+    """total (R, d) int32 code sums over n workers, each in ``[0,
+    2**sw)`` with sw = ``sum_wire_bits(bits, n)``.  Returns the u8
+    payload (R, ``sum_packed_width(d, bits, n)``)."""
+    if not _on_cuda(total):
+        return ref.pack_sums_ref(total, bits, n)
+    r, d = total.shape
+    sw = _check_sum_width(bits, n, d)
+    _check(total, "total", torch.int32, (r, d))
+    out = torch.empty((r, Q.sum_packed_width(d, bits, n)), dtype=torch.uint8,
+                      device=total.device)
+    if r * d:
+        _launch("pack_sums", "rt_pack_sums", total.data_ptr(),
+                out.data_ptr(), r * d, sw, _vec(r * d, total, out))
+    return out
+
+
+def unpack_sums(packed: torch.Tensor, *, bits: int, n: int) -> torch.Tensor:
+    """Inverse of `pack_sums`: packed (R, pw) u8 -> (R, d) int32 sums
+    over the full packed width."""
+    if not _on_cuda(packed):
+        return ref.unpack_sums_ref(packed, bits, n)
+    r, pw = packed.shape
+    if bits not in KERNEL_BITS:
+        raise ValueError(f"the kernels implement bits {KERNEL_BITS}, "
+                         f"got {bits}")
+    sw = Q.sum_wire_bits(bits, n)
+    if sw > 8 and pw % (sw // 8):
+        raise ValueError(f"packed width {pw} is not a multiple of "
+                         f"{sw // 8} bytes a sum at {sw} bits")
+    d = pw * (8 // sw) if sw <= 8 else pw // (sw // 8)
+    _check(packed, "packed", torch.uint8, (r, pw))
+    out = torch.empty((r, d), dtype=torch.int32, device=packed.device)
+    if r * d:
+        _launch("unpack_sums", "rt_unpack_sums", packed.data_ptr(),
+                out.data_ptr(), r * d, sw, _vec(r * d, packed, out))
     return out

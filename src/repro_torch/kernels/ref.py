@@ -1,7 +1,8 @@
 """Plain PyTorch versions of the CUDA codec kernels.
 
 Each function computes exactly what its kernel in ``csrc/quant_pack.cu``
-computes, bit for bit, and equals the jitted `repro.kernels.ref` oracle
+computes, bit for bit (the ring's sum packers on their domain: sums in
+``[0, 2**sum_wire_bits)``), and equals the jitted `repro.kernels.ref` oracle
 and the Pallas kernel of the same name.  The wrappers in
 `repro_torch.kernels.quant_pack` run these for CPU tensors; the CPU
 tests hold them against JAX and ``chip_smoke.py`` holds the kernels
@@ -70,3 +71,26 @@ def dequant_sum_mean_ref(total: torch.Tensor, scale: torch.Tensor, bits: int,
     """Gradient-wire receiver: the mean over n workers from their int32
     code sum, ``((2T - n*lv) * s) * f32(f32(1/lv) * f32(1/n))``."""
     return Q.dequant_sum_mean(total, scale, bits, n)
+
+
+def unpack_accumulate_ref(packed: torch.Tensor, acc: torch.Tensor,
+                          bits: int) -> torch.Tensor:
+    """Ring accumulate: ``acc + unpack(packed)`` in int32, over the full
+    packed width."""
+    d = packed.shape[-1] * Q.codes_per_byte(bits)
+    return acc.to(torch.int32) + Q.unpack_codes(packed, bits, d).to(
+        torch.int32)
+
+
+def pack_sums_ref(total: torch.Tensor, bits: int, n: int) -> torch.Tensor:
+    """Ring all-gather payload: int32 code sums over n workers packed at
+    ``sum_wire_bits(bits, n)`` bits (sums in ``[0, 2**sw)``)."""
+    return Q.pack_sums(total, bits, n)
+
+
+def unpack_sums_ref(packed: torch.Tensor, bits: int, n: int) -> torch.Tensor:
+    """Inverse of `pack_sums_ref` over the full packed width."""
+    sw = Q.sum_wire_bits(bits, n)
+    pw = packed.shape[-1]
+    d = pw * (8 // sw) if sw <= 8 else pw // (sw // 8)
+    return Q.unpack_sums(packed, bits, n, d)

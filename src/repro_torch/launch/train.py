@@ -1,5 +1,6 @@
-"""Training launcher: the single-host simulated trainer (port of the
-single-host path of `repro.launch.train`).
+"""Training launcher (port of `repro.launch.train`): the single-host
+simulated trainer, and with ``--distributed`` the multi-process GPipe
+pipeline over a ``(--data-par, --stages)`` process mesh.
 
 The flags and their defaults are the JAX package's; all communication
 knobs build one `CommConfig` (or pass it whole as JSON with
@@ -7,11 +8,17 @@ knobs build one `CommConfig` (or pass it whole as JSON with
 CPU; with no card and no such request it raises.  The weights are a
 random init from ``--seed``.
 
+``--distributed`` spawns one process per rank (`repro_torch.launch.mesh`,
+gloo; on one card every rank shares it), builds the CUDA kernels once
+before spawning, runs the warm-up step for the first
+``--warmup-epochs`` epochs and the compressed step after, and stops
+every rank if the run outlasts ``JOIN_TIMEOUT`` seconds.
+
 Not ported yet, and refused with the ROADMAP item that ports them:
-``--distributed`` (the multi-process pipeline, queue A slice 4),
 ``--ckpt-dir``/``--resume``/``--save-every``/``--checkpoint`` and
 ``--fault``/``--kill-at`` (checkpoints, fault injection and recovery,
-queue A item 15).
+queue A item 15); as in the JAX package, ``--fault`` and ``--kill-at``
+target the single-host trainer only.
 
 Examples:
   python -m repro_torch.launch.train --device cpu --smoke --stages 2 \\
@@ -19,26 +26,36 @@ Examples:
   python -m repro_torch.launch.train --arch gpt2-xl-paper --stages 4 \\
       --mode aqsgd --fw-bits 4 --bw-bits 8 --dp-grad-bits 4 \\
       --dp-workers 2
+  python -m repro_torch.launch.train --device cpu --smoke --distributed \\
+      --data-par 2 --stages 2 --dp-grad-bits 4 --steps 4 --seq 16 \\
+      --samples 8 --batch 4
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import os
 
 import numpy as np
+import torch
 
 from repro_torch.comm import config as comm_cli
 from repro_torch.comm import wires as W
 from repro_torch.configs.base import ARCHS, get_config
 from repro_torch.data.pipeline import Dataset, DatasetConfig
+from repro_torch.kernels import build
+from repro_torch.launch.mesh import spawn
 from repro_torch.launch.serve import resolve_device
 from repro_torch.optim.adamw import AdamWConfig
+from repro_torch.training import pipeline as PL
 from repro_torch.training import simulated as sim
+
+# seconds a --distributed run may take before every rank is stopped
+JOIN_TIMEOUT = 3600.0
 
 # flags of the JAX launcher the port refuses, and the ROADMAP item
 # that ports them
 NOT_PORTED = {
-    "distributed": "the multi-process pipeline (ROADMAP queue A, "
-                   "slice 4, item 13)",
     "ckpt_dir": "checkpoints (ROADMAP queue A, item 15)",
     "resume": "checkpoints (ROADMAP queue A, item 15)",
     "save_every": "checkpoints (ROADMAP queue A, item 15)",
@@ -74,11 +91,12 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--samples", type=int, default=64)
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--warmup-epochs", type=int, default=1,
-                    help="(multi-process pipeline only)")
+                    help="epochs of the uncompressed warm-up step "
+                         "(--distributed only)")
     ap.add_argument("--data-par", type=int, default=2,
-                    help="(multi-process pipeline only)")
+                    help="data-parallel ranks (--distributed only)")
     ap.add_argument("--microbatches", type=int, default=2,
-                    help="(multi-process pipeline only)")
+                    help="GPipe microbatches (--distributed only)")
     ap.add_argument("--corpus", default="",
                     help="optional text file to train on (byte-level)")
     ap.add_argument("--seed", type=int, default=0,
@@ -87,7 +105,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu runs the plain "
                          "PyTorch codec)")
-    ap.add_argument("--distributed", action="store_true")
+    ap.add_argument("--distributed", action="store_true",
+                    help="the multi-process GPipe pipeline over a "
+                         "(--data-par, --stages) process mesh")
     ap.add_argument("--checkpoint", default="")
     ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--save-every", type=int, default=0)
@@ -97,20 +117,76 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
+def optimizer_config(args) -> AdamWConfig:
+    """AdamW from the flags: linear warm-up over the first 5% of the
+    steps (at least one), then linear decay to 0 at the last step."""
+    return AdamWConfig(lr=args.lr, warmup_steps=max(args.steps // 20, 1),
+                       total_steps=args.steps)
+
+
+def distributed_spec(args, dev: torch.device) -> dict:
+    """The plain-data description of a --distributed run that every
+    rank receives (`repro_torch.training.pipeline.train_rank`)."""
+    return {
+        "arch": args.arch, "smoke": args.smoke, "num_layers": 0,
+        "comm": comm_cli.from_args(args).to_json(), "device": dev.type,
+        "data_par": args.data_par, "stages": args.stages,
+        "microbatches": args.microbatches, "steps": args.steps,
+        "batch": args.batch, "warmup_epochs": args.warmup_epochs,
+        "seed": args.seed,
+        "optimizer": dataclasses.asdict(optimizer_config(args)),
+        "dataset": {"num_samples": args.samples, "seq_len": args.seq,
+                    "vocab_size": get_config(args.arch,
+                                             smoke=args.smoke).vocab_size,
+                    "seed": 0,
+                    "kind": "textfile" if args.corpus else "synthetic-lm",
+                    "path": args.corpus or None}}
+
+
+def run_distributed(spec: dict, *, timeout: float = 3600.0) -> list:
+    """Spawn the ``data_par * stages`` ranks of a distributed run and
+    return their results by rank.  On CUDA the kernels are built here
+    first, so the ranks only load them."""
+    world = spec["data_par"] * spec["stages"]
+    if spec["device"] == "cuda":
+        build.build("quant_pack")
+        threads = max(1, (os.cpu_count() or 1) // world)
+    else:
+        threads = 1
+    return spawn(PL.train_rank, world, (spec,), timeout=timeout,
+                 threads=threads)
+
+
 def main(argv=None):
     """Parse the flags, train, print ``step N loss X`` every 10 steps and
-    ``final loss`` (the mean of the last 5).  Returns (state, losses)."""
+    ``final loss`` (the mean of the last 5).  Returns (state, losses), or
+    with --distributed (the ranks' results, losses)."""
     ap = build_parser()
     args = ap.parse_args(argv)
     if args.list_wires:
         print_wires()
         return None
+    for flag in ("fault", "kill_at"):
+        value = getattr(args, flag)
+        if args.distributed and \
+                ((value is not None) if flag == "kill_at" else bool(value)):
+            ap.error(f"--{flag.replace('_', '-')} targets the single-host "
+                     f"simulated trainer, not the multi-process pipeline")
     for flag, what in NOT_PORTED.items():
         value = getattr(args, flag)
         if (value is not None) if flag == "kill_at" else bool(value):
             ap.error(f"--{flag.replace('_', '-')}: {what} is not ported "
                      f"yet")
     dev = resolve_device(args.device)
+    if args.distributed:
+        results = run_distributed(distributed_spec(args, dev),
+                                  timeout=JOIN_TIMEOUT)
+        losses = results[0]["losses"]
+        for i, loss in enumerate(losses):
+            if i % 10 == 0:
+                print(f"step {i:5d} loss {loss:.4f}", flush=True)
+        print(f"final loss {np.mean(losses[-5:]):.4f}")
+        return results, losses
     comm = comm_cli.from_args(args)
     cfg = get_config(args.arch, smoke=args.smoke)
     ds = Dataset(DatasetConfig(
@@ -118,10 +194,8 @@ def main(argv=None):
         vocab_size=cfg.vocab_size,
         kind="textfile" if args.corpus else "synthetic-lm",
         path=args.corpus or None))
-    opt = AdamWConfig(lr=args.lr, warmup_steps=max(args.steps // 20, 1),
-                      total_steps=args.steps)
     tcfg = sim.SimTrainConfig(num_stages=args.stages, comm=comm,
-                              optimizer=opt,
+                              optimizer=optimizer_config(args),
                               dp_workers=args.dp_workers
                               if comm.dp.bits else 1)
     state, losses = sim.train(cfg, tcfg, ds, num_steps=args.steps,

@@ -1,0 +1,729 @@
+"""Distributed pipeline-parallel training with AQ-SGD boundary
+compression over torch.distributed (port of `repro.training.pipeline`
+for the dense family).
+
+Mesh: ``(data=D, model=K)`` processes (`repro_torch.launch.mesh`);
+model rank k runs pipeline stage k (its ceil(L/K) layers; stage 0 also
+the embedding, stage K-1 the final norm and the head tied to the
+embedding), data rank d its shard of every microbatch.
+
+Schedule: GPipe.  Each step runs the M microbatches forward through the
+stages, then backward in reverse order.  A stage boundary is a pair of
+`torch.autograd.Function`s over the transport (`Transfer`):
+
+* forward wire  = packed delta codes + f32 row scales (AQ-SGD, B1 at
+  the sender, B2 at the receiver), packed codes (DirectQ), or raw f32
+  (fp32 and the warm-up epoch);
+* backward wire = packed bw-bit gradient codes + scales (B3, B4), or
+  raw f32 when ``bw_bits >= 32`` and in fp32 / warm-up.
+
+Message buffers (aqsgd): a stage keeps ``m_out`` (its outgoing
+boundary) and the next stage ``m_in``, a replica; both apply the same
+quantized delta, so they stay bit-identical (Algorithm 2; B1's m_new
+and B2's output round identically).  They hold every sample of the
+dataset, indexed by its id, in ``buffer_dtype`` (bf16 by default) or
+as z-bit codes.  The first epoch runs the ``warmup=True`` step: an
+uncompressed transfer that fills the buffers.
+
+Gradients.  As in the JAX package, the DP wire's input is the gradient
+of the GLOBAL batch's mean loss over the whole pipeline tree: each rank
+writes its stage's gradient into a zero (rows, group_d) f32 bucket in
+the pipeline tree's leaf order (`PipelineBucket`), and one f32
+all-reduce over every rank sums the data shards and the stages (the
+tied embedding's two halves add there).  With ``comm.dp.bits`` the
+configured DP wire (`comm.wires`, ``ring`` by default) then runs over
+the rank's data group with per-rank error feedback, so it performs D
+independent stochastic quantizations of that shared gradient (the
+JAX package's placement caveat).  The wire's noise is seeded by (seed,
+step, data rank) and never by the model rank, so every model column
+computes the same mean and the two copies of the tied embedding stay
+equal.  Then AdamW updates each stage's own parameters.
+
+The f32 all-reduce sums in gloo's order, not XLA's, so distributed
+losses match the JAX package within a tolerance, not bit for bit.
+
+Not ported: the other model families, FSDP/ZeRO-3 weight sharding, the
+``ring-sharded`` ZeRO wire, remat and chunked loss (ROADMAP queue A).
+"""
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+import time
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.distributed as dist
+from torch import nn
+
+from repro_torch.comm import faults
+from repro_torch.comm.config import CommConfig
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import boundary as B
+from repro_torch.core import quantization as Q
+from repro_torch.models import layers as L
+from repro_torch.models.model import Block, Transformer
+from repro_torch.optim import adamw
+from repro_torch.weights import stage_state_dict
+
+MODES = ("fp32", "warmup", "directq", "aqsgd")
+
+
+@dataclass(frozen=True)
+class PipelineConfig:
+    """Pipeline-trainer knobs.  All communication lives in ``comm``;
+    ``warmup`` selects the warm-up step variant (uncompressed transfer
+    that fills the buffers); ``buffer_dtype`` is the raw buffers'
+    storage type."""
+    microbatches: int = 16
+    comm: Optional[CommConfig] = None
+    warmup: bool = False
+    buffer_dtype: str = "bfloat16"
+
+    def __post_init__(self):
+        if self.comm is None:
+            object.__setattr__(self, "comm", CommConfig())
+        if self.comm.dp.bits:
+            self.comm.dp_wire_spec       # raises for an unported wire
+        if self.microbatches < 1:
+            raise ValueError(f"microbatches={self.microbatches} must be "
+                             f">= 1")
+
+
+# ---------------------------------------------------------------------------
+# stage layout
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class StageLayout:
+    num_stages: int
+    lps: int                         # layers per stage (padded)
+    n_layers: int                    # live layers
+    n_padded: int                    # dead zero layers after them
+
+
+def stage_layout(cfg: ModelConfig, num_stages: int) -> StageLayout:
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: the distributed trainer runs the dense family; "
+            f"the other families are ROADMAP queue A, item 16")
+    n = cfg.num_layers
+    lps = -(-n // num_stages)
+    return StageLayout(num_stages, lps, n, num_stages * lps - n)
+
+
+class Stage(nn.Module):
+    """Pipeline stage k: its live layers (global layers k*lps ..), the
+    embedding on the first stage, the final norm and tied head on the
+    last.  Parameter names are the stage's own (``layers.<local>.*``)."""
+
+    def __init__(self, cfg: ModelConfig, lay: StageLayout, k: int,
+                 device=None):
+        super().__init__()
+        self.cfg, self.k = cfg, k
+        self.first, self.last = k == 0, k == lay.num_stages - 1
+        self.layer_ids = [k * lay.lps + i for i in range(lay.lps)
+                          if k * lay.lps + i < lay.n_layers]
+        self.layers = nn.ModuleList(Block(cfg, device=device)
+                                    for _ in self.layer_ids)
+        self.embed = nn.Parameter(torch.empty(
+            cfg.vocab_size, cfg.d_model, device=device)) \
+            if self.first or self.last else None
+        self.final_norm = L.RMSNorm(cfg.d_model, cfg.norm_eps,
+                                    device=device) if self.last else None
+
+    @torch.no_grad()
+    def load_from_model(self, model: Transformer) -> "Stage":
+        """Copy this stage's weights out of a whole model."""
+        own = dict(self.named_parameters())
+        src = dict(model.named_parameters())
+        for name, p in own.items():
+            if name.startswith("layers."):
+                _, i, rest = name.split(".", 2)
+                name = f"layers.{self.layer_ids[int(i)]}.{rest}"
+            p.copy_(src[name])
+        return self
+
+    def load_pipeline_params(self, np_pipe: dict,
+                             lay: StageLayout) -> "Stage":
+        """Load this stage's weights from a JAX pipeline-layout tree of
+        numpy arrays (`repro_torch.weights.to_pipeline_params`)."""
+        state = stage_state_dict(np_pipe, self.cfg, lay.num_stages, self.k,
+                                 embed=self.embed is not None,
+                                 final_norm=self.last)
+        self.load_state_dict({k: torch.tensor(np.asarray(v))
+                              for k, v in state.items()})
+        return self
+
+    def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
+        return self.embed.to(self.cfg.torch_dtype)[tokens]
+
+    def trunk(self, h: torch.Tensor) -> torch.Tensor:
+        b, s = h.shape[0], h.shape[1]
+        positions = torch.arange(s, dtype=torch.int32,
+                                 device=h.device).expand(b, s)
+        for i, blk in zip(self.layer_ids, self.layers):
+            h, _, _ = blk(h, positions, self.cfg.layer_window(i, s))
+        return h
+
+    def nll_sum(self, h: torch.Tensor, targets: torch.Tensor,
+                mask: torch.Tensor) -> torch.Tensor:
+        """Summed masked next-token NLL of the head over h."""
+        h = self.final_norm(h)
+        logits = L.softcap((h @ self.embed.t().to(h.dtype)).float(),
+                           self.cfg.final_softcap)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+        return ((lse - gold) * mask).sum()
+
+
+# ---------------------------------------------------------------------------
+# the DP bucket of the pipeline tree
+# ---------------------------------------------------------------------------
+
+def _numel(shape) -> int:
+    return int(np.prod(shape, dtype=np.int64)) if shape else 1
+
+
+class PipelineBucket:
+    """The flatten-and-concat DP bucket of the pipeline tree, in the JAX
+    package's ``jax.tree.leaves`` order of `to_pipeline_params`:
+    ``embed``, ``final_norm.scale``, then ``stages.<block param>``
+    (sorted) each shaped (K, lps, ...), dead padded layers included as
+    zeros.  Knows where every parameter of a `Stage` sits in it."""
+
+    def __init__(self, cfg: ModelConfig, lay: StageLayout, group_d: int):
+        self.lay, self.group_d = lay, group_d
+        block = Block(cfg, device="meta")
+        names = sorted((n for n, _ in block.named_parameters()),
+                       key=lambda n: tuple(n.split(".")))
+        shapes = dict((n, tuple(p.shape)) for n, p in
+                      block.named_parameters())
+        off = 0
+        self.offsets, self.sizes = {}, {}
+        for name, shape in [("embed", (cfg.vocab_size, cfg.d_model)),
+                            ("final_norm.scale", (cfg.d_model,))]:
+            self.offsets[name], self.sizes[name] = off, _numel(shape)
+            off += _numel(shape)
+        for name in names:
+            n = _numel(shapes[name])
+            self.offsets["stages." + name] = off
+            self.sizes["stages." + name] = n
+            off += lay.num_stages * lay.lps * n
+        self.total = off
+        self.rows = max(-(-off // group_d), 1)
+
+    @property
+    def shape(self) -> tuple:
+        return (self.rows, self.group_d)
+
+    def slot(self, stage: Stage, name: str) -> tuple:
+        """(offset, numel) of one stage parameter in the flat bucket."""
+        if name.startswith("layers."):
+            _, i, rest = name.split(".", 2)
+            key = "stages." + rest
+            g = stage.layer_ids[int(i)]
+            return self.offsets[key] + g * self.sizes[key], self.sizes[key]
+        return self.offsets[name], self.sizes[name]
+
+    def flatten(self, stage: Stage, tensors: dict) -> torch.Tensor:
+        """A zero f32 bucket holding ``tensors`` (stage name -> tensor)
+        at their slots."""
+        dev = next(iter(tensors.values())).device
+        flat = torch.zeros(self.rows * self.group_d, dtype=torch.float32,
+                           device=dev)
+        for name, t in tensors.items():
+            off, n = self.slot(stage, name)
+            flat[off:off + n] = t.detach().reshape(-1)
+        return flat.reshape(self.rows, self.group_d)
+
+    def views(self, stage: Stage, bucket: torch.Tensor, like: dict) -> dict:
+        """The stage's slices of a bucket, shaped like ``like``."""
+        flat = bucket.reshape(-1)
+        out = {}
+        for name, t in like.items():
+            off, n = self.slot(stage, name)
+            out[name] = flat[off:off + n].reshape(t.shape)
+        return out
+
+
+def init_dp_error(pbucket: PipelineBucket, device) -> torch.Tensor:
+    """This rank's error-feedback carry: zeros (rows, group_d) f32,
+    full-bucket under every wire."""
+    return torch.zeros(pbucket.shape, dtype=torch.float32, device=device)
+
+
+# ---------------------------------------------------------------------------
+# message buffers (raw or z-bit, paper §H.5)
+# ---------------------------------------------------------------------------
+
+def buffer_structs(pcfg: PipelineConfig, n: int, seq: int, d: int) -> dict:
+    """Shapes and dtypes of one buffer (m_out or m_in) of n samples."""
+    zbits = pcfg.comm.zbuf.bits
+    if zbits:
+        return {"codes": ((n, seq, Q.packed_width(d, zbits)), torch.uint8),
+                "scale": ((n, seq, 1), torch.float32)}
+    return {"m": ((n, seq, d), getattr(torch, pcfg.buffer_dtype))}
+
+
+def init_buffer(pcfg: PipelineConfig, n: int, seq: int, d: int,
+                device) -> dict:
+    return {k: torch.zeros(shape, dtype=dt, device=device)
+            for k, (shape, dt) in buffer_structs(pcfg, n, seq, d).items()}
+
+
+def buffer_read(pcfg: PipelineConfig, buf: dict, ids: torch.Tensor,
+                d: int) -> torch.Tensor:
+    """The messages of samples ``ids`` as f32 (mb, S, d)."""
+    zb = pcfg.comm.zbuf
+    if zb.bits:
+        return B.decode(buf["codes"][ids], buf["scale"][ids], bits=zb.bits,
+                        d=d, backend=zb.backend)
+    return buf["m"][ids].float()
+
+
+@torch.no_grad()
+def buffer_write(pcfg: PipelineConfig, buf: dict, ids: torch.Tensor,
+                 val: torch.Tensor) -> None:
+    """Store the messages of samples ``ids``, in place."""
+    zb = pcfg.comm.zbuf
+    if zb.bits:
+        packed, scale = B.encode(val.float(), bits=zb.bits, stochastic=False,
+                                 backend=zb.backend)
+        buf["codes"][ids] = packed
+        buf["scale"][ids] = scale
+    else:
+        buf["m"][ids] = val.to(buf["m"].dtype)
+
+
+# ---------------------------------------------------------------------------
+# the boundary transfer
+# ---------------------------------------------------------------------------
+
+class Transfer:
+    """One stage boundary as this rank sees it: the sending half (to the
+    next stage, rank ``dst``) and the receiving half (from the previous
+    stage, rank ``src``), forward and backward.  ``mode``: fp32 |
+    warmup | directq | aqsgd.  Forward payloads go on the transport's
+    ``fw`` plane, backward ones on ``bw``."""
+
+    def __init__(self, mode: str, fw_bits: int, bw_bits: int,
+                 stochastic: bool, backend: str, transport, *,
+                 src: Optional[int], dst: Optional[int],
+                 generator: Optional[torch.Generator] = None):
+        if mode not in MODES:
+            raise ValueError(f"unknown mode {mode!r}; one of {MODES}")
+        if mode in ("directq", "aqsgd"):
+            if fw_bits not in B.PACKABLE_BITS:
+                raise ValueError(f"wire fw_bits must be one of "
+                                 f"{B.PACKABLE_BITS}, got {fw_bits}")
+            if bw_bits < 32 and bw_bits not in B.PACKABLE_BITS:
+                raise ValueError(f"wire bw_bits must be one of "
+                                 f"{B.PACKABLE_BITS} or >= 32, got {bw_bits}")
+        self.mode, self.fw, self.bw = mode, fw_bits, bw_bits
+        self.stochastic, self.backend = stochastic, backend
+        self.t, self.src, self.dst, self.gen = transport, src, dst, generator
+
+    @property
+    def raw_backward(self) -> bool:
+        return self.mode in ("fp32", "warmup") or self.bw >= 32
+
+    def _send_codes(self, packed, scale, peer, plane):
+        self.t.send(packed.contiguous(), peer, plane)
+        self.t.send(scale.contiguous(), peer, plane)
+
+    def _recv_codes(self, shape, bits, peer, plane):
+        pw = Q.packed_width(shape[-1], bits)
+        packed = self.t.recv((*shape[:-1], pw), torch.uint8, peer, plane)
+        scale = self.t.recv((*shape[:-1], 1), torch.float32, peer, plane)
+        return packed, scale
+
+    # -- forward halves (no autograd here) -------------------------------
+
+    def send_forward(self, out: torch.Tensor, m_out_s):
+        """Ship ``out``; returns the new outgoing message (warmup,
+        aqsgd) or None."""
+        if self.mode in ("fp32", "warmup"):
+            self.t.send(out.contiguous(), self.dst, "fw")
+            return out if self.mode == "warmup" else None
+        if self.mode == "directq":
+            packed, scale = B.encode(out, bits=self.fw,
+                                     stochastic=self.stochastic,
+                                     generator=self.gen,
+                                     backend=self.backend)
+            self._send_codes(packed, scale, self.dst, "fw")
+            return None
+        packed, scale, nmo = B.encode_delta(out, m_out_s, bits=self.fw,
+                                            stochastic=self.stochastic,
+                                            generator=self.gen,
+                                            backend=self.backend)
+        self._send_codes(packed, scale, self.dst, "fw")
+        return nmo
+
+    def recv_forward(self, shape, dtype, m_in_s):
+        """(what the stage computes on, the new incoming message or
+        None)."""
+        if self.mode in ("fp32", "warmup"):
+            recv = self.t.recv(shape, torch.float32, self.src, "fw").to(dtype)
+            return recv, (recv if self.mode == "warmup" else None)
+        packed, scale = self._recv_codes(shape, self.fw, self.src, "fw")
+        if self.mode == "directq":
+            return B.decode(packed, scale, bits=self.fw, d=shape[-1],
+                            dtype=dtype, backend=self.backend), None
+        nmi = B.decode_accumulate(packed, scale, m_in_s, bits=self.fw,
+                                  backend=self.backend)
+        return nmi.to(dtype), nmi
+
+    # -- backward halves ---------------------------------------------------
+
+    def send_backward(self, g: torch.Tensor) -> None:
+        g = g.contiguous()
+        if self.raw_backward:
+            self.t.send(g.float(), self.src, "bw")
+            return
+        packed, scale = B.encode(g, bits=self.bw, stochastic=self.stochastic,
+                                 generator=self.gen, backend=self.backend)
+        self._send_codes(packed, scale, self.src, "bw")
+
+    def recv_backward(self, shape, dtype) -> torch.Tensor:
+        if self.raw_backward:
+            return self.t.recv(shape, torch.float32, self.dst, "bw").to(dtype)
+        packed, scale = self._recv_codes(shape, self.bw, self.dst, "bw")
+        return B.decode(packed, scale, bits=self.bw, d=shape[-1], dtype=dtype,
+                        backend=self.backend)
+
+    # -- autograd ends -------------------------------------------------------
+
+    def send(self, out: torch.Tensor, m_out_s=None):
+        """Forward-ship a stage output.  Returns (token, new m_out): a
+        scalar whose backward receives the gradient of ``out`` from the
+        next stage, and the new outgoing message (or None)."""
+        box = {}
+        token = _SendHop.apply(out, self, m_out_s, box)
+        return token, box["m_out"]
+
+    def recv(self, shape, dtype, m_in_s=None):
+        """Receive a stage input.  Returns (h, new m_in): h's backward
+        sends its gradient to the previous stage."""
+        box = {}
+        anchor = torch.zeros((), requires_grad=True)
+        h = _RecvHop.apply(anchor, self, shape, dtype, m_in_s, box)
+        return h, box["m_in"]
+
+
+class _SendHop(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, out, hop, m_out_s, box):
+        with torch.no_grad():
+            box["m_out"] = hop.send_forward(out.detach().float(), m_out_s)
+        ctx.hop, ctx.shape, ctx.dtype = hop, out.shape, out.dtype
+        return out.new_zeros(())
+
+    @staticmethod
+    def backward(ctx, _):
+        return ctx.hop.recv_backward(ctx.shape, ctx.dtype), None, None, None
+
+
+class _RecvHop(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, anchor, hop, shape, dtype, m_in_s, box):
+        with torch.no_grad():
+            h, box["m_in"] = hop.recv_forward(shape, dtype, m_in_s)
+        ctx.hop = hop
+        return h
+
+    @staticmethod
+    def backward(ctx, g):
+        ctx.hop.send_backward(g)
+        return None, None, None, None, None, None
+
+
+def make_transfer(pcfg: PipelineConfig, mesh, generator=None) -> Transfer:
+    """The boundary transfer of this rank's stage for ``pcfg`` (the
+    warm-up variant when ``pcfg.warmup`` and the mode is aqsgd)."""
+    cc = pcfg.comm.activation
+    mode = "warmup" if (pcfg.warmup and cc.mode == "aqsgd") else cc.mode
+    k, kk = mesh.model_rank, mesh.shape.model
+    return Transfer(mode, cc.fw_bits, cc.bw_bits, cc.stochastic, cc.backend,
+                    mesh.transport,
+                    src=mesh.stage_rank(k - 1) if k > 0 else None,
+                    dst=mesh.stage_rank(k + 1) if k < kk - 1 else None,
+                    generator=generator)
+
+
+# ---------------------------------------------------------------------------
+# one rank's trainer
+# ---------------------------------------------------------------------------
+
+def seeded_generator(device, *parts) -> torch.Generator:
+    """A generator on ``device`` seeded from ``parts`` (a stable hash)."""
+    h = hashlib.sha256("/".join(map(str, parts)).encode()).digest()
+    seed = int.from_bytes(h[:8], "little") & ((1 << 63) - 1)
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+class PipelineRank:
+    """The state and step of one rank: its stage, AdamW moments, message
+    buffers and DP carry, all on the mesh's device.  After a step,
+    ``phase_seconds`` holds its phases' wall times: ``pipeline`` (the
+    microbatches forward and backward, hops included),
+    ``grad_allreduce``, ``dp_wire`` and ``adamw``."""
+
+    def __init__(self, cfg: ModelConfig, pcfg: PipelineConfig, mesh,
+                 opt_cfg: adamw.AdamWConfig, *, num_samples: int,
+                 seq_len: int, seed: int = 0,
+                 initial_params: Optional[dict] = None):
+        self.cfg, self.pcfg, self.mesh, self.opt_cfg = cfg, pcfg, mesh, \
+            opt_cfg
+        self.seed, self.seq = seed, seq_len
+        dev = mesh.device
+        self.lay = stage_layout(cfg, mesh.shape.model)
+        self.stage = Stage(cfg, self.lay, mesh.model_rank, device=dev)
+        if initial_params is not None:
+            self.stage.load_pipeline_params(initial_params, self.lay)
+        else:
+            # every rank draws the whole model on the CPU from the same
+            # seed, so the stages (and both copies of the tied embedding)
+            # agree, and a run on the card starts from the weights of the
+            # same run on the CPU
+            model = Transformer(cfg, device="cpu", generator=seeded_generator(
+                "cpu", seed, "init"))
+            self.stage.load_from_model(model)
+            del model
+        self.params = dict(self.stage.named_parameters())
+        self.opt = adamw.init_opt_state(self.params)
+        comm = pcfg.comm
+        self.has_bufs = comm.mode == "aqsgd"
+        k, kk = mesh.model_rank, mesh.shape.model
+        d = cfg.d_model
+        self.m_out = init_buffer(pcfg, num_samples, seq_len, d, dev) \
+            if self.has_bufs and k < kk - 1 else None
+        self.m_in = init_buffer(pcfg, num_samples, seq_len, d, dev) \
+            if self.has_bufs and k > 0 else None
+        self.bucket = PipelineBucket(cfg, self.lay, comm.dp_group_d)
+        self.dp_error = init_dp_error(self.bucket, dev) \
+            if comm.dp.bits else None
+
+    def step(self, batch: dict, step: int, *, warmup: bool) -> float:
+        """One training step on this rank's shard ``batch`` (numpy,
+        microbatch-major (M, mb, ...), with the global batch's mask
+        count under ``"count"``).  Returns the global mean loss."""
+        pcfg = dataclasses.replace(self.pcfg, warmup=warmup)
+        mesh, st, dev = self.mesh, self.stage, self.mesh.device
+        self.phase_seconds, self._t = {}, time.perf_counter()
+        k, kk = mesh.model_rank, mesh.shape.model
+        hop = make_transfer(pcfg, mesh, seeded_generator(
+            dev, self.seed, step, "act", mesh.rank))
+        aq = hop.mode == "aqsgd"
+        t = {name: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+             for name, v in batch.items() if name != "count"}
+        count = float(batch["count"])
+        M, mb, seq = t["tokens"].shape
+        shape = (mb, seq, self.cfg.d_model)
+        for p in self.params.values():
+            p.grad = None
+
+        terminals, loss = [], torch.zeros((), device=dev)
+        for j in range(M):
+            ids = t["sample_ids"][j].long()
+            if k == 0:
+                h = st.embed_tokens(t["tokens"][j])
+            else:
+                m_in_s = buffer_read(pcfg, self.m_in, ids,
+                                     self.cfg.d_model) if aq else None
+                h, nmi = hop.recv(shape, self.cfg.torch_dtype, m_in_s)
+                if nmi is not None and self.has_bufs:
+                    buffer_write(pcfg, self.m_in, ids, nmi)
+            out = st.trunk(h)
+            if k < kk - 1:
+                m_out_s = buffer_read(pcfg, self.m_out, ids,
+                                      self.cfg.d_model) if aq else None
+                token, nmo = hop.send(out, m_out_s)
+                if nmo is not None and self.has_bufs:
+                    buffer_write(pcfg, self.m_out, ids, nmo)
+                terminals.append(token)
+            else:
+                nll = st.nll_sum(out, t["targets"][j], t["mask"][j].float()) \
+                    / max(count, 1.0)
+                terminals.append(nll)
+                loss = loss + nll.detach()
+        for term in reversed(terminals):
+            term.backward()
+        del terminals
+        self._lap("pipeline")
+        self._update(step)
+        total = mesh.transport.all_reduce(loss, dist.ReduceOp.SUM, None,
+                                          "loss")
+        return float(total)
+
+    def _update(self, step: int) -> None:
+        """Full-tree f32 mean gradient, the DP wire, AdamW."""
+        mesh, comm = self.mesh, self.pcfg.comm
+        grads = {n: p.grad for n, p in self.params.items()
+                 if p.grad is not None}
+        bucket = self.bucket.flatten(self.stage, grads)
+        del grads
+        for p in self.params.values():
+            p.grad = None
+        mean = mesh.transport.all_reduce(bucket, dist.ReduceOp.SUM, None,
+                                         "grad")
+        del bucket
+        self._lap("grad_allreduce")
+        dpc = comm.dp
+        if dpc.bits:
+            spec = comm.dp_wire_spec
+            extra = {"chunks": dpc.chunks} if spec.chunkable else {}
+            err = self.dp_error if dpc.error_feedback \
+                else torch.zeros_like(self.dp_error)
+            mean, new_err = spec.collective(
+                mean, err, mesh.data_group, dpc.bits,
+                stochastic=dpc.stochastic, backend=dpc.backend,
+                generator=seeded_generator(mesh.device, self.seed, step,
+                                           "dp", mesh.data_rank), **extra)
+            mean, new_err = faults.guard_dp_pair(mean, new_err)
+            self.dp_error = new_err if dpc.error_feedback \
+                else torch.zeros_like(new_err)
+            self._lap("dp_wire")
+        g = self.bucket.views(self.stage, mean, self.params)
+        self.opt = adamw.apply_updates(self.opt_cfg, self.params, g,
+                                       self.opt)
+        self._lap("adamw")
+
+    def _lap(self, name: str) -> None:
+        """Record the wall time since the last lap under ``name``, at
+        the end of this rank's device work (the step's phase times)."""
+        if self.mesh.device.type == "cuda":
+            torch.cuda.synchronize(self.mesh.device)
+        now = time.perf_counter()
+        self.phase_seconds[name] = now - self._t
+        self._t = now
+
+
+def build_rank(rank: int, world: int, spec: dict) -> tuple:
+    """This process's `PipelineRank` and the run's `Dataset` for
+    ``spec``, the run's plain-data description (see
+    `repro_torch.launch.train.distributed_spec`)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import Dataset, DatasetConfig
+    from repro_torch.launch.mesh import Mesh, MeshShape
+
+    shape = MeshShape(spec["data_par"], spec["stages"])
+    if world != shape.world:
+        raise ValueError(f"world {world} != mesh {shape.world}")
+    dev = torch.device(spec["device"])
+    if dev.type == "cuda":
+        dev = torch.device("cuda", rank % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    mesh = Mesh(shape, rank, dev)
+    cfg = get_config(spec["arch"], smoke=spec["smoke"])
+    if spec.get("num_layers"):
+        cfg = cfg.with_(num_layers=spec["num_layers"])
+    comm = CommConfig.from_json(spec["comm"])
+    pcfg = PipelineConfig(microbatches=spec["microbatches"], comm=comm)
+    opt_cfg = adamw.AdamWConfig(**spec["optimizer"])
+    ds = Dataset(DatasetConfig(**spec["dataset"]))
+    trainer = PipelineRank(cfg, pcfg, mesh, opt_cfg,
+                           num_samples=ds.num_samples, seq_len=ds.dc.seq_len,
+                           seed=spec["seed"],
+                           initial_params=spec.get("initial_params"))
+    return trainer, ds
+
+
+def rank_batch(trainer: PipelineRank, batch: dict) -> dict:
+    """This rank's shard of a global (B, ...) batch in the layout of
+    `PipelineRank.step`: microbatch-major, with the global mask count."""
+    from repro_torch.data.pipeline import data_shard, microbatch_major
+    mesh = trainer.mesh
+    local = data_shard(microbatch_major(batch, trainer.pcfg.microbatches),
+                       mesh.shape.data, mesh.data_rank)
+    local["count"] = float(np.sum(batch["mask"]))
+    return local
+
+
+def train_rank(rank: int, world: int, spec: dict) -> dict:
+    """One process of a distributed run (`repro_torch.launch.mesh.spawn`
+    target).  ``spec``: the run's plain-data description (see
+    `repro_torch.launch.train.distributed_spec`).  Returns the rank's
+    losses, step and phase times, peak device memory, kernel launches,
+    transport bytes and manifests, and replica checks (after every
+    step), as plain data."""
+    from repro_torch.kernels import quant_pack as qp
+
+    trainer, ds = build_rank(rank, world, spec)
+    mesh, dev = trainer.mesh, trainer.mesh.device
+    steps, gb = spec["steps"], spec["batch"]
+    warm_steps = max(ds.num_samples // gb, 1) * spec["warmup_epochs"] \
+        if trainer.has_bufs else 0
+    out = {"rank": rank, "data_rank": mesh.data_rank,
+           "model_rank": mesh.model_rank, "losses": [], "step_seconds": [],
+           "replicas": [], "bytes": [], "launches": [], "manifests": [],
+           "phase_seconds": []}
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    for step_i, batch in enumerate(ds.batches(gb, steps)):
+        local = rank_batch(trainer, batch)
+        mesh.transport.reset()
+        qp.reset_launches()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        loss = trainer.step(local, step_i, warmup=step_i < warm_steps)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        out["step_seconds"].append(time.perf_counter() - t0)
+        out["phase_seconds"].append(dict(trainer.phase_seconds))
+        out["losses"].append(loss)
+        out["launches"].append(dict(qp.LAUNCHES))
+        tr = mesh.transport
+        out["bytes"].append({p: tr.bytes_sent(p)
+                             for p in ("fw", "bw", "dp", "grad")})
+        out["manifests"].append(tr.manifest("dp"))
+        out["replicas"].append(check_replicas(trainer))
+    if dev.type == "cuda":
+        out["peak_mem_bytes"] = torch.cuda.max_memory_allocated(dev)
+    out["dp_bucket"] = list(trainer.bucket.shape)
+    out["warm_steps"] = warm_steps
+    return out
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """A tensor's bit pattern as integers (so -0 != +0 and NaNs
+    compare)."""
+    return t.view({1: torch.uint8, 2: torch.int16, 4: torch.int32}[
+        t.element_size()])
+
+
+@torch.no_grad()
+def check_replicas(trainer: PipelineRank) -> dict:
+    """Ship each stage's m_out to the next stage and stage 0's embedding
+    to the last stage (the ``check`` plane, outside the wire planes) and
+    compare bit for bit.  Returns {"m_in_equal": bool or None,
+    "embed_equal": bool or None}, None where this rank checks nothing."""
+    mesh, tr = trainer.mesh, trainer.mesh.transport
+    k, kk = mesh.model_rank, mesh.shape.model
+    res = {"m_in_equal": None, "embed_equal": None}
+    if trainer.has_bufs:
+        if k < kk - 1:
+            for name in sorted(trainer.m_out):
+                tr.send(trainer.m_out[name], mesh.stage_rank(k + 1), "check")
+        if k > 0:
+            eq = True
+            for name in sorted(trainer.m_in):
+                mine = trainer.m_in[name]
+                got = tr.recv(mine.shape, mine.dtype,
+                              mesh.stage_rank(k - 1), "check")
+                eq &= torch.equal(_bits(got), _bits(mine))
+            res["m_in_equal"] = bool(eq)
+    if kk > 1:
+        if k == 0:
+            tr.send(trainer.stage.embed, mesh.stage_rank(kk - 1), "check")
+        elif k == kk - 1:
+            e = trainer.stage.embed
+            got = tr.recv(e.shape, e.dtype, mesh.stage_rank(0), "check")
+            res["embed_equal"] = bool(torch.equal(_bits(got), _bits(e)))
+    return res

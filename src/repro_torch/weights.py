@@ -7,6 +7,11 @@ by the JAX names, and unstacks it leaf by leaf, so both packages
 compute with the same weights.  `jax_leaf_names` and `jax_leaves`
 give the port's parameters in ``jax.tree.leaves`` order, the order of
 the data-parallel gradient bucket (`repro_torch.core.grad_compress`).
+
+The distributed trainer's tree is the JAX package's pipeline layout
+(`to_pipeline_params`): ``layers`` zero-padded to K * lps layers and
+reshaped to ``stages`` (K, lps, ...), lps = ceil(L / K).
+`stage_state_dict` gives one pipeline stage its weights from it.
 """
 from __future__ import annotations
 
@@ -84,3 +89,58 @@ def load_jax_params(model: Transformer, np_tree: dict) -> Transformer:
     in place (the trainer's ``initial_params``)."""
     model.load_state_dict(from_jax_params(np_tree, model.cfg).state_dict())
     return model
+
+
+def _layers_per_stage(cfg: ModelConfig, num_stages: int) -> int:
+    return -(-cfg.num_layers // num_stages)
+
+
+def to_pipeline_params(np_tree: dict, cfg: ModelConfig,
+                       num_stages: int) -> dict:
+    """A JAX params pytree (numpy) in the pipeline layout: ``layers``
+    becomes ``stages``, zero-padded to K * lps layers and reshaped to
+    (K, lps, ...)."""
+    lps = _layers_per_stage(cfg, num_stages)
+    pad = num_stages * lps - cfg.num_layers
+
+    def stage(a):
+        a = np.asarray(a)
+        if pad:
+            a = np.concatenate([a, np.zeros((pad, *a.shape[1:]), a.dtype)])
+        return a.reshape(num_stages, lps, *a.shape[1:])
+
+    out = {k: v for k, v in np_tree.items() if k != "layers"}
+    out["stages"] = {name: stage(a)
+                     for name, a in _flatten(np_tree["layers"]).items()}
+    return out
+
+
+def from_pipeline_params(np_tree: dict, cfg: ModelConfig,
+                         num_stages: int) -> dict:
+    """Inverse of `to_pipeline_params` (dead padded layers dropped);
+    the ``layers`` leaves come back flat-keyed (``attn.wq``, ...)."""
+    out = {k: v for k, v in np_tree.items() if k != "stages"}
+    out["layers"] = {
+        name: np.asarray(a).reshape(-1, *np.asarray(a).shape[2:])
+        [:cfg.num_layers] for name, a in _flatten(np_tree["stages"]).items()}
+    return out
+
+
+def stage_state_dict(np_pipe: dict, cfg: ModelConfig, num_stages: int,
+                     stage: int, *, embed: bool, final_norm: bool) -> dict:
+    """One pipeline stage's weights from a pipeline-layout tree (numpy):
+    ``layers.<l>.*`` for its live layers l = 0.. (global layer
+    stage * lps + l), plus ``embed`` and ``final_norm.scale`` where the
+    stage holds them.  Keys are the stage module's parameter names."""
+    lps = _layers_per_stage(cfg, num_stages)
+    out = {}
+    flat = _flatten({k: v for k, v in np_pipe.items() if k != "stages"})
+    if embed:
+        out["embed"] = flat["embed"]
+    if final_norm:
+        out["final_norm.scale"] = flat["final_norm.scale"]
+    for name, a in _flatten(np_pipe["stages"]).items():
+        for l in range(lps):
+            if stage * lps + l < cfg.num_layers:
+                out[f"layers.{l}.{name}"] = np.asarray(a)[stage, l]
+    return out

@@ -10,7 +10,9 @@ The kernels must equal the plain versions bit for bit (which the CPU
 tests hold against the JAX package), on the vectorised path (d % 4 == 0)
 and the scalar path, ragged rows, stochastic rounding with shared noise,
 both output types of the store read, and, for the gradient wire, both
-``pack`` variants, zero scale rows and several worker counts.
+``pack`` variants, zero scale rows and several worker counts; the
+ring's accumulate and sum packers at every sum width (2/4/8/16/32
+bits), on the int4 path and the element path.
 """
 import pytest
 import torch
@@ -101,6 +103,48 @@ def test_gradient_wire_kernels_match_plain(card, bits):
                    [TR.dequant_sum_mean_ref(total, s, bits, n)])
 
 
+# (bits, n) giving each sum width: 2, 4, 8, 16 and 32 bits
+SUM_WIDTH_CASES = [(2, 1), (2, 3), (4, 2), (8, 2), (8, 300)]
+
+
+@pytest.mark.parametrize("bits", BITS)
+def test_ring_accumulate_matches_plain(card, bits):
+    for rows, d in _dims(bits) + [(300, 512), (5, 4)]:
+        pw = d * bits // 8
+        packed = torch.randint(0, 256, (rows, pw), device=card,
+                               dtype=torch.uint8)
+        acc = torch.randint(0, 1000, (rows, d), device=card,
+                            dtype=torch.int32)
+        _equal([TP.unpack_accumulate(packed, acc, bits=bits)],
+               [TR.unpack_accumulate_ref(packed, acc, bits)])
+        # a misaligned view takes the element path
+        flat = torch.randint(0, 256, (rows * pw + 1,), device=card,
+                             dtype=torch.uint8)
+        p1 = flat[1:].view(rows, pw)
+        _equal([TP.unpack_accumulate(p1, acc, bits=bits)],
+               [TR.unpack_accumulate_ref(p1, acc, bits)])
+
+
+@pytest.mark.parametrize("bits,n", SUM_WIDTH_CASES)
+def test_sum_packers_match_plain(card, bits, n):
+    from repro_torch.core import quantization as TQ
+    sw = TQ.sum_wire_bits(bits, n)
+    hi = min(n * ((1 << bits) - 1), 2 ** 31 - 1)
+    for rows, d in [(8, 1600), (37, 512), (3, 24), (1, 8)]:
+        total = torch.randint(0, hi + 1, (rows, d), device=card,
+                              dtype=torch.int32)
+        packed = TP.pack_sums(total, bits=bits, n=n)
+        _equal([packed], [TR.pack_sums_ref(total, bits, n)])
+        _equal([TP.unpack_sums(packed, bits=bits, n=n)], [total])
+        _equal([TP.unpack_sums(packed, bits=bits, n=n)],
+               [TR.unpack_sums_ref(packed, bits, n)])
+        # rows * d not a multiple of 4: the element path
+        k = 8 // sw if sw <= 8 else 1
+        t1 = total[:1, :k]
+        _equal([TP.pack_sums(t1.contiguous(), bits=bits, n=n)],
+               [TR.pack_sums_ref(t1, bits, n)])
+
+
 def test_counters_and_checks(card):
     TP.reset_launches()
     x = _x(8, 64, 4, card)
@@ -108,13 +152,16 @@ def test_counters_and_checks(card):
     TB.decode(p, s, bits=8, d=64)
     TB.decode_accumulate(*TB.encode_delta(x, x * 0.5, bits=4)[:2], x,
                          bits=4)
-    codes = TB.encode_codes_with_scale(x, s, bits=8)
+    packed, codes = TB.encode_codes_with_scale(x, s, bits=8, pack=True)
     TB.decode_sum_mean(codes, s, bits=8, n=1)
+    acc = TB.accumulate_codes(packed, codes, bits=8)
+    TB.unpack_sums(TB.pack_sums(acc, bits=8, n=2), bits=8, n=2, d=64)
     assert TP.LAUNCHES == {"delta_quantize_pack": 1,
                            "dequant_unpack_accumulate": 1,
                            "quantize_pack": 1, "unpack_dequant": 1,
                            "quantize_codes_scaled": 1,
-                           "dequant_sum_mean": 1}
+                           "dequant_sum_mean": 1, "unpack_accumulate": 1,
+                           "pack_sums": 1, "unpack_sums": 1}
     with pytest.raises(TypeError):
         TP.quantize_pack(x.double(), bits=8)
     with pytest.raises(ValueError):

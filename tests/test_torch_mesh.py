@@ -1,0 +1,118 @@
+"""The port's process mesh (`repro_torch.launch.mesh`) over gloo
+processes on the CPU.
+
+`spawn` runs a function on every rank and returns the results by rank,
+or raises with the failing rank's traceback; `Mesh` lays ranks out
+row-major over ``(data, model)`` (rank = d * K + k, the index order of
+the JAX package's ``make_debug_mesh``) with one data group per model
+column; the `Transport` stages every payload through host memory and
+records each call by plane, kind, dtype and bytes.
+
+This file imports no JAX, so the spawned ranks of
+tests/test_torch_ring.py import their worker (`wire_worker`) from here
+without loading JAX in every process.
+"""
+import pytest
+import torch
+
+from repro_torch.comm import wires as TW
+from repro_torch.launch.mesh import Mesh, MeshShape, spawn
+
+SPAWN_TIMEOUT = 120
+# the DP wires held against the simulator: (wire, chunks)
+CASES = [("psum", 1), ("ring", 1), ("ring", 2), ("ring", 3)]
+
+
+def wire_worker(rank, world, inputs):
+    """Rank ``rank`` of an n-rank ring: every case of CASES, two steps
+    each, deterministic then stochastic.  Returns means, carries, bytes
+    and manifests (numpy and plain data)."""
+    mesh = Mesh(MeshShape(world, 1), rank, "cpu")
+    out = {}
+    for stochastic in (False, True):
+        for wire, chunks in CASES:
+            spec = TW.get_wire(wire)
+            kw = {"chunks": chunks} if spec.chunkable else {}
+            err = torch.zeros(inputs["shape"])
+            got = []
+            for step in range(2):
+                mesh.transport.reset()
+                u = torch.from_numpy(inputs["noise"][step][rank]) \
+                    if stochastic else None
+                mean, err = spec.collective(
+                    torch.from_numpy(inputs["v"][step][rank]), err,
+                    mesh.data_group, inputs["bits"], stochastic=stochastic,
+                    u=u, backend="reference", **kw)
+                got.append((mean.numpy(), err.numpy().copy(),
+                            mesh.transport.bytes_sent("dp"),
+                            mesh.transport.manifest("dp")))
+            out[(stochastic, wire, chunks)] = got
+    return out
+
+
+def _mesh_worker(rank, world, shape):
+    """Exercise every transport call on a (data, model) mesh."""
+    mesh = Mesh(MeshShape(*shape), rank, "cpu")
+    tr = mesh.transport
+    k, kk = mesh.model_rank, mesh.shape.model
+    x = torch.full((3, 5), float(rank))
+    got = {"coords": (mesh.data_rank, mesh.model_rank),
+           "group": mesh.data_group.ranks}
+    if k < kk - 1:
+        tr.send(x, mesh.stage_rank(k + 1), "fw")
+    if k > 0:
+        got["from_prev"] = tr.recv((3, 5), torch.float32,
+                                   mesh.stage_rank(k - 1), "fw")[0, 0].item()
+    y = mesh.data_group.permute(torch.tensor([rank], dtype=torch.int32), 1)
+    got["permuted"] = y.item()
+    z = mesh.data_group.all_reduce(torch.tensor([rank], dtype=torch.int32))
+    got["group_sum"] = z.item()
+    w = tr.all_reduce(torch.ones(2), torch.distributed.ReduceOp.SUM, None,
+                      "grad")
+    got["world_sum"] = w[0].item()
+    got["calls"] = list(tr.calls)
+    got["bytes"] = {p: tr.bytes_sent(p) for p in ("fw", "dp", "grad")}
+    got["manifest"] = tr.manifest("dp")
+    return got
+
+
+def _failing_worker(rank, world):
+    if rank == 1:
+        raise ValueError("rank one fails on purpose")
+    return rank
+
+
+def test_mesh_shape_is_row_major():
+    s = MeshShape(2, 3)
+    assert s.world == 6
+    assert [s.rank(d, k) for d in range(2) for k in range(3)] \
+        == list(range(6))
+    assert [s.coords(r) for r in range(6)] \
+        == [(d, k) for d in range(2) for k in range(3)]
+    with pytest.raises(ValueError):
+        MeshShape(0, 2)
+
+
+def test_transport_calls_and_groups(tmp_path):
+    out = spawn(_mesh_worker, 6, ((3, 2),), timeout=SPAWN_TIMEOUT,
+                store_dir=tmp_path)
+    for r, got in enumerate(out):
+        d, k = divmod(r, 2)
+        assert got["coords"] == (d, k)
+        assert got["group"] == (k, 2 + k, 4 + k)           # model column k
+        assert got["permuted"] == 2 * ((d - 1) % 3) + k    # from ring i-1
+        assert got["group_sum"] == k + (2 + k) + (4 + k)
+        assert got["world_sum"] == 6.0
+        if k == 1:
+            assert got["from_prev"] == float(r - 1)
+        assert got["bytes"] == {"fw": 60 if k == 0 else 0, "dp": 8,
+                                "grad": 8}
+        assert got["manifest"] == [("all-reduce", "s32", 4, 1),
+                                   ("collective-permute", "s32", 4, 1)]
+        kinds = [c[1] for c in got["calls"]]
+        assert kinds.count("recv") == (1 if k == 1 else 0)
+
+
+def test_spawn_reports_a_failing_rank(tmp_path):
+    with pytest.raises(RuntimeError, match="rank one fails on purpose"):
+        spawn(_failing_worker, 2, timeout=SPAWN_TIMEOUT, store_dir=tmp_path)

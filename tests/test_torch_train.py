@@ -399,7 +399,8 @@ def test_train_launcher_on_cpu(capsys):
     out = capsys.readouterr().out
     assert "step     0 loss" in out and "final loss" in out
     with pytest.raises(SystemExit):
-        tlaunch.main(["--device", "cpu", "--smoke", "--distributed"])
+        tlaunch.main(["--device", "cpu", "--smoke", "--distributed",
+                      "--fault", "1:dp:nan-scale"])
     assert "multi-process pipeline" in capsys.readouterr().err
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -6,7 +6,8 @@
 Phases, each printed on its own line:
 
 1. the card: ``nvidia-smi`` name and power limit, torch's device name;
-2. the nvcc build of ``src/repro_torch/kernels/csrc/quant_pack.cu``;
+2. ``[build]``: the nvcc builds of ``src/repro_torch/kernels/csrc/quant_pack.cu``
+   and ``flash_attention.cu``, one nvcc each, side by side;
 3. each of the nine codec kernels against its plain PyTorch version on
    the card, BIT-EXACT, at the main paths' shapes (the decode hop
    R=8, d=1600; KV rows R=8*25 per decode append, R=8*128*25 per
@@ -22,15 +23,34 @@ Phases, each printed on its own line:
    (2/4/8/16/32 bits), ragged rows, the element path, and the
    distributed path's shapes (a ring segment of 318554 rows, the
    637107-row bucket, d=512, 4 bits, n=2);
+   ``[flash-check]``: the attention kernel (B10) against its plain
+   version within a tolerance: the sweep of tests/test_flash_kernel.py
+   (shapes, GQA and MQA, bf16, windows 9 and 17, softcaps 4 and 30,
+   non-causal) at rtol = atol = 2e-5 (f32) and 2e-2 (bf16), ragged
+   Sq/Sk with a query offset, and the two paths' prefill calls
+   (gpt2-xl; gemma2-9b on a local and a global layer) at 1e-4; then its
+   ``[kernel-time]`` rows at those three calls: device time, the bound
+   (operations over the visible scores against q, k, v, o bytes), the
+   plain version's time and, at gpt2-xl's shape (no softcap, MHA),
+   ``scaled_dot_product_attention`` with the visibility mask;
 4. ``[serve]``: the serving path at full width and depth:
    ``gpt2-xl-paper`` (48 layers, d 1600), random weights from a seeded
    generator, batch 8, prompt 128, 32 greedy decode steps, ``--stages 2
    --mode aqsgd --fw-bits 4 --kv-bits 8``, through
    `repro_torch.launch.serve` — with the kernel launch counters set to
-   0 just before and read just after;
+   0 just before and read just after (B10 once a layer of the prefill);
 5. a reference check of serving on a small input: the SMOKE model on the
    card (kernels) against the same weights on the CPU (plain versions),
    teacher-forced, within the tolerances of tests/test_torch_slice.py;
+   ``[serve-gemma2]``: the slice's own path, ``gemma2-9b`` at full
+   width and depth (42 layers, d 3584, vocab 256000; local layers see
+   4096 keys, softcaps 50 and 30, 16 query heads on 8 kv heads of 256),
+   batch 2, a prompt of 8160 into a cache of 8192, 32 greedy decode
+   steps, the same comm flags, the counters set to 0 just before and
+   checked exactly just after; the hop's bytes as the encoder emits
+   them and the KV stores' bytes against the byte models; then
+   ``[serve-gemma2-reference-check]``: its SMOKE model, prompt 40 (past
+   the window of 16), 6 decode steps, card against CPU;
 6. ``[train]``: AQ-SGD fine-tuning with 4-bit DP gradients through
    `repro_torch.training.simulated.train`: ``gpt2-xl-paper`` at full
    width cut to 12 of its 48 layers (the full-depth training state does
@@ -74,6 +94,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -81,6 +102,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 F32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 SOURCE = "src/repro_torch/kernels/csrc/quant_pack.cu"
+FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 REPLACES = {
     "delta_quantize_pack": "src/repro/kernels/quant_pack.py:190",
     "dequant_unpack_accumulate": "src/repro/kernels/quant_pack.py:239",
@@ -91,6 +113,7 @@ REPLACES = {
     "unpack_accumulate": "src/repro/kernels/quant_pack.py:528",
     "pack_sums": "src/repro/kernels/quant_pack.py:579",
     "unpack_sums": "src/repro/kernels/quant_pack.py:620",
+    "flash_attention_fwd": "src/repro/kernels/flash_attention.py:81",
 }
 # the ring's kernels do integer work only; their operations are counted
 # against the int32 rate outside the tensor cores, half the f32 rate
@@ -119,6 +142,34 @@ SERVE_ARGS = ["--arch", "gpt2-xl-paper", "--stages", "2", "--mode", "aqsgd",
               "--device", "cuda", "--seed", "0"]
 # small-input reference check (tests/test_torch_slice.py's tolerances)
 PREFILL_ATOL, DECODE_ATOL, MAX_FLIP_FRACTION = 2e-5, 5e-3, 0.005
+# the gemma2-9b serving slice at full width and depth: a prompt past the
+# 4096-key window into a cache of the 8192-token context
+G_BATCH, G_PROMPT, G_GEN = 2, 8160, 32
+G_CACHE = G_PROMPT + G_GEN
+G_LAYERS, G_D, G_VOCAB = 42, 3584, 256000
+G_HEADS, G_KV_HEADS, G_HEAD_DIM, G_WINDOW, G_CAP = 16, 8, 256, 4096, 50.0
+GEMMA_ARGS = ["--arch", "gemma2-9b", "--stages", "2", "--mode", "aqsgd",
+              "--fw-bits", "4", "--kv-bits", "8", "--batch", str(G_BATCH),
+              "--prompt-len", str(G_PROMPT), "--gen", str(G_GEN),
+              "--device", "cuda", "--seed", "0"]
+# its launches: the hop once a decode step (B1, B2); the KV append (B3)
+# and store read (B4) for k and v on every layer of every step; the
+# attention kernel (B10) on every layer of the prefill
+GEMMA_LAUNCHES = {"delta_quantize_pack": G_GEN,
+                  "dequant_unpack_accumulate": G_GEN,
+                  "quantize_pack": (1 + G_GEN) * G_LAYERS * 2,
+                  "unpack_dequant": (1 + G_GEN) * G_LAYERS * 2,
+                  "quantize_codes_scaled": 0, "dequant_sum_mean": 0,
+                  "unpack_accumulate": 0, "pack_sums": 0, "unpack_sums": 0,
+                  "flash_attention_fwd": G_LAYERS}
+# the gemma2 reference check: SMOKE, a prompt past its window of 16
+G_CHECK_PROMPT, G_CHECK_STEPS = 40, 6
+# B10 against its plain version: tests/test_flash_kernel.py's tolerances
+# (rtol = atol) at the sweep's shapes; at the paths' shapes (up to 8192
+# keys a row, a softmax summed in another order) a bound set before the
+# first run on the card
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+FLASH_PATH_TOL = 1e-4
 # the training slice (gpt2-xl-paper at full width, 12 of 48 layers)
 TRAIN_LAYERS, TRAIN_STAGES, TRAIN_WORKERS = 12, 4, 2
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_SAMPLES, TRAIN_STEPS = 8, 1024, 16, 6
@@ -474,26 +525,225 @@ def kernel_phase(torch, qp, ref):
 
 
 # ---------------------------------------------------------------------------
+# phase 4: the attention kernel (B10) against its plain version
+# ---------------------------------------------------------------------------
+
+# (label, b, h, hk, sq, sk, hd, q_offset, causal, window, softcap, dtype,
+# q scale: 16 lets the scores reach the softcap)
+FLASH_SWEEP = [
+    *[(f"shape-{dt}", b, h, hk, s, s, hd, 0, True, 10 ** 9, 0.0, dt, 1.0)
+      for b, h, hk, s, hd in ((1, 2, 2, 64, 32), (2, 4, 2, 128, 64),
+                              (1, 8, 1, 64, 128), (1, 2, 2, 96, 32))
+      for dt in ("float32", "bfloat16")],
+    *[("mask", 1, 2, 2, 64, 64, 32, 0, c, w, cap, "float32", 1.0)
+      for w, cap, c in ((9, 0.0, True), (10 ** 9, 30.0, True),
+                        (17, 4.0, True), (10 ** 9, 0.0, False))],
+    ("ragged", 2, 4, 2, 37, 53, 256, 9, True, 16, 50.0, "float32", 16.0),
+    ("ragged", 2, 4, 2, 37, 53, 256, 9, True, 16, 50.0, "bfloat16", 16.0),
+    ("ragged", 1, 16, 8, 300, 400, 256, 70, True, 128, 50.0, "float32",
+     16.0),
+    ("ragged", 2, 4, 1, 100, 230, 128, 130, False, 50, 30.0, "float32", 1.0),
+    ("ragged", 1, 2, 2, 65, 129, 64, 64, True, 10 ** 9, 0.0, "float32", 1.0),
+]
+# the paths' prefill calls: gpt2-xl-paper (window = its cache of 160)
+# and gemma2-9b on a local and a global layer
+FLASH_PATHS = {
+    "gpt2-xl": ("path", BATCH, 25, KV_HEADS, PROMPT, CACHE_LEN, HEAD_DIM, 0,
+                True, CACHE_LEN, 0.0, "float32", 1.0),
+    "gemma2-local": ("path", G_BATCH, G_HEADS, G_KV_HEADS, G_PROMPT, G_CACHE,
+                     G_HEAD_DIM, 0, True, G_WINDOW, G_CAP, "float32", 16.0),
+    "gemma2-global": ("path", G_BATCH, G_HEADS, G_KV_HEADS, G_PROMPT,
+                      G_CACHE, G_HEAD_DIM, 0, True, G_CACHE, G_CAP,
+                      "float32", 16.0),
+}
+
+
+def _flash_inputs(torch, case, seed):
+    """Head-major q, k, v; a path's case gives the views its prefill
+    passes: transposes of (B, S, H, hd) queries and (B, Sc, Hk, hd)
+    cache rows, read in place."""
+    label, b, h, hk, sq, sk, hd, *_, dt, qs = case
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dtype = getattr(torch, dt)
+
+    def draw(n, heads, s=1.0):
+        if label == "path":
+            x = torch.randn(b, n, heads, hd, generator=g, device="cuda") * s
+            return x.to(dtype).transpose(1, 2)
+        x = torch.randn(b, heads, n, hd, generator=g, device="cuda") * s
+        return x.to(dtype)
+    return draw(sq, h, qs), draw(sk, hk), draw(sk, hk)
+
+
+def _flash_kw(case):
+    off, causal, window, cap = case[7:11]
+    return dict(q_offset=off, causal=causal, window=window, softcap=cap)
+
+
+def check_flash(torch, fa, ref, case, tol):
+    """Kernel vs plain version (rtol = atol = tol); returns max |diff|."""
+    q, k, v = _flash_inputs(torch, case, seed=sum(case[1:7]))
+    kw = _flash_kw(case)
+    got = fa.flash_attention_fwd(q, k, v, **kw)
+    want = ref.flash_attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == want.dtype, case
+    diff = (got.float() - want.float()).abs()
+    bad = int((diff > tol + tol * want.float().abs()).sum())
+    if bad or not torch.isfinite(got).all():
+        raise AssertionError(f"flash_attention_fwd {case}: {bad} elements "
+                             f"past rtol = atol = {tol} (max |diff| "
+                             f"{diff.max().item()})")
+    err = diff.max().item()
+    del q, k, v, got, want, diff
+    torch.cuda.empty_cache()
+    return err
+
+
+def visible_scores(torch, sq, sk, q_offset, causal, window) -> int:
+    """Visible (query, key) pairs of one head: the work the kernel's
+    data needs."""
+    pos = torch.arange(sq, dtype=torch.int64) + q_offset
+    hi = torch.clamp(pos, max=sk - 1) if causal else \
+        torch.full_like(pos, sk - 1)
+    lo = torch.clamp(pos - window + 1, min=0)
+    return int(torch.clamp(hi - lo + 1, min=0).sum())
+
+
+def _sdpa(torch, case):
+    """The one PyTorch call computing B10's function where one exists:
+    no softcap, so scaled_dot_product_attention with the boolean
+    visibility mask (MHA; the port never calls it)."""
+    _, b, h, hk, sq, sk, hd, off, causal, window, cap, *_ = case
+    if cap > 0 or h != hk:
+        return None
+    pos = torch.arange(sq, device="cuda")[:, None] + off
+    key = torch.arange(sk, device="cuda")[None, :]
+    vis = key > pos - window
+    if causal:
+        vis &= key <= pos
+    return lambda q, k, v: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, attn_mask=vis)
+
+
+def time_flash(torch, fa, ref, case):
+    """(ms, ms_head_major, plain_ms, library_ms, bound_ms, bound_by,
+    bytes, ops) at one path shape, ms on the path's views and
+    ms_head_major on contiguous copies of them; the library call is
+    checked equal to the kernel (rtol = atol = FLASH_PATH_TOL) before it
+    is timed."""
+    _, b, h, hk, sq, sk, hd, off, causal, window, cap, *_ = case
+    kw = _flash_kw(case)
+    one = _flash_inputs(torch, case, seed=1)
+    out = fa.flash_attention_fwd(*one, **kw)
+    nbytes = _bytes(one, [out])
+    library = _sdpa(torch, case)
+    if library is not None:
+        torch.testing.assert_close(library(*one), out, rtol=FLASH_PATH_TOL,
+                                   atol=FLASH_PATH_TOL)
+    del out
+    n_sets = max(1, min(16, math.ceil(120e6 / nbytes)))  # > 50 MB of L2
+    sets = [one] + [_flash_inputs(torch, case, seed=2 + i)
+                    for i in range(n_sets - 1)]
+    big = nbytes > 1e8
+    launches, reps = (2, 3) if big else (40, 5)
+    ms = device_ms(torch, lambda *a: fa.flash_attention_fwd(*a, **kw), sets,
+                   launches, reps)
+    # the same data laid out head-major and contiguous: what reading the
+    # prefill's views in place costs or saves the kernel
+    dense = [[t.contiguous() for t in one_set] for one_set in sets]
+    ms_head_major = device_ms(
+        torch, lambda *a: fa.flash_attention_fwd(*a, **kw), dense, launches,
+        reps)
+    del dense
+    plain_ms = device_ms(torch, lambda *a: ref.flash_attention_ref(*a, **kw),
+                         sets, launches, reps)
+    library_ms = None if library is None else \
+        device_ms(torch, library, sets, launches, reps)
+    del sets, one
+    torch.cuda.empty_cache()
+    ops = 4 * b * h * hd * visible_scores(torch, sq, sk, off, causal,
+                                              window)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / F32_OPS_PER_S * 1e3
+    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+    return ms, ms_head_major, plain_ms, library_ms, max(bytes_ms, ops_ms), \
+        bound_by, nbytes, ops
+
+
+def flash_phase(torch, fa, ref):
+    """[flash-check] and B10's [kernel-time] rows; returns its kernels
+    row (numbers at the gpt2-xl prefill shape, the gemma2 layers'
+    beside them)."""
+    errs = {"float32": 0.0, "bfloat16": 0.0}
+    for case in FLASH_SWEEP:
+        tol = FLASH_TOL[case[11]]
+        errs[case[11]] = max(errs[case[11]],
+                             check_flash(torch, fa, ref, case, tol))
+    path_errs = {}
+    for name, case in FLASH_PATHS.items():
+        path_errs[name] = check_flash(torch, fa, ref, case, FLASH_PATH_TOL)
+    phase("flash-check", cases=len(FLASH_SWEEP) + len(FLASH_PATHS),
+          max_abs_err_sweep=json.dumps(errs),
+          tolerance_sweep=json.dumps(FLASH_TOL),
+          max_abs_err_paths=json.dumps(path_errs),
+          tolerance_paths=FLASH_PATH_TOL)
+    timed = {}
+    for name, case in FLASH_PATHS.items():
+        ms, ms_head_major, plain_ms, library_ms, bound_ms, bound_by, \
+            nbytes, ops = time_flash(torch, fa, ref, case)
+        phase("kernel-time", name="flash_attention_fwd", path=name,
+              shape=json.dumps(list(case[1:7])), window=case[9],
+              softcap=case[10], bytes=nbytes, ops=ops, ms=f"{ms:.6f}",
+              ms_head_major=f"{ms_head_major:.6f}",
+              plain_ms=f"{plain_ms:.6f}", bound_ms=f"{bound_ms:.6f}",
+              bound_by=bound_by, library_ms=None if library_ms is None
+              else f"{library_ms:.6f}",
+              tflops=f"{ops / ms / 1e9:.3f}")
+        timed[name] = {"shape": list(case[1:7]), "window": case[9],
+                       "softcap": case[10], "ms": ms,
+                       "ms_head_major": ms_head_major, "plain_ms": plain_ms,
+                       "bound_ms": bound_ms, "bound_by": bound_by,
+                       "library_ms": library_ms,
+                       "max_abs_err": path_errs[name]}
+    row = {"name": "flash_attention_fwd", "route": "cuda",
+           "source": FLASH_SOURCE, "replaces": REPLACES["flash_attention_fwd"],
+           "launches": 0, "max_abs_err": max(errs["float32"],
+                                             *path_errs.values()),
+           "max_abs_err_bf16": errs["bfloat16"]}
+    row.update({k: timed["gpt2-xl"][k] for k in (
+        "ms", "ms_head_major", "plain_ms", "bound_ms", "bound_by",
+        "library_ms", "shape")})
+    row["gemma2_local"] = timed["gemma2-local"]
+    row["gemma2_global"] = timed["gemma2-global"]
+    return row
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the port on the card against the port on the CPU
 # ---------------------------------------------------------------------------
 
-def reference_check(torch):
+def reference_check(torch, arch="gpt2-xl-paper", p=8, n=6,
+                    tag="reference-check"):
+    """The SMOKE model of ``arch`` served on the card (kernels) against
+    the same weights, drawn on the CPU, served on the CPU (plain
+    versions): prompt ``p``, then ``n`` teacher-forced decode steps."""
     from repro_torch.configs.base import get_config
     from repro_torch.models.model import Transformer
-    from repro_torch.serving import DeltaHopCodec, KVCodec, quantize_caches
+    from repro_torch.serving import DeltaHopCodec, KVCodec
 
-    cfg = get_config("gpt2-xl-paper", smoke=True)
+    cfg = get_config(arch, smoke=True)
     cpu = Transformer(cfg, device="cpu",
                       generator=torch.Generator().manual_seed(0))
     gpu = Transformer(cfg, device="cuda")
     gpu.load_state_dict(cpu.state_dict())
-    b, p, n = 2, 8, 6
+    b = 2
     toks = torch.randint(0, cfg.vocab_size, (b, p + n),
                          generator=torch.Generator().manual_seed(1))
     kv, hop = KVCodec(bits=8), DeltaHopCodec(mode="aqsgd", bits=4)
 
     def run(model, dev):
-        c = quantize_caches(model.init_caches(b, p + n, torch.float32), kv)
+        c = model.init_caches(b, p + n, torch.float32, kv_codec=kv)
         c["hop_m"] = hop.init_state(1, b, cfg.d_model, device=dev)["m"]
         t = toks.to(dev)
         logits = []
@@ -516,11 +766,56 @@ def reference_check(torch):
         assert diff.max().item() <= 1, name
         flips += int((diff > 0).sum())
         total += diff.numel()
-    phase("reference-check", prefill_max_abs=pre, decode_max_abs=dec,
-          kv_code_flips=f"{flips}/{total}")
+    phase(tag, arch=arch, prompt=p, decode_steps=n, prefill_max_abs=pre,
+          decode_max_abs=dec, kv_code_flips=f"{flips}/{total}",
+          tolerance=f"prefill {PREFILL_ATOL} decode {DECODE_ATOL} flips <= "
+                    f"{MAX_FLIP_FRACTION}")
     assert pre <= PREFILL_ATOL, pre
     assert dec <= DECODE_ATOL, dec
     assert flips <= MAX_FLIP_FRACTION * total, (flips, total)
+
+
+def serve_gemma2_phase(torch, qp, serve):
+    """The slice's main path: gemma2-9b served at full width and depth
+    through the launcher; returns its launches."""
+    from repro_torch.serving import DeltaHopCodec, KVCodec, delta
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    qp.reset_launches()
+    delta.reset_sent()
+    out = serve.main(GEMMA_ARGS)
+    torch.cuda.synchronize()
+    launches = dict(qp.LAUNCHES)
+    sent = dict(delta.SENT)
+    peak = torch.cuda.max_memory_allocated()
+    logits, tokens = out["logits"], out["tokens"]
+    # the bytes on the wire: the decode hops the run sent, and the KV
+    # stores it filled, against the byte models
+    hop, kv = DeltaHopCodec(mode="aqsgd", bits=4), KVCodec(bits=8)
+    hop_model = hop.hop_bytes(G_BATCH, G_D) * G_GEN
+    kv_model = kv.stored_bytes((G_BATCH, G_CACHE, G_KV_HEADS, G_HEAD_DIM)) \
+        * 2 * G_LAYERS
+    phase("serve-gemma2", layers=G_LAYERS, d_model=G_D, vocab=G_VOCAB,
+          batch=G_BATCH, prompt=G_PROMPT, cache=out["cache_len"],
+          prefill_s=f"{out['prefill_s']:.4f}",
+          decode_s=f"{out['decode_s']:.4f}",
+          decode_tok_s=f"{out['decode_tok_s']:.2f}",
+          peak_mem_gib=f"{peak / 2**30:.3f}", launches=json.dumps(launches),
+          hops=sent["hops"], hop_bytes=sent["bytes"],
+          hop_bytes_model=hop_model,
+          kv_store_bytes=out["kv_store_bytes"], kv_store_bytes_model=kv_model,
+          decode_steps=G_GEN)
+    assert tokens.shape == (G_BATCH, G_GEN), tokens.shape
+    assert logits.shape == (G_BATCH, 1, G_VOCAB), logits.shape
+    assert torch.isfinite(logits).all().item(), "non-finite logits"
+    assert out["cache_len"] == G_CACHE == 8192
+    assert sent == {"hops": G_GEN, "bytes": hop_model}, sent
+    assert out["kv_store_bytes"] == kv_model, out["kv_store_bytes"]
+    assert launches == GEMMA_LAUNCHES, (launches, GEMMA_LAUNCHES)
+    del out, logits, tokens
+    torch.cuda.empty_cache()
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -753,6 +1048,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import quant_pack as qp
     from repro_torch.kernels import ref
     from repro_torch.launch import serve
@@ -767,12 +1063,17 @@ def main() -> int:
           cuda=torch.version.cuda)
 
     t0 = time.perf_counter()
-    lib = build.build("quant_pack")
-    build.load("quant_pack")
+    names = list(build.SIGNATURES)        # one nvcc a source, side by side
+    with ThreadPoolExecutor(len(names)) as pool:
+        libs = dict(zip(names, pool.map(build.build, names)))
+    for name in names:
+        build.load(name)
     phase("build", seconds=f"{time.perf_counter() - t0:.1f}",
-          library=os.path.relpath(lib, ROOT))
+          libraries=json.dumps({n: os.path.relpath(p, ROOT)
+                                for n, p in libs.items()}))
 
     kernels = kernel_phase(torch, qp, ref)
+    kernels["flash_attention_fwd"] = flash_phase(torch, fa, ref)
 
     torch.cuda.reset_peak_memory_stats()
     qp.reset_launches()
@@ -790,10 +1091,18 @@ def main() -> int:
     assert torch.isfinite(logits).all().item(), "non-finite logits"
     serve_launches = launches
     for name in ("delta_quantize_pack", "dequant_unpack_accumulate",
-                 "quantize_pack", "unpack_dequant"):
+                 "quantize_pack", "unpack_dequant", "flash_attention_fwd"):
         assert launches[name] > 0, \
             f"{name} was never launched on the serving path"
+    assert launches["flash_attention_fwd"] == 48, launches  # one a layer
     reference_check(torch)
+    gemma_launches = serve_gemma2_phase(torch, qp, serve)
+    for name, n in GEMMA_LAUNCHES.items():
+        if n:
+            assert gemma_launches[name] > 0, \
+                f"{name} was never launched on the gemma2 serving path"
+    reference_check(torch, "gemma2-9b", G_CHECK_PROMPT, G_CHECK_STEPS,
+                    tag="serve-gemma2-reference-check")
 
     train_launches = train_phase(torch, qp)
     for name in TRAIN_LAUNCHES_PER_STEP:
@@ -807,10 +1116,11 @@ def main() -> int:
             f"{name} was never launched on the distributed path"
     dist_reference_check(torch)
     # a row's launches are those of the path its time was taken at:
-    # serving for the activation codecs, training for the DP wire, the
-    # distributed path for the ring's kernels
-    by_path = {"serve": serve_launches, "train": train_launches,
-               "dist": dist_launches}
+    # serving for the activation codecs and the attention kernel (gpt2-xl
+    # prefill), training for the DP wire, the distributed path for the
+    # ring's kernels
+    by_path = {"serve": serve_launches, "serve_gemma2": gemma_launches,
+               "train": train_launches, "dist": dist_launches}
     for name, row in kernels.items():
         path = "dist" if name in INT_KERNELS else \
             "train" if name in DP_KERNELS else "serve"

@@ -68,7 +68,7 @@ class ModelConfig:
 # ---------------------------------------------------------------------------
 # Registry: only the archs the port runs
 # ---------------------------------------------------------------------------
-ARCHS = ("gpt2-xl-paper",)
+ARCHS = ("gpt2-xl-paper", "gemma2-9b")
 
 
 def _module_name(arch: str) -> str:

@@ -5,9 +5,11 @@ C interface (no PyTorch headers, so a build takes seconds), under
 ``build/repro_torch_kernels/`` at the repository root.  The library's
 name carries a hash of its source and flags, so an edited source
 rebuilds and an unchanged one loads the library already built.  A
-build holds an exclusive lock on ``build/repro_torch_kernels/lock``,
+build holds an exclusive lock on ``build/repro_torch_kernels/<name>.lock``,
 so processes started together (the ranks of a distributed run) compile
 each library once: the first builds it, the others wait and load it.
+Different libraries lock different files, so builds of different
+libraries can run side by side.
 
 Flags: ``-gencode arch=compute_90a,code=sm_90a -std=c++17 -O3``, and
 deliberately no ``--use_fast_math`` or ``-prec-div=false``: the kernels
@@ -50,6 +52,10 @@ SIGNATURES = {
         "rt_pack_sums": (_P, _P, _I64, _I, _I, _P),
         "rt_unpack_sums": (_P, _P, _I64, _I, _I, _P),
     },
+    "flash_attention": {
+        "rt_flash_attention_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                   _I, _I, _I, _I, _F, _F, _I, _P),
+    },
 }
 
 _LOCK = threading.Lock()
@@ -85,7 +91,7 @@ def build(name: str) -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with open(BUILD_DIR / "lock", "w") as lock:
+    with open(BUILD_DIR / f"{name}.lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)    # released when the file closes
         if out.exists():                    # built while this one waited
             return out

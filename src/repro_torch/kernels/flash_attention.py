@@ -1,0 +1,98 @@
+"""Wrapper of the CUDA flash-attention forward kernel
+(``csrc/flash_attention.cu``), the port of the Pallas
+``flash_attention_fwd``.
+
+`flash_attention_fwd` takes head-major tensors, q ``(B, H, Sq, hd)``
+and k, v ``(B, Hk, Sk, hd)`` with ``H % Hk == 0`` (GQA: query head h
+reads kv head ``h // (H // Hk)``, never a repeated copy), query row i
+at position ``q_offset + i`` and key j at position j.  Any strides are
+taken as long as the last dim is contiguous: the kernel reads views
+(a serving prefill's transposed ``(B, S, H, hd)`` queries and cache) in
+place, and the output has q's memory layout.  A tensor on the
+CPU goes to the plain version `repro_torch.kernels.ref.flash_attention_ref`;
+a CUDA tensor goes to the kernel, launched on the current stream, or
+the wrapper raises; nothing falls back.  Launches are counted in
+`repro_torch.kernels.quant_pack.LAUNCHES` under ``flash_attention_fwd``
+(the CPU path does not count).
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels import quant_pack as _qp
+from repro_torch.kernels import ref
+
+HEAD_DIMS = (32, 64, 128, 256)
+DTYPES = (torch.float32, torch.bfloat16)
+BIG_WINDOW = 10 ** 9
+_INT_MAX = 2 ** 31 - 1
+
+
+def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  window: int, q_offset: int) -> None:
+    """Raise on what neither version takes: every query row must see at
+    least one key (``q_offset + Sq <= Sk``, ``window >= 1``)."""
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"expected q (B, H, Sq, hd) and k, v (B, Hk, Sk, "
+                         f"hd), got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    b, h, sq, hd = q.shape
+    if k.shape[0] != b or k.shape[3] != hd:
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} differ "
+                         f"in batch or head_dim")
+    if h % k.shape[1]:
+        raise ValueError(f"{h} query heads do not share {k.shape[1]} kv "
+                         f"heads evenly")
+    if q_offset < 0 or q_offset + sq > k.shape[2]:
+        raise ValueError(f"query positions {q_offset}..{q_offset + sq - 1} "
+                         f"run past the {k.shape[2]} keys")
+    if window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, window: int = BIG_WINDOW,
+                        softcap: float = 0.0,
+                        q_offset: int = 0) -> torch.Tensor:
+    """Attention forward: softmax over the visible keys of
+    ``softcap(q k^T / sqrt(hd))``, times v.  Returns ``(B, H, Sq, hd)``
+    in q's dtype."""
+    window, q_offset = int(window), int(q_offset)
+    _check_shapes(q, k, v, window=window, q_offset=q_offset)
+    if not _qp._on_cuda(q, k, v):
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       softcap=softcap, q_offset=q_offset)
+    b, h, sq, hd = q.shape
+    hk, sk = k.shape[1], k.shape[2]
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"the kernel takes head_dim {HEAD_DIMS}, got {hd}")
+    if q.dtype not in DTYPES:
+        raise TypeError(f"the kernel takes {DTYPES}, got {q.dtype}")
+    for t, name in ((q, "q"), (k, "k"), (v, "v")):
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name}: expected {q.dtype}, got {t.dtype}")
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name}: its last dim must be contiguous")
+    if max(h, b) > 65535:
+        raise ValueError(f"batch {b} or heads {h} past the kernel's grid "
+                         f"(65535)")
+    out = torch.empty_like(q)             # q's layout, if q's is dense
+    if q.numel():
+        lib = build.load("flash_attention")
+        strides = (ctypes.c_longlong * 12)(
+            *(t.stride(i) for t in (q, k, v, out) for i in range(3)))
+        rc = lib.rt_flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            strides, b, h, hk, sq, sk, hd, q_offset, int(bool(causal)),
+            min(window, _INT_MAX), 1.0 / math.sqrt(hd), float(softcap),
+            int(q.dtype == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"rt_flash_attention_fwd failed to launch: "
+                               f"CUDA error {rc}")
+        _qp.LAUNCHES["flash_attention_fwd"] += 1
+    return out

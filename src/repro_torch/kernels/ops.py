@@ -1,10 +1,10 @@
-"""Row-flattening wrappers around the codec kernels (port of the codec
-half of `repro.kernels.ops`).
+"""Wrappers around the kernels (port of `repro.kernels.ops`).
 
-Callers pass any ``(..., d)`` batch shape; these flatten it to the
-kernels' ``(rows, d)`` layout and restore it on the outputs.  The CUDA
-kernels mask the ragged last block themselves, so unlike the Pallas
-wrappers nothing is padded.
+The codec wrappers take any ``(..., d)`` batch shape, flatten it to the
+kernels' ``(rows, d)`` layout and restore it on the outputs.
+`flash_attention` takes the Pallas wrapper's head-major layout.  The
+CUDA kernels mask the ragged last block themselves, so unlike the
+Pallas wrappers nothing is padded.
 """
 from __future__ import annotations
 
@@ -12,6 +12,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import quant_pack as _qp
 
 
@@ -97,3 +98,13 @@ def unpack_sums(packed, *, bits: int, n: int):
     shape = packed.shape
     out = _qp.unpack_sums(_rows(packed, shape[-1]), bits=bits, n=n)
     return out.reshape(*shape[:-1], out.shape[-1])
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    window: int = _fa.BIG_WINDOW, softcap: float = 0.0,
+                    q_offset: int = 0):
+    """(B, H, Sq, hd) x (B, Hk, Sk, hd) -> (B, H, Sq, hd), query row i at
+    position ``q_offset + i``.  Views are read in place (the last dim
+    contiguous); the output has q's memory layout."""
+    return _fa.flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                   softcap=softcap, q_offset=q_offset)

@@ -20,7 +20,9 @@ A tensor on the CPU goes to the plain version in `repro_torch.kernels.ref`.
 A CUDA tensor goes to the kernel, launched on the current stream, or
 the wrapper raises; nothing falls back.  `LAUNCHES` counts kernel
 launches per wrapper (the CPU path does not count), so a run can show
-that its path went through the kernels.
+that its path went through the kernels (``flash_attention_fwd``, the
+attention kernel of `repro_torch.kernels.flash_attention`, counts here
+too).
 """
 from __future__ import annotations
 
@@ -38,7 +40,8 @@ KERNEL_BITS = (2, 4, 8)
 LAUNCHES = {"delta_quantize_pack": 0, "dequant_unpack_accumulate": 0,
             "quantize_pack": 0, "unpack_dequant": 0,
             "quantize_codes_scaled": 0, "dequant_sum_mean": 0,
-            "unpack_accumulate": 0, "pack_sums": 0, "unpack_sums": 0}
+            "unpack_accumulate": 0, "pack_sums": 0, "unpack_sums": 0,
+            "flash_attention_fwd": 0}
 
 
 def reset_launches() -> None:

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the CUDA codec kernels.
+"""Plain PyTorch versions of the CUDA kernels.
 
 Each function computes exactly what its kernel in ``csrc/quant_pack.cu``
 computes, bit for bit (the ring's sum packers on their domain: sums in
@@ -8,9 +8,15 @@ and the Pallas kernel of the same name.  The wrappers in
 tests hold them against JAX and ``chip_smoke.py`` holds the kernels
 against them on the card.  Shapes: rows ``(R, d)``, packed ``(R, d *
 bits / 8)`` u8, scale ``(R, 1)`` f32.
+
+`flash_attention_ref` is the plain version of the attention kernel
+(``csrc/flash_attention.cu``): dense masked-softmax attention, the
+counterpart of the JAX oracle ``repro.kernels.ref.flash_attention_ref``,
+held to it and to the kernel within a tolerance, not bit for bit.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -94,3 +100,33 @@ def unpack_sums_ref(packed: torch.Tensor, bits: int, n: int) -> torch.Tensor:
     pw = packed.shape[-1]
     d = pw * (8 // sw) if sw <= 8 else pw // (sw // 8)
     return Q.unpack_sums(packed, bits, n, d)
+
+
+NEG_INF = -1.0e9
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, window: int = 10 ** 9,
+                        softcap: float = 0.0,
+                        q_offset: int = 0) -> torch.Tensor:
+    """Dense attention, head-major: q (B, H, Sq, hd), k and v (B, Hk, Sk,
+    hd) with H % Hk == 0; query head h reads kv head h // (H // Hk).
+    Query row i sits at position ``q_offset + i``, key j at j; key j is
+    visible iff j > pos - window and (causal) j <= pos; hidden scores
+    are ``NEG_INF``.  f32 throughout; returns q's dtype."""
+    b, h, sq, hd = q.shape
+    hk, sk = k.shape[1], k.shape[2]
+    g = h // hk
+    qg = q.float().reshape(b, hk, g, sq, hd)
+    s = torch.matmul(qg, k.float()[:, :, None].transpose(-1, -2)) \
+        * (1.0 / math.sqrt(hd))                       # (B, Hk, G, Sq, Sk)
+    if softcap > 0:
+        s = softcap * torch.tanh(s / softcap)
+    pos = q_offset + torch.arange(sq, device=q.device)[:, None]
+    key = torch.arange(sk, device=q.device)[None, :]
+    vis = key > pos - window
+    if causal:
+        vis &= key <= pos
+    p = torch.softmax(torch.where(vis, s, NEG_INF), dim=-1)
+    out = torch.matmul(p, v.float()[:, :, None])      # (B, Hk, G, Sq, hd)
+    return out.reshape(b, h, sq, hd).to(q.dtype)

@@ -11,9 +11,14 @@ config is echoed back as JSON.  The weights are a random init from
 Runs on CUDA unless ``--device cpu`` asks for the CPU; with no card and
 no such request it raises.
 
-Example (the paper's 1.5B model, full width and depth, on one card):
+Examples, full width and depth, on one card: the paper's 1.5B model,
   python -m repro_torch.launch.serve --arch gpt2-xl-paper --stages 2 \\
       --mode aqsgd --fw-bits 4 --kv-bits 8 --batch 8 --prompt-len 128 \\
+      --gen 32
+and gemma2-9b (9.24B parameters, 37 GB at f32; a prompt past its
+4096-key window, into a cache of its 8192-token context):
+  python -m repro_torch.launch.serve --arch gemma2-9b --stages 2 \\
+      --mode aqsgd --fw-bits 4 --kv-bits 8 --batch 2 --prompt-len 8160 \\
       --gen 32
 """
 from __future__ import annotations
@@ -26,7 +31,7 @@ import torch
 from repro_torch.comm import config as comm_cli
 from repro_torch.configs.base import ARCHS, get_config
 from repro_torch.models.model import Transformer
-from repro_torch.serving import DeltaHopCodec, KVCodec, quantize_caches
+from repro_torch.serving import DeltaHopCodec, KVCodec
 
 
 def resolve_device(name: str) -> torch.device:
@@ -66,7 +71,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 def serve(args) -> dict:
     """Run prefill + ``args.gen`` decode steps; returns the timings, the
-    generated tokens and the last logits."""
+    generated tokens, the last logits and the KV stores' device bytes
+    (``kv_store_bytes`` over ``cache_len`` token rows)."""
     dev = resolve_device(args.device)
     comm = comm_cli.from_args(args)
     print("comm:", comm.to_json())
@@ -88,8 +94,8 @@ def serve(args) -> dict:
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     model = Transformer(cfg, device=dev, generator=gen)
     cache_len = args.prompt_len + args.gen
-    caches = model.init_caches(args.batch, cache_len, torch.float32)
-    caches = quantize_caches(caches, kv_codec)
+    caches = model.init_caches(args.batch, cache_len, torch.float32,
+                               kv_codec=kv_codec)
     if hop is not None:
         caches["hop_m"] = hop.init_state(args.stages - 1, args.batch,
                                          cfg.d_model, device=dev)["m"]
@@ -126,8 +132,12 @@ def serve(args) -> dict:
     tok_s = args.gen * args.batch / (t2 - t1)
     print(f"decode {args.gen} tokens: {t2 - t1:.3f}s ({tok_s:.1f} tok/s)")
     print("sample token ids:", generated[0][:12].tolist())
+    kv_bytes = sum(caches[n].numel() * caches[n].element_size()
+                   for n in ("k", "v", "k_codes", "k_scale", "v_codes",
+                             "v_scale") if n in caches)
     return {"prefill_s": t1 - t0, "decode_s": t2 - t1, "decode_tok_s": tok_s,
-            "tokens": generated, "logits": logits}
+            "tokens": generated, "logits": logits,
+            "kv_store_bytes": kv_bytes, "cache_len": cache_len}
 
 
 def main(argv=None) -> dict:

@@ -4,12 +4,18 @@ Weights keep the JAX package's layout — ``x @ W`` with ``W`` of shape
 ``(in, out)`` — so parameters move between the packages unchanged
 (`repro_torch.weights`).  Activations are ``(B, S, ...)`` as there.
 
-Attention over a KV cache is plain PyTorch math: scores by
-``torch.matmul``, the causal and window masks as ``NEG_INF`` fills, and
-a softmax.  The JAX package runs prefill through its blockwise scan
-(`repro.models.layers.flash_attention`); `flash_attention` here is
-where the hand-written kernel for the Pallas ``flash_attention_fwd``
-goes when it is ported.
+Attention has three paths, chosen by which step runs:
+
+* serving prefill (a KV cache and S > 1): the flash-attention kernel
+  (`repro_torch.kernels.ops.flash_attention`, the port of the Pallas
+  ``flash_attention_fwd``) over the whole cache, query rows at
+  ``cache_index + i``, the kv heads read in place (GQA, no repeat);
+  on CPU tensors its plain version;
+* decode (S = 1): `onehot_attention`, single-shot scores, as in JAX;
+* the cache-free training forward: `flash_attention`, plain masked
+  softmax with autograd, the counterpart of the JAX-level
+  ``custom_vjp`` scan (`repro.models.layers.flash_attention`), which
+  has no kernel in the reference.
 """
 from __future__ import annotations
 
@@ -18,6 +24,8 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from repro_torch.kernels import ops
 
 NEG_INF = -1.0e9
 
@@ -93,9 +101,9 @@ def _repeat_kv(k: torch.Tensor, groups: int) -> torch.Tensor:
 
 def flash_attention(q, k, v, *, q_pos, k_pos, window, causal=True,
                     attn_softcap=0.0):
-    """Prefill attention.  q: (B, Sq, H, hd); k, v: (B, Sk, H, hd) (kv
-    already head-repeated).  Plain masked-softmax attention, the place
-    of the Pallas ``flash_attention_fwd`` port."""
+    """Training attention over a call's own keys.  q: (B, Sq, H, hd);
+    k, v: (B, Sk, H, hd) (kv already head-repeated).  Plain
+    masked-softmax attention, differentiable by autograd."""
     hd = q.shape[-1]
     qf = (q * (1.0 / math.sqrt(hd))).float().transpose(1, 2)  # (B,H,Sq,hd)
     s = torch.matmul(qf, k.float().permute(0, 2, 3, 1))       # (B,H,Sq,Sk)
@@ -156,7 +164,9 @@ class Attention(nn.Module):
         place at ``cache_index`` with this step's fresh rows; attention
         runs over the whole cache (rows past the write head are masked
         by the causal check).  Without caches (training) attention runs
-        over this call's own keys.  Returns (out, fresh_k, fresh_v)."""
+        over this call's own keys.  The attention path follows from the
+        call (see the module docstring), never from a caught error.
+        Returns (out, fresh_k, fresh_v)."""
         b, s, _ = x.shape
         dtype = x.dtype
         hk, hd = self.num_kv_heads, self.head_dim
@@ -165,7 +175,8 @@ class Attention(nn.Module):
         v = (x @ self.wv.to(dtype)).reshape(b, s, hk, hd)
         q = rope(q, positions, self.rope_theta)
         k = rope(k, positions, self.rope_theta)
-        if k_cache is None:
+        cached = k_cache is not None
+        if not cached:
             k_cache, v_cache, k_pos = k, v, positions
         else:
             k_cache[:, cache_index:cache_index + s] = k.to(k_cache.dtype)
@@ -177,6 +188,14 @@ class Attention(nn.Module):
                   attn_softcap=self.attn_softcap)
         if s == 1:
             out = onehot_attention(q, k_cache, v_cache, **kw)
+        elif cached:
+            # prefill: the kernel over head-major views of q and the
+            # cache, read in place; its output is (B, S, H, hd) memory
+            out = ops.flash_attention(
+                q.transpose(1, 2), k_cache.transpose(1, 2),
+                v_cache.transpose(1, 2), causal=True, window=window,
+                softcap=self.attn_softcap, q_offset=cache_index
+            ).transpose(1, 2)
         else:
             groups = self.num_heads // hk
             out = flash_attention(q, _repeat_kv(k_cache, groups),

@@ -59,7 +59,9 @@ class Block(nn.Module):
 
 
 class Transformer(nn.Module):
-    """Dense-family decoder (``gpt2-xl-paper``): token embedding, a stack
+    """Dense-family decoder (``gpt2-xl-paper``, ``gemma2-9b``: per-layer
+    sliding windows, GQA, attention and final logit softcaps, gated or
+    plain MLP): token embedding, a stack
     of `Block`s, a final RMSNorm and logits tied to the embedding.
 
     ``generator`` seeds a random init that follows the JAX package's
@@ -128,15 +130,25 @@ class Transformer(nn.Module):
     # -- caches -------------------------------------------------------------
 
     def init_caches(self, batch_size: int, cache_len: int,
-                    dtype: torch.dtype = torch.bfloat16, device=None) -> dict:
-        """Zero raw caches for prefill/decode: k, v (L, B, Sc, Hk, hd)."""
+                    dtype: torch.dtype = torch.bfloat16, device=None,
+                    kv_codec=None) -> dict:
+        """Zero caches for prefill/decode: raw k, v (L, B, Sc, Hk, hd),
+        or, with a quantizing ``kv_codec``, its ``{k,v}_codes`` and
+        ``{k,v}_scale`` stores for that shape (the layout of JAX
+        `quantize_caches`; no raw store is allocated)."""
         cfg = self.cfg
         device = device if device is not None else self.embed.device
         shape = (cfg.num_layers, batch_size, cache_len, cfg.num_kv_heads,
                  cfg.head_dim)
-        return {"pos": 0,
-                "k": torch.zeros(shape, dtype=dtype, device=device),
-                "v": torch.zeros(shape, dtype=dtype, device=device)}
+        caches: dict = {"pos": 0}
+        for name in ("k", "v"):
+            if kv_codec is not None and kv_codec.bits:
+                store = kv_codec.empty(shape, device=device)
+                caches[name + "_codes"] = store["codes"]
+                caches[name + "_scale"] = store["scale"]
+            else:
+                caches[name] = torch.zeros(shape, dtype=dtype, device=device)
+        return caches
 
     # -- prefill / decode ---------------------------------------------------
 

@@ -4,6 +4,6 @@
 * `kvcache` — quantized KV cache (the ``kv`` plane of CommConfig).
 """
 from repro_torch.serving.delta import DeltaHopCodec
-from repro_torch.serving.kvcache import KVCodec, quantize_caches
+from repro_torch.serving.kvcache import KVCodec
 
-__all__ = ["DeltaHopCodec", "KVCodec", "quantize_caches"]
+__all__ = ["DeltaHopCodec", "KVCodec"]

@@ -11,11 +11,15 @@ Modes mirror the activation plane (`CommConfig.mode`):
 * ``aqsgd``   — `core.boundary.encode_delta` on the send side,
   `decode_accumulate` on the receive side (on a CUDA tensor: the
   ``delta_quantize_pack`` and ``dequant_unpack_accumulate`` kernels);
-* ``directq`` — quantize the value itself every hop (`roundtrip`);
+* ``directq`` — quantize the value itself every hop (`encode`, `decode`);
 * ``fp32``    — pass-through (the uncompressed baseline).
 
 The prefill crossing is uncompressed and sets ``m`` to the last prompt
 position's hidden state, so the first decode delta is one token-step.
+
+`SENT` counts the decode hops taken and the bytes of the payload each
+one produced (packed codes and scales, or the raw f32 hidden state),
+counted where the sender makes it; `reset_sent` zeroes it.
 """
 from __future__ import annotations
 
@@ -25,6 +29,17 @@ import torch
 
 from repro_torch.core import boundary as B
 from repro_torch.core import quantization as Q
+
+SENT = {"hops": 0, "bytes": 0}
+
+
+def reset_sent() -> None:
+    SENT.update(hops=0, bytes=0)
+
+
+def _sent(*payload: torch.Tensor) -> None:
+    SENT["hops"] += 1
+    SENT["bytes"] += sum(t.numel() * t.element_size() for t in payload)
 
 
 @dataclass(frozen=True)
@@ -68,13 +83,18 @@ class DeltaHopCodec:
         aqsgd: the receiver's output IS the new reference (equal to the
         sender's ``m_new`` bit for bit), so one update serves both ends."""
         if self.mode == "fp32":
+            _sent(h.float())
             return state, h
         if self.mode == "directq":
-            return state, B.roundtrip(h, bits=self.bits,
-                                      backend=self.backend).to(h.dtype)
+            packed, scale = B.encode(h, bits=self.bits, backend=self.backend)
+            _sent(packed, scale)
+            return state, B.decode(packed, scale, bits=self.bits,
+                                   d=h.shape[-1], dtype=h.dtype,
+                                   backend=self.backend)
         m = state["m"][idx]
         packed, scale, m_new = B.encode_delta(h, m, bits=self.bits,
                                               backend=self.backend)
+        _sent(packed, scale)
         h2 = B.decode_accumulate(packed, scale, m, bits=self.bits,
                                  backend=self.backend)
         state["m"][idx] = m_new

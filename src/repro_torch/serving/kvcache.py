@@ -122,17 +122,3 @@ class KVCodec:
         n = values.shape[1]
         codes[:, pos:pos + n] = c
         scale[:, pos:pos + n] = s
-
-
-def quantize_caches(caches: dict, codec: KVCodec) -> dict:
-    """Convert a raw `Transformer.init_caches` dict into the quantized
-    layout: ``k``/``v`` become ``{k,v}_codes`` + ``{k,v}_scale``."""
-    if not codec.bits:
-        return caches
-    out = dict(caches)
-    for name in ("k", "v"):
-        arr = out.pop(name)
-        store = codec.empty(arr.shape, device=arr.device)
-        out[name + "_codes"] = store["codes"]
-        out[name + "_scale"] = store["scale"]
-    return out

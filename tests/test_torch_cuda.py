@@ -12,12 +12,17 @@ and the scalar path, ragged rows, stochastic rounding with shared noise,
 both output types of the store read, and, for the gradient wire, both
 ``pack`` variants, zero scale rows and several worker counts; the
 ring's accumulate and sum packers at every sum width (2/4/8/16/32
-bits), on the int4 path and the element path.
+bits), on the int4 path and the element path.  The flash-attention
+kernel (B10) is held to its plain version within a tolerance (rtol =
+atol = 2e-5 in f32, 2e-2 in bf16, as `tests/test_flash_kernel.py`):
+head dims 32-256, GQA and MQA, windows, softcaps, non-causal, ragged
+Sq and Sk with a query offset.
 """
 import pytest
 import torch
 
 from repro_torch.core import boundary as TB
+from repro_torch.kernels import flash_attention as TFA
 from repro_torch.kernels import quant_pack as TP
 from repro_torch.kernels import ref as TR
 
@@ -161,7 +166,8 @@ def test_counters_and_checks(card):
                            "quantize_pack": 1, "unpack_dequant": 1,
                            "quantize_codes_scaled": 1,
                            "dequant_sum_mean": 1, "unpack_accumulate": 1,
-                           "pack_sums": 1, "unpack_sums": 1}
+                           "pack_sums": 1, "unpack_sums": 1,
+                           "flash_attention_fwd": 0}
     with pytest.raises(TypeError):
         TP.quantize_pack(x.double(), bits=8)
     with pytest.raises(ValueError):
@@ -171,3 +177,69 @@ def test_counters_and_checks(card):
     with pytest.raises(ValueError):
         TP.quantize_pack(x, x.cpu(), bits=8)      # mixed devices
     assert TP.LAUNCHES["quantize_pack"] == 1
+
+
+# (b, h, hk, sq, sk, hd, q_offset, causal, window, softcap)
+FLASH_CASES = [
+    (1, 2, 2, 64, 64, 32, 0, True, 10 ** 9, 0.0),
+    (2, 4, 2, 128, 128, 64, 0, True, 10 ** 9, 0.0),      # GQA
+    (1, 8, 1, 64, 64, 128, 0, True, 10 ** 9, 0.0),       # MQA
+    (1, 2, 2, 64, 64, 32, 0, True, 9, 0.0),
+    (1, 2, 2, 64, 64, 32, 0, True, 17, 4.0),
+    (1, 2, 2, 64, 64, 32, 0, True, 10 ** 9, 30.0),
+    (1, 2, 2, 64, 64, 32, 0, False, 10 ** 9, 0.0),
+    (2, 4, 2, 37, 53, 256, 9, True, 16, 50.0),           # ragged, offset
+    (2, 25, 25, 128, 160, 64, 0, True, 10 ** 9, 0.0),    # gpt2-xl prefill
+    (1, 16, 8, 300, 400, 256, 70, True, 128, 50.0),      # gemma2 local
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_attention_matches_plain(card, case, dtype):
+    b, h, hk, sq, sk, hd, off, causal, window, cap = case
+    g = torch.Generator(device=card).manual_seed(sq + sk + hd)
+    q = torch.randn(b, h, sq, hd, generator=g, device=card).to(dtype)
+    k = torch.randn(b, hk, sk, hd, generator=g, device=card).to(dtype)
+    v = torch.randn(b, hk, sk, hd, generator=g, device=card).to(dtype)
+    kw = dict(causal=causal, window=window, softcap=cap, q_offset=off)
+    TP.reset_launches()
+    got = TFA.flash_attention_fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert TP.LAUNCHES["flash_attention_fwd"] == 1
+    want = TR.flash_attention_ref(q, k, v, **kw)
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_flash_attention_reads_views_in_place(card):
+    """The serving prefill's layout: transposed (B, S, H, hd) queries and
+    (B, Sc, Hk, hd) cache rows, read without copies; the output has the
+    queries' (B, Sq, H, hd) memory layout."""
+    b, h, hk, sq, sk, hd = 2, 16, 8, 100, 230, 256
+    g = torch.Generator(device=card).manual_seed(7)
+    q = torch.randn(b, sq, h, hd, generator=g, device=card).transpose(1, 2)
+    k = torch.randn(b, sk, hk, hd, generator=g, device=card).transpose(1, 2)
+    v = torch.randn(b, sk, hk, hd, generator=g, device=card).transpose(1, 2)
+    kw = dict(causal=True, window=64, softcap=50.0, q_offset=130)
+    got = TFA.flash_attention_fwd(q, k, v, **kw)
+    assert got.transpose(1, 2).is_contiguous()
+    want = TR.flash_attention_ref(q.contiguous(), k.contiguous(),
+                                  v.contiguous(), **kw)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+def test_flash_attention_checks(card):
+    q = torch.randn(1, 2, 8, 64, device=card)
+    with pytest.raises(ValueError, match="head_dim"):
+        TFA.flash_attention_fwd(q[..., :48].contiguous(),
+                                q[..., :48].contiguous(),
+                                q[..., :48].contiguous())
+    with pytest.raises(TypeError):
+        TFA.flash_attention_fwd(q.double(), q.double(), q.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        TFA.flash_attention_fwd(q.transpose(2, 3).contiguous()
+                                .transpose(2, 3), q, q)
+    with pytest.raises(ValueError):
+        TFA.flash_attention_fwd(q, q.cpu(), q)             # mixed devices

@@ -22,6 +22,7 @@ from repro.serving import KVCodec as JKV
 from repro_torch.comm import config as TC
 from repro_torch.serving import DeltaHopCodec as THop
 from repro_torch.serving import KVCodec as TKV
+from repro_torch.serving import delta as tdelta
 
 BITS = [2, 4, 8]
 
@@ -71,6 +72,31 @@ def test_kvcodec_matches_jax(bits, group_d):
         assert tc.grouped_shape(shape) == jc.grouped_shape(shape)
 
 
+@pytest.mark.parametrize("bits", BITS)
+def test_kvcodec_matches_jax_at_gemma2_rows(bits):
+    """gemma2-9b's KV rows (Hk 8, head_dim 256): append, whole-store
+    decode and the byte model, against JAX; stored bytes at the served
+    shape (batch 2, cache 8192) too."""
+    jc, tc = JKV(bits=bits), TKV(bits=bits)
+    fresh = _np((2, 3, 8, 256), bits, 3.0)
+    store_shape = (2, 8, 8, 256)
+
+    def jax_step(f):
+        st = jc.append(jc.empty(store_shape, jnp.float32), f, 4)
+        return st, jc.decode(st["codes"], st["scale"], jnp.float32)
+
+    jst, jvals = jax.jit(jax_step)(fresh)
+    tst = tc.empty(store_shape, torch.float32)
+    tc.append(tst["codes"], tst["scale"], torch.from_numpy(fresh), 4)
+    _eq(jst["codes"], tst["codes"])
+    _eq(jst["scale"], tst["scale"])
+    _eq(jvals, tc.decode(tst["codes"], tst["scale"], torch.float32))
+    for shape in [(1, 1, 8, 256), (2, 8192, 8, 256), (2, 8160, 8, 256)]:
+        assert tc.stored_bytes(shape) == jc.stored_bytes(shape)
+    # per token and layer, k or v: 8 rows of 256 codes plus 8 f32 scales
+    assert tc.stored_bytes((1, 1, 8, 256)) == 8 * (256 * bits // 8 + 4)
+
+
 def test_kvcodec_raw_and_layout():
     assert TKV(bits=0).stored_bytes((2, 3, 4, 64)) == \
         JKV(bits=0).stored_bytes((2, 3, 4, 64))
@@ -116,8 +142,30 @@ def test_hop_bytes_match_jax(bits):
         for mode in ("aqsgd", "directq", "fp32"):
             assert THop(mode=mode, bits=bits).hop_bytes(b, d) == \
                 JHop(mode=mode, bits=bits).hop_bytes(b, d)
-    # the gpt2-xl decode hop at batch 8 (the chip run's shape)
+    # the decode hops the chip run drives: gpt2-xl at batch 8, gemma2-9b
+    # at batch 2
     assert THop(bits=4).hop_bytes(8, 1600) == 8 * 800 + 8 * 4
+    assert THop(bits=4).hop_bytes(2, 3584) == \
+        JHop(bits=4).hop_bytes(2, 3584) == 2 * 1792 + 2 * 4
+
+
+@pytest.mark.parametrize("mode,bits", [("aqsgd", 4), ("aqsgd", 8),
+                                       ("directq", 4), ("fp32", 4)])
+def test_decode_hops_count_the_bytes_they_send(mode, bits):
+    """`delta.SENT` adds up the payload each decode hop produced: the byte
+    model per hop (gemma2-9b's hop at batch 2 among the shapes); the
+    prefill crossing counts nothing."""
+    th = THop(mode=mode, bits=bits)
+    for b, d in [(3, 96), (2, 3584)]:
+        st = th.init_state(1, b, d)
+        tdelta.reset_sent()
+        st, _ = th.prefill_boundary(st, torch.from_numpy(_np((b, 5, d), 1)),
+                                    0)
+        assert tdelta.SENT == {"hops": 0, "bytes": 0}
+        for t in range(3):
+            h = torch.from_numpy(_np((b, 1, d), 10 + t))
+            st, _ = th.decode_boundary(st, h, 0)
+        assert tdelta.SENT == {"hops": 3, "bytes": 3 * th.hop_bytes(b, d)}
 
 
 # ---------------------------------------------------------------------------

@@ -1,20 +1,25 @@
 #!/usr/bin/env python3
-"""Where a decode step of the PyTorch port's serving path spends its time.
+"""Where a prefill and a decode step of the PyTorch port's serving path
+spend their time.
 
     python3 tools/trace_torch_serve.py [serve flags] [--trace-steps N]
 
 Sets up the same path as `repro_torch.launch.serve` (defaults: the
 chip run's ``gpt2-xl-paper`` at full width and depth, batch 8, prompt
-128, ``--stages 2 --mode aqsgd --fw-bits 4 --kv-bits 8``), prefills,
-warms up two decode steps, then traces ``--trace-steps`` steady decode
-steps under `torch.profiler` and prints one JSON line:
+128, ``--stages 2 --mode aqsgd --fw-bits 4 --kv-bits 8``; for gemma2-9b
+add ``--arch gemma2-9b --batch 2 --prompt-len 8160``), prefills once to
+warm up, times and traces a second prefill into fresh caches (the
+``prefill`` entry), warms up two decode steps, then traces
+``--trace-steps`` steady decode steps under `torch.profiler` and prints
+one JSON object:
 
 * ``step_ms``: host wall time per step (synchronized), the ground truth;
 * ``device_busy_ms``: per step, the union of the CUDA kernels' device
   intervals; ``device_idle_share`` = 1 - busy / wall;
 * ``kernel_launches``: device kernels per step;
 * ``top_kernels``: device time per step by kernel name;
-* ``top_host_ops``: self host time per step by PyTorch op.
+* ``top_host_ops``: self host time per step by PyTorch op;
+* ``prefill``: the same keys for one prefill.
 
 The traced run pays the profiler's own cost: ``step_ms_untraced`` is the
 same steps timed without it.  Needs a CUDA device.
@@ -46,14 +51,13 @@ def _union_ms(intervals) -> float:
 
 def main(argv=None) -> dict:
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.comm import config as comm_cli
     from repro_torch.configs.base import get_config
     from repro_torch.launch import serve
     from repro_torch.models.model import Transformer
-    from repro_torch.serving import DeltaHopCodec, KVCodec, quantize_caches
+    from repro_torch.serving import DeltaHopCodec, KVCodec
 
     ap = serve.build_parser()
     ap.add_argument("--trace-steps", type=int, default=8)
@@ -70,18 +74,33 @@ def main(argv=None) -> dict:
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     model = Transformer(cfg, device=dev, generator=gen)
     steps = 4 + 2 * args.trace_steps
-    caches = quantize_caches(model.init_caches(
-        args.batch, args.prompt_len + steps, torch.float32), kv)
-    if hop is not None:
-        caches["hop_m"] = hop.init_state(args.stages - 1, args.batch,
-                                         cfg.d_model, device=dev)["m"]
     kw = dict(logits_last_only=True, num_stages=args.stages,
               kv_codec=kv if kv.bits else None)
     tokens = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                            generator=gen, device=dev)
-    logits, caches = model.forward_with_caches(
-        tokens, caches, boundary_fn=hop and hop.boundary_fn(prefill=True),
-        **kw)
+
+    def prefill():
+        caches = model.init_caches(args.batch, args.prompt_len + steps,
+                                   torch.float32, kv_codec=kv)
+        if hop is not None:
+            caches["hop_m"] = hop.init_state(args.stages - 1, args.batch,
+                                             cfg.d_model, device=dev)["m"]
+        out = model.forward_with_caches(
+            tokens, caches, boundary_fn=hop and hop.boundary_fn(
+                prefill=True), **kw)
+        torch.cuda.synchronize(dev)
+        return out
+
+    prefill()                                   # warm-up
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    prefill()
+    prefill_untraced = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof_prefill:
+        t0 = time.perf_counter()
+        logits, caches = prefill()
+        prefill_wall = (time.perf_counter() - t0) * 1e3
     bfn = hop and hop.boundary_fn(prefill=False)
 
     def decode(n):
@@ -102,7 +121,24 @@ def main(argv=None) -> dict:
         decode(args.trace_steps)
         wall = (time.perf_counter() - t0) * 1e3 / args.trace_steps
 
-    n = args.trace_steps
+    out = {
+        "device": torch.cuda.get_device_name(dev),
+        "config": {k: getattr(args, k) for k in (
+            "arch", "smoke", "stages", "mode", "fw_bits", "kv_bits", "batch",
+            "prompt_len")},
+        "trace_steps": args.trace_steps, "step_ms_untraced": untraced,
+        "step_ms": wall, **_summary(prof, args.trace_steps, wall, "step"),
+        "prefill": {"ms_untraced": prefill_untraced, "ms": prefill_wall,
+                    **_summary(prof_prefill, 1, prefill_wall, "prefill")},
+    }
+    print(json.dumps(out, indent=1))
+    return out
+
+
+def _summary(prof, n: int, wall_ms: float, unit: str) -> dict:
+    """Device busy time, idle share, kernels and host ops per ``unit``
+    (one of ``n`` traced repetitions of ``wall_ms`` each)."""
+    from torch.autograd import DeviceType
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     busy = _union_ms((e.time_range.start, e.time_range.end)
                      for e in kernels) / n
@@ -114,22 +150,15 @@ def main(argv=None) -> dict:
                    for e in prof.key_averages()
                    if e.device_type == DeviceType.CPU),
                   key=lambda r: -r[1])
-    out = {
-        "device": torch.cuda.get_device_name(dev),
-        "config": {k: getattr(args, k) for k in (
-            "arch", "smoke", "stages", "mode", "fw_bits", "kv_bits", "batch",
-            "prompt_len")},
-        "trace_steps": n, "step_ms_untraced": untraced, "step_ms": wall,
-        "device_busy_ms": busy, "device_idle_share": 1.0 - busy / wall,
+    return {
+        "device_busy_ms": busy, "device_idle_share": 1.0 - busy / wall_ms,
         "kernel_launches": len(kernels) / n,
-        "top_kernels": [{"name": k[:90], "ms": v[0], "per_step": v[1] / n}
+        "top_kernels": [{"name": k[:90], "ms": v[0], f"per_{unit}": v[1] / n}
                         for k, v in sorted(by_kernel.items(),
                                            key=lambda kv: -kv[1][0])[:10]],
-        "top_host_ops": [{"op": k, "self_ms": ms, "per_step": c}
+        "top_host_ops": [{"op": k, "self_ms": ms, f"per_{unit}": c}
                          for k, ms, c in host[:12]],
     }
-    print(json.dumps(out, indent=1))
-    return out
 
 
 if __name__ == "__main__":

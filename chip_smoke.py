@@ -23,6 +23,15 @@ Phases, each printed on its own line:
    (2/4/8/16/32 bits), ragged rows, the element path, and the
    distributed path's shapes (a ring segment of 318554 rows, the
    637107-row bucket, d=512, 4 bits, n=2);
+   ``[oncore-bit-exact]``: the three encoders with a seed (B11, their
+   own Philox noise) against the plain versions fed
+   ``ref.oncore_uniform_ref``, BIT-EXACT, at three seeds, bits 2/4/8,
+   the serving and training shapes and the DP bucket, a d % 4 != 0 and
+   a misaligned view (the scalar path); ``[oncore-stats]``: their
+   10k-trial unbiasedness (5 sigma, tests/test_grad_compress.py's
+   harness); and their ``[kernel-time]`` rows at the training path's
+   shapes, beside the noise-input path they replace (the kernel
+   reading u, and the ``torch.rand`` that writes u);
    ``[flash-check]``: the attention kernel (B10) against its plain
    version within a tolerance: the sweep of tests/test_flash_kernel.py
    (shapes, GQA and MQA, bf16, windows 9 and 17, softcaps 4 and 30,
@@ -50,7 +59,9 @@ Phases, each printed on its own line:
    checked exactly just after; the hop's bytes as the encoder emits
    them and the KV stores' bytes against the byte models; then
    ``[serve-gemma2-reference-check]``: its SMOKE model, prompt 40 (past
-   the window of 16), 6 decode steps, card against CPU;
+   the window of 16), 6 decode steps, card against CPU, and
+   ``[serve-gemma2-build]``: the launcher's model build (weights drawn
+   on the CPU from the seed) against a build drawn on the card;
 6. ``[train]``: AQ-SGD fine-tuning with 4-bit DP gradients through
    `repro_torch.training.simulated.train`: ``gpt2-xl-paper`` at full
    width cut to 12 of its 48 layers (the full-depth training state does
@@ -58,6 +69,10 @@ Phases, each printed on its own line:
    on the ``ring`` wire over 2 simulated workers, batch 8 x seq 1024,
    16 samples, 6 steps (3 epochs, so the delta path runs from step 3),
    seed 0 — the counters set to 0 just before and read just after;
+   then ``[train-oncore]``: the same run with ``ACSGD_ONCORE_PRNG=1``,
+   each stochastic encode drawing its noise in the kernel (B1 36, B3
+   36, B5 12 seeded launches, none reading a noise tensor), its step
+   time, peak memory and final loss against ``[train]``'s;
 7. ``[train-reference-check]``: the SMOKE model, deterministic rounding
    on every plane, 4 steps on the card (kernels) against the CPU (plain
    versions) from the same weights;
@@ -114,6 +129,7 @@ REPLACES = {
     "pack_sums": "src/repro/kernels/quant_pack.py:579",
     "unpack_sums": "src/repro/kernels/quant_pack.py:620",
     "flash_attention_fwd": "src/repro/kernels/flash_attention.py:81",
+    "oncore_uniform": "src/repro/kernels/quant_pack.py:84",
 }
 # the ring's kernels do integer work only; their operations are counted
 # against the int32 rate outside the tensor cores, half the f32 rate
@@ -132,6 +148,13 @@ OPS_PER_ELEMENT = {
     "unpack_sums": 2,            # shift and (int32)
 }
 INT_KERNELS = ("unpack_accumulate", "pack_sums", "unpack_sums")
+# the seeded encoders' own noise (B11): one Philox4x32-10 call per 4
+# elements (10 rounds of 2 mullo, 2 mulhi, 4 xor and, from the second,
+# 2 key adds: 98 integer operations), then a shift and a convert a
+# word: 26.5 integer operations per element, plus the f32 multiply
+PHILOX_INT_OPS_PER_ELEMENT = (98 + 4 * 2) / 4
+PHILOX_F32_OPS_PER_ELEMENT = 1
+ONCORE_SEEDS = ((0, 0), (1, -2), (2 ** 31 - 1, -2 ** 31))
 # the slice (gpt2-xl-paper serving, as the main path drives it)
 BATCH, PROMPT, GEN = 8, 128, 32
 D_MODEL, KV_HEADS, HEAD_DIM = 1600, 25, 64
@@ -161,7 +184,7 @@ GEMMA_LAUNCHES = {"delta_quantize_pack": G_GEN,
                   "unpack_dequant": (1 + G_GEN) * G_LAYERS * 2,
                   "quantize_codes_scaled": 0, "dequant_sum_mean": 0,
                   "unpack_accumulate": 0, "pack_sums": 0, "unpack_sums": 0,
-                  "flash_attention_fwd": G_LAYERS}
+                  "flash_attention_fwd": G_LAYERS, "oncore_uniform": 0}
 # the gemma2 reference check: SMOKE, a prompt past its window of 16
 G_CHECK_PROMPT, G_CHECK_STEPS = 40, 6
 # B10 against its plain version: tests/test_flash_kernel.py's tolerances
@@ -184,6 +207,15 @@ TRAIN_LAUNCHES_PER_STEP = {"delta_quantize_pack": 6,
                            "quantize_codes_scaled": 2,
                            "dequant_sum_mean": 3}
 DP_KERNELS = ("quantize_codes_scaled", "dequant_sum_mean")
+# [train-oncore]: the [train] run with ACSGD_ONCORE_PRNG=1, where every
+# stochastic encode (B1, B3, B5) draws its noise in the kernel; its
+# final loss against [train]'s (other rounding noise, same weights and
+# data), a bound set before the first run on the card
+ONCORE_ENCODERS = ("delta_quantize_pack", "quantize_pack",
+                   "quantize_codes_scaled")
+ONCORE_FINAL_LOSS_RTOL = 2e-2
+# 10k-trial unbiasedness (tests/test_grad_compress.py's 5 sigma harness)
+STATS_TRIALS = 10_000
 # training reference check (tests/test_torch_train.py's tolerances)
 FIRST_STEP_RTOL, LATER_STEP_RTOL = 1e-5, 1e-3
 # the distributed slice (gpt2-xl-paper at full width, 8 of 48 layers,
@@ -525,6 +557,186 @@ def kernel_phase(torch, qp, ref):
 
 
 # ---------------------------------------------------------------------------
+# phase 3b: the seeded encoders (B11: the kernels' own Philox noise)
+# ---------------------------------------------------------------------------
+
+def _seed_tensor(torch, sd):
+    return torch.tensor(sd, dtype=torch.int32, device="cuda")
+
+
+def _misaligned(torch, t):
+    """t's values one element past a 16-byte boundary: contiguous but
+    misaligned, so the kernel takes its scalar path at d % 4 == 0."""
+    if t is None:
+        return None
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def check_seeded(torch, qp, ref, name, rows, d, bits, sd, *, offset=False,
+                 **kw):
+    """Seeded kernel vs the plain version fed `ref.oncore_uniform_ref`,
+    bit for bit; returns max |diff| (0)."""
+    args = _inputs(torch, name, rows, d, bits, seed=rows + d + bits)[:-1]
+    seed = _seed_tensor(torch, sd)
+    call = [_misaligned(torch, t) if offset and t.shape[-1] == d else t
+            for t in args] if offset else args
+    got = _outs(getattr(qp, name)(*call, bits=bits, seed=seed, **kw))
+    u = ref.oncore_uniform_ref(seed, rows, d)
+    want = _outs(_plain(ref, name)(*args, u, bits=bits, **kw))
+    torch.cuda.synchronize()
+    err = 0.0
+    for g_, w_ in zip(got, want):
+        assert g_.shape == w_.shape and g_.dtype == w_.dtype, name
+        if not torch.equal(g_, w_):
+            bad = (g_ != w_).sum().item()
+            raise AssertionError(f"seeded {name} rows={rows} d={d} "
+                                 f"bits={bits} seed={sd} offset={offset} "
+                                 f"{kw}: {bad} elements differ from the "
+                                 f"plain version")
+        err = max(err, (g_.double() - w_.double()).abs().max().item())
+    return err
+
+
+def oncore_stats(torch, qp, ref):
+    """[oncore-stats]: E[Q(x)] = x over 10k trials of the seeded kernels
+    (one call over x tiled 10k times, each row its own noise), within
+    5 sigma of the b-bit grid: B5 at 2 and 4 bits, B1 at 4, B3 at 8."""
+    from repro_torch.core import quantization as Q
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(4, 64, generator=g).cuda()
+    m = torch.randn(4, 64, generator=g).cuda()
+    xt, mt = x.repeat(STATS_TRIALS, 1), m.repeat(STATS_TRIALS, 1)
+    st = torch.clamp(xt.abs().amax(-1, keepdim=True), min=Q._EPS)
+    seed = _seed_tensor(torch, (6, 7))
+    worst = {}
+    for name, bits in (("quantize_codes_scaled", 2),
+                       ("quantize_codes_scaled", 4),
+                       ("delta_quantize_pack", 4), ("quantize_pack", 8)):
+        if name == "quantize_codes_scaled":
+            q = ref.dequant_sum_mean_ref(
+                qp.quantize_codes_scaled(xt, st, bits=bits, seed=seed), st,
+                bits, 1)
+        elif name == "delta_quantize_pack":
+            q = qp.delta_quantize_pack(mt + xt, mt, bits=bits,
+                                       seed=seed)[2] - mt
+        else:
+            q = qp.unpack_dequant(*qp.quantize_pack(xt, bits=bits,
+                                                    seed=seed), bits=bits)
+        est = q.reshape(STATS_TRIALS, 4, 64).double().mean(0)
+        cell = 2.0 * st[:4].double() / ((1 << bits) - 1)
+        bound = 5.0 * cell / (2.0 * math.sqrt(STATS_TRIALS))
+        worst[f"{name}/{bits}"] = ((est - x.double()).abs()
+                                   / bound).max().item()
+    phase("oncore-stats", trials=STATS_TRIALS,
+          max_err_over_5_sigma=json.dumps(worst))
+    assert all(v < 1.0 for v in worst.values()), worst
+
+
+def time_seeded(torch, qp, ref, name, rows, d, bits):
+    """A seeded encoder against the noise-input path the trainers ran
+    before it, at one main-path shape: (ms, plain_ms, bound_ms,
+    bound_by, bytes, input_ms, rand_ms, input_bound_ms).  ``input_ms``
+    is the kernel reading a noise tensor u and ``rand_ms`` the
+    ``torch.rand`` that writes u; the bounds count each input read once
+    and each output written once (u too on the noise-input path)."""
+    sets = []
+    nbytes = 0
+    while not sets or (len(sets) < 16 and nbytes * len(sets) < 120e6):
+        args = _inputs(torch, name, rows, d, bits, seed=2 + len(sets))[:-1]
+        sets.append((*args, _seed_tensor(torch, (len(sets), 1))))
+        if not nbytes:
+            outs = _outs(getattr(qp, name)(*args, bits=bits,
+                                           seed=sets[0][-1]))
+            nbytes = _bytes(sets[0], outs)
+            del outs
+    launches = 40 if nbytes < 1e9 else 4
+    ms = device_ms(torch, lambda *a: getattr(qp, name)(
+        *a[:-1], bits=bits, seed=a[-1]), sets, launches)
+    plain = _plain(ref, name)
+    plain_ms = device_ms(torch, lambda *a: plain(
+        *a[:-1], ref.oncore_uniform_ref(a[-1], rows, d), bits=bits), sets,
+        launches)
+    noise = [(*a[:-1], torch.rand(rows, d, device="cuda")) for a in sets]
+    input_ms = device_ms(torch, lambda *a: getattr(qp, name)(*a, bits=bits),
+                         noise, launches)
+    del noise
+    rand_ms = device_ms(torch, lambda: torch.rand(rows, d, device="cuda"),
+                        [()], launches)
+    del sets
+    torch.cuda.empty_cache()
+    n = rows * d
+    f32_ms = n * (OPS_PER_ELEMENT[name] + PHILOX_F32_OPS_PER_ELEMENT) \
+        / F32_OPS_PER_S * 1e3
+    int_ms = n * PHILOX_INT_OPS_PER_ELEMENT / INT32_OPS_PER_S * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ms = max(bytes_ms, f32_ms, int_ms)
+    bound_by = "bytes" if bytes_ms >= max(f32_ms, int_ms) else "operations"
+    input_bound_ms = max((nbytes + 4 * n) / HBM_BYTES_PER_S * 1e3,
+                         n * OPS_PER_ELEMENT[name] / F32_OPS_PER_S * 1e3)
+    return ms, plain_ms, bound_ms, bound_by, nbytes, input_ms, rand_ms, \
+        input_bound_ms
+
+
+def oncore_phase(torch, qp, ref):
+    """[oncore-bit-exact], [oncore-stats] and the seeded encoders'
+    [kernel-time] rows; returns B11's kernels row (numbers of seeded B5
+    at the DP bucket, B1 and B3 at the training shape beside them)."""
+    hop, kv_append = (BATCH, D_MODEL), (BATCH * KV_HEADS, HEAD_DIM)
+    cases = []
+    for bits in (2, 4, 8):
+        odd = [] if bits == 2 else [(3, 1602), (37, 66)]  # d % 4 != 0
+        for name, shapes in (("delta_quantize_pack", [hop, TRAIN_ROWS]),
+                             ("quantize_pack", [kv_append, TRAIN_ROWS])):
+            cases += [(name, r, d, bits, {}) for r, d in shapes + odd]
+            cases += [(name, 5, 1600, bits, {"offset": True})]
+        for pack in (False, True):
+            cases += [("quantize_codes_scaled", r, d, bits, {"pack": pack})
+                      for r, d in [(37, 512)] + odd]
+            cases += [("quantize_codes_scaled", 5, 512, bits,
+                       {"pack": pack, "offset": True})]
+    cases += [("quantize_codes_scaled", *DP_BUCKET, 4, {})]
+    err = 0.0
+    for sd in ONCORE_SEEDS:
+        for name, rows, d, bits, kw in cases:
+            err = max(err, check_seeded(torch, qp, ref, name, rows, d, bits,
+                                        sd, **kw))
+    phase("oncore-bit-exact", cases=len(cases) * len(ONCORE_SEEDS),
+          seeds=json.dumps(ONCORE_SEEDS), max_abs_err=err)
+    assert err == 0.0, err
+    oncore_stats(torch, qp, ref)
+    timed = {}
+    for name, rows, d, bits in (("quantize_codes_scaled", *DP_BUCKET, 4),
+                                ("delta_quantize_pack", *TRAIN_ROWS, 4),
+                                ("quantize_pack", *TRAIN_ROWS, 8)):
+        ms, plain_ms, bound_ms, bound_by, nbytes, input_ms, rand_ms, \
+            input_bound_ms = time_seeded(torch, qp, ref, name, rows, d, bits)
+        phase("kernel-time", name=f"{name}+oncore_uniform", rows=rows, d=d,
+              bits=bits, bytes=nbytes, ms=f"{ms:.6f}",
+              plain_ms=f"{plain_ms:.6f}", bound_ms=f"{bound_ms:.6f}",
+              bound_by=bound_by, library_ms=None,
+              noise_input_ms=f"{input_ms:.6f}", rand_ms=f"{rand_ms:.6f}",
+              noise_input_bound_ms=f"{input_bound_ms:.6f}")
+        timed[name] = {"shape": [rows, d], "bits": bits, "ms": ms,
+                       "plain_ms": plain_ms, "bound_ms": bound_ms,
+                       "bound_by": bound_by, "noise_input_ms": input_ms,
+                       "rand_ms": rand_ms,
+                       "noise_input_bound_ms": input_bound_ms}
+    row = {"name": "oncore_uniform", "route": "cuda", "source": SOURCE,
+           "replaces": REPLACES["oncore_uniform"], "launches": 0,
+           "max_abs_err": err, "library_ms": None,
+           "inside": list(ONCORE_ENCODERS)}
+    row.update({k: timed["quantize_codes_scaled"][k] for k in (
+        "ms", "plain_ms", "bound_ms", "bound_by", "shape", "bits",
+        "noise_input_ms", "rand_ms", "noise_input_bound_ms")})
+    row["delta_quantize_pack"] = timed["delta_quantize_pack"]
+    row["quantize_pack"] = timed["quantize_pack"]
+    return row
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the attention kernel (B10) against its plain version
 # ---------------------------------------------------------------------------
 
@@ -733,10 +945,10 @@ def reference_check(torch, arch="gpt2-xl-paper", p=8, n=6,
     from repro_torch.serving import DeltaHopCodec, KVCodec
 
     cfg = get_config(arch, smoke=True)
-    cpu = Transformer(cfg, device="cpu",
-                      generator=torch.Generator().manual_seed(0))
-    gpu = Transformer(cfg, device="cuda")
-    gpu.load_state_dict(cpu.state_dict())
+    # one CPU generator seeds both: the weights do not depend on the device
+    cpu, gpu = (Transformer(cfg, device=dev,
+                            generator=torch.Generator().manual_seed(0))
+                for dev in ("cpu", "cuda"))
     b = 2
     toks = torch.randint(0, cfg.vocab_size, (b, p + n),
                          generator=torch.Generator().manual_seed(1))
@@ -798,6 +1010,7 @@ def serve_gemma2_phase(torch, qp, serve):
         * 2 * G_LAYERS
     phase("serve-gemma2", layers=G_LAYERS, d_model=G_D, vocab=G_VOCAB,
           batch=G_BATCH, prompt=G_PROMPT, cache=out["cache_len"],
+          build_s=f"{out['build_s']:.3f}",
           prefill_s=f"{out['prefill_s']:.4f}",
           decode_s=f"{out['decode_s']:.4f}",
           decode_tok_s=f"{out['decode_tok_s']:.2f}",
@@ -813,9 +1026,29 @@ def serve_gemma2_phase(torch, qp, serve):
     assert sent == {"hops": G_GEN, "bytes": hop_model}, sent
     assert out["kv_store_bytes"] == kv_model, out["kv_store_bytes"]
     assert launches == GEMMA_LAUNCHES, (launches, GEMMA_LAUNCHES)
+    build_s = out["build_s"]
     del out, logits, tokens
     torch.cuda.empty_cache()
-    return launches
+    return launches, build_s
+
+
+def gemma2_device_draw_s(torch) -> float:
+    """Seconds to build gemma2-9b as the serving launcher did before its
+    weights came from a CPU generator: every leaf drawn on the card from
+    a CUDA generator (other numbers than the CPU's from one seed)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.model import Transformer
+
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = Transformer(get_config("gemma2-9b"), device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    del model
+    torch.cuda.empty_cache()
+    return seconds
 
 
 # ---------------------------------------------------------------------------
@@ -837,8 +1070,9 @@ def _train_config(sim, comm_mod, adamw, *, stochastic, stages, steps):
                                     total_steps=steps))
 
 
-def train_phase(torch, qp):
-    """The training main path at full width; returns its launches."""
+def train_phase(torch, qp, tag="train"):
+    """The training main path at full width; returns its launches, final
+    loss, median step time (steps 3-6) and peak memory."""
     from repro_torch.comm import config as comm_mod
     from repro_torch.configs.base import get_config
     from repro_torch.data.pipeline import Dataset, DatasetConfig
@@ -860,7 +1094,7 @@ def train_phase(torch, qp):
     peak = torch.cuda.max_memory_allocated()
     step_s = statistics.median(state["step_seconds"][2:])
     n_params = sum(p.numel() for p in state["model"].parameters())
-    phase("train", layers=TRAIN_LAYERS, d_model=cfg.d_model,
+    phase(tag, layers=TRAIN_LAYERS, d_model=cfg.d_model,
           params=n_params, dp_bucket_rows=state["dp_error"].shape[1],
           losses=json.dumps([round(x, 6) for x in losses]),
           step_s=json.dumps([round(x, 4) for x in state["step_seconds"]]),
@@ -877,6 +1111,39 @@ def train_phase(torch, qp):
             (name, launches[name], per_step * TRAIN_STEPS)
     del state
     torch.cuda.empty_cache()
+    return {"launches": launches, "losses": losses, "step_s": step_s,
+            "peak_gib": peak / 2 ** 30}
+
+
+def train_oncore_phase(torch, qp, env, base):
+    """[train-oncore]: the [train] run with the on-core noise knob set,
+    so every stochastic encode draws its noise in the kernel; against
+    ``base``, the [train] run of this call.  Returns its launches."""
+    os.environ[env.ONCORE_PRNG] = "1"
+    try:
+        run = train_phase(torch, qp, tag="train-oncore")
+    finally:
+        del os.environ[env.ONCORE_PRNG]
+    launches = run["launches"]
+    encodes = sum(launches[n] for n in ONCORE_ENCODERS)
+    rel = abs(run["losses"][-1] - base["losses"][-1]) \
+        / abs(base["losses"][-1])
+    phase("train-oncore-vs-train", oncore_uniform=launches["oncore_uniform"],
+          encodes=encodes, noise_input_encodes=encodes
+          - launches["oncore_uniform"],
+          final_loss=f"{run['losses'][-1]:.6f}",
+          final_loss_train=f"{base['losses'][-1]:.6f}",
+          final_loss_rel_diff=rel,
+          tolerance=ONCORE_FINAL_LOSS_RTOL,
+          median_step_s=f"{run['step_s']:.4f}",
+          median_step_s_train=f"{base['step_s']:.4f}",
+          peak_mem_gib=f"{run['peak_gib']:.3f}",
+          peak_mem_gib_train=f"{base['peak_gib']:.3f}")
+    assert launches["oncore_uniform"] == encodes == sum(
+        TRAIN_LAUNCHES_PER_STEP[n] for n in ONCORE_ENCODERS) * TRAIN_STEPS, \
+        launches
+    assert base["launches"]["oncore_uniform"] == 0, base["launches"]
+    assert rel <= ONCORE_FINAL_LOSS_RTOL, rel
     return launches
 
 
@@ -896,12 +1163,9 @@ def train_reference_check(torch):
     batches = list(Dataset(DatasetConfig(
         num_samples=samples, seq_len=seq, vocab_size=cfg.vocab_size)
     ).batches(batch, steps))
-    cpu = sim.init_train_state(cfg, tcfg, samples, seq, device="cpu",
-                               generator=torch.Generator().manual_seed(0))
-    gpu = sim.init_train_state(
-        cfg, tcfg, samples, seq, device="cuda",
-        generator=torch.Generator(device="cuda").manual_seed(0))
-    gpu["model"].load_state_dict(cpu["model"].state_dict())
+    cpu, gpu = (sim.init_train_state(
+        cfg, tcfg, samples, seq, device=dev,
+        generator=torch.Generator().manual_seed(0)) for dev in ("cpu", "cuda"))
 
     def run(state, dev):
         gen = torch.Generator(device=dev).manual_seed(1)
@@ -1047,6 +1311,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    from repro_torch import env
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import quant_pack as qp
@@ -1074,6 +1339,7 @@ def main() -> int:
 
     kernels = kernel_phase(torch, qp, ref)
     kernels["flash_attention_fwd"] = flash_phase(torch, fa, ref)
+    kernels["oncore_uniform"] = oncore_phase(torch, qp, ref)
 
     torch.cuda.reset_peak_memory_stats()
     qp.reset_launches()
@@ -1096,7 +1362,9 @@ def main() -> int:
             f"{name} was never launched on the serving path"
     assert launches["flash_attention_fwd"] == 48, launches  # one a layer
     reference_check(torch)
-    gemma_launches = serve_gemma2_phase(torch, qp, serve)
+    gemma_launches, cpu_draw_s = serve_gemma2_phase(torch, qp, serve)
+    phase("serve-gemma2-build", cpu_draw_s=f"{cpu_draw_s:.3f}",
+          device_draw_s=f"{gemma2_device_draw_s(torch):.3f}")
     for name, n in GEMMA_LAUNCHES.items():
         if n:
             assert gemma_launches[name] > 0, \
@@ -1104,11 +1372,15 @@ def main() -> int:
     reference_check(torch, "gemma2-9b", G_CHECK_PROMPT, G_CHECK_STEPS,
                     tag="serve-gemma2-reference-check")
 
-    train_launches = train_phase(torch, qp)
+    train_run = train_phase(torch, qp)
+    train_launches = train_run["launches"]
     for name in TRAIN_LAUNCHES_PER_STEP:
         if TRAIN_LAUNCHES_PER_STEP[name]:
             assert train_launches[name] > 0, \
                 f"{name} was never launched on the training path"
+    oncore_launches = train_oncore_phase(torch, qp, env, train_run)
+    assert oncore_launches["oncore_uniform"] > 0, \
+        "the seeded encoders were never launched on the training path"
     train_reference_check(torch)
     dist_launches = dist_phase(torch)
     for name in DIST_LAUNCHES:
@@ -1118,12 +1390,14 @@ def main() -> int:
     # a row's launches are those of the path its time was taken at:
     # serving for the activation codecs and the attention kernel (gpt2-xl
     # prefill), training for the DP wire, the distributed path for the
-    # ring's kernels
+    # ring's kernels, training with the on-core noise knob for B11
     by_path = {"serve": serve_launches, "serve_gemma2": gemma_launches,
-               "train": train_launches, "dist": dist_launches}
+               "train": train_launches, "train_oncore": oncore_launches,
+               "dist": dist_launches}
     for name, row in kernels.items():
         path = "dist" if name in INT_KERNELS else \
-            "train" if name in DP_KERNELS else "serve"
+            "train" if name in DP_KERNELS else \
+            "train_oncore" if name == "oncore_uniform" else "serve"
         row["launches"] = by_path[path][name]
         row["launches_path"] = path
         row["launches_by_path"] = {p: by_path[p].get(name, 0)

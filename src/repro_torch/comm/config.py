@@ -137,8 +137,9 @@ class CommConfig:
         if self.dp.wire not in ported:
             raise NotImplementedError(
                 f"DP wire {self.dp.wire!r} is not ported yet (ROADMAP "
-                f"queue A, items 4-5: the ZeRO wire and the fp16 wire); "
-                f"ported: {', '.join(ported)}")
+                f"queue A, \"The rest of the DP wires and the optimizer\": "
+                f"the ZeRO wire and the fp16 wire); ported: "
+                f"{', '.join(ported)}")
         return W.get_wire(self.dp.wire)
 
     # -- JSON -------------------------------------------------------------

@@ -19,7 +19,18 @@ reference chain (the kernels implement only those).
 
 Stochastic rounding takes ONE uniform tensor ``u`` that feeds either
 backend, drawn here from a ``torch.Generator`` when the caller passes
-none, so the wire payload never depends on the backend.
+none, so the wire payload never depends on the backend.  The one
+exception is opt-in (the counterpart of the JAX package's
+``REPRO_ONCORE_PRNG``): with the on-core noise knob on
+(`repro_torch.env.oncore_prng`) a stochastic encode on the cuda backend
+that was given no ``u`` draws a (2,) int32 seed from the generator
+instead, and its kernel draws the noise itself
+(`repro_torch.kernels.ref.oncore_uniform_ref` is that stream), so no
+noise tensor is written or read.  The reference backend
+ignores the knob, as JAX's does; an explicit ``u`` always wins.  The
+seeded stream is not the one ``torch.rand`` draws, so with the knob on
+the cuda backend agrees with the reference backend in distribution
+(unbiased rounding), not bit for bit.
 """
 from __future__ import annotations
 
@@ -27,6 +38,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import env
 from repro_torch.core import quantization as Q
 from repro_torch.kernels import ops as K
 from repro_torch.kernels.quant_pack import KERNEL_BITS
@@ -49,18 +61,24 @@ def resolve_backend(backend: str, x: torch.Tensor,
     return backend
 
 
-def _noise(x: torch.Tensor, stochastic: bool, u, generator):
-    """The uniform noise of an encode op: None when deterministic, else
-    ``u`` or a fresh draw from ``generator``."""
+def _noise(x: torch.Tensor, stochastic: bool, u, generator, backend: str):
+    """(noise, seed) of an encode op: (None, None) when deterministic;
+    else ``u``, or on the cuda backend with `env.oncore_prng` on a
+    (2,) int32 seed for the kernel's own draw, or a fresh ``u`` from
+    ``generator``."""
     if not stochastic:
-        return None
+        return None, None
     if u is not None:
-        return u
+        return u, None
     if generator is None:
         raise ValueError("stochastic boundary ops need a noise tensor u "
                          "or a torch.Generator")
+    if backend == "cuda" and env.oncore_prng():
+        seed = torch.randint(-2 ** 31, 2 ** 31, (2,), generator=generator,
+                             dtype=torch.int32, device=generator.device)
+        return None, seed.to(x.device)
     return torch.rand(x.shape, generator=generator, dtype=torch.float32,
-                      device=x.device)
+                      device=x.device), None
 
 
 def encode_delta(a, m, *, bits: int, stochastic: bool = False, u=None,
@@ -69,9 +87,9 @@ def encode_delta(a, m, *, bits: int, stochastic: bool = False, u=None,
     m_new f32 (..., d)), m_new = m + dequant(codes).  Widths that do
     not pack to whole bytes ship raw u8 codes."""
     backend = resolve_backend(backend, a, bits)
-    u = _noise(a, stochastic, u, generator)
+    u, seed = _noise(a, stochastic, u, generator, backend)
     if backend == "cuda":
-        return K.boundary_compress(a, m, u, bits=bits)
+        return K.boundary_compress(a, m, u, bits=bits, seed=seed)
     m32 = m.float()
     codes, scale = Q.quantize(a.float() - m32, bits, noise=u)
     packed = Q.pack_codes(codes, bits) if bits in PACKABLE_BITS else codes
@@ -95,9 +113,9 @@ def encode(x, *, bits: int, stochastic: bool = False, u=None,
     """Direct quantize-and-pack: (packed u8 (..., pw), scale f32
     (..., 1)) — the DirectQ sender and the KV-cache append."""
     backend = resolve_backend(backend, x, bits)
-    u = _noise(x, stochastic, u, generator)
+    u, seed = _noise(x, stochastic, u, generator, backend)
     if backend == "cuda":
-        return K.quantize_pack(x, u, bits=bits)
+        return K.quantize_pack(x, u, bits=bits, seed=seed)
     codes, scale = Q.quantize(x.float(), bits, noise=u)
     packed = Q.pack_codes(codes, bits) if bits in PACKABLE_BITS else codes
     return packed, scale
@@ -135,9 +153,10 @@ def encode_codes_with_scale(x, scale, *, bits: int, stochastic: bool = False,
     at eps here, once, for both backends."""
     backend = resolve_backend(backend, x, bits)
     scale = torch.clamp(scale.float(), min=Q._EPS)
-    u = _noise(x, stochastic, u, generator)
+    u, seed = _noise(x, stochastic, u, generator, backend)
     if backend == "cuda":
-        return K.quantize_codes_scaled(x, scale, u, bits=bits, pack=pack)
+        return K.quantize_codes_scaled(x, scale, u, bits=bits, pack=pack,
+                                       seed=seed)
     codes, _ = Q.quantize(x.float(), bits, noise=u, scale=scale)
     icodes = codes.to(torch.int32)
     if pack:

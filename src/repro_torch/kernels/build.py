@@ -26,6 +26,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+from repro_torch import env
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / \
     "repro_torch_kernels"
@@ -39,14 +41,14 @@ _F = ctypes.c_float
 # C signature of every extern "C" launcher, by library
 SIGNATURES = {
     "quant_pack": {
-        "rt_delta_quantize_pack": (_P, _P, _P, _P, _P, _P, _I64, _I64, _I, _I,
-                                   _P),
+        "rt_delta_quantize_pack": (_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I,
+                                   _I, _P),
         "rt_dequant_unpack_accumulate": (_P, _P, _P, _P, _I64, _I64, _I, _I,
                                          _P),
-        "rt_quantize_pack": (_P, _P, _P, _P, _I64, _I64, _I, _I, _P),
+        "rt_quantize_pack": (_P, _P, _P, _P, _P, _I64, _I64, _I, _I, _P),
         "rt_unpack_dequant": (_P, _P, _P, _I64, _I64, _I, _I, _I, _P),
-        "rt_quantize_codes_scaled": (_P, _P, _P, _P, _P, _I64, _I64, _I, _I,
-                                     _P),
+        "rt_quantize_codes_scaled": (_P, _P, _P, _P, _P, _P, _I64, _I64, _I,
+                                     _I, _P),
         "rt_dequant_sum_mean": (_P, _P, _P, _I64, _I64, _F, _F, _I, _P),
         "rt_unpack_accumulate": (_P, _P, _P, _I64, _I, _I, _P),
         "rt_pack_sums": (_P, _P, _I64, _I, _I, _P),
@@ -68,8 +70,7 @@ def nvcc_path() -> str:
     found = shutil.which("nvcc")
     if found:
         return found
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    cand = Path(home) / "bin" / "nvcc"
+    cand = Path(env.cuda_home()) / "bin" / "nvcc"
     if cand.exists():
         return str(cand)
     raise RuntimeError("nvcc not found (PATH, CUDA_HOME, /usr/local/cuda): "

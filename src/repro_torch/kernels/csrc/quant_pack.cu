@@ -10,6 +10,11 @@
 //   unpack_accumulate          (quant_pack.py:528, _ua_kernel)   -> unpack_accumulate_flat<BITS>
 //   pack_sums                  (quant_pack.py:579, _ps_kernel)   -> pack_sums_flat<SW>
 //   unpack_sums                (quant_pack.py:620, _us_kernel)   -> unpack_sums_flat<SW>
+// and the seed= path of the first, third and sixth (quant_pack.py:84
+// _oncore_uniform, with _noise_arg :100 and _kernel_noise :111):
+// encode_rows and codes_scaled_flat take a (2,) int32 seed in device
+// memory in place of a noise tensor and draw the uniforms of
+// stochastic rounding themselves (philox4x32_10 below).
 // The first four are the activation boundary's codecs; the next two are
 // the data-parallel gradient wire's sender (codes against a shared,
 // given row scale) and receiver (mean from an int32 code sum); the last
@@ -66,6 +71,18 @@
 //     a*b+c cannot change the rounding;
 //   * stochastic rounding reads u and bumps the code when
 //     u < y - floor(y), the comparison jax.random.bernoulli makes;
+//   * with a seed instead of u, u is drawn here (not the TPU's bits,
+//     which depend on its grid blocks; this stream depends only on the
+//     element's flat index i in the (rows, d) view and the seed, so the
+//     plain version draws it bit for bit, ref.py oncore_uniform_ref):
+//     Philox4x32-10 of counter (lo32(i >> 2), hi32(i >> 2), 0, 0) and
+//     key (seed[0], seed[1]), word i & 3, u = (word >> 8) * 2^-24.  The
+//     float4 paths make one Philox call per group of 4 elements and use
+//     its four words; the scalar paths make one per element.  The
+//     seed is read through a pointer, as the TPU kernel reads it from
+//     SMEM: no host sync, and a launch whose arguments never change
+//     (a CUDA graph can capture it).  Ten rounds are ~40 integer
+//     operations per 4 elements; bytes still bound the encoders.
 //   * the mean of n workers is ((2T - n*lv) * s) * C with
 //     C = f32(f32(1/lv) * f32(1/n)), passed in by the caller: XLA folds
 //     the source's ((ic * s) / lv) / n into that one constant under jit.
@@ -134,6 +151,52 @@ __device__ __forceinline__ float dequant(uint32_t c, float s, float m) {
   return ACC ? __fmaf_rn(p, rcp, m) : __fmul_rn(p, rcp);
 }
 
+// Philox4x32-10 (Salmon et al., SC'11; Random123's philox4x32): 10
+// rounds, the key bumped by the Weyl constants between rounds
+__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0,
+                                               uint32_t k1) {
+  constexpr uint32_t kM0 = 0xD2511F53u, kM1 = 0xCD9E8D57u;
+  constexpr uint32_t kW0 = 0x9E3779B9u, kW1 = 0xBB67AE85u;
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    if (r) {
+      k0 += kW0;
+      k1 += kW1;
+    }
+    const uint32_t hi0 = __umulhi(kM0, c.x), lo0 = kM0 * c.x;
+    const uint32_t hi1 = __umulhi(kM1, c.z), lo1 = kM1 * c.z;
+    c = make_uint4(hi1 ^ c.y ^ k0, lo1, hi0 ^ c.w ^ k1, lo0);
+  }
+  return c;
+}
+
+// 24 high bits of a word as a uniform on {0, ..., 2^24 - 1} / 2^24 (exact)
+__device__ __forceinline__ float word_uniform(uint32_t w) {
+  return __uint2float_rn(w >> 8) * (1.0f / 16777216.0f);
+}
+
+// the uniforms of elements 4g .. 4g+3 of the flat (rows, d) view
+__device__ __forceinline__ float4 seeded_uniform4(int64_t g, uint32_t k0,
+                                                  uint32_t k1) {
+  const uint64_t c = static_cast<uint64_t>(g);
+  const uint4 w = philox4x32_10(
+      make_uint4(uint32_t(c), uint32_t(c >> 32), 0u, 0u), k0, k1);
+  return make_float4(word_uniform(w.x), word_uniform(w.y), word_uniform(w.z),
+                     word_uniform(w.w));
+}
+
+// the uniform of element i of the flat (rows, d) view
+__device__ __forceinline__ float seeded_uniform(int64_t i, uint32_t k0,
+                                                uint32_t k1) {
+  const float4 v = seeded_uniform4(i >> 2, k0, k1);
+  switch (i & 3) {
+    case 0: return v.x;
+    case 1: return v.y;
+    case 2: return v.z;
+    default: return v.w;
+  }
+}
+
 template <typename OutT> __device__ __forceinline__ OutT from_float(float v);
 template <> __device__ __forceinline__ float from_float<float>(float v) {
   return v;
@@ -150,7 +213,8 @@ from_float<__nv_bfloat16>(float v) {
 template <int BITS, bool DELTA>
 __global__ void __launch_bounds__(kThreads)
 encode_rows(const float* __restrict__ a, const float* __restrict__ m,
-            const float* __restrict__ u, uint8_t* __restrict__ packed,
+            const float* __restrict__ u, const int32_t* __restrict__ seed,
+            uint8_t* __restrict__ packed,
             float* __restrict__ scale, float* __restrict__ m_new,
             int64_t rows, int64_t d, int vec) {
   constexpr int k = 8 / BITS;  // codes per byte
@@ -162,7 +226,9 @@ encode_rows(const float* __restrict__ a, const float* __restrict__ m,
   const float* ur = u ? u + row * d : nullptr;
   uint8_t* pr = packed + row * (d / k);
   float* nr = DELTA ? m_new + row * d : nullptr;
-  const bool stoch = u != nullptr;
+  const bool stoch = u != nullptr || seed != nullptr;
+  const uint32_t k0 = seed ? uint32_t(seed[0]) : 0u;
+  const uint32_t k1 = seed ? uint32_t(seed[1]) : 0u;
 
   // pass 1: row absmax of the delta (or of x)
   float mx = 0.0f;
@@ -196,7 +262,9 @@ encode_rows(const float* __restrict__ a, const float* __restrict__ m,
         mm = m4[g];
         x = sub4(x, mm);
       }
-      const float4 uu = stoch ? u4[g] : make_float4(0.f, 0.f, 0.f, 0.f);
+      const float4 uu = ur     ? u4[g]
+                        : seed ? seeded_uniform4(row * (d / 4) + g, k0, k1)
+                               : make_float4(0.f, 0.f, 0.f, 0.f);
       const uint32_t c0 = quant_code<BITS>(x.x, s, uu.x, stoch);
       const uint32_t c1 = quant_code<BITS>(x.y, s, uu.y, stoch);
       const uint32_t c2 = quant_code<BITS>(x.z, s, uu.z, stoch);
@@ -219,7 +287,10 @@ encode_rows(const float* __restrict__ a, const float* __restrict__ m,
         const int64_t i = j * k + t;
         const float mm = DELTA ? mr[i] : 0.0f;
         const float x = DELTA ? __fsub_rn(ar[i], mm) : ar[i];
-        const uint32_t c = quant_code<BITS>(x, s, stoch ? ur[i] : 0.0f, stoch);
+        const float uu = ur     ? ur[i]
+                         : seed ? seeded_uniform(row * d + i, k0, k1)
+                                : 0.0f;
+        const uint32_t c = quant_code<BITS>(x, s, uu, stoch);
         byte |= c << (t * BITS);
         if (DELTA) nr[i] = dequant<BITS, true>(c, s, mm);
       }
@@ -292,21 +363,25 @@ decode_flat(const uint8_t* __restrict__ packed, const float* __restrict__ scale,
 template <int BITS, bool PACK>
 __global__ void __launch_bounds__(256)
 codes_scaled_flat(const float* __restrict__ x, const float* __restrict__ scale,
-                  const float* __restrict__ u, int32_t* __restrict__ codes,
+                  const float* __restrict__ u, const int32_t* __restrict__ seed,
+                  int32_t* __restrict__ codes,
                   uint8_t* __restrict__ packed, int64_t rows, int64_t d,
                   int vec) {
   constexpr int k = 8 / BITS;
   const int64_t n = rows * d;
   const int64_t stride = int64_t(gridDim.x) * blockDim.x;
   const int64_t first = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
-  const bool stoch = u != nullptr;
+  const bool stoch = u != nullptr || seed != nullptr;
+  const uint32_t k0 = seed ? uint32_t(seed[0]) : 0u;
+  const uint32_t k1 = seed ? uint32_t(seed[1]) : 0u;
   if (vec) {
     using P = typename Packed4<BITS>::T;
     for (int64_t g = first; g < n / 4; g += stride) {
       const float s = fmaxf(scale[(4 * g) / d], kEps);
       const float4 xx = reinterpret_cast<const float4*>(x)[g];
-      const float4 uu = stoch ? reinterpret_cast<const float4*>(u)[g]
-                              : make_float4(0.f, 0.f, 0.f, 0.f);
+      const float4 uu = u    ? reinterpret_cast<const float4*>(u)[g]
+                        : seed ? seeded_uniform4(g, k0, k1)
+                               : make_float4(0.f, 0.f, 0.f, 0.f);
       const uint32_t c0 = quant_code<BITS>(xx.x, s, uu.x, stoch);
       const uint32_t c1 = quant_code<BITS>(xx.y, s, uu.y, stoch);
       const uint32_t c2 = quant_code<BITS>(xx.z, s, uu.z, stoch);
@@ -327,8 +402,10 @@ codes_scaled_flat(const float* __restrict__ x, const float* __restrict__ scale,
       uint32_t byte = 0;
 #pragma unroll
       for (int t = 0; t < k; ++t) {
-        const uint32_t c = quant_code<BITS>(x[i0 + t], s,
-                                            stoch ? u[i0 + t] : 0.0f, stoch);
+        const float uu = u    ? u[i0 + t]
+                         : seed ? seeded_uniform(i0 + t, k0, k1)
+                                : 0.0f;
+        const uint32_t c = quant_code<BITS>(x[i0 + t], s, uu, stoch);
         codes[i0 + t] = int(c);
         byte |= c << (t * BITS);
       }
@@ -501,13 +578,14 @@ int decode_blocks(int64_t items) {
 
 template <bool DELTA>
 int launch_encode(const float* a, const float* m, const float* u,
-                  uint8_t* packed, float* scale, float* m_new, int64_t rows,
-                  int64_t d, int bits, int vec, cudaStream_t st) {
+                  const int32_t* seed, uint8_t* packed, float* scale,
+                  float* m_new, int64_t rows, int64_t d, int bits, int vec,
+                  cudaStream_t st) {
   const dim3 grid(encode_blocks(rows)), block(kThreads);
   switch (bits) {
-    case 2: encode_rows<2, DELTA><<<grid, block, 0, st>>>(a, m, u, packed, scale, m_new, rows, d, vec); break;
-    case 4: encode_rows<4, DELTA><<<grid, block, 0, st>>>(a, m, u, packed, scale, m_new, rows, d, vec); break;
-    case 8: encode_rows<8, DELTA><<<grid, block, 0, st>>>(a, m, u, packed, scale, m_new, rows, d, vec); break;
+    case 2: encode_rows<2, DELTA><<<grid, block, 0, st>>>(a, m, u, seed, packed, scale, m_new, rows, d, vec); break;
+    case 4: encode_rows<4, DELTA><<<grid, block, 0, st>>>(a, m, u, seed, packed, scale, m_new, rows, d, vec); break;
+    case 8: encode_rows<8, DELTA><<<grid, block, 0, st>>>(a, m, u, seed, packed, scale, m_new, rows, d, vec); break;
     default: return int(cudaErrorInvalidValue);
   }
   return int(cudaGetLastError());
@@ -530,14 +608,15 @@ int launch_decode(const uint8_t* packed, const float* scale, const float* m,
 
 template <bool PACK>
 int launch_codes_scaled(const float* x, const float* s, const float* u,
-                        int32_t* codes, uint8_t* packed, int64_t rows,
-                        int64_t d, int bits, int vec, cudaStream_t st) {
+                        const int32_t* seed, int32_t* codes,
+                        uint8_t* packed, int64_t rows, int64_t d, int bits,
+                        int vec, cudaStream_t st) {
   const int64_t items = vec ? rows * d / 4 : rows * d / (8 / bits);
   const dim3 grid(decode_blocks(items)), block(256);
   switch (bits) {
-    case 2: codes_scaled_flat<2, PACK><<<grid, block, 0, st>>>(x, s, u, codes, packed, rows, d, vec); break;
-    case 4: codes_scaled_flat<4, PACK><<<grid, block, 0, st>>>(x, s, u, codes, packed, rows, d, vec); break;
-    case 8: codes_scaled_flat<8, PACK><<<grid, block, 0, st>>>(x, s, u, codes, packed, rows, d, vec); break;
+    case 2: codes_scaled_flat<2, PACK><<<grid, block, 0, st>>>(x, s, u, seed, codes, packed, rows, d, vec); break;
+    case 4: codes_scaled_flat<4, PACK><<<grid, block, 0, st>>>(x, s, u, seed, codes, packed, rows, d, vec); break;
+    case 8: codes_scaled_flat<8, PACK><<<grid, block, 0, st>>>(x, s, u, seed, codes, packed, rows, d, vec); break;
     default: return int(cudaErrorInvalidValue);
   }
   return int(cudaGetLastError());
@@ -588,17 +667,19 @@ int launch_unpack_sums(const uint8_t* packed, int32_t* out, int64_t n,
 
 extern "C" {
 
-// a, m, u: (rows, d) f32 (u may be null: round to nearest);
-// packed: (rows, d*bits/8) u8; scale: (rows,) f32; m_new: (rows, d) f32
+// a, m, u: (rows, d) f32; seed: (2,) i32 (u and seed null: round to
+// nearest; u wins when both are given); packed: (rows, d*bits/8) u8;
+// scale: (rows,) f32; m_new: (rows, d) f32
 int rt_delta_quantize_pack(const void* a, const void* m, const void* u,
-                           void* packed, void* scale, void* m_new,
-                           long long rows, long long d, int bits, int vec,
-                           void* stream) {
+                           const void* seed, void* packed, void* scale,
+                           void* m_new, long long rows, long long d,
+                           int bits, int vec, void* stream) {
   return launch_encode<true>(
       static_cast<const float*>(a), static_cast<const float*>(m),
-      static_cast<const float*>(u), static_cast<uint8_t*>(packed),
-      static_cast<float*>(scale), static_cast<float*>(m_new), rows, d, bits,
-      vec, static_cast<cudaStream_t>(stream));
+      static_cast<const float*>(u), static_cast<const int32_t*>(seed),
+      static_cast<uint8_t*>(packed), static_cast<float*>(scale),
+      static_cast<float*>(m_new), rows, d, bits, vec,
+      static_cast<cudaStream_t>(stream));
 }
 
 // packed (rows, d*bits/8) u8, scale (rows,) f32, m (rows, d) f32 -> out f32
@@ -612,14 +693,16 @@ int rt_dequant_unpack_accumulate(const void* packed, const void* scale,
       vec, static_cast<cudaStream_t>(stream));
 }
 
-// x, u: (rows, d) f32 (u may be null) -> packed u8, scale (rows,) f32
-int rt_quantize_pack(const void* x, const void* u, void* packed, void* scale,
-                     long long rows, long long d, int bits, int vec,
-                     void* stream) {
+// x, u: (rows, d) f32, seed (2,) i32 (either or both null) -> packed
+// u8, scale (rows,) f32
+int rt_quantize_pack(const void* x, const void* u, const void* seed,
+                     void* packed, void* scale, long long rows, long long d,
+                     int bits, int vec, void* stream) {
   return launch_encode<false>(
       static_cast<const float*>(x), nullptr, static_cast<const float*>(u),
-      static_cast<uint8_t*>(packed), static_cast<float*>(scale), nullptr,
-      rows, d, bits, vec, static_cast<cudaStream_t>(stream));
+      static_cast<const int32_t*>(seed), static_cast<uint8_t*>(packed),
+      static_cast<float*>(scale), nullptr, rows, d, bits, vec,
+      static_cast<cudaStream_t>(stream));
 }
 
 // packed (rows, d*bits/8) u8, scale (rows,) f32 -> out (rows, d), f32 or
@@ -638,23 +721,25 @@ int rt_unpack_dequant(const void* packed, const void* scale, void* out,
                                      rows, d, bits, vec, st);
 }
 
-// x, u: (rows, d) f32 (u may be null: round to nearest); scale (rows,)
-// f32, clamped at eps here -> codes (rows, d) i32 [+ packed (rows,
-// d*bits/8) u8 when packed is not null]
+// x, u: (rows, d) f32, seed (2,) i32 (u and seed null: round to
+// nearest); scale (rows,) f32, clamped at eps here -> codes (rows, d)
+// i32 [+ packed (rows, d*bits/8) u8 when packed is not null]
 int rt_quantize_codes_scaled(const void* x, const void* scale, const void* u,
-                             void* codes, void* packed, long long rows,
-                             long long d, int bits, int vec, void* stream) {
+                             const void* seed, void* codes, void* packed,
+                             long long rows, long long d, int bits, int vec,
+                             void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* xp = static_cast<const float*>(x);
   const float* sp = static_cast<const float*>(scale);
   const float* up = static_cast<const float*>(u);
+  const int32_t* kp = static_cast<const int32_t*>(seed);
   int32_t* cp = static_cast<int32_t*>(codes);
   if (packed)
-    return launch_codes_scaled<true>(xp, sp, up, cp,
+    return launch_codes_scaled<true>(xp, sp, up, kp, cp,
                                      static_cast<uint8_t*>(packed), rows, d,
                                      bits, vec, st);
-  return launch_codes_scaled<false>(xp, sp, up, cp, nullptr, rows, d, bits,
-                                    vec, st);
+  return launch_codes_scaled<false>(xp, sp, up, kp, cp, nullptr, rows, d,
+                                    bits, vec, st);
 }
 
 // total (rows, d) i32 code sum over n workers, scale (rows,) f32 ->

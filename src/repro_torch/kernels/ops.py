@@ -1,7 +1,8 @@
 """Wrappers around the kernels (port of `repro.kernels.ops`).
 
 The codec wrappers take any ``(..., d)`` batch shape, flatten it to the
-kernels' ``(rows, d)`` layout and restore it on the outputs.
+kernels' ``(rows, d)`` layout and restore it on the outputs; an
+encoder's ``seed`` (in place of noise ``u``) draws over that row view.
 `flash_attention` takes the Pallas wrapper's head-major layout.  The
 CUDA kernels mask the ragged last block themselves, so unlike the
 Pallas wrappers nothing is padded.
@@ -20,13 +21,13 @@ def _rows(x: Optional[torch.Tensor], d: int) -> Optional[torch.Tensor]:
     return None if x is None else x.reshape(-1, d).contiguous()
 
 
-def boundary_compress(a, m, u=None, *, bits: int):
+def boundary_compress(a, m, u=None, *, bits: int, seed=None):
     """Sender side of an AQ-SGD boundary: (a, m) -> (packed, scale,
     m_new) for any (..., d)."""
     shape = a.shape
     d = shape[-1]
     packed, scale, m_new = _qp.delta_quantize_pack(
-        _rows(a, d), _rows(m, d), _rows(u, d), bits=bits)
+        _rows(a, d), _rows(m, d), _rows(u, d), bits=bits, seed=seed)
     return (packed.reshape(*shape[:-1], -1), scale.reshape(*shape[:-1], 1),
             m_new.reshape(shape))
 
@@ -40,11 +41,12 @@ def boundary_decompress(packed, scale, m, *, bits: int):
     return out.reshape(shape)
 
 
-def quantize_pack(x, u=None, *, bits: int):
+def quantize_pack(x, u=None, *, bits: int, seed=None):
     """Fused absmax -> quantize -> pack for any (..., d) tensor."""
     shape = x.shape
     d = shape[-1]
-    packed, scale = _qp.quantize_pack(_rows(x, d), _rows(u, d), bits=bits)
+    packed, scale = _qp.quantize_pack(_rows(x, d), _rows(u, d), bits=bits,
+                                      seed=seed)
     return (packed.reshape(*shape[:-1], -1), scale.reshape(*shape[:-1], 1))
 
 
@@ -57,13 +59,15 @@ def unpack_dequant(packed, scale, *, bits: int,
     return out.reshape(*shape[:-1], out.shape[-1])
 
 
-def quantize_codes_scaled(x, scale, u=None, *, bits: int, pack: bool = False):
+def quantize_codes_scaled(x, scale, u=None, *, bits: int, pack: bool = False,
+                          seed=None):
     """Codes against a given row scale for any (..., d) tensor: int32
     codes, or (packed, codes) with ``pack``."""
     shape = x.shape
     d = shape[-1]
     out = _qp.quantize_codes_scaled(_rows(x, d), _rows(scale, 1),
-                                    _rows(u, d), bits=bits, pack=pack)
+                                    _rows(u, d), bits=bits, pack=pack,
+                                    seed=seed)
     if pack:
         packed, codes = out
         return packed.reshape(*shape[:-1], -1), codes.reshape(shape)

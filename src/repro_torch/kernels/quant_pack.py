@@ -16,13 +16,18 @@ One wrapper per kernel, on row-major ``(R, d)`` tensors:
 * `pack_sums` / `unpack_sums` — its all-gather payload: int32 code
   sums packed at ``sum_wire_bits(bits, n)`` bits, and back.
 
+The three encoders round stochastically with uniform noise ``u``, or
+draw that noise themselves from a ``seed``, a (2,) int32 tensor on the
+data's device (Philox4x32-10 over each element's index; the plain
+version is `ref.oncore_uniform_ref`).  At most one of the two is given.
+
 A tensor on the CPU goes to the plain version in `repro_torch.kernels.ref`.
 A CUDA tensor goes to the kernel, launched on the current stream, or
 the wrapper raises; nothing falls back.  `LAUNCHES` counts kernel
 launches per wrapper (the CPU path does not count), so a run can show
 that its path went through the kernels (``flash_attention_fwd``, the
 attention kernel of `repro_torch.kernels.flash_attention`, counts here
-too).
+too; ``oncore_uniform`` counts the encoders' launches with a seed).
 """
 from __future__ import annotations
 
@@ -41,7 +46,7 @@ LAUNCHES = {"delta_quantize_pack": 0, "dequant_unpack_accumulate": 0,
             "quantize_pack": 0, "unpack_dequant": 0,
             "quantize_codes_scaled": 0, "dequant_sum_mean": 0,
             "unpack_accumulate": 0, "pack_sums": 0, "unpack_sums": 0,
-            "flash_attention_fwd": 0}
+            "flash_attention_fwd": 0, "oncore_uniform": 0}
 
 
 def reset_launches() -> None:
@@ -92,36 +97,61 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _launch(name: str, fn: str, *args) -> None:
+def _launch(name: str, fn: str, *args, seeded: bool = False) -> None:
     lib = build.load("quant_pack")
     stream = torch.cuda.current_stream().cuda_stream
     rc = getattr(lib, fn)(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{fn} failed to launch: CUDA error {rc}")
     LAUNCHES[name] += 1
+    if seeded:
+        LAUNCHES["oncore_uniform"] += 1
+
+
+def _noise_check(u: Optional[torch.Tensor], seed: Optional[torch.Tensor]):
+    """At most one noise source (as the Pallas encoders assert)."""
+    if u is not None and seed is not None:
+        raise ValueError("pass uniform noise u or a seed, not both")
+
+
+def _plain_noise(u, seed, rows: int, d: int):
+    """The noise a plain version reads: ``u``, or the seeded kernels'
+    draw from ``seed``."""
+    return ref.oncore_uniform_ref(seed, rows, d) if seed is not None else u
+
+
+def _check_noise(u, seed, r: int, d: int):
+    if u is not None:
+        _check(u, "u", torch.float32, (r, d))
+    if seed is not None:
+        _check(seed, "seed", torch.int32, (2,))
 
 
 def delta_quantize_pack(a: torch.Tensor, m: torch.Tensor,
-                        u: Optional[torch.Tensor] = None, *, bits: int):
+                        u: Optional[torch.Tensor] = None, *, bits: int,
+                        seed: Optional[torch.Tensor] = None):
     """a, m (R, d) f32; u optional uniform noise (R, d) for stochastic
-    rounding.  Returns (packed (R, d*bits/8) u8, scale (R, 1) f32,
-    m_new (R, d) f32)."""
-    if not _on_cuda(a, m, u):
-        return ref.delta_quantize_pack_ref(a, m, bits, u)
+    rounding, or seed (2,) int32 to draw it in the kernel.  Returns
+    (packed (R, d*bits/8) u8, scale (R, 1) f32, m_new (R, d) f32)."""
+    _noise_check(u, seed)
+    if not _on_cuda(a, m, u, seed):
+        return ref.delta_quantize_pack_ref(
+            a, m, bits, _plain_noise(u, seed, *a.shape))
     r, d = a.shape
     _check_bits(bits, d)
-    for t, n in ((a, "a"), (m, "m"), (u, "u")):
-        if t is not None:
-            _check(t, n, torch.float32, (r, d))
+    _check(a, "a", torch.float32, (r, d))
+    _check(m, "m", torch.float32, (r, d))
+    _check_noise(u, seed, r, d)
     packed = torch.empty((r, d * bits // 8), dtype=torch.uint8,
                          device=a.device)
     scale = torch.empty((r, 1), dtype=torch.float32, device=a.device)
     m_new = torch.empty_like(a)
     if r:
         _launch("delta_quantize_pack", "rt_delta_quantize_pack",
-                a.data_ptr(), m.data_ptr(), _ptr(u), packed.data_ptr(),
-                scale.data_ptr(), m_new.data_ptr(), r, d, bits,
-                _vec(d, a, m, u, packed, m_new))
+                a.data_ptr(), m.data_ptr(), _ptr(u), _ptr(seed),
+                packed.data_ptr(), scale.data_ptr(), m_new.data_ptr(), r, d,
+                bits, _vec(d, a, m, u, packed, m_new),
+                seeded=seed is not None)
     return packed, scale, m_new
 
 
@@ -145,23 +175,23 @@ def dequant_unpack_accumulate(packed: torch.Tensor, scale: torch.Tensor,
 
 
 def quantize_pack(x: torch.Tensor, u: Optional[torch.Tensor] = None, *,
-                  bits: int):
-    """x (R, d) f32; u optional uniform noise (R, d).  Returns
-    (packed (R, d*bits/8) u8, scale (R, 1) f32)."""
-    if not _on_cuda(x, u):
-        return ref.quantize_pack_ref(x, bits, u)
+                  bits: int, seed: Optional[torch.Tensor] = None):
+    """x (R, d) f32; u optional uniform noise (R, d), or seed (2,)
+    int32.  Returns (packed (R, d*bits/8) u8, scale (R, 1) f32)."""
+    _noise_check(u, seed)
+    if not _on_cuda(x, u, seed):
+        return ref.quantize_pack_ref(x, bits, _plain_noise(u, seed, *x.shape))
     r, d = x.shape
     _check_bits(bits, d)
     _check(x, "x", torch.float32, (r, d))
-    if u is not None:
-        _check(u, "u", torch.float32, (r, d))
+    _check_noise(u, seed, r, d)
     packed = torch.empty((r, d * bits // 8), dtype=torch.uint8,
                          device=x.device)
     scale = torch.empty((r, 1), dtype=torch.float32, device=x.device)
     if r:
         _launch("quantize_pack", "rt_quantize_pack", x.data_ptr(), _ptr(u),
-                packed.data_ptr(), scale.data_ptr(), r, d, bits,
-                _vec(d, x, u, packed))
+                _ptr(seed), packed.data_ptr(), scale.data_ptr(), r, d, bits,
+                _vec(d, x, u, packed), seeded=seed is not None)
     return packed, scale
 
 
@@ -189,25 +219,29 @@ def unpack_dequant(packed: torch.Tensor, scale: torch.Tensor, *, bits: int,
 
 def quantize_codes_scaled(x: torch.Tensor, scale: torch.Tensor,
                           u: Optional[torch.Tensor] = None, *, bits: int,
-                          pack: bool = False):
+                          pack: bool = False,
+                          seed: Optional[torch.Tensor] = None):
     """x (R, d) f32 against the given row scale (R, 1) f32 (clamped at
-    eps); u optional uniform noise (R, d).  Returns int32 codes (R, d),
-    or (packed (R, d*bits/8) u8, codes) with ``pack``."""
-    if not _on_cuda(x, scale, u):
-        return ref.quantize_codes_scaled_ref(x, scale, bits, u, pack)
+    eps); u optional uniform noise (R, d), or seed (2,) int32.  Returns
+    int32 codes (R, d), or (packed (R, d*bits/8) u8, codes) with
+    ``pack``."""
+    _noise_check(u, seed)
+    if not _on_cuda(x, scale, u, seed):
+        return ref.quantize_codes_scaled_ref(
+            x, scale, bits, _plain_noise(u, seed, *x.shape), pack)
     r, d = x.shape
     _check_bits(bits, d)
     _check(x, "x", torch.float32, (r, d))
     _check(scale, "scale", torch.float32, (r, 1))
-    if u is not None:
-        _check(u, "u", torch.float32, (r, d))
+    _check_noise(u, seed, r, d)
     codes = torch.empty((r, d), dtype=torch.int32, device=x.device)
     packed = torch.empty((r, d * bits // 8), dtype=torch.uint8,
                          device=x.device) if pack else None
     if r:
         _launch("quantize_codes_scaled", "rt_quantize_codes_scaled",
-                x.data_ptr(), scale.data_ptr(), _ptr(u), codes.data_ptr(),
-                _ptr(packed), r, d, bits, _vec(d, x, u, codes, packed))
+                x.data_ptr(), scale.data_ptr(), _ptr(u), _ptr(seed),
+                codes.data_ptr(), _ptr(packed), r, d, bits,
+                _vec(d, x, u, codes, packed), seeded=seed is not None)
     return (packed, codes) if pack else codes
 
 

@@ -9,6 +9,11 @@ tests hold them against JAX and ``chip_smoke.py`` holds the kernels
 against them on the card.  Shapes: rows ``(R, d)``, packed ``(R, d *
 bits / 8)`` u8, scale ``(R, 1)`` f32.
 
+`oncore_uniform_ref` is the plain version of the noise the encode
+kernels draw themselves when given a seed (`philox4x32_10`, counter-based,
+so it depends on the element's index and the seed only); the seeded
+kernels equal ``*_ref(..., u=oncore_uniform_ref(seed, rows, d))``.
+
 `flash_attention_ref` is the plain version of the attention kernel
 (``csrc/flash_attention.cu``): dense masked-softmax attention, the
 counterpart of the JAX oracle ``repro.kernels.ref.flash_attention_ref``,
@@ -22,6 +27,59 @@ from typing import Optional
 import torch
 
 from repro_torch.core import quantization as Q
+
+
+_M32 = 0xFFFFFFFF
+PHILOX_M = (0xD2511F53, 0xCD9E8D57)      # round multipliers
+PHILOX_W = (0x9E3779B9, 0xBB67AE85)      # key schedule (Weyl) increments
+
+
+def _mulhilo(a: torch.Tensor, m: int):
+    """(hi, lo) 32-bit halves of the 64-bit product of u32 values ``a``
+    (int64) and the constant ``m``, in 16-bit pieces so that no int64
+    intermediate passes 2**49."""
+    t_lo = a * (m & 0xFFFF)
+    t_hi = a * (m >> 16)
+    lo_full = t_lo + ((t_hi & 0xFFFF) << 16)
+    return (t_hi >> 16) + (lo_full >> 32), lo_full & _M32
+
+
+def philox4x32_10(ctr: torch.Tensor, key: torch.Tensor) -> torch.Tensor:
+    """Philox4x32 with 10 rounds (Salmon et al., SC'11; Random123's
+    ``philox4x32``): ``ctr`` (..., 4) and ``key`` (..., 2), int64 tensors
+    holding u32 values (broadcast against each other).  Returns (..., 4)
+    int64 holding u32 words."""
+    c0, c1, c2, c3 = ctr.unbind(-1)
+    k0, k1 = key.unbind(-1)
+    for r in range(10):
+        if r:
+            k0 = (k0 + PHILOX_W[0]) & _M32
+            k1 = (k1 + PHILOX_W[1]) & _M32
+        hi0, lo0 = _mulhilo(c0, PHILOX_M[0])
+        hi1, lo1 = _mulhilo(c2, PHILOX_M[1])
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return torch.stack([c0, c1, c2, c3], dim=-1)
+
+
+def oncore_uniform_ref(seed: torch.Tensor, rows: int, d: int, *,
+                       row0: int = 0) -> torch.Tensor:
+    """The seeded encode kernels' uniform noise for rows ``row0 ..
+    row0 + rows`` of an op's (R, d) row view, (rows, d) f32 on
+    ``seed``'s device.  Element (r, c) has flat index i = r * d + c; its
+    counter is (lo32(i >> 2), hi32(i >> 2), 0, 0), its key the (2,)
+    int32 ``seed`` read as u32, and its value ``(word[i & 3] >> 8) *
+    2**-24``: exact in f32, in [0, 1 - 2**-24]."""
+    if seed.shape != (2,) or seed.dtype != torch.int32:
+        raise ValueError(f"seed must be a (2,) int32 tensor, got "
+                         f"{tuple(seed.shape)} {seed.dtype}")
+    start, n = row0 * d, rows * d
+    g0, g1 = start >> 2, (start + n + 3) >> 2
+    g = torch.arange(g0, g1, dtype=torch.int64, device=seed.device)
+    zero = torch.zeros_like(g)
+    words = philox4x32_10(torch.stack([g & _M32, g >> 32, zero, zero], -1),
+                          seed.to(torch.int64) & _M32)
+    w = words.reshape(-1)[start - 4 * g0:start - 4 * g0 + n]
+    return ((w >> 8).to(torch.float32) * 2.0 ** -24).reshape(rows, d)
 
 
 def delta_quantize_pack_ref(a: torch.Tensor, m: torch.Tensor, bits: int,

@@ -5,8 +5,12 @@ serving plane (port of the uniform-batch path of `repro.launch.serve`).
 ``--stages N`` routes the hidden state through N-1 delta-coded hops
 per token (`repro_torch.serving.delta`).  The comm flags and
 ``--comm-config`` JSON are those of the JAX package, and the resolved
-config is echoed back as JSON.  The weights are a random init from
-``--seed``.
+config is echoed back as JSON.  The weights and the prompt are a
+random init from ``--seed``, drawn on the CPU and moved to the device
+leaf by leaf, so a seed gives the same model on the card and on the
+CPU; sampling noise (``--temperature``) comes from a generator on the
+device (`repro_torch.rng`).  ``--arch`` defaults to ``gemma2-9b``, as
+in the JAX launcher.
 
 Runs on CUDA unless ``--device cpu`` asks for the CPU; with no card and
 no such request it raises.
@@ -31,6 +35,7 @@ import torch
 from repro_torch.comm import config as comm_cli
 from repro_torch.configs.base import ARCHS, get_config
 from repro_torch.models.model import Transformer
+from repro_torch.rng import seeded_generator
 from repro_torch.serving import DeltaHopCodec, KVCodec
 
 
@@ -51,7 +56,7 @@ def _sync(dev: torch.device) -> None:
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
-    ap.add_argument("--arch", default="gpt2-xl-paper", choices=list(ARCHS))
+    ap.add_argument("--arch", default="gemma2-9b", choices=list(ARCHS))
     ap.add_argument("--smoke", action="store_true")
     comm_cli.add_cli_args(ap)
     ap.add_argument("--batch", type=int, default=4)
@@ -70,9 +75,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def serve(args) -> dict:
-    """Run prefill + ``args.gen`` decode steps; returns the timings, the
-    generated tokens, the last logits and the KV stores' device bytes
-    (``kv_store_bytes`` over ``cache_len`` token rows)."""
+    """Run prefill + ``args.gen`` decode steps; returns the timings (the
+    model build's, ``build_s``, too), the generated tokens, the last
+    logits and the KV stores' device bytes (``kv_store_bytes`` over
+    ``cache_len`` token rows)."""
     dev = resolve_device(args.device)
     comm = comm_cli.from_args(args)
     print("comm:", comm.to_json())
@@ -91,8 +97,13 @@ def serve(args) -> dict:
         print(f"kv cache: {per_tok} B/token stored "
               f"({kv_codec.bits}-bit; raw f32 {raw_tok} B)")
 
-    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    _sync(dev)
+    tb = time.perf_counter()
+    gen = torch.Generator().manual_seed(args.seed)
     model = Transformer(cfg, device=dev, generator=gen)
+    _sync(dev)
+    build_s = time.perf_counter() - tb
+    print(f"model build: {build_s:.3f}s")
     cache_len = args.prompt_len + args.gen
     caches = model.init_caches(args.batch, cache_len, torch.float32,
                                kv_codec=kv_codec)
@@ -100,7 +111,8 @@ def serve(args) -> dict:
         caches["hop_m"] = hop.init_state(args.stages - 1, args.batch,
                                          cfg.d_model, device=dev)["m"]
     tokens = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
-                           generator=gen, device=dev)
+                           generator=gen).to(dev)
+    noise = seeded_generator(dev, args.seed, "noise")
     kvc = kv_codec if kv_codec.bits else None
     bfn_p = hop.boundary_fn(prefill=True) if hop is not None else None
     bfn_d = hop.boundary_fn(prefill=False) if hop is not None else None
@@ -123,7 +135,7 @@ def serve(args) -> dict:
             boundary_fn=bfn_d, kv_codec=kvc)
         if args.temperature > 0:
             probs = torch.softmax(logits[:, -1] / args.temperature, dim=-1)
-            tok = torch.multinomial(probs, 1, generator=gen)
+            tok = torch.multinomial(probs, 1, generator=noise)
         else:
             tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
     _sync(dev)
@@ -135,7 +147,8 @@ def serve(args) -> dict:
     kv_bytes = sum(caches[n].numel() * caches[n].element_size()
                    for n in ("k", "v", "k_codes", "k_scale", "v_codes",
                              "v_scale") if n in caches)
-    return {"prefill_s": t1 - t0, "decode_s": t2 - t1, "decode_tok_s": tok_s,
+    return {"build_s": build_s, "prefill_s": t1 - t0, "decode_s": t2 - t1,
+            "decode_tok_s": tok_s,
             "tokens": generated, "logits": logits,
             "kv_store_bytes": kv_bytes, "cache_len": cache_len}
 

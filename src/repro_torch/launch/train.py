@@ -14,11 +14,16 @@ before spawning, runs the warm-up step for the first
 ``--warmup-epochs`` epochs and the compressed step after, and stops
 every rank if the run outlasts ``JOIN_TIMEOUT`` seconds.
 
-Not ported yet, and refused with the ROADMAP item that ports them:
-``--ckpt-dir``/``--resume``/``--save-every``/``--checkpoint`` and
-``--fault``/``--kill-at`` (checkpoints, fault injection and recovery,
-queue A item 15); as in the JAX package, ``--fault`` and ``--kill-at``
-target the single-host trainer only.
+Not ported yet, and refused with the title of the ROADMAP item that
+ports them: ``--ckpt-dir``/``--resume``/``--save-every``/``--checkpoint``
+and ``--fault``/``--kill-at`` (checkpoints, fault injection and
+recovery, queue A "Fault tolerance"); as in the JAX package, ``--fault``
+and ``--kill-at`` target the single-host trainer only.
+
+The on-core noise knob (`repro_torch.env.oncore_prng`) puts the
+simulated trainer's stochastic encodes on the card onto the kernels'
+own seeded noise; the distributed trainer refuses it (queue A "Seeded
+noise in the distributed trainer").
 
 Examples:
   python -m repro_torch.launch.train --device cpu --smoke --stages 2 \\
@@ -39,6 +44,7 @@ import os
 import numpy as np
 import torch
 
+from repro_torch import env
 from repro_torch.comm import config as comm_cli
 from repro_torch.comm import wires as W
 from repro_torch.configs.base import ARCHS, get_config
@@ -53,15 +59,15 @@ from repro_torch.training import simulated as sim
 # seconds a --distributed run may take before every rank is stopped
 JOIN_TIMEOUT = 3600.0
 
-# flags of the JAX launcher the port refuses, and the ROADMAP item
-# that ports them
+# flags of the JAX launcher the port refuses, and the title of the
+# ROADMAP item that ports them
 NOT_PORTED = {
-    "ckpt_dir": "checkpoints (ROADMAP queue A, item 15)",
-    "resume": "checkpoints (ROADMAP queue A, item 15)",
-    "save_every": "checkpoints (ROADMAP queue A, item 15)",
-    "checkpoint": "checkpoints (ROADMAP queue A, item 15)",
-    "fault": "fault injection (ROADMAP queue A, item 15)",
-    "kill_at": "kill-and-resume (ROADMAP queue A, item 15)",
+    "ckpt_dir": 'checkpoints (ROADMAP queue A, "Fault tolerance")',
+    "resume": 'checkpoints (ROADMAP queue A, "Fault tolerance")',
+    "save_every": 'checkpoints (ROADMAP queue A, "Fault tolerance")',
+    "checkpoint": 'checkpoints (ROADMAP queue A, "Fault tolerance")',
+    "fault": 'fault injection (ROADMAP queue A, "Fault tolerance")',
+    "kill_at": 'kill-and-resume (ROADMAP queue A, "Fault tolerance")',
 }
 
 
@@ -177,6 +183,8 @@ def main(argv=None):
         if (value is not None) if flag == "kill_at" else bool(value):
             ap.error(f"--{flag.replace('_', '-')}: {what} is not ported "
                      f"yet")
+    if args.distributed and env.oncore_prng():
+        ap.error(PL.ONCORE_REFUSAL)
     dev = resolve_device(args.device)
     if args.distributed:
         results = run_distributed(distributed_spec(args, dev),

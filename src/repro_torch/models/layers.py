@@ -30,6 +30,21 @@ from repro_torch.kernels import ops
 NEG_INF = -1.0e9
 
 
+@torch.no_grad()
+def init_normal_(w: torch.Tensor, std: float,
+                 generator: torch.Generator) -> None:
+    """Fill ``w`` with N(0, std**2) drawn on ``generator``'s device: a
+    CPU generator draws the leaf on the CPU and copies it to ``w``'s
+    device, so the weights do not depend on where they live, and only
+    one leaf is on the host at a time."""
+    if w.device == generator.device:
+        w.normal_(0.0, std, generator=generator)
+    else:
+        w.copy_(torch.empty(w.shape, dtype=w.dtype,
+                            device=generator.device).normal_(
+            0.0, std, generator=generator))
+
+
 # ---------------------------------------------------------------------------
 # Norms, RoPE, softcap
 # ---------------------------------------------------------------------------
@@ -154,9 +169,8 @@ class Attention(nn.Module):
         """N(0, 1/fan_in) init, as `repro.models.layers.init_attention`."""
         s = 1.0 / math.sqrt(self.wq.shape[0])
         for w in (self.wq, self.wk, self.wv):
-            nn.init.normal_(w, 0.0, s, generator=generator)
-        nn.init.normal_(self.wo, 0.0, 1.0 / math.sqrt(self.wo.shape[0]),
-                        generator=generator)
+            init_normal_(w, s, generator)
+        init_normal_(self.wo, 1.0 / math.sqrt(self.wo.shape[0]), generator)
 
     def forward(self, x, positions, window, k_cache=None, v_cache=None,
                 cache_index=0):
@@ -229,9 +243,9 @@ class MLP(nn.Module):
         s_in = 1.0 / math.sqrt(self.w_up.shape[0])
         for w in (self.w_gate, self.w_up):
             if w is not None:
-                nn.init.normal_(w, 0.0, s_in, generator=generator)
-        nn.init.normal_(self.w_down, 0.0, 1.0 / math.sqrt(self.w_down.shape[0]),
-                        generator=generator)
+                init_normal_(w, s_in, generator)
+        init_normal_(self.w_down, 1.0 / math.sqrt(self.w_down.shape[0]),
+                     generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dtype = x.dtype

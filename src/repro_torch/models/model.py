@@ -66,8 +66,10 @@ class Transformer(nn.Module):
 
     ``generator`` seeds a random init that follows the JAX package's
     scales (N(0, 0.02) embedding, N(0, 1/fan_in) projections, zero
-    norms); without it the weights are left uninitialized, for
-    `repro_torch.weights.from_jax_params` to fill."""
+    norms), drawn leaf by leaf on the generator's device (a CPU
+    generator gives the same weights on every device,
+    `layers.init_normal_`); without it the weights are left
+    uninitialized, for `repro_torch.weights.from_jax_params` to fill."""
 
     def __init__(self, cfg: ModelConfig, *, device=None,
                  generator: Optional[torch.Generator] = None):
@@ -87,7 +89,7 @@ class Transformer(nn.Module):
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
-        nn.init.normal_(self.embed, 0.0, 0.02, generator=generator)
+        L.init_normal_(self.embed, 0.02, generator)
         for blk in self.layers:
             blk.attn.reset_parameters(generator)
             blk.ffn.reset_parameters(generator)

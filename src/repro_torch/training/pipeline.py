@@ -43,12 +43,13 @@ The f32 all-reduce sums in gloo's order, not XLA's, so distributed
 losses match the JAX package within a tolerance, not bit for bit.
 
 Not ported: the other model families, FSDP/ZeRO-3 weight sharding, the
-``ring-sharded`` ZeRO wire, remat and chunked loss (ROADMAP queue A).
+``ring-sharded`` ZeRO wire, remat and chunked loss (ROADMAP queue A),
+and the kernels' seeded noise: `build_rank` refuses the on-core noise
+knob (`repro_torch.env.oncore_prng`, `ONCORE_REFUSAL`).
 """
 from __future__ import annotations
 
 import dataclasses
-import hashlib
 import time
 from dataclasses import dataclass
 from typing import Optional
@@ -58,6 +59,7 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
+from repro_torch import env
 from repro_torch.comm import faults
 from repro_torch.comm.config import CommConfig
 from repro_torch.configs.base import ModelConfig
@@ -66,6 +68,7 @@ from repro_torch.core import quantization as Q
 from repro_torch.models import layers as L
 from repro_torch.models.model import Block, Transformer
 from repro_torch.optim import adamw
+from repro_torch.rng import seeded_generator
 from repro_torch.weights import stage_state_dict
 
 MODES = ("fp32", "warmup", "directq", "aqsgd")
@@ -92,6 +95,15 @@ class PipelineConfig:
                              f">= 1")
 
 
+# the distributed trainer's answer to the on-core noise knob: its hop
+# and DP wire keep noise tensors (the wire's noise seeded by (seed,
+# step, data rank), so both copies of the tied embedding stay equal)
+ONCORE_REFUSAL = (f'{env.ONCORE_PRNG}=1 (kernel-drawn noise) is not ported '
+                  f'to the distributed trainer yet (ROADMAP queue A, '
+                  f'"Seeded noise in the distributed trainer"); unset it '
+                  f'or run the simulated trainer')
+
+
 # ---------------------------------------------------------------------------
 # stage layout
 # ---------------------------------------------------------------------------
@@ -108,7 +120,8 @@ def stage_layout(cfg: ModelConfig, num_stages: int) -> StageLayout:
     if cfg.family != "dense":
         raise NotImplementedError(
             f"{cfg.name}: the distributed trainer runs the dense family; "
-            f"the other families are ROADMAP queue A, item 16")
+            f'the other families are ROADMAP queue A, "The other '
+            f'families"')
     n = cfg.num_layers
     lps = -(-n // num_stages)
     return StageLayout(num_stages, lps, n, num_stages * lps - n)
@@ -457,13 +470,6 @@ def make_transfer(pcfg: PipelineConfig, mesh, generator=None) -> Transfer:
 # one rank's trainer
 # ---------------------------------------------------------------------------
 
-def seeded_generator(device, *parts) -> torch.Generator:
-    """A generator on ``device`` seeded from ``parts`` (a stable hash)."""
-    h = hashlib.sha256("/".join(map(str, parts)).encode()).digest()
-    seed = int.from_bytes(h[:8], "little") & ((1 << 63) - 1)
-    return torch.Generator(device=device).manual_seed(seed)
-
-
 class PipelineRank:
     """The state and step of one rank: its stage, AdamW moments, message
     buffers and DP carry, all on the mesh's device.  After a step,
@@ -609,6 +615,8 @@ def build_rank(rank: int, world: int, spec: dict) -> tuple:
     from repro_torch.data.pipeline import Dataset, DatasetConfig
     from repro_torch.launch.mesh import Mesh, MeshShape
 
+    if env.oncore_prng():
+        raise NotImplementedError(ONCORE_REFUSAL)
     shape = MeshShape(spec["data_par"], spec["stages"])
     if world != shape.world:
         raise ValueError(f"world {world} != mesh {shape.world}")

@@ -14,13 +14,21 @@ wire's simulator (`WireSpec.sim_allreduce`, the error-feedback codec of
 `repro_torch.core.grad_compress`) returns the mean and the new
 carried errors, which `comm.faults.guard_dp_pair` checks before AdamW.
 
-Random numbers: the initial weights and every stochastic-rounding draw
-come from ONE `torch.Generator`, in a fixed order (weights, then per
-step: worker 0's forward boundaries, its backward boundaries in reverse,
-worker 1's, ..., then the DP wire's workers in order).  JAX's threefry
-stream is not reproduced, so stochastic runs match the JAX package
-statistically; deterministic runs match its loss stream within a
-tolerance (tests/test_torch_train.py).
+Random numbers: `train` draws the initial weights from a CPU
+``torch.Generator().manual_seed(seed)``, leaf by leaf, each leaf moved
+to the device once drawn, so a seed gives the same weights on the card
+and on the CPU.  Every stochastic-rounding draw comes from a second
+generator, on the device, seeded from ``(seed, "noise")`` through a
+stable hash (`repro_torch.rng.seeded_generator`), in a fixed order (per
+step: worker 0's forward boundaries, its backward boundaries in
+reverse, worker 1's, ..., then the DP wire's workers in order).  Each
+draw is a noise tensor, or with the on-core noise knob on
+(`repro_torch.env.oncore_prng`) and the data on the card a
+(2,) int32 seed from which the encode kernel draws its own noise
+(`repro_torch.core.boundary`).  JAX's threefry stream is not
+reproduced, so stochastic runs match the JAX package statistically;
+deterministic runs match its loss stream within a tolerance
+(tests/test_torch_train.py).
 
 `train_step` marks its phases for `torch.profiler` (``train.*``
 ranges: each worker's forward, the DP wire, AdamW, the buffer writes;
@@ -48,6 +56,7 @@ from repro_torch.core import aqsgd
 from repro_torch.core import grad_compress as GC
 from repro_torch.models import model as Mo
 from repro_torch.optim import adamw
+from repro_torch.rng import seeded_generator
 from repro_torch.weights import jax_leaf_names, jax_leaves, load_jax_params
 
 
@@ -206,10 +215,11 @@ def train(mcfg: ModelConfig, tcfg: SimTrainConfig, dataset, *,
     initial_params: a JAX params pytree (numpy arrays) to start from,
     the paper's fine-tuning setting, in place of the random init."""
     device = torch.device(device)
-    gen = torch.Generator(device=device).manual_seed(seed)
     state = init_train_state(mcfg, tcfg, dataset.num_samples,
-                             dataset.dc.seq_len, generator=gen,
+                             dataset.dc.seq_len,
+                             generator=torch.Generator().manual_seed(seed),
                              device=device)
+    gen = seeded_generator(device, seed, "noise")
     if initial_params is not None:
         load_jax_params(state["model"], initial_params)
     losses, seconds = [], []

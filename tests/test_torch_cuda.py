@@ -16,7 +16,10 @@ bits), on the int4 path and the element path.  The flash-attention
 kernel (B10) is held to its plain version within a tolerance (rtol =
 atol = 2e-5 in f32, 2e-2 in bf16, as `tests/test_flash_kernel.py`):
 head dims 32-256, GQA and MQA, windows, softcaps, non-causal, ragged
-Sq and Sk with a query offset.
+Sq and Sk with a query offset.  The seeded encoders (the kernels'
+own Philox noise) equal the plain versions fed
+`ref.oncore_uniform_ref` bit for bit, on both paths and a misaligned
+view, and the on-core noise knob routes the boundary ops through them.
 """
 import pytest
 import torch
@@ -108,6 +111,57 @@ def test_gradient_wire_kernels_match_plain(card, bits):
                    [TR.dequant_sum_mean_ref(total, s, bits, n)])
 
 
+def _offset(x):
+    """A copy of x one f32 past a 16-byte boundary: contiguous but
+    misaligned, so the kernels take the scalar path even at d % 4 == 0."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    view = buf[1:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+@pytest.mark.parametrize("bits", BITS)
+def test_seeded_encoders_match_plain(card, bits):
+    """B1, B3 and B5 with a seed against their plain versions fed the
+    seeded stream, over three seeds, the dims above, a d % 4 != 0 and a
+    misaligned view with d % 4 == 0 (the scalar path)."""
+    dims = _dims(bits) + [(4096, 1600), (300, 512), (5, 12)]
+    for sd in ((0, 0), (1, -2), (2 ** 31 - 1, -2 ** 31)):
+        seed = torch.tensor(sd, dtype=torch.int32, device=card)
+        for rows, d in dims:
+            u = TR.oncore_uniform_ref(seed, rows, d)
+            m = _x(rows, d, 1, card)
+            a = m + _x(rows, d, 2, card)
+            s = a.abs().amax(-1, keepdim=True) * 1.5
+            for aa, mm in ((a, m), (_offset(a), _offset(m))):
+                _equal(TP.delta_quantize_pack(aa, mm, bits=bits, seed=seed),
+                       TR.delta_quantize_pack_ref(a, m, bits, u))
+                _equal(TP.quantize_pack(aa, bits=bits, seed=seed),
+                       TR.quantize_pack_ref(a, bits, u))
+                for pack in (False, True):
+                    got = TP.quantize_codes_scaled(aa, s, bits=bits,
+                                                   pack=pack, seed=seed)
+                    want = TR.quantize_codes_scaled_ref(a, s, bits, u, pack)
+                    _equal(got if pack else [got], want if pack else [want])
+
+
+def test_oncore_knob_launches_seeded_kernels(card, monkeypatch):
+    monkeypatch.setenv("ACSGD_ONCORE_PRNG", "1")
+    TP.reset_launches()
+    x = _x(8, 64, 4, card)
+    g = torch.Generator(device=card).manual_seed(0)
+    TB.encode_delta(x, x * 0.5, bits=4, stochastic=True, generator=g)
+    TB.roundtrip(x, bits=8, stochastic=True, generator=g)
+    TB.encode_codes_with_scale(x, x.abs().amax(-1, keepdim=True), bits=4,
+                               stochastic=True, generator=g)
+    TB.encode(x, bits=8, stochastic=True, u=torch.rand_like(x))  # u wins
+    assert TP.LAUNCHES["oncore_uniform"] == 3
+    assert TP.LAUNCHES["quantize_pack"] == 2
+    with pytest.raises(ValueError, match="not both"):
+        TP.quantize_pack(x, torch.rand_like(x), bits=8,
+                         seed=torch.zeros(2, dtype=torch.int32, device=card))
+
+
 # (bits, n) giving each sum width: 2, 4, 8, 16 and 32 bits
 SUM_WIDTH_CASES = [(2, 1), (2, 3), (4, 2), (8, 2), (8, 300)]
 
@@ -167,7 +221,7 @@ def test_counters_and_checks(card):
                            "quantize_codes_scaled": 1,
                            "dequant_sum_mean": 1, "unpack_accumulate": 1,
                            "pack_sums": 1, "unpack_sums": 1,
-                           "flash_attention_fwd": 0}
+                           "flash_attention_fwd": 0, "oncore_uniform": 0}
     with pytest.raises(TypeError):
         TP.quantize_pack(x.double(), bits=8)
     with pytest.raises(ValueError):

@@ -32,6 +32,23 @@ Phases, each printed on its own line:
    harness); and their ``[kernel-time]`` rows at the training path's
    shapes, beside the noise-input path they replace (the kernel
    reading u, and the ``torch.rand`` that writes u);
+   ``[legacy-bit-exact]``: the gradient wire's legacy pair (B9a
+   ``quantize_pack_scaled``, B9b ``unpack_codes``, reached only through
+   `core.boundary.encode_with_scale` / `decode_codes`) against their
+   plain versions, BIT-EXACT, at bits 2/4/8, deterministic and
+   stochastic, R 37 and 300, a d % 4 != 0, a misaligned view, zero
+   scale and zero x rows, and the DP bucket at 4 bits; their
+   ``[kernel-time]`` rows at the bucket (B9a 4-bit stochastic and
+   deterministic, B9b 4 and 8 bits, where a widening cast is the
+   library call); ``[legacy-dp-codec]``: tests/test_grad_compress.py's
+   ``_codec`` chain at the bucket for two simulated workers sharing one
+   scale (4 bits, stochastic, one u a worker), the legacy pair against
+   the fused sender (B5 with ``pack``), bit-equal in packed bytes, codes
+   and means, with both chains' device time a worker beside their byte
+   bounds, the counters set to 0 just before the legacy chain and read
+   just after; then the pair drawing u from a generator with
+   ``ACSGD_ONCORE_PRNG=1`` and without: the same bytes, no seeded
+   launch;
    ``[flash-check]``: the attention kernel (B10) against its plain
    version within a tolerance: the sweep of tests/test_flash_kernel.py
    (shapes, GQA and MQA, bf16, windows 9 and 17, softcaps 4 and 30,
@@ -93,6 +110,8 @@ Phases, each printed on its own line:
    layers), deterministic rounding on every plane, 3 steps on the card
    (kernels) against the CPU (plain versions) from the same seed.
 
+B9a and B9b launch 0 times on every path but ``[legacy-dp-codec]``:
+no trainer or server runs the legacy pair, in the JAX package either.
 Then one JSON line with every kernel's numbers (``launches``: the
 count on the path its time was taken at, named by ``launches_path``;
 each path's own count in ``launches_by_path``), the card's name and
@@ -123,6 +142,8 @@ REPLACES = {
     "dequant_unpack_accumulate": "src/repro/kernels/quant_pack.py:239",
     "quantize_pack": "src/repro/kernels/quant_pack.py:278",
     "unpack_dequant": "src/repro/kernels/quant_pack.py:320",
+    "quantize_pack_scaled": "src/repro/kernels/quant_pack.py:363",
+    "unpack_codes": "src/repro/kernels/quant_pack.py:399",
     "quantize_codes_scaled": "src/repro/kernels/quant_pack.py:480",
     "dequant_sum_mean": "src/repro/kernels/quant_pack.py:434",
     "unpack_accumulate": "src/repro/kernels/quant_pack.py:528",
@@ -141,13 +162,16 @@ OPS_PER_ELEMENT = {
     "dequant_unpack_accumulate": 5,  # shift and cvt mul fma
     "quantize_pack": 10,         # abs max | div add mul clip2 rint | pack2
     "unpack_dequant": 5,         # shift and cvt mul mul
+    "quantize_pack_scaled": 9,   # max | div add mul clip2 floor sub cmp add
+    "unpack_codes": 2,           # shift and (int32)
     "quantize_codes_scaled": 9,  # max | div add mul clip2 floor sub cmp add
     "dequant_sum_mean": 4,       # cvt mul sub | mul mul
     "unpack_accumulate": 3,      # shift and add (int32)
     "pack_sums": 3,              # and shift or (int32)
     "unpack_sums": 2,            # shift and (int32)
 }
-INT_KERNELS = ("unpack_accumulate", "pack_sums", "unpack_sums")
+INT_KERNELS = ("unpack_accumulate", "pack_sums", "unpack_sums",
+               "unpack_codes")
 # the seeded encoders' own noise (B11): one Philox4x32-10 call per 4
 # elements (10 rounds of 2 mullo, 2 mulhi, 4 xor and, from the second,
 # 2 key adds: 98 integer operations), then a shift and a convert a
@@ -182,6 +206,7 @@ GEMMA_LAUNCHES = {"delta_quantize_pack": G_GEN,
                   "dequant_unpack_accumulate": G_GEN,
                   "quantize_pack": (1 + G_GEN) * G_LAYERS * 2,
                   "unpack_dequant": (1 + G_GEN) * G_LAYERS * 2,
+                  "quantize_pack_scaled": 0, "unpack_codes": 0,
                   "quantize_codes_scaled": 0, "dequant_sum_mean": 0,
                   "unpack_accumulate": 0, "pack_sums": 0, "unpack_sums": 0,
                   "flash_attention_fwd": G_LAYERS, "oncore_uniform": 0}
@@ -204,9 +229,15 @@ TRAIN_ROWS = (TRAIN_BATCH // TRAIN_WORKERS * TRAIN_SEQ, D_MODEL)  # a worker
 TRAIN_LAUNCHES_PER_STEP = {"delta_quantize_pack": 6,
                            "dequant_unpack_accumulate": 0,
                            "quantize_pack": 6, "unpack_dequant": 6,
+                           "quantize_pack_scaled": 0, "unpack_codes": 0,
                            "quantize_codes_scaled": 2,
                            "dequant_sum_mean": 3}
 DP_KERNELS = ("quantize_codes_scaled", "dequant_sum_mean")
+# the gradient wire's legacy pair (B9a, B9b): on no path of either
+# package but tests/test_grad_compress.py's chain, which [legacy-dp-codec]
+# drives at the training path's bucket for two workers
+LEGACY_KERNELS = ("quantize_pack_scaled", "unpack_codes")
+LEGACY_WORKERS, LEGACY_BITS, LEGACY_SCALE = 2, 4, 1.3
 # [train-oncore]: the [train] run with ACSGD_ONCORE_PRNG=1, where every
 # stochastic encode (B1, B3, B5) draws its noise in the kernel; its
 # final loss against [train]'s (other rounding noise, same weights and
@@ -233,6 +264,7 @@ DIST_TIMEOUT = 600
 # B8a and B8b once
 DIST_LAUNCHES = {"delta_quantize_pack": 8, "dequant_unpack_accumulate": 8,
                  "quantize_pack": 8, "unpack_dequant": 8,
+                 "quantize_pack_scaled": 0, "unpack_codes": 0,
                  "quantize_codes_scaled": 16, "dequant_sum_mean": 32,
                  "unpack_accumulate": 16, "pack_sums": 16,
                  "unpack_sums": 16}
@@ -266,7 +298,7 @@ def _inputs(torch, name, rows, d, bits, *, seed, stochastic=False, n=1):
 
     u = torch.rand(rows, d, generator=g, device="cuda") if stochastic \
         else None
-    if name == "quantize_codes_scaled":
+    if name in ("quantize_codes_scaled", "quantize_pack_scaled"):
         x = normal()
         x[0] = 0.0
         s = x.abs().amax(-1, keepdim=True) \
@@ -280,6 +312,9 @@ def _inputs(torch, name, rows, d, bits, *, seed, stochastic=False, n=1):
         scale = torch.rand(rows, 1, generator=g, device="cuda") + 1e-3
         scale[min(1, rows - 1)] = 0.0
         return total, scale
+    if name == "unpack_codes":
+        return (torch.randint(0, 256, (rows, d * bits // 8), generator=g,
+                              device="cuda", dtype=torch.uint8),)
     if name == "unpack_accumulate":
         packed = torch.randint(0, 256, (rows, d * bits // 8), generator=g,
                                device="cuda", dtype=torch.uint8)
@@ -325,6 +360,10 @@ def _plain(ref, name):
         "unpack_dequant":
             lambda p, s, *, bits, **kw: ref.unpack_dequant_ref(p, s, bits,
                                                                **kw),
+        "quantize_pack_scaled":
+            lambda x, s, u=None, *, bits:
+                ref.quantize_pack_scaled_ref(x, s, bits, u),
+        "unpack_codes": lambda p, *, bits: ref.unpack_codes_ref(p, bits),
         "quantize_codes_scaled":
             lambda x, s, u=None, *, bits, pack=False:
                 ref.quantize_codes_scaled_ref(x, s, bits, u, pack),
@@ -342,11 +381,15 @@ def _outs(x):
 
 
 def check_bit_exact(torch, qp, ref, name, rows, d, bits, **kw):
-    """Kernel vs plain version on the same inputs; returns max |diff|."""
+    """Kernel vs plain version on the same inputs (``offset``: the
+    kernel gets misaligned copies of them, its scalar path); returns
+    max |diff|."""
     stochastic = kw.pop("stochastic", False)
+    offset = kw.pop("offset", False)
     args = _inputs(torch, name, rows, d, bits, seed=rows + d + bits,
                    stochastic=stochastic, n=kw.get("n", 1))
-    got = _outs(getattr(qp, name)(*args, bits=bits, **kw))
+    call = [_misaligned(torch, t) for t in args] if offset else args
+    got = _outs(getattr(qp, name)(*call, bits=bits, **kw))
     want = _outs(_plain(ref, name)(*args, bits=bits, **kw))
     torch.cuda.synchronize()
     err = 0.0
@@ -356,7 +399,8 @@ def check_bit_exact(torch, qp, ref, name, rows, d, bits, **kw):
         if not torch.equal(g_, w_):
             bad = (g_ != w_).sum().item()
             raise AssertionError(f"{name} rows={rows} d={d} bits={bits} "
-                                 f"{kw} stochastic={stochastic}: {bad} "
+                                 f"{kw} stochastic={stochastic} "
+                                 f"offset={offset}: {bad} "
                                  f"elements differ from the plain version")
         err = max(err, (g_.double() - w_.double()).abs().max().item())
     return err
@@ -397,12 +441,15 @@ def device_ms(torch, fn, arg_sets, launches: int = 40, reps: int = 5):
 def _library(torch, name, bits, n):
     """One PyTorch call that computes the kernel's function at these
     widths, or None.  At a sum width of 8 bits the sum packer is a
-    narrowing cast and the unpacker a widening one."""
+    narrowing cast and the unpacker a widening one; at 8 bits the code
+    unpacker is that widening cast too."""
     from repro_torch.core import quantization as Q
     if name in ("pack_sums", "unpack_sums") \
             and Q.sum_wire_bits(bits, n) == 8:
         dtype = torch.uint8 if name == "pack_sums" else torch.int32
         return lambda x: x.to(dtype)
+    if name == "unpack_codes" and bits == 8:
+        return lambda x: x.to(torch.int32)
     return None
 
 
@@ -734,6 +781,157 @@ def oncore_phase(torch, qp, ref):
     row["delta_quantize_pack"] = timed["delta_quantize_pack"]
     row["quantize_pack"] = timed["quantize_pack"]
     return row
+
+
+# ---------------------------------------------------------------------------
+# phase 3c: the gradient wire's legacy pair (B9a, B9b)
+# ---------------------------------------------------------------------------
+
+def _legacy_workers(torch):
+    """[legacy-dp-codec]'s inputs at the DP bucket: each worker's
+    gradient-like x and noise u, and the scale they share (1.3 x the
+    larger row absmax, pmax-style; row 0 is zero for both, so its scale
+    is 0 and clamps to 1e-12)."""
+    g = torch.Generator(device="cuda").manual_seed(17)
+    rows, d = DP_BUCKET
+    mags = torch.logspace(-6, 1, rows, device="cuda")[:, None]
+    xs, us = [], []
+    for _ in range(LEGACY_WORKERS):
+        x = torch.randn(rows, d, generator=g, device="cuda") * mags
+        x[0] = 0.0
+        xs.append(x)
+        us.append(torch.rand(rows, d, generator=g, device="cuda"))
+    s = torch.stack([x.abs().amax(-1, keepdim=True) for x in xs]).amax(0) \
+        * LEGACY_SCALE
+    return xs, s, us
+
+
+def legacy_dp_codec(torch, qp, env):
+    """[legacy-dp-codec]: tests/test_grad_compress.py's chain at the DP
+    bucket over two workers, the legacy pair against the fused sender,
+    bit for bit; returns (the legacy chain's launches, the two chains'
+    device ms a worker and their byte bounds)."""
+    from repro_torch.core import boundary as B
+    bits, d = LEGACY_BITS, DP_BUCKET[1]
+    xs, s, us = _legacy_workers(torch)
+
+    def legacy(x, s, u):
+        packed = B.encode_with_scale(x, s, bits=bits, stochastic=True, u=u)
+        return packed, B.decode_codes(packed, bits=bits, d=d)
+
+    def fused(x, s, u):
+        return B.encode_codes_with_scale(x, s, bits=bits, stochastic=True,
+                                         u=u, pack=True)
+
+    torch.cuda.synchronize()
+    qp.reset_launches()
+    chain = [legacy(x, s, u) for x, u in zip(xs, us)]
+    total = sum(c for _, c in chain)
+    mean = B.decode_sum_mean(total, s, bits=bits, n=LEGACY_WORKERS)
+    torch.cuda.synchronize()
+    launches = dict(qp.LAUNCHES)
+    ref_chain = [fused(x, s, u) for x, u in zip(xs, us)]
+    ref_mean = B.decode_sum_mean(sum(c for _, c in ref_chain), s, bits=bits,
+                                 n=LEGACY_WORKERS)
+    for (p, c), (fp, fc) in zip(chain, ref_chain):
+        assert torch.equal(p, fp), "legacy packed bytes differ from B5's"
+        assert torch.equal(c, fc), "legacy codes differ from B5's"
+    assert torch.equal(mean, ref_mean), "legacy means differ from B5's"
+    assert torch.isfinite(mean).all().item() and s[0].item() == 0.0
+    del chain, total, mean, ref_chain, ref_mean
+    # no seeded variant: the knob leaves the pair's noise to the generator
+    packed_by_knob = {}
+    for knob in ("1", None):
+        if knob:
+            os.environ[env.ONCORE_PRNG] = knob
+        try:
+            qp.reset_launches()
+            packed_by_knob[knob] = B.encode_with_scale(
+                xs[0], s, bits=bits, stochastic=True,
+                generator=torch.Generator(device="cuda").manual_seed(23))
+            torch.cuda.synchronize()
+            assert qp.LAUNCHES["oncore_uniform"] == 0, qp.LAUNCHES
+            assert qp.LAUNCHES["quantize_pack_scaled"] == 1, qp.LAUNCHES
+        finally:
+            os.environ.pop(env.ONCORE_PRNG, None)
+    assert torch.equal(packed_by_knob["1"], packed_by_knob[None]), \
+        "the on-core noise knob changed the legacy sender's bytes"
+    del packed_by_knob
+    # device time a worker: the pair (B9a then B9b) against B5 with pack
+    sets = list(zip(xs, [s] * LEGACY_WORKERS, us))
+    legacy_ms = device_ms(torch, lambda *a: legacy(*a)[1], sets, 4)
+    fused_ms = device_ms(torch, fused, sets, 4)
+    n = DP_BUCKET[0] * d
+    xu, sb, pb, cb = 8 * n, 4 * DP_BUCKET[0], n * bits // 8, 4 * n
+    legacy_bound = (xu + sb + 2 * pb + cb) / HBM_BYTES_PER_S * 1e3
+    fused_bound = (xu + sb + pb + cb) / HBM_BYTES_PER_S * 1e3
+    del xs, us, sets, s
+    torch.cuda.empty_cache()
+    phase("legacy-dp-codec", workers=LEGACY_WORKERS, rows=DP_BUCKET[0], d=d,
+          bits=bits, bit_equal_to_fused=True, knob_changes_bytes=False,
+          launches=json.dumps(launches),
+          legacy_ms_per_worker=f"{legacy_ms:.6f}",
+          legacy_bound_ms=f"{legacy_bound:.6f}",
+          fused_ms_per_worker=f"{fused_ms:.6f}",
+          fused_bound_ms=f"{fused_bound:.6f}")
+    assert launches["quantize_pack_scaled"] == LEGACY_WORKERS, launches
+    assert launches["unpack_codes"] == LEGACY_WORKERS, launches
+    assert launches["dequant_sum_mean"] == 1, launches
+    assert launches["quantize_codes_scaled"] == 0, launches
+    return launches, {"legacy_ms": legacy_ms, "legacy_bound_ms": legacy_bound,
+                      "fused_ms": fused_ms, "fused_bound_ms": fused_bound}
+
+
+def legacy_phase(torch, qp, ref, env):
+    """[legacy-bit-exact], the pair's [kernel-time] rows and
+    [legacy-dp-codec]; returns (their kernels rows, the chain's
+    launches)."""
+    cases = []
+    for bits in (2, 4, 8):
+        odd = 512 if bits == 2 else 514            # 514 % 4 != 0
+        for rows, d in ((37, 512), (300, 512), (5, odd)):
+            cases += [("quantize_pack_scaled", rows, d, bits,
+                       {"stochastic": st}) for st in (False, True)]
+            cases += [("unpack_codes", rows, d, bits, {})]
+        cases += [("quantize_pack_scaled", 5, 512, bits,
+                   {"stochastic": True, "offset": True}),
+                  ("unpack_codes", 5, 512, bits, {"offset": True})]
+    cases += [("quantize_pack_scaled", *DP_BUCKET, 4, {"stochastic": st})
+              for st in (False, True)]
+    cases += [("unpack_codes", *DP_BUCKET, b, {}) for b in (4, 8)]
+    errs = {name: 0.0 for name in LEGACY_KERNELS}
+    for name, rows, d, bits, kw in cases:
+        errs[name] = max(errs[name], check_bit_exact(
+            torch, qp, ref, name, rows, d, bits, **dict(kw)))
+    phase("legacy-bit-exact", cases=len(cases), max_abs_err=json.dumps(errs))
+    assert all(e == 0.0 for e in errs.values()), errs
+    timed = {}
+    for name, bits, kw, key in (
+            ("quantize_pack_scaled", 4, {"stochastic": True}, "main"),
+            ("quantize_pack_scaled", 4, {}, "deterministic"),
+            ("unpack_codes", 4, {}, "main"),
+            ("unpack_codes", 8, {}, "bits8")):
+        ms, plain_ms, library_ms, bound_ms, bound_by, nbytes = time_kernel(
+            torch, qp, ref, name, *DP_BUCKET, bits, **kw)
+        phase("kernel-time", name=name, rows=DP_BUCKET[0], d=DP_BUCKET[1],
+              bits=bits, stochastic=kw.get("stochastic", False),
+              bytes=nbytes, ms=f"{ms:.6f}", plain_ms=f"{plain_ms:.6f}",
+              bound_ms=f"{bound_ms:.6f}", bound_by=bound_by,
+              library_ms=None if library_ms is None
+              else f"{library_ms:.6f}")
+        timed.setdefault(name, {})[key] = {
+            "shape": list(DP_BUCKET), "bits": bits, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms, **kw}
+    launches, chains = legacy_dp_codec(torch, qp, env)
+    rows_out = {}
+    for name in LEGACY_KERNELS:
+        main = timed[name].pop("main")
+        rows_out[name] = {"name": name, "route": "cuda", "source": SOURCE,
+                          "replaces": REPLACES[name], "launches": 0,
+                          "max_abs_err": errs[name], **main, **timed[name]}
+    rows_out["quantize_pack_scaled"]["legacy_dp_codec"] = chains
+    return rows_out, launches
 
 
 # ---------------------------------------------------------------------------
@@ -1340,6 +1538,8 @@ def main() -> int:
     kernels = kernel_phase(torch, qp, ref)
     kernels["flash_attention_fwd"] = flash_phase(torch, fa, ref)
     kernels["oncore_uniform"] = oncore_phase(torch, qp, ref)
+    legacy_rows, legacy_launches = legacy_phase(torch, qp, ref, env)
+    kernels.update(legacy_rows)
 
     torch.cuda.reset_peak_memory_stats()
     qp.reset_launches()
@@ -1361,6 +1561,8 @@ def main() -> int:
         assert launches[name] > 0, \
             f"{name} was never launched on the serving path"
     assert launches["flash_attention_fwd"] == 48, launches  # one a layer
+    for name in LEGACY_KERNELS:
+        assert launches[name] == 0, launches
     reference_check(torch)
     gemma_launches, cpu_draw_s = serve_gemma2_phase(torch, qp, serve)
     phase("serve-gemma2-build", cpu_draw_s=f"{cpu_draw_s:.3f}",
@@ -1384,18 +1586,24 @@ def main() -> int:
     train_reference_check(torch)
     dist_launches = dist_phase(torch)
     for name in DIST_LAUNCHES:
-        assert dist_launches[name] > 0, \
-            f"{name} was never launched on the distributed path"
+        if DIST_LAUNCHES[name]:
+            assert dist_launches[name] > 0, \
+                f"{name} was never launched on the distributed path"
     dist_reference_check(torch)
     # a row's launches are those of the path its time was taken at:
     # serving for the activation codecs and the attention kernel (gpt2-xl
     # prefill), training for the DP wire, the distributed path for the
-    # ring's kernels, training with the on-core noise knob for B11
+    # ring's kernels, training with the on-core noise knob for B11, the
+    # legacy chain for B9a and B9b (0 on every other path)
     by_path = {"serve": serve_launches, "serve_gemma2": gemma_launches,
                "train": train_launches, "train_oncore": oncore_launches,
-               "dist": dist_launches}
+               "dist": dist_launches, "legacy_dp": legacy_launches}
+    for name in LEGACY_KERNELS:
+        assert all(by_path[p][name] == 0 for p in by_path
+                   if p != "legacy_dp"), (name, by_path)
     for name, row in kernels.items():
-        path = "dist" if name in INT_KERNELS else \
+        path = "legacy_dp" if name in LEGACY_KERNELS else \
+            "dist" if name in INT_KERNELS else \
             "train" if name in DP_KERNELS else \
             "train_oncore" if name == "oncore_uniform" else "serve"
         row["launches"] = by_path[path][name]

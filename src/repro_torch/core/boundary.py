@@ -1,12 +1,15 @@
-"""Backend-selectable AQ-SGD boundary ops (port of `repro.core.boundary`
-without the legacy `encode_with_scale`/`decode_codes` pair).
+"""Backend-selectable AQ-SGD boundary ops (port of `repro.core.boundary`).
 
 Every codec crossing goes through these ops: the activation boundary
 (`encode_delta`/`decode_accumulate`/`encode`/`decode`/`roundtrip`) and
 the data-parallel gradient wire (`encode_codes_with_scale`, the sender
 against a shared row scale, `decode_sum_mean`, the receiver, and the
 compressed ring's integer steps `accumulate_codes`, `pack_sums` and
-`unpack_sums`).  Each runs on two bit-identical backends:
+`unpack_sums`).  The legacy `encode_with_scale`/`decode_codes` pair
+(packed codes against a shared row scale, then int32 codes from them:
+the sender the fused `encode_codes_with_scale` replaced) is on no
+trainer's path, as in the JAX package.  Each runs on two bit-identical
+backends:
 
 * ``"cuda"``      — the hand-written kernels (`repro_torch.kernels.ops`):
   one device pass per side;
@@ -30,7 +33,8 @@ noise tensor is written or read.  The reference backend
 ignores the knob, as JAX's does; an explicit ``u`` always wins.  The
 seeded stream is not the one ``torch.rand`` draws, so with the knob on
 the cuda backend agrees with the reference backend in distribution
-(unbiased rounding), not bit for bit.
+(unbiased rounding), not bit for bit.  `encode_with_scale` has no
+seeded kernel (nor has the JAX package's), so it always draws ``u``.
 """
 from __future__ import annotations
 
@@ -61,24 +65,30 @@ def resolve_backend(backend: str, x: torch.Tensor,
     return backend
 
 
-def _noise(x: torch.Tensor, stochastic: bool, u, generator, backend: str):
-    """(noise, seed) of an encode op: (None, None) when deterministic;
-    else ``u``, or on the cuda backend with `env.oncore_prng` on a
-    (2,) int32 seed for the kernel's own draw, or a fresh ``u`` from
-    ``generator``."""
+def _uniform(x: torch.Tensor, stochastic: bool, u, generator):
+    """The uniform noise of an encode op: None when deterministic; else
+    ``u``, or a fresh draw of x's shape from ``generator``."""
     if not stochastic:
-        return None, None
+        return None
     if u is not None:
-        return u, None
+        return u
     if generator is None:
         raise ValueError("stochastic boundary ops need a noise tensor u "
                          "or a torch.Generator")
-    if backend == "cuda" and env.oncore_prng():
+    return torch.rand(x.shape, generator=generator, dtype=torch.float32,
+                      device=x.device)
+
+
+def _noise(x: torch.Tensor, stochastic: bool, u, generator, backend: str):
+    """(noise, seed) of an encode op: on the cuda backend with
+    `env.oncore_prng` on, a stochastic op given no ``u`` gets a (2,)
+    int32 seed for the kernel's own draw; otherwise `_uniform`."""
+    if stochastic and u is None and generator is not None \
+            and backend == "cuda" and env.oncore_prng():
         seed = torch.randint(-2 ** 31, 2 ** 31, (2,), generator=generator,
                              dtype=torch.int32, device=generator.device)
         return None, seed.to(x.device)
-    return torch.rand(x.shape, generator=generator, dtype=torch.float32,
-                      device=x.device), None
+    return _uniform(x, stochastic, u, generator), None
 
 
 def encode_delta(a, m, *, bits: int, stochastic: bool = False, u=None,
@@ -141,6 +151,34 @@ def roundtrip(x, *, bits: int, stochastic: bool = False, u=None,
                            generator=generator, backend=backend)
     return decode(packed, scale, bits=bits, d=x.shape[-1], dtype=x.dtype,
                   backend=backend)
+
+
+def encode_with_scale(x, scale, *, bits: int, stochastic: bool = False,
+                      u=None, generator=None, backend: str = "auto"):
+    """Legacy DP gradient-wire sender: x quantized against the caller's
+    row scale and packed, u8 (..., pw) (raw u8 codes for widths that do
+    not pack to whole bytes).  The scale is clamped at eps here, once,
+    for both backends.  Stochastic noise is ``u`` or a ``torch.rand``
+    draw from ``generator``, whatever the on-core noise knob says."""
+    backend = resolve_backend(backend, x, bits)
+    scale = torch.clamp(scale.float(), min=Q._EPS)
+    u = _uniform(x, stochastic, u, generator)
+    if backend == "cuda":
+        return K.quantize_pack_scaled(x, scale, u, bits=bits)
+    codes, _ = Q.quantize(x.float(), bits, noise=u, scale=scale)
+    return Q.pack_codes(codes, bits) if bits in PACKABLE_BITS else codes
+
+
+def decode_codes(packed, *, bits: int, d: int, backend: str = "auto"):
+    """Legacy DP gradient-wire receiver: the payload of
+    `encode_with_scale` -> int32 codes (..., d), the form whose sums
+    over workers `decode_sum_mean` turns into their mean."""
+    backend = resolve_backend(backend, packed, bits)
+    if backend == "cuda":
+        return K.unpack_codes(packed, bits=bits)[..., :d]
+    codes = Q.unpack_codes(packed, bits, d) if bits in PACKABLE_BITS \
+        else packed
+    return codes.to(torch.int32)
 
 
 def encode_codes_with_scale(x, scale, *, bits: int, stochastic: bool = False,

@@ -47,6 +47,8 @@ SIGNATURES = {
                                          _P),
         "rt_quantize_pack": (_P, _P, _P, _P, _P, _I64, _I64, _I, _I, _P),
         "rt_unpack_dequant": (_P, _P, _P, _I64, _I64, _I, _I, _I, _P),
+        "rt_quantize_pack_scaled": (_P, _P, _P, _P, _I64, _I64, _I, _I, _P),
+        "rt_unpack_codes": (_P, _P, _I64, _I, _I, _P),
         "rt_quantize_codes_scaled": (_P, _P, _P, _P, _P, _P, _I64, _I64, _I,
                                      _I, _P),
         "rt_dequant_sum_mean": (_P, _P, _P, _I64, _I64, _F, _F, _I, _P),

@@ -1,12 +1,14 @@
 // AQ-SGD boundary codec kernels for Hopper (sm_90a).
 //
-// Replaces nine Pallas TPU kernels of src/repro/kernels/quant_pack.py:
+// Replaces eleven Pallas TPU kernels of src/repro/kernels/quant_pack.py:
 //   delta_quantize_pack        (quant_pack.py:190, _dqp_kernel)  -> encode_rows<BITS, true>
 //   dequant_unpack_accumulate  (quant_pack.py:239, _dua_kernel)  -> decode_flat<BITS, true, float>
 //   quantize_pack              (quant_pack.py:278, _qp_kernel)   -> encode_rows<BITS, false>
 //   unpack_dequant             (quant_pack.py:320, _ud_kernel)   -> decode_flat<BITS, false, OutT>
+//   quantize_pack_scaled       (quant_pack.py:363, _qps_kernel)  -> codes_scaled_flat<BITS, false, true>
+//   unpack_codes               (quant_pack.py:399, _uc_kernel)   -> unpack_sums_flat<BITS>
 //   dequant_sum_mean           (quant_pack.py:434, _dsm_kernel)  -> sum_mean_flat
-//   quantize_codes_scaled      (quant_pack.py:480, _qcs_kernel)  -> codes_scaled_flat<BITS, PACK>
+//   quantize_codes_scaled      (quant_pack.py:480, _qcs_kernel)  -> codes_scaled_flat<BITS, true, PACK>
 //   unpack_accumulate          (quant_pack.py:528, _ua_kernel)   -> unpack_accumulate_flat<BITS>
 //   pack_sums                  (quant_pack.py:579, _ps_kernel)   -> pack_sums_flat<SW>
 //   unpack_sums                (quant_pack.py:620, _us_kernel)   -> unpack_sums_flat<SW>
@@ -16,12 +18,18 @@
 // memory in place of a noise tensor and draw the uniforms of
 // stochastic rounding themselves (philox4x32_10 below).
 // The first four are the activation boundary's codecs; the next two are
-// the data-parallel gradient wire's sender (codes against a shared,
-// given row scale) and receiver (mean from an int32 code sum); the last
-// three are the compressed ring's integer steps: the reduce-scatter's
-// accumulate of an arriving packed segment into int32 code sums, the
-// all-gather's packing of those sums at SW = sum_wire_bits(bits, n)
-// bits (2, 4, 8, 16 or 32), and its inverse.
+// the gradient wire's legacy pair (boundary.encode_with_scale and
+// decode_codes: packed codes against a shared, given row scale, and
+// packed codes back to int32), which no trainer runs; then the wire's
+// sender (int32 codes against that scale, optionally packed in the same
+// pass) and receiver (mean from an int32 code sum); the last three are
+// the compressed ring's integer steps: the reduce-scatter's accumulate
+// of an arriving packed segment into int32 code sums, the all-gather's
+// packing of those sums at SW = sum_wire_bits(bits, n) bits (2, 4, 8,
+// 16 or 32), and its inverse.  The legacy pair needs no kernel of its
+// own: its sender is the wire's sender with the int32 codes store
+// compiled out (CODES = false), and packed b-bit codes are the sums of
+// one worker, so its receiver is the sums' unpacker at SW = BITS.
 //
 // What bounds them: bytes.  Each is a row codec doing ~10 float
 // operations per element, far below the ~20 operations per byte the
@@ -30,8 +38,8 @@
 // once, each output written once) over 3.35 TB/s: about 0.05 us for the
 // decode hop (R=8, d=1600) -- a launch-latency-bound call -- about
 // 3 us for a KV-store read at batch 8, cache 160 (R=32000, d=64, ~10 MB),
-// and about 1.1-1.6 ms for the gradient wire over a 449M-parameter
-// bucket (R=877132, d=512: 8-12 bytes an element).  The ring's three
+// and about 0.6-1.6 ms for the gradient wire over a 449M-parameter
+// bucket (R=877132, d=512: 4.5-12 bytes an element).  The ring's three
 // kernels do no float work at all (shifts, masks, one integer add), so
 // bytes bound them too: 8.5, 5 and 5 bytes an element at 4 bits, n = 2.
 //
@@ -357,10 +365,11 @@ decode_flat(const uint8_t* __restrict__ packed, const float* __restrict__ scale,
 // Gradient wire: codes against a given row scale; mean from a code sum
 // ---------------------------------------------------------------------------
 
-// int32 codes of x against max(s, eps) (+ the packed u8 payload with
-// PACK), one flat pass: groups of 4 elements with vec, else one packed
-// byte's worth (8/BITS elements) per item.
-template <int BITS, bool PACK>
+// int32 codes of x against max(s, eps) with CODES, the packed u8
+// payload with PACK (at least one of the two), one flat pass: groups of
+// 4 elements with vec, else one packed byte's worth (8/BITS elements)
+// per item.
+template <int BITS, bool CODES, bool PACK>
 __global__ void __launch_bounds__(256)
 codes_scaled_flat(const float* __restrict__ x, const float* __restrict__ scale,
                   const float* __restrict__ u, const int32_t* __restrict__ seed,
@@ -386,8 +395,9 @@ codes_scaled_flat(const float* __restrict__ x, const float* __restrict__ scale,
       const uint32_t c1 = quant_code<BITS>(xx.y, s, uu.y, stoch);
       const uint32_t c2 = quant_code<BITS>(xx.z, s, uu.z, stoch);
       const uint32_t c3 = quant_code<BITS>(xx.w, s, uu.w, stoch);
-      reinterpret_cast<int4*>(codes)[g] =
-          make_int4(int(c0), int(c1), int(c2), int(c3));
+      if (CODES)
+        reinterpret_cast<int4*>(codes)[g] =
+            make_int4(int(c0), int(c1), int(c2), int(c3));
       if (PACK) {
         const uint32_t word = c0 | (c1 << BITS) | (c2 << (2 * BITS)) |
                               (c3 << (3 * BITS));
@@ -406,7 +416,7 @@ codes_scaled_flat(const float* __restrict__ x, const float* __restrict__ scale,
                          : seed ? seeded_uniform(i0 + t, k0, k1)
                                 : 0.0f;
         const uint32_t c = quant_code<BITS>(x[i0 + t], s, uu, stoch);
-        codes[i0 + t] = int(c);
+        if (CODES) codes[i0 + t] = int(c);
         byte |= c << (t * BITS);
       }
       if (PACK) packed[j] = static_cast<uint8_t>(byte);
@@ -606,7 +616,7 @@ int launch_decode(const uint8_t* packed, const float* scale, const float* m,
   return int(cudaGetLastError());
 }
 
-template <bool PACK>
+template <bool CODES, bool PACK>
 int launch_codes_scaled(const float* x, const float* s, const float* u,
                         const int32_t* seed, int32_t* codes,
                         uint8_t* packed, int64_t rows, int64_t d, int bits,
@@ -614,9 +624,9 @@ int launch_codes_scaled(const float* x, const float* s, const float* u,
   const int64_t items = vec ? rows * d / 4 : rows * d / (8 / bits);
   const dim3 grid(decode_blocks(items)), block(256);
   switch (bits) {
-    case 2: codes_scaled_flat<2, PACK><<<grid, block, 0, st>>>(x, s, u, seed, codes, packed, rows, d, vec); break;
-    case 4: codes_scaled_flat<4, PACK><<<grid, block, 0, st>>>(x, s, u, seed, codes, packed, rows, d, vec); break;
-    case 8: codes_scaled_flat<8, PACK><<<grid, block, 0, st>>>(x, s, u, seed, codes, packed, rows, d, vec); break;
+    case 2: codes_scaled_flat<2, CODES, PACK><<<grid, block, 0, st>>>(x, s, u, seed, codes, packed, rows, d, vec); break;
+    case 4: codes_scaled_flat<4, CODES, PACK><<<grid, block, 0, st>>>(x, s, u, seed, codes, packed, rows, d, vec); break;
+    case 8: codes_scaled_flat<8, CODES, PACK><<<grid, block, 0, st>>>(x, s, u, seed, codes, packed, rows, d, vec); break;
     default: return int(cudaErrorInvalidValue);
   }
   return int(cudaGetLastError());
@@ -735,11 +745,32 @@ int rt_quantize_codes_scaled(const void* x, const void* scale, const void* u,
   const int32_t* kp = static_cast<const int32_t*>(seed);
   int32_t* cp = static_cast<int32_t*>(codes);
   if (packed)
-    return launch_codes_scaled<true>(xp, sp, up, kp, cp,
-                                     static_cast<uint8_t*>(packed), rows, d,
-                                     bits, vec, st);
-  return launch_codes_scaled<false>(xp, sp, up, kp, cp, nullptr, rows, d,
-                                    bits, vec, st);
+    return launch_codes_scaled<true, true>(xp, sp, up, kp, cp,
+                                           static_cast<uint8_t*>(packed),
+                                           rows, d, bits, vec, st);
+  return launch_codes_scaled<true, false>(xp, sp, up, kp, cp, nullptr, rows,
+                                          d, bits, vec, st);
+}
+
+// x, u: (rows, d) f32 (u null: round to nearest); scale (rows,) f32,
+// clamped at eps here -> packed (rows, d*bits/8) u8 only
+int rt_quantize_pack_scaled(const void* x, const void* scale, const void* u,
+                            void* packed, long long rows, long long d,
+                            int bits, int vec, void* stream) {
+  return launch_codes_scaled<false, true>(
+      static_cast<const float*>(x), static_cast<const float*>(scale),
+      static_cast<const float*>(u), nullptr, nullptr,
+      static_cast<uint8_t*>(packed), rows, d, bits, vec,
+      static_cast<cudaStream_t>(stream));
+}
+
+// packed (n*bits/8,) u8 -> out (n,) i32 codes, bits in {2, 4, 8}
+int rt_unpack_codes(const void* packed, void* out, long long n, int bits,
+                    int vec, void* stream) {
+  if (bits != 2 && bits != 4 && bits != 8) return int(cudaErrorInvalidValue);
+  return launch_unpack_sums(static_cast<const uint8_t*>(packed),
+                            static_cast<int32_t*>(out), n, bits, vec,
+                            static_cast<cudaStream_t>(stream));
 }
 
 // total (rows, d) i32 code sum over n workers, scale (rows,) f32 ->

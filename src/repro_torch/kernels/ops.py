@@ -59,6 +59,22 @@ def unpack_dequant(packed, scale, *, bits: int,
     return out.reshape(*shape[:-1], out.shape[-1])
 
 
+def quantize_pack_scaled(x, scale, u=None, *, bits: int):
+    """Packed codes against a given row scale for any (..., d) tensor."""
+    shape = x.shape
+    d = shape[-1]
+    packed = _qp.quantize_pack_scaled(_rows(x, d), _rows(scale, 1),
+                                      _rows(u, d), bits=bits)
+    return packed.reshape(*shape[:-1], -1)
+
+
+def unpack_codes(packed, *, bits: int):
+    """Packed codes (..., pw) -> int32 codes (..., pw * 8/bits)."""
+    shape = packed.shape
+    out = _qp.unpack_codes(_rows(packed, shape[-1]), bits=bits)
+    return out.reshape(*shape[:-1], out.shape[-1])
+
+
 def quantize_codes_scaled(x, scale, u=None, *, bits: int, pack: bool = False,
                           seed=None):
     """Codes against a given row scale for any (..., d) tensor: int32

@@ -7,6 +7,10 @@ One wrapper per kernel, on row-major ``(R, d)`` tensors:
 * `quantize_pack`             — DirectQ sender, backward-gradient
   quantize and KV-cache append;
 * `unpack_dequant`            — the matching receiver and KV-cache read;
+* `quantize_pack_scaled` / `unpack_codes` — the gradient wire's legacy
+  pair (`core.boundary.encode_with_scale` / `decode_codes`, on no
+  trainer's path): packed codes against a given (shared) row scale, and
+  packed codes back to int32;
 * `quantize_codes_scaled`     — data-parallel gradient sender: int32
   codes against a given (shared) row scale, optionally packed too;
 * `dequant_sum_mean`          — its receiver: the mean over n workers
@@ -44,6 +48,7 @@ KERNEL_BITS = (2, 4, 8)
 # kernel launches per wrapper since the last `reset_launches`
 LAUNCHES = {"delta_quantize_pack": 0, "dequant_unpack_accumulate": 0,
             "quantize_pack": 0, "unpack_dequant": 0,
+            "quantize_pack_scaled": 0, "unpack_codes": 0,
             "quantize_codes_scaled": 0, "dequant_sum_mean": 0,
             "unpack_accumulate": 0, "pack_sums": 0, "unpack_sums": 0,
             "flash_attention_fwd": 0, "oncore_uniform": 0}
@@ -214,6 +219,43 @@ def unpack_dequant(packed: torch.Tensor, scale: torch.Tensor, *, bits: int,
         _launch("unpack_dequant", "rt_unpack_dequant", packed.data_ptr(),
                 scale.data_ptr(), out.data_ptr(), r, d, bits,
                 int(out_dtype == torch.bfloat16), _vec(d, packed, out))
+    return out
+
+
+def quantize_pack_scaled(x: torch.Tensor, scale: torch.Tensor,
+                         u: Optional[torch.Tensor] = None, *,
+                         bits: int) -> torch.Tensor:
+    """x (R, d) f32 against the given row scale (R, 1) f32 (clamped at
+    eps in the kernel too); u optional uniform noise (R, d).  Returns
+    packed (R, d*bits/8) u8."""
+    if not _on_cuda(x, scale, u):
+        return ref.quantize_pack_scaled_ref(x, scale, bits, u)
+    r, d = x.shape
+    _check_bits(bits, d)
+    _check(x, "x", torch.float32, (r, d))
+    _check(scale, "scale", torch.float32, (r, 1))
+    _check_noise(u, None, r, d)
+    packed = torch.empty((r, d * bits // 8), dtype=torch.uint8,
+                         device=x.device)
+    if r:
+        _launch("quantize_pack_scaled", "rt_quantize_pack_scaled",
+                x.data_ptr(), scale.data_ptr(), _ptr(u), packed.data_ptr(),
+                r, d, bits, _vec(d, x, u, packed))
+    return packed
+
+
+def unpack_codes(packed: torch.Tensor, *, bits: int) -> torch.Tensor:
+    """packed (R, pw) u8 -> int32 codes (R, pw * 8/bits)."""
+    if not _on_cuda(packed):
+        return ref.unpack_codes_ref(packed, bits)
+    r, pw = packed.shape
+    _check_bits(bits, 8 // bits)
+    d = pw * (8 // bits)
+    _check(packed, "packed", torch.uint8, (r, pw))
+    out = torch.empty((r, d), dtype=torch.int32, device=packed.device)
+    if r * d:
+        _launch("unpack_codes", "rt_unpack_codes", packed.data_ptr(),
+                out.data_ptr(), r * d, bits, _vec(r * d, packed, out))
     return out
 
 

@@ -130,6 +130,24 @@ def quantize_codes_scaled_ref(x: torch.Tensor, scale: torch.Tensor,
     return codes.to(torch.int32)
 
 
+def quantize_pack_scaled_ref(x: torch.Tensor, scale: torch.Tensor,
+                             bits: int,
+                             u: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Legacy gradient-wire sender: codes against the given row scale
+    (clamped at eps), packed.  Returns packed only: every worker
+    already holds the scale."""
+    s = torch.clamp(scale.float(), min=Q._EPS)
+    codes, _ = Q.quantize(x.float(), bits, noise=u, scale=s)
+    return Q.pack_codes(codes, bits)
+
+
+def unpack_codes_ref(packed: torch.Tensor, bits: int) -> torch.Tensor:
+    """Legacy gradient-wire receiver: packed codes -> int32 codes over
+    the full packed width."""
+    d = packed.shape[-1] * Q.codes_per_byte(bits)
+    return Q.unpack_codes(packed, bits, d).to(torch.int32)
+
+
 def dequant_sum_mean_ref(total: torch.Tensor, scale: torch.Tensor, bits: int,
                          n: int) -> torch.Tensor:
     """Gradient-wire receiver: the mean over n workers from their int32

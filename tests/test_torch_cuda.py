@@ -20,6 +20,9 @@ Sq and Sk with a query offset.  The seeded encoders (the kernels'
 own Philox noise) equal the plain versions fed
 `ref.oncore_uniform_ref` bit for bit, on both paths and a misaligned
 view, and the on-core noise knob routes the boundary ops through them.
+The gradient wire's legacy pair (`quantize_pack_scaled`,
+`unpack_codes`) equals its plain versions on both paths, with zero
+scale rows and a misaligned view.
 """
 import pytest
 import torch
@@ -145,6 +148,28 @@ def test_seeded_encoders_match_plain(card, bits):
                     _equal(got if pack else [got], want if pack else [want])
 
 
+@pytest.mark.parametrize("bits", BITS)
+def test_legacy_pair_kernels_match_plain(card, bits):
+    """B9a (deterministic and stochastic, a zero scale row and a zero x
+    row) and B9b, on the vector path, the scalar path (d % 4 != 0) and
+    a misaligned view."""
+    for rows, d in _dims(bits) + [(300, 512)]:
+        x = _x(rows, d, 6, card)
+        s = x.abs().amax(-1, keepdim=True) * 1.3
+        s[min(1, rows - 1)] = 0.0                 # clamps to 1e-12
+        for u in (None, torch.rand(rows, d, device=card)):
+            want = TR.quantize_pack_scaled_ref(x, s, bits, u)
+            _equal([TP.quantize_pack_scaled(x, s, u, bits=bits)], [want])
+            _equal([TP.quantize_pack_scaled(
+                _offset(x), s, None if u is None else _offset(u),
+                bits=bits)], [want])
+        packed = torch.randint(0, 256, (rows, d * bits // 8), device=card,
+                               dtype=torch.uint8)
+        want = TR.unpack_codes_ref(packed, bits)
+        _equal([TP.unpack_codes(packed, bits=bits)], [want])
+        _equal([TP.unpack_codes(_offset(packed), bits=bits)], [want])
+
+
 def test_oncore_knob_launches_seeded_kernels(card, monkeypatch):
     monkeypatch.setenv("ACSGD_ONCORE_PRNG", "1")
     TP.reset_launches()
@@ -215,9 +240,11 @@ def test_counters_and_checks(card):
     TB.decode_sum_mean(codes, s, bits=8, n=1)
     acc = TB.accumulate_codes(packed, codes, bits=8)
     TB.unpack_sums(TB.pack_sums(acc, bits=8, n=2), bits=8, n=2, d=64)
+    TB.decode_codes(TB.encode_with_scale(x, s, bits=4), bits=4, d=64)
     assert TP.LAUNCHES == {"delta_quantize_pack": 1,
                            "dequant_unpack_accumulate": 1,
                            "quantize_pack": 1, "unpack_dequant": 1,
+                           "quantize_pack_scaled": 1, "unpack_codes": 1,
                            "quantize_codes_scaled": 1,
                            "dequant_sum_mean": 1, "unpack_accumulate": 1,
                            "pack_sums": 1, "unpack_sums": 1,

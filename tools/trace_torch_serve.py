@@ -7,7 +7,9 @@ spend their time.
 Sets up the same path as `repro_torch.launch.serve` (defaults: the
 chip run's ``gpt2-xl-paper`` at full width and depth, batch 8, prompt
 128, ``--stages 2 --mode aqsgd --fw-bits 4 --kv-bits 8``; for gemma2-9b
-add ``--arch gemma2-9b --batch 2 --prompt-len 8160``), prefills once to
+add ``--arch gemma2-9b --batch 2 --prompt-len 8160``), with the
+launcher's weights and prompt (drawn from a CPU generator seeded with
+``--seed``, so the traced model is the served one), prefills once to
 warm up, times and traces a second prefill into fresh caches (the
 ``prefill`` entry), warms up two decode steps, then traces
 ``--trace-steps`` steady decode steps under `torch.profiler` and prints
@@ -19,7 +21,9 @@ one JSON object:
 * ``kernel_launches``: device kernels per step;
 * ``top_kernels``: device time per step by kernel name;
 * ``top_host_ops``: self host time per step by PyTorch op;
-* ``prefill``: the same keys for one prefill.
+* ``prefill``: the same keys for one prefill;
+* ``build_s``: the model build, weights drawn on the host (gemma2-9b's
+  9.24e9 take about a minute).
 
 The traced run pays the profiler's own cost: ``step_ms_untraced`` is the
 same steps timed without it.  Needs a CUDA device.
@@ -71,13 +75,19 @@ def main(argv=None) -> dict:
     cfg = get_config(args.arch, smoke=args.smoke)
     kv = KVCodec.from_comm(comm)
     hop = DeltaHopCodec.from_comm(comm) if args.stages > 1 else None
-    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    # the launcher's model and prompt: weights, then the prompt, from one
+    # CPU generator, so a seed gives the same numbers on any device
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(args.seed)
     model = Transformer(cfg, device=dev, generator=gen)
+    torch.cuda.synchronize(dev)
+    build_s = time.perf_counter() - t0
     steps = 4 + 2 * args.trace_steps
     kw = dict(logits_last_only=True, num_stages=args.stages,
               kv_codec=kv if kv.bits else None)
     tokens = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
-                           generator=gen, device=dev)
+                           generator=gen).to(dev)
 
     def prefill():
         caches = model.init_caches(args.batch, args.prompt_len + steps,
@@ -126,7 +136,8 @@ def main(argv=None) -> dict:
         "config": {k: getattr(args, k) for k in (
             "arch", "smoke", "stages", "mode", "fw_bits", "kv_bits", "batch",
             "prompt_len")},
-        "trace_steps": args.trace_steps, "step_ms_untraced": untraced,
+        "build_s": build_s, "trace_steps": args.trace_steps,
+        "step_ms_untraced": untraced,
         "step_ms": wall, **_summary(prof, args.trace_steps, wall, "step"),
         "prefill": {"ms_untraced": prefill_untraced, "ms": prefill_wall,
                     **_summary(prof_prefill, 1, prefill_wall, "prefill")},

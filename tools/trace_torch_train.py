@@ -9,7 +9,9 @@ Builds the chip run's training path (`chip_smoke.py` ``[train]``) by
 default: ``gpt2-xl-paper`` at full width cut to ``--layers`` (default
 12) of its 48 layers, ``--stages 4 --mode aqsgd --fw-bits 4 --bw-bits 8
 --dp-grad-bits 4 --dp-workers 2``, batch 8 x seq 1024, 16 samples,
-random weights from seed 0.  The comm flags are the train launcher's,
+random weights from seed 0, drawn as `simulated.train` draws them (a
+CPU generator, and the noise from the seed's "noise" stream), so the
+traced model is the trained one.  The comm flags are the train launcher's,
 so ``--mode fp32`` or ``--dp-grad-bits 0`` trace the same model without
 a compressed plane.  It runs four untraced steps (the first epoch and
 the first delta-coded one), times ``--trace-steps`` more without the
@@ -80,6 +82,7 @@ def main(argv=None) -> dict:
     from repro_torch.data.pipeline import Dataset, DatasetConfig
     from repro_torch.launch import train as launch
     from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.rng import seeded_generator
     from repro_torch.training import simulated as sim
 
     ap = launch.build_parser()
@@ -108,9 +111,12 @@ def main(argv=None) -> dict:
                                vocab_size=cfg.vocab_size))
     batches = [sim.device_batch(b, dev)
                for b in ds.batches(args.batch, steps)]
-    gen = torch.Generator(device=dev).manual_seed(args.seed)
-    state = sim.init_train_state(cfg, tcfg, args.samples, args.seq,
-                                 generator=gen, device=dev)
+    # the weights and noise of `simulated.train` at this seed: weights
+    # from a CPU generator, noise from the device stream named "noise"
+    state = sim.init_train_state(
+        cfg, tcfg, args.samples, args.seq,
+        generator=torch.Generator().manual_seed(args.seed), device=dev)
+    gen = seeded_generator(dev, args.seed, "noise")
     losses = []
 
     def run(bs):

@@ -20,9 +20,10 @@ Phases, each printed on its own line:
    the activation codecs the training path runs are also checked
    bit-exact and timed at its shape (R=4*1024, d=1600); the ring's
    three kernels (accumulate, sum pack and unpack) at every sum width
-   (2/4/8/16/32 bits), ragged rows, the element path, and the
-   distributed path's shapes (a ring segment of 318554 rows, the
-   637107-row bucket, d=512, 4 bits, n=2);
+   (2/4/8/16/32 bits), ragged rows, the element path, the sums'
+   unpacker past its last whole 512-byte segment and on a misaligned
+   view, and the distributed path's shapes (a ring segment of 318554
+   rows, the 637107-row bucket, d=512, 4 bits, n=2);
    ``[oncore-bit-exact]``: the three encoders with a seed (B11, their
    own Philox noise) against the plain versions fed
    ``ref.oncore_uniform_ref``, BIT-EXACT, at three seeds, bits 2/4/8,
@@ -37,7 +38,8 @@ Phases, each printed on its own line:
    `core.boundary.encode_with_scale` / `decode_codes`) against their
    plain versions, BIT-EXACT, at bits 2/4/8, deterministic and
    stochastic, R 37 and 300, a d % 4 != 0, a misaligned view, zero
-   scale and zero x rows, and the DP bucket at 4 bits; their
+   scale and zero x rows, B9b with a tail past its last whole 512-byte
+   segment, and the DP bucket at 4 bits; their
    ``[kernel-time]`` rows at the bucket (B9a 4-bit stochastic and
    deterministic, B9b 4 and 8 bits, where a widening cast is the
    library call); ``[legacy-dp-codec]``: tests/test_grad_compress.py's
@@ -53,11 +55,19 @@ Phases, each printed on its own line:
    version within a tolerance: the sweep of tests/test_flash_kernel.py
    (shapes, GQA and MQA, bf16, windows 9 and 17, softcaps 4 and 30,
    non-causal) at rtol = atol = 2e-5 (f32) and 2e-2 (bf16), ragged
-   Sq/Sk with a query offset, and the two paths' prefill calls
-   (gpt2-xl; gemma2-9b on a local and a global layer) at 1e-4; then its
-   ``[kernel-time]`` rows at those three calls: device time, the bound
-   (operations over the visible scores against q, k, v, o bytes), the
-   plain version's time and, at gpt2-xl's shape (no softcap, MHA),
+   Sq/Sk with a query offset, Sq and Sk off the kernel's tiles at every
+   head dim with q scaled by 16 under a softcap of 50, f32 k and v rows
+   off 16-byte alignment, and the two paths' prefill calls (gpt2-xl;
+   gemma2-9b on a local and a global layer) at 1e-4.  The f32 sweep is
+   held to the plain version's formula evaluated in float64 (the f32
+   plain version's own rounding of q k^T passes 2e-5 at hd 256 with q
+   scaled by 16); the distance from the f32 plain version is printed
+   beside it, and bf16 and the paths are held to the f32 plain
+   version.  Then its ``[kernel-time]`` rows at those three calls:
+   device time, the bound on the f32 units (operations over the
+   visible scores against q, k, v, o bytes) and on the tensor cores
+   (``bound_tc_ms``: its 3 TF32 passes at 495 TFLOP/s), the plain
+   version's time and, at gpt2-xl's shape (no softcap, MHA),
    ``scaled_dot_product_attention`` with the visibility mask;
 4. ``[serve]``: the serving path at full width and depth:
    ``gpt2-xl-paper`` (48 layers, d 1600), random weights from a seeded
@@ -135,6 +145,8 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 F32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
+TF32_OPS_PER_S = 495e12       # H100 SXM dense TF32 on the tensor cores
+TF32_PASSES = 3               # B10's hi/lo split: 3 TF32 products a product
 SOURCE = "src/repro_torch/kernels/csrc/quant_pack.cu"
 FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 REPLACES = {
@@ -549,6 +561,11 @@ def kernel_phase(torch, qp, ref):
         cases += [(name, r, dd, bits, {"n": n})
                   for name in ("pack_sums", "unpack_sums")
                   for r, dd in ((37, 512), (3, per_byte))]
+    # the sums' unpacker past its last whole 16-byte group (128/SW
+    # values), in the same launch, and on a misaligned view
+    for bits, n in ((2, 1), (2, 3), (4, 2), (8, 2), (8, 300)):
+        cases += [("unpack_sums", r, dd, bits, {"n": n, "offset": off})
+                  for r, dd in ((5, 20), (3, 1604)) for off in (False, True)]
     cases += [("unpack_accumulate", DIST_SEG, 512, 4, {}),
               ("pack_sums", DIST_SEG, 512, 4, {"n": 2}),
               ("unpack_sums", *DIST_BUCKET, 4, {"n": 2})]
@@ -895,7 +912,9 @@ def legacy_phase(torch, qp, ref, env):
             cases += [("unpack_codes", rows, d, bits, {})]
         cases += [("quantize_pack_scaled", 5, 512, bits,
                    {"stochastic": True, "offset": True}),
-                  ("unpack_codes", 5, 512, bits, {"offset": True})]
+                  ("unpack_codes", 5, 512, bits, {"offset": True}),
+                  ("unpack_codes", 5, 20, bits, {}),   # a tail past 16 B
+                  ("unpack_codes", 3, 1604, bits, {})]
     cases += [("quantize_pack_scaled", *DP_BUCKET, 4, {"stochastic": st})
               for st in (False, True)]
     cases += [("unpack_codes", *DP_BUCKET, b, {}) for b in (4, 8)]
@@ -954,6 +973,16 @@ FLASH_SWEEP = [
      16.0),
     ("ragged", 2, 4, 1, 100, 230, 128, 130, False, 50, 30.0, "float32", 1.0),
     ("ragged", 1, 2, 2, 65, 129, 64, 64, True, 10 ** 9, 0.0, "float32", 1.0),
+    # Sq and Sk off the kernel's tiles (64 query rows; 64 keys at hd <=
+    # 64, 32 at 128 and 256) at every head dim, q scaled by 16 under the
+    # softcap of 50, f32 and bf16
+    *[("edge", 2, 4, 2, 65, 97, hd, 32, True, 10 ** 9, 50.0, dt, 16.0)
+      for hd in (32, 64, 128, 256) for dt in ("float32", "bfloat16")],
+    # f32 k and v rows off 16-byte alignment: the register copy
+    ("odd-stride", 1, 4, 2, 70, 100, 64, 30, True, 10 ** 9, 50.0,
+     "float32", 1.0),
+    ("odd-stride", 1, 4, 2, 70, 100, 256, 30, True, 40, 50.0, "float32",
+     16.0),
 ]
 # the paths' prefill calls: gpt2-xl-paper (window = its cache of 160)
 # and gemma2-9b on a local and a global layer
@@ -971,7 +1000,8 @@ FLASH_PATHS = {
 def _flash_inputs(torch, case, seed):
     """Head-major q, k, v; a path's case gives the views its prefill
     passes: transposes of (B, S, H, hd) queries and (B, Sc, Hk, hd)
-    cache rows, read in place."""
+    cache rows, read in place; an odd-stride case gives views with rows
+    hd + 1 apart."""
     label, b, h, hk, sq, sk, hd, *_, dt, qs = case
     g = torch.Generator(device="cuda").manual_seed(seed)
     dtype = getattr(torch, dt)
@@ -980,6 +1010,10 @@ def _flash_inputs(torch, case, seed):
         if label == "path":
             x = torch.randn(b, n, heads, hd, generator=g, device="cuda") * s
             return x.to(dtype).transpose(1, 2)
+        if label == "odd-stride":
+            x = torch.randn(b, heads, n, hd + 1, generator=g,
+                            device="cuda") * s
+            return x.to(dtype)[..., 1:]
         x = torch.randn(b, heads, n, hd, generator=g, device="cuda") * s
         return x.to(dtype)
     return draw(sq, h, qs), draw(sk, hk), draw(sk, hk)
@@ -990,14 +1024,43 @@ def _flash_kw(case):
     return dict(q_offset=off, causal=causal, window=window, softcap=cap)
 
 
-def check_flash(torch, fa, ref, case, tol):
-    """Kernel vs plain version (rtol = atol = tol); returns max |diff|."""
+def flash_ref64(torch, ref, q, k, v, *, causal, window, softcap, q_offset):
+    """`ref.flash_attention_ref`'s formula, line for line, in float64
+    (returned in f32): the yardstick of the f32 sweep.  The plain version
+    rounds q k^T in f32 as one FMA chain along hd, so at hd 256 with
+    scores near the softcap its own distance from this reaches 2.5e-5
+    of (1 + |o|), past the sweep's 2e-5; B10's three TF32 passes, summed
+    in another order, are held to the float64 value instead."""
+    b, h, sq, hd = q.shape
+    hk, sk = k.shape[1], k.shape[2]
+    qg = q.double().reshape(b, hk, h // hk, sq, hd)
+    s = torch.matmul(qg, k.double()[:, :, None].transpose(-1, -2)) \
+        * (1.0 / math.sqrt(hd))
+    if softcap > 0:
+        s = softcap * torch.tanh(s / softcap)
+    pos = q_offset + torch.arange(sq, device=q.device)[:, None]
+    key = torch.arange(sk, device=q.device)[None, :]
+    vis = key > pos - window
+    if causal:
+        vis &= key <= pos
+    p = torch.softmax(torch.where(vis, s, ref.NEG_INF), dim=-1)
+    out = torch.matmul(p, v.double()[:, :, None])
+    return out.reshape(b, h, sq, hd).float()
+
+
+def check_flash(torch, fa, ref, case, tol, f64=False):
+    """Kernel vs plain version (rtol = atol = tol), or (f64) vs the plain
+    version's formula in float64; returns (max |diff| from the yardstick,
+    max |diff| from the f32 plain version, and with f64 the f32 plain
+    version's own max |diff| from the float64 formula and its count of
+    elements past the tolerance)."""
     q, k, v = _flash_inputs(torch, case, seed=sum(case[1:7]))
     kw = _flash_kw(case)
     got = fa.flash_attention_fwd(q, k, v, **kw)
-    want = ref.flash_attention_ref(q, k, v, **kw)
+    plain = ref.flash_attention_ref(q, k, v, **kw)
+    want = flash_ref64(torch, ref, q, k, v, **kw) if f64 else plain
     torch.cuda.synchronize()
-    assert got.shape == want.shape and got.dtype == want.dtype, case
+    assert got.shape == plain.shape and got.dtype == plain.dtype, case
     diff = (got.float() - want.float()).abs()
     bad = int((diff > tol + tol * want.float().abs()).sum())
     if bad or not torch.isfinite(got).all():
@@ -1005,9 +1068,13 @@ def check_flash(torch, fa, ref, case, tol):
                              f"past rtol = atol = {tol} (max |diff| "
                              f"{diff.max().item()})")
     err = diff.max().item()
-    del q, k, v, got, want, diff
+    err_plain = (got.float() - plain.float()).abs().max().item()
+    plain_off = (plain.float() - want.float()).abs()
+    plain_err = plain_off.max().item()
+    plain_bad = int((plain_off > tol + tol * want.float().abs()).sum())
+    del q, k, v, got, want, plain, diff, plain_off
     torch.cuda.empty_cache()
-    return err
+    return err, err_plain, plain_err, plain_bad
 
 
 def visible_scores(torch, sq, sk, q_offset, causal, window) -> int:
@@ -1081,20 +1148,42 @@ def time_flash(torch, fa, ref, case):
         bound_by, nbytes, ops
 
 
+def tensor_core_bound_ms(ops, nbytes) -> float:
+    """B10's bound on the tensor cores: its 3 TF32 passes over the
+    visible scores' operations at the dense TF32 rate, or the bytes."""
+    return max(TF32_PASSES * ops / TF32_OPS_PER_S,
+               nbytes / HBM_BYTES_PER_S) * 1e3
+
+
 def flash_phase(torch, fa, ref):
     """[flash-check] and B10's [kernel-time] rows; returns its kernels
     row (numbers at the gpt2-xl prefill shape, the gemma2 layers'
     beside them)."""
+    # f32 sweep against the float64 yardstick, bf16 and the paths against
+    # the f32 plain version; the distance from the f32 plain version is
+    # printed for every case
     errs = {"float32": 0.0, "bfloat16": 0.0}
+    errs_plain = {"float32": 0.0, "bfloat16": 0.0}
+    plain_f64, plain_past = 0.0, 0
     for case in FLASH_SWEEP:
-        tol = FLASH_TOL[case[11]]
-        errs[case[11]] = max(errs[case[11]],
-                             check_flash(torch, fa, ref, case, tol))
+        dt = case[11]
+        e, e_plain, p_err, p_bad = check_flash(
+            torch, fa, ref, case, FLASH_TOL[dt], f64=dt == "float32")
+        errs[dt] = max(errs[dt], e)
+        errs_plain[dt] = max(errs_plain[dt], e_plain)
+        if dt == "float32":
+            plain_f64, plain_past = max(plain_f64, p_err), plain_past + p_bad
     path_errs = {}
     for name, case in FLASH_PATHS.items():
-        path_errs[name] = check_flash(torch, fa, ref, case, FLASH_PATH_TOL)
+        path_errs[name] = check_flash(torch, fa, ref, case,
+                                      FLASH_PATH_TOL)[0]
     phase("flash-check", cases=len(FLASH_SWEEP) + len(FLASH_PATHS),
           max_abs_err_sweep=json.dumps(errs),
+          sweep_yardstick=json.dumps({"float32": "float64 formula",
+                                      "bfloat16": "f32 plain version"}),
+          max_abs_err_sweep_vs_f32_plain=json.dumps(errs_plain),
+          f32_plain_vs_float64=plain_f64,
+          f32_plain_elements_past_tol=plain_past,
           tolerance_sweep=json.dumps(FLASH_TOL),
           max_abs_err_paths=json.dumps(path_errs),
           tolerance_paths=FLASH_PATH_TOL)
@@ -1102,28 +1191,37 @@ def flash_phase(torch, fa, ref):
     for name, case in FLASH_PATHS.items():
         ms, ms_head_major, plain_ms, library_ms, bound_ms, bound_by, \
             nbytes, ops = time_flash(torch, fa, ref, case)
+        bound_tc_ms = tensor_core_bound_ms(ops, nbytes)
+        # bound_ms: the f32 units' rate; bound_tc_ms: the tensor cores'
+        # (tflops: the visible scores' operations a second; tflops_tc:
+        # the TF32 operations of the 3 passes a second, against 495)
         phase("kernel-time", name="flash_attention_fwd", path=name,
               shape=json.dumps(list(case[1:7])), window=case[9],
               softcap=case[10], bytes=nbytes, ops=ops, ms=f"{ms:.6f}",
               ms_head_major=f"{ms_head_major:.6f}",
               plain_ms=f"{plain_ms:.6f}", bound_ms=f"{bound_ms:.6f}",
-              bound_by=bound_by, library_ms=None if library_ms is None
+              bound_by=bound_by, bound_tc_ms=f"{bound_tc_ms:.6f}",
+              tc_peak_tflops=TF32_OPS_PER_S / 1e12,
+              library_ms=None if library_ms is None
               else f"{library_ms:.6f}",
-              tflops=f"{ops / ms / 1e9:.3f}")
+              tflops=f"{ops / ms / 1e9:.3f}",
+              tflops_tc=f"{TF32_PASSES * ops / ms / 1e9:.3f}")
         timed[name] = {"shape": list(case[1:7]), "window": case[9],
                        "softcap": case[10], "ms": ms,
                        "ms_head_major": ms_head_major, "plain_ms": plain_ms,
                        "bound_ms": bound_ms, "bound_by": bound_by,
+                       "bound_tc_ms": bound_tc_ms,
                        "library_ms": library_ms,
                        "max_abs_err": path_errs[name]}
     row = {"name": "flash_attention_fwd", "route": "cuda",
            "source": FLASH_SOURCE, "replaces": REPLACES["flash_attention_fwd"],
            "launches": 0, "max_abs_err": max(errs["float32"],
                                              *path_errs.values()),
-           "max_abs_err_bf16": errs["bfloat16"]}
+           "max_abs_err_bf16": errs["bfloat16"],
+           "max_abs_err_sweep_vs_f32_plain": errs_plain["float32"]}
     row.update({k: timed["gpt2-xl"][k] for k in (
         "ms", "ms_head_major", "plain_ms", "bound_ms", "bound_by",
-        "library_ms", "shape")})
+        "bound_tc_ms", "library_ms", "shape")})
     row["gemma2_local"] = timed["gemma2-local"]
     row["gemma2_global"] = timed["gemma2-global"]
     return row

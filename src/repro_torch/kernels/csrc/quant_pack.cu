@@ -66,6 +66,25 @@
 //     same shift-and-or, in a 64-bit word (SW 16) or the int4 itself
 //     (SW 32).  Without `vec` an item is one element (one sum's bytes,
 //     or one output byte when packing).
+//   * the sums' unpacker (B8b, and B9b at SW = bits) is a pure stream:
+//     it reads SW/8 bytes and writes 4 an element.  With one 2- or
+//     4-byte load a thread per int4 stored (as the accumulate still
+//     has it) too few read bytes were in flight, and the reads, 1/5 of
+//     the traffic at SW 8 and 1/9 at SW 4, set the pace.  Now each lane
+//     loads 16 packed bytes (one uint4; a warp, 512 contiguous bytes),
+//     4 such loads in flight before the first store, into its warp's
+//     stage in shared memory (2 KB a warp); the warp then writes the
+//     values as int4s, 512 contiguous bytes a store, each lane reading
+//     its 4 values' SW/2 bytes from the stage.  (Stores straight from
+//     the loading lane, 64 bytes a lane at SW 8, were far slower on the
+//     H100: a warp's store then touches 32 lines.)  The grid is the
+//     blocks the card holds at once (occupancy count times SMs, asked
+//     once per device).  What is left is the mix: 4 of every 5 bytes
+//     are writes, and at the DP bucket the kernel runs level with the
+//     widening cast (PERF.md).  The values past the last whole 512-byte
+//     segment are unpacked one by one in the same launch, so a call
+//     stays one launch; a misaligned view takes that element path for
+//     all of n.
 //
 // Bit parity with the JAX package (jitted jnp and the Pallas kernels):
 //   * codes use rintf (round half to even, as jnp.round), never roundf;
@@ -561,20 +580,53 @@ pack_sums_flat(const int32_t* __restrict__ total, uint8_t* __restrict__ out,
   }
 }
 
-// n*SW/8 packed bytes -> n int32 sums
+// n*SW/8 packed bytes -> n int32 sums.  vec: a warp moves 512-byte
+// segments of the packed stream, UNROLL at a time: each lane loads 16
+// bytes of each (one uint4; the warp's loads are 512 contiguous bytes)
+// into the warp's stage in shared memory, then the warp writes the
+// segment's 128 * 32/SW values as int4s, 512 contiguous bytes a store,
+// each lane reading its 4 values' SW/2 bytes from the stage (unpack4).
+// The values past the last whole segment (fewer than 128 * 32/SW) are
+// unpacked one by one in the same launch.
 template <int SW>
 __global__ void __launch_bounds__(256)
 unpack_sums_flat(const uint8_t* __restrict__ packed,
                  int32_t* __restrict__ out, int64_t n, int vec) {
+  constexpr int SEG = 128 * 32 / SW;      // values in 512 packed bytes
+  constexpr int UNROLL = 4;
   const int64_t stride = int64_t(gridDim.x) * blockDim.x;
   const int64_t first = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
+  int64_t done = 0;
   if (vec) {
-    for (int64_t g = first; g < n / 4; g += stride)
-      reinterpret_cast<int4*>(out)[g] = unpack4<SW>(packed, g);
-  } else {
-    for (int64_t i = first; i < n; i += stride)
-      out[i] = unpack1<SW>(packed, i);
+    __shared__ uint4 stage[256 / 32][UNROLL][32];
+    const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+    const int64_t segs = n / SEG, nwarps = stride / 32;
+    const uint4* src = reinterpret_cast<const uint4*>(packed);
+    int4* dst = reinterpret_cast<int4*>(out);
+    for (int64_t s = first / 32; s < segs; s += UNROLL * nwarps) {
+      const int m = int((segs - s + nwarps - 1) / nwarps);  // this warp's
+      const int u_end = m < UNROLL ? m : UNROLL;            // segments here
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u)
+        if (u < u_end)
+          stage[warp][u][lane] = __ldcs(src + (s + u * nwarps) * 32 + lane);
+      __syncwarp();
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        if (u < u_end) {
+          const uint8_t* seg = reinterpret_cast<const uint8_t*>(stage[warp][u]);
+          int4* o = dst + (s + u * nwarps) * (SEG / 4);
+#pragma unroll
+          for (int k = 0; k < SEG / 4 / 32; ++k)
+            o[k * 32 + lane] = unpack4<SW>(seg, k * 32 + lane);
+        }
+      }
+      __syncwarp();
+    }
+    done = segs * SEG;
   }
+  for (int64_t i = done + first; i < n; i += stride)
+    out[i] = unpack1<SW>(packed, i);
 }
 
 int encode_blocks(int64_t rows) {
@@ -659,18 +711,54 @@ int launch_pack_sums(const int32_t* total, uint8_t* out, int64_t n, int sw,
   return int(cudaGetLastError());
 }
 
+// the blocks of 256 threads of `kernel` the card holds at once, asked
+// once per device
+template <typename K>
+cudaError_t resident_blocks(K kernel, int* cache, int& blocks) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  if (!cache[dev]) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                          256, 0);
+    if (err != cudaSuccess) return err;
+    cache[dev] = sms * per_sm;
+  }
+  blocks = cache[dev];
+  return cudaSuccess;
+}
+
+// a grid of at most the resident blocks; a warp walks the segments
+// UNROLL at a time
+template <int SW>
+int launch_unpack_sums_sw(const uint8_t* packed, int32_t* out, int64_t n,
+                          int vec, cudaStream_t st) {
+  static int cache[64] = {};
+  int resident = 0;
+  const cudaError_t err = resident_blocks(unpack_sums_flat<SW>, cache,
+                                          resident);
+  if (err != cudaSuccess) return int(err);
+  const int64_t items = vec ? n / (128 / SW) : n;   // 16-byte groups
+  const int64_t want = (items + 255) / 256;
+  const int blocks = int(want < 1 ? 1 : want < resident ? want : resident);
+  unpack_sums_flat<SW><<<blocks, 256, 0, st>>>(packed, out, n, vec);
+  return int(cudaGetLastError());
+}
+
 int launch_unpack_sums(const uint8_t* packed, int32_t* out, int64_t n,
                        int sw, int vec, cudaStream_t st) {
-  const dim3 grid(decode_blocks(vec ? n / 4 : n)), block(256);
   switch (sw) {
-    case 2: unpack_sums_flat<2><<<grid, block, 0, st>>>(packed, out, n, vec); break;
-    case 4: unpack_sums_flat<4><<<grid, block, 0, st>>>(packed, out, n, vec); break;
-    case 8: unpack_sums_flat<8><<<grid, block, 0, st>>>(packed, out, n, vec); break;
-    case 16: unpack_sums_flat<16><<<grid, block, 0, st>>>(packed, out, n, vec); break;
-    case 32: unpack_sums_flat<32><<<grid, block, 0, st>>>(packed, out, n, vec); break;
+    case 2: return launch_unpack_sums_sw<2>(packed, out, n, vec, st);
+    case 4: return launch_unpack_sums_sw<4>(packed, out, n, vec, st);
+    case 8: return launch_unpack_sums_sw<8>(packed, out, n, vec, st);
+    case 16: return launch_unpack_sums_sw<16>(packed, out, n, vec, st);
+    case 32: return launch_unpack_sums_sw<32>(packed, out, n, vec, st);
     default: return int(cudaErrorInvalidValue);
   }
-  return int(cudaGetLastError());
 }
 
 }  // namespace

@@ -22,8 +22,16 @@ own Philox noise) equal the plain versions fed
 view, and the on-core noise knob routes the boundary ops through them.
 The gradient wire's legacy pair (`quantize_pack_scaled`,
 `unpack_codes`) equals its plain versions on both paths, with zero
-scale rows and a misaligned view.
+scale rows and a misaligned view.  The sums' unpacker (B8b, and B9b
+on its kernel) is also held bit-exact where n leaves a tail past its
+last 16-byte group, at every sum width.  B10 is also checked at each
+head dim with Sq and Sk off its tiles, q scaled by 16 under a softcap
+of 50 (f32 against the plain formula in float64: the plain version's
+own f32 rounding is past 2e-5 there), and on f32 k and v rows that are
+not 16-byte aligned.
 """
+import math
+
 import pytest
 import torch
 
@@ -229,6 +237,52 @@ def test_sum_packers_match_plain(card, bits, n):
                [TR.pack_sums_ref(t1, bits, n)])
 
 
+# (rows, d) whose rows * d is not a multiple of the unpacker's 16-byte
+# group (128/SW values) at SW 2, 4, 8 and 16, each a multiple of 4 (the
+# vector path plus its value-by-value tail); at SW 32 the group is 4
+# values, so only the element path has a tail
+UNPACK_TAIL_DIMS = [(5, 20), (3, 1604), (37, 516), (1, 4)]
+
+
+def _misaligned_u8(packed):
+    """packed's bytes one past a 16-byte boundary: the element path."""
+    flat = torch.empty(packed.numel() + 1, dtype=torch.uint8,
+                       device=packed.device)
+    view = flat[1:].view(packed.shape)
+    view.copy_(packed)
+    return view
+
+
+@pytest.mark.parametrize("bits,n", SUM_WIDTH_CASES)
+def test_sum_unpacker_tails_match_plain(card, bits, n):
+    """B8b at every sum width: a tail past the last whole 16-byte group
+    in the same launch, and a misaligned view, bit-exact."""
+    from repro_torch.core import quantization as TQ
+    for rows, d in UNPACK_TAIL_DIMS:
+        pw = TQ.sum_packed_width(d, bits, n)
+        packed = torch.randint(0, 256, (rows, pw), device=card,
+                               dtype=torch.uint8)
+        want = TR.unpack_sums_ref(packed, bits, n)
+        TP.reset_launches()
+        _equal([TP.unpack_sums(packed, bits=bits, n=n)], [want])
+        _equal([TP.unpack_sums(_misaligned_u8(packed), bits=bits, n=n)],
+               [want])
+        assert TP.LAUNCHES["unpack_sums"] == 2     # one launch a call
+
+
+@pytest.mark.parametrize("bits", BITS)
+def test_code_unpacker_tails_match_plain(card, bits):
+    """B9b (B8b's kernel at SW = bits) with tails and a misaligned view."""
+    for rows, d in UNPACK_TAIL_DIMS:
+        packed = torch.randint(0, 256, (rows, d * bits // 8), device=card,
+                               dtype=torch.uint8)
+        want = TR.unpack_codes_ref(packed, bits)
+        TP.reset_launches()
+        _equal([TP.unpack_codes(packed, bits=bits)], [want])
+        _equal([TP.unpack_codes(_misaligned_u8(packed), bits=bits)], [want])
+        assert TP.LAUNCHES["unpack_codes"] == 2
+
+
 def test_counters_and_checks(card):
     TP.reset_launches()
     x = _x(8, 64, 4, card)
@@ -292,6 +346,71 @@ def test_flash_attention_matches_plain(card, case, dtype):
     assert got.dtype == dtype and got.shape == q.shape
     tol = 2e-5 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+# Sq and Sk off the kernel's tiles (64 query rows; kv tiles of 64 keys
+# at hd <= 64, 32 at hd 128 and 256), a query offset, a window, and q
+# scaled by 16 under gemma2's softcap of 50 (scores reach the cap):
+# (sq, sk, q_offset, window, softcap, q scale)
+FLASH_EDGES = [(65, 97, 32, 10 ** 9, 50.0, 16.0),
+               (33, 47, 14, 20, 50.0, 16.0),
+               (130, 161, 31, 10 ** 9, 0.0, 1.0),
+               (1, 33, 32, 10 ** 9, 30.0, 1.0)]
+
+
+def _flash_ref64(q, k, v, *, causal, window, softcap, q_offset):
+    """`TR.flash_attention_ref`'s formula in float64, as f32.  With q
+    scaled by 16 at hd 256 the plain version's own f32 rounding of q k^T
+    (one FMA chain along hd) is up to 2.5e-5 of (1 + |o|) from this, past
+    2e-5, so f32 results there are held to the float64 value."""
+    b, h, sq, hd = q.shape
+    hk, sk = k.shape[1], k.shape[2]
+    qg = q.double().reshape(b, hk, h // hk, sq, hd)
+    s = torch.matmul(qg, k.double()[:, :, None].transpose(-1, -2)) \
+        / math.sqrt(hd)
+    if softcap > 0:
+        s = softcap * torch.tanh(s / softcap)
+    pos = q_offset + torch.arange(sq, device=q.device)[:, None]
+    key = torch.arange(sk, device=q.device)[None, :]
+    vis = (key > pos - window) & ((key <= pos) | (not causal))
+    p = torch.softmax(torch.where(vis, s, TR.NEG_INF), dim=-1)
+    return torch.matmul(p, v.double()[:, :, None]).reshape(b, h, sq, hd) \
+        .float()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [32, 64, 128, 256])
+def test_flash_attention_tile_edges(card, hd, dtype):
+    """f32 against the float64 formula, bf16 against the plain version."""
+    for sq, sk, off, window, cap, qs in FLASH_EDGES:
+        g = torch.Generator(device=card).manual_seed(sq + sk + hd)
+        q = (torch.randn(2, 4, sq, hd, generator=g, device=card) * qs) \
+            .to(dtype)
+        k = torch.randn(2, 2, sk, hd, generator=g, device=card).to(dtype)
+        v = torch.randn(2, 2, sk, hd, generator=g, device=card).to(dtype)
+        kw = dict(causal=True, window=window, softcap=cap, q_offset=off)
+        got = TFA.flash_attention_fwd(q, k, v, **kw)
+        if dtype == torch.float32:
+            want, tol = _flash_ref64(q, k, v, **kw), 2e-5
+        else:
+            want, tol = TR.flash_attention_ref(q, k, v, **kw), 2e-2
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+
+
+@pytest.mark.parametrize("hd", [64, 256])
+def test_flash_attention_unaligned_rows(card, hd):
+    """f32 k and v rows that are not 16-byte aligned (a row stride of hd
+    + 1): the register copy in place of cp.async."""
+    b, h, hk, sq, sk = 1, 4, 2, 70, 100
+    g = torch.Generator(device=card).manual_seed(hd)
+    q = torch.randn(b, h, sq, hd, generator=g, device=card)
+    k = torch.randn(b, hk, sk, hd + 1, generator=g, device=card)[..., :hd]
+    v = torch.randn(b, hk, sk, hd + 1, generator=g, device=card)[..., 1:]
+    kw = dict(causal=True, window=10 ** 9, softcap=50.0, q_offset=30)
+    got = TFA.flash_attention_fwd(q, k, v, **kw)
+    want = TR.flash_attention_ref(q, k.contiguous(), v.contiguous(), **kw)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
 
 
 def test_flash_attention_reads_views_in_place(card):

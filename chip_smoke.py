@@ -51,6 +51,19 @@ Phases, each printed on its own line:
    just after; then the pair drawing u from a generator with
    ``ACSGD_ONCORE_PRNG=1`` and without: the same bytes, no seeded
    launch;
+   ``[kv-pair-bit-exact]``: the KV plane's pair calls (B3's append of k
+   and v in one launch, written in place into the layer stores at the
+   write head; B4's read of both stores in one launch) against their
+   plain versions and against two per-tensor kernel calls, BIT-EXACT,
+   at both archs' KV shapes (the decode and prefill appends, the whole
+   store read in f32 and bf16), bits 2/4/8, deterministic, with noise
+   and seeded, a group_d of 32, rows wide enough for the two-pass path,
+   a g % 4 != 0 and misaligned views, into stores of random bytes, so
+   the rows outside the append must keep theirs; ``[launch-floor]``: an
+   empty kernel through the same CUDA-graph timing harness, what a
+   launch costs there; the pair launches' ``[kernel-time]`` rows at
+   gpt2-xl's and gemma2's store read and decode append, beside B3 and
+   B4 per call at gemma2's shapes;
    ``[flash-check]``: the attention kernel (B10) against its plain
    version within a tolerance: the sweep of tests/test_flash_kernel.py
    (shapes, GQA and MQA, bf16, windows 9 and 17, softcaps 4 and 30,
@@ -74,7 +87,8 @@ Phases, each printed on its own line:
    generator, batch 8, prompt 128, 32 greedy decode steps, ``--stages 2
    --mode aqsgd --fw-bits 4 --kv-bits 8``, through
    `repro_torch.launch.serve` — with the kernel launch counters set to
-   0 just before and read just after (B10 once a layer of the prefill);
+   0 just before and read just after (B10 once a layer of the prefill;
+   B3 and B4 once a layer of every step, k and v in one launch each);
 5. a reference check of serving on a small input: the SMOKE model on the
    card (kernels) against the same weights on the CPU (plain versions),
    teacher-forced, within the tolerances of tests/test_torch_slice.py;
@@ -212,12 +226,12 @@ GEMMA_ARGS = ["--arch", "gemma2-9b", "--stages", "2", "--mode", "aqsgd",
               "--prompt-len", str(G_PROMPT), "--gen", str(G_GEN),
               "--device", "cuda", "--seed", "0"]
 # its launches: the hop once a decode step (B1, B2); the KV append (B3)
-# and store read (B4) for k and v on every layer of every step; the
-# attention kernel (B10) on every layer of the prefill
+# and store read (B4), k and v in one launch each, on every layer of
+# every step; the attention kernel (B10) on every layer of the prefill
 GEMMA_LAUNCHES = {"delta_quantize_pack": G_GEN,
                   "dequant_unpack_accumulate": G_GEN,
-                  "quantize_pack": (1 + G_GEN) * G_LAYERS * 2,
-                  "unpack_dequant": (1 + G_GEN) * G_LAYERS * 2,
+                  "quantize_pack": (1 + G_GEN) * G_LAYERS,
+                  "unpack_dequant": (1 + G_GEN) * G_LAYERS,
                   "quantize_pack_scaled": 0, "unpack_codes": 0,
                   "quantize_codes_scaled": 0, "dequant_sum_mean": 0,
                   "unpack_accumulate": 0, "pack_sums": 0, "unpack_sums": 0,
@@ -954,6 +968,214 @@ def legacy_phase(torch, qp, ref, env):
 
 
 # ---------------------------------------------------------------------------
+# phase 3d: the KV plane's pair calls (B3 and B4 over k and v in one launch)
+# ---------------------------------------------------------------------------
+
+# (label, B, S, N, g, s, pos): each arch's layer store with its decode
+# append (one row at the write head; gemma2's at the store's last row)
+# and its prefill append, a group_d of 32 on a ragged row count, rows too
+# wide for registers (the two-pass path) and a g % 4 != 0 (the scalar
+# path; not at 2 bits, where g must be a multiple of 4)
+KV_PAIR_CASES = [
+    ("gpt2-xl decode", BATCH, CACHE_LEN, KV_HEADS, HEAD_DIM, 1, CACHE_LEN - 1),
+    ("gpt2-xl prefill", BATCH, CACHE_LEN, KV_HEADS, HEAD_DIM, PROMPT, 0),
+    ("gemma2 decode", G_BATCH, G_CACHE, G_KV_HEADS, G_HEAD_DIM, 1,
+     G_CACHE - 1),
+    ("gemma2 prefill", G_BATCH, G_CACHE, G_KV_HEADS, G_HEAD_DIM, G_PROMPT,
+     0),
+    ("group 32", 3, 7, 10, 32, 2, 5),
+    ("wide rows", 1, 5, 3, 1600, 2, 1),
+    ("g % 4 != 0", 2, 6, 5, 66, 3, 2)]
+
+
+def _kv_pair_inputs(torch, b, cache, n, g, s, bits, seed):
+    """Fresh k and v rows (B, s, N, g), and two stores (B, S, N, pw) u8
+    and (B, S, N) f32 full of random bytes and scales."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = tuple(torch.randn(b, s, n, g, generator=gen, device="cuda") * 3
+              for _ in range(2))
+    x[0][0, 0, 0] = 0.0                                 # an all-zero row
+    packed = tuple(torch.randint(0, 256, (b, cache, n, g * bits // 8),
+                                 generator=gen, device="cuda",
+                                 dtype=torch.uint8) for _ in range(2))
+    scale = tuple(torch.rand(b, cache, n, generator=gen, device="cuda") + 0.5
+                  for _ in range(2))
+    return x, packed, scale
+
+
+def check_kv_pair(torch, qp, ref, b, cache, n, g, s, pos, bits, noise,
+                  misaligned):
+    """The pair append into stores full of random bytes (so every row
+    outside [pos, pos + s) must keep its own), then the pair read of what
+    it wrote (f32 and bf16), each against its plain version and against
+    two per-tensor kernel calls (plus the slice writes); ``noise``: none,
+    "u" or "seed"; ``misaligned``: x, the stores and the read's codes one
+    element past their alignment (the scalar paths).  Returns the number
+    of elements that differ."""
+    x, packed, scale = _kv_pair_inputs(torch, b, cache, n, g, s, bits,
+                                       b + cache + n + g + s + bits)
+    rows = b * s * n
+    seeds = tuple(_seed_tensor(torch, sd) for sd in ONCORE_SEEDS[1:])
+    u = tuple(torch.rand_like(t) for t in x) if noise == "u" \
+        else (None, None)
+    seed = seeds if noise == "seed" else (None, None)
+    plain_u = tuple(ref.oncore_uniform_ref(sd, rows, g).reshape(x[0].shape)
+                    for sd in seeds) if noise == "seed" else u
+    want_p = tuple(p.clone() for p in packed)
+    want_s = tuple(t.clone() for t in scale)
+    ref.quantize_pack_into_ref(x, want_p, want_s, pos, bits, plain_u)
+    move = (lambda t: _misaligned(torch, t)) if misaligned \
+        else (lambda t: t.clone())
+    got_p, got_s = tuple(map(move, packed)), tuple(map(move, scale))
+    xx = tuple(map(move, x)) if misaligned else x
+    qp.quantize_pack_into(xx, got_p, got_s, pos, u, seed, bits=bits)
+    pairs = list(zip(got_p + got_s, want_p + want_s))
+    for i in range(2):                      # two per-tensor kernel calls
+        p1, s1 = qp.quantize_pack(
+            x[i].reshape(-1, g), None if u[i] is None else u[i].reshape(-1, g),
+            bits=bits, seed=seed[i])
+        pairs += [(want_p[i][:, pos:pos + s], p1.reshape(b, s, n, -1)),
+                  (want_s[i][:, pos:pos + s], s1.reshape(b, s, n))]
+    codes = tuple(p.reshape(-1, p.shape[-1]) for p in want_p)
+    scales = tuple(t.reshape(-1, 1) for t in want_s)
+    read = tuple(map(move, codes)) if misaligned else codes
+    for dt in (torch.float32, torch.bfloat16):
+        got = qp.unpack_dequant_pair(read, scales, bits=bits, out_dtype=dt)
+        pairs += list(zip(got, ref.unpack_dequant_pair_ref(codes, scales,
+                                                           bits, dt)))
+        pairs += list(zip(got, (qp.unpack_dequant(c, t, bits=bits,
+                                                  out_dtype=dt)
+                                for c, t in zip(codes, scales))))
+    torch.cuda.synchronize()
+    bad = 0
+    for a, w in pairs:
+        assert a.shape == w.shape and a.dtype == w.dtype, (a.shape, w.shape)
+        bad += int((a != w).sum().item())
+    return bad
+
+
+def time_kv_pair(torch, qp, ref, what, b, cache, n, g, s, pos, bits=8):
+    """One pair launch at a path's shape: ``what`` "read" (the store
+    read of k and v, (B*S*N, pw) each, f32 out) or "append" ((B, s, N,
+    g) fresh rows into rows [pos, pos + s) of each store).  Returns
+    (ms, plain_ms, bound_ms, bound_by, bytes); the bound counts each
+    input read once and each output written once, the append's stores
+    only where it writes them."""
+    pw = g * bits // 8
+    if what == "read":
+        rows = b * cache * n
+        ops = 2 * rows * g * OPS_PER_ELEMENT["unpack_dequant"]
+        nbytes = 2 * rows * (pw + 4 + 4 * g)
+    else:
+        rows = b * s * n
+        ops = 2 * rows * g * OPS_PER_ELEMENT["quantize_pack"]
+        nbytes = 2 * rows * (4 * g + pw + 4)
+    sets = []
+    while not sets or (len(sets) < 16 and nbytes * len(sets) < 120e6):
+        x, packed, scale = _kv_pair_inputs(torch, b, cache, n, g, s, bits,
+                                           len(sets))
+        if what == "read":
+            sets.append((tuple(p.reshape(-1, pw) for p in packed),
+                         tuple(t.reshape(-1, 1) for t in scale)))
+        else:
+            sets.append((x, packed, scale))
+        del x, packed, scale
+    launches = 40 if nbytes < 1e9 else 4
+    if what == "read":
+        ms = device_ms(torch, lambda p, t: qp.unpack_dequant_pair(
+            p, t, bits=bits), sets, launches)
+        plain_ms = device_ms(torch, lambda p, t: ref.unpack_dequant_pair_ref(
+            p, t, bits), sets, launches)
+    else:
+        ms = device_ms(torch, lambda x, p, t: qp.quantize_pack_into(
+            x, p, t, pos, bits=bits), sets, launches)
+        plain_ms = device_ms(torch, lambda x, p, t: ref.quantize_pack_into_ref(
+            x, p, t, pos, bits), sets, launches)
+    del sets
+    torch.cuda.empty_cache()
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / F32_OPS_PER_S * 1e3
+    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+    return ms, plain_ms, max(bytes_ms, ops_ms), bound_by, nbytes
+
+
+def launch_floor_ms(torch, build) -> float:
+    """What one launch costs in `device_ms`'s harness: an empty kernel
+    (one warp) captured 40 times back to back in a CUDA graph."""
+    lib = build.load("quant_pack")
+
+    def empty():
+        rc = lib.rt_launch_floor(torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"rt_launch_floor: CUDA error {rc}")
+
+    return device_ms(torch, empty, [()], 40)
+
+
+def kv_pair_phase(torch, qp, ref, build, rows_out):
+    """[kv-pair-bit-exact], [launch-floor] and the pair launches'
+    [kernel-time] rows, beside B3 and B4 per call at gemma2's KV shapes.
+    The kernels line's B3 and B4 rows take the pair's numbers at gpt2-xl's
+    shapes (what the serving path launches); their per-call numbers move
+    under ``per_call``, gemma2's under ``gemma2``."""
+    bad = cases = 0
+    for label, b, cache, n, g, s, pos in KV_PAIR_CASES:
+        for bits in (2, 4, 8):
+            if g % 4 and bits == 2:
+                continue
+            for noise in (None, "u", "seed"):
+                for misaligned in (False, True):
+                    bad += check_kv_pair(torch, qp, ref, b, cache, n, g, s,
+                                         pos, bits, noise, misaligned)
+                    cases += 1
+    phase("kv-pair-bit-exact", cases=cases, mismatches=bad)
+    assert bad == 0, bad
+    floor = launch_floor_ms(torch, build)
+    phase("launch-floor", ms=f"{floor:.6f}",
+          what="an empty kernel, 40 captured back to back in a CUDA graph")
+    timed = {}
+    for name, what, arch, case in (
+            ("unpack_dequant", "read", "gpt2-xl", KV_PAIR_CASES[0]),
+            ("unpack_dequant", "read", "gemma2", KV_PAIR_CASES[2]),
+            ("quantize_pack", "append", "gpt2-xl", KV_PAIR_CASES[0]),
+            ("quantize_pack", "append", "gemma2", KV_PAIR_CASES[2])):
+        _, b, cache, n, g, s, pos = case
+        ms, plain_ms, bound_ms, bound_by, nbytes = time_kv_pair(
+            torch, qp, ref, what, b, cache, n, g, s, pos)
+        rows = b * n * (cache if what == "read" else s)
+        phase("kernel-time", name=f"{name}_pair", path=arch, rows=rows, d=g,
+              bits=8, tensors=2, bytes=nbytes, ms=f"{ms:.6f}",
+              plain_ms=f"{plain_ms:.6f}", bound_ms=f"{bound_ms:.6f}",
+              bound_by=bound_by, library_ms=None,
+              ms_over_launch_floor=f"{ms / floor:.3f}")
+        timed[(name, arch)] = {"shape": [2, rows, g], "bits": 8, "ms": ms,
+                               "plain_ms": plain_ms, "bound_ms": bound_ms,
+                               "bound_by": bound_by, "library_ms": None}
+    for name, rows in (("unpack_dequant", G_BATCH * G_CACHE * G_KV_HEADS),
+                       ("quantize_pack", G_BATCH * G_KV_HEADS)):
+        ms, plain_ms, library_ms, bound_ms, bound_by, nbytes = time_kernel(
+            torch, qp, ref, name, rows, G_HEAD_DIM, 8)
+        phase("kernel-time", name=name, path="gemma2", rows=rows,
+              d=G_HEAD_DIM, bits=8, bytes=nbytes, ms=f"{ms:.6f}",
+              plain_ms=f"{plain_ms:.6f}", bound_ms=f"{bound_ms:.6f}",
+              bound_by=bound_by, library_ms=library_ms,
+              ms_over_launch_floor=f"{ms / floor:.3f}")
+        row = rows_out[name]
+        per_call = {k: row[k] for k in ("shape", "bits", "ms", "plain_ms",
+                                        "bound_ms", "bound_by",
+                                        "library_ms")}
+        row.update(timed[(name, "gpt2-xl")])
+        row["per_call"] = per_call
+        row["gemma2"] = {
+            "pair": timed[(name, "gemma2")],
+            "per_call": {"shape": [rows, G_HEAD_DIM], "bits": 8, "ms": ms,
+                         "plain_ms": plain_ms, "bound_ms": bound_ms,
+                         "bound_by": bound_by, "library_ms": library_ms}}
+        row["launch_floor_ms"] = floor
+    return floor
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the attention kernel (B10) against its plain version
 # ---------------------------------------------------------------------------
 
@@ -1638,6 +1860,7 @@ def main() -> int:
     kernels["oncore_uniform"] = oncore_phase(torch, qp, ref)
     legacy_rows, legacy_launches = legacy_phase(torch, qp, ref, env)
     kernels.update(legacy_rows)
+    kv_pair_phase(torch, qp, ref, build, kernels)
 
     torch.cuda.reset_peak_memory_stats()
     qp.reset_launches()
@@ -1659,6 +1882,10 @@ def main() -> int:
         assert launches[name] > 0, \
             f"{name} was never launched on the serving path"
     assert launches["flash_attention_fwd"] == 48, launches  # one a layer
+    # the KV append and store read: k and v in one launch each, a layer
+    # of the prefill and of every decode step
+    for name in ("quantize_pack", "unpack_dequant"):
+        assert launches[name] == (1 + GEN) * 48, (name, launches)
     for name in LEGACY_KERNELS:
         assert launches[name] == 0, launches
     reference_check(torch)

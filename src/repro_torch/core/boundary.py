@@ -8,8 +8,11 @@ compressed ring's integer steps `accumulate_codes`, `pack_sums` and
 `unpack_sums`).  The legacy `encode_with_scale`/`decode_codes` pair
 (packed codes against a shared row scale, then int32 codes from them:
 the sender the fused `encode_codes_with_scale` replaced) is on no
-trainer's path, as in the JAX package.  Each runs on two bit-identical
-backends:
+trainer's path, as in the JAX package.  The KV plane's pair ops
+(`encode_pair_into`, `decode_pair`: k and v together, the append
+written in place into the stores) have no JAX counterpart; they equal
+two `encode` (plus the slice writes) or two `decode` calls.  Each runs
+on two bit-identical backends:
 
 * ``"cuda"``      — the hand-written kernels (`repro_torch.kernels.ops`):
   one device pass per side;
@@ -141,6 +144,42 @@ def decode(packed, scale, *, bits: int, d: int,
     codes = Q.unpack_codes(packed, bits, d) if bits in PACKABLE_BITS \
         else packed
     return Q.dequantize(codes, scale, bits, dtype)
+
+
+def encode_pair_into(xs, packed, scales, pos: int, *, bits: int,
+                     stochastic: bool = False, generator=None,
+                     backend: str = "auto") -> None:
+    """`encode` of a pair of fresh tensors of one shape ``xs`` (B, s, N,
+    d) (k's and v's rows), written in place into rows [pos, pos + s) of
+    their stores ``packed`` (B, S, N, pw) u8 and ``scales`` (B, S, N)
+    f32: the KV append.  The cuda backend runs both in one kernel
+    launch.  Noise is drawn for ``xs[0]``, then ``xs[1]``, as two
+    `encode` calls draw it, so the bits equal theirs."""
+    backend = resolve_backend(backend, xs[0], bits)
+    noise = [_noise(x, stochastic, None, generator, backend) for x in xs]
+    if backend == "cuda":
+        K.quantize_pack_into(xs, packed, scales, pos,
+                             tuple(u for u, _ in noise),
+                             tuple(seed for _, seed in noise), bits=bits)
+        return
+    n = xs[0].shape[1]
+    for x, p, s, (u, _) in zip(xs, packed, scales, noise):
+        codes, scale = encode(x, bits=bits, stochastic=stochastic, u=u,
+                              backend=backend)
+        p[:, pos:pos + n] = codes
+        s[:, pos:pos + n] = scale[..., 0]
+
+
+def decode_pair(packed, scales, *, bits: int, d: int,
+                dtype: torch.dtype = torch.float32, backend: str = "auto"):
+    """`decode` of a pair of one shape (k's and v's stores); the cuda
+    backend runs both in one kernel launch.  Returns the pair."""
+    backend = resolve_backend(backend, packed[0], bits)
+    if backend == "cuda":
+        return tuple(v[..., :d] for v in K.unpack_dequant_pair(
+            packed, scales, bits=bits, out_dtype=dtype))
+    return tuple(decode(p, s, bits=bits, d=d, dtype=dtype, backend=backend)
+                 for p, s in zip(packed, scales))
 
 
 def roundtrip(x, *, bits: int, stochastic: bool = False, u=None,

@@ -38,6 +38,7 @@ _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
 _I = ctypes.c_int
 _F = ctypes.c_float
+_U = ctypes.c_uint
 # C signature of every extern "C" launcher, by library
 SIGNATURES = {
     "quant_pack": {
@@ -45,8 +46,10 @@ SIGNATURES = {
                                    _I, _P),
         "rt_dequant_unpack_accumulate": (_P, _P, _P, _P, _I64, _I64, _I, _I,
                                          _P),
-        "rt_quantize_pack": (_P, _P, _P, _P, _P, _I64, _I64, _I, _I, _P),
-        "rt_unpack_dequant": (_P, _P, _P, _I64, _I64, _I, _I, _I, _P),
+        "rt_quantize_pack": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64,
+                             _I64, _I64, _I64, _I64, _I64, _I, _I, _P),
+        "rt_unpack_dequant": (_P, _P, _P, _P, _P, _P, _I64, _I64, _I, _I, _U,
+                              _U, _I, _P),
         "rt_quantize_pack_scaled": (_P, _P, _P, _P, _I64, _I64, _I, _I, _P),
         "rt_unpack_codes": (_P, _P, _I64, _I, _I, _P),
         "rt_quantize_codes_scaled": (_P, _P, _P, _P, _P, _P, _I64, _I64, _I,
@@ -55,6 +58,7 @@ SIGNATURES = {
         "rt_unpack_accumulate": (_P, _P, _P, _I64, _I, _I, _P),
         "rt_pack_sums": (_P, _P, _I64, _I, _I, _P),
         "rt_unpack_sums": (_P, _P, _I64, _I, _I, _P),
+        "rt_launch_floor": (_P,),
     },
     "flash_attention": {
         "rt_flash_attention_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

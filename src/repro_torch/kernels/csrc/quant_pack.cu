@@ -1,10 +1,11 @@
 // AQ-SGD boundary codec kernels for Hopper (sm_90a).
 //
 // Replaces eleven Pallas TPU kernels of src/repro/kernels/quant_pack.py:
-//   delta_quantize_pack        (quant_pack.py:190, _dqp_kernel)  -> encode_rows<BITS, true>
-//   dequant_unpack_accumulate  (quant_pack.py:239, _dua_kernel)  -> decode_flat<BITS, true, float>
-//   quantize_pack              (quant_pack.py:278, _qp_kernel)   -> encode_rows<BITS, false>
-//   unpack_dequant             (quant_pack.py:320, _ud_kernel)   -> decode_flat<BITS, false, OutT>
+//   delta_quantize_pack        (quant_pack.py:190, _dqp_kernel)  -> encode_rows<BITS, true, LPR, NV>
+//   dequant_unpack_accumulate  (quant_pack.py:239, _dua_kernel)  -> dequant_accumulate_flat<BITS>
+//   quantize_pack              (quant_pack.py:278, _qp_kernel)   -> encode_rows<BITS, false, LPR, NV>,
+//                                                                   encode_rows_into<BITS, LPR, NV> (KV)
+//   unpack_dequant             (quant_pack.py:320, _ud_kernel)   -> unpack_dequant_flat<BITS, OutT>
 //   quantize_pack_scaled       (quant_pack.py:363, _qps_kernel)  -> codes_scaled_flat<BITS, false, true>
 //   unpack_codes               (quant_pack.py:399, _uc_kernel)   -> unpack_sums_flat<BITS>
 //   dequant_sum_mean           (quant_pack.py:434, _dsm_kernel)  -> sum_mean_flat
@@ -45,16 +46,46 @@
 //
 // Design: the TPU kernels hold a 128-row tile in VMEM and walk a
 // sequential grid.  Here there is no tile and no order between blocks:
-//   * encoders: one warp per row, 8 rows per block, a grid over rows;
-//     the ragged last block is masked by whole warps.  The row absmax is
-//     a warp-shuffle max (exact in any order, so the scale is
+//   * encoders (B1, B3): a lane group per row, a grid over rows; the
+//     ragged last block is masked by whole warps.  The row absmax is a
+//     shuffle max over the group (exact in any order, so the scale is
 //     bit-identical), then each lane quantizes and packs whole output
-//     bytes, so no atomics are needed.
-//   * decoders need no reduction, so they are flat: a grid-stride loop
-//     over groups of 4 elements (or over packed bytes), each thread
-//     writing whole bytes and whole float4s.  The gradient wire's two
-//     kernels take the row scale as an input, so they need no
-//     reduction either and share that flat design.
+//     words, so no atomics are needed.  The group is as wide as the
+//     row's float4s, up to a warp (8 lanes at a group_d of 32, 16 at
+//     gpt2-xl's head_dim 64, 32 from 128 on), so no lane idles on a
+//     narrow KV row.  Rows of up to 256 values (gemma2's head_dim too)
+//     stay in registers from the absmax to the quantize, so the row is
+//     read once; wider rows (the hops' 1600 and 3584) are walked twice
+//     by a warp, the same template with no registers held (NV = 0).
+//     One row body (encode_row) serves two kernels: encode_rows, one
+//     tensor a launch (B1, B3 per call, their seeded path) with every
+//     pointer a __restrict__ parameter, and encode_rows_into, the KV
+//     pair below, whose pointers come from a struct.  The body's
+//     pointers are __restrict__ in both, so the compiler may issue a
+//     loop's next loads ahead of its stores.
+//   * the KV plane runs k and v in one launch each (blockIdx.y picks
+//     the tensor), and the append writes in place: an encoder row goes
+//     through a RowMap to its row of the output, so the fresh rows (B,
+//     s, N) land in rows [pos, pos + s) of each layer store (B, S, N)
+//     through the store's batch stride, with no temporary and no copy.
+//     Each layer of a serving step thus runs one store read and one
+//     append (not two reads, two appends and four copies).  The
+//     seeded counter stays each element's index in its own tensor's
+//     row view, so the pair draws what two per-tensor calls draw.
+//   * the store read (B4) is a pure stream, 1 byte read for 4 written
+//     at 8 bits: each lane loads 16 code bytes (one streaming uint4)
+//     into its warp's stage in shared memory and the warp stores
+//     512-byte runs of float4s, as the sums' unpacker below does.  A
+//     block walks its own run of segments; a value's row is the run's
+//     first row plus a 32-bit multiply-high quotient (div_magic: no
+//     64-bit division, a long software routine on this card, per
+//     value).  The grid is one wave of the blocks the card holds, so a
+//     10 MB read pays no second wave or tail.
+//   * the other decoders need no reduction, so they are flat: a
+//     grid-stride loop over groups of 4 elements (or over packed
+//     bytes), each thread writing whole bytes and whole float4s.  The
+//     gradient wire's two kernels take the row scale as an input, so
+//     they need no reduction either and share that flat design.
 //   * loads and stores are vectorised (float4) where d % 4 == 0 and the
 //     pointers are 16-byte aligned; the wrapper decides and passes `vec`.
 //   * the ring's three kernels have no scale and no reduction, and no
@@ -132,13 +163,6 @@ struct Packed4;  // the bytes that hold 4 codes of BITS bits
 template <> struct Packed4<2> { using T = uint8_t; };
 template <> struct Packed4<4> { using T = uint16_t; };
 template <> struct Packed4<8> { using T = uint32_t; };
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = kWarp / 2; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
 
 __device__ __forceinline__ float abs_max4(float4 v) {
   return fmaxf(fmaxf(fabsf(v.x), fabsf(v.y)), fmaxf(fabsf(v.z), fabsf(v.w)));
@@ -237,104 +261,238 @@ from_float<__nv_bfloat16>(float v) {
 // Encoders: x (or a - m) -> packed codes + row scale [+ m_new]
 // ---------------------------------------------------------------------------
 
+// max over the LPR lanes of an aligned lane group (every lane of the warp
+// takes part)
+template <int LPR>
+__device__ __forceinline__ float group_max(float v) {
+#pragma unroll
+  for (int o = LPR / 2; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// values 4g..4g+3 of one row: codes packed into word g of its output row
+// (and, delta, m_new's float4 g)
 template <int BITS, bool DELTA>
+__device__ __forceinline__ void encode4(float4 x, float4 mm, float4 uu,
+                                        float s, bool stoch,
+                                        uint8_t* __restrict__ pr,
+                                        float* __restrict__ nr, int64_t g) {
+  using P = typename Packed4<BITS>::T;
+  const uint32_t c0 = quant_code<BITS>(x.x, s, uu.x, stoch);
+  const uint32_t c1 = quant_code<BITS>(x.y, s, uu.y, stoch);
+  const uint32_t c2 = quant_code<BITS>(x.z, s, uu.z, stoch);
+  const uint32_t c3 = quant_code<BITS>(x.w, s, uu.w, stoch);
+  // 4 codes fill 4*BITS/8 bytes, little-endian: code j at bit j*BITS
+  const uint32_t word = c0 | (c1 << BITS) | (c2 << (2 * BITS)) |
+                        (c3 << (3 * BITS));
+  reinterpret_cast<P*>(pr)[g] = static_cast<P>(word);
+  if (DELTA) {
+    reinterpret_cast<float4*>(nr)[g] = make_float4(
+        dequant<BITS, true>(c0, s, mm.x), dequant<BITS, true>(c1, s, mm.y),
+        dequant<BITS, true>(c2, s, mm.z), dequant<BITS, true>(c3, s, mm.w));
+  }
+}
+
+// One row, LPR lanes (lane: this lane's place in the group): ar, mr, ur
+// the row's input, m and noise (mr, ur, nr null where absent), pr its
+// packed codes, scale[srow] its scale, nr its m_new; has_u is ur !=
+// nullptr.  (The per-call kernel passes the scale vector and the row, so
+// the address is formed at the store and holds no registers over pass 1:
+// B3 at (4096, 1600) ran ~2% slower with the pointer formed up front.)
+// Rounding branches on has_u and seed, which come from the kernel's
+// parameters, so the compiler sees them uniform (a test of ur, which
+// depends on the row, costs each quantized value a reconvergence
+// region); the noise load is selected on ur, which the compiler turns
+// into a predicated load issued beside x's.  `row` is the row's index in
+// its own tensor (the seeded counter); `live` false for a lane group past
+// the last row, which takes part in the shuffles only.  NV > 0 (vec
+// only): lane l holds the row's float4s l, l + LPR, ... (at most NV) in
+// registers from the absmax to the quantize, so the row is read once.
+// NV == 0: the row is walked twice, 32 lanes a row, float4s with vec,
+// else one packed byte's values at a time.  Every pointer is __restrict__
+// (no input aliases an output), so the compiler may issue a pass's next
+// loads before its last stores, and reads inputs through the read-only
+// path.
+template <int BITS, bool DELTA, int LPR, int NV>
+__device__ __forceinline__ void encode_row(
+    const float* __restrict__ ar, const float* __restrict__ mr,
+    const float* __restrict__ ur, bool has_u,
+    const int32_t* __restrict__ seed, uint8_t* __restrict__ pr,
+    float* __restrict__ scale, int64_t srow, float* __restrict__ nr,
+    int64_t row, int lane, bool live, int64_t d, int vec) {
+  constexpr int k = 8 / BITS;  // codes per byte
+  static_assert(NV == 0 ? LPR == kWarp : NV * LPR <= 2 * kWarp, "tiling");
+  const bool stoch = has_u || seed != nullptr;
+  const uint32_t k0 = seed ? uint32_t(seed[0]) : 0u;
+  const uint32_t k1 = seed ? uint32_t(seed[1]) : 0u;
+  const float4* a4 = reinterpret_cast<const float4*>(ar);
+  const float4* m4 = reinterpret_cast<const float4*>(mr);
+  const float4* u4 = reinterpret_cast<const float4*>(ur);
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  // the uniforms of float4 g: read, drawn from the seed (the counter is
+  // the element's index in this tensor's row view), or none
+  auto noise4 = [&](int64_t g) {
+    return ur     ? u4[g]
+           : seed ? seeded_uniform4(row * (d / 4) + g, k0, k1)
+                  : zero;
+  };
+
+  if constexpr (NV > 0) {
+    const int64_t n4 = d / 4;
+    float4 x[NV], mm[NV];
+    float mx = 0.0f;
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      const int64_t g = lane + v * LPR;
+      x[v] = mm[v] = zero;
+      if (live && g < n4) {
+        x[v] = a4[g];
+        if (DELTA) {
+          mm[v] = m4[g];
+          x[v] = sub4(x[v], mm[v]);
+        }
+        mx = fmaxf(mx, abs_max4(x[v]));
+      }
+    }
+    const float s = fmaxf(group_max<LPR>(mx), kEps);
+    if (!live) return;
+    if (lane == 0) scale[srow] = s;
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      const int64_t g = lane + v * LPR;
+      if (g < n4)
+        encode4<BITS, DELTA>(x[v], mm[v], noise4(g), s, stoch, pr, nr, g);
+    }
+  } else {
+    // pass 1: row absmax of the delta (or of x)
+    float mx = 0.0f;
+    if (vec) {
+      for (int64_t g = lane; g < d / 4; g += kWarp) {
+        float4 x = a4[g];
+        if (DELTA) x = sub4(x, m4[g]);
+        mx = fmaxf(mx, abs_max4(x));
+      }
+    } else {
+      for (int64_t i = lane; i < d; i += kWarp) {
+        const float x = DELTA ? __fsub_rn(ar[i], mr[i]) : ar[i];
+        mx = fmaxf(mx, fabsf(x));
+      }
+    }
+    const float s = fmaxf(group_max<kWarp>(mx), kEps);
+    if (lane == 0) scale[srow] = s;
+
+    // pass 2: quantize, pack whole bytes, advance the buffer
+    if (vec) {
+      for (int64_t g = lane; g < d / 4; g += kWarp) {
+        const float4 mm = DELTA ? m4[g] : zero;
+        float4 x = a4[g];
+        if (DELTA) x = sub4(x, mm);
+        encode4<BITS, DELTA>(x, mm, noise4(g), s, stoch, pr, nr, g);
+      }
+    } else {
+      for (int64_t j = lane; j < d / k; j += kWarp) {  // one output byte
+        uint32_t byte = 0;
+#pragma unroll
+        for (int q = 0; q < k; ++q) {
+          const int64_t i = j * k + q;
+          const float mm = DELTA ? mr[i] : 0.0f;
+          const float x = DELTA ? __fsub_rn(ar[i], mm) : ar[i];
+          const float uu = ur     ? ur[i]
+                           : seed ? seeded_uniform(row * d + i, k0, k1)
+                                  : 0.0f;
+          const uint32_t c = quant_code<BITS>(x, s, uu, stoch);
+          byte |= c << (q * BITS);
+          if (DELTA) nr[i] = dequant<BITS, true>(c, s, mm);
+        }
+        pr[j] = static_cast<uint8_t>(byte);
+      }
+    }
+  }
+}
+
+// B1 (DELTA) and B3 per call, one tensor, row r to row r of the outputs:
+// LPR lanes a row, kThreads / LPR rows a block
+template <int BITS, bool DELTA, int LPR, int NV>
 __global__ void __launch_bounds__(kThreads)
 encode_rows(const float* __restrict__ a, const float* __restrict__ m,
             const float* __restrict__ u, const int32_t* __restrict__ seed,
-            uint8_t* __restrict__ packed,
-            float* __restrict__ scale, float* __restrict__ m_new,
-            int64_t rows, int64_t d, int vec) {
-  constexpr int k = 8 / BITS;  // codes per byte
-  const int lane = threadIdx.x % kWarp;
-  const int64_t row = int64_t(blockIdx.x) * kRowsPerBlock + threadIdx.x / kWarp;
-  if (row >= rows) return;  // whole warps leave together: shuffles stay full
-  const float* ar = a + row * d;
-  const float* mr = DELTA ? m + row * d : nullptr;
-  const float* ur = u ? u + row * d : nullptr;
-  uint8_t* pr = packed + row * (d / k);
-  float* nr = DELTA ? m_new + row * d : nullptr;
-  const bool stoch = u != nullptr || seed != nullptr;
-  const uint32_t k0 = seed ? uint32_t(seed[0]) : 0u;
-  const uint32_t k1 = seed ? uint32_t(seed[1]) : 0u;
+            uint8_t* __restrict__ packed, float* __restrict__ scale,
+            float* __restrict__ m_new, int64_t rows, int64_t d, int vec) {
+  constexpr int RB = kThreads / LPR;
+  const int64_t first = int64_t(blockIdx.x) * RB;
+  // whole warps past the last row leave together; a warp with a live
+  // row keeps all its lanes for the shuffles
+  if (first + (threadIdx.x / kWarp) * (kWarp / LPR) >= rows) return;
+  const int64_t row = first + threadIdx.x / LPR;
+  encode_row<BITS, DELTA, LPR, NV>(
+      a + row * d, DELTA ? m + row * d : nullptr, u ? u + row * d : nullptr,
+      u != nullptr, seed, packed + row * (d / (8 / BITS)), scale, row,
+      DELTA ? m_new + row * d : nullptr, row, threadIdx.x % LPR, row < rows,
+      d, vec);
+}
 
-  // pass 1: row absmax of the delta (or of x)
-  float mx = 0.0f;
-  if (vec) {
-    const float4* a4 = reinterpret_cast<const float4*>(ar);
-    const float4* m4 = reinterpret_cast<const float4*>(mr);
-    for (int64_t g = lane; g < d / 4; g += kWarp) {
-      float4 x = a4[g];
-      if (DELTA) x = sub4(x, m4[g]);
-      mx = fmaxf(mx, abs_max4(x));
-    }
-  } else {
-    for (int64_t i = lane; i < d; i += kWarp) {
-      const float x = DELTA ? __fsub_rn(ar[i], mr[i]) : ar[i];
-      mx = fmaxf(mx, fabsf(x));
-    }
-  }
-  const float s = fmaxf(warp_max(mx), kEps);
-  if (lane == 0) scale[row] = s;
+// The KV append's tensors: blockIdx.y picks one of `pair` (1 or 2) inputs,
+// noise sources and layer stores.
+struct EncodeIO {
+  const float* a[2];
+  const float* u[2];
+  const int32_t* seed[2];
+  uint8_t* packed[2];
+  float* scale[2];
+};
 
-  // pass 2: quantize, pack whole bytes, advance the buffer
-  if (vec) {
-    using P = typename Packed4<BITS>::T;
-    const float4* a4 = reinterpret_cast<const float4*>(ar);
-    const float4* m4 = reinterpret_cast<const float4*>(mr);
-    const float4* u4 = reinterpret_cast<const float4*>(ur);
-    for (int64_t g = lane; g < d / 4; g += kWarp) {
-      float4 mm = make_float4(0.f, 0.f, 0.f, 0.f);
-      float4 x = a4[g];
-      if (DELTA) {
-        mm = m4[g];
-        x = sub4(x, mm);
-      }
-      const float4 uu = ur     ? u4[g]
-                        : seed ? seeded_uniform4(row * (d / 4) + g, k0, k1)
-                               : make_float4(0.f, 0.f, 0.f, 0.f);
-      const uint32_t c0 = quant_code<BITS>(x.x, s, uu.x, stoch);
-      const uint32_t c1 = quant_code<BITS>(x.y, s, uu.y, stoch);
-      const uint32_t c2 = quant_code<BITS>(x.z, s, uu.z, stoch);
-      const uint32_t c3 = quant_code<BITS>(x.w, s, uu.w, stoch);
-      // 4 codes fill 4*BITS/8 bytes, little-endian: code j at bit j*BITS
-      const uint32_t word = c0 | (c1 << BITS) | (c2 << (2 * BITS)) |
-                            (c3 << (3 * BITS));
-      reinterpret_cast<P*>(pr)[g] = static_cast<P>(word);
-      if (DELTA) {
-        reinterpret_cast<float4*>(nr)[g] = make_float4(
-            dequant<BITS, true>(c0, s, mm.x), dequant<BITS, true>(c1, s, mm.y),
-            dequant<BITS, true>(c2, s, mm.z), dequant<BITS, true>(c3, s, mm.w));
-      }
-    }
-  } else {
-    for (int64_t j = lane; j < d / k; j += kWarp) {  // one output byte
-      uint32_t byte = 0;
-#pragma unroll
-      for (int t = 0; t < k; ++t) {
-        const int64_t i = j * k + t;
-        const float mm = DELTA ? mr[i] : 0.0f;
-        const float x = DELTA ? __fsub_rn(ar[i], mm) : ar[i];
-        const float uu = ur     ? ur[i]
-                         : seed ? seeded_uniform(row * d + i, k0, k1)
-                                : 0.0f;
-        const uint32_t c = quant_code<BITS>(x, s, uu, stoch);
-        byte |= c << (t * BITS);
-        if (DELTA) nr[i] = dequant<BITS, true>(c, s, mm);
-      }
-      pr[j] = static_cast<uint8_t>(byte);
-    }
-  }
+// v[w] of a kernel's pair of pointers, by a select (no indexed load)
+template <typename T>
+__device__ __forceinline__ T pick(T const (&v)[2], int w) {
+  return w ? v[1] : v[0];
+}
+
+// Where fresh row r writes its packed codes and its scale: the input is
+// rpb rows a batch entry; row r = b * rpb + t goes to row base + t of
+// entry b of the store, whose entries lie pstride packed bytes and
+// sstride scales apart.  The KV append's fresh rows (B, s, N) land in
+// rows [pos, pos + s) of each layer store (B, S, N): rpb = s * N, base =
+// pos * N, the strides the store's batch strides.
+struct RowMap {
+  int64_t rpb, base, pstride, sstride;
+};
+
+// B3 for k and v (blockIdx.y) in one launch, written in place through
+// the row map: the per-call kernel's rows and lanes
+template <int BITS, int LPR, int NV>
+__global__ void __launch_bounds__(kThreads)
+encode_rows_into(EncodeIO io, RowMap map, int64_t rows, int64_t d,
+                 int vec) {
+  constexpr int RB = kThreads / LPR;
+  const int w = blockIdx.y;
+  const int64_t first = int64_t(blockIdx.x) * RB;
+  if (first + (threadIdx.x / kWarp) * (kWarp / LPR) >= rows) return;
+  const int64_t row = first + threadIdx.x / LPR;
+  // rows < 2^31 (the launcher checks), so the map's division is 32-bit
+  const uint32_t b = uint32_t(row) / uint32_t(map.rpb);
+  const int64_t t = row - int64_t(b) * map.rpb;
+  const float* u = pick(io.u, w);
+  encode_row<BITS, false, LPR, NV>(
+      pick(io.a, w) + row * d, nullptr, u ? u + row * d : nullptr,
+      u != nullptr, pick(io.seed, w),
+      pick(io.packed, w) + b * map.pstride + (map.base + t) * (d / (8 / BITS)),
+      pick(io.scale, w) + b * map.sstride + map.base + t, 0, nullptr, row,
+      threadIdx.x % LPR, row < rows, d, vec);
 }
 
 // ---------------------------------------------------------------------------
 // Decoders: packed codes + row scale [+ m] -> values
 // ---------------------------------------------------------------------------
 
-template <int BITS, bool ACC, typename OutT>
+// B2: m_new = fma((2c - lv) * s, f32(1/lv), m), a grid-stride loop over
+// groups of 4 elements (vec) or over packed bytes
+template <int BITS>
 __global__ void __launch_bounds__(256)
-decode_flat(const uint8_t* __restrict__ packed, const float* __restrict__ scale,
-            const float* __restrict__ m, OutT* __restrict__ out, int64_t rows,
-            int64_t d, int vec) {
+dequant_accumulate_flat(const uint8_t* __restrict__ packed,
+                        const float* __restrict__ scale,
+                        const float* __restrict__ m, float* __restrict__ out,
+                        int64_t rows, int64_t d, int vec) {
   constexpr int k = 8 / BITS;
   constexpr uint32_t mask = (1u << BITS) - 1u;
   const int64_t n = rows * d;
@@ -347,22 +505,12 @@ decode_flat(const uint8_t* __restrict__ packed, const float* __restrict__ scale,
     for (int64_t g = first; g < n / 4; g += stride) {
       const float s = scale[(4 * g) / d];
       const uint32_t word = reinterpret_cast<const P*>(packed)[g];
-      float mm[4] = {0.f, 0.f, 0.f, 0.f};
-      if (ACC) {
-        const float4 m4 = reinterpret_cast<const float4*>(m)[g];
-        mm[0] = m4.x; mm[1] = m4.y; mm[2] = m4.z; mm[3] = m4.w;
-      }
-      float v[4];
-#pragma unroll
-      for (int t = 0; t < 4; ++t)
-        v[t] = dequant<BITS, ACC>((word >> (t * BITS)) & mask, s, mm[t]);
-      OutT* o = out + 4 * g;
-      if constexpr (sizeof(OutT) == 4) {
-        *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
-      } else {
-#pragma unroll
-        for (int t = 0; t < 4; ++t) o[t] = from_float<OutT>(v[t]);
-      }
+      const float4 m4 = reinterpret_cast<const float4*>(m)[g];
+      reinterpret_cast<float4*>(out)[g] = make_float4(
+          dequant<BITS, true>(word & mask, s, m4.x),
+          dequant<BITS, true>((word >> BITS) & mask, s, m4.y),
+          dequant<BITS, true>((word >> (2 * BITS)) & mask, s, m4.z),
+          dequant<BITS, true>((word >> (3 * BITS)) & mask, s, m4.w));
     }
   } else {
     // one packed byte = k elements of one row (the wrapper checks d % k == 0)
@@ -371,12 +519,124 @@ decode_flat(const uint8_t* __restrict__ packed, const float* __restrict__ scale,
       const float s = scale[i0 / d];
       const uint32_t byte = packed[j];
 #pragma unroll
-      for (int t = 0; t < k; ++t) {
-        const float mm = ACC ? m[i0 + t] : 0.0f;
-        out[i0 + t] = from_float<OutT>(
-            dequant<BITS, ACC>((byte >> (t * BITS)) & mask, s, mm));
-      }
+      for (int t = 0; t < k; ++t)
+        out[i0 + t] = dequant<BITS, true>((byte >> (t * BITS)) & mask, s,
+                                          m[i0 + t]);
     }
+  }
+}
+
+// One launch's tensors for the store read: blockIdx.y picks one of
+// `pair` (1 or 2) triples of one shape.
+template <typename OutT>
+struct DecodeIO {
+  const uint8_t* packed[2];
+  const float* scale[2];
+  OutT* out[2];
+};
+
+constexpr int kSegBytes = 512;   // a warp's 16-byte loads: one segment
+constexpr int kSegUnroll = 4;    // segments a warp has in flight
+
+// floor(n / d) for 0 <= n < 2^31 and d >= 2, in 32-bit integer work: the
+// host gives mul = ceil(2^(31 + l) / d) and shift = l - 1, l = ceil(log2
+// d) (quant_pack.py _div_magic; the round-up method of Granlund and
+// Montgomery, PLDI'94)
+__device__ __forceinline__ uint32_t div_magic(uint32_t n, uint32_t mul,
+                                              uint32_t shift) {
+  return __umulhi(n, mul) >> shift;
+}
+
+__device__ __forceinline__ void store4(float* o, float4 v) {
+  *reinterpret_cast<float4*>(o) = v;
+}
+
+__device__ __forceinline__ uint32_t bf16_pair(float lo, float hi) {
+  return uint32_t(__bfloat16_as_ushort(from_float<__nv_bfloat16>(lo))) |
+         (uint32_t(__bfloat16_as_ushort(from_float<__nv_bfloat16>(hi)))
+          << 16);
+}
+
+__device__ __forceinline__ void store4(__nv_bfloat16* o, float4 v) {
+  *reinterpret_cast<uint2*>(o) =               // one 8-byte store
+      make_uint2(bf16_pair(v.x, v.y), bf16_pair(v.z, v.w));
+}
+
+// B4: values = ((2c - lv) * s) * f32(1/lv), for one tensor or k and v.
+// vec: block x of tensor y walks its own run of `per` 512-byte segments
+// of the packed stream, a warp a segment at a time with kSegUnroll in
+// flight: each lane loads 16 bytes (one streaming uint4) into the warp's
+// stage in shared memory, then the warp stores the segment's values as
+// float4s (bf16: 8-byte words), 512 (256) contiguous bytes a store, each
+// lane reading its 4 codes from the stage.  A value's row is the run's
+// first row plus a 32-bit quotient (div_magic) of its column offset
+// within the run.  The values past the last whole segment, and all of
+// them without vec, go one packed byte an item in the same launch.
+template <int BITS, typename OutT>
+__global__ void __launch_bounds__(256)
+unpack_dequant_flat(DecodeIO<OutT> io, int64_t n, int64_t d, int64_t per,
+                    uint32_t mul, uint32_t shift, int vec) {
+  constexpr int k = 8 / BITS;
+  constexpr int SEG = kSegBytes * k;          // values in a segment
+  constexpr uint32_t mask = (1u << BITS) - 1u;
+  using P = typename Packed4<BITS>::T;
+  const uint8_t* __restrict__ packed = pick(io.packed, blockIdx.y);
+  const float* __restrict__ scale = pick(io.scale, blockIdx.y);
+  OutT* __restrict__ out = pick(io.out, blockIdx.y);
+  int64_t done = 0;
+  if (vec) {
+    constexpr int W = 256 / kWarp;              // warps a block
+    __shared__ uint4 stage[W][kSegUnroll][kWarp];
+    const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+    const int64_t segs = n / SEG;
+    const int64_t s0 = int64_t(blockIdx.x) * per < segs
+                           ? int64_t(blockIdx.x) * per : segs;
+    const int cnt = int(s0 + per < segs ? per : segs - s0);
+    const int64_t e0 = s0 * SEG;                 // the run's first value,
+    const int64_t r0 = e0 / d;                   // its row and column:
+    const uint32_t c0 = uint32_t(e0 - r0 * d);   // c0 + per * SEG < 2^31
+    const uint4* src = reinterpret_cast<const uint4*>(packed) + s0 * kWarp;
+    for (int t = warp; t < cnt; t += W * kSegUnroll) {
+#pragma unroll
+      for (int u = 0; u < kSegUnroll; ++u)
+        if (t + W * u < cnt)
+          stage[warp][u][lane] = __ldcs(src + (t + W * u) * kWarp + lane);
+      __syncwarp();
+#pragma unroll
+      for (int u = 0; u < kSegUnroll; ++u) {
+        const int seg = t + W * u;
+        if (seg < cnt) {
+          const P* codes = reinterpret_cast<const P*>(stage[warp][u]);
+#pragma unroll
+          for (int j = 0; j < SEG / 4 / kWarp; ++j) {
+            const int q = j * kWarp + lane;            // values 4q..4q+3
+            const uint32_t v = uint32_t(seg) * SEG + 4u * uint32_t(q);
+            const float s =
+                __ldg(scale + r0 + div_magic(c0 + v, mul, shift));
+            const uint32_t word = codes[q];
+            store4(out + e0 + v, make_float4(
+                dequant<BITS, false>(word & mask, s, 0.f),
+                dequant<BITS, false>((word >> BITS) & mask, s, 0.f),
+                dequant<BITS, false>((word >> (2 * BITS)) & mask, s, 0.f),
+                dequant<BITS, false>((word >> (3 * BITS)) & mask, s, 0.f)));
+          }
+        }
+      }
+      __syncwarp();
+    }
+    done = segs * SEG;
+  }
+  // one packed byte = k values of one row (the wrapper checks d % k == 0)
+  const int64_t stride = int64_t(gridDim.x) * blockDim.x;
+  for (int64_t j = done / k + int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
+       j < n / k; j += stride) {
+    const int64_t i0 = j * k;
+    const float s = __ldg(scale + i0 / d);
+    const uint32_t byte = __ldg(packed + j);
+#pragma unroll
+    for (int t = 0; t < k; ++t)
+      out[i0 + t] = from_float<OutT>(
+          dequant<BITS, false>((byte >> (t * BITS)) & mask, s, 0.f));
   }
 }
 
@@ -629,42 +889,87 @@ unpack_sums_flat(const uint8_t* __restrict__ packed,
     out[i] = unpack1<SW>(packed, i);
 }
 
-int encode_blocks(int64_t rows) {
-  return int((rows + kRowsPerBlock - 1) / kRowsPerBlock);
-}
-
 int decode_blocks(int64_t items) {
   const int64_t b = (items + 255) / 256;
   return int(b < 132 * 32 ? b : 132 * 32);  // grid-stride beyond 32 blocks/SM
 }
 
-template <bool DELTA>
-int launch_encode(const float* a, const float* m, const float* u,
-                  const int32_t* seed, uint8_t* packed, float* scale,
-                  float* m_new, int64_t rows, int64_t d, int bits, int vec,
-                  cudaStream_t st) {
-  const dim3 grid(encode_blocks(rows)), block(kThreads);
-  switch (bits) {
-    case 2: encode_rows<2, DELTA><<<grid, block, 0, st>>>(a, m, u, seed, packed, scale, m_new, rows, d, vec); break;
-    case 4: encode_rows<4, DELTA><<<grid, block, 0, st>>>(a, m, u, seed, packed, scale, m_new, rows, d, vec); break;
-    case 8: encode_rows<8, DELTA><<<grid, block, 0, st>>>(a, m, u, seed, packed, scale, m_new, rows, d, vec); break;
-    default: return int(cudaErrorInvalidValue);
+// One tensor's rows (B1, B3 per call): the pointers of rt_delta_quantize_pack
+struct EncodeArgs {
+  const float* a;
+  const float* m;
+  const float* u;
+  const int32_t* seed;
+  uint8_t* packed;
+  float* scale;
+  float* m_new;
+};
+
+// a launch of B1 or B3 per call (pair == 0: `args`, identity rows) or of
+// the KV append in place (pair 1 or 2: `io` through `map`)
+template <int BITS, bool DELTA, int LPR, int NV>
+int launch_rows(const EncodeArgs& args, const EncodeIO& io, int pair,
+                const RowMap& map, int64_t rows, int64_t d, int vec,
+                cudaStream_t st) {
+  constexpr int RB = kThreads / LPR;
+  const unsigned blocks = static_cast<unsigned>((rows + RB - 1) / RB);
+  if (pair == 0) {
+    encode_rows<BITS, DELTA, LPR, NV><<<blocks, kThreads, 0, st>>>(
+        args.a, args.m, args.u, args.seed, args.packed, args.scale,
+        args.m_new, rows, d, vec);
+  } else if constexpr (!DELTA) {
+    const dim3 grid(blocks, static_cast<unsigned>(pair));
+    encode_rows_into<BITS, LPR, NV><<<grid, kThreads, 0, st>>>(io, map, rows,
+                                                               d, vec);
+  } else {
+    return int(cudaErrorInvalidValue);
   }
   return int(cudaGetLastError());
 }
 
-template <bool ACC, typename OutT>
-int launch_decode(const uint8_t* packed, const float* scale, const float* m,
-                  OutT* out, int64_t rows, int64_t d, int bits, int vec,
-                  cudaStream_t st) {
-  const int64_t items = vec ? rows * d / 4 : rows * d / (8 / bits);
-  const dim3 grid(decode_blocks(items)), block(256);
+// lanes a row and float4s a lane held in registers, from the row's width:
+// the KV plane's rows (32, 64 and 256 values; up to 256) are read once;
+// wider rows (the hops' 1600 and 3584, the training boundary), and every
+// row without vec, are walked twice by a whole warp
+template <int BITS, bool DELTA>
+int launch_encode_bits(const EncodeArgs& args, const EncodeIO& io, int pair,
+                       const RowMap& map, int64_t rows, int64_t d, int vec,
+                       cudaStream_t st) {
+  const int64_t n4 = d / 4;
+  if (!vec || n4 > 2 * kWarp)
+    return launch_rows<BITS, DELTA, kWarp, 0>(args, io, pair, map, rows, d,
+                                              vec, st);
+  if (n4 <= 8)
+    return launch_rows<BITS, DELTA, 8, 1>(args, io, pair, map, rows, d, vec,
+                                          st);
+  if (n4 <= 16)
+    return launch_rows<BITS, DELTA, 16, 1>(args, io, pair, map, rows, d, vec,
+                                           st);
+  return launch_rows<BITS, DELTA, kWarp, 2>(args, io, pair, map, rows, d, vec,
+                                            st);
+}
+
+template <bool DELTA>
+int launch_encode(const EncodeArgs& args, const EncodeIO& io, int pair,
+                  const RowMap& map, int64_t rows, int64_t d, int bits,
+                  int vec, cudaStream_t st) {
+  if (rows >= (int64_t(1) << 31) || (pair && map.rpb < 1))
+    return int(cudaErrorInvalidValue);
   switch (bits) {
-    case 2: decode_flat<2, ACC, OutT><<<grid, block, 0, st>>>(packed, scale, m, out, rows, d, vec); break;
-    case 4: decode_flat<4, ACC, OutT><<<grid, block, 0, st>>>(packed, scale, m, out, rows, d, vec); break;
-    case 8: decode_flat<8, ACC, OutT><<<grid, block, 0, st>>>(packed, scale, m, out, rows, d, vec); break;
+    case 2: return launch_encode_bits<2, DELTA>(args, io, pair, map, rows, d, vec, st);
+    case 4: return launch_encode_bits<4, DELTA>(args, io, pair, map, rows, d, vec, st);
+    case 8: return launch_encode_bits<8, DELTA>(args, io, pair, map, rows, d, vec, st);
     default: return int(cudaErrorInvalidValue);
   }
+}
+
+template <int BITS>
+int launch_dequant_accumulate(const uint8_t* packed, const float* scale,
+                              const float* m, float* out, int64_t rows,
+                              int64_t d, int vec, cudaStream_t st) {
+  const int64_t items = vec ? rows * d / 4 : rows * d / (8 / BITS);
+  dequant_accumulate_flat<BITS><<<decode_blocks(items), 256, 0, st>>>(
+      packed, scale, m, out, rows, d, vec);
   return int(cudaGetLastError());
 }
 
@@ -761,6 +1066,51 @@ int launch_unpack_sums(const uint8_t* packed, int32_t* out, int64_t n,
   }
 }
 
+// One wave: the grid is at most the blocks the card holds at once
+// (shared by the pair), and at least a segment a warp where there are
+// that many.  A block's run of segments stays within 32-bit offsets of
+// its first row (per * SEG + d < 2^31; more blocks where it would not).
+template <int BITS, typename OutT>
+int launch_unpack_dequant_bits(const DecodeIO<OutT>& io, int pair,
+                               int64_t n, int64_t d, uint32_t mul,
+                               uint32_t shift, int vec, cudaStream_t st) {
+  constexpr int SEG = kSegBytes * (8 / BITS);
+  static int cache[64] = {};
+  int resident = 0;
+  const cudaError_t err =
+      resident_blocks(unpack_dequant_flat<BITS, OutT>, cache, resident);
+  if (err != cudaSuccess) return int(err);
+  const int64_t segs = vec ? n / SEG : 0;
+  const int64_t want = vec ? (segs + 7) / 8 : (n / (8 / BITS) + 255) / 256;
+  const int64_t cap = resident / pair > 1 ? resident / pair : 1;
+  int64_t blocks = want < 1 ? 1 : want < cap ? want : cap;
+  int64_t per = (segs + blocks - 1) / blocks;
+  if (vec && d >= (int64_t(1) << 30)) return int(cudaErrorInvalidValue);
+  while (vec && per * SEG + d >= (int64_t(1) << 31)) {
+    blocks *= 2;
+    per = (segs + blocks - 1) / blocks;
+  }
+  const dim3 grid(static_cast<unsigned>(blocks),
+                  static_cast<unsigned>(pair));
+  unpack_dequant_flat<BITS, OutT><<<grid, 256, 0, st>>>(io, n, d, per, mul,
+                                                        shift, vec);
+  return int(cudaGetLastError());
+}
+
+template <typename OutT>
+int launch_unpack_dequant(const DecodeIO<OutT>& io, int pair, int64_t n,
+                          int64_t d, int bits, uint32_t mul, uint32_t shift,
+                          int vec, cudaStream_t st) {
+  switch (bits) {
+    case 2: return launch_unpack_dequant_bits<2>(io, pair, n, d, mul, shift, vec, st);
+    case 4: return launch_unpack_dequant_bits<4>(io, pair, n, d, mul, shift, vec, st);
+    case 8: return launch_unpack_dequant_bits<8>(io, pair, n, d, mul, shift, vec, st);
+    default: return int(cudaErrorInvalidValue);
+  }
+}
+
+__global__ void empty_kernel() {}
+
 }  // namespace
 
 extern "C" {
@@ -772,12 +1122,13 @@ int rt_delta_quantize_pack(const void* a, const void* m, const void* u,
                            const void* seed, void* packed, void* scale,
                            void* m_new, long long rows, long long d,
                            int bits, int vec, void* stream) {
-  return launch_encode<true>(
+  const EncodeArgs args = {
       static_cast<const float*>(a), static_cast<const float*>(m),
       static_cast<const float*>(u), static_cast<const int32_t*>(seed),
       static_cast<uint8_t*>(packed), static_cast<float*>(scale),
-      static_cast<float*>(m_new), rows, d, bits, vec,
-      static_cast<cudaStream_t>(stream));
+      static_cast<float*>(m_new)};
+  return launch_encode<true>(args, EncodeIO{}, 0, RowMap{}, rows, d, bits,
+                             vec, static_cast<cudaStream_t>(stream));
 }
 
 // packed (rows, d*bits/8) u8, scale (rows,) f32, m (rows, d) f32 -> out f32
@@ -785,38 +1136,79 @@ int rt_dequant_unpack_accumulate(const void* packed, const void* scale,
                                  const void* m, void* out, long long rows,
                                  long long d, int bits, int vec,
                                  void* stream) {
-  return launch_decode<true, float>(
-      static_cast<const uint8_t*>(packed), static_cast<const float*>(scale),
-      static_cast<const float*>(m), static_cast<float*>(out), rows, d, bits,
-      vec, static_cast<cudaStream_t>(stream));
-}
-
-// x, u: (rows, d) f32, seed (2,) i32 (either or both null) -> packed
-// u8, scale (rows,) f32
-int rt_quantize_pack(const void* x, const void* u, const void* seed,
-                     void* packed, void* scale, long long rows, long long d,
-                     int bits, int vec, void* stream) {
-  return launch_encode<false>(
-      static_cast<const float*>(x), nullptr, static_cast<const float*>(u),
-      static_cast<const int32_t*>(seed), static_cast<uint8_t*>(packed),
-      static_cast<float*>(scale), nullptr, rows, d, bits, vec,
-      static_cast<cudaStream_t>(stream));
-}
-
-// packed (rows, d*bits/8) u8, scale (rows,) f32 -> out (rows, d), f32 or
-// bf16 (out_bf16 != 0)
-int rt_unpack_dequant(const void* packed, const void* scale, void* out,
-                      long long rows, long long d, int bits, int out_bf16,
-                      int vec, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uint8_t* p = static_cast<const uint8_t*>(packed);
   const float* s = static_cast<const float*>(scale);
-  if (out_bf16)
-    return launch_decode<false, __nv_bfloat16>(
-        p, s, nullptr, static_cast<__nv_bfloat16*>(out), rows, d, bits, vec,
-        st);
-  return launch_decode<false, float>(p, s, nullptr, static_cast<float*>(out),
-                                     rows, d, bits, vec, st);
+  const float* mp = static_cast<const float*>(m);
+  float* o = static_cast<float*>(out);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (bits) {
+    case 2: return launch_dequant_accumulate<2>(p, s, mp, o, rows, d, vec, st);
+    case 4: return launch_dequant_accumulate<4>(p, s, mp, o, rows, d, vec, st);
+    case 8: return launch_dequant_accumulate<8>(p, s, mp, o, rows, d, vec, st);
+    default: return int(cudaErrorInvalidValue);
+  }
+}
+
+// x0 [, x1]: (rows, d) f32, each with noise u (rows, d) f32 or seed (2,)
+// i32 (both null: round to nearest).  rpb == 0: one tensor (x1 null),
+// its rows written to the same rows of packed0 (rows, d*bits/8) u8 and
+// scale0 (rows,) f32 (B3 per call).  rpb >= 1: the KV append of one or
+// two tensors in place: row r of x_i writes its packed codes and its
+// scale to row base + r % rpb of entry r / rpb of the stores packed_i and
+// scale_i, whose entries lie pstride bytes and sstride scales apart.
+int rt_quantize_pack(const void* x0, const void* x1, const void* u0,
+                     const void* u1, const void* seed0, const void* seed1,
+                     void* packed0, void* packed1, void* scale0,
+                     void* scale1, long long rows, long long d,
+                     long long rpb, long long base, long long pstride,
+                     long long sstride, int bits, int vec, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (rpb == 0) {
+    if (x1) return int(cudaErrorInvalidValue);
+    const EncodeArgs args = {
+        static_cast<const float*>(x0), nullptr,
+        static_cast<const float*>(u0), static_cast<const int32_t*>(seed0),
+        static_cast<uint8_t*>(packed0), static_cast<float*>(scale0), nullptr};
+    return launch_encode<false>(args, EncodeIO{}, 0, RowMap{}, rows, d, bits,
+                                vec, st);
+  }
+  const EncodeIO io = {
+      {static_cast<const float*>(x0), static_cast<const float*>(x1)},
+      {static_cast<const float*>(u0), static_cast<const float*>(u1)},
+      {static_cast<const int32_t*>(seed0), static_cast<const int32_t*>(seed1)},
+      {static_cast<uint8_t*>(packed0), static_cast<uint8_t*>(packed1)},
+      {static_cast<float*>(scale0), static_cast<float*>(scale1)}};
+  return launch_encode<false>(EncodeArgs{}, io, x1 ? 2 : 1,
+                              RowMap{rpb, base, pstride, sstride}, rows, d,
+                              bits, vec, st);
+}
+
+// packed_i (rows, d*bits/8) u8, scale_i (rows,) f32 -> out_i (rows, d),
+// f32 or bf16 (out_bf16 != 0), for one tensor (packed1 null) or two of
+// one shape; mul and shift: _div_magic(d), read with vec
+int rt_unpack_dequant(const void* packed0, const void* packed1,
+                      const void* scale0, const void* scale1, void* out0,
+                      void* out1, long long rows, long long d, int bits,
+                      int out_bf16, unsigned int mul, unsigned int shift,
+                      int vec, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int pair = packed1 ? 2 : 1;
+  const uint8_t* p0 = static_cast<const uint8_t*>(packed0);
+  const uint8_t* p1 = static_cast<const uint8_t*>(packed1);
+  const float* s0 = static_cast<const float*>(scale0);
+  const float* s1 = static_cast<const float*>(scale1);
+  if (out_bf16) {
+    const DecodeIO<__nv_bfloat16> io = {
+        {p0, p1}, {s0, s1},
+        {static_cast<__nv_bfloat16*>(out0), static_cast<__nv_bfloat16*>(out1)}};
+    return launch_unpack_dequant(io, pair, rows * d, d, bits, mul, shift, vec,
+                                 st);
+  }
+  const DecodeIO<float> io = {
+      {p0, p1}, {s0, s1},
+      {static_cast<float*>(out0), static_cast<float*>(out1)}};
+  return launch_unpack_dequant(io, pair, rows * d, d, bits, mul, shift, vec,
+                               st);
 }
 
 // x, u: (rows, d) f32, seed (2,) i32 (u and seed null: round to
@@ -898,6 +1290,12 @@ int rt_unpack_sums(const void* packed, void* out, long long n, int sw,
   return launch_unpack_sums(static_cast<const uint8_t*>(packed),
                             static_cast<int32_t*>(out), n, sw, vec,
                             static_cast<cudaStream_t>(stream));
+}
+
+// an empty kernel: what one launch costs the caller's timing harness
+int rt_launch_floor(void* stream) {
+  empty_kernel<<<1, kWarp, 0, static_cast<cudaStream_t>(stream)>>>();
+  return int(cudaGetLastError());
 }
 
 }  // extern "C"

@@ -59,6 +59,29 @@ def unpack_dequant(packed, scale, *, bits: int,
     return out.reshape(*shape[:-1], out.shape[-1])
 
 
+def unpack_dequant_pair(packed, scale, *, bits: int,
+                        out_dtype: torch.dtype = torch.float32):
+    """`unpack_dequant` of a pair of one shape (k's and v's stores) in
+    one launch; returns the pair of values."""
+    shape = packed[0].shape
+    outs = _qp.unpack_dequant_pair(
+        tuple(_rows(p, shape[-1]) for p in packed),
+        tuple(_rows(s, 1) for s in scale), bits=bits, out_dtype=out_dtype)
+    return tuple(o.reshape(*shape[:-1], o.shape[-1]) for o in outs)
+
+
+def quantize_pack_into(x, packed, scale, pos: int, u=(None, None),
+                       seed=(None, None), *, bits: int) -> None:
+    """Fused absmax -> quantize -> pack of a pair of fresh (B, s, N, d)
+    tensors, written in place into rows [pos, pos + s) of their stores
+    (B, S, N, pw) u8 and (B, S, N) f32 in one launch: the KV append of
+    k and v."""
+    _qp.quantize_pack_into(
+        tuple(t.contiguous() for t in x), packed, scale, pos,
+        tuple(None if t is None else t.contiguous() for t in u), seed,
+        bits=bits)
+
+
 def quantize_pack_scaled(x, scale, u=None, *, bits: int):
     """Packed codes against a given row scale for any (..., d) tensor."""
     shape = x.shape

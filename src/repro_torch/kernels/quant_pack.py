@@ -4,9 +4,12 @@ One wrapper per kernel, on row-major ``(R, d)`` tensors:
 
 * `delta_quantize_pack`       — AQ-SGD sender (delta -> wire + m_new);
 * `dequant_unpack_accumulate` — AQ-SGD receiver (wire + m -> m_new);
-* `quantize_pack`             — DirectQ sender, backward-gradient
-  quantize and KV-cache append;
-* `unpack_dequant`            — the matching receiver and KV-cache read;
+* `quantize_pack`             — DirectQ sender and backward-gradient
+  quantize; `quantize_pack_into`, the same kernel, is the KV-cache
+  append of k and v in one launch, written in place into the stores;
+* `unpack_dequant`            — the matching receiver;
+  `unpack_dequant_pair`, the same kernel, is the KV-cache read of k and
+  v in one launch;
 * `quantize_pack_scaled` / `unpack_codes` — the gradient wire's legacy
   pair (`core.boundary.encode_with_scale` / `decode_codes`, on no
   trainer's path): packed codes against a given (shared) row scale, and
@@ -25,16 +28,19 @@ draw that noise themselves from a ``seed``, a (2,) int32 tensor on the
 data's device (Philox4x32-10 over each element's index; the plain
 version is `ref.oncore_uniform_ref`).  At most one of the two is given.
 
-A tensor on the CPU goes to the plain version in `repro_torch.kernels.ref`.
-A CUDA tensor goes to the kernel, launched on the current stream, or
-the wrapper raises; nothing falls back.  `LAUNCHES` counts kernel
-launches per wrapper (the CPU path does not count), so a run can show
-that its path went through the kernels (``flash_attention_fwd``, the
-attention kernel of `repro_torch.kernels.flash_attention`, counts here
-too; ``oncore_uniform`` counts the encoders' launches with a seed).
+A tensor on the CPU goes to the plain version in `repro_torch.kernels.ref`
+(for the pair calls, the two per-tensor plain calls, plus the append's
+slice writes).  A CUDA tensor goes to the kernel, launched on the
+current stream, or the wrapper raises; nothing falls back.  `LAUNCHES`
+counts kernel launches per wrapper (the CPU path does not count), so a
+run can show that its path went through the kernels (a pair call is
+one launch; ``flash_attention_fwd``, the attention kernel of
+`repro_torch.kernels.flash_attention`, counts here too;
+``oncore_uniform`` counts the encoders' launches with a seed).
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -194,10 +200,134 @@ def quantize_pack(x: torch.Tensor, u: Optional[torch.Tensor] = None, *,
                          device=x.device)
     scale = torch.empty((r, 1), dtype=torch.float32, device=x.device)
     if r:
-        _launch("quantize_pack", "rt_quantize_pack", x.data_ptr(), _ptr(u),
-                _ptr(seed), packed.data_ptr(), scale.data_ptr(), r, d, bits,
+        # one tensor, its rows written to the same rows of the outputs
+        # (no row map: rpb 0)
+        _launch("quantize_pack", "rt_quantize_pack", x.data_ptr(), None,
+                _ptr(u), None, _ptr(seed), None, packed.data_ptr(), None,
+                scale.data_ptr(), None, r, d, 0, 0, 0, 0, bits,
                 _vec(d, x, u, packed), seeded=seed is not None)
     return packed, scale
+
+
+def _pair(name: str, t) -> tuple:
+    if not isinstance(t, (tuple, list)) or len(t) != 2:
+        raise TypeError(f"{name}: expected a pair (k, v), got {t!r}")
+    return tuple(t)
+
+
+def _check_store(t: torch.Tensor, name: str, dtype: torch.dtype,
+                 shape: tuple):
+    """A layer store (B, S, ...): dtype and shape, each batch entry
+    contiguous, entries apart by the batch stride (not overlapping)."""
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+    inner = [math.prod(shape[i + 1:]) for i in range(1, len(shape))]
+    if list(t.stride()[1:]) != inner or \
+            (shape[0] > 1 and t.stride(0) < math.prod(shape[1:])):
+        raise ValueError(f"{name}: strides {t.stride()} are not a store's "
+                         f"(batch entries contiguous, not overlapping)")
+
+
+def quantize_pack_into(x, packed, scale, pos: int, u=(None, None),
+                       seed=(None, None), *, bits: int) -> None:
+    """The KV append of k and v in one launch, written in place.
+
+    ``x``: a pair of fresh (B, s, N, g) f32 tensors, rows of one scale
+    group each; ``packed`` and ``scale``: a pair of layer stores (B, S,
+    N, g*bits/8) u8 and (B, S, N) f32 of one shape and strides, each
+    batch entry contiguous.  Row (b, t, j) of x[i] is quantized and
+    packed (`quantize_pack`) into row (b, pos + t, j) of packed[i] and
+    scale[i]; nothing else in the stores is written.  ``u``: a pair of
+    uniform noise of x's shape, or ``seed``: a pair of (2,) int32 (the
+    counter is each element's index in its own tensor's (B*s*N, g) row
+    view), or neither."""
+    x, packed, scale = _pair("x", x), _pair("packed", packed), \
+        _pair("scale", scale)
+    u, seed = _pair("u", u), _pair("seed", seed)
+    if x[0].dim() != 4:
+        raise ValueError(f"x: expected (B, s, N, g), got "
+                         f"{tuple(x[0].shape)}")
+    b, s, n, g = x[0].shape
+    _check_bits(bits, g)
+    if packed[0].dim() != 4:
+        raise ValueError(f"packed: expected (B, S, N, pw), got "
+                         f"{tuple(packed[0].shape)}")
+    cache = packed[0].shape[1]
+    for i in range(2):
+        _noise_check(u[i], seed[i])
+        _check(x[i], "x", torch.float32, (b, s, n, g))
+        if u[i] is not None:
+            _check(u[i], "u", torch.float32, (b, s, n, g))
+        if seed[i] is not None:
+            _check(seed[i], "seed", torch.int32, (2,))
+        _check_store(packed[i], "packed", torch.uint8,
+                     (b, cache, n, g * bits // 8))
+        _check_store(scale[i], "scale", torch.float32, (b, cache, n))
+    if packed[0].stride() != packed[1].stride() \
+            or scale[0].stride() != scale[1].stride():
+        raise ValueError("k's and v's stores must have the same strides")
+    if not 0 <= pos <= pos + s <= cache:
+        raise ValueError(f"rows [{pos}, {pos + s}) do not fit a store of "
+                         f"{cache}")
+    rows = b * s * n
+    if not _on_cuda(*x, *packed, *scale, *u, *seed):
+        ref.quantize_pack_into_ref(
+            x, packed, scale, pos, bits,
+            tuple(None if ui is None and si is None else
+                  _plain_noise(ui, si, rows, g).reshape(b, s, n, g)
+                  for ui, si in zip(u, seed)))
+        return
+    if rows:
+        # the packed words the kernel stores are at most 4 bytes
+        vec = _vec(g, *x, *u) and packed[0].stride(0) % 4 == 0 and \
+            all(p.data_ptr() % 4 == 0 for p in packed)
+        _launch("quantize_pack", "rt_quantize_pack", *map(_ptr, x),
+                *map(_ptr, u), *map(_ptr, seed), *map(_ptr, packed),
+                *map(_ptr, scale), rows, g, s * n, pos * n,
+                packed[0].stride(0), scale[0].stride(0), bits, int(vec),
+                seeded=any(t is not None for t in seed))
+
+
+def _div_magic(d: int) -> tuple:
+    """(mul, shift) such that ``((n * mul) >> 32) >> shift == n // d``
+    for every 0 <= n < 2**31, for 2 <= d < 2**31: mul = ceil(2**(31 + l)
+    / d) < 2**32 and shift = l - 1, l = ceil(log2 d) (the round-up
+    method of Granlund and Montgomery, PLDI'94: the error n * (mul * d -
+    2**(31 + l)) / (d * 2**(31 + l)) stays under 1 / d).  The store read
+    finds a value's row with it in 32-bit integer work."""
+    if not 2 <= d < 2 ** 31:
+        raise ValueError(f"d={d} is outside [2, 2**31)")
+    lg = (d - 1).bit_length()
+    return -(-(1 << (31 + lg)) // d), lg - 1
+
+
+def _unpack_dequant(packed: tuple, scale: tuple, bits: int,
+                    out_dtype: torch.dtype) -> tuple:
+    """One launch of the store read over one or two (packed, scale) of
+    one shape, on the card."""
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"unpack_dequant writes float32 or bfloat16, "
+                        f"not {out_dtype}")
+    r, pw = packed[0].shape
+    _check_bits(bits, 8 // bits)
+    d = pw * (8 // bits)
+    for p, s in zip(packed, scale):
+        _check(p, "packed", torch.uint8, (r, pw))
+        _check(s, "scale", torch.float32, (r, 1))
+    out = tuple(torch.empty((r, d), dtype=out_dtype, device=p.device)
+                for p in packed)
+    if r:
+        vec = _vec(d, *packed, *out)
+        mul, shift = _div_magic(d) if vec else (0, 0)
+        pad = (None,) * (2 - len(packed))       # one tensor: nulls
+        _launch("unpack_dequant", "rt_unpack_dequant",
+                *map(_ptr, packed + pad), *map(_ptr, scale + pad),
+                *map(_ptr, out + pad), r, d, bits,
+                int(out_dtype == torch.bfloat16), mul, shift, vec)
+    return out
 
 
 def unpack_dequant(packed: torch.Tensor, scale: torch.Tensor, *, bits: int,
@@ -206,20 +336,18 @@ def unpack_dequant(packed: torch.Tensor, scale: torch.Tensor, *, bits: int,
     out_dtype (float32 or bfloat16)."""
     if not _on_cuda(packed, scale):
         return ref.unpack_dequant_ref(packed, scale, bits, out_dtype)
-    if out_dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"unpack_dequant writes float32 or bfloat16, "
-                        f"not {out_dtype}")
-    r, pw = packed.shape
-    _check_bits(bits, 8 // bits)
-    d = pw * (8 // bits)
-    _check(packed, "packed", torch.uint8, (r, pw))
-    _check(scale, "scale", torch.float32, (r, 1))
-    out = torch.empty((r, d), dtype=out_dtype, device=packed.device)
-    if r:
-        _launch("unpack_dequant", "rt_unpack_dequant", packed.data_ptr(),
-                scale.data_ptr(), out.data_ptr(), r, d, bits,
-                int(out_dtype == torch.bfloat16), _vec(d, packed, out))
-    return out
+    return _unpack_dequant((packed,), (scale,), bits, out_dtype)[0]
+
+
+def unpack_dequant_pair(packed, scale, *, bits: int,
+                        out_dtype: torch.dtype = torch.float32) -> tuple:
+    """The store read of k and v in one launch: pairs of packed (R, pw)
+    u8 and scale (R, 1) f32 of one shape -> a pair of values (R, pw *
+    8/bits) in out_dtype, each what `unpack_dequant` returns."""
+    packed, scale = _pair("packed", packed), _pair("scale", scale)
+    if not _on_cuda(*packed, *scale):
+        return ref.unpack_dequant_pair_ref(packed, scale, bits, out_dtype)
+    return _unpack_dequant(packed, scale, bits, out_dtype)
 
 
 def quantize_pack_scaled(x: torch.Tensor, scale: torch.Tensor,

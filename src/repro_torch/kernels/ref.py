@@ -117,6 +117,29 @@ def unpack_dequant_ref(packed: torch.Tensor, scale: torch.Tensor, bits: int,
                         out_dtype)
 
 
+def unpack_dequant_pair_ref(packed, scale, bits: int,
+                            out_dtype: torch.dtype = torch.float32) -> tuple:
+    """The KV store read of k and v (`quant_pack.unpack_dequant_pair`):
+    `unpack_dequant_ref` of each (packed, scale)."""
+    return tuple(unpack_dequant_ref(p, s, bits, out_dtype)
+                 for p, s in zip(packed, scale))
+
+
+def quantize_pack_into_ref(x, packed, scale, pos: int, bits: int,
+                           u=(None, None)) -> None:
+    """The KV append of k and v (`quant_pack.quantize_pack_into`): each
+    fresh x (B, s, N, g) through `quantize_pack_ref` as rows of one
+    scale group (noise u of x's shape, or None), its codes and scales
+    written in place into rows [pos, pos + s) of its store, packed (B,
+    S, N, pw) u8 and scale (B, S, N) f32."""
+    for xi, pi, si, ui in zip(x, packed, scale, u):
+        b, s, n, g = xi.shape
+        codes, sc = quantize_pack_ref(
+            xi.reshape(-1, g), bits, None if ui is None else ui.reshape(-1, g))
+        pi[:, pos:pos + s] = codes.reshape(b, s, n, -1)
+        si[:, pos:pos + s] = sc.reshape(b, s, n)
+
+
 def quantize_codes_scaled_ref(x: torch.Tensor, scale: torch.Tensor,
                               bits: int, u: Optional[torch.Tensor] = None,
                               pack: bool = False):

@@ -19,7 +19,11 @@ decode (S = 1) step.  Its serving-plane hooks are the JAX package's:
   the quantized layout (``{k,v}_codes``/``{k,v}_scale``,
   `repro_torch.serving.kvcache`): each layer dequantizes its whole
   store, attends with the step's fresh raw rows scattered in, then
-  encodes only those fresh rows back.
+  encodes only those fresh rows back.  k and v go together: one store
+  read for both (`KVCodec.decode_pair`) and one append for both
+  (`KVCodec.append_pair`), which writes the codes and scales in place
+  at the write head, so on the card a layer runs two KV kernels and
+  the two scatters.
 
 Unlike the JAX package, caches are updated IN PLACE (a decode step
 writes B rows per layer instead of copying the whole store) and the
@@ -181,19 +185,20 @@ class Transformer(nn.Module):
         for i, blk in enumerate(self.layers):
             window = cfg.layer_window(i, cache_len)
             if quant:
-                ck = kv_codec.decode(caches["k_codes"][i],
-                                     caches["k_scale"][i], cfg.torch_dtype)
-                cv = kv_codec.decode(caches["v_codes"][i],
-                                     caches["v_scale"][i], cfg.torch_dtype)
+                ck, cv = kv_codec.decode_pair(
+                    (caches["k_codes"][i], caches["v_codes"][i]),
+                    (caches["k_scale"][i], caches["v_scale"][i]),
+                    cfg.torch_dtype)
             else:
                 ck, cv = caches["k"][i], caches["v"][i]
             h, fk, fv = blk(h, positions, window, ck, cv, pos0)
             if quant:
                 # encode ONLY this step's fresh rows: old tokens keep
                 # their original single encoding
-                for name, fresh in (("k", fk), ("v", fv)):
-                    kv_codec.append(caches[name + "_codes"][i],
-                                    caches[name + "_scale"][i], fresh, pos0)
+                kv_codec.append_pair(
+                    (caches["k_codes"][i], caches["v_codes"][i]),
+                    (caches["k_scale"][i], caches["v_scale"][i]),
+                    (fk, fv), pos0)
             if boundary_fn is not None and (i + 1) % per == 0 \
                     and i + 1 < n:
                 boundary_state, h = boundary_fn(boundary_state, h,

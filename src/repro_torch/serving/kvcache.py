@@ -13,6 +13,12 @@ scatter the step's fresh raw rows in, attends, then encodes ONLY those
 rows back, so every token is encoded exactly once.  All quantization
 goes through `repro_torch.core.boundary`, so on a CUDA tensor the
 append runs the ``quantize_pack`` kernel and the read ``unpack_dequant``.
+The model calls the pair forms, `KVCodec.decode_pair` and
+`KVCodec.append_pair`: k's and v's stores are read in one launch, and
+k's and v's fresh rows encoded in one launch that writes the codes and
+scales straight into the stores at the write head (no temporary, no
+copy kernel).  The per-tensor `decode` and `append`, the JAX package's
+methods, stay, and the pairs equal them bit for bit.
 """
 from __future__ import annotations
 
@@ -122,3 +128,31 @@ class KVCodec:
         n = values.shape[1]
         codes[:, pos:pos + n] = c
         scale[:, pos:pos + n] = s
+
+    def decode_pair(self, codes, scales, dtype=torch.bfloat16):
+        """`decode` of k's and v's stores together: a pair of codes (...,
+        G, pw) and a pair of scales (..., G) of one shape -> a pair of
+        values (..., head_dim); one kernel launch on the cuda backend."""
+        g = self._group_of(codes[0].shape[-1])
+        vals = B.decode_pair(codes, tuple(s[..., None] for s in scales),
+                             bits=self.bits, d=g, dtype=dtype,
+                             backend=self.backend)
+        return tuple(v.reshape(*c.shape[:-2], -1)
+                     for v, c in zip(vals, codes))
+
+    def append_pair(self, codes, scales, values, pos: int, *,
+                    generator=None):
+        """`append` of k's and v's fresh ``values`` (a pair of (B, s, Hk,
+        head_dim)) into their layer stores, a pair of ``codes`` (B, S,
+        Hk, G, pw) and ``scales`` (B, S, Hk, G), IN PLACE at ``pos``:
+        one kernel launch on the cuda backend, which writes the codes and
+        scales straight into the stores.  The same bits as ``append`` of
+        k, then of v (a stochastic codec draws k's noise first)."""
+        g = self.group(values[0].shape[-1])
+        b, cache = codes[0].shape[:2]
+        B.encode_pair_into(
+            tuple(v.reshape(*v.shape[:2], -1, g) for v in values),
+            tuple(c.view(b, cache, -1, c.shape[-1]) for c in codes),
+            tuple(s.view(b, cache, -1) for s in scales), pos,
+            bits=self.bits, stochastic=self.stochastic,
+            generator=generator, backend=self.backend)

@@ -28,7 +28,9 @@ last 16-byte group, at every sum width.  B10 is also checked at each
 head dim with Sq and Sk off its tiles, q scaled by 16 under a softcap
 of 50 (f32 against the plain formula in float64: the plain version's
 own f32 rounding is past 2e-5 there), and on f32 k and v rows that are
-not 16-byte aligned.
+not 16-byte aligned.  The KV plane's pair calls (k and v in one
+launch; the append written in place into the stores) equal their plain
+versions and two per-tensor calls at both archs' KV shapes.
 """
 import math
 
@@ -281,6 +283,120 @@ def test_code_unpacker_tails_match_plain(card, bits):
         _equal([TP.unpack_codes(packed, bits=bits)], [want])
         _equal([TP.unpack_codes(_misaligned_u8(packed), bits=bits)], [want])
         assert TP.LAUNCHES["unpack_codes"] == 2
+
+
+# the KV plane's pair calls, (B, S, N, g, s, pos): gpt2-xl's layer store
+# (batch 8, cache 160, 25 heads of 64) with a decode append and the
+# prefill's, gemma2-9b's (batch 2, cache 8192, 8 heads of 256) with a
+# decode append at its last row and a prefill run, a group_d of 32 over
+# a ragged row count, and rows too wide for registers (the two-pass path)
+KV_PAIR_SHAPES = [(8, 160, 25, 64, 1, 150), (8, 160, 25, 64, 128, 0),
+                  (2, 8192, 8, 256, 1, 8191), (2, 8192, 8, 256, 8, 8160),
+                  (3, 7, 10, 32, 2, 5), (1, 5, 3, 1600, 2, 1)]
+
+
+def _kv_pair_inputs(dev, b, cache, n, g, s, bits, seed):
+    """Fresh k and v rows (B, s, N, g), and two stores full of random
+    bytes and scales."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = tuple(torch.randn(b, s, n, g, generator=gen, device=dev) * 3
+              for _ in range(2))
+    x[0][0, 0, 0] = 0.0                               # an all-zero row
+    packed = tuple(torch.randint(0, 256, (b, cache, n, g * bits // 8),
+                                 generator=gen, device=dev,
+                                 dtype=torch.uint8) for _ in range(2))
+    scale = tuple(torch.rand(b, cache, n, generator=gen, device=dev) + 0.5
+                  for _ in range(2))
+    return x, packed, scale
+
+
+@pytest.mark.parametrize("bits", BITS)
+def test_kv_pair_kernels_match_plain(card, bits):
+    """The pair append, in place, and the pair read, one launch each,
+    bit-equal to their plain versions and to two per-tensor kernel calls
+    (plus the slice writes): deterministic, with noise and with seeds,
+    on the vector path, with g % 4 != 0 and on misaligned x and stores
+    (the scalar paths); rows outside [pos, pos + s) keep their bytes."""
+    odd = [] if bits == 2 else [(2, 6, 5, 66, 3, 2)]
+    for case in KV_PAIR_SHAPES + odd:
+        b, cache, n, g, s, pos = case
+        x, packed, scale = _kv_pair_inputs(card, b, cache, n, g, s, bits,
+                                           sum(case) + bits)
+        seeds = tuple(torch.tensor(sd, dtype=torch.int32, device=card)
+                      for sd in ((1, -2), (2 ** 31 - 1, 5)))
+        for noise in ("none", "u", "seed"):
+            u = tuple(torch.rand_like(t) for t in x) if noise == "u" \
+                else (None, None)
+            seed = seeds if noise == "seed" else (None, None)
+            plain_u = tuple(
+                TR.oncore_uniform_ref(sd, b * s * n, g).reshape(x[0].shape)
+                for sd in seeds) if noise == "seed" else u
+            want_p = tuple(p.clone() for p in packed)
+            want_s = tuple(t.clone() for t in scale)
+            TR.quantize_pack_into_ref(x, want_p, want_s, pos, bits, plain_u)
+            for misaligned in (False, True):
+                got_p = tuple(_offset(p) if misaligned
+                              else p.clone() for p in packed)
+                got_s = tuple(_offset(t) if misaligned
+                              else t.clone() for t in scale)
+                xx = tuple(_offset(t) for t in x) if misaligned else x
+                TP.reset_launches()
+                TP.quantize_pack_into(xx, got_p, got_s, pos, u, seed,
+                                      bits=bits)
+                assert TP.LAUNCHES["quantize_pack"] == 1
+                assert TP.LAUNCHES["oncore_uniform"] == (noise == "seed")
+                _equal(got_p + got_s, want_p + want_s)
+            for i in range(2):
+                p1, s1 = TP.quantize_pack(
+                    x[i].reshape(-1, g),
+                    None if u[i] is None else u[i].reshape(-1, g),
+                    bits=bits, seed=seed[i])
+                _equal([want_p[i][:, pos:pos + s], want_s[i][:, pos:pos + s]],
+                       [p1.reshape(b, s, n, -1), s1.reshape(b, s, n)])
+        rows = tuple(p.reshape(-1, p.shape[-1]) for p in want_p)
+        srows = tuple(t.reshape(-1, 1) for t in want_s)
+        for dt in (torch.float32, torch.bfloat16):
+            for misaligned in (False, True):
+                rr = tuple(_offset(r) for r in rows) if misaligned else rows
+                TP.reset_launches()
+                got = TP.unpack_dequant_pair(rr, srows, bits=bits,
+                                             out_dtype=dt)
+                assert TP.LAUNCHES["unpack_dequant"] == 1
+                _equal(got, TR.unpack_dequant_pair_ref(rows, srows, bits, dt))
+                _equal(got, [TP.unpack_dequant(r, t, bits=bits, out_dtype=dt)
+                             for r, t in zip(rows, srows)])
+
+
+@pytest.mark.parametrize("bits", BITS)
+def test_codecs_at_path_shapes(card, bits):
+    """B1, B3 and B4 per call at the paths' shapes: the hops (8, 1600)
+    and (2, 3584), the KV rows of gpt2-xl (200, 64) and gemma2 (16, 256),
+    the stores (32000, 64) and (131072, 256), the training boundary
+    (4096, 1600); stochastic, deterministic and seeded."""
+    seed = torch.tensor((7, -9), dtype=torch.int32, device=card)
+    for rows, d in [(8, 1600), (2, 3584), (200, 64), (16, 256),
+                    (4096, 1600), (25600, 64)]:
+        m = _x(rows, d, 1, card)
+        a = m + _x(rows, d, 2, card)
+        u = torch.rand(rows, d, device=card)
+        su = TR.oncore_uniform_ref(seed, rows, d)
+        for uu in (None, u):
+            _equal(TP.delta_quantize_pack(a, m, uu, bits=bits),
+                   TR.delta_quantize_pack_ref(a, m, bits, uu))
+            _equal(TP.quantize_pack(a, uu, bits=bits),
+                   TR.quantize_pack_ref(a, bits, uu))
+        _equal(TP.delta_quantize_pack(a, m, bits=bits, seed=seed),
+               TR.delta_quantize_pack_ref(a, m, bits, su))
+        _equal(TP.quantize_pack(a, bits=bits, seed=seed),
+               TR.quantize_pack_ref(a, bits, su))
+    for rows, d in [(32000, 64), (131072, 256), (4096, 1600), (37, 64)]:
+        packed = torch.randint(0, 256, (rows, d * bits // 8), device=card,
+                               dtype=torch.uint8)
+        scale = torch.rand(rows, 1, device=card) + 1e-3
+        for dt in (torch.float32, torch.bfloat16):
+            _equal([TP.unpack_dequant(packed, scale, bits=bits,
+                                      out_dtype=dt)],
+                   [TR.unpack_dequant_ref(packed, scale, bits, dt)])
 
 
 def test_counters_and_checks(card):

@@ -13,7 +13,9 @@ Phases, each printed on its own line:
    R=8, d=1600; KV rows R=8*25 per decode append, R=8*128*25 per
    prefill append, R=8*160*25 per store read, d=64; the DP gradient
    bucket R=877132, d=512), at bits 2/4/8, a ragged R, an odd d (the
-   scalar path), stochastic cases with shared noise, a bf16 read, both
+   scalar path), the encoders at their tiling's edges past 256 values
+   (d 260, 1600, 3584, 5120 and 8196, past the register cap; 1 and 5
+   rows), stochastic cases with shared noise, a bf16 read, both
    ``pack`` variants, zero scale rows and n = 1/2/3/5 workers; then each
    kernel's median device time (CUDA events around a CUDA graph of
    back-to-back launches), its byte bound and the plain version's time;
@@ -27,8 +29,9 @@ Phases, each printed on its own line:
    ``[oncore-bit-exact]``: the three encoders with a seed (B11, their
    own Philox noise) against the plain versions fed
    ``ref.oncore_uniform_ref``, BIT-EXACT, at three seeds, bits 2/4/8,
-   the serving and training shapes and the DP bucket, a d % 4 != 0 and
-   a misaligned view (the scalar path); ``[oncore-stats]``: their
+   the serving and training shapes, the tiling's edges past 256 values
+   and the DP bucket, a d % 4 != 0 and a misaligned view (the scalar
+   path); ``[oncore-stats]``: their
    10k-trial unbiasedness (5 sigma, tests/test_grad_compress.py's
    harness); and their ``[kernel-time]`` rows at the training path's
    shapes, beside the noise-input path they replace (the kernel
@@ -63,7 +66,8 @@ Phases, each printed on its own line:
    empty kernel through the same CUDA-graph timing harness, what a
    launch costs there; the pair launches' ``[kernel-time]`` rows at
    gpt2-xl's and gemma2's store read and decode append, beside B3 and
-   B4 per call at gemma2's shapes;
+   B4 per call at gemma2's shapes and B1 at gemma2's hop (2, 3584),
+   each with its time over the launch floor;
    ``[flash-check]``: the attention kernel (B10) against its plain
    version within a tolerance: the sweep of tests/test_flash_kernel.py
    (shapes, GQA and MQA, bf16, windows 9 and 17, softcaps 4 and 30,
@@ -249,6 +253,11 @@ TRAIN_LAYERS, TRAIN_STAGES, TRAIN_WORKERS = 12, 4, 2
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_SAMPLES, TRAIN_STEPS = 8, 1024, 16, 6
 DP_BUCKET = (877132, 512)      # 449,091,200 parameters in 512-wide rows
 TRAIN_ROWS = (TRAIN_BATCH // TRAIN_WORKERS * TRAIN_SEQ, D_MODEL)  # a worker
+# the encoders' tiling edges past 256 values (quant_pack._encode_tiling: a
+# block a row): the first width a block takes, the hops' and
+# stablelm-12b's d_model, and the first width past the register cap
+# (8192 values), which the block walks twice; 1 and 5 rows each
+WIDE_ROWS = [(r, d) for d in (260, 1600, 3584, 5120, 8196) for r in (1, 5)]
 # kernel launches per training step: 3 boundaries x 2 workers forward
 # (sender) and backward (gradient round trip); per worker one DP sender
 # and one n=1 decode for its carry, plus the n=2 mean
@@ -532,6 +541,9 @@ def kernel_phase(torch, qp, ref):
                       (name, 37, 64 + 4 - odd, bits, {})]
     cases += [(n, *hop, b, {"stochastic": True})
               for n in ("delta_quantize_pack",) for b in (2, 4, 8)]
+    cases += [(n, r, d, b, {"stochastic": st})
+              for n in ("delta_quantize_pack", "quantize_pack")
+              for r, d in WIDE_ROWS for b in (2, 4, 8) for st in (False, True)]
     cases += [("quantize_pack", *kv_append, b, {"stochastic": True})
               for b in (2, 4, 8)]
     cases += [("quantize_pack", *kv_prefill, 8, {}),
@@ -766,8 +778,10 @@ def oncore_phase(torch, qp, ref):
     cases = []
     for bits in (2, 4, 8):
         odd = [] if bits == 2 else [(3, 1602), (37, 66)]  # d % 4 != 0
-        for name, shapes in (("delta_quantize_pack", [hop, TRAIN_ROWS]),
-                             ("quantize_pack", [kv_append, TRAIN_ROWS])):
+        for name, shapes in (("delta_quantize_pack",
+                              [hop, TRAIN_ROWS] + WIDE_ROWS),
+                             ("quantize_pack",
+                              [kv_append, TRAIN_ROWS] + WIDE_ROWS)):
             cases += [(name, r, d, bits, {}) for r, d in shapes + odd]
             cases += [(name, 5, 1600, bits, {"offset": True})]
         for pack in (False, True):
@@ -1172,6 +1186,20 @@ def kv_pair_phase(torch, qp, ref, build, rows_out):
                          "plain_ms": plain_ms, "bound_ms": bound_ms,
                          "bound_by": bound_by, "library_ms": library_ms}}
         row["launch_floor_ms"] = floor
+    # B1 at gemma2-9b's decode hop, beside the launch floor
+    ms, plain_ms, library_ms, bound_ms, bound_by, nbytes = time_kernel(
+        torch, qp, ref, "delta_quantize_pack", G_BATCH, G_D, 4)
+    phase("kernel-time", name="delta_quantize_pack", path="gemma2",
+          rows=G_BATCH, d=G_D, bits=4, bytes=nbytes, ms=f"{ms:.6f}",
+          plain_ms=f"{plain_ms:.6f}", bound_ms=f"{bound_ms:.6f}",
+          bound_by=bound_by, library_ms=library_ms,
+          launch_floor_ms=f"{floor:.6f}",
+          ms_over_launch_floor=f"{ms / floor:.3f}")
+    rows_out["delta_quantize_pack"]["gemma2"] = {
+        "shape": [G_BATCH, G_D], "bits": 4, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+    for name in ("delta_quantize_pack", "dequant_unpack_accumulate"):
+        rows_out[name]["launch_floor_ms"] = floor
     return floor
 
 

@@ -43,11 +43,12 @@ _U = ctypes.c_uint
 SIGNATURES = {
     "quant_pack": {
         "rt_delta_quantize_pack": (_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I,
-                                   _I, _P),
+                                   _I, _I, _I, _P),
         "rt_dequant_unpack_accumulate": (_P, _P, _P, _P, _I64, _I64, _I, _I,
                                          _P),
         "rt_quantize_pack": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64,
-                             _I64, _I64, _I64, _I64, _I64, _I, _I, _P),
+                             _I64, _I64, _I64, _I64, _I64, _I, _I, _I, _I,
+                             _P),
         "rt_unpack_dequant": (_P, _P, _P, _P, _P, _P, _I64, _I64, _I, _I, _U,
                               _U, _I, _P),
         "rt_quantize_pack_scaled": (_P, _P, _P, _P, _I64, _I64, _I, _I, _P),

@@ -1,10 +1,12 @@
 // AQ-SGD boundary codec kernels for Hopper (sm_90a).
 //
 // Replaces eleven Pallas TPU kernels of src/repro/kernels/quant_pack.py:
-//   delta_quantize_pack        (quant_pack.py:190, _dqp_kernel)  -> encode_rows<BITS, true, LPR, NV>
+//   delta_quantize_pack        (quant_pack.py:190, _dqp_kernel)  -> encode_rows<BITS, true, LPR, NV>,
+//                                                                   encode_rows_block<BITS, true, NV> (wide rows)
 //   dequant_unpack_accumulate  (quant_pack.py:239, _dua_kernel)  -> dequant_accumulate_flat<BITS>
 //   quantize_pack              (quant_pack.py:278, _qp_kernel)   -> encode_rows<BITS, false, LPR, NV>,
-//                                                                   encode_rows_into<BITS, LPR, NV> (KV)
+//                                                                   encode_rows_into<BITS, LPR, NV> (KV),
+//                                                                   encode_rows_block[_into] (wide rows)
 //   unpack_dequant             (quant_pack.py:320, _ud_kernel)   -> unpack_dequant_flat<BITS, OutT>
 //   quantize_pack_scaled       (quant_pack.py:363, _qps_kernel)  -> codes_scaled_flat<BITS, false, true>
 //   unpack_codes               (quant_pack.py:399, _uc_kernel)   -> unpack_sums_flat<BITS>
@@ -15,7 +17,7 @@
 //   unpack_sums                (quant_pack.py:620, _us_kernel)   -> unpack_sums_flat<SW>
 // and the seed= path of the first, third and sixth (quant_pack.py:84
 // _oncore_uniform, with _noise_arg :100 and _kernel_noise :111):
-// encode_rows and codes_scaled_flat take a (2,) int32 seed in device
+// the encoders and codes_scaled_flat take a (2,) int32 seed in device
 // memory in place of a noise tensor and draw the uniforms of
 // stochastic rounding themselves (philox4x32_10 below).
 // The first four are the activation boundary's codecs; the next two are
@@ -46,22 +48,37 @@
 //
 // Design: the TPU kernels hold a 128-row tile in VMEM and walk a
 // sequential grid.  Here there is no tile and no order between blocks:
-//   * encoders (B1, B3): a lane group per row, a grid over rows; the
-//     ragged last block is masked by whole warps.  The row absmax is a
-//     shuffle max over the group (exact in any order, so the scale is
-//     bit-identical), then each lane quantizes and packs whole output
-//     words, so no atomics are needed.  The group is as wide as the
-//     row's float4s, up to a warp (8 lanes at a group_d of 32, 16 at
-//     gpt2-xl's head_dim 64, 32 from 128 on), so no lane idles on a
-//     narrow KV row.  Rows of up to 256 values (gemma2's head_dim too)
-//     stay in registers from the absmax to the quantize, so the row is
-//     read once; wider rows (the hops' 1600 and 3584) are walked twice
-//     by a warp, the same template with no registers held (NV = 0).
-//     One row body (encode_row) serves two kernels: encode_rows, one
-//     tensor a launch (B1, B3 per call, their seeded path) with every
-//     pointer a __restrict__ parameter, and encode_rows_into, the KV
-//     pair below, whose pointers come from a struct.  The body's
-//     pointers are __restrict__ in both, so the compiler may issue a
+//   * encoders (B1, B3): the row absmax is a max over the row's threads
+//     (exact in any order, so the scale is bit-identical), then each
+//     thread quantizes and packs whole output words, so no atomics are
+//     needed.  The wrapper picks the tiling from the row's width
+//     (quant_pack.py _encode_tiling) and the launcher dispatches to a
+//     fixed set of instances.  Rows of up to 256 values (the KV plane):
+//     a lane group a row, a grid over rows, the ragged last block masked
+//     by whole warps; the group is as wide as the row's float4s, up to a
+//     warp (8 lanes at a group_d of 32, 16 at gpt2-xl's head_dim 64, 32
+//     from 128 on, gemma2's 256 too), each lane holding its float4s in
+//     registers, so the row is read once.  Wider rows (the hops' 1600
+//     and 3584, the training boundary's 1600): a block a row, of the
+//     fewest whole warps T with NV float4s a thread covering the row (B3:
+//     NV 4, T 128 at 1600, 224 at 3584, at most 512; B1, which holds m
+//     beside the delta for m_new: NV 2, T 224 and 448, at most 1024), a,
+//     m and u (or the Philox draw) all issued before the first use, the
+//     absmax a warp max then one __syncthreads across the warps, and the
+//     row quantized and stored from registers: read once up to 8192
+//     values, walked twice by the block past that.  (A warp walking the
+//     row twice left the hop's eight rows on one SM, latency-bound at 10x
+//     the launch floor, and read the training boundary's 52 MB twice,
+//     past the L2.)  Rows without vec (d % 4 != 0, a misaligned view)
+//     take the scalar path: a warp a row, walked twice, one packed
+//     byte's values at a time.
+//     One lane-group row body (encode_row) serves two kernels:
+//     encode_rows, one tensor a launch (B1, B3 per call, their seeded
+//     path) with every pointer a __restrict__ parameter, and
+//     encode_rows_into, the KV pair below, whose pointers come from a
+//     struct; the block row body (encode_row_block) serves
+//     encode_rows_block and encode_rows_block_into the same way.  The
+//     bodies' pointers are __restrict__, so the compiler may issue a
 //     loop's next loads ahead of its stores.
 //   * the KV plane runs k and v in one launch each (blockIdx.y picks
 //     the tensor), and the append writes in place: an encoder row goes
@@ -156,6 +173,13 @@ namespace {
 constexpr int kWarp = 32;
 constexpr int kRowsPerBlock = 8;
 constexpr int kThreads = kWarp * kRowsPerBlock;
+// a row wider than 256 values: a block a row, kRowNV<DELTA> float4s a
+// thread (B1 holds m beside the delta, so half as many as B3), and at
+// most kRowValues / (4 * kRowNV) threads, so a block holds up to
+// kRowValues values in registers (quant_pack.py _encode_tiling)
+template <bool DELTA> constexpr int kRowNV = DELTA ? 2 : 4;
+constexpr int kRowValues = 8192;
+constexpr int kMaxRowThreads = 1024;
 constexpr float kEps = 1e-12f;
 
 template <int BITS>
@@ -307,20 +331,20 @@ __device__ __forceinline__ void encode4(float4 x, float4 mm, float4 uu,
 // into a predicated load issued beside x's.  `row` is the row's index in
 // its own tensor (the seeded counter); `live` false for a lane group past
 // the last row, which takes part in the shuffles only.  NV > 0 (vec
-// only): lane l holds the row's float4s l, l + LPR, ... (at most NV) in
-// registers from the absmax to the quantize, so the row is read once.
-// NV == 0: the row is walked twice, 32 lanes a row, float4s with vec,
-// else one packed byte's values at a time.  Every pointer is __restrict__
-// (no input aliases an output), so the compiler may issue a pass's next
-// loads before its last stores, and reads inputs through the read-only
-// path.
+// only, rows of up to 256 values): lane l holds the row's float4s l, l +
+// LPR, ... (at most NV) in registers from the absmax to the quantize, so
+// the row is read once.  NV == 0: the scalar path (no vec: d % 4 != 0 or
+// a misaligned view), the row walked twice by a warp, one packed byte's
+// values at a time.  Every pointer is __restrict__ (no input aliases an
+// output), so the compiler may issue a pass's next loads before its last
+// stores, and reads inputs through the read-only path.
 template <int BITS, bool DELTA, int LPR, int NV>
 __device__ __forceinline__ void encode_row(
     const float* __restrict__ ar, const float* __restrict__ mr,
     const float* __restrict__ ur, bool has_u,
     const int32_t* __restrict__ seed, uint8_t* __restrict__ pr,
     float* __restrict__ scale, int64_t srow, float* __restrict__ nr,
-    int64_t row, int lane, bool live, int64_t d, int vec) {
+    int64_t row, int lane, bool live, int64_t d) {
   constexpr int k = 8 / BITS;  // codes per byte
   static_assert(NV == 0 ? LPR == kWarp : NV * LPR <= 2 * kWarp, "tiling");
   const bool stoch = has_u || seed != nullptr;
@@ -367,46 +391,121 @@ __device__ __forceinline__ void encode_row(
   } else {
     // pass 1: row absmax of the delta (or of x)
     float mx = 0.0f;
-    if (vec) {
-      for (int64_t g = lane; g < d / 4; g += kWarp) {
-        float4 x = a4[g];
-        if (DELTA) x = sub4(x, m4[g]);
-        mx = fmaxf(mx, abs_max4(x));
-      }
-    } else {
-      for (int64_t i = lane; i < d; i += kWarp) {
-        const float x = DELTA ? __fsub_rn(ar[i], mr[i]) : ar[i];
-        mx = fmaxf(mx, fabsf(x));
-      }
+    for (int64_t i = lane; i < d; i += kWarp) {
+      const float x = DELTA ? __fsub_rn(ar[i], mr[i]) : ar[i];
+      mx = fmaxf(mx, fabsf(x));
     }
     const float s = fmaxf(group_max<kWarp>(mx), kEps);
     if (lane == 0) scale[srow] = s;
 
     // pass 2: quantize, pack whole bytes, advance the buffer
-    if (vec) {
-      for (int64_t g = lane; g < d / 4; g += kWarp) {
-        const float4 mm = DELTA ? m4[g] : zero;
-        float4 x = a4[g];
-        if (DELTA) x = sub4(x, mm);
-        encode4<BITS, DELTA>(x, mm, noise4(g), s, stoch, pr, nr, g);
-      }
-    } else {
-      for (int64_t j = lane; j < d / k; j += kWarp) {  // one output byte
-        uint32_t byte = 0;
+    for (int64_t j = lane; j < d / k; j += kWarp) {  // one output byte
+      uint32_t byte = 0;
 #pragma unroll
-        for (int q = 0; q < k; ++q) {
-          const int64_t i = j * k + q;
-          const float mm = DELTA ? mr[i] : 0.0f;
-          const float x = DELTA ? __fsub_rn(ar[i], mm) : ar[i];
-          const float uu = ur     ? ur[i]
-                           : seed ? seeded_uniform(row * d + i, k0, k1)
-                                  : 0.0f;
-          const uint32_t c = quant_code<BITS>(x, s, uu, stoch);
-          byte |= c << (q * BITS);
-          if (DELTA) nr[i] = dequant<BITS, true>(c, s, mm);
-        }
-        pr[j] = static_cast<uint8_t>(byte);
+      for (int q = 0; q < k; ++q) {
+        const int64_t i = j * k + q;
+        const float mm = DELTA ? mr[i] : 0.0f;
+        const float x = DELTA ? __fsub_rn(ar[i], mm) : ar[i];
+        const float uu = ur     ? ur[i]
+                         : seed ? seeded_uniform(row * d + i, k0, k1)
+                                : 0.0f;
+        const uint32_t c = quant_code<BITS>(x, s, uu, stoch);
+        byte |= c << (q * BITS);
+        if (DELTA) nr[i] = dequant<BITS, true>(c, s, mm);
       }
+      pr[j] = static_cast<uint8_t>(byte);
+    }
+  }
+}
+
+// the max of v over the block's threads, to every thread (v >= 0; one
+// __syncthreads, so a block calls it once)
+__device__ __forceinline__ float block_max(float v) {
+  __shared__ float part[kMaxRowThreads / kWarp];
+  const int lane = threadIdx.x % kWarp;
+  v = group_max<kWarp>(v);
+  if (lane == 0) part[threadIdx.x / kWarp] = v;
+  __syncthreads();
+  return group_max<kWarp>(lane < int(blockDim.x / kWarp) ? part[lane]
+                                                          : 0.0f);
+}
+
+// One row wider than 256 values (vec only), a block of T = blockDim.x
+// threads (whole warps, T * NV * 4 <= kRowValues): the row goes in
+// chunks of T * NV float4s, thread t holding float4s t, t + T, ... (NV
+// of them) of a chunk.  A row of one chunk (up to kRowValues values at
+// the widest block) is read once: a, m and u (or the Philox draw, whose
+// ALU work overlaps the loads in flight) all issued before the first
+// use, the absmax a block max, then quantize, pack and store from
+// registers.  A wider row is walked twice by the block: its absmax over
+// the chunks, then each chunk read again and encoded.  Pointers and
+// arguments as encode_row's; the max is exact in any order, so the scale
+// is bit-identical to a warp's or a lane group's.
+template <int BITS, bool DELTA, int NV>
+__device__ __forceinline__ void encode_row_block(
+    const float* __restrict__ ar, const float* __restrict__ mr,
+    const float* __restrict__ ur, bool has_u,
+    const int32_t* __restrict__ seed, uint8_t* __restrict__ pr,
+    float* __restrict__ scale, int64_t srow, float* __restrict__ nr,
+    int64_t row, int64_t d) {
+  const bool stoch = has_u || seed != nullptr;
+  const uint32_t k0 = seed ? uint32_t(seed[0]) : 0u;
+  const uint32_t k1 = seed ? uint32_t(seed[1]) : 0u;
+  const float4* a4 = reinterpret_cast<const float4*>(ar);
+  const float4* m4 = reinterpret_cast<const float4*>(mr);
+  const float4* u4 = reinterpret_cast<const float4*>(ur);
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  const int64_t n4 = d / 4;
+  const int t = threadIdx.x, T = blockDim.x;
+  const int64_t span = int64_t(T) * NV;
+  const bool once = n4 <= span;
+  float4 x[NV], mm[NV], uu[NV];
+  // the chunk from float4 c0 into registers: x the delta (or x), mm m,
+  // uu the noise (read or drawn; the counter is the element's index in
+  // this tensor's row view) where `noise`, zero past the row's end
+  auto load = [&](int64_t c0, bool noise) {
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      const int64_t g = c0 + t + v * T;
+      x[v] = mm[v] = uu[v] = zero;
+      if (g < n4) {
+        x[v] = a4[g];
+        if (DELTA) mm[v] = m4[g];
+        if (noise && has_u) uu[v] = u4[g];
+      }
+    }
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      const int64_t g = c0 + t + v * T;
+      if (g < n4) {
+        if (DELTA) x[v] = sub4(x[v], mm[v]);
+        if (noise && !has_u && seed)
+          uu[v] = seeded_uniform4(row * n4 + g, k0, k1);
+      }
+    }
+  };
+  auto encode = [&](int64_t c0, float s) {
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      const int64_t g = c0 + t + v * T;
+      if (g < n4)
+        encode4<BITS, DELTA>(x[v], mm[v], uu[v], s, stoch, pr, nr, g);
+    }
+  };
+  float mx = 0.0f;
+  for (int64_t c0 = 0; c0 < n4; c0 += span) {
+    load(c0, once);
+#pragma unroll
+    for (int v = 0; v < NV; ++v) mx = fmaxf(mx, abs_max4(x[v]));
+  }
+  const float s = fmaxf(block_max(mx), kEps);
+  if (t == 0) scale[srow] = s;
+  if (once) {
+    encode(0, s);
+  } else {
+    for (int64_t c0 = 0; c0 < n4; c0 += span) {
+      load(c0, true);
+      encode(c0, s);
     }
   }
 }
@@ -418,7 +517,7 @@ __global__ void __launch_bounds__(kThreads)
 encode_rows(const float* __restrict__ a, const float* __restrict__ m,
             const float* __restrict__ u, const int32_t* __restrict__ seed,
             uint8_t* __restrict__ packed, float* __restrict__ scale,
-            float* __restrict__ m_new, int64_t rows, int64_t d, int vec) {
+            float* __restrict__ m_new, int64_t rows, int64_t d) {
   constexpr int RB = kThreads / LPR;
   const int64_t first = int64_t(blockIdx.x) * RB;
   // whole warps past the last row leave together; a warp with a live
@@ -429,7 +528,7 @@ encode_rows(const float* __restrict__ a, const float* __restrict__ m,
       a + row * d, DELTA ? m + row * d : nullptr, u ? u + row * d : nullptr,
       u != nullptr, seed, packed + row * (d / (8 / BITS)), scale, row,
       DELTA ? m_new + row * d : nullptr, row, threadIdx.x % LPR, row < rows,
-      d, vec);
+      d);
 }
 
 // The KV append's tensors: blockIdx.y picks one of `pair` (1 or 2) inputs,
@@ -462,8 +561,7 @@ struct RowMap {
 // the row map: the per-call kernel's rows and lanes
 template <int BITS, int LPR, int NV>
 __global__ void __launch_bounds__(kThreads)
-encode_rows_into(EncodeIO io, RowMap map, int64_t rows, int64_t d,
-                 int vec) {
+encode_rows_into(EncodeIO io, RowMap map, int64_t rows, int64_t d) {
   constexpr int RB = kThreads / LPR;
   const int w = blockIdx.y;
   const int64_t first = int64_t(blockIdx.x) * RB;
@@ -478,7 +576,40 @@ encode_rows_into(EncodeIO io, RowMap map, int64_t rows, int64_t d,
       u != nullptr, pick(io.seed, w),
       pick(io.packed, w) + b * map.pstride + (map.base + t) * (d / (8 / BITS)),
       pick(io.scale, w) + b * map.sstride + map.base + t, 0, nullptr, row,
-      threadIdx.x % LPR, row < rows, d, vec);
+      threadIdx.x % LPR, row < rows, d);
+}
+
+// B1 (DELTA) and B3 per call at rows wider than 256 values: a block a
+// row (blockIdx.x), row r to row r of the outputs
+template <int BITS, bool DELTA, int NV>
+__global__ void __launch_bounds__(kRowValues / (4 * NV))
+encode_rows_block(const float* __restrict__ a, const float* __restrict__ m,
+                  const float* __restrict__ u,
+                  const int32_t* __restrict__ seed,
+                  uint8_t* __restrict__ packed, float* __restrict__ scale,
+                  float* __restrict__ m_new, int64_t d) {
+  const int64_t row = blockIdx.x;
+  encode_row_block<BITS, DELTA, NV>(
+      a + row * d, DELTA ? m + row * d : nullptr, u ? u + row * d : nullptr,
+      u != nullptr, seed, packed + row * (d / (8 / BITS)), scale, row,
+      DELTA ? m_new + row * d : nullptr, row, d);
+}
+
+// the KV append's rows wider than 256 values (no path has them): a block
+// a row, k and v (blockIdx.y) in one launch through the row map
+template <int BITS, int NV>
+__global__ void __launch_bounds__(kRowValues / (4 * NV))
+encode_rows_block_into(EncodeIO io, RowMap map, int64_t d) {
+  const int w = blockIdx.y;
+  const int64_t row = blockIdx.x;
+  const uint32_t b = uint32_t(row) / uint32_t(map.rpb);
+  const int64_t t = row - int64_t(b) * map.rpb;
+  const float* u = pick(io.u, w);
+  encode_row_block<BITS, false, NV>(
+      pick(io.a, w) + row * d, nullptr, u ? u + row * d : nullptr,
+      u != nullptr, pick(io.seed, w),
+      pick(io.packed, w) + b * map.pstride + (map.base + t) * (d / (8 / BITS)),
+      pick(io.scale, w) + b * map.sstride, map.base + t, nullptr, row, d);
 }
 
 // ---------------------------------------------------------------------------
@@ -906,59 +1037,87 @@ struct EncodeArgs {
 };
 
 // a launch of B1 or B3 per call (pair == 0: `args`, identity rows) or of
-// the KV append in place (pair 1 or 2: `io` through `map`)
+// the KV append in place (pair 1 or 2: `io` through `map`): LPR lanes a
+// row, kThreads / LPR rows a block
 template <int BITS, bool DELTA, int LPR, int NV>
 int launch_rows(const EncodeArgs& args, const EncodeIO& io, int pair,
-                const RowMap& map, int64_t rows, int64_t d, int vec,
+                const RowMap& map, int64_t rows, int64_t d,
                 cudaStream_t st) {
   constexpr int RB = kThreads / LPR;
   const unsigned blocks = static_cast<unsigned>((rows + RB - 1) / RB);
   if (pair == 0) {
     encode_rows<BITS, DELTA, LPR, NV><<<blocks, kThreads, 0, st>>>(
         args.a, args.m, args.u, args.seed, args.packed, args.scale,
-        args.m_new, rows, d, vec);
+        args.m_new, rows, d);
   } else if constexpr (!DELTA) {
     const dim3 grid(blocks, static_cast<unsigned>(pair));
     encode_rows_into<BITS, LPR, NV><<<grid, kThreads, 0, st>>>(io, map, rows,
-                                                               d, vec);
+                                                               d);
   } else {
     return int(cudaErrorInvalidValue);
   }
   return int(cudaGetLastError());
 }
 
-// lanes a row and float4s a lane held in registers, from the row's width:
-// the KV plane's rows (32, 64 and 256 values; up to 256) are read once;
-// wider rows (the hops' 1600 and 3584, the training boundary), and every
-// row without vec, are walked twice by a whole warp
+// the same at rows wider than 256 values: a block of `threads` a row
+template <int BITS, bool DELTA>
+int launch_rows_block(const EncodeArgs& args, const EncodeIO& io, int pair,
+                      const RowMap& map, int64_t rows, int64_t d,
+                      int threads, cudaStream_t st) {
+  if (pair == 0) {
+    encode_rows_block<BITS, DELTA, kRowNV<DELTA>>
+        <<<static_cast<unsigned>(rows), threads, 0, st>>>(
+            args.a, args.m, args.u, args.seed, args.packed, args.scale,
+            args.m_new, d);
+  } else if constexpr (!DELTA) {
+    const dim3 grid(static_cast<unsigned>(rows), static_cast<unsigned>(pair));
+    encode_rows_block_into<BITS, kRowNV<false>><<<grid, threads, 0, st>>>(
+        io, map, d);
+  } else {
+    return int(cudaErrorInvalidValue);
+  }
+  return int(cudaGetLastError());
+}
+
+// The tiling the wrapper chose from the row's width (quant_pack.py
+// _encode_tiling): `tpr` threads a row, `nv` float4s a thread.  Lane
+// groups (8, 1), (16, 1), (32, 2) for the KV plane's rows of up to 256
+// values; a block of tpr threads (whole warps, tpr * nv * 4 <=
+// kRowValues) with nv = kRowNV<DELTA> for wider rows (the hops' 1600 and
+// 3584, the training boundary).  Without vec, the scalar path: a warp a
+// row, whatever the width.  Anything else is refused.
 template <int BITS, bool DELTA>
 int launch_encode_bits(const EncodeArgs& args, const EncodeIO& io, int pair,
                        const RowMap& map, int64_t rows, int64_t d, int vec,
-                       cudaStream_t st) {
-  const int64_t n4 = d / 4;
-  if (!vec || n4 > 2 * kWarp)
+                       int tpr, int nv, cudaStream_t st) {
+  if (!vec)
     return launch_rows<BITS, DELTA, kWarp, 0>(args, io, pair, map, rows, d,
-                                              vec, st);
-  if (n4 <= 8)
-    return launch_rows<BITS, DELTA, 8, 1>(args, io, pair, map, rows, d, vec,
+                                              st);
+  const int64_t n4 = d / 4;
+  if (tpr == 8 && nv == 1 && n4 <= 8)
+    return launch_rows<BITS, DELTA, 8, 1>(args, io, pair, map, rows, d, st);
+  if (tpr == 16 && nv == 1 && n4 <= 16)
+    return launch_rows<BITS, DELTA, 16, 1>(args, io, pair, map, rows, d, st);
+  if (tpr == kWarp && nv == 2 && n4 <= 2 * kWarp)
+    return launch_rows<BITS, DELTA, kWarp, 2>(args, io, pair, map, rows, d,
+                                              st);
+  if (nv == kRowNV<DELTA> && tpr >= kWarp && tpr * nv * 4 <= kRowValues &&
+      tpr % kWarp == 0)
+    return launch_rows_block<BITS, DELTA>(args, io, pair, map, rows, d, tpr,
                                           st);
-  if (n4 <= 16)
-    return launch_rows<BITS, DELTA, 16, 1>(args, io, pair, map, rows, d, vec,
-                                           st);
-  return launch_rows<BITS, DELTA, kWarp, 2>(args, io, pair, map, rows, d, vec,
-                                            st);
+  return int(cudaErrorInvalidValue);
 }
 
 template <bool DELTA>
 int launch_encode(const EncodeArgs& args, const EncodeIO& io, int pair,
                   const RowMap& map, int64_t rows, int64_t d, int bits,
-                  int vec, cudaStream_t st) {
+                  int vec, int tpr, int nv, cudaStream_t st) {
   if (rows >= (int64_t(1) << 31) || (pair && map.rpb < 1))
     return int(cudaErrorInvalidValue);
   switch (bits) {
-    case 2: return launch_encode_bits<2, DELTA>(args, io, pair, map, rows, d, vec, st);
-    case 4: return launch_encode_bits<4, DELTA>(args, io, pair, map, rows, d, vec, st);
-    case 8: return launch_encode_bits<8, DELTA>(args, io, pair, map, rows, d, vec, st);
+    case 2: return launch_encode_bits<2, DELTA>(args, io, pair, map, rows, d, vec, tpr, nv, st);
+    case 4: return launch_encode_bits<4, DELTA>(args, io, pair, map, rows, d, vec, tpr, nv, st);
+    case 8: return launch_encode_bits<8, DELTA>(args, io, pair, map, rows, d, vec, tpr, nv, st);
     default: return int(cudaErrorInvalidValue);
   }
 }
@@ -1117,18 +1276,21 @@ extern "C" {
 
 // a, m, u: (rows, d) f32; seed: (2,) i32 (u and seed null: round to
 // nearest; u wins when both are given); packed: (rows, d*bits/8) u8;
-// scale: (rows,) f32; m_new: (rows, d) f32
+// scale: (rows,) f32; m_new: (rows, d) f32; tpr, nv: the tiling of d
+// (quant_pack.py _encode_tiling), read with vec
 int rt_delta_quantize_pack(const void* a, const void* m, const void* u,
                            const void* seed, void* packed, void* scale,
                            void* m_new, long long rows, long long d,
-                           int bits, int vec, void* stream) {
+                           int bits, int vec, int tpr, int nv,
+                           void* stream) {
   const EncodeArgs args = {
       static_cast<const float*>(a), static_cast<const float*>(m),
       static_cast<const float*>(u), static_cast<const int32_t*>(seed),
       static_cast<uint8_t*>(packed), static_cast<float*>(scale),
       static_cast<float*>(m_new)};
   return launch_encode<true>(args, EncodeIO{}, 0, RowMap{}, rows, d, bits,
-                             vec, static_cast<cudaStream_t>(stream));
+                             vec, tpr, nv,
+                             static_cast<cudaStream_t>(stream));
 }
 
 // packed (rows, d*bits/8) u8, scale (rows,) f32, m (rows, d) f32 -> out f32
@@ -1156,12 +1318,14 @@ int rt_dequant_unpack_accumulate(const void* packed, const void* scale,
 // two tensors in place: row r of x_i writes its packed codes and its
 // scale to row base + r % rpb of entry r / rpb of the stores packed_i and
 // scale_i, whose entries lie pstride bytes and sstride scales apart.
+// tpr, nv: the tiling of d, as for rt_delta_quantize_pack.
 int rt_quantize_pack(const void* x0, const void* x1, const void* u0,
                      const void* u1, const void* seed0, const void* seed1,
                      void* packed0, void* packed1, void* scale0,
                      void* scale1, long long rows, long long d,
                      long long rpb, long long base, long long pstride,
-                     long long sstride, int bits, int vec, void* stream) {
+                     long long sstride, int bits, int vec, int tpr, int nv,
+                     void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (rpb == 0) {
     if (x1) return int(cudaErrorInvalidValue);
@@ -1170,7 +1334,7 @@ int rt_quantize_pack(const void* x0, const void* x1, const void* u0,
         static_cast<const float*>(u0), static_cast<const int32_t*>(seed0),
         static_cast<uint8_t*>(packed0), static_cast<float*>(scale0), nullptr};
     return launch_encode<false>(args, EncodeIO{}, 0, RowMap{}, rows, d, bits,
-                                vec, st);
+                                vec, tpr, nv, st);
   }
   const EncodeIO io = {
       {static_cast<const float*>(x0), static_cast<const float*>(x1)},
@@ -1180,7 +1344,7 @@ int rt_quantize_pack(const void* x0, const void* x1, const void* u0,
       {static_cast<float*>(scale0), static_cast<float*>(scale1)}};
   return launch_encode<false>(EncodeArgs{}, io, x1 ? 2 : 1,
                               RowMap{rpb, base, pstride, sstride}, rows, d,
-                              bits, vec, st);
+                              bits, vec, tpr, nv, st);
 }
 
 // packed_i (rows, d*bits/8) u8, scale_i (rows,) f32 -> out_i (rows, d),

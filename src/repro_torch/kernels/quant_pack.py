@@ -104,6 +104,34 @@ def _vec(d: int, *ts) -> int:
                                   for t in ts if t is not None))
 
 
+# a row wider than 256 values: a block a row holding up to ROW_VALUES
+# values in registers, ROW_NV[delta] float4s a thread (B1 holds m beside
+# the delta, so half as many as B3); csrc/quant_pack.cu kRowValues, kRowNV
+ROW_VALUES = 8192
+ROW_NV = {False: 4, True: 2}
+
+
+def _encode_tiling(d: int, delta: bool = False) -> tuple:
+    """(threads a row, float4s a thread) of an encoder at rows of d
+    values on the float4 path (``delta``: B1, else B3).  Rows of up to
+    256 values, the KV plane's: a lane group of 8, 16 or 32 lanes
+    holding 1, 1 or 2 float4s each.  Wider rows: a block of the fewest
+    whole warps T with ``4 * T * nv >= d`` (nv = ``ROW_NV[delta]``), at
+    most ``ROW_VALUES / (4 * nv)`` threads (512 for B3, 1024 for B1), so
+    a row of up to 8192 values stays in registers from the absmax to the
+    quantize and is read once; a wider row is walked twice by the widest
+    block."""
+    n4 = -(-d // 4)
+    if n4 <= 8:
+        return 8, 1
+    if n4 <= 16:
+        return 16, 1
+    if n4 <= 64:
+        return 32, 2
+    nv = ROW_NV[delta]
+    return min(ROW_VALUES // (4 * nv), 32 * -(-n4 // (32 * nv))), nv
+
+
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
@@ -162,7 +190,7 @@ def delta_quantize_pack(a: torch.Tensor, m: torch.Tensor,
                 a.data_ptr(), m.data_ptr(), _ptr(u), _ptr(seed),
                 packed.data_ptr(), scale.data_ptr(), m_new.data_ptr(), r, d,
                 bits, _vec(d, a, m, u, packed, m_new),
-                seeded=seed is not None)
+                *_encode_tiling(d, delta=True), seeded=seed is not None)
     return packed, scale, m_new
 
 
@@ -205,7 +233,8 @@ def quantize_pack(x: torch.Tensor, u: Optional[torch.Tensor] = None, *,
         _launch("quantize_pack", "rt_quantize_pack", x.data_ptr(), None,
                 _ptr(u), None, _ptr(seed), None, packed.data_ptr(), None,
                 scale.data_ptr(), None, r, d, 0, 0, 0, 0, bits,
-                _vec(d, x, u, packed), seeded=seed is not None)
+                _vec(d, x, u, packed), *_encode_tiling(d),
+                seeded=seed is not None)
     return packed, scale
 
 
@@ -288,7 +317,7 @@ def quantize_pack_into(x, packed, scale, pos: int, u=(None, None),
                 *map(_ptr, u), *map(_ptr, seed), *map(_ptr, packed),
                 *map(_ptr, scale), rows, g, s * n, pos * n,
                 packed[0].stride(0), scale[0].stride(0), bits, int(vec),
-                seeded=any(t is not None for t in seed))
+                *_encode_tiling(g), seeded=any(t is not None for t in seed))
 
 
 def _div_magic(d: int) -> tuple:

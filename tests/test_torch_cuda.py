@@ -30,7 +30,10 @@ of 50 (f32 against the plain formula in float64: the plain version's
 own f32 rounding is past 2e-5 there), and on f32 k and v rows that are
 not 16-byte aligned.  The KV plane's pair calls (k and v in one
 launch; the append written in place into the stores) equal their plain
-versions and two per-tensor calls at both archs' KV shapes.
+versions and two per-tensor calls at both archs' KV shapes.  The
+encoders' rows wider than 256 values (a block a row, read once up to
+8192 values, walked twice past that) are held at the tiling's edges:
+260, 1600, 3584, 5120 and 8196 values, 1 and 5 rows.
 """
 import math
 
@@ -63,11 +66,19 @@ def _x(rows, d, seed, dev):
     return x
 
 
+# the encoders' tiling edges past 256 values (quant_pack._encode_tiling):
+# the first width a block takes, the hops' and stablelm-12b's d_model,
+# and the first width past the register cap (8192), walked twice
+WIDE = [260, 1600, 3584, 5120, 8196]
+
+
 def _dims(bits):
-    """(rows, d): the hop and KV shapes, ragged rows, and a d that is
-    not a multiple of 4 where the width allows it (the scalar path)."""
+    """(rows, d): the hop and KV shapes, ragged rows, the encoders'
+    tiling edges, and a d that is not a multiple of 4 where the width
+    allows it (the scalar path)."""
     odd = [] if bits == 2 else [(7, 66), (3, 1602)]
-    return [(8, 1600), (200, 64), (37, 64), (1, 1600)] + odd
+    return [(8, 1600), (200, 64), (37, 64), (1, 1600), (5, 260),
+            (1, 3584), (5, 5120), (3, 8196)] + odd
 
 
 def _equal(got, want):
@@ -372,10 +383,12 @@ def test_codecs_at_path_shapes(card, bits):
     """B1, B3 and B4 per call at the paths' shapes: the hops (8, 1600)
     and (2, 3584), the KV rows of gpt2-xl (200, 64) and gemma2 (16, 256),
     the stores (32000, 64) and (131072, 256), the training boundary
-    (4096, 1600); stochastic, deterministic and seeded."""
+    (4096, 1600); B1 and B3 also at the tiling's edges past 256 values
+    (`WIDE`) with 1 and 5 rows; stochastic, deterministic and seeded."""
     seed = torch.tensor((7, -9), dtype=torch.int32, device=card)
     for rows, d in [(8, 1600), (2, 3584), (200, 64), (16, 256),
-                    (4096, 1600), (25600, 64)]:
+                    (4096, 1600), (25600, 64)] + \
+            [(r, d) for d in WIDE for r in (1, 5)]:
         m = _x(rows, d, 1, card)
         a = m + _x(rows, d, 2, card)
         u = torch.rand(rows, d, device=card)

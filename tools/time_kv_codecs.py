@@ -21,7 +21,8 @@ cycling over distinct inputs (`chip_smoke.device_ms`, imported), in ms:
   (4096, 1600) with noise and with a seed; where the tree has it, the
   pair append in place (``*_pair``);
 * B1 ``delta_quantize_pack``: the decode hops (8, 1600) and (2, 3584),
-  the training boundary (4096, 1600) with noise;
+  the training boundary (4096, 1600) with noise and with a seed (``m``
+  made before the graph is captured, so a row times B1 alone);
 * ``launch_floor``: an empty kernel, where the tree has it.
 
 Prints one JSON line.  Needs a CUDA device.
@@ -106,15 +107,19 @@ def main(argv=None) -> dict:
         torch, lambda x, u: qp.quantize_pack(x, u, bits=8), xs)
     out["train_append_seeded"] = device_ms(
         torch, lambda x, u: qp.quantize_pack(x, bits=8, seed=seed), xs)
+    xs = [(x, x * 0.5, u) for x, u in xs]
     out["train_b1"] = device_ms(
-        torch, lambda x, u: qp.delta_quantize_pack(x, x * 0.5, u, bits=4),
-        xs)
+        torch, lambda a, m, u: qp.delta_quantize_pack(a, m, u, bits=4), xs)
+    out["train_b1_seeded"] = device_ms(
+        torch, lambda a, m, u: qp.delta_quantize_pack(a, m, bits=4,
+                                                      seed=seed), xs)
     del xs
     # B1, the decode hops
     for label, rows, d in (("hop_b1", 8, 1600), ("gemma_hop_b1", 2, 3584)):
-        xs = [(torch.randn(rows, d, device=dev),) for _ in range(16)]
+        xs = [(x, x * 0.5) for x in (torch.randn(rows, d, device=dev)
+                                     for _ in range(16))]
         out[label] = device_ms(
-            torch, lambda x: qp.delta_quantize_pack(x, x * 0.5, bits=4), xs)
+            torch, lambda a, m: qp.delta_quantize_pack(a, m, bits=4), xs)
     lib = build.load("quant_pack")
     if hasattr(lib, "rt_launch_floor"):
         out["launch_floor"] = device_ms(

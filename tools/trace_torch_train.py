@@ -49,6 +49,8 @@ DEFAULTS = ["--arch", "gpt2-xl-paper", "--stages", "4", "--mode", "aqsgd",
             "--fw-bits", "4", "--bw-bits", "8", "--dp-grad-bits", "4",
             "--dp-workers", "2", "--batch", "8", "--seq", "1024",
             "--samples", "16"]
+# matched as substrings: "encode_rows" also names the wide-row encoders
+# encode_rows_block and encode_rows_block_into
 CODEC_KERNELS = ("encode_rows", "dequant_accumulate_flat",
                  "unpack_dequant_flat", "codes_scaled_flat", "sum_mean_flat")
 GEMM_MARKERS = ("gemm", "cutlass", "xmma", "gemv", "splitKreduce")

@@ -62,19 +62,29 @@ Phases, each printed on its own line:
    store read in f32 and bf16), bits 2/4/8, deterministic, with noise
    and seeded, a group_d of 32, rows wide enough for the two-pass path,
    a g % 4 != 0 and misaligned views, into stores of random bytes, so
-   the rows outside the append must keep theirs; ``[launch-floor]``: an
+   the rows outside the append must keep theirs;
+   ``[kv-pair-row-heads-bit-exact]``: the pair append at per-row write
+   heads (a (B,) int32 tensor on the card, the continuous batcher's
+   pool: gpt2-xl's 8 slots with heads at 0, inside, at the last row and
+   past the store, gemma2's 2 slots, a run of 2 rows a slot), bits
+   2/4/8, deterministic, with noise and seeded, BIT-EXACT against its
+   plain version (the clamp included) and against one scalar-head
+   launch a slot at its clamped head; ``[launch-floor]``: an
    empty kernel through the same CUDA-graph timing harness, what a
    launch costs there; the pair launches' ``[kernel-time]`` rows at
-   gpt2-xl's and gemma2's store read and decode append, beside B3 and
+   gpt2-xl's and gemma2's store read and decode append, the pool append
+   at per-row heads beside the scalar-head pair at its shape, B3 and
    B4 per call at gemma2's shapes and B1 at gemma2's hop (2, 3584),
    each with its time over the launch floor;
    ``[flash-check]``: the attention kernel (B10) against its plain
    version within a tolerance: the sweep of tests/test_flash_kernel.py
    (shapes, GQA and MQA, bf16, windows 9 and 17, softcaps 4 and 30,
    non-causal) at rtol = atol = 2e-5 (f32) and 2e-2 (bf16), ragged
-   Sq/Sk with a query offset, Sq and Sk off the kernel's tiles at every
-   head dim with q scaled by 16 under a softcap of 50, f32 k and v rows
-   off 16-byte alignment, and the two paths' prefill calls (gpt2-xl;
+   Sq/Sk with a query offset, the continuous batcher's B = 1 prefills
+   (1, 25, 25, Sq, 160, 64) at Sq 4, 77 and 128, Sq and Sk off the
+   kernel's tiles at every head dim with q scaled by 16 under a softcap
+   of 50, f32 k and v rows off 16-byte alignment, and the two paths'
+   prefill calls (gpt2-xl;
    gemma2-9b on a local and a global layer) at 1e-4.  The f32 sweep is
    held to the plain version's formula evaluated in float64 (the f32
    plain version's own rounding of q k^T passes 2e-5 at hd 256 with q
@@ -96,6 +106,26 @@ Phases, each printed on its own line:
 5. a reference check of serving on a small input: the SMOKE model on the
    card (kernels) against the same weights on the CPU (plain versions),
    teacher-forced, within the tolerances of tests/test_torch_slice.py;
+   ``[serve-continuous]``: the launcher's ``--continuous`` run at
+   gpt2-xl-paper full size (48 layers, d 1600, random weights from seed
+   0): 16 requests of 7-125 tokens (the launcher's numpy draw, seed 1)
+   over 8 slots of 160 rows, 32 greedy tokens each, the same comm flags;
+   requests, ticks, tokens, tok/s, prefill and decode seconds, peak
+   memory, the hop bytes against ``hop_bytes(8, 1600)`` x ticks and the
+   pool's KV store bytes against the byte model, the counters set to 0
+   just before and checked exactly just after (B10 48 x admissions, B3
+   = B4 48 x (admissions + ticks), B1 = B2 ticks, the rest 0);
+   ``[serve-continuous-isolation]``: its first and last requests each
+   served alone in a pool of 8 slots, tokens equal to the mixed run's;
+   ``[serve-continuous-guard]``: tests/test_faults.py's fault test on
+   the card (gpt2-xl-paper at full width, 4 of 48 layers, 3 requests
+   over 2 slots, ``2:kv:nan-scale``): the victim evicted with
+   ``plane=kv`` and ``tick=2``, every survivor's tokens equal to the
+   clean run's; ``[serve-continuous-reference-check]``: the batcher on
+   the card against the CPU in lockstep, gpt2-xl-paper and gemma2-9b
+   (window 4) SMOKE, 5 requests over 3 slots: each tick's logits within
+   the decode tolerance while the streams agree, KV codes within one,
+   a fork allowed only at a near tie (printed);
    ``[serve-gemma2]``: the slice's own path, ``gemma2-9b`` at full
    width and depth (42 layers, d 3584, vocab 256000; local layers see
    4096 keys, softcaps 50 and 30, 16 query heads on 8 kv heads of 256),
@@ -142,7 +172,8 @@ B9a and B9b launch 0 times on every path but ``[legacy-dp-codec]``:
 no trainer or server runs the legacy pair, in the JAX package either.
 Then one JSON line with every kernel's numbers (``launches``: the
 count on the path its time was taken at, named by ``launches_path``;
-each path's own count in ``launches_by_path``), the card's name and
+each path's own count in ``launches_by_path``, ``serve_continuous``
+among them), the card's name and
 power limit, and as the last line ``{"ok": true, "device": {...}}``.
 Any failure raises and exits non-zero; with no CUDA device it exits 1
 and prints no result.  Imports nothing of JAX or of the JAX package.
@@ -219,6 +250,24 @@ SERVE_ARGS = ["--arch", "gpt2-xl-paper", "--stages", "2", "--mode", "aqsgd",
               "--device", "cuda", "--seed", "0"]
 # small-input reference check (tests/test_torch_slice.py's tolerances)
 PREFILL_ATOL, DECODE_ATOL, MAX_FLIP_FRACTION = 2e-5, 5e-3, 0.005
+# the continuous batcher at gpt2-xl-paper full size: 2 x BATCH requests of
+# 4-PROMPT tokens (the launcher's draw, numpy seed 1) over CONT_SLOTS
+# slots of CACHE_LEN rows, GEN tokens each
+CONT_SLOTS, CONT_REQUESTS = 8, 2 * BATCH
+CONT_ARGS = ["--arch", "gpt2-xl-paper", "--stages", "2", "--mode", "aqsgd",
+             "--fw-bits", "4", "--kv-bits", "8", "--continuous", "--slots",
+             str(CONT_SLOTS), "--batch", str(BATCH), "--prompt-len",
+             str(PROMPT), "--gen", str(GEN), "--device", "cuda", "--seed",
+             "0"]
+# its slot guard (tests/test_faults.py's fault test) at full width, cut
+# to GUARD_LAYERS of 48 layers: 3 requests over 2 slots, 6 tokens each
+GUARD_LAYERS, GUARD_PLAN = 4, "2:kv:nan-scale"
+# its card-vs-CPU check: SMOKE models, 5 requests of 3-12 tokens over 3
+# slots, 6 tokens each; gemma2 with a window of 4 (per-row windows bite)
+CONT_CHECK_WINDOW = {"gpt2-xl-paper": None, "gemma2-9b": 4}
+# the per-row write heads of gpt2-xl's pool append: at 0, inside, at the
+# last row and past the store (clamped to CACHE_LEN - 1)
+ROW_HEADS = (0, 5, 77, PROMPT, CACHE_LEN - 1, CACHE_LEN, CACHE_LEN + 40, 3)
 # the gemma2-9b serving slice at full width and depth: a prompt past the
 # 4096-key window into a cache of the 8192-token context
 G_BATCH, G_PROMPT, G_GEN = 2, 8160, 32
@@ -1113,6 +1162,50 @@ def time_kv_pair(torch, qp, ref, what, b, cache, n, g, s, pos, bits=8):
     return ms, plain_ms, max(bytes_ms, ops_ms), bound_by, nbytes
 
 
+# (label, b, cache, n, g, s, heads): gpt2-xl's pool append, gemma2's
+# (2 slots, one past the store), and a run of 2 rows a slot
+KV_ROW_HEAD_CASES = [
+    ("gpt2-xl pool", CONT_SLOTS, CACHE_LEN, KV_HEADS, HEAD_DIM, 1, ROW_HEADS),
+    ("gemma2 pool", G_BATCH, G_CACHE, G_KV_HEADS, G_HEAD_DIM, 1,
+     (G_CACHE - 1, G_CACHE + 7)),
+    ("2 rows", 4, 12, 10, 32, 2, (0, 11, 5, 40))]
+
+
+def check_kv_row_heads(torch, qp, ref, b, cache, n, g, s, heads, bits,
+                       noise):
+    """The pair append at per-row write heads (a (B,) int32 tensor on
+    the card, clamped to [0, cache - s] in the kernel) into stores full
+    of random bytes, against its plain version and against one
+    scalar-head launch a batch entry at its clamped head.  Returns the
+    number of elements that differ."""
+    x, packed, scale = _kv_pair_inputs(torch, b, cache, n, g, s, bits,
+                                       cache + n + g + bits)
+    pos = torch.tensor(heads, dtype=torch.int32, device="cuda")
+    seeds = tuple(_seed_tensor(torch, sd) for sd in ONCORE_SEEDS[1:])
+    u = tuple(torch.rand_like(t) for t in x) if noise == "u" \
+        else (None, None)
+    seed = seeds if noise == "seed" else (None, None)
+    plain_u = tuple(ref.oncore_uniform_ref(sd, b * s * n, g).reshape(
+        x[0].shape) for sd in seeds) if noise == "seed" else u
+    want_p = tuple(p.clone() for p in packed)
+    want_s = tuple(t.clone() for t in scale)
+    ref.quantize_pack_into_ref(x, want_p, want_s, pos, bits, plain_u)
+    got_p = tuple(p.clone() for p in packed)
+    got_s = tuple(t.clone() for t in scale)
+    qp.quantize_pack_into(x, got_p, got_s, pos, u, seed, bits=bits)
+    pairs = list(zip(got_p + got_s, want_p + want_s))
+    if noise is None:
+        for i, h in enumerate(heads):
+            one_p = tuple(p[i:i + 1].clone() for p in packed)
+            one_s = tuple(t[i:i + 1].clone() for t in scale)
+            qp.quantize_pack_into(tuple(t[i:i + 1] for t in x), one_p, one_s,
+                                  min(max(h, 0), cache - s), bits=bits)
+            pairs += list(zip(one_p + one_s,
+                              [t[i:i + 1] for t in got_p + got_s]))
+    torch.cuda.synchronize()
+    return sum(int((a != w).sum().item()) for a, w in pairs)
+
+
 def launch_floor_ms(torch, build) -> float:
     """What one launch costs in `device_ms`'s harness: an empty kernel
     (one warp) captured 40 times back to back in a CUDA graph."""
@@ -1144,6 +1237,16 @@ def kv_pair_phase(torch, qp, ref, build, rows_out):
                     cases += 1
     phase("kv-pair-bit-exact", cases=cases, mismatches=bad)
     assert bad == 0, bad
+    bad = cases = 0
+    for label, b, cache, n, g, s, heads in KV_ROW_HEAD_CASES:
+        for bits in (2, 4, 8):
+            for noise in (None, "u", "seed"):
+                bad += check_kv_row_heads(torch, qp, ref, b, cache, n, g, s,
+                                          heads, bits, noise)
+                cases += 1
+    phase("kv-pair-row-heads-bit-exact", cases=cases, mismatches=bad,
+          heads=json.dumps(ROW_HEADS), cache=CACHE_LEN)
+    assert bad == 0, bad
     floor = launch_floor_ms(torch, build)
     phase("launch-floor", ms=f"{floor:.6f}",
           what="an empty kernel, 40 captured back to back in a CUDA graph")
@@ -1165,6 +1268,23 @@ def kv_pair_phase(torch, qp, ref, build, rows_out):
         timed[(name, arch)] = {"shape": [2, rows, g], "bits": 8, "ms": ms,
                                "plain_ms": plain_ms, "bound_ms": bound_ms,
                                "bound_by": bound_by, "library_ms": None}
+    # the pool append at per-row heads, beside the scalar-head pair at the
+    # same shape (timed above as the gpt2-xl decode append)
+    _, b, cache, n, g, s, _ = KV_ROW_HEAD_CASES[0]
+    heads = torch.tensor(ROW_HEADS, dtype=torch.int32, device="cuda")
+    ms, plain_ms, bound_ms, bound_by, nbytes = time_kv_pair(
+        torch, qp, ref, "append", b, cache, n, g, s, heads)
+    scalar = timed[("quantize_pack", "gpt2-xl")]
+    phase("kernel-time", name="quantize_pack_pair_row_heads",
+          path="gpt2-xl pool", rows=b * s * n, d=g, bits=8, tensors=2,
+          bytes=nbytes, ms=f"{ms:.6f}", plain_ms=f"{plain_ms:.6f}",
+          bound_ms=f"{bound_ms:.6f}", bound_by=bound_by, library_ms=None,
+          scalar_head_ms=f"{scalar['ms']:.6f}",
+          ms_over_launch_floor=f"{ms / floor:.3f}")
+    row_heads = {"shape": [2, b * s * n, g], "bits": 8, "ms": ms,
+                 "plain_ms": plain_ms, "bound_ms": bound_ms,
+                 "bound_by": bound_by, "library_ms": None,
+                 "scalar_head_ms": scalar["ms"]}
     for name, rows in (("unpack_dequant", G_BATCH * G_CACHE * G_KV_HEADS),
                        ("quantize_pack", G_BATCH * G_KV_HEADS)):
         ms, plain_ms, library_ms, bound_ms, bound_by, nbytes = time_kernel(
@@ -1186,6 +1306,7 @@ def kv_pair_phase(torch, qp, ref, build, rows_out):
                          "plain_ms": plain_ms, "bound_ms": bound_ms,
                          "bound_by": bound_by, "library_ms": library_ms}}
         row["launch_floor_ms"] = floor
+    rows_out["quantize_pack"]["row_heads"] = row_heads
     # B1 at gemma2-9b's decode hop, beside the launch floor
     ms, plain_ms, library_ms, bound_ms, bound_by, nbytes = time_kernel(
         torch, qp, ref, "delta_quantize_pack", G_BATCH, G_D, 4)
@@ -1233,6 +1354,10 @@ FLASH_SWEEP = [
      "float32", 1.0),
     ("odd-stride", 1, 4, 2, 70, 100, 256, 30, True, 40, 50.0, "float32",
      16.0),
+    # the continuous batcher's B = 1 prefills into a row cache of 160, as
+    # the model passes them (transposed views)
+    *[("path", 1, 25, KV_HEADS, sq, CACHE_LEN, HEAD_DIM, 0, True, CACHE_LEN,
+       0.0, "float32", 1.0) for sq in (4, 77, PROMPT)],
 ]
 # the paths' prefill calls: gpt2-xl-paper (window = its cache of 160)
 # and gemma2-9b on a local and a global layer
@@ -1530,6 +1655,213 @@ def reference_check(torch, arch="gpt2-xl-paper", p=8, n=6,
                     f"{MAX_FLIP_FRACTION}")
     assert pre <= PREFILL_ATOL, pre
     assert dec <= DECODE_ATOL, dec
+    assert flips <= MAX_FLIP_FRACTION * total, (flips, total)
+
+
+def serve_continuous_phase(torch, qp, serve):
+    """[serve-continuous]: the launcher's --continuous run at gpt2-xl
+    full size, its counters set to 0 just before and read just after;
+    returns (its output, its launches)."""
+    from repro_torch.serving import DeltaHopCodec, KVCodec, delta
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    qp.reset_launches()
+    delta.reset_sent()
+    out = serve.main(CONT_ARGS)
+    torch.cuda.synchronize()
+    launches = dict(qp.LAUNCHES)
+    sent = dict(delta.SENT)
+    peak = torch.cuda.max_memory_allocated()
+    reqs, ticks, adm = out["requests"], out["ticks"], out["admissions"]
+    cfg = out["model"].cfg
+    layers = cfg.num_layers
+    hop_model = DeltaHopCodec(mode="aqsgd", bits=4).hop_bytes(
+        CONT_SLOTS, cfg.d_model) * ticks
+    kv_model = KVCodec(bits=8).stored_bytes(
+        (CONT_SLOTS, CACHE_LEN, cfg.num_kv_heads, cfg.head_dim)) * 2 * layers
+    phase("serve-continuous", layers=layers, d_model=cfg.d_model,
+          slots=CONT_SLOTS,
+          requests=len(reqs), prompt_lens=json.dumps([len(r.prompt)
+                                                      for r in reqs]),
+          cache=out["cache_len"], admissions=adm, ticks=ticks,
+          tokens=out["tokens"], decode_tokens=out["decode_tokens"],
+          wall_s=f"{out['wall_s']:.4f}", tok_s=f"{out['tok_s']:.2f}",
+          prefill_s=f"{out['prefill_s']:.4f}",
+          decode_s=f"{out['decode_s']:.4f}",
+          decode_tok_s=f"{out['decode_tok_s']:.2f}",
+          ms_per_tick=f"{out['decode_s'] / ticks * 1e3:.3f}",
+          peak_mem_gib=f"{peak / 2**30:.3f}", launches=json.dumps(launches),
+          hops=sent["hops"], hop_bytes=sent["bytes"],
+          hop_bytes_model=hop_model, kv_store_bytes=out["kv_store_bytes"],
+          kv_store_bytes_model=kv_model)
+    assert (layers, cfg.d_model) == (48, D_MODEL), (layers, cfg.d_model)
+    assert len(reqs) == CONT_REQUESTS and adm == CONT_REQUESTS, (len(reqs),
+                                                                 adm)
+    for r in reqs:
+        assert r.state == "DONE" and not r.error, (r.state, r.error)
+        assert len(r.tokens) == GEN, len(r.tokens)
+    assert out["tokens"] == CONT_REQUESTS * GEN
+    assert out["cache_len"] == CACHE_LEN
+    want = {name: 0 for name in launches}
+    want.update(flash_attention_fwd=layers * adm,
+                quantize_pack=layers * (adm + ticks),
+                unpack_dequant=layers * (adm + ticks),
+                delta_quantize_pack=ticks, dequant_unpack_accumulate=ticks)
+    assert launches == want, (launches, want)
+    assert sent == {"hops": ticks, "bytes": hop_model}, sent
+    assert out["kv_store_bytes"] == kv_model, out["kv_store_bytes"]
+    return out, launches
+
+
+def _slice_batcher(model, num_slots, cache_len, **kw):
+    from repro_torch.serving import ContinuousBatcher, DeltaHopCodec, KVCodec
+    return ContinuousBatcher(model, num_slots=num_slots, cache_len=cache_len,
+                             kv_codec=KVCodec(bits=8),
+                             hop_codec=DeltaHopCodec(mode="aqsgd", bits=4),
+                             num_stages=2, **kw)
+
+
+def serve_continuous_isolation(torch, out):
+    """[serve-continuous-isolation]: the mixed run's first and last
+    requests, each served alone in a pool of the same slots on the card
+    (the same model): their tokens equal their streams in the mixed
+    run."""
+    model = out["model"]
+    reqs = out["requests"]
+    picked = (0, len(reqs) - 1)
+    alone = []
+    for i in picked:
+        bat = _slice_batcher(model, CONT_SLOTS, CACHE_LEN)
+        r = bat.submit(reqs[i].prompt, max_new_tokens=GEN)
+        bat.run()
+        alone.append(r.tokens)
+    same = [a == reqs[i].tokens for a, i in zip(alone, picked)]
+    phase("serve-continuous-isolation", requests=json.dumps(list(picked)),
+          prompt_lens=json.dumps([len(reqs[i].prompt) for i in picked]),
+          slots=CONT_SLOTS, equal=json.dumps(same))
+    assert all(same), (alone, [reqs[i].tokens for i in picked])
+
+
+def serve_continuous_guard(torch):
+    """[serve-continuous-guard]: tests/test_faults.py's fault test on the
+    card: gpt2-xl-paper at full width cut to GUARD_LAYERS of 48 layers,
+    the slice's codecs, 3 requests over 2 slots, 6 tokens each, a clean
+    run against one with ``2:kv:nan-scale``."""
+    import numpy as np
+    from repro_torch.comm import faults
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.model import Transformer
+
+    cfg = get_config("gpt2-xl-paper").with_(num_layers=GUARD_LAYERS)
+    model = Transformer(cfg, device="cuda",
+                        generator=torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in (3, 5, 4)]
+
+    def run(plan):
+        bat = _slice_batcher(model, 2, 16, fault_plan=plan)
+        for p in prompts:
+            bat.submit(p, max_new_tokens=6)
+        return bat.run()
+
+    base = run(None)
+    hit = run(faults.FaultPlan.parse(GUARD_PLAN))
+    victim = hit[0]
+    same = [h.tokens == b.tokens for b, h in zip(base[1:], hit[1:])]
+    phase("serve-continuous-guard", layers=f"{GUARD_LAYERS}/48",
+          d_model=cfg.d_model, plan=GUARD_PLAN, slots=2,
+          victim_error=f"'{victim.error}'",
+          victim_tokens=len(victim.tokens), survivors_equal=json.dumps(same))
+    assert all(r.state == "DONE" and not r.error for r in base)
+    assert victim.state == "DONE" and len(victim.tokens) < 6
+    assert "plane=kv" in victim.error and "tick=2" in victim.error
+    assert all(not h.error for h in hit[1:]) and all(same)
+    del model
+    torch.cuda.empty_cache()
+
+
+def continuous_reference_check(torch, arch):
+    """[serve-continuous-reference-check]: the batcher on the card
+    (kernels) against the same SMOKE weights on the CPU (plain versions),
+    in lockstep (no EOS, so both fill and free the same slots at the same
+    ticks): 5 requests of 3-12 tokens over 3 slots, 6 tokens each.  Each
+    tick's logits within DECODE_ATOL for every request whose stream still
+    agrees, and every KV code of its row within one code, flips <=
+    MAX_FLIP_FRACTION.  A stream that forks at a near tie (the CPU's top
+    two logits within DECODE_ATOL where it forks) stops being compared,
+    and is printed; a fork at a wider gap fails."""
+    import numpy as np
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.model import Transformer
+
+    cfg = get_config(arch, smoke=True)
+    if CONT_CHECK_WINDOW[arch]:
+        cfg = cfg.with_(sliding_window=CONT_CHECK_WINDOW[arch])
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in (3, 12, 7, 5, 9)]
+    bats = []
+    for dev in ("cpu", "cuda"):
+        model = Transformer(cfg, device=dev,
+                            generator=torch.Generator().manual_seed(0))
+        bat = _slice_batcher(model, 3, 24)
+        for p in prompts:
+            bat.submit(p, max_new_tokens=6)
+        bats.append(bat)
+    cpu, gpu = bats
+
+    def gap(logits):
+        top = torch.topk(logits, 2).values
+        return float(top[0] - top[1])
+
+    forked, dec, flips, total, worst = {}, 0.0, 0, 0, 0
+
+    def fork_check(j, logits):
+        rc, rg = cpu.requests[j], gpu.requests[j]
+        if j not in forked and rc.tokens != rg.tokens:
+            forked[j] = {"at_token": len(rc.tokens) - 1, "cpu": rc.tokens,
+                         "card": rg.tokens, "cpu_top2_gap": gap(logits)}
+
+    while True:
+        before = [r.state for r in cpu.requests]
+        for bat in bats:
+            bat._admit()
+        for j, r in enumerate(cpu.requests):
+            if before[j] == "PENDING" and r.state != "PENDING":
+                fork_check(j, cpu._prefill(r.prompt)[0][0])
+        if all(r.state == "DONE" for r in cpu.requests):
+            break
+        live = {j: r.slot for j, r in enumerate(cpu.requests)
+                if r.state == "ACTIVE" and j not in forked}
+        assert live == {j: r.slot for j, r in enumerate(gpu.requests)
+                        if r.state == "ACTIVE" and j not in forked}
+        for bat in bats:
+            bat.step()
+        lc, lg = cpu.last_logits, gpu.last_logits.cpu()
+        for j, i in live.items():
+            dec = max(dec, (lc[i] - lg[i]).abs().max().item())
+            for name in ("k_codes", "v_codes"):
+                d = (cpu.caches[name][:, i].int()
+                     - gpu.caches[name][:, i].cpu().int()).abs()
+                worst = max(worst, d.max().item())
+                flips += int((d > 0).sum())
+                total += d.numel()
+            fork_check(j, lc[i])
+    phase("serve-continuous-reference-check", arch=arch,
+          window=CONT_CHECK_WINDOW[arch], requests=len(prompts), slots=3,
+          ticks=cpu._tick, streams_equal=len(prompts) - len(forked),
+          forked_at_near_tie=json.dumps(forked), decode_max_abs=dec,
+          kv_code_max_diff=worst, kv_code_flips=f"{flips}/{total}",
+          tolerance=f"decode {DECODE_ATOL} flips <= {MAX_FLIP_FRACTION}")
+    assert cpu._tick == gpu._tick
+    assert all(r.state == "DONE" and len(r.tokens) == 6
+               for r in cpu.requests + gpu.requests)
+    for f in forked.values():
+        assert f["cpu_top2_gap"] <= DECODE_ATOL, f
+    assert dec <= DECODE_ATOL, dec
+    assert worst <= 1, worst
     assert flips <= MAX_FLIP_FRACTION * total, (flips, total)
 
 
@@ -1917,6 +2249,17 @@ def main() -> int:
     for name in LEGACY_KERNELS:
         assert launches[name] == 0, launches
     reference_check(torch)
+    cont, cont_launches = serve_continuous_phase(torch, qp, serve)
+    for name in ("delta_quantize_pack", "dequant_unpack_accumulate",
+                 "quantize_pack", "unpack_dequant", "flash_attention_fwd"):
+        assert cont_launches[name] > 0, \
+            f"{name} was never launched on the continuous serving path"
+    serve_continuous_isolation(torch, cont)
+    del cont
+    torch.cuda.empty_cache()
+    serve_continuous_guard(torch)
+    for arch in CONT_CHECK_WINDOW:
+        continuous_reference_check(torch, arch)
     gemma_launches, cpu_draw_s = serve_gemma2_phase(torch, qp, serve)
     phase("serve-gemma2-build", cpu_draw_s=f"{cpu_draw_s:.3f}",
           device_draw_s=f"{gemma2_device_draw_s(torch):.3f}")
@@ -1948,7 +2291,8 @@ def main() -> int:
     # prefill), training for the DP wire, the distributed path for the
     # ring's kernels, training with the on-core noise knob for B11, the
     # legacy chain for B9a and B9b (0 on every other path)
-    by_path = {"serve": serve_launches, "serve_gemma2": gemma_launches,
+    by_path = {"serve": serve_launches, "serve_continuous": cont_launches,
+               "serve_gemma2": gemma_launches,
                "train": train_launches, "train_oncore": oncore_launches,
                "dist": dist_launches, "legacy_dp": legacy_launches}
     for name in LEGACY_KERNELS:

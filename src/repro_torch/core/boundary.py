@@ -47,6 +47,7 @@ import torch
 
 from repro_torch import env
 from repro_torch.core import quantization as Q
+from repro_torch.core.cache_rows import clamp_heads, write_rows_
 from repro_torch.kernels import ops as K
 from repro_torch.kernels.quant_pack import KERNEL_BITS
 
@@ -146,15 +147,18 @@ def decode(packed, scale, *, bits: int, d: int,
     return Q.dequantize(codes, scale, bits, dtype)
 
 
-def encode_pair_into(xs, packed, scales, pos: int, *, bits: int,
+def encode_pair_into(xs, packed, scales, pos, *, bits: int,
                      stochastic: bool = False, generator=None,
                      backend: str = "auto") -> None:
     """`encode` of a pair of fresh tensors of one shape ``xs`` (B, s, N,
     d) (k's and v's rows), written in place into rows [pos, pos + s) of
     their stores ``packed`` (B, S, N, pw) u8 and ``scales`` (B, S, N)
-    f32: the KV append.  The cuda backend runs both in one kernel
-    launch.  Noise is drawn for ``xs[0]``, then ``xs[1]``, as two
-    `encode` calls draw it, so the bits equal theirs."""
+    f32: the KV append.  ``pos`` is one head (an int) or a (B,) int32
+    tensor, a head a batch entry, clamped to [0, S - s] as
+    ``jax.lax.dynamic_update_slice`` clamps it.  The cuda backend runs
+    both in one kernel launch.  Noise is drawn for ``xs[0]``, then
+    ``xs[1]``, as two `encode` calls draw it, so the bits equal
+    theirs."""
     backend = resolve_backend(backend, xs[0], bits)
     noise = [_noise(x, stochastic, None, generator, backend) for x in xs]
     if backend == "cuda":
@@ -162,12 +166,13 @@ def encode_pair_into(xs, packed, scales, pos: int, *, bits: int,
                              tuple(u for u, _ in noise),
                              tuple(seed for _, seed in noise), bits=bits)
         return
-    n = xs[0].shape[1]
+    if isinstance(pos, torch.Tensor):
+        pos = clamp_heads(pos, packed[0].shape[1], xs[0].shape[1])
     for x, p, s, (u, _) in zip(xs, packed, scales, noise):
         codes, scale = encode(x, bits=bits, stochastic=stochastic, u=u,
                               backend=backend)
-        p[:, pos:pos + n] = codes
-        s[:, pos:pos + n] = scale[..., 0]
+        write_rows_(p, codes, pos)
+        write_rows_(s, scale[..., 0], pos)
 
 
 def decode_pair(packed, scales, *, bits: int, d: int,

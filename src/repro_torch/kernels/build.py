@@ -47,8 +47,8 @@ SIGNATURES = {
         "rt_dequant_unpack_accumulate": (_P, _P, _P, _P, _I64, _I64, _I, _I,
                                          _P),
         "rt_quantize_pack": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64,
-                             _I64, _I64, _I64, _I64, _I64, _I, _I, _I, _I,
-                             _P),
+                             _I64, _I64, _I64, _I64, _I64, _P, _I64, _I64,
+                             _I, _I, _I, _I, _P),
         "rt_unpack_dequant": (_P, _P, _P, _P, _P, _P, _I64, _I64, _I, _I, _U,
                               _U, _I, _P),
         "rt_quantize_pack_scaled": (_P, _P, _P, _P, _I64, _I64, _I, _I, _P),

@@ -85,6 +85,11 @@
 //     through a RowMap to its row of the output, so the fresh rows (B,
 //     s, N) land in rows [pos, pos + s) of each layer store (B, S, N)
 //     through the store's batch stride, with no temporary and no copy.
+//     The continuous batcher's pool gives each batch entry its own
+//     head (a B int32 tensor on the device, never read by the host):
+//     entry b starts at clamp(head[b], 0, S - s), the clamp of
+//     jax.lax.dynamic_update_slice, so an idle slot's head past the
+//     store writes its own last rows; one load a row, no extra launch.
 //     Each layer of a serving step thus runs one store read and one
 //     append (not two reads, two appends and four copies).  The
 //     seeded counter stays each element's index in its own tensor's
@@ -552,10 +557,23 @@ __device__ __forceinline__ T pick(T const (&v)[2], int w) {
 // entry b of the store, whose entries lie pstride packed bytes and
 // sstride scales apart.  The KV append's fresh rows (B, s, N) land in
 // rows [pos, pos + s) of each layer store (B, S, N): rpb = s * N, base =
-// pos * N, the strides the store's batch strides.
+// pos * N, the strides the store's batch strides.  With per-row write
+// heads (`starts`, B int32 on the device, the continuous batcher's pool)
+// entry b's base is clamp(starts[b], 0, hi) * n instead, hi = S - s:
+// jax.lax.dynamic_update_slice's rule, so a head past the store (an idle
+// slot's) writes the store's last s rows and never past them.
 struct RowMap {
   int64_t rpb, base, pstride, sstride;
+  const int32_t* starts;
+  int64_t n, hi;
 };
+
+// the first store row of batch entry b
+__device__ __forceinline__ int64_t map_base(const RowMap& map, uint32_t b) {
+  if (!map.starts) return map.base;
+  const int32_t h = __ldg(map.starts + b);
+  return int64_t(min(max(h, 0), int32_t(map.hi))) * map.n;
+}
 
 // B3 for k and v (blockIdx.y) in one launch, written in place through
 // the row map: the per-call kernel's rows and lanes
@@ -568,14 +586,16 @@ encode_rows_into(EncodeIO io, RowMap map, int64_t rows, int64_t d) {
   if (first + (threadIdx.x / kWarp) * (kWarp / LPR) >= rows) return;
   const int64_t row = first + threadIdx.x / LPR;
   // rows < 2^31 (the launcher checks), so the map's division is 32-bit
-  const uint32_t b = uint32_t(row) / uint32_t(map.rpb);
+  const uint32_t b = uint32_t(row < rows ? row : rows - 1) /
+                     uint32_t(map.rpb);
   const int64_t t = row - int64_t(b) * map.rpb;
+  const int64_t base = map_base(map, b);
   const float* u = pick(io.u, w);
   encode_row<BITS, false, LPR, NV>(
       pick(io.a, w) + row * d, nullptr, u ? u + row * d : nullptr,
       u != nullptr, pick(io.seed, w),
-      pick(io.packed, w) + b * map.pstride + (map.base + t) * (d / (8 / BITS)),
-      pick(io.scale, w) + b * map.sstride + map.base + t, 0, nullptr, row,
+      pick(io.packed, w) + b * map.pstride + (base + t) * (d / (8 / BITS)),
+      pick(io.scale, w) + b * map.sstride + base + t, 0, nullptr, row,
       threadIdx.x % LPR, row < rows, d);
 }
 
@@ -604,12 +624,13 @@ encode_rows_block_into(EncodeIO io, RowMap map, int64_t d) {
   const int64_t row = blockIdx.x;
   const uint32_t b = uint32_t(row) / uint32_t(map.rpb);
   const int64_t t = row - int64_t(b) * map.rpb;
+  const int64_t base = map_base(map, b);
   const float* u = pick(io.u, w);
   encode_row_block<BITS, false, NV>(
       pick(io.a, w) + row * d, nullptr, u ? u + row * d : nullptr,
       u != nullptr, pick(io.seed, w),
-      pick(io.packed, w) + b * map.pstride + (map.base + t) * (d / (8 / BITS)),
-      pick(io.scale, w) + b * map.sstride, map.base + t, nullptr, row, d);
+      pick(io.packed, w) + b * map.pstride + (base + t) * (d / (8 / BITS)),
+      pick(io.scale, w) + b * map.sstride, base + t, nullptr, row, d);
 }
 
 // ---------------------------------------------------------------------------
@@ -1112,7 +1133,8 @@ template <bool DELTA>
 int launch_encode(const EncodeArgs& args, const EncodeIO& io, int pair,
                   const RowMap& map, int64_t rows, int64_t d, int bits,
                   int vec, int tpr, int nv, cudaStream_t st) {
-  if (rows >= (int64_t(1) << 31) || (pair && map.rpb < 1))
+  if (rows >= (int64_t(1) << 31) || (pair && map.rpb < 1) ||
+      (map.starts && (map.n < 1 || map.hi < 0 || map.hi >= (int64_t(1) << 31))))
     return int(cudaErrorInvalidValue);
   switch (bits) {
     case 2: return launch_encode_bits<2, DELTA>(args, io, pair, map, rows, d, vec, tpr, nv, st);
@@ -1318,13 +1340,16 @@ int rt_dequant_unpack_accumulate(const void* packed, const void* scale,
 // two tensors in place: row r of x_i writes its packed codes and its
 // scale to row base + r % rpb of entry r / rpb of the stores packed_i and
 // scale_i, whose entries lie pstride bytes and sstride scales apart.
+// starts non-null (B int32, the per-row write heads): entry b's rows
+// start at clamp(starts[b], 0, hi) * n instead of base (RowMap).
 // tpr, nv: the tiling of d, as for rt_delta_quantize_pack.
 int rt_quantize_pack(const void* x0, const void* x1, const void* u0,
                      const void* u1, const void* seed0, const void* seed1,
                      void* packed0, void* packed1, void* scale0,
                      void* scale1, long long rows, long long d,
                      long long rpb, long long base, long long pstride,
-                     long long sstride, int bits, int vec, int tpr, int nv,
+                     long long sstride, const void* starts, long long n,
+                     long long hi, int bits, int vec, int tpr, int nv,
                      void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (rpb == 0) {
@@ -1343,7 +1368,10 @@ int rt_quantize_pack(const void* x0, const void* x1, const void* u0,
       {static_cast<uint8_t*>(packed0), static_cast<uint8_t*>(packed1)},
       {static_cast<float*>(scale0), static_cast<float*>(scale1)}};
   return launch_encode<false>(EncodeArgs{}, io, x1 ? 2 : 1,
-                              RowMap{rpb, base, pstride, sstride}, rows, d,
+                              RowMap{rpb, base, pstride, sstride,
+                                     static_cast<const int32_t*>(starts), n,
+                                     hi},
+                              rows, d,
                               bits, vec, tpr, nv, st);
 }
 

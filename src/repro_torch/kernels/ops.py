@@ -70,12 +70,13 @@ def unpack_dequant_pair(packed, scale, *, bits: int,
     return tuple(o.reshape(*shape[:-1], o.shape[-1]) for o in outs)
 
 
-def quantize_pack_into(x, packed, scale, pos: int, u=(None, None),
+def quantize_pack_into(x, packed, scale, pos, u=(None, None),
                        seed=(None, None), *, bits: int) -> None:
     """Fused absmax -> quantize -> pack of a pair of fresh (B, s, N, d)
     tensors, written in place into rows [pos, pos + s) of their stores
     (B, S, N, pw) u8 and (B, S, N) f32 in one launch: the KV append of
-    k and v."""
+    k and v (``pos`` an int, or a (B,) int32 tensor of clamped per-row
+    heads)."""
     _qp.quantize_pack_into(
         tuple(t.contiguous() for t in x), packed, scale, pos,
         tuple(None if t is None else t.contiguous() for t in u), seed,

@@ -232,7 +232,7 @@ def quantize_pack(x: torch.Tensor, u: Optional[torch.Tensor] = None, *,
         # (no row map: rpb 0)
         _launch("quantize_pack", "rt_quantize_pack", x.data_ptr(), None,
                 _ptr(u), None, _ptr(seed), None, packed.data_ptr(), None,
-                scale.data_ptr(), None, r, d, 0, 0, 0, 0, bits,
+                scale.data_ptr(), None, r, d, 0, 0, 0, 0, None, 0, 0, bits,
                 _vec(d, x, u, packed), *_encode_tiling(d),
                 seeded=seed is not None)
     return packed, scale
@@ -260,7 +260,7 @@ def _check_store(t: torch.Tensor, name: str, dtype: torch.dtype,
                          f"(batch entries contiguous, not overlapping)")
 
 
-def quantize_pack_into(x, packed, scale, pos: int, u=(None, None),
+def quantize_pack_into(x, packed, scale, pos, u=(None, None),
                        seed=(None, None), *, bits: int) -> None:
     """The KV append of k and v in one launch, written in place.
 
@@ -269,10 +269,14 @@ def quantize_pack_into(x, packed, scale, pos: int, u=(None, None),
     N, g*bits/8) u8 and (B, S, N) f32 of one shape and strides, each
     batch entry contiguous.  Row (b, t, j) of x[i] is quantized and
     packed (`quantize_pack`) into row (b, pos + t, j) of packed[i] and
-    scale[i]; nothing else in the stores is written.  ``u``: a pair of
-    uniform noise of x's shape, or ``seed``: a pair of (2,) int32 (the
-    counter is each element's index in its own tensor's (B*s*N, g) row
-    view), or neither."""
+    scale[i]; nothing else in the stores is written.  ``pos``: one
+    write head (an int, which must keep the rows inside the store), or
+    a (B,) int32 tensor on the stores' device, a head a batch entry,
+    which the kernel clamps to [0, S - s] (``dynamic_update_slice``'s
+    rule) and the host never reads.  ``u``: a pair of uniform noise of
+    x's shape, or ``seed``: a pair of (2,) int32 (the counter is each
+    element's index in its own tensor's (B*s*N, g) row view), or
+    neither."""
     x, packed, scale = _pair("x", x), _pair("packed", packed), \
         _pair("scale", scale)
     u, seed = _pair("u", u), _pair("seed", seed)
@@ -298,7 +302,17 @@ def quantize_pack_into(x, packed, scale, pos: int, u=(None, None),
     if packed[0].stride() != packed[1].stride() \
             or scale[0].stride() != scale[1].stride():
         raise ValueError("k's and v's stores must have the same strides")
-    if not 0 <= pos <= pos + s <= cache:
+    heads = isinstance(pos, torch.Tensor)
+    if heads:
+        if pos.dtype != torch.int32 or tuple(pos.shape) != (b,):
+            raise ValueError(f"pos: expected a ({b},) int32 tensor, got "
+                             f"{pos.dtype} {tuple(pos.shape)}")
+        if pos.device != packed[0].device:
+            raise ValueError(f"pos: on {pos.device}, the stores on "
+                             f"{packed[0].device}")
+        if s > cache:
+            raise ValueError(f"{s} rows do not fit a store of {cache}")
+    elif not 0 <= pos <= pos + s <= cache:
         raise ValueError(f"rows [{pos}, {pos + s}) do not fit a store of "
                          f"{cache}")
     rows = b * s * n
@@ -315,9 +329,11 @@ def quantize_pack_into(x, packed, scale, pos: int, u=(None, None),
             all(p.data_ptr() % 4 == 0 for p in packed)
         _launch("quantize_pack", "rt_quantize_pack", *map(_ptr, x),
                 *map(_ptr, u), *map(_ptr, seed), *map(_ptr, packed),
-                *map(_ptr, scale), rows, g, s * n, pos * n,
-                packed[0].stride(0), scale[0].stride(0), bits, int(vec),
-                *_encode_tiling(g), seeded=any(t is not None for t in seed))
+                *map(_ptr, scale), rows, g, s * n, 0 if heads else pos * n,
+                packed[0].stride(0), scale[0].stride(0),
+                _ptr(pos.contiguous()) if heads else None, n, cache - s,
+                bits, int(vec), *_encode_tiling(g),
+                seeded=any(t is not None for t in seed))
 
 
 def _div_magic(d: int) -> tuple:

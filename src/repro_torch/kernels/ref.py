@@ -125,19 +125,29 @@ def unpack_dequant_pair_ref(packed, scale, bits: int,
                  for p, s in zip(packed, scale))
 
 
-def quantize_pack_into_ref(x, packed, scale, pos: int, bits: int,
+def quantize_pack_into_ref(x, packed, scale, pos, bits: int,
                            u=(None, None)) -> None:
     """The KV append of k and v (`quant_pack.quantize_pack_into`): each
     fresh x (B, s, N, g) through `quantize_pack_ref` as rows of one
     scale group (noise u of x's shape, or None), its codes and scales
     written in place into rows [pos, pos + s) of its store, packed (B,
-    S, N, pw) u8 and scale (B, S, N) f32."""
+    S, N, pw) u8 and scale (B, S, N) f32.  ``pos`` is an int, or a (B,)
+    int tensor of per-row heads, each clamped to [0, S - s] as
+    ``jax.lax.dynamic_update_slice`` clamps it."""
     for xi, pi, si, ui in zip(x, packed, scale, u):
         b, s, n, g = xi.shape
         codes, sc = quantize_pack_ref(
             xi.reshape(-1, g), bits, None if ui is None else ui.reshape(-1, g))
-        pi[:, pos:pos + s] = codes.reshape(b, s, n, -1)
-        si[:, pos:pos + s] = sc.reshape(b, s, n)
+        codes, sc = codes.reshape(b, s, n, -1), sc.reshape(b, s, n)
+        if not isinstance(pos, torch.Tensor):
+            pi[:, pos:pos + s] = codes
+            si[:, pos:pos + s] = sc
+            continue
+        start = torch.clamp(pos.long(), 0, pi.shape[1] - s)
+        rows = start[:, None] + torch.arange(s, device=pi.device)
+        batch = torch.arange(b, device=pi.device)[:, None]
+        pi[batch, rows] = codes
+        si[batch, rows] = sc
 
 
 def quantize_codes_scaled_ref(x: torch.Tensor, scale: torch.Tensor,

@@ -1,11 +1,19 @@
-"""Serving launcher: uniform-batch prefill + decode with the compressed
-serving plane (port of the uniform-batch path of `repro.launch.serve`).
+"""Serving launcher: uniform-batch prefill + decode, or with
+``--continuous`` a mixed-length request stream through the continuous
+batcher, with the compressed serving plane (port of
+`repro.launch.serve`).
 
 ``--kv-bits`` switches the KV cache to packed codes + group scales and
 ``--stages N`` routes the hidden state through N-1 delta-coded hops
-per token (`repro_torch.serving.delta`).  The comm flags and
-``--comm-config`` JSON are those of the JAX package, and the resolved
-config is echoed back as JSON.  The weights and the prompt are a
+per token (`repro_torch.serving.delta`).  ``--continuous`` serves 2 x
+``--batch`` requests, prompts of 4 to ``--prompt-len`` tokens drawn as
+the JAX launcher draws them (``numpy.random.default_rng(1)``), each
+generating ``--gen`` tokens, over ``--slots`` cache slots
+(`repro_torch.serving.batcher`).  The comm flags and ``--comm-config``
+JSON are those of the JAX package, and the resolved config is echoed
+back as JSON; ``--list-wires`` prints the wire registry.  Sharded
+serving (``--data-par``/``--model-par`` above 1) is refused with the
+title of the ROADMAP item that ports it.  The weights and the prompt are a
 random init from ``--seed``, drawn on the CPU and moved to the device
 leaf by leaf, so a seed gives the same model on the card and on the
 CPU; sampling noise (``--temperature``) comes from a generator on the
@@ -24,19 +32,33 @@ and gemma2-9b (9.24B parameters, 37 GB at f32; a prompt past its
   python -m repro_torch.launch.serve --arch gemma2-9b --stages 2 \\
       --mode aqsgd --fw-bits 4 --kv-bits 8 --batch 2 --prompt-len 8160 \\
       --gen 32
+and a stream of 16 mixed-length requests over 8 slots of gpt2-xl:
+  python -m repro_torch.launch.serve --arch gpt2-xl-paper --stages 2 \\
+      --mode aqsgd --fw-bits 4 --kv-bits 8 --continuous --slots 8 \\
+      --batch 8 --prompt-len 128 --gen 32
 """
 from __future__ import annotations
 
 import argparse
 import time
 
+import numpy as np
 import torch
 
 from repro_torch.comm import config as comm_cli
 from repro_torch.configs.base import ARCHS, get_config
 from repro_torch.models.model import Transformer
 from repro_torch.rng import seeded_generator
-from repro_torch.serving import DeltaHopCodec, KVCodec
+from repro_torch.serving import ContinuousBatcher, DeltaHopCodec, KVCodec
+
+# flags of the JAX launcher the port refuses above 1, and the title of
+# the ROADMAP item that ports them
+NOT_PORTED = {
+    "data_par": 'sharded serving (ROADMAP queue A, "The rest of the '
+                'distributed work")',
+    "model_par": 'sharded serving (ROADMAP queue A, "The rest of the '
+                 'distributed work")',
+}
 
 
 def resolve_device(name: str) -> torch.device:
@@ -59,13 +81,23 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--arch", default="gemma2-9b", choices=list(ARCHS))
     ap.add_argument("--smoke", action="store_true")
     comm_cli.add_cli_args(ap)
+    ap.add_argument("--list-wires", action="store_true",
+                    help="print the wire registry table and exit")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--data-par", type=int, default=1)
+    ap.add_argument("--model-par", type=int, default=1)
     ap.add_argument("--stages", type=int, default=1,
                     help="pipeline stage groups for decode; >1 routes "
                          "the hidden state through delta-coded hops")
+    ap.add_argument("--continuous", action="store_true",
+                    help="serve a mixed-length request stream through "
+                         "the continuous batcher instead of one "
+                         "uniform batch")
+    ap.add_argument("--slots", type=int, default=0,
+                    help="batcher cache slots (default: --batch)")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random weights and prompt tokens")
     ap.add_argument("--device", default="cuda",
@@ -105,6 +137,10 @@ def serve(args) -> dict:
     build_s = time.perf_counter() - tb
     print(f"model build: {build_s:.3f}s")
     cache_len = args.prompt_len + args.gen
+    if args.continuous:
+        out = serve_continuous(args, model, dev, cache_len, kv_codec, hop)
+        out["build_s"] = build_s
+        return out
     caches = model.init_caches(args.batch, cache_len, torch.float32,
                                kv_codec=kv_codec)
     if hop is not None:
@@ -153,8 +189,70 @@ def serve(args) -> dict:
             "kv_store_bytes": kv_bytes, "cache_len": cache_len}
 
 
-def main(argv=None) -> dict:
-    return serve(build_parser().parse_args(argv))
+def submit_stream(bat: ContinuousBatcher, args) -> None:
+    """Submit the ``--continuous`` request stream to ``bat``: 2 x
+    ``args.batch`` requests, prompts of 4 to ``args.prompt_len`` tokens,
+    drawn as the JAX launcher draws them (``default_rng(1)``)."""
+    rng = np.random.default_rng(1)
+    for _ in range(args.batch * 2):   # oversubscribe: forces evict+admit
+        plen = int(rng.integers(4, args.prompt_len + 1))
+        bat.submit(rng.integers(0, bat.cfg.vocab_size, plen).tolist(),
+                   max_new_tokens=args.gen)
+
+
+def serve_continuous(args, model, dev, cache_len: int, kv_codec, hop):
+    """The ``--continuous`` run: 2 x ``args.batch`` requests through a
+    `ContinuousBatcher` of ``args.slots`` slots (default ``args.batch``).
+    Returns the model, the requests, the tick and token counts, the
+    wall time and its tokens a second, the prefill and decode seconds
+    apart (the batcher's ``stats``) and the pool's KV store bytes."""
+    slots = args.slots or args.batch
+    bat = ContinuousBatcher(model, num_slots=slots, cache_len=cache_len,
+                            kv_codec=kv_codec, hop_codec=hop,
+                            num_stages=args.stages)
+    submit_stream(bat, args)
+    _sync(dev)
+    t0 = time.perf_counter()
+    reqs = bat.run()
+    _sync(dev)
+    dt = time.perf_counter() - t0
+    n_tok = sum(len(r.tokens) for r in reqs)
+    print(f"continuous: {len(reqs)} requests over {slots} slots, "
+          f"{n_tok} tokens in {dt:.1f}s ({n_tok / dt:.1f} tok/s)")
+    for r in reqs[:4]:
+        print(f"  prompt[{len(r.prompt):3d}] -> {r.tokens[:8]}")
+    st = bat.stats
+    # every admitted request's first token comes from its prefill
+    dec_tok = n_tok - sum(1 for r in reqs if r.tokens)
+    dec_tok_s = dec_tok / st["decode_s"] if st["decode_s"] else 0.0
+    print(f"continuous: {st['prefills']} prefills {st['prefill_s']:.3f}s, "
+          f"{st['ticks']} decode ticks {st['decode_s']:.3f}s "
+          f"({dec_tok_s:.1f} tok/s)")
+    kv_bytes = sum(t.numel() * t.element_size()
+                   for n, t in bat.caches.items()
+                   if n in ("k", "v", "k_codes", "k_scale", "v_codes",
+                            "v_scale"))
+    return {"model": model, "requests": reqs, "num_slots": slots,
+            "ticks": st["ticks"],
+            "admissions": st["prefills"], "tokens": n_tok, "wall_s": dt,
+            "tok_s": n_tok / dt, "prefill_s": st["prefill_s"],
+            "decode_s": st["decode_s"], "decode_tokens": dec_tok,
+            "decode_tok_s": dec_tok_s,
+            "kv_store_bytes": kv_bytes, "cache_len": cache_len}
+
+
+def main(argv=None):
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    if args.list_wires:
+        from repro_torch.launch.train import print_wires
+        print_wires()
+        return None
+    for flag, what in NOT_PORTED.items():
+        if getattr(args, flag) > 1:
+            ap.error(f"--{flag.replace('_', '-')}: {what} is not ported "
+                     f"yet")
+    return serve(args)
 
 
 if __name__ == "__main__":

@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.core.cache_rows import write_rows_
 from repro_torch.kernels import ops
 
 NEG_INF = -1.0e9
@@ -177,10 +178,15 @@ class Attention(nn.Module):
         """x: (B, S, d).  k_cache, v_cache: (B, Sc, Hk, hd), written in
         place at ``cache_index`` with this step's fresh rows; attention
         runs over the whole cache (rows past the write head are masked
-        by the causal check).  Without caches (training) attention runs
-        over this call's own keys.  The attention path follows from the
-        call (see the module docstring), never from a caught error.
-        Returns (out, fresh_k, fresh_v)."""
+        by the causal check).  ``cache_index`` is an int, or for a
+        decode step (S = 1) a (B,) int64 tensor, a head a row (the
+        continuous batcher's pool), already clamped to [0, Sc - 1]
+        (`repro_torch.core.cache_rows.clamp_heads`): each write is one
+        scatter launch.  Without caches
+        (training) attention runs over this call's own keys.  The
+        attention path follows from the call (see the module
+        docstring), never from a caught error.  Returns (out, fresh_k,
+        fresh_v)."""
         b, s, _ = x.shape
         dtype = x.dtype
         hk, hd = self.num_kv_heads, self.head_dim
@@ -193,8 +199,11 @@ class Attention(nn.Module):
         if not cached:
             k_cache, v_cache, k_pos = k, v, positions
         else:
-            k_cache[:, cache_index:cache_index + s] = k.to(k_cache.dtype)
-            v_cache[:, cache_index:cache_index + s] = v.to(v_cache.dtype)
+            if isinstance(cache_index, torch.Tensor) and s != 1:
+                raise ValueError(f"per-row write heads take one token a "
+                                 f"row (a decode step), got S={s}")
+            write_rows_(k_cache, k, cache_index)
+            write_rows_(v_cache, v, cache_index)
             sc = k_cache.shape[1]
             k_pos = torch.arange(sc, dtype=torch.int32,
                                  device=x.device).expand(b, sc)

@@ -26,8 +26,16 @@ decode (S = 1) step.  Its serving-plane hooks are the JAX package's:
   the two scatters.
 
 Unlike the JAX package, caches are updated IN PLACE (a decode step
-writes B rows per layer instead of copying the whole store) and the
-write head ``caches["pos"]`` is a Python int.
+writes B rows per layer instead of copying the whole store).  The
+write head ``caches["pos"]`` is a Python int for a uniform batch, or a
+(B,) int32 tensor on the device, a head a row: the continuous
+batcher's pool (`repro_torch.serving.batcher`), whose rows sit at
+different depths.  Such a step decodes one token a row; each row's
+positions start at its own head, its raw-cache row and KV append are
+written at the head clamped into the store (``dynamic_update_slice``'s
+rule, which the JAX batcher applies row by row under ``vmap``), and
+the heads advance on the device, so the step reads no position on the
+host.
 """
 from __future__ import annotations
 
@@ -37,6 +45,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.cache_rows import clamp_heads
 from repro_torch.models import layers as L
 
 
@@ -165,15 +174,22 @@ class Transformer(nn.Module):
                             boundary_fn: Optional[Callable] = None,
                             kv_codec=None):
         """tokens (B, S).  Returns (logits (B, S or 1, V) f32, caches),
-        the caches updated in place (see the module docstring)."""
+        the caches updated in place (see the module docstring);
+        ``caches["pos"]`` an int or a (B,) int32 tensor of per-row
+        heads."""
         cfg = self.cfg
         pos0 = caches["pos"]
         quant = kv_codec is not None and bool(kv_codec.bits)
         h = self.embed_tokens(tokens)
         b, s = h.shape[0], h.shape[1]
-        positions = pos0 + torch.arange(s, dtype=torch.int32,
-                                        device=h.device).expand(b, s)
+        steps = torch.arange(s, dtype=torch.int32, device=h.device)
+        positions = pos0[:, None] + steps \
+            if isinstance(pos0, torch.Tensor) else pos0 + steps.expand(b, s)
         cache_len = caches["k_codes" if quant else "k"].shape[2]
+        # per-row heads: the raw-cache writes take them clamped, once a
+        # step; B3's append clamps in the kernel
+        write_at = clamp_heads(pos0, cache_len, s) \
+            if isinstance(pos0, torch.Tensor) else pos0
         n = cfg.num_layers
         if n % num_stages:
             raise ValueError(f"{n} layers do not split into {num_stages} "
@@ -191,7 +207,7 @@ class Transformer(nn.Module):
                     cfg.torch_dtype)
             else:
                 ck, cv = caches["k"][i], caches["v"][i]
-            h, fk, fv = blk(h, positions, window, ck, cv, pos0)
+            h, fk, fv = blk(h, positions, window, ck, cv, write_at)
             if quant:
                 # encode ONLY this step's fresh rows: old tokens keep
                 # their original single encoding

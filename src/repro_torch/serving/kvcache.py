@@ -140,14 +140,18 @@ class KVCodec:
         return tuple(v.reshape(*c.shape[:-2], -1)
                      for v, c in zip(vals, codes))
 
-    def append_pair(self, codes, scales, values, pos: int, *,
+    def append_pair(self, codes, scales, values, pos, *,
                     generator=None):
         """`append` of k's and v's fresh ``values`` (a pair of (B, s, Hk,
         head_dim)) into their layer stores, a pair of ``codes`` (B, S,
         Hk, G, pw) and ``scales`` (B, S, Hk, G), IN PLACE at ``pos``:
         one kernel launch on the cuda backend, which writes the codes and
-        scales straight into the stores.  The same bits as ``append`` of
-        k, then of v (a stochastic codec draws k's noise first)."""
+        scales straight into the stores.  ``pos`` is an int, or a (B,)
+        int32 tensor of per-row heads (the continuous batcher's pool),
+        each clamped to [0, S - s] as the JAX package's
+        ``dynamic_update_slice`` clamps it under ``vmap``.  The same bits
+        as ``append`` of k, then of v (a stochastic codec draws k's noise
+        first)."""
         g = self.group(values[0].shape[-1])
         b, cache = codes[0].shape[:2]
         B.encode_pair_into(
@@ -156,3 +160,4 @@ class KVCodec:
             tuple(s.view(b, cache, -1) for s in scales), pos,
             bits=self.bits, stochastic=self.stochastic,
             generator=generator, backend=self.backend)
+

@@ -30,7 +30,10 @@ of 50 (f32 against the plain formula in float64: the plain version's
 own f32 rounding is past 2e-5 there), and on f32 k and v rows that are
 not 16-byte aligned.  The KV plane's pair calls (k and v in one
 launch; the append written in place into the stores) equal their plain
-versions and two per-tensor calls at both archs' KV shapes.  The
+versions and two per-tensor calls at both archs' KV shapes, and the
+append at per-row write heads (the continuous batcher's pool, heads
+past the store clamped) equals its plain version; one pooled decode
+step makes no synchronizing call.  The
 encoders' rows wider than 256 values (a block a row, read once up to
 8192 values, walked twice past that) are held at the tiling's edges:
 260, 1600, 3584, 5120 and 8196 values, 1 and 5 rows.
@@ -378,6 +381,100 @@ def test_kv_pair_kernels_match_plain(card, bits):
                              for r, t in zip(rows, srows)])
 
 
+# the KV append at per-row write heads (the continuous batcher's pool):
+# (b, cache, n, g, s, heads) for gpt2-xl's pool of 8 slots (cache 160,
+# 25 heads of 64) with heads at 0, inside, at the last row and past the
+# store (clamped), gemma2's 2 slots (cache 8192, 8 heads of 256), and a
+# run of 2 rows a slot (a head at cache - 1 clamps to cache - 2)
+ROW_HEAD_CASES = [(8, 160, 25, 64, 1, (0, 5, 77, 128, 159, 160, 200, 3)),
+                  (2, 8192, 8, 256, 1, (8191, 9000)),
+                  (4, 12, 10, 32, 2, (0, 11, 5, 40))]
+
+
+@pytest.mark.parametrize("bits", BITS)
+def test_kv_pair_append_at_row_heads_matches_plain(card, bits):
+    """The pair append with a (B,) int32 head tensor on the card, one
+    launch, bit-equal to its plain version (`quantize_pack_into_ref`,
+    the clamp included), deterministic and seeded, into stores of
+    random bytes whose other rows keep theirs; and equal to the
+    scalar-head launch of each batch entry at its clamped head."""
+    seeds = tuple(torch.tensor(sd, dtype=torch.int32, device=card)
+                  for sd in ((3, -4), (5, 6)))
+    for b, cache, n, g, s, heads in ROW_HEAD_CASES:
+        x, packed, scale = _kv_pair_inputs(card, b, cache, n, g, s, bits,
+                                           cache + n + bits)
+        pos = torch.tensor(heads, dtype=torch.int32, device=card)
+        for seed in ((None, None), seeds):
+            plain_u = (None, None) if seed[0] is None else tuple(
+                TR.oncore_uniform_ref(sd, b * s * n, g).reshape(x[0].shape)
+                for sd in seed)
+            want_p = tuple(p.clone() for p in packed)
+            want_s = tuple(t.clone() for t in scale)
+            TR.quantize_pack_into_ref(x, want_p, want_s, pos, bits, plain_u)
+            got_p = tuple(p.clone() for p in packed)
+            got_s = tuple(t.clone() for t in scale)
+            TP.reset_launches()
+            TP.quantize_pack_into(x, got_p, got_s, pos, seed=seed, bits=bits)
+            assert TP.LAUNCHES["quantize_pack"] == 1
+            _equal(got_p + got_s, want_p + want_s)
+            if seed[0] is not None:
+                continue
+            for i, h in enumerate(heads):
+                start = min(max(h, 0), cache - s)
+                one_p = tuple(p[i:i + 1].clone() for p in packed)
+                one_s = tuple(t[i:i + 1].clone() for t in scale)
+                TP.quantize_pack_into(tuple(t[i:i + 1] for t in x), one_p,
+                                      one_s, start, bits=bits)
+                _equal(one_p + one_s, [t[i:i + 1] for t in got_p + got_s])
+
+
+def test_pooled_decode_step_makes_no_sync(card):
+    """One pooled `forward_with_caches` step (per-row heads, 8-bit KV,
+    the 4-bit aqsgd hop over 2 stages, gpt2-xl SMOKE) under
+    ``torch.cuda.set_sync_debug_mode("warn")``: no synchronizing call,
+    so the step can be captured whole.  A host read under the same mode
+    is the control: it must warn, or the mode sees nothing."""
+    import warnings
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.model import Transformer
+    from repro_torch.serving import DeltaHopCodec, KVCodec
+
+    cfg = get_config("gpt2-xl-paper", smoke=True)
+    model = Transformer(cfg, device=card,
+                        generator=torch.Generator().manual_seed(0))
+    kv, hop = KVCodec(bits=8), DeltaHopCodec(mode="aqsgd", bits=4)
+    pool = model.init_caches(3, 16, kv_codec=kv)
+    pool["hop_m"] = hop.init_state(1, 3, cfg.d_model, device=card)["m"]
+    pool["pos"] = torch.tensor([2, 9, 19], dtype=torch.int32, device=card)
+    tok = torch.tensor([[1], [2], [3]], device=card)
+
+    def step():
+        return model.forward_with_caches(
+            tok, pool, logits_last_only=True, num_stages=2,
+            boundary_fn=hop.boundary_fn(prefill=False), kv_codec=kv)
+
+    step()                       # builds and loads the kernels
+    torch.cuda.synchronize()
+
+    def syncs_in(fn):
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = fn()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return out, [str(w.message) for w in seen
+                     if "called a synchronizing" in str(w.message)]
+
+    (logits, out), syncs = syncs_in(step)
+    assert syncs == [], syncs
+    assert syncs_in(lambda: logits.sum().item())[1], "the control saw none"
+    assert out["pos"].tolist() == [4, 11, 21]
+    assert torch.isfinite(logits).all().item()
+
+
 @pytest.mark.parametrize("bits", BITS)
 def test_codecs_at_path_shapes(card, bits):
     """B1, B3 and B4 per call at the paths' shapes: the hops (8, 1600)
@@ -455,6 +552,10 @@ FLASH_CASES = [
     (2, 4, 2, 37, 53, 256, 9, True, 16, 50.0),           # ragged, offset
     (2, 25, 25, 128, 160, 64, 0, True, 10 ** 9, 0.0),    # gpt2-xl prefill
     (1, 16, 8, 300, 400, 256, 70, True, 128, 50.0),      # gemma2 local
+    # the continuous batcher's B = 1 prefills into a row cache of 160
+    (1, 25, 25, 4, 160, 64, 0, True, 10 ** 9, 0.0),
+    (1, 25, 25, 77, 160, 64, 0, True, 10 ** 9, 0.0),
+    (1, 25, 25, 128, 160, 64, 0, True, 10 ** 9, 0.0),
 ]
 
 

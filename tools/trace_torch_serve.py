@@ -20,10 +20,18 @@ one JSON object:
   intervals; ``device_idle_share`` = 1 - busy / wall;
 * ``kernel_launches``: device kernels per step;
 * ``top_kernels``: device time per step by kernel name;
+  ``most_launched``: the kernels launched most often a step;
 * ``top_host_ops``: self host time per step by PyTorch op;
 * ``prefill``: the same keys for one prefill;
 * ``build_s``: the model build, weights drawn on the host (gemma2-9b's
   9.24e9 take about a minute).
+
+With ``--continuous`` (and ``--slots``, ``--gen``) it traces the
+continuous batcher's pooled tick instead: the launcher's request stream
+(`repro_torch.launch.serve.submit_stream`) fills the slots by one
+admission round, two ticks warm up, and ``--trace-steps`` ticks
+(`ContinuousBatcher.step`, each ending in its host read of the tokens)
+are timed and traced; ``prefill`` is then absent.
 
 The traced run pays the profiler's own cost: ``step_ms_untraced`` is the
 same steps timed without it.  Needs a CUDA device.
@@ -83,6 +91,8 @@ def main(argv=None) -> dict:
     model = Transformer(cfg, device=dev, generator=gen)
     torch.cuda.synchronize(dev)
     build_s = time.perf_counter() - t0
+    if args.continuous:
+        return _trace_ticks(args, model, kv, hop, build_s)
     steps = 4 + 2 * args.trace_steps
     kw = dict(logits_last_only=True, num_stages=args.stages,
               kv_codec=kv if kv.bits else None)
@@ -146,6 +156,52 @@ def main(argv=None) -> dict:
     return out
 
 
+def _trace_ticks(args, model, kv, hop, build_s: float) -> dict:
+    """Time and trace ``args.trace_steps`` pooled ticks of the
+    continuous batcher (see the module docstring)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import serve
+    from repro_torch.serving import ContinuousBatcher
+
+    if 2 + 2 * args.trace_steps >= args.gen:
+        raise ValueError(f"--gen {args.gen} ends requests inside the "
+                         f"{2 + 2 * args.trace_steps} ticks traced")
+    bat = ContinuousBatcher(model, num_slots=args.slots or args.batch,
+                            cache_len=args.prompt_len + args.gen,
+                            kv_codec=kv if kv.bits else None, hop_codec=hop,
+                            num_stages=args.stages)
+    serve.submit_stream(bat, args)
+    bat._admit()                                # one admission round
+
+    def ticks(n):
+        for _ in range(n):
+            bat.step()
+
+    ticks(2)                                    # warm-up
+    t0 = time.perf_counter()
+    ticks(args.trace_steps)
+    untraced = (time.perf_counter() - t0) * 1e3 / args.trace_steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ticks(args.trace_steps)
+        wall = (time.perf_counter() - t0) * 1e3 / args.trace_steps
+    out = {
+        "device": torch.cuda.get_device_name(bat.device),
+        "config": {k: getattr(args, k) for k in (
+            "arch", "smoke", "stages", "mode", "fw_bits", "kv_bits", "batch",
+            "slots", "prompt_len", "gen")},
+        "build_s": build_s, "trace_steps": args.trace_steps,
+        "active_slots": sum(r is not None for r in bat._slots),
+        "step_ms_untraced": untraced,
+        "step_ms": wall, **_summary(prof, args.trace_steps, wall, "step"),
+    }
+    print(json.dumps(out, indent=1))
+    return out
+
+
 def _summary(prof, n: int, wall_ms: float, unit: str) -> dict:
     """Device busy time, idle share, kernels and host ops per ``unit``
     (one of ``n`` traced repetitions of ``wall_ms`` each)."""
@@ -167,6 +223,9 @@ def _summary(prof, n: int, wall_ms: float, unit: str) -> dict:
         "top_kernels": [{"name": k[:90], "ms": v[0], f"per_{unit}": v[1] / n}
                         for k, v in sorted(by_kernel.items(),
                                            key=lambda kv: -kv[1][0])[:10]],
+        "most_launched": [{"name": k[:90], f"per_{unit}": v[1] / n}
+                          for k, v in sorted(by_kernel.items(),
+                                             key=lambda kv: -kv[1][1])[:10]],
         "top_host_ops": [{"op": k, "self_ms": ms, f"per_{unit}": c}
                          for k, ms, c in host[:12]],
     }

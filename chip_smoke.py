@@ -90,12 +90,27 @@ Phases, each printed on its own line:
    plain version's own rounding of q k^T passes 2e-5 at hd 256 with q
    scaled by 16); the distance from the f32 plain version is printed
    beside it, and bf16 and the paths are held to the f32 plain
-   version.  Then its ``[kernel-time]`` rows at those three calls:
+   version; and at the training paths' shapes (a ``[train]`` worker's
+   (4, 25, 25, 1024, 1024, 64) causal, gemma2-9b's heads at 1024 tokens
+   on a global and a local layer) with the rows' log-sum-exp, o and lse
+   both held to the f32 plain version at 1e-4.  Then its
+   ``[kernel-time]`` rows at those six calls (the training ones with
+   ``return_lse``, their lse's bytes counted):
    device time, the bound on the f32 units (operations over the
    visible scores against q, k, v, o bytes) and on the tensor cores
    (``bound_tc_ms``: its 3 TF32 passes at 495 TFLOP/s), the plain
    version's time and, at gpt2-xl's shape (no softcap, MHA),
-   ``scaled_dot_product_attention`` with the visibility mask;
+   ``scaled_dot_product_attention`` with the visibility mask (and at
+   the gpt2-xl training shape, where it computes o alone);
+   ``[flash-train-check]``: the training attention
+   (`repro_torch.models.layers.flash_attention`: B10 with the lse, JAX's
+   backward in PyTorch) at those three training shapes against its
+   formula in float64: o within 2e-5, the lse within 2e-5 (rtol =
+   atol), dq, dk and dv within 1e-4 of each one's largest |value|, B10's
+   o bit-identical with and without the lse; then ``loss_fn`` and its
+   gradients with remat off and on, bit-equal, on both archs' SMOKE
+   models and gpt2-xl-paper at full width cut to 4 layers (B10 once a
+   layer, twice with remat);
 4. ``[serve]``: the serving path at full width and depth:
    ``gpt2-xl-paper`` (48 layers, d 1600), random weights from a seeded
    generator, batch 8, prompt 128, 32 greedy decode steps, ``--stages 2
@@ -143,37 +158,45 @@ Phases, each printed on its own line:
    not fit one 80 GB card), 4 stage groups, aqsgd fw 4 / bw 8, DP 4-bit
    on the ``ring`` wire over 2 simulated workers, batch 8 x seq 1024,
    16 samples, 6 steps (3 epochs, so the delta path runs from step 3),
-   seed 0 — the counters set to 0 just before and read just after;
+   seed 0 — the counters set to 0 just before and read just after (B10
+   once a layer a worker);
    then ``[train-oncore]``: the same run with ``ACSGD_ONCORE_PRNG=1``,
    each stochastic encode drawing its noise in the kernel (B1 36, B3
    36, B5 12 seeded launches, none reading a noise tensor), its step
    time, peak memory and final loss against ``[train]``'s;
 7. ``[train-reference-check]``: the SMOKE model, deterministic rounding
-   on every plane, 4 steps on the card (kernels) against the CPU (plain
-   versions) from the same weights;
+   on every plane, remat on, 4 steps on the card (kernels) against the
+   CPU (plain versions) from the same weights; ``[train-full-depth]``:
+   ``[train]``'s settings with ``remat`` at 40 of gpt2-xl-paper's 48
+   layers, the most (in multiples of the 4 stage groups) the card holds
+   (the step's peak sits in the DP wire, ~1.73 GiB a layer,
+   tools/train_memory.py), 6 steps: step time, tokens/s, peak memory,
+   B10 twice a layer a worker (forward and recompute);
 8. ``[dist-train]``: the distributed GPipe trainer through
    `repro_torch.launch.train.run_distributed` (what ``--distributed``
    runs): ``gpt2-xl-paper`` at full width cut to 8 of its 48 layers, a
    2 x 2 (data x model) mesh of four processes sharing the card over
    gloo, 2 microbatches, batch 8 x seq 512, 16 samples, aqsgd fw 4 /
    bw 8 stochastic, the 4-bit ``ring`` DP wire, 4 steps (steps 1-2 the
-   warm-up epoch, 3-4 compressed), lr 1e-3, the spec built from those
-   flags by the launcher — each rank's launch counts
+   warm-up epoch, 3-4 compressed), lr 1e-3, the pipeline's remat
+   defaults (nested, 64 loss chunks), the spec built from those flags by
+   the launcher — each rank's launch counts
    set to 0 just before each step and read just after, summed over
    ranks and steps; the replica checks (each stage's ``m_in`` equals
    the upstream ``m_out``, the two copies of the tied embedding equal)
    after every step, and the bytes each rank sent against the byte
    models;
 9. ``[dist-reference-check]``: the same 2 x 2 mesh at SMOKE width (4
-   layers), deterministic rounding on every plane, 3 steps on the card
-   (kernels) against the CPU (plain versions) from the same seed.
+   layers), deterministic rounding on every plane, remat nested, 3
+   steps on the card (kernels) against the CPU (plain versions) from
+   the same seed.
 
 B9a and B9b launch 0 times on every path but ``[legacy-dp-codec]``:
 no trainer or server runs the legacy pair, in the JAX package either.
 Then one JSON line with every kernel's numbers (``launches``: the
 count on the path its time was taken at, named by ``launches_path``;
 each path's own count in ``launches_by_path``, ``serve_continuous``
-among them), the card's name and
+and ``train_full_depth`` among them), the card's name and
 power limit, and as the last line ``{"ok": true, "device": {...}}``.
 Any failure raises and exits non-zero; with no CUDA device it exits 1
 and prints no result.  Imports nothing of JAX or of the JAX package.
@@ -309,13 +332,23 @@ TRAIN_ROWS = (TRAIN_BATCH // TRAIN_WORKERS * TRAIN_SEQ, D_MODEL)  # a worker
 WIDE_ROWS = [(r, d) for d in (260, 1600, 3584, 5120, 8196) for r in (1, 5)]
 # kernel launches per training step: 3 boundaries x 2 workers forward
 # (sender) and backward (gradient round trip); per worker one DP sender
-# and one n=1 decode for its carry, plus the n=2 mean
+# and one n=1 decode for its carry, plus the n=2 mean; B10 once a layer
+# a worker (`train_phase` doubles it with remat: once more a layer in
+# the recompute)
 TRAIN_LAUNCHES_PER_STEP = {"delta_quantize_pack": 6,
                            "dequant_unpack_accumulate": 0,
                            "quantize_pack": 6, "unpack_dequant": 6,
                            "quantize_pack_scaled": 0, "unpack_codes": 0,
                            "quantize_codes_scaled": 2,
-                           "dequant_sum_mean": 3}
+                           "dequant_sum_mean": 3,
+                           "flash_attention_fwd": TRAIN_LAYERS
+                           * TRAIN_WORKERS}
+# [train-full-depth]: [train]'s settings with remat, at the most layers
+# (in multiples of the 4 stage groups) that the card holds: the step's
+# peak sits in the DP wire, 5.14 + 1.725 GiB a layer (tools/
+# train_memory.py on the H100), 74.1 GiB at 40 layers and 81.0 at 44
+# against the card's 79.2
+FULL_DEPTH_LAYERS = 40
 DP_KERNELS = ("quantize_codes_scaled", "dequant_sum_mean")
 # the gradient wire's legacy pair (B9a, B9b): on no path of either
 # package but tests/test_grad_compress.py's chain, which [legacy-dp-codec]
@@ -345,13 +378,20 @@ DIST_TIMEOUT = 600
 # boundary once forward (B1 at stage 0, B2 at stage 1) and once backward
 # (B3 at stage 1, B4 at stage 0); per step every rank runs the ring:
 # B5 (pack) once, B6 twice (carry n=1, mean n=2), B7 once (D-1 hops),
-# B8a and B8b once
+# B8a and B8b once.  B10: under the pipeline's nested remat a stage of
+# n = 4 layers runs 3n - 1 = 11 attention forwards a microbatch (the
+# forward; the stage's recompute, which stops once it has recomputed
+# the last layer's input; each layer's own recompute), on every rank,
+# microbatch and step
+DIST_LPS = DIST_LAYERS // DIST_STAGES
 DIST_LAUNCHES = {"delta_quantize_pack": 8, "dequant_unpack_accumulate": 8,
                  "quantize_pack": 8, "unpack_dequant": 8,
                  "quantize_pack_scaled": 0, "unpack_codes": 0,
                  "quantize_codes_scaled": 16, "dequant_sum_mean": 32,
                  "unpack_accumulate": 16, "pack_sums": 16,
-                 "unpack_sums": 16}
+                 "unpack_sums": 16,
+                 "flash_attention_fwd": DIST_DATA * DIST_STAGES
+                 * DIST_STEPS * DIST_MICRO * (3 * DIST_LPS - 1)}
 
 
 def phase(tag: str, **kv) -> None:
@@ -1372,6 +1412,31 @@ FLASH_PATHS = {
 }
 
 
+# the training attention (B10 asked for its rows' log-sum-exp, and JAX's
+# backward in PyTorch) at the trainers' shapes, as the model passes them
+# (transposed (B, S, H, hd) views): a [train] worker's (4 x 1024, 25
+# heads of 64, causal), and gemma2-9b's heads (16 on 8 kv heads of 256)
+# at 1024 tokens on a global and a local layer (window 512), q scaled
+# so scores reach the softcap of 50
+FLASH_TRAIN = {
+    "gpt2-xl-train": ("path", TRAIN_BATCH // TRAIN_WORKERS, 25, KV_HEADS,
+                      TRAIN_SEQ, TRAIN_SEQ, HEAD_DIM, 0, True, TRAIN_SEQ,
+                      0.0, "float32", 1.0),
+    "gemma2-train-global": ("path", 1, G_HEADS, G_KV_HEADS, 1024, 1024,
+                            G_HEAD_DIM, 0, True, G_WINDOW, G_CAP,
+                            "float32", 16.0),
+    "gemma2-train-local": ("path", 1, G_HEADS, G_KV_HEADS, 1024, 1024,
+                           G_HEAD_DIM, 0, True, 512, G_CAP, "float32",
+                           16.0),
+}
+# against the float64 formula: o at the sweep's f32 tolerance, the lse
+# at rtol = atol = 2e-5, and each of dq, dk, dv within 1e-4 of its
+# largest |value| (the backward's f32 products over 1024 keys); bounds
+# set before the first run on the card
+TRAIN_LSE_TOL = 2e-5
+TRAIN_GRAD_TOL = 1e-4
+
+
 def _flash_inputs(torch, case, seed):
     """Head-major q, k, v; a path's case gives the views its prefill
     passes: transposes of (B, S, H, hd) queries and (B, Sc, Hk, hd)
@@ -1423,16 +1488,28 @@ def flash_ref64(torch, ref, q, k, v, *, causal, window, softcap, q_offset):
     return out.reshape(b, h, sq, hd).float()
 
 
-def check_flash(torch, fa, ref, case, tol, f64=False):
+def check_flash(torch, fa, ref, case, tol, f64=False, lse=False):
     """Kernel vs plain version (rtol = atol = tol), or (f64) vs the plain
     version's formula in float64; returns (max |diff| from the yardstick,
     max |diff| from the f32 plain version, and with f64 the f32 plain
     version's own max |diff| from the float64 formula and its count of
-    elements past the tolerance)."""
+    elements past the tolerance).  With ``lse`` the kernel also writes
+    the rows' log-sum-exp, held to the plain version's at the same
+    tolerance; its max |diff| is returned last."""
     q, k, v = _flash_inputs(torch, case, seed=sum(case[1:7]))
     kw = _flash_kw(case)
-    got = fa.flash_attention_fwd(q, k, v, **kw)
-    plain = ref.flash_attention_ref(q, k, v, **kw)
+    lse_err = None
+    if lse:
+        got, got_lse = fa.flash_attention_fwd(q, k, v, return_lse=True,
+                                              **kw)
+        plain, plain_lse = ref.flash_attention_ref(q, k, v,
+                                                   return_lse=True, **kw)
+        torch.testing.assert_close(got_lse, plain_lse, rtol=tol, atol=tol)
+        lse_err = (got_lse - plain_lse).abs().max().item()
+        del got_lse, plain_lse
+    else:
+        got = fa.flash_attention_fwd(q, k, v, **kw)
+        plain = ref.flash_attention_ref(q, k, v, **kw)
     want = flash_ref64(torch, ref, q, k, v, **kw) if f64 else plain
     torch.cuda.synchronize()
     assert got.shape == plain.shape and got.dtype == plain.dtype, case
@@ -1449,7 +1526,7 @@ def check_flash(torch, fa, ref, case, tol, f64=False):
     plain_bad = int((plain_off > tol + tol * want.float().abs()).sum())
     del q, k, v, got, want, plain, diff, plain_off
     torch.cuda.empty_cache()
-    return err, err_plain, plain_err, plain_bad
+    return err, err_plain, plain_err, plain_bad, lse_err
 
 
 def visible_scores(torch, sq, sk, q_offset, causal, window) -> int:
@@ -1478,22 +1555,25 @@ def _sdpa(torch, case):
         q, k, v, attn_mask=vis)
 
 
-def time_flash(torch, fa, ref, case):
+def time_flash(torch, fa, ref, case, lse=False):
     """(ms, ms_head_major, plain_ms, library_ms, bound_ms, bound_by,
     bytes, ops) at one path shape, ms on the path's views and
     ms_head_major on contiguous copies of them; the library call is
     checked equal to the kernel (rtol = atol = FLASH_PATH_TOL) before it
-    is timed."""
+    is timed.  With ``lse`` the kernel and the plain version also write
+    the rows' log-sum-exp (its bytes counted); the library call computes
+    the output alone."""
     _, b, h, hk, sq, sk, hd, off, causal, window, cap, *_ = case
-    kw = _flash_kw(case)
+    kw = dict(_flash_kw(case), **({"return_lse": True} if lse else {}))
     one = _flash_inputs(torch, case, seed=1)
     out = fa.flash_attention_fwd(*one, **kw)
-    nbytes = _bytes(one, [out])
+    outs = list(out) if lse else [out]
+    nbytes = _bytes(one, outs)
     library = _sdpa(torch, case)
     if library is not None:
-        torch.testing.assert_close(library(*one), out, rtol=FLASH_PATH_TOL,
-                                   atol=FLASH_PATH_TOL)
-    del out
+        torch.testing.assert_close(library(*one), outs[0],
+                                   rtol=FLASH_PATH_TOL, atol=FLASH_PATH_TOL)
+    del out, outs
     n_sets = max(1, min(16, math.ceil(120e6 / nbytes)))  # > 50 MB of L2
     sets = [one] + [_flash_inputs(torch, case, seed=2 + i)
                     for i in range(n_sets - 1)]
@@ -1542,17 +1622,21 @@ def flash_phase(torch, fa, ref):
     plain_f64, plain_past = 0.0, 0
     for case in FLASH_SWEEP:
         dt = case[11]
-        e, e_plain, p_err, p_bad = check_flash(
+        e, e_plain, p_err, p_bad, _ = check_flash(
             torch, fa, ref, case, FLASH_TOL[dt], f64=dt == "float32")
         errs[dt] = max(errs[dt], e)
         errs_plain[dt] = max(errs_plain[dt], e_plain)
         if dt == "float32":
             plain_f64, plain_past = max(plain_f64, p_err), plain_past + p_bad
-    path_errs = {}
+    path_errs, lse_errs = {}, {}
     for name, case in FLASH_PATHS.items():
         path_errs[name] = check_flash(torch, fa, ref, case,
                                       FLASH_PATH_TOL)[0]
-    phase("flash-check", cases=len(FLASH_SWEEP) + len(FLASH_PATHS),
+    for name, case in FLASH_TRAIN.items():     # the kernel with its lse
+        res = check_flash(torch, fa, ref, case, FLASH_PATH_TOL, lse=True)
+        path_errs[name], lse_errs[name] = res[0], res[-1]
+    phase("flash-check", cases=len(FLASH_SWEEP) + len(FLASH_PATHS)
+          + len(FLASH_TRAIN),
           max_abs_err_sweep=json.dumps(errs),
           sweep_yardstick=json.dumps({"float32": "float64 formula",
                                       "bfloat16": "f32 plain version"}),
@@ -1561,17 +1645,20 @@ def flash_phase(torch, fa, ref):
           f32_plain_elements_past_tol=plain_past,
           tolerance_sweep=json.dumps(FLASH_TOL),
           max_abs_err_paths=json.dumps(path_errs),
+          max_abs_err_train_lse=json.dumps(lse_errs),
           tolerance_paths=FLASH_PATH_TOL)
     timed = {}
-    for name, case in FLASH_PATHS.items():
+    for name, case in [*FLASH_PATHS.items(), *FLASH_TRAIN.items()]:
+        lse = name in FLASH_TRAIN
         ms, ms_head_major, plain_ms, library_ms, bound_ms, bound_by, \
-            nbytes, ops = time_flash(torch, fa, ref, case)
+            nbytes, ops = time_flash(torch, fa, ref, case, lse=lse)
         bound_tc_ms = tensor_core_bound_ms(ops, nbytes)
         # bound_ms: the f32 units' rate; bound_tc_ms: the tensor cores'
         # (tflops: the visible scores' operations a second; tflops_tc:
         # the TF32 operations of the 3 passes a second, against 495)
         phase("kernel-time", name="flash_attention_fwd", path=name,
-              shape=json.dumps(list(case[1:7])), window=case[9],
+              return_lse=lse, shape=json.dumps(list(case[1:7])),
+              window=case[9],
               softcap=case[10], bytes=nbytes, ops=ops, ms=f"{ms:.6f}",
               ms_head_major=f"{ms_head_major:.6f}",
               plain_ms=f"{plain_ms:.6f}", bound_ms=f"{bound_ms:.6f}",
@@ -1588,6 +1675,8 @@ def flash_phase(torch, fa, ref):
                        "bound_tc_ms": bound_tc_ms,
                        "library_ms": library_ms,
                        "max_abs_err": path_errs[name]}
+        if lse:
+            timed[name]["max_abs_err_lse"] = lse_errs[name]
     row = {"name": "flash_attention_fwd", "route": "cuda",
            "source": FLASH_SOURCE, "replaces": REPLACES["flash_attention_fwd"],
            "launches": 0, "max_abs_err": max(errs["float32"],
@@ -1599,7 +1688,126 @@ def flash_phase(torch, fa, ref):
         "bound_tc_ms", "library_ms", "shape")})
     row["gemma2_local"] = timed["gemma2-local"]
     row["gemma2_global"] = timed["gemma2-global"]
+    # with the rows' lse, at the training paths' shapes
+    for name in FLASH_TRAIN:
+        row[name.replace("-", "_")] = timed[name]
     return row
+
+
+def train_attn64(torch, ref, q, k, v, *, window, cap):
+    """The training attention's formula in float64, differentiable: (o
+    (B, S, H, hd), lse (B, H, S)); q (B, S, H, hd), k and v (B, S, Hk,
+    hd), query i and key j at positions i and j."""
+    b, s, h, hd = q.shape
+    grp = h // k.shape[2]
+    kk, vv = (t.repeat_interleave(grp, dim=2) for t in (k, v))
+    sc = torch.einsum("bqhd,bkhd->bhqk", q, kk) * (1.0 / math.sqrt(hd))
+    if cap > 0:
+        sc = cap * torch.tanh(sc / cap)
+    i = torch.arange(s, device=q.device)[:, None]
+    j = torch.arange(s, device=q.device)[None, :]
+    sc = torch.where((j <= i) & (j > i - window), sc, ref.NEG_INF)
+    o = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(sc, dim=-1), vv)
+    return o, torch.logsumexp(sc, dim=-1)
+
+
+def flash_train_phase(torch, fa, ref, qp):
+    """[flash-train-check]: the training attention at the trainers'
+    shapes against its formula in float64 (B10's o and lse; the
+    Function's dq, dk, dv), B10's o bit-identical without the lse, and
+    remat on and off bit-equal on the card."""
+    from repro_torch.models import layers as L
+    errs = {}
+    for name, case in FLASH_TRAIN.items():
+        window, cap = case[9], case[10]
+        q, k, v = _flash_inputs(torch, case, seed=sum(case[1:7]))
+        kw = dict(causal=True, window=window, softcap=cap)
+        qp.reset_launches()
+        o, lse = fa.flash_attention_fwd(q, k, v, return_lse=True, **kw)
+        same = torch.equal(o, fa.flash_attention_fwd(q, k, v, **kw))
+        assert qp.LAUNCHES["flash_attention_fwd"] == 2
+        # the Function on the model's (B, S, H, hd) tensors
+        leaves = [t.transpose(1, 2).clone().requires_grad_()
+                  for t in (q, k, v)]
+        g = torch.randn(leaves[0].shape, device="cuda",
+                        generator=torch.Generator(device="cuda")
+                        .manual_seed(5))
+        out = L.flash_attention(*leaves, window=window, attn_softcap=cap)
+        grads = torch.autograd.grad(out, leaves, g)
+        same_fn = torch.equal(out.detach(), o.transpose(1, 2))
+        ref64 = [t.detach().double().requires_grad_() for t in leaves]
+        o64, lse64 = train_attn64(torch, ref, *ref64, window=window,
+                                  cap=cap)
+        grads64 = torch.autograd.grad(o64, ref64, g.double())
+        torch.cuda.synchronize()
+        tol = FLASH_TOL["float32"]
+        o_err = (o.transpose(1, 2).double() - o64).abs()
+        lse_err = (lse.double() - lse64).abs()
+        e = {"o": o_err.max().item(), "lse": lse_err.max().item(),
+             "o_bit_identical_without_lse": same,
+             "function_o_is_b10": same_fn}
+        bad_o = int((o_err > tol + tol * o64.abs()).sum())
+        bad_lse = int((lse_err > TRAIN_LSE_TOL
+                       + TRAIN_LSE_TOL * lse64.abs()).sum())
+        for n, got, want in zip(("dq", "dk", "dv"), grads, grads64):
+            e[n] = (got.double() - want).abs().max().item()
+            e[n + "_over_max"] = e[n] / want.abs().max().item()
+        errs[name] = e
+        del q, k, v, o, lse, leaves, out, grads, ref64, o64, lse64, grads64
+        torch.cuda.empty_cache()
+        assert same and same_fn, (name, e)
+        assert bad_o == 0 and bad_lse == 0, (name, bad_o, bad_lse, e)
+        assert all(e[n + "_over_max"] <= TRAIN_GRAD_TOL
+                   for n in ("dq", "dk", "dv")), (name, e)
+    remat = remat_bit_equal(torch, qp)
+    phase("flash-train-check", cases=json.dumps(list(FLASH_TRAIN)),
+          errs=json.dumps(errs), remat=json.dumps(remat),
+          tolerance=f"o rtol=atol={FLASH_TOL['float32']} lse rtol=atol="
+                    f"{TRAIN_LSE_TOL} grads max|diff|/max|ref| <= "
+                    f"{TRAIN_GRAD_TOL}; float64 formula")
+    return errs
+
+
+def remat_bit_equal(torch, qp):
+    """`loss_fn` and its gradients with remat off and on, bit for bit:
+    both archs' SMOKE models (2 stage groups) and gpt2-xl-paper at full
+    width cut to 4 layers (a [train] worker's 4 x 1024 tokens); B10
+    launched once a layer, twice with remat."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as Mo
+    out = {}
+    for arch, smoke, layers, (b, s) in (
+            ("gpt2-xl-paper", True, 2, (2, 40)),
+            ("gemma2-9b", True, 2, (2, 40)),
+            ("gpt2-xl-paper", False, 4, (TRAIN_BATCH // TRAIN_WORKERS,
+                                         TRAIN_SEQ))):
+        cfg = get_config(arch, smoke=smoke).with_(num_layers=layers)
+        model = Mo.Transformer(cfg, device="cuda",
+                               generator=torch.Generator().manual_seed(0))
+        toks = torch.randint(0, cfg.vocab_size, (b, s + 1),
+                             generator=torch.Generator().manual_seed(1))
+        batch = {"tokens": toks[:, :-1].to("cuda"),
+                 "targets": toks[:, 1:].to("cuda"),
+                 "mask": torch.ones(b, s, device="cuda")}
+        params = list(model.parameters())
+        runs = []
+        for remat in (False, True):
+            qp.reset_launches()
+            loss, _ = Mo.loss_fn(model, batch, num_stages=2, remat=remat)
+            grads = torch.autograd.grad(loss, params)
+            torch.cuda.synchronize()
+            runs.append((loss.detach(), grads,
+                         qp.LAUNCHES["flash_attention_fwd"]))
+        equal = torch.equal(runs[0][0], runs[1][0]) and all(
+            torch.equal(x, y) for x, y in zip(runs[0][1], runs[1][1]))
+        key = f"{arch}{'-smoke' if smoke else ''}-{layers}L"
+        out[key] = {"bit_equal": equal,
+                    "launches": [runs[0][2], runs[1][2]]}
+        del model, runs, params
+        torch.cuda.empty_cache()
+        assert equal, key
+        assert out[key]["launches"] == [layers, 2 * layers], out[key]
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1933,7 +2141,8 @@ def gemma2_device_draw_s(torch) -> float:
 # phases 6 and 7: AQ-SGD training with compressed DP gradients
 # ---------------------------------------------------------------------------
 
-def _train_config(sim, comm_mod, adamw, *, stochastic, stages, steps):
+def _train_config(sim, comm_mod, adamw, *, stochastic, stages, steps,
+                  remat=False):
     plane = comm_mod.PlaneConfig
     kw = dict(stochastic=stochastic)
     comm = comm_mod.CommConfig(mode="aqsgd", fw=plane(bits=4, **kw),
@@ -1942,24 +2151,26 @@ def _train_config(sim, comm_mod, adamw, *, stochastic, stages, steps):
     # the train launcher's optimizer defaults: lr 1e-3, warm-up
     # max(steps // 20, 1), decay to 0 at the last step
     return sim.SimTrainConfig(
-        num_stages=stages, comm=comm, dp_workers=TRAIN_WORKERS,
+        num_stages=stages, comm=comm, dp_workers=TRAIN_WORKERS, remat=remat,
         optimizer=adamw.AdamWConfig(lr=1e-3, warmup_steps=max(steps // 20,
                                                               1),
                                     total_steps=steps))
 
 
-def train_phase(torch, qp, tag="train"):
-    """The training main path at full width; returns its launches, final
-    loss, median step time (steps 3-6) and peak memory."""
+def train_phase(torch, qp, tag="train", layers=TRAIN_LAYERS, remat=False):
+    """The training main path at full width and ``layers`` deep; returns
+    its launches, final loss, median step time (steps 3-6) and peak
+    memory."""
     from repro_torch.comm import config as comm_mod
     from repro_torch.configs.base import get_config
     from repro_torch.data.pipeline import Dataset, DatasetConfig
     from repro_torch.optim import adamw
     from repro_torch.training import simulated as sim
 
-    cfg = get_config("gpt2-xl-paper").with_(num_layers=TRAIN_LAYERS)
+    cfg = get_config("gpt2-xl-paper").with_(num_layers=layers)
     tcfg = _train_config(sim, comm_mod, adamw, stochastic=True,
-                         stages=TRAIN_STAGES, steps=TRAIN_STEPS)
+                         stages=TRAIN_STAGES, steps=TRAIN_STEPS,
+                         remat=remat)
     ds = Dataset(DatasetConfig(num_samples=TRAIN_SAMPLES, seq_len=TRAIN_SEQ,
                                vocab_size=cfg.vocab_size, seed=0))
     torch.cuda.empty_cache()
@@ -1972,19 +2183,25 @@ def train_phase(torch, qp, tag="train"):
     peak = torch.cuda.max_memory_allocated()
     step_s = statistics.median(state["step_seconds"][2:])
     n_params = sum(p.numel() for p in state["model"].parameters())
-    phase(tag, layers=TRAIN_LAYERS, d_model=cfg.d_model,
+    want = dict(TRAIN_LAUNCHES_PER_STEP, flash_attention_fwd=layers
+                * TRAIN_WORKERS * (2 if remat else 1))
+    phase(tag, layers=f"{layers}/48", remat=remat, d_model=cfg.d_model,
           params=n_params, dp_bucket_rows=state["dp_error"].shape[1],
           losses=json.dumps([round(x, 6) for x in losses]),
           step_s=json.dumps([round(x, 4) for x in state["step_seconds"]]),
           median_step_s_3_6=f"{step_s:.4f}",
           tokens_per_s=f"{TRAIN_BATCH * TRAIN_SEQ / step_s:.1f}",
-          peak_mem_gib=f"{peak / 2**30:.3f}", launches=json.dumps(launches))
+          peak_mem_gib=f"{peak / 2**30:.3f}",
+          b10_launches_per_step=launches["flash_attention_fwd"]
+          // TRAIN_STEPS, launches=json.dumps(launches))
     assert len(losses) == TRAIN_STEPS
     assert all(math.isfinite(x) for x in losses), losses
-    assert state["dp_error"].shape == (TRAIN_WORKERS, *DP_BUCKET)
+    rows = -(-n_params // DP_BUCKET[1])
+    assert state["dp_error"].shape == (TRAIN_WORKERS, rows, DP_BUCKET[1])
+    assert layers != TRAIN_LAYERS or rows == DP_BUCKET[0], rows
     assert torch.isfinite(state["dp_error"]).all().item(), "carry not finite"
     assert state["buffers"]["seen"].all().item(), "a sample never seen"
-    for name, per_step in TRAIN_LAUNCHES_PER_STEP.items():
+    for name, per_step in want.items():
         assert launches[name] == per_step * TRAIN_STEPS, \
             (name, launches[name], per_step * TRAIN_STEPS)
     del state
@@ -2037,7 +2254,7 @@ def train_reference_check(torch):
     cfg = get_config("gpt2-xl-paper", smoke=True)
     steps, samples, seq, batch = 4, 8, 32, 4
     tcfg = _train_config(sim, comm_mod, adamw, stochastic=False, stages=2,
-                         steps=steps)
+                         steps=steps, remat=True)
     batches = list(Dataset(DatasetConfig(
         num_samples=samples, seq_len=seq, vocab_size=cfg.vocab_size)
     ).batches(batch, steps))
@@ -2063,7 +2280,8 @@ def train_reference_check(torch):
     # a DP code that flips moves the carry by a whole grid step (about
     # twice the row's largest carry); anything else is ulp-level
     flips = int((diff > 0.5 * ec.abs().amax(-1, keepdim=True)).sum())
-    phase("train-reference-check", losses_cpu=json.dumps(lc),
+    phase("train-reference-check", remat=tcfg.remat,
+          losses_cpu=json.dumps(lc),
           losses_card=json.dumps(lg), max_rel_loss_diff=max(rel),
           carry_max_abs_diff_step1=diff.max().item(),
           carry_flips_step1=f"{flips}/{diff.numel()}",
@@ -2100,6 +2318,7 @@ def dist_phase(torch):
     from repro_torch.core import quantization as Q
     from repro_torch.launch import train as launch_train
     from repro_torch.serving import DeltaHopCodec
+    from repro_torch.training.pipeline import PipelineConfig
 
     spec = _dist_spec(torch, [
         "--device", "cuda", "--steps", str(DIST_STEPS), "--batch",
@@ -2122,8 +2341,11 @@ def dist_phase(torch):
             "fw": DIST_MICRO * hop,
             "bw": DIST_MICRO * Q.wire_bytes((mb, DIST_SEQ, d), 8),
             "dp": C.ring_wire_bytes(DIST_BUCKET, 4, DIST_DATA)}
+    pcfg = PipelineConfig()                 # the spec sets none of these
     phase("dist-train", mesh=f"{DIST_DATA}x{DIST_STAGES}",
-          layers=DIST_LAYERS, d_model=d, dp_bucket=res[0]["dp_bucket"],
+          layers=DIST_LAYERS, remat=pcfg.remat, remat_mode=pcfg.remat_mode,
+          loss_chunks=pcfg.loss_chunks, d_model=d,
+          dp_bucket=res[0]["dp_bucket"],
           losses=json.dumps([round(x, 6) for x in losses]),
           step_s=json.dumps([round(x, 4) for x in step_s]),
           median_step_s_3_4=f"{med:.4f}",
@@ -2162,8 +2384,10 @@ def dist_phase(torch):
 
 def dist_reference_check(torch):
     """The 2 x 2 mesh at SMOKE width on the card (kernels) against the
-    CPU (plain versions), deterministic rounding, same seed."""
+    CPU (plain versions), deterministic rounding, same seed, with the
+    pipeline's remat and chunked loss (its defaults)."""
     from repro_torch.launch import train as launch_train
+    from repro_torch.training.pipeline import PipelineConfig
 
     losses = {}
     for dev in ("cpu", "cuda"):
@@ -2174,7 +2398,10 @@ def dist_reference_check(torch):
         losses[dev] = res[0]["losses"]
     rel = [abs(a - b) / abs(a) for a, b in zip(losses["cpu"],
                                                losses["cuda"])]
-    phase("dist-reference-check", losses_cpu=json.dumps(losses["cpu"]),
+    pcfg = PipelineConfig()                 # the spec sets none of these
+    phase("dist-reference-check", remat=pcfg.remat,
+          remat_mode=pcfg.remat_mode, loss_chunks=pcfg.loss_chunks,
+          losses_cpu=json.dumps(losses["cpu"]),
           losses_card=json.dumps(losses["cuda"]), rel_loss_diff=json.dumps(
               rel), tolerance=f"step1 {FIRST_STEP_RTOL} later "
                               f"{LATER_STEP_RTOL}")
@@ -2217,6 +2444,8 @@ def main() -> int:
 
     kernels = kernel_phase(torch, qp, ref)
     kernels["flash_attention_fwd"] = flash_phase(torch, fa, ref)
+    kernels["flash_attention_fwd"]["train_check"] = flash_train_phase(
+        torch, fa, ref, qp)
     kernels["oncore_uniform"] = oncore_phase(torch, qp, ref)
     legacy_rows, legacy_launches = legacy_phase(torch, qp, ref, env)
     kernels.update(legacy_rows)
@@ -2280,6 +2509,15 @@ def main() -> int:
     assert oncore_launches["oncore_uniform"] > 0, \
         "the seeded encoders were never launched on the training path"
     train_reference_check(torch)
+    full = train_phase(torch, qp, tag="train-full-depth",
+                       layers=FULL_DEPTH_LAYERS, remat=True)
+    phase("train-full-depth-vs-train", layers=FULL_DEPTH_LAYERS,
+          median_step_s=f"{full['step_s']:.4f}",
+          tokens_per_s=f"{TRAIN_BATCH * TRAIN_SEQ / full['step_s']:.1f}",
+          peak_mem_gib=f"{full['peak_gib']:.3f}",
+          b10_launches=full["launches"]["flash_attention_fwd"],
+          median_step_s_train=f"{train_run['step_s']:.4f}",
+          peak_mem_gib_train=f"{train_run['peak_gib']:.3f}")
     dist_launches = dist_phase(torch)
     for name in DIST_LAUNCHES:
         if DIST_LAUNCHES[name]:
@@ -2294,6 +2532,7 @@ def main() -> int:
     by_path = {"serve": serve_launches, "serve_continuous": cont_launches,
                "serve_gemma2": gemma_launches,
                "train": train_launches, "train_oncore": oncore_launches,
+               "train_full_depth": full["launches"],
                "dist": dist_launches, "legacy_dp": legacy_launches}
     for name in LEGACY_KERNELS:
         assert all(by_path[p][name] == 0 for p in by_path

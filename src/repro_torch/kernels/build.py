@@ -62,8 +62,8 @@ SIGNATURES = {
         "rt_launch_floor": (_P,),
     },
     "flash_attention": {
-        "rt_flash_attention_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                   _I, _I, _I, _I, _F, _F, _I, _P),
+        "rt_flash_attention_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                   _I, _I, _I, _I, _I, _F, _F, _I, _P),
     },
 }
 

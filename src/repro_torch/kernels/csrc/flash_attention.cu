@@ -22,7 +22,11 @@
 // l = l corr + sum p, acc = acc corr + p v), o = acc / max(l, 1e-30).
 // expf, tanhf and IEEE division; no fast-math flags.  Inputs f32 or
 // bf16, accumulation f32, output in the input's type (bf16 rounded to
-// nearest even).
+// nearest even).  On request it also writes each row's log-sum-exp, f32
+// (B, H, Sq) contiguous, in the units of the JAX-level forward that the
+// training attention saves for its backward (src/repro/models/layers.py
+// :213): lse = m + log(max(l, 1e-30)) over the softcapped, scaled
+// scores, from the same m and l as o (natural units: p = expf(s - m)).
 //
 // What bounds it on this card.  At gemma2-9b's serving prefill (B 2, H
 // 16, Hk 8, Sq 8160, Sk 8192, hd 256) the visible scores cost 4 * hd
@@ -508,11 +512,12 @@ __device__ __forceinline__ float quad_sum(float x) {
 template <int HD, typename T>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, T* __restrict__ o, Strides st, int H,
-          int Hk, int Sq, int Sk, int q_offset, int causal, int window,
-          float scale, float cap, int aligned_kv) {
+          const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
+          Strides st, int H, int Hk, int Sq, int Sk, int q_offset, int causal,
+          int window, float scale, float cap, int aligned_kv) {
   // aligned_kv: f32 k and v rows 16-byte aligned (v by cp.async.bulk, k by
-  // 16-byte register loads); else both are read element by element
+  // 16-byte register loads); else both are read element by element.
+  // lse: null, or the (B, H, Sq) row log-sum-exp
   using C = Tile<HD>;
   extern __shared__ __align__(128) float smem[];
   float* sQh = smem;
@@ -679,6 +684,11 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
   if (wg == 0 && t == 0) {
     sL[r0] = fmaxf(l_0, 1e-30f);
     sL[r1] = fmaxf(l_1, 1e-30f);
+    if (lse != nullptr) {          // every thread of a row holds its m, l
+      float* lb = lse + ((long long)b * H + h) * Sq + q0;
+      if (r0 < q_rows) lb[r0] = m_0 + logf(fmaxf(l_0, 1e-30f));
+      if (r1 < q_rows) lb[r1] = m_1 + logf(fmaxf(l_1, 1e-30f));
+    }
   }
   __syncthreads();
 #pragma unroll
@@ -705,7 +715,7 @@ bool rows_aligned16(const void* p, const long long* s) {
 }
 
 template <int HD, typename T>
-int launch(const void* q, const void* k, const void* v, void* o,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            const Strides& st, int b, int h, int hk, int sq, int sk,
            int q_offset, int causal, int window, float scale, float cap,
            cudaStream_t stream) {
@@ -731,29 +741,33 @@ int launch(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((sq + BQ - 1) / BQ, h, b);
   kernel<<<grid, THREADS, Tile<HD>::SMEM, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), st, h, hk, sq, sk,
+      static_cast<const T*>(v), static_cast<T*>(o), lse, st, h, hk, sq, sk,
       q_offset, causal, window, scale, cap, aligned_kv);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, void* o,
-             const Strides& st, int b, int h, int hk, int sq, int sk, int hd,
-             int q_offset, int causal, int window, float scale, float cap,
-             cudaStream_t stream) {
+             float* lse, const Strides& st, int b, int h, int hk, int sq,
+             int sk, int hd, int q_offset, int causal, int window,
+             float scale, float cap, cudaStream_t stream) {
   switch (hd) {
     case 32:
-      return launch<32, T>(q, k, v, o, st, b, h, hk, sq, sk, q_offset,
-                           causal, window, scale, cap, stream);
+      return launch<32, T>(q, k, v, o, lse, st, b, h, hk, sq, sk,
+                           q_offset, causal, window, scale, cap,
+                           stream);
     case 64:
-      return launch<64, T>(q, k, v, o, st, b, h, hk, sq, sk, q_offset,
-                           causal, window, scale, cap, stream);
+      return launch<64, T>(q, k, v, o, lse, st, b, h, hk, sq, sk,
+                           q_offset, causal, window, scale, cap,
+                           stream);
     case 128:
-      return launch<128, T>(q, k, v, o, st, b, h, hk, sq, sk, q_offset,
-                            causal, window, scale, cap, stream);
+      return launch<128, T>(q, k, v, o, lse, st, b, h, hk, sq, sk,
+                            q_offset, causal, window, scale, cap,
+                            stream);
     case 256:
-      return launch<256, T>(q, k, v, o, st, b, h, hk, sq, sk, q_offset,
-                            causal, window, scale, cap, stream);
+      return launch<256, T>(q, k, v, o, lse, st, b, h, hk, sq, sk,
+                            q_offset, causal, window, scale, cap,
+                            stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -767,12 +781,13 @@ extern "C" {
 // bf16, the last dim contiguous; strides: 12 element strides, batch,
 // head and row of q, k, v, o in turn; h % hk == 0, hd in {32, 64, 128,
 // 256}, q_offset + sq <= sk, window >= 1 (the wrapper checks all of
-// it); scale = f32(1 / sqrt(hd)); cap <= 0 disables the softcap
+// it); scale = f32(1 / sqrt(hd)); cap <= 0 disables the softcap; lse:
+// null, or f32 (b, h, sq) contiguous for the rows' log-sum-exp
 int rt_flash_attention_fwd(const void* q, const void* k, const void* v,
-                           void* o, const long long* strides, int b, int h,
-                           int hk, int sq, int sk, int hd, int q_offset,
-                           int causal, int window, float scale, float cap,
-                           int bf16, void* stream) {
+                           void* o, void* lse, const long long* strides,
+                           int b, int h, int hk, int sq, int sk, int hd,
+                           int q_offset, int causal, int window, float scale,
+                           float cap, int bf16, void* stream) {
   Strides st;
   for (int i = 0; i < 3; ++i) {
     st.q[i] = strides[i];
@@ -781,10 +796,11 @@ int rt_flash_attention_fwd(const void* q, const void* k, const void* v,
     st.o[i] = strides[9 + i];
   }
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (bf16)
-    return dispatch<__nv_bfloat16>(q, k, v, o, st, b, h, hk, sq, sk, hd,
+    return dispatch<__nv_bfloat16>(q, k, v, o, l, st, b, h, hk, sq, sk, hd,
                                    q_offset, causal, window, scale, cap, cs);
-  return dispatch<float>(q, k, v, o, st, b, h, hk, sq, sk, hd, q_offset,
+  return dispatch<float>(q, k, v, o, l, st, b, h, hk, sq, sk, hd, q_offset,
                          causal, window, scale, cap, cs);
 }
 

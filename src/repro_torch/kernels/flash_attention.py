@@ -11,7 +11,11 @@ taken as long as the last dim is contiguous: the kernel reads views
 place, and the output has q's memory layout.  A tensor on the
 CPU goes to the plain version `repro_torch.kernels.ref.flash_attention_ref`;
 a CUDA tensor goes to the kernel, launched on the current stream, or
-the wrapper raises; nothing falls back.  Launches are counted in
+the wrapper raises; nothing falls back.  With ``return_lse`` the
+kernel also writes each row's log-sum-exp, ``(B, H, Sq)`` f32, which
+the training attention saves for its backward
+(`repro_torch.models.layers.flash_attention`); without it the launch
+writes no such row.  Launches are counted in
 `repro_torch.kernels.quant_pack.LAUNCHES` under ``flash_attention_fwd``
 (the CPU path does not count).
 """
@@ -56,16 +60,18 @@ def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, window: int = BIG_WINDOW,
-                        softcap: float = 0.0,
-                        q_offset: int = 0) -> torch.Tensor:
+                        softcap: float = 0.0, q_offset: int = 0,
+                        return_lse: bool = False):
     """Attention forward: softmax over the visible keys of
     ``softcap(q k^T / sqrt(hd))``, times v.  Returns ``(B, H, Sq, hd)``
-    in q's dtype."""
+    in q's dtype, or with ``return_lse`` the pair (that, the rows'
+    log-sum-exp ``m + log(max(l, 1e-30))`` as (B, H, Sq) f32)."""
     window, q_offset = int(window), int(q_offset)
     _check_shapes(q, k, v, window=window, q_offset=q_offset)
     if not _qp._on_cuda(q, k, v):
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
-                                       softcap=softcap, q_offset=q_offset)
+                                       softcap=softcap, q_offset=q_offset,
+                                       return_lse=return_lse)
     b, h, sq, hd = q.shape
     hk, sk = k.shape[1], k.shape[2]
     if hd not in HEAD_DIMS:
@@ -81,12 +87,15 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"batch {b} or heads {h} past the kernel's grid "
                          f"(65535)")
     out = torch.empty_like(q)             # q's layout, if q's is dense
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) \
+        if return_lse else None
     if q.numel():
         lib = build.load("flash_attention")
         strides = (ctypes.c_longlong * 12)(
             *(t.stride(i) for t in (q, k, v, out) for i in range(3)))
         rc = lib.rt_flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(),
             strides, b, h, hk, sq, sk, hd, q_offset, int(bool(causal)),
             min(window, _INT_MAX), 1.0 / math.sqrt(hd), float(softcap),
             int(q.dtype == torch.bfloat16),
@@ -95,4 +104,4 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise RuntimeError(f"rt_flash_attention_fwd failed to launch: "
                                f"CUDA error {rc}")
         _qp.LAUNCHES["flash_attention_fwd"] += 1
-    return out
+    return (out, lse) if return_lse else out

@@ -146,9 +146,11 @@ def unpack_sums(packed, *, bits: int, n: int):
 
 def flash_attention(q, k, v, *, causal: bool = True,
                     window: int = _fa.BIG_WINDOW, softcap: float = 0.0,
-                    q_offset: int = 0):
+                    q_offset: int = 0, return_lse: bool = False):
     """(B, H, Sq, hd) x (B, Hk, Sk, hd) -> (B, H, Sq, hd), query row i at
     position ``q_offset + i``.  Views are read in place (the last dim
-    contiguous); the output has q's memory layout."""
+    contiguous); the output has q's memory layout.  With ``return_lse``
+    also the rows' log-sum-exp, (B, H, Sq) f32."""
     return _fa.flash_attention_fwd(q, k, v, causal=causal, window=window,
-                                   softcap=softcap, q_offset=q_offset)
+                                   softcap=softcap, q_offset=q_offset,
+                                   return_lse=return_lse)

@@ -216,13 +216,16 @@ NEG_INF = -1.0e9
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, window: int = 10 ** 9,
-                        softcap: float = 0.0,
-                        q_offset: int = 0) -> torch.Tensor:
+                        softcap: float = 0.0, q_offset: int = 0,
+                        return_lse: bool = False):
     """Dense attention, head-major: q (B, H, Sq, hd), k and v (B, Hk, Sk,
     hd) with H % Hk == 0; query head h reads kv head h // (H // Hk).
     Query row i sits at position ``q_offset + i``, key j at j; key j is
     visible iff j > pos - window and (causal) j <= pos; hidden scores
-    are ``NEG_INF``.  f32 throughout; returns q's dtype."""
+    are ``NEG_INF``.  f32 throughout; returns q's dtype, and with
+    ``return_lse`` also each row's log-sum-exp ``m + log(max(l,
+    1e-30))`` (m the row max, l the sum of exp(s - m)), (B, H, Sq) f32,
+    as the JAX-level forward (`repro.models.layers`, ``_fwd``)."""
     b, h, sq, hd = q.shape
     hk, sk = k.shape[1], k.shape[2]
     g = h // hk
@@ -236,6 +239,13 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     vis = key > pos - window
     if causal:
         vis &= key <= pos
-    p = torch.softmax(torch.where(vis, s, NEG_INF), dim=-1)
+    s = torch.where(vis, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
     out = torch.matmul(p, v.float()[:, :, None])      # (B, Hk, G, Sq, hd)
-    return out.reshape(b, h, sq, hd).to(q.dtype)
+    out = out.reshape(b, h, sq, hd).to(q.dtype)
+    if not return_lse:
+        return out
+    m = s.amax(dim=-1, keepdim=True)
+    l = torch.exp(s - m).sum(dim=-1)
+    lse = m[..., 0] + torch.log(torch.clamp(l, min=1e-30))
+    return out, lse.reshape(b, h, sq)

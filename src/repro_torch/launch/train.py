@@ -132,7 +132,10 @@ def optimizer_config(args) -> AdamWConfig:
 
 def distributed_spec(args, dev: torch.device) -> dict:
     """The plain-data description of a --distributed run that every
-    rank receives (`repro_torch.training.pipeline.train_rank`)."""
+    rank receives (`repro_torch.training.pipeline.train_rank`).  A
+    caller may add ``"pipeline"``, a dict of further `PipelineConfig`
+    fields (``remat``, ``remat_mode``, ``loss_chunks``, ``block_k``);
+    without it they keep their defaults, as the launcher's flags do."""
     return {
         "arch": args.arch, "smoke": args.smoke, "num_layers": 0,
         "comm": comm_cli.from_args(args).to_json(), "device": dev.type,
@@ -155,7 +158,8 @@ def run_distributed(spec: dict, *, timeout: float = 3600.0) -> list:
     first, so the ranks only load them."""
     world = spec["data_par"] * spec["stages"]
     if spec["device"] == "cuda":
-        build.build("quant_pack")
+        for name in build.SIGNATURES:
+            build.build(name)
         threads = max(1, (os.cpu_count() or 1) // world)
     else:
         threads = 1

@@ -12,10 +12,16 @@ Attention has three paths, chosen by which step runs:
   ``cache_index + i``, the kv heads read in place (GQA, no repeat);
   on CPU tensors its plain version;
 * decode (S = 1): `onehot_attention`, single-shot scores, as in JAX;
-* the cache-free training forward: `flash_attention`, plain masked
-  softmax with autograd, the counterpart of the JAX-level
-  ``custom_vjp`` scan (`repro.models.layers.flash_attention`), which
-  has no kernel in the reference.
+* the cache-free training forward: `flash_attention`, the counterpart
+  of the JAX-level ``custom_vjp`` (`repro.models.layers.flash_attention`)
+  and as lean in memory: a `torch.autograd.Function` whose forward is
+  the same kernel (on CPU tensors its plain version) asked for the
+  rows' log-sum-exp, and which saves only q, k, v, o and that lse; its
+  backward is JAX's ``_bwd`` in PyTorch, a loop over blocks of
+  ``block_k`` keys that recomputes ``p = exp(s - lse)`` block by block.
+  No ``(B, H, S, S)`` tensor is built, and the kv heads are never
+  repeated: the kernel reads them in place, and the backward sums dk
+  and dv over each group of query heads.
 """
 from __future__ import annotations
 
@@ -106,28 +112,91 @@ def _visible(q_pos, k_pos, window, causal: bool) -> torch.Tensor:
     return vis
 
 
-def _repeat_kv(k: torch.Tensor, groups: int) -> torch.Tensor:
-    """(B, S, Hk, hd) -> (B, S, Hk*groups, hd)."""
-    if groups == 1:
-        return k
-    b, s, hk, hd = k.shape
-    return k[:, :, :, None, :].expand(b, s, hk, groups, hd).reshape(
-        b, s, hk * groups, hd)
+def _flash_bwd(q, k, v, o, lse, g, *, window: int, cap: float,
+               block_k: int):
+    """JAX's ``_bwd`` (`repro.models.layers`, ``_make_flash``) line for
+    line, with GQA: q, o, g (B, S, H, hd); k, v (B, S, Hk, hd); lse (B,
+    H, S) f32; query row i and key j at positions i and j.  Keys go in
+    blocks of ``block_k``, Sk padded up to a multiple of it (the padded
+    keys hidden).  The G = H / Hk query heads of a kv head are the rows
+    of one matrix product, so dk and dv come out summed over the group.
+    Returns (dq, dk, dv) in the inputs' dtypes."""
+    b, sq, h, hd = q.shape
+    sk, hk = k.shape[1], k.shape[2]
+    grp = h // hk
+    scale = 1.0 / math.sqrt(hd)
+
+    def rows(x):                    # (B, S, H, hd) -> (B, Hk, G * S, hd)
+        return x.float().transpose(1, 2).reshape(b, hk, grp * sq, hd)
+
+    qf, gf, of = rows(q), rows(g), rows(o)
+    delta = torch.sum(gf * of, dim=-1).reshape(b, hk, grp, sq, 1)
+    lse = lse.reshape(b, hk, grp, sq, 1)
+    nblk = -(-sk // block_k)
+    pad = nblk * block_k - sk
+    kf = F.pad(k.float().transpose(1, 2), (0, 0, 0, pad))  # (B,Hk,Skp,hd)
+    vf = F.pad(v.float().transpose(1, 2), (0, 0, 0, pad))
+    qpos = torch.arange(sq, device=q.device)[:, None]
+    dq = torch.zeros_like(qf)
+    dk, dv = torch.empty_like(kf), torch.empty_like(vf)
+    for j in range(nblk):
+        sl = slice(j * block_k, (j + 1) * block_k)
+        kb, vb = kf[:, :, sl], vf[:, :, sl]
+        kp = torch.arange(sl.start, sl.stop, device=q.device)[None, :]
+        vis = (kp <= qpos) & (kp > qpos - window) & (kp < sk)  # (Sq, bk)
+        u = (torch.matmul(qf, kb.transpose(-1, -2)) * scale).reshape(
+            b, hk, grp, sq, block_k)
+        if cap > 0.0:
+            s = cap * torch.tanh(u / cap)
+            dsdu = 1.0 - torch.square(s / cap)
+        else:
+            s, dsdu = u, 1.0
+        s = torch.where(vis, s, NEG_INF)
+        p = torch.exp(s - lse)                             # (B,Hk,G,Sq,bk)
+        pr = p.reshape(b, hk, grp * sq, block_k)
+        dv[:, :, sl] = torch.matmul(pr.transpose(-1, -2), gf)
+        dp = torch.matmul(gf, vb.transpose(-1, -2)).reshape(p.shape)
+        ds = p * (dp - delta) * dsdu
+        ds = torch.where(vis, ds, 0.0).reshape(pr.shape)
+        dq = dq + torch.matmul(ds, kb) * scale
+        dk[:, :, sl] = torch.matmul(ds.transpose(-1, -2), qf) * scale
+    dq = dq.reshape(b, h, sq, hd).transpose(1, 2)
+    return (dq.to(q.dtype), dk[:, :, :sk].transpose(1, 2).to(k.dtype),
+            dv[:, :, :sk].transpose(1, 2).to(v.dtype))
 
 
-def flash_attention(q, k, v, *, q_pos, k_pos, window, causal=True,
-                    attn_softcap=0.0):
-    """Training attention over a call's own keys.  q: (B, Sq, H, hd);
-    k, v: (B, Sk, H, hd) (kv already head-repeated).  Plain
-    masked-softmax attention, differentiable by autograd."""
-    hd = q.shape[-1]
-    qf = (q * (1.0 / math.sqrt(hd))).float().transpose(1, 2)  # (B,H,Sq,hd)
-    s = torch.matmul(qf, k.float().permute(0, 2, 3, 1))       # (B,H,Sq,Sk)
-    s = softcap(s, attn_softcap)
-    vis = _visible(q_pos, k_pos, window, causal)[:, None]
-    p = torch.softmax(torch.where(vis, s, NEG_INF), dim=-1)
-    out = torch.matmul(p, v.float().transpose(1, 2))           # (B,H,Sq,hd)
-    return out.transpose(1, 2).to(q.dtype)
+class _FlashAttention(torch.autograd.Function):
+    """The training attention: the kernel's forward with the rows'
+    log-sum-exp, JAX's ``_bwd`` as its backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window, cap, block_k):
+        o, lse = ops.flash_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            causal=True, window=window, softcap=cap, return_lse=True)
+        o = o.transpose(1, 2)                    # (B, S, H, hd), q's layout
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.args = (window, cap, block_k)
+        return o
+
+    @staticmethod
+    def backward(ctx, g):
+        window, cap, block_k = ctx.args
+        dq, dk, dv = _flash_bwd(*ctx.saved_tensors, g, window=window,
+                                cap=cap, block_k=block_k)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention(q, k, v, *, window: int, attn_softcap: float = 0.0,
+                    block_k: int = 512):
+    """Causal training attention over a call's own keys, differentiable.
+    q: (B, S, H, hd); k, v: (B, S, Hk, hd) with H % Hk == 0 (GQA, read
+    unrepeated).  Query row i and key j sit at positions i and j: both
+    trainers' positions are ``arange(S)``, so the kernel runs at
+    ``q_offset = 0``.  The forward keeps no score tensor; ``block_k`` is
+    the backward's key block (JAX's default, 512)."""
+    return _FlashAttention.apply(q, k, v, int(window), float(attn_softcap),
+                                 int(block_k))
 
 
 def onehot_attention(q, k, v, *, q_pos, k_pos, window, causal=True,
@@ -174,7 +243,7 @@ class Attention(nn.Module):
         init_normal_(self.wo, 1.0 / math.sqrt(self.wo.shape[0]), generator)
 
     def forward(self, x, positions, window, k_cache=None, v_cache=None,
-                cache_index=0):
+                cache_index=0, block_k=512):
         """x: (B, S, d).  k_cache, v_cache: (B, Sc, Hk, hd), written in
         place at ``cache_index`` with this step's fresh rows; attention
         runs over the whole cache (rows past the write head are masked
@@ -182,11 +251,12 @@ class Attention(nn.Module):
         decode step (S = 1) a (B,) int64 tensor, a head a row (the
         continuous batcher's pool), already clamped to [0, Sc - 1]
         (`repro_torch.core.cache_rows.clamp_heads`): each write is one
-        scatter launch.  Without caches
-        (training) attention runs over this call's own keys.  The
-        attention path follows from the call (see the module
-        docstring), never from a caught error.  Returns (out, fresh_k,
-        fresh_v)."""
+        scatter launch.  Without caches (training) attention runs over
+        this call's own keys at positions ``arange(S)``
+        (`flash_attention`, whose backward takes key blocks of
+        ``block_k``).  The attention path follows from the call (see the
+        module docstring), never from a caught error.  Returns (out,
+        fresh_k, fresh_v)."""
         b, s, _ = x.shape
         dtype = x.dtype
         hk, hd = self.num_kv_heads, self.head_dim
@@ -195,34 +265,31 @@ class Attention(nn.Module):
         v = (x @ self.wv.to(dtype)).reshape(b, s, hk, hd)
         q = rope(q, positions, self.rope_theta)
         k = rope(k, positions, self.rope_theta)
-        cached = k_cache is not None
-        if not cached:
-            k_cache, v_cache, k_pos = k, v, positions
+        if k_cache is None:
+            out = flash_attention(q, k, v, window=window,
+                                  attn_softcap=self.attn_softcap,
+                                  block_k=block_k)
         else:
             if isinstance(cache_index, torch.Tensor) and s != 1:
                 raise ValueError(f"per-row write heads take one token a "
                                  f"row (a decode step), got S={s}")
             write_rows_(k_cache, k, cache_index)
             write_rows_(v_cache, v, cache_index)
-            sc = k_cache.shape[1]
-            k_pos = torch.arange(sc, dtype=torch.int32,
-                                 device=x.device).expand(b, sc)
-        kw = dict(q_pos=positions, k_pos=k_pos, window=window,
-                  attn_softcap=self.attn_softcap)
-        if s == 1:
-            out = onehot_attention(q, k_cache, v_cache, **kw)
-        elif cached:
-            # prefill: the kernel over head-major views of q and the
-            # cache, read in place; its output is (B, S, H, hd) memory
-            out = ops.flash_attention(
-                q.transpose(1, 2), k_cache.transpose(1, 2),
-                v_cache.transpose(1, 2), causal=True, window=window,
-                softcap=self.attn_softcap, q_offset=cache_index
-            ).transpose(1, 2)
-        else:
-            groups = self.num_heads // hk
-            out = flash_attention(q, _repeat_kv(k_cache, groups),
-                                  _repeat_kv(v_cache, groups), **kw)
+            if s == 1:
+                sc = k_cache.shape[1]
+                k_pos = torch.arange(sc, dtype=torch.int32,
+                                     device=x.device).expand(b, sc)
+                out = onehot_attention(q, k_cache, v_cache, q_pos=positions,
+                                       k_pos=k_pos, window=window,
+                                       attn_softcap=self.attn_softcap)
+            else:
+                # prefill: the kernel over head-major views of q and the
+                # cache, read in place; its output is (B, S, H, hd) memory
+                out = ops.flash_attention(
+                    q.transpose(1, 2), k_cache.transpose(1, 2),
+                    v_cache.transpose(1, 2), causal=True, window=window,
+                    softcap=self.attn_softcap, q_offset=cache_index
+                ).transpose(1, 2)
         out = out.reshape(b, s, self.num_heads * hd) @ self.wo.to(dtype)
         return out, k, v
 

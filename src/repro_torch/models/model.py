@@ -5,7 +5,9 @@ with KV caches and stage groups (port of `repro.models.model`).
 `Transformer.trunk_forward` cuts the layer stack into ``num_stages``
 stage groups and runs ``boundary_fn(state, h, idx) -> (state, h)``
 between them, where the simulated trainer plugs in the AQ-SGD
-boundary (`repro_torch.core.aqsgd.apply_boundary`).
+boundary (`repro_torch.core.aqsgd.apply_boundary`); with ``remat``
+each layer (`run_layer`), never a boundary, is recomputed in the
+backward.
 
 `Transformer.forward_with_caches` is the unified prefill (S > 1) /
 decode (S = 1) step.  Its serving-plane hooks are the JAX package's:
@@ -43,6 +45,7 @@ from typing import Callable, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.cache_rows import clamp_heads
@@ -63,10 +66,10 @@ class Block(nn.Module):
                          device=device)
 
     def forward(self, h, positions, window, k_cache=None, v_cache=None,
-                cache_index=0):
+                cache_index=0, block_k=512):
         """Returns (h, fresh_k, fresh_v)."""
         a, k, v = self.attn(self.norm1(h), positions, window, k_cache,
-                            v_cache, cache_index)
+                            v_cache, cache_index, block_k)
         h = h + a
         return h + self.ffn(self.norm2(h)), k, v
 
@@ -123,11 +126,18 @@ class Transformer(nn.Module):
     def trunk_forward(self, h: torch.Tensor, positions: torch.Tensor, *,
                       num_stages: int = 1,
                       boundary_fn: Optional[Callable] = None,
-                      boundary_state=None):
+                      boundary_state=None, remat: bool = False,
+                      block_k: int = 512):
         """The layer trunk over whole sequences.  h: (B, S, d) after the
-        embedding.  ``boundary_fn(state, h, idx) -> (state, h)`` runs
-        between stage groups (idx = 0 .. num_stages-2).  Returns
-        (h, boundary_state)."""
+        embedding, positions ``arange(S)`` a row.  ``boundary_fn(state,
+        h, idx) -> (state, h)`` runs between stage groups (idx = 0 ..
+        num_stages-2).  ``remat`` checkpoints each layer, as JAX's
+        ``_scan_layers`` does: its activations are recomputed in the
+        backward.  The boundaries stay outside every checkpoint, since
+        they draw noise from explicit generators (which a recompute
+        would not restore) and write the message buffers.  ``block_k``
+        is the attention backward's key block.  Returns (h,
+        boundary_state)."""
         n = self.cfg.num_layers
         if n % num_stages:
             raise ValueError(f"{n} layers do not split into {num_stages} "
@@ -135,7 +145,8 @@ class Transformer(nn.Module):
         per = n // num_stages
         seq = h.shape[1]
         for i, blk in enumerate(self.layers):
-            h, _, _ = blk(h, positions, self.cfg.layer_window(i, seq))
+            h = run_layer(blk, h, positions, self.cfg.layer_window(i, seq),
+                          remat=remat, block_k=block_k)
             if boundary_fn is not None and (i + 1) % per == 0 \
                     and i + 1 < n:
                 boundary_state, h = boundary_fn(boundary_state, h,
@@ -228,6 +239,20 @@ class Transformer(nn.Module):
         return self.lm_logits(h), caches
 
 
+def run_layer(blk: Block, h: torch.Tensor, positions: torch.Tensor,
+              window: int, *, remat: bool, block_k: int) -> torch.Tensor:
+    """One training layer, under `torch.utils.checkpoint` with
+    ``remat``.  A layer draws no random numbers, so the checkpoint
+    stashes no generator state."""
+    def layer(x):
+        return blk(x, positions, window, block_k=block_k)[0]
+
+    if not remat:
+        return layer(h)
+    return checkpoint(layer, h, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
                   mask: torch.Tensor) -> torch.Tensor:
     """logits (B, S, V) f32; targets (B, S) int; mask (B, S) {0, 1}.
@@ -239,16 +264,17 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
 
 
 def loss_fn(model: Transformer, batch: dict, *, num_stages: int = 1,
-            boundary_fn: Optional[Callable] = None, boundary_state=None):
+            boundary_fn: Optional[Callable] = None, boundary_state=None,
+            remat: bool = False, block_k: int = 512):
     """batch: tokens, targets, mask (B, S) tensors.  Returns (loss,
     {"ce", "aux", "boundary_state"}); the dense family has no auxiliary
-    loss."""
+    loss.  ``remat`` and ``block_k``: `Transformer.trunk_forward`."""
     h = model.embed_tokens(batch["tokens"])
     b, s = h.shape[0], h.shape[1]
     positions = torch.arange(s, dtype=torch.int32,
                              device=h.device).expand(b, s)
     h, boundary_state = model.trunk_forward(
         h, positions, num_stages=num_stages, boundary_fn=boundary_fn,
-        boundary_state=boundary_state)
+        boundary_state=boundary_state, remat=remat, block_k=block_k)
     ce = cross_entropy(model.lm_logits(h), batch["targets"], batch["mask"])
     return ce, {"ce": ce, "aux": 0.0, "boundary_state": boundary_state}

@@ -42,10 +42,18 @@ equal.  Then AdamW updates each stage's own parameters.
 The f32 all-reduce sums in gloo's order, not XLA's, so distributed
 losses match the JAX package within a tolerance, not bit for bit.
 
+Memory, as in the JAX package's `PipelineConfig`: with ``remat`` each
+layer is recomputed in the backward, and with ``remat_mode="nested"``
+the whole stage run too (only the stage input is kept a microbatch);
+the loss runs over ``loss_chunks`` pieces of the sequence, each
+recomputed in the backward, so one piece's logits are live at a time.
+The hops (`_SendHop`, `_RecvHop`) and the message buffers stay outside
+every checkpoint, so a recompute never sends, draws or writes again.
+
 Not ported: the other model families, FSDP/ZeRO-3 weight sharding, the
-``ring-sharded`` ZeRO wire, remat and chunked loss (ROADMAP queue A),
-and the kernels' seeded noise: `build_rank` refuses the on-core noise
-knob (`repro_torch.env.oncore_prng`, `ONCORE_REFUSAL`).
+``ring-sharded`` ZeRO wire (ROADMAP queue A), and the kernels' seeded
+noise: `build_rank` refuses the on-core noise knob
+(`repro_torch.env.oncore_prng`, `ONCORE_REFUSAL`).
 """
 from __future__ import annotations
 
@@ -58,6 +66,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import env
 from repro_torch.comm import faults
@@ -66,33 +75,48 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import boundary as B
 from repro_torch.core import quantization as Q
 from repro_torch.models import layers as L
-from repro_torch.models.model import Block, Transformer
+from repro_torch.models.model import Block, Transformer, run_layer
 from repro_torch.optim import adamw
 from repro_torch.rng import seeded_generator
 from repro_torch.weights import stage_state_dict
 
 MODES = ("fp32", "warmup", "directq", "aqsgd")
+REMAT_MODES = ("nested", "layer")
 
 
 @dataclass(frozen=True)
 class PipelineConfig:
-    """Pipeline-trainer knobs.  All communication lives in ``comm``;
-    ``warmup`` selects the warm-up step variant (uncompressed transfer
-    that fills the buffers); ``buffer_dtype`` is the raw buffers'
-    storage type."""
+    """Pipeline-trainer knobs, with the JAX package's names and
+    defaults.  All communication lives in ``comm``; ``warmup`` selects
+    the warm-up step variant (uncompressed transfer that fills the
+    buffers); ``buffer_dtype`` is the raw buffers' storage type.
+    ``remat`` recomputes each layer in the backward, and
+    ``remat_mode="nested"`` also the whole stage run (``"layer"``: the
+    layers only, one recompute fewer, more memory); ``loss_chunks``
+    bounds the pieces of the sequence the loss runs over (the largest
+    divisor of S at most this); ``block_k`` is the attention backward's
+    key block."""
     microbatches: int = 16
     comm: Optional[CommConfig] = None
     warmup: bool = False
+    remat: bool = True
+    block_k: int = 512
     buffer_dtype: str = "bfloat16"
+    loss_chunks: int = 64
+    remat_mode: str = "nested"
 
     def __post_init__(self):
         if self.comm is None:
             object.__setattr__(self, "comm", CommConfig())
         if self.comm.dp.bits:
             self.comm.dp_wire_spec       # raises for an unported wire
-        if self.microbatches < 1:
-            raise ValueError(f"microbatches={self.microbatches} must be "
-                             f">= 1")
+        for name in ("microbatches", "block_k", "loss_chunks"):
+            if getattr(self, name) < 1:
+                raise ValueError(f"{name}={getattr(self, name)} must be "
+                                 f">= 1")
+        if self.remat_mode not in REMAT_MODES:
+            raise ValueError(f"remat_mode={self.remat_mode!r}; one of "
+                             f"{REMAT_MODES}")
 
 
 # the distributed trainer's answer to the on-core noise knob: its hop
@@ -173,23 +197,50 @@ class Stage(nn.Module):
     def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
         return self.embed.to(self.cfg.torch_dtype)[tokens]
 
-    def trunk(self, h: torch.Tensor) -> torch.Tensor:
+    def trunk(self, h: torch.Tensor, pcfg: PipelineConfig) -> torch.Tensor:
+        """The stage's layers over one microbatch, checkpointed as
+        ``pcfg`` says (`PipelineConfig`)."""
         b, s = h.shape[0], h.shape[1]
         positions = torch.arange(s, dtype=torch.int32,
                                  device=h.device).expand(b, s)
-        for i, blk in zip(self.layer_ids, self.layers):
-            h, _, _ = blk(h, positions, self.cfg.layer_window(i, s))
-        return h
+
+        def run(x):
+            for i, blk in zip(self.layer_ids, self.layers):
+                x = run_layer(blk, x, positions, self.cfg.layer_window(i, s),
+                              remat=pcfg.remat, block_k=pcfg.block_k)
+            return x
+
+        if pcfg.remat and pcfg.remat_mode == "nested" and self.layers:
+            return checkpoint(run, h, use_reentrant=False,
+                              preserve_rng_state=False)
+        return run(h)
 
     def nll_sum(self, h: torch.Tensor, targets: torch.Tensor,
-                mask: torch.Tensor) -> torch.Tensor:
-        """Summed masked next-token NLL of the head over h."""
-        h = self.final_norm(h)
-        logits = L.softcap((h @ self.embed.t().to(h.dtype)).float(),
-                           self.cfg.final_softcap)
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
-        return ((lse - gold) * mask).sum()
+                mask: torch.Tensor, loss_chunks: int) -> torch.Tensor:
+        """Summed masked next-token NLL of the head over h (mb, S, d),
+        as JAX's ``chunk_loss``: over n pieces of the sequence, n the
+        largest divisor of S at most ``loss_chunks``, each piece's
+        logits recomputed in the backward; the pieces' sums added in
+        order."""
+        seq = h.shape[1]
+        n = next(c for c in range(min(loss_chunks, seq), 0, -1)
+                 if seq % c == 0)
+
+        def piece(hh, tt, mm):
+            hh = self.final_norm(hh)
+            logits = L.softcap((hh @ self.embed.t().to(hh.dtype)).float(),
+                               self.cfg.final_softcap)
+            lse = torch.logsumexp(logits, dim=-1)
+            gold = torch.gather(logits, -1, tt[..., None].long())[..., 0]
+            return ((lse - gold) * mm).sum()
+
+        total = None
+        for hh, tt, mm in zip(h.chunk(n, 1), targets.chunk(n, 1),
+                              mask.chunk(n, 1)):
+            nll = checkpoint(piece, hh, tt, mm, use_reentrant=False,
+                             preserve_rng_state=False)
+            total = nll if total is None else total + nll
+        return total
 
 
 # ---------------------------------------------------------------------------
@@ -542,7 +593,7 @@ class PipelineRank:
                 h, nmi = hop.recv(shape, self.cfg.torch_dtype, m_in_s)
                 if nmi is not None and self.has_bufs:
                     buffer_write(pcfg, self.m_in, ids, nmi)
-            out = st.trunk(h)
+            out = st.trunk(h, pcfg)
             if k < kk - 1:
                 m_out_s = buffer_read(pcfg, self.m_out, ids,
                                       self.cfg.d_model) if aq else None
@@ -551,8 +602,8 @@ class PipelineRank:
                     buffer_write(pcfg, self.m_out, ids, nmo)
                 terminals.append(token)
             else:
-                nll = st.nll_sum(out, t["targets"][j], t["mask"][j].float()) \
-                    / max(count, 1.0)
+                nll = st.nll_sum(out, t["targets"][j], t["mask"][j].float(),
+                                 pcfg.loss_chunks) / max(count, 1.0)
                 terminals.append(nll)
                 loss = loss + nll.detach()
         for term in reversed(terminals):
@@ -631,7 +682,8 @@ def build_rank(rank: int, world: int, spec: dict) -> tuple:
     if spec.get("num_layers"):
         cfg = cfg.with_(num_layers=spec["num_layers"])
     comm = CommConfig.from_json(spec["comm"])
-    pcfg = PipelineConfig(microbatches=spec["microbatches"], comm=comm)
+    pcfg = PipelineConfig(microbatches=spec["microbatches"], comm=comm,
+                          **spec.get("pipeline", {}))
     opt_cfg = adamw.AdamWConfig(**spec["optimizer"])
     ds = Dataset(DatasetConfig(**spec["dataset"]))
     trainer = PipelineRank(cfg, pcfg, mesh, opt_cfg,

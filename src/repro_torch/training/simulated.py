@@ -63,11 +63,15 @@ from repro_torch.weights import jax_leaf_names, jax_leaves, load_jax_params
 @dataclass(frozen=True)
 class SimTrainConfig:
     """Simulated-trainer knobs.  All communication lives in ``comm``;
-    ``dp_workers`` is the simulated DP degree when ``comm.dp.bits``."""
+    ``dp_workers`` is the simulated DP degree when ``comm.dp.bits``;
+    ``remat`` recomputes each layer's activations in the backward
+    (`repro_torch.models.model.run_layer`; the stage boundaries are
+    never recomputed)."""
     num_stages: int = 4
     comm: Optional[CommConfig] = None
     optimizer: adamw.AdamWConfig = field(default_factory=adamw.AdamWConfig)
     dp_workers: int = 1
+    remat: bool = False
 
     def __post_init__(self):
         if self.comm is None:
@@ -116,7 +120,7 @@ def _loss_and_grads(model, tcfg, batch, m_all, seen_all, generator):
         loss, metrics = Mo.loss_fn(model, batch,
                                    num_stages=tcfg.num_stages,
                                    boundary_fn=boundary_fn,
-                                   boundary_state=())
+                                   boundary_state=(), remat=tcfg.remat)
     names = [n for n, _ in model.named_parameters()]
     grads = torch.autograd.grad(loss, [model.get_parameter(n)
                                        for n in names])

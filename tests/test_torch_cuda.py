@@ -36,7 +36,17 @@ past the store clamped) equals its plain version; one pooled decode
 step makes no synchronizing call.  The
 encoders' rows wider than 256 values (a block a row, read once up to
 8192 values, walked twice past that) are held at the tiling's edges:
-260, 1600, 3584, 5120 and 8196 values, 1 and 5 rows.
+260, 1600, 3584, 5120 and 8196 values, 1 and 5 rows.  The training
+attention (`repro_torch.models.layers.flash_attention`: B10 with the
+rows' log-sum-exp, JAX's backward in PyTorch) is held to the formula
+in float64 at gpt2-xl's training shape (4, 25, 1024, 64), causal, and
+at gemma2-9b's heads (16 on 8 kv heads of 256, 1024 tokens) with
+windows 4096 and 512 and a softcap of 50: o within 2e-5, the lse
+within 2e-5 (rtol = atol), dq, dk and dv within 1e-4 of each one's
+largest value (bounds set before the first run on the card); B10's o
+is bit-identical with and without the lse; and ``remat`` on and off
+give bit-equal losses and gradients, with B10 launched once a layer
+and once more a layer in the recompute.
 """
 import math
 
@@ -673,3 +683,88 @@ def test_flash_attention_checks(card):
                                 .transpose(2, 3), q, q)
     with pytest.raises(ValueError):
         TFA.flash_attention_fwd(q, q.cpu(), q)             # mixed devices
+
+
+# the training attention at the trainers' shapes: (b, h, hk, s, hd,
+# window, softcap, q scale); gemma2's q scaled so scores reach the cap
+TRAIN_ATTN = [(4, 25, 25, 1024, 64, 1024, 0.0, 1.0),
+              (1, 16, 8, 1024, 256, 4096, 50.0, 16.0),
+              (1, 16, 8, 1024, 256, 512, 50.0, 16.0)]
+TRAIN_GRAD_TOL = 1e-4
+
+
+def _train_attn64(q, k, v, window, cap):
+    """The training attention's formula in float64, differentiable:
+    (o (B, S, H, hd), lse (B, H, S)); q (B, S, H, hd), k, v (B, S, Hk,
+    hd), query i and key j at positions i and j."""
+    b, s, h, hd = q.shape
+    grp = h // k.shape[2]
+    kk = k.repeat_interleave(grp, dim=2)
+    vv = v.repeat_interleave(grp, dim=2)
+    sc = torch.einsum("bqhd,bkhd->bhqk", q, kk) / math.sqrt(hd)
+    if cap > 0:
+        sc = cap * torch.tanh(sc / cap)
+    i = torch.arange(s, device=q.device)[:, None]
+    j = torch.arange(s, device=q.device)[None, :]
+    sc = torch.where((j <= i) & (j > i - window), sc, TR.NEG_INF)
+    o = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(sc, -1), vv)
+    return o, torch.logsumexp(sc, -1)
+
+
+@pytest.mark.parametrize("case", TRAIN_ATTN)
+def test_training_attention_matches_float64(card, case):
+    from repro_torch.models import layers as TL
+    b, h, hk, s, hd, window, cap, qs = case
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=card).manual_seed(s + hd)
+    q = torch.randn(b, s, h, hd, generator=gen, device=card) * qs
+    k, v = (torch.randn(b, s, hk, hd, generator=gen, device=card)
+            for _ in "kv")
+    g = torch.randn(b, s, h, hd, generator=gen, device=card)
+    heads = [t.transpose(1, 2) for t in (q, k, v)]
+    kw = dict(causal=True, window=window, softcap=cap)
+    TP.reset_launches()
+    o, lse = TFA.flash_attention_fwd(*heads, return_lse=True, **kw)
+    plain = TFA.flash_attention_fwd(*heads, **kw)
+    assert TP.LAUNCHES["flash_attention_fwd"] == 2
+    assert torch.equal(o, plain)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = TL.flash_attention(*leaves, window=window, attn_softcap=cap)
+    grads = torch.autograd.grad(out, leaves, g)
+    assert torch.equal(out.detach(), o.transpose(1, 2))
+    ref = [t.double().requires_grad_() for t in (q, k, v)]
+    o64, lse64 = _train_attn64(*ref, window, cap)
+    grads64 = torch.autograd.grad(o64, ref, g.double())
+    torch.testing.assert_close(o.transpose(1, 2), o64.float(), rtol=2e-5,
+                               atol=2e-5)
+    torch.testing.assert_close(lse, lse64.float(), rtol=2e-5, atol=2e-5)
+    for name, got, want in zip("qkv", grads, grads64):
+        err = (got.double() - want).abs().max().item()
+        assert err <= TRAIN_GRAD_TOL * want.abs().max().item(), (name, err)
+
+
+@pytest.mark.parametrize("arch", ["gpt2-xl-paper", "gemma2-9b"])
+def test_remat_gradients_are_bit_equal(card, arch):
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as TM
+    cfg = get_config(arch, smoke=True)
+    model = TM.Transformer(cfg, device=card,
+                           generator=torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (2, 41), generator=gen)
+    batch = {"tokens": toks[:, :-1].to(card),
+             "targets": toks[:, 1:].to(card),
+             "mask": torch.ones(2, 40, device=card)}
+    params = list(model.parameters())
+    out = []
+    for remat in (False, True):
+        TP.reset_launches()
+        loss, _ = TM.loss_fn(model, batch, num_stages=2, remat=remat)
+        grads = torch.autograd.grad(loss, params)
+        torch.cuda.synchronize()
+        assert TP.LAUNCHES["flash_attention_fwd"] == \
+            cfg.num_layers * (2 if remat else 1)
+        out.append((loss, grads))
+    assert torch.equal(out[0][0], out[1][0])
+    for a, b in zip(out[0][1], out[1][1]):
+        assert torch.equal(a, b)

@@ -143,8 +143,10 @@ def test_wrapper_rejects_what_neither_version_takes():
 def test_prefill_over_a_cache_goes_through_the_kernel_wrapper(monkeypatch):
     """With caches and S > 1 the attention sublayer calls
     `ops.flash_attention` with the kv heads unrepeated, the cache index
-    as q_offset and the layer's window; the plain training attention
-    runs only without caches, and decode stays one-shot."""
+    as q_offset and the layer's window; the training attention
+    (`layers.flash_attention`) runs only without caches, and goes
+    through the same wrapper, kv heads unrepeated, asking for the rows'
+    log-sum-exp; decode stays one-shot."""
     torch.manual_seed(0)
     att = TL.Attention(64, 4, 2, 16, 10_000.0, attn_softcap=50.0)
     att.reset_parameters(torch.Generator().manual_seed(0))
@@ -173,4 +175,7 @@ def test_prefill_over_a_cache_goes_through_the_kernel_wrapper(monkeypatch):
                            q_offset=3))]
     assert not plain
     att(x, pos - 3, 4)                                  # training forward
-    assert plain == [1] and len(calls) == 1
+    assert plain == [1] and len(calls) == 2
+    assert calls[1] == ((2, 4, 5, 16), (2, 2, 5, 16),
+                        dict(causal=True, window=4, softcap=50.0,
+                             return_lse=True))

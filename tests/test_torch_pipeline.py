@@ -27,7 +27,14 @@ results:
 * the 4-bit DP wire: ``ring`` and ``psum`` give bit-identical losses
   over 4 steps, and the 2-chunk ring the monolithic one's;
 * in every run the two copies of the tied embedding (stages 0 and 1)
-  are bit-equal after every step.
+  are bit-equal after every step;
+* remat: aqsgd with the 4-bit ring, stochastic rounding on every
+  plane, from the JAX package's parameters, with the pipeline's
+  defaults (``remat_mode="nested"``, ``loss_chunks=64``), with
+  ``remat=False`` and with ``remat_mode="layer"``: losses, every step's
+  gradients and parameters bit-identical (the hops draw their noise and
+  write the buffers outside the checkpoints, so a recompute draws and
+  writes nothing).
 
 The stage hop itself (`PL.Transfer`, every mode, forward and
 backward) is held bit for bit against JAX ``make_transfer`` in one
@@ -144,6 +151,11 @@ EXPLICIT = {
     "aqsgd-ring-det": (_comm("aqsgd", dp_bits=4, stochastic=False), 1),
 }
 EXPLICIT_STEPS = 3
+# the remat scenarios, on explicit batches: name -> `PipelineConfig`
+# fields beside the defaults (remat on, "nested", 64 loss chunks)
+REMAT = {"remat/nested": {}, "remat/off": {"remat": False},
+         "remat/layer": {"remat_mode": "layer"}}
+REMAT_COMM = _comm("aqsgd", dp_bits=4)
 # the JAX pipeline's buffers hold SAMPLES // D samples a data rank, and
 # a data rank's ids index its own; so each data rank's two samples of a
 # step (one a microbatch) are its slots 0 and 1
@@ -213,6 +225,9 @@ def runs(tmp_path_factory):
     batches = explicit_batches()
     explicit = [(_spec(comm, steps=EXPLICIT_STEPS, initial_params=pipe),
                  batches, warm) for comm, warm in EXPLICIT.values()]
+    explicit += [(dict(_spec(REMAT_COMM, steps=EXPLICIT_STEPS,
+                             initial_params=pipe), pipeline=kw), batches, 1)
+                 for kw in REMAT.values()]
     # the JAX pipeline runs in a process of its own meanwhile
     tmp = tmp_path_factory.mktemp("jax")
     np.savez(tmp / "batches.npz", **{f"{i}/{k}": v
@@ -234,7 +249,7 @@ def runs(tmp_path_factory):
     finally:
         jax_proc.kill()
     assert jax_proc.returncode == 0, log
-    names = list(SCENARIOS) + list(EXPLICIT)
+    names = list(SCENARIOS) + list(EXPLICIT) + list(REMAT)
     res = {name: [out[r][i] for r in range(D * K)]
            for i, name in enumerate(names)}
     res["jax-pipeline"] = json.loads((tmp / "losses.json").read_text())
@@ -371,8 +386,28 @@ def test_ring_and_psum_losses_are_bit_identical(runs):
             tuple(rows), 4, D)
 
 
+def test_remat_modes_are_bit_identical(runs):
+    """Remat off and per layer against the nested default: the same
+    losses, gradients and parameters at every step, bit for bit, and
+    the buffer replicas equal."""
+    base = runs["remat/nested"]
+    for name in ("remat/off", "remat/layer"):
+        for r, b in zip(runs[name], base):
+            assert r["losses"] == b["losses"], name
+            for mine, want in zip(r["grads"] + r["params"],
+                                  b["grads"] + b["params"]):
+                assert mine.keys() == want.keys()
+                for key in mine:
+                    assert np.array_equal(mine[key].view(np.int32),
+                                          want[key].view(np.int32)), \
+                        (name, r["rank"], key)
+            if r["model_rank"] == K - 1:
+                assert all(rep["m_in_equal"] is True
+                           for rep in r["replicas"]), name
+
+
 def test_tied_embedding_copies_stay_equal(runs):
-    for name in [*SCENARIOS, *EXPLICIT]:
+    for name in [*SCENARIOS, *EXPLICIT, *REMAT]:
         for r in runs[name]:
             if r["model_rank"] == K - 1:
                 assert len(r["replicas"]) == len(r["losses"])

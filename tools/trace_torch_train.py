@@ -3,13 +3,14 @@
 its time.
 
     python3 tools/trace_torch_train.py [train flags] [--layers N]
-        [--trace-steps N] [--chrome-trace PATH]
+        [--remat] [--trace-steps N] [--chrome-trace PATH]
 
 Builds the chip run's training path (`chip_smoke.py` ``[train]``) by
 default: ``gpt2-xl-paper`` at full width cut to ``--layers`` (default
 12) of its 48 layers, ``--stages 4 --mode aqsgd --fw-bits 4 --bw-bits 8
 --dp-grad-bits 4 --dp-workers 2``, batch 8 x seq 1024, 16 samples,
-random weights from seed 0, drawn as `simulated.train` draws them (a
+random weights from seed 0 (``--remat``: each layer recomputed in the
+backward, `SimTrainConfig.remat`), drawn as `simulated.train` draws them (a
 CPU generator, and the noise from the seed's "noise" stream), so the
 traced model is the trained one.  The comm flags are the train launcher's,
 so ``--mode fp32`` or ``--dp-grad-bits 0`` trace the same model without
@@ -29,7 +30,8 @@ JSON line:
   backward passes, which autograd runs on its own thread, and the
   buffer reads at the step's start;
 * ``kernel_classes``: per step, device time by kind of kernel (matrix
-  products, the port's codec kernels, everything else);
+  products, the port's codec kernels, its attention kernel, everything
+  else);
 * ``top_kernels``: device time per step by kernel name.
 
 Needs a CUDA device.
@@ -69,6 +71,8 @@ def _union_ms(intervals) -> float:
 def _kind(name: str) -> str:
     if any(k in name for k in CODEC_KERNELS):
         return "codec (quant_pack.cu)"
+    if "flash_fwd" in name:
+        return "attention forward (flash_attention.cu)"
     if any(k in name for k in GEMM_MARKERS):
         return "matrix products"
     return "other (elementwise, softmax, reductions, copies)"
@@ -89,6 +93,8 @@ def main(argv=None) -> dict:
 
     ap = launch.build_parser()
     ap.add_argument("--layers", type=int, default=12)
+    ap.add_argument("--remat", action="store_true",
+                    help="recompute each layer in the backward")
     ap.add_argument("--trace-steps", type=int, default=2)
     ap.add_argument("--chrome-trace", default="",
                     help="also write the traced steps as a Chrome trace")
@@ -108,7 +114,8 @@ def main(argv=None) -> dict:
         num_stages=args.stages, comm=comm,
         dp_workers=args.dp_workers if comm.dp.bits else 1,
         optimizer=AdamWConfig(lr=args.lr, warmup_steps=max(steps // 20, 1),
-                              total_steps=steps))
+                              total_steps=steps),
+        remat=args.remat)
     ds = Dataset(DatasetConfig(num_samples=args.samples, seq_len=args.seq,
                                vocab_size=cfg.vocab_size))
     batches = [sim.device_batch(b, dev)
@@ -165,7 +172,7 @@ def main(argv=None) -> dict:
                    "mode": comm.mode, "fw_bits": comm.fw.bits,
                    "bw_bits": comm.bw.bits, "dp_bits": comm.dp.bits,
                    "workers": tcfg.dp_workers, "batch": args.batch,
-                   "seq": args.seq, "lr": args.lr},
+                   "seq": args.seq, "lr": args.lr, "remat": args.remat},
         "losses": [float(x) for x in losses],
         "trace_steps": n, "step_ms_untraced": untraced, "step_ms": wall,
         "device_busy_ms": busy, "device_idle_share": 1.0 - busy / wall,

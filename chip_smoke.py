@@ -14,8 +14,8 @@ Phases, each printed on its own line:
    prefill append, R=8*160*25 per store read, d=64; the DP gradient
    bucket R=877132, d=512), at bits 2/4/8, a ragged R, an odd d (the
    scalar path), the encoders at their tiling's edges past 256 values
-   (d 260, 1600, 3584, 5120 and 8196, past the register cap; 1 and 5
-   rows), stochastic cases with shared noise, a bf16 read, both
+   (d 260, 1600, 3584, 4608, 5120 and 8196, past the register cap; 1
+   and 5 rows; B2 at the hops of 3584, 4608 and 5120), stochastic cases with shared noise, a bf16 read, both
    ``pack`` variants, zero scale rows and n = 1/2/3/5 workers; then each
    kernel's median device time (CUDA events around a CUDA graph of
    back-to-back launches), its byte bound and the plain version's time;
@@ -140,7 +140,7 @@ Phases, each printed on its own line:
    the card against the CPU in lockstep, gpt2-xl-paper and gemma2-9b
    (window 4) SMOKE, 5 requests over 3 slots: each tick's logits within
    the decode tolerance while the streams agree, KV codes within one,
-   a fork allowed only at a near tie (printed);
+   a fork allowed only at a near tie (printed), one at most;
    ``[serve-gemma2]``: the slice's own path, ``gemma2-9b`` at full
    width and depth (42 layers, d 3584, vocab 256000; local layers see
    4096 keys, softcaps 50 and 30, 16 query heads on 8 kv heads of 256),
@@ -152,6 +152,19 @@ Phases, each printed on its own line:
    the window of 16), 6 decode steps, card against CPU, and
    ``[serve-gemma2-build]``: the launcher's model build (weights drawn
    on the CPU from the seed) against a build drawn on the card;
+   ``[serve-stablelm]``: ``stablelm-12b`` at full size (40 layers, d
+   5120, 32 query heads on 8 kv heads of 160, vocab 100352, an untied
+   head), batch 2, a prompt of 4064 into a cache of its 4096-token
+   context, 32 decode steps, and ``[serve-gemma2-27b]``: ``gemma2-27b``
+   at full width (d 4608, 32 heads on 16 kv heads of 128, d_ff 36864)
+   cut to the first 28 of its 46 layers (``--layers``; the most, in an
+   even count, that the card holds, `G27_LAYERS`), batch 2, prompt 8160
+   into 8192, 32 decode steps; both with the same comm flags and checks
+   as ``[serve-gemma2]`` (launches exactly, hop and KV bytes against
+   the byte models); then each one's SMOKE card-against-CPU check
+   (``[serve-stablelm-12b-reference-check]``,
+   ``[serve-gemma2-27b-reference-check]``), and both join
+   ``[serve-continuous-reference-check]``;
 6. ``[train]``: AQ-SGD fine-tuning with 4-bit DP gradients through
    `repro_torch.training.simulated.train`: ``gpt2-xl-paper`` at full
    width cut to 12 of its 48 layers (the full-depth training state does
@@ -189,14 +202,28 @@ Phases, each printed on its own line:
 9. ``[dist-reference-check]``: the same 2 x 2 mesh at SMOKE width (4
    layers), deterministic rounding on every plane, remat nested, 3
    steps on the card (kernels) against the CPU (plain versions) from
-   the same seed.
+   the same seed; ``[train-untied-reference-check]``: the untied head
+   (``stablelm-12b`` SMOKE) through the simulated trainer and the
+   distributed one, each on the card against the CPU as the two checks
+   above (the distributed run's last stage holds ``head`` and no
+   embedding copy).
+
+B10 at head_dim 160 (stablelm-12b's) is in ``[flash-check]`` (ragged
+sweep cases, the tile edges, an odd stride, and stablelm's prefill
+(2, 32, 8, 4064, 4096, 160) and a ragged call at a query offset, held
+to the float64 formula), its training shape (4, 32, 8, 1024, 1024,
+160) with the lse, ``[flash-train-check]`` and the ``[kernel-time]``
+rows, where SDPA (``enable_gqa``) is the library time of stablelm's
+calls; gemma2-27b's prefill (2, 32, 16, 8160, 8192, 128), local and
+global, is in ``[flash-check]`` and ``[kernel-time]``.
 
 B9a and B9b launch 0 times on every path but ``[legacy-dp-codec]``:
 no trainer or server runs the legacy pair, in the JAX package either.
 Then one JSON line with every kernel's numbers (``launches``: the
 count on the path its time was taken at, named by ``launches_path``;
-each path's own count in ``launches_by_path``, ``serve_continuous``
-and ``train_full_depth`` among them), the card's name and
+each path's own count in ``launches_by_path``, ``serve_continuous``,
+``serve_stablelm``, ``serve_gemma2_27b`` and ``train_full_depth``
+among them), the card's name and
 power limit, and as the last line ``{"ok": true, "device": {...}}``.
 Any failure raises and exits non-zero; with no CUDA device it exits 1
 and prints no result.  Imports nothing of JAX or of the JAX package.
@@ -273,6 +300,13 @@ SERVE_ARGS = ["--arch", "gpt2-xl-paper", "--stages", "2", "--mode", "aqsgd",
               "--device", "cuda", "--seed", "0"]
 # small-input reference check (tests/test_torch_slice.py's tolerances)
 PREFILL_ATOL, DECODE_ATOL, MAX_FLIP_FRACTION = 2e-5, 5e-3, 0.005
+# the hop's messages (the 4-bit aqsgd hop's m, one row a slot or batch
+# row) agree between the card and the CPU to ~4e-6 (their f32 sums run
+# in other orders); past HOP_NOISE, a rounding near-tie put one code on
+# the other side: one element whose values before rounding, the CPU's
+# and the card's, lie within HOP_TIE of a code step of each other and
+# round apart (`HopTap`)
+HOP_NOISE, HOP_TIE, HOP_BITS = 1e-4, 1e-3, 4
 # the continuous batcher at gpt2-xl-paper full size: 2 x BATCH requests of
 # 4-PROMPT tokens (the launcher's draw, numpy seed 1) over CONT_SLOTS
 # slots of CACHE_LEN rows, GEN tokens each
@@ -287,7 +321,8 @@ CONT_ARGS = ["--arch", "gpt2-xl-paper", "--stages", "2", "--mode", "aqsgd",
 GUARD_LAYERS, GUARD_PLAN = 4, "2:kv:nan-scale"
 # its card-vs-CPU check: SMOKE models, 5 requests of 3-12 tokens over 3
 # slots, 6 tokens each; gemma2 with a window of 4 (per-row windows bite)
-CONT_CHECK_WINDOW = {"gpt2-xl-paper": None, "gemma2-9b": 4}
+CONT_CHECK_WINDOW = {"gpt2-xl-paper": None, "gemma2-9b": 4,
+                     "stablelm-12b": None, "gemma2-27b": 4}
 # the per-row write heads of gpt2-xl's pool append: at 0, inside, at the
 # last row and past the store (clamped to CACHE_LEN - 1)
 ROW_HEADS = (0, 5, 77, PROMPT, CACHE_LEN - 1, CACHE_LEN, CACHE_LEN + 40, 3)
@@ -301,19 +336,64 @@ GEMMA_ARGS = ["--arch", "gemma2-9b", "--stages", "2", "--mode", "aqsgd",
               "--fw-bits", "4", "--kv-bits", "8", "--batch", str(G_BATCH),
               "--prompt-len", str(G_PROMPT), "--gen", str(G_GEN),
               "--device", "cuda", "--seed", "0"]
-# its launches: the hop once a decode step (B1, B2); the KV append (B3)
-# and store read (B4), k and v in one launch each, on every layer of
-# every step; the attention kernel (B10) on every layer of the prefill
-GEMMA_LAUNCHES = {"delta_quantize_pack": G_GEN,
-                  "dequant_unpack_accumulate": G_GEN,
-                  "quantize_pack": (1 + G_GEN) * G_LAYERS,
-                  "unpack_dequant": (1 + G_GEN) * G_LAYERS,
-                  "quantize_pack_scaled": 0, "unpack_codes": 0,
-                  "quantize_codes_scaled": 0, "dequant_sum_mean": 0,
-                  "unpack_accumulate": 0, "pack_sums": 0, "unpack_sums": 0,
-                  "flash_attention_fwd": G_LAYERS, "oncore_uniform": 0}
 # the gemma2 reference check: SMOKE, a prompt past its window of 16
 G_CHECK_PROMPT, G_CHECK_STEPS = 40, 6
+# stablelm-12b served at full size (40 layers, d 5120, 32 heads on 8 kv
+# heads of 160, vocab 100352, an untied head): a prompt of 4064 into a
+# cache of its 4096-token context
+S_BATCH, S_PROMPT, S_GEN = 2, 4064, 32
+S_CACHE = S_PROMPT + S_GEN
+S_LAYERS, S_D, S_VOCAB = 40, 5120, 100352
+S_HEADS, S_KV_HEADS, S_HEAD_DIM = 32, 8, 160
+STABLELM_ARGS = ["--arch", "stablelm-12b", "--stages", "2", "--mode",
+                 "aqsgd", "--fw-bits", "4", "--kv-bits", "8", "--batch",
+                 str(S_BATCH), "--prompt-len", str(S_PROMPT), "--gen",
+                 str(S_GEN), "--device", "cuda", "--seed", "0"]
+# gemma2-27b at full width (d 4608, 32 heads on 16 kv heads of 128,
+# d_ff 36864, vocab 256000) cut to the first G27_LAYERS of its 46
+# layers, the most in an even count (local and global layers alternate)
+# that the card holds with 2 GiB of headroom: serving it at batch 2,
+# prompt 8160 into a cache of 8192 peaks at 17.371 GiB at 2 layers and
+# 21.719 at 4 on the H100 (tools/serve_memory.py; 2.174 GiB a layer:
+# 2.109 of weights, 0.064 of 8-bit KV stores), so 73.9 GiB at 28 and
+# 78.3 at 30 of the card's 79.18
+G27_LAYERS, G27_D = 28, 4608
+G27_HEADS, G27_KV_HEADS, G27_HEAD_DIM = 32, 16, 128
+G27_ARGS = ["--arch", "gemma2-27b", "--layers", str(G27_LAYERS), "--stages",
+            "2", "--mode", "aqsgd", "--fw-bits", "4", "--kv-bits", "8",
+            "--batch", str(G_BATCH), "--prompt-len", str(G_PROMPT), "--gen",
+            str(G_GEN), "--device", "cuda", "--seed", "0"]
+
+
+def cell_launches(gen, layers):
+    """The launches of one uniform-batch serve at 2 stage groups: the
+    hop once a decode step (B1, B2); B3 and B4 (k and v in one launch
+    each) on every layer of every step; B10 on every layer of the
+    prefill."""
+    return {"delta_quantize_pack": gen, "dequant_unpack_accumulate": gen,
+            "quantize_pack": (1 + gen) * layers,
+            "unpack_dequant": (1 + gen) * layers,
+            "quantize_pack_scaled": 0, "unpack_codes": 0,
+            "quantize_codes_scaled": 0, "dequant_sum_mean": 0,
+            "unpack_accumulate": 0, "pack_sums": 0, "unpack_sums": 0,
+            "flash_attention_fwd": layers, "oncore_uniform": 0}
+
+
+# the full-size serving cells: tag -> (launcher args, batch, prompt,
+# cache, decode steps, layers, d_model, vocab, kv heads, head_dim)
+SERVE_CELLS = {
+    "serve-gemma2": (GEMMA_ARGS, G_BATCH, G_PROMPT, G_CACHE, G_GEN, G_LAYERS,
+                     G_D, G_VOCAB, G_KV_HEADS, G_HEAD_DIM),
+    "serve-stablelm": (STABLELM_ARGS, S_BATCH, S_PROMPT, S_CACHE, S_GEN,
+                       S_LAYERS, S_D, S_VOCAB, S_KV_HEADS, S_HEAD_DIM),
+    "serve-gemma2-27b": (G27_ARGS, G_BATCH, G_PROMPT, G_CACHE, G_GEN,
+                         G27_LAYERS, G27_D, G_VOCAB, G27_KV_HEADS,
+                         G27_HEAD_DIM),
+}
+# each new arch's SMOKE card-vs-CPU serving check: prompt, decode steps
+# (gemma2-27b's prompt past SMOKE's window of 16)
+SERVE_CHECKS = {"stablelm-12b": (8, 6), "gemma2-27b": (G_CHECK_PROMPT,
+                                                       G_CHECK_STEPS)}
 # B10 against its plain version: tests/test_flash_kernel.py's tolerances
 # (rtol = atol) at the sweep's shapes; at the paths' shapes (up to 8192
 # keys a row, a softmax summed in another order) a bound set before the
@@ -326,10 +406,12 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_SAMPLES, TRAIN_STEPS = 8, 1024, 16, 6
 DP_BUCKET = (877132, 512)      # 449,091,200 parameters in 512-wide rows
 TRAIN_ROWS = (TRAIN_BATCH // TRAIN_WORKERS * TRAIN_SEQ, D_MODEL)  # a worker
 # the encoders' tiling edges past 256 values (quant_pack._encode_tiling: a
-# block a row): the first width a block takes, the hops' and
-# stablelm-12b's d_model, and the first width past the register cap
-# (8192 values), which the block walks twice; 1 and 5 rows each
-WIDE_ROWS = [(r, d) for d in (260, 1600, 3584, 5120, 8196) for r in (1, 5)]
+# block a row): the first width a block takes, the hops' (gpt2-xl's,
+# gemma2-9b's, gemma2-27b's and stablelm-12b's d_model), and the first
+# width past the register cap (8192 values), which the block walks
+# twice; 1 and 5 rows each
+WIDE_ROWS = [(r, d) for d in (260, 1600, 3584, 4608, 5120, 8196)
+             for r in (1, 5)]
 # kernel launches per training step: 3 boundaries x 2 workers forward
 # (sender) and backward (gradient round trip); per worker one DP sender
 # and one n=1 decode for its carry, plus the n=2 mean; B10 once a layer
@@ -633,6 +715,9 @@ def kernel_phase(torch, qp, ref):
     cases += [(n, r, d, b, {"stochastic": st})
               for n in ("delta_quantize_pack", "quantize_pack")
               for r, d in WIDE_ROWS for b in (2, 4, 8) for st in (False, True)]
+    # B2 at the wide hops (gemma2-9b's, gemma2-27b's, stablelm-12b's)
+    cases += [("dequant_unpack_accumulate", 2, d, b, {})
+              for d in (3584, G27_D, S_D) for b in (2, 4, 8)]
     cases += [("quantize_pack", *kv_append, b, {"stochastic": True})
               for b in (2, 4, 8)]
     cases += [("quantize_pack", *kv_prefill, 8, {}),
@@ -1086,6 +1171,12 @@ KV_PAIR_CASES = [
      G_CACHE - 1),
     ("gemma2 prefill", G_BATCH, G_CACHE, G_KV_HEADS, G_HEAD_DIM, G_PROMPT,
      0),
+    ("stablelm decode", S_BATCH, S_CACHE, S_KV_HEADS, S_HEAD_DIM, 1,
+     S_CACHE - 1),
+    ("stablelm prefill", S_BATCH, S_CACHE, S_KV_HEADS, S_HEAD_DIM, S_PROMPT,
+     0),
+    ("gemma2-27b decode", G_BATCH, G_CACHE, G27_KV_HEADS, G27_HEAD_DIM, 1,
+     G_CACHE - 1),
     ("group 32", 3, 7, 10, 32, 2, 5),
     ("wide rows", 1, 5, 3, 1600, 2, 1),
     ("g % 4 != 0", 2, 6, 5, 66, 3, 2)]
@@ -1384,23 +1475,35 @@ FLASH_SWEEP = [
      16.0),
     ("ragged", 2, 4, 1, 100, 230, 128, 130, False, 50, 30.0, "float32", 1.0),
     ("ragged", 1, 2, 2, 65, 129, 64, 64, True, 10 ** 9, 0.0, "float32", 1.0),
+    # stablelm-12b's heads (32 on 8 kv heads of 160), and hd 160 under a
+    # window and a softcap with q scaled by 16
+    ("ragged", 2, 32, 8, 77, 300, 160, 150, True, 10 ** 9, 0.0, "float32",
+     1.0),
+    ("ragged", 2, 32, 8, 77, 300, 160, 150, True, 10 ** 9, 0.0, "bfloat16",
+     1.0),
+    ("ragged", 1, 4, 2, 100, 230, 160, 130, False, 50, 30.0, "float32",
+     16.0),
     # Sq and Sk off the kernel's tiles (64 query rows; 64 keys at hd <=
     # 64, 32 at 128 and 256) at every head dim, q scaled by 16 under the
     # softcap of 50, f32 and bf16
     *[("edge", 2, 4, 2, 65, 97, hd, 32, True, 10 ** 9, 50.0, dt, 16.0)
-      for hd in (32, 64, 128, 256) for dt in ("float32", "bfloat16")],
+      for hd in (32, 64, 128, 160, 256) for dt in ("float32", "bfloat16")],
     # f32 k and v rows off 16-byte alignment: the register copy
     ("odd-stride", 1, 4, 2, 70, 100, 64, 30, True, 10 ** 9, 50.0,
      "float32", 1.0),
     ("odd-stride", 1, 4, 2, 70, 100, 256, 30, True, 40, 50.0, "float32",
      16.0),
+    ("odd-stride", 1, 4, 2, 70, 100, 160, 30, True, 10 ** 9, 0.0,
+     "float32", 1.0),
     # the continuous batcher's B = 1 prefills into a row cache of 160, as
     # the model passes them (transposed views)
     *[("path", 1, 25, KV_HEADS, sq, CACHE_LEN, HEAD_DIM, 0, True, CACHE_LEN,
        0.0, "float32", 1.0) for sq in (4, 77, PROMPT)],
 ]
-# the paths' prefill calls: gpt2-xl-paper (window = its cache of 160)
-# and gemma2-9b on a local and a global layer
+# the paths' prefill calls: gpt2-xl-paper (window = its cache of 160),
+# gemma2-9b and gemma2-27b on a local and a global layer, stablelm-12b
+# (head_dim 160, window = its cache of 4096) and a ragged stablelm call
+# at a query offset (1000 rows at positions 3000-3999)
 FLASH_PATHS = {
     "gpt2-xl": ("path", BATCH, 25, KV_HEADS, PROMPT, CACHE_LEN, HEAD_DIM, 0,
                 True, CACHE_LEN, 0.0, "float32", 1.0),
@@ -1409,7 +1512,21 @@ FLASH_PATHS = {
     "gemma2-global": ("path", G_BATCH, G_HEADS, G_KV_HEADS, G_PROMPT,
                       G_CACHE, G_HEAD_DIM, 0, True, G_CACHE, G_CAP,
                       "float32", 16.0),
+    "stablelm": ("path", S_BATCH, S_HEADS, S_KV_HEADS, S_PROMPT, S_CACHE,
+                 S_HEAD_DIM, 0, True, S_CACHE, 0.0, "float32", 1.0),
+    "stablelm-ragged": ("path", 1, S_HEADS, S_KV_HEADS, 1000, S_CACHE,
+                        S_HEAD_DIM, 3000, True, S_CACHE, 0.0, "float32",
+                        1.0),
+    "gemma2-27b-local": ("path", G_BATCH, G27_HEADS, G27_KV_HEADS, G_PROMPT,
+                         G_CACHE, G27_HEAD_DIM, 0, True, G_WINDOW, G_CAP,
+                         "float32", 16.0),
+    "gemma2-27b-global": ("path", G_BATCH, G27_HEADS, G27_KV_HEADS,
+                          G_PROMPT, G_CACHE, G27_HEAD_DIM, 0, True, G_CACHE,
+                          G_CAP, "float32", 16.0),
 }
+# the hd-160 calls are held to the float64 formula (at the sweep's f32
+# tolerance), the others to the f32 plain version at FLASH_PATH_TOL
+FLASH_F64_PATHS = ("stablelm", "stablelm-ragged")
 
 
 # the training attention (B10 asked for its rows' log-sum-exp, and JAX's
@@ -1428,6 +1545,9 @@ FLASH_TRAIN = {
     "gemma2-train-local": ("path", 1, G_HEADS, G_KV_HEADS, 1024, 1024,
                            G_HEAD_DIM, 0, True, 512, G_CAP, "float32",
                            16.0),
+    # stablelm-12b's heads (32 on 8 kv heads of 160) at 4 x 1024 tokens
+    "stablelm-train": ("path", 4, S_HEADS, S_KV_HEADS, 1024, 1024,
+                       S_HEAD_DIM, 0, True, 1024, 0.0, "float32", 1.0),
 }
 # against the float64 formula: o at the sweep's f32 tolerance, the lse
 # at rtol = atol = 2e-5, and each of dq, dk, dv within 1e-4 of its
@@ -1542,9 +1662,10 @@ def visible_scores(torch, sq, sk, q_offset, causal, window) -> int:
 def _sdpa(torch, case):
     """The one PyTorch call computing B10's function where one exists:
     no softcap, so scaled_dot_product_attention with the boolean
-    visibility mask (MHA; the port never calls it)."""
+    visibility mask (GQA through ``enable_gqa``; the port never calls
+    it)."""
     _, b, h, hk, sq, sk, hd, off, causal, window, cap, *_ = case
-    if cap > 0 or h != hk:
+    if cap > 0:
         return None
     pos = torch.arange(sq, device="cuda")[:, None] + off
     key = torch.arange(sk, device="cuda")[None, :]
@@ -1552,7 +1673,7 @@ def _sdpa(torch, case):
     if causal:
         vis &= key <= pos
     return lambda q, k, v: torch.nn.functional.scaled_dot_product_attention(
-        q, k, v, attn_mask=vis)
+        q, k, v, attn_mask=vis, enable_gqa=h != hk)
 
 
 def time_flash(torch, fa, ref, case, lse=False):
@@ -1630,8 +1751,10 @@ def flash_phase(torch, fa, ref):
             plain_f64, plain_past = max(plain_f64, p_err), plain_past + p_bad
     path_errs, lse_errs = {}, {}
     for name, case in FLASH_PATHS.items():
-        path_errs[name] = check_flash(torch, fa, ref, case,
-                                      FLASH_PATH_TOL)[0]
+        f64 = name in FLASH_F64_PATHS
+        path_errs[name] = check_flash(
+            torch, fa, ref, case, FLASH_TOL["float32"] if f64
+            else FLASH_PATH_TOL, f64=f64)[0]
     for name, case in FLASH_TRAIN.items():     # the kernel with its lse
         res = check_flash(torch, fa, ref, case, FLASH_PATH_TOL, lse=True)
         path_errs[name], lse_errs[name] = res[0], res[-1]
@@ -1646,7 +1769,9 @@ def flash_phase(torch, fa, ref):
           tolerance_sweep=json.dumps(FLASH_TOL),
           max_abs_err_paths=json.dumps(path_errs),
           max_abs_err_train_lse=json.dumps(lse_errs),
-          tolerance_paths=FLASH_PATH_TOL)
+          tolerance_paths=FLASH_PATH_TOL,
+          paths_vs_float64=json.dumps({n: FLASH_TOL["float32"]
+                                       for n in FLASH_F64_PATHS}))
     timed = {}
     for name, case in [*FLASH_PATHS.items(), *FLASH_TRAIN.items()]:
         lse = name in FLASH_TRAIN
@@ -1686,11 +1811,10 @@ def flash_phase(torch, fa, ref):
     row.update({k: timed["gpt2-xl"][k] for k in (
         "ms", "ms_head_major", "plain_ms", "bound_ms", "bound_by",
         "bound_tc_ms", "library_ms", "shape")})
-    row["gemma2_local"] = timed["gemma2-local"]
-    row["gemma2_global"] = timed["gemma2-global"]
-    # with the rows' lse, at the training paths' shapes
-    for name in FLASH_TRAIN:
-        row[name.replace("-", "_")] = timed[name]
+    # the other paths' calls, and with the rows' lse the training paths'
+    for name in timed:
+        if name != "gpt2-xl":
+            row[name.replace("-", "_")] = timed[name]
     return row
 
 
@@ -1770,7 +1894,8 @@ def flash_train_phase(torch, fa, ref, qp):
 
 def remat_bit_equal(torch, qp):
     """`loss_fn` and its gradients with remat off and on, bit for bit:
-    both archs' SMOKE models (2 stage groups) and gpt2-xl-paper at full
+    gpt2-xl-paper's, gemma2-9b's and stablelm-12b's (the untied head)
+    SMOKE models (2 stage groups) and gpt2-xl-paper at full
     width cut to 4 layers (a [train] worker's 4 x 1024 tokens); B10
     launched once a layer, twice with remat."""
     from repro_torch.configs.base import get_config
@@ -1779,6 +1904,7 @@ def remat_bit_equal(torch, qp):
     for arch, smoke, layers, (b, s) in (
             ("gpt2-xl-paper", True, 2, (2, 40)),
             ("gemma2-9b", True, 2, (2, 40)),
+            ("stablelm-12b", True, 2, (2, 40)),
             ("gpt2-xl-paper", False, 4, (TRAIN_BATCH // TRAIN_WORKERS,
                                          TRAIN_SEQ))):
         cfg = get_config(arch, smoke=smoke).with_(num_layers=layers)
@@ -1814,11 +1940,94 @@ def remat_bit_equal(torch, qp):
 # phase 5: the port on the card against the port on the CPU
 # ---------------------------------------------------------------------------
 
+class HopTap:
+    """The 4-bit aqsgd hop's decode crossing, tapped.  On the card it
+    records each crossing's input h, the reference m before it and the
+    message m_new (the receiver's output), on the CPU.  On the CPU, given
+    the card's tap, it holds each crossing's rows (``rows()``, every row
+    by default) against the card's record of the same crossing
+    (`hop_sync`) and, where a rounding near-tie put one code on the
+    other side, carries the card's message on in that row, so the row
+    is compared to the end.  Stands in for the codec
+    (``init_state``/``boundary_fn``)."""
+
+    def __init__(self, hop, card=None, rows=None):
+        self.hop, self.card, self.rows = hop, card, rows
+        self.log, self.flips = [], []
+
+    def init_state(self, *args, **kwargs):
+        return self.hop.init_state(*args, **kwargs)
+
+    def boundary_fn(self, *, prefill):
+        return self.hop.prefill_boundary if prefill else self.decode
+
+    def decode(self, state, h, idx):
+        m = state["m"][idx].clone()
+        state, out = self.hop.decode_boundary(state, h, idx)
+        step = len(self.log)
+        self.log.append((h.detach().cpu().clone(), m.cpu(),
+                         out.detach().cpu().clone()))
+        if self.card is None:
+            return state, out
+        hg, mg, ng = self.card.log[step]
+        rows = range(h.shape[0]) if self.rows is None else self.rows()
+        for r in rows:
+            flip = hop_sync(h[r], m[r], out[r], hg[r], mg[r], ng[r])
+            if flip is not None:
+                out[r] = ng[r]
+                state["m"][idx][r] = ng[r]
+                self.flips.append(dict(flip, row=r, crossing=step))
+        return state, out
+
+
+def hop_sync(hc, mc, nc, hg, mg, ng):
+    """One row of one hop crossing, the CPU's (input hc, reference mc,
+    message nc) against the card's (hg, mg, ng), all (1, d) on the CPU.
+    The card's message must be the plain encoder's on the card's own
+    inputs, bit for bit (so its kernel rounded each element as the plain
+    version does).  None when the two messages agree within HOP_NOISE.
+    Else exactly one element differs, by one code, and its values before
+    rounding, ``(delta / s + 1) * lv / 2`` from each side's own inputs
+    and scale, lie within HOP_TIE (of a code step) of each other and
+    round to neighbouring codes: a rounding near-tie, returned.
+    Anything else fails."""
+    from repro_torch.core import quantization as Q
+    from repro_torch.kernels import ref
+
+    replay = ref.delta_quantize_pack_ref(hg, mg, HOP_BITS)[2]
+    assert replay.equal(ng), \
+        ("the card's hop message is not the plain encoder's on its inputs",
+         (replay - ng).abs().max().item())
+    diff = (nc - ng).abs().flatten()
+    if diff.max().item() <= HOP_NOISE:
+        return None
+    off = (diff > HOP_NOISE).nonzero().flatten().tolist()
+    lv = Q.levels(HOP_BITS)
+
+    def before_rounding(h, m):
+        x = h.float() - m.float()
+        y = (x / Q.absmax_scale(x) + 1.0) * (0.5 * lv)
+        return y.flatten()[off[0]].item()
+
+    yc, yg = before_rounding(hc, mc), before_rounding(hg, mg)
+    flip = {"element": off[0], "moved": diff.max().item(), "y_cpu": yc,
+            "y_card": yg}
+    assert len(off) == 1, ("hop message off in more than one element",
+                           off, flip)
+    assert abs(yc - yg) <= HOP_TIE and abs(round(yc) - round(yg)) == 1, \
+        ("hop message off where no rounding near-tie is", flip)
+    return flip
+
+
 def reference_check(torch, arch="gpt2-xl-paper", p=8, n=6,
                     tag="reference-check"):
     """The SMOKE model of ``arch`` served on the card (kernels) against
     the same weights, drawn on the CPU, served on the CPU (plain
-    versions): prompt ``p``, then ``n`` teacher-forced decode steps."""
+    versions): prompt ``p``, then ``n`` teacher-forced decode steps,
+    every row compared at every step.  The card runs first; where a
+    rounding near-tie put one element of a row's hop message on the
+    other side (`HopTap`, `hop_sync`), the CPU carries the card's
+    message on in that row (printed)."""
     from repro_torch.configs.base import get_config
     from repro_torch.models.model import Transformer
     from repro_torch.serving import DeltaHopCodec, KVCodec
@@ -1833,13 +2042,13 @@ def reference_check(torch, arch="gpt2-xl-paper", p=8, n=6,
                          generator=torch.Generator().manual_seed(1))
     kv, hop = KVCodec(bits=8), DeltaHopCodec(mode="aqsgd", bits=4)
 
-    def run(model, dev):
+    def run(model, dev, tap):
         c = model.init_caches(b, p + n, torch.float32, kv_codec=kv)
-        c["hop_m"] = hop.init_state(1, b, cfg.d_model, device=dev)["m"]
+        c["hop_m"] = tap.init_state(1, b, cfg.d_model, device=dev)["m"]
         t = toks.to(dev)
         logits = []
-        for i, fn in enumerate([hop.boundary_fn(prefill=True)]
-                               + [hop.boundary_fn(prefill=False)] * n):
+        for i, fn in enumerate([tap.boundary_fn(prefill=True)]
+                               + [tap.boundary_fn(prefill=False)] * n):
             x = t[:, :p] if i == 0 else t[:, p + i - 1:p + i]
             lg, c = model.forward_with_caches(x, c, logits_last_only=True,
                                               num_stages=2, boundary_fn=fn,
@@ -1847,10 +2056,13 @@ def reference_check(torch, arch="gpt2-xl-paper", p=8, n=6,
             logits.append(lg.cpu())
         return logits, c
 
-    lc, cc = run(cpu, "cpu")
-    lg, cg = run(gpu, "cuda")
+    card = HopTap(hop)
+    lg, cg = run(gpu, "cuda", card)
+    tap = HopTap(hop, card=card)
+    lc, cc = run(cpu, "cpu", tap)
+    assert len(tap.log) == len(card.log) == n
     pre = (lc[0] - lg[0]).abs().max().item()
-    dec = max((x - y).abs().max().item() for x, y in zip(lc[1:], lg[1:]))
+    dec = max((lc[i] - lg[i]).abs().max().item() for i in range(1, n + 1))
     flips = total = 0
     for name in ("k_codes", "v_codes"):
         diff = (cc[name].int() - cg[name].cpu().int()).abs()
@@ -1859,8 +2071,9 @@ def reference_check(torch, arch="gpt2-xl-paper", p=8, n=6,
         total += diff.numel()
     phase(tag, arch=arch, prompt=p, decode_steps=n, prefill_max_abs=pre,
           decode_max_abs=dec, kv_code_flips=f"{flips}/{total}",
+          hop_flips_carried=json.dumps(tap.flips),
           tolerance=f"prefill {PREFILL_ATOL} decode {DECODE_ATOL} flips <= "
-                    f"{MAX_FLIP_FRACTION}")
+                    f"{MAX_FLIP_FRACTION}; hop near-tie {HOP_TIE} code")
     assert pre <= PREFILL_ATOL, pre
     assert dec <= DECODE_ATOL, dec
     assert flips <= MAX_FLIP_FRACTION * total, (flips, total)
@@ -1997,12 +2210,17 @@ def continuous_reference_check(torch, arch):
     ticks): 5 requests of 3-12 tokens over 3 slots, 6 tokens each.  Each
     tick's logits within DECODE_ATOL for every request whose stream still
     agrees, and every KV code of its row within one code, flips <=
-    MAX_FLIP_FRACTION.  A stream that forks at a near tie (the CPU's top
-    two logits within DECODE_ATOL where it forks) stops being compared,
-    and is printed; a fork at a wider gap fails."""
+    MAX_FLIP_FRACTION.  The card steps first; where a rounding near-tie
+    put one element of a live stream's hop message on the other side
+    (`HopTap`, `hop_sync`), the CPU carries the card's message on in
+    that slot (printed), and the stream is compared on.  A stream that
+    forks at a near tie (the CPU's top two logits within DECODE_ATOL
+    where it forks) stops being compared from that tick, and is
+    printed; one may, a second, or a fork at a wider gap, fails."""
     import numpy as np
     from repro_torch.configs.base import get_config
     from repro_torch.models.model import Transformer
+    from repro_torch.serving import DeltaHopCodec
 
     cfg = get_config(arch, smoke=True)
     if CONT_CHECK_WINDOW[arch]:
@@ -2010,15 +2228,20 @@ def continuous_reference_check(torch, arch):
     rng = np.random.default_rng(2)
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
                for n in (3, 12, 7, 5, 9)]
+    live = {}
+    hop = DeltaHopCodec(mode="aqsgd", bits=4)
+    card = HopTap(hop)
+    taps = (card, HopTap(hop, card=card, rows=lambda: list(live.values())))
     bats = []
-    for dev in ("cpu", "cuda"):
+    for dev, tap in zip(("cuda", "cpu"), taps):
         model = Transformer(cfg, device=dev,
                             generator=torch.Generator().manual_seed(0))
         bat = _slice_batcher(model, 3, 24)
+        bat.hop_codec = tap
         for p in prompts:
             bat.submit(p, max_new_tokens=6)
         bats.append(bat)
-    cpu, gpu = bats
+    gpu, cpu = bats
 
     def gap(logits):
         top = torch.topk(logits, 2).values
@@ -2041,8 +2264,9 @@ def continuous_reference_check(torch, arch):
                 fork_check(j, cpu._prefill(r.prompt)[0][0])
         if all(r.state == "DONE" for r in cpu.requests):
             break
-        live = {j: r.slot for j, r in enumerate(cpu.requests)
-                if r.state == "ACTIVE" and j not in forked}
+        live.clear()
+        live.update({j: r.slot for j, r in enumerate(cpu.requests)
+                     if r.state == "ACTIVE" and j not in forked})
         assert live == {j: r.slot for j, r in enumerate(gpu.requests)
                         if r.state == "ACTIVE" and j not in forked}
         for bat in bats:
@@ -2060,12 +2284,15 @@ def continuous_reference_check(torch, arch):
     phase("serve-continuous-reference-check", arch=arch,
           window=CONT_CHECK_WINDOW[arch], requests=len(prompts), slots=3,
           ticks=cpu._tick, streams_equal=len(prompts) - len(forked),
-          forked_at_near_tie=json.dumps(forked), decode_max_abs=dec,
+          forked_at_near_tie=json.dumps(forked),
+          hop_flips_carried=json.dumps(taps[1].flips), decode_max_abs=dec,
           kv_code_max_diff=worst, kv_code_flips=f"{flips}/{total}",
-          tolerance=f"decode {DECODE_ATOL} flips <= {MAX_FLIP_FRACTION}")
-    assert cpu._tick == gpu._tick
+          tolerance=f"decode {DECODE_ATOL} flips <= {MAX_FLIP_FRACTION}; "
+                    f"hop near-tie {HOP_TIE} code; forks <= 1")
+    assert cpu._tick == gpu._tick == len(card.log) == len(taps[1].log)
     assert all(r.state == "DONE" and len(r.tokens) == 6
                for r in cpu.requests + gpu.requests)
+    assert len(forked) <= 1, forked
     for f in forked.values():
         assert f["cpu_top2_gap"] <= DECODE_ATOL, f
     assert dec <= DECODE_ATOL, dec
@@ -2073,16 +2300,22 @@ def continuous_reference_check(torch, arch):
     assert flips <= MAX_FLIP_FRACTION * total, (flips, total)
 
 
-def serve_gemma2_phase(torch, qp, serve):
-    """The slice's main path: gemma2-9b served at full width and depth
-    through the launcher; returns its launches."""
+def serve_cell_phase(torch, qp, serve, tag):
+    """A full-size serving cell of `SERVE_CELLS` through the launcher
+    (gemma2-9b, the slice's own; stablelm-12b; gemma2-27b at full width
+    and `G27_LAYERS` deep), the counters set to 0 just before and checked
+    exactly just after, the hop's bytes as the encoder emits them and the
+    KV stores' bytes against the byte models; returns its launches and
+    the model build's seconds."""
     from repro_torch.serving import DeltaHopCodec, KVCodec, delta
 
+    args, batch, prompt, cache, gen, layers, d, vocab, kv_heads, hd = \
+        SERVE_CELLS[tag]
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     qp.reset_launches()
     delta.reset_sent()
-    out = serve.main(GEMMA_ARGS)
+    out = serve.main(args)
     torch.cuda.synchronize()
     launches = dict(qp.LAUNCHES)
     sent = dict(delta.SENT)
@@ -2091,11 +2324,11 @@ def serve_gemma2_phase(torch, qp, serve):
     # the bytes on the wire: the decode hops the run sent, and the KV
     # stores it filled, against the byte models
     hop, kv = DeltaHopCodec(mode="aqsgd", bits=4), KVCodec(bits=8)
-    hop_model = hop.hop_bytes(G_BATCH, G_D) * G_GEN
-    kv_model = kv.stored_bytes((G_BATCH, G_CACHE, G_KV_HEADS, G_HEAD_DIM)) \
-        * 2 * G_LAYERS
-    phase("serve-gemma2", layers=G_LAYERS, d_model=G_D, vocab=G_VOCAB,
-          batch=G_BATCH, prompt=G_PROMPT, cache=out["cache_len"],
+    hop_model = hop.hop_bytes(batch, d) * gen
+    kv_model = kv.stored_bytes((batch, cache, kv_heads, hd)) * 2 * layers
+    want = cell_launches(gen, layers)
+    phase(tag, layers=layers, d_model=d, vocab=vocab, kv_heads=kv_heads,
+          head_dim=hd, batch=batch, prompt=prompt, cache=out["cache_len"],
           build_s=f"{out['build_s']:.3f}",
           prefill_s=f"{out['prefill_s']:.4f}",
           decode_s=f"{out['decode_s']:.4f}",
@@ -2104,14 +2337,18 @@ def serve_gemma2_phase(torch, qp, serve):
           hops=sent["hops"], hop_bytes=sent["bytes"],
           hop_bytes_model=hop_model,
           kv_store_bytes=out["kv_store_bytes"], kv_store_bytes_model=kv_model,
-          decode_steps=G_GEN)
-    assert tokens.shape == (G_BATCH, G_GEN), tokens.shape
-    assert logits.shape == (G_BATCH, 1, G_VOCAB), logits.shape
+          decode_steps=gen)
+    assert tokens.shape == (batch, gen), tokens.shape
+    assert logits.shape == (batch, 1, vocab), logits.shape
     assert torch.isfinite(logits).all().item(), "non-finite logits"
-    assert out["cache_len"] == G_CACHE == 8192
-    assert sent == {"hops": G_GEN, "bytes": hop_model}, sent
+    assert out["cache_len"] == cache == prompt + gen
+    assert sent == {"hops": gen, "bytes": hop_model}, sent
     assert out["kv_store_bytes"] == kv_model, out["kv_store_bytes"]
-    assert launches == GEMMA_LAUNCHES, (launches, GEMMA_LAUNCHES)
+    assert launches == want, (launches, want)
+    for name, n in want.items():
+        if n:
+            assert launches[name] > 0, \
+                f"{name} was never launched on the {tag} path"
     build_s = out["build_s"]
     del out, logits, tokens
     torch.cuda.empty_cache()
@@ -2242,16 +2479,18 @@ def train_oncore_phase(torch, qp, env, base):
     return launches
 
 
-def train_reference_check(torch):
-    """The SMOKE trainer on the card (kernels) against the CPU (plain
-    versions), deterministic rounding on every plane, same weights."""
+def train_reference_check(torch, arch="gpt2-xl-paper",
+                          tag="train-reference-check"):
+    """The SMOKE trainer of ``arch`` on the card (kernels) against the
+    CPU (plain versions), deterministic rounding on every plane, same
+    weights."""
     from repro_torch.comm import config as comm_mod
     from repro_torch.configs.base import get_config
     from repro_torch.data.pipeline import Dataset, DatasetConfig
     from repro_torch.optim import adamw
     from repro_torch.training import simulated as sim
 
-    cfg = get_config("gpt2-xl-paper", smoke=True)
+    cfg = get_config(arch, smoke=True)
     steps, samples, seq, batch = 4, 8, 32, 4
     tcfg = _train_config(sim, comm_mod, adamw, stochastic=False, stages=2,
                          steps=steps, remat=True)
@@ -2280,7 +2519,7 @@ def train_reference_check(torch):
     # a DP code that flips moves the carry by a whole grid step (about
     # twice the row's largest carry); anything else is ulp-level
     flips = int((diff > 0.5 * ec.abs().amax(-1, keepdim=True)).sum())
-    phase("train-reference-check", remat=tcfg.remat,
+    phase(tag, trainer="simulated", arch=arch, remat=tcfg.remat,
           losses_cpu=json.dumps(lc),
           losses_card=json.dumps(lg), max_rel_loss_diff=max(rel),
           carry_max_abs_diff_step1=diff.max().item(),
@@ -2382,10 +2621,12 @@ def dist_phase(torch):
     return launches
 
 
-def dist_reference_check(torch):
+def dist_reference_check(torch, arch="gpt2-xl-paper",
+                         tag="dist-reference-check"):
     """The 2 x 2 mesh at SMOKE width on the card (kernels) against the
     CPU (plain versions), deterministic rounding, same seed, with the
     pipeline's remat and chunked loss (its defaults)."""
+    from repro_torch.configs.base import get_config
     from repro_torch.launch import train as launch_train
     from repro_torch.training.pipeline import PipelineConfig
 
@@ -2393,13 +2634,18 @@ def dist_reference_check(torch):
     for dev in ("cpu", "cuda"):
         spec = _dist_spec(torch, [
             "--device", dev, "--smoke", "--no-stochastic", "--steps", "3",
-            "--batch", "4", "--seq", "32", "--samples", "4"], layers=4)
+            "--batch", "4", "--seq", "32", "--samples", "4", "--arch",
+            arch], layers=4)
         res = launch_train.run_distributed(spec, timeout=DIST_TIMEOUT)
         losses[dev] = res[0]["losses"]
+        if not get_config(arch).tie_embeddings:
+            # the last stage holds the head, so no embedding copy
+            assert all(rep["embed_equal"] is None for r in res
+                       for rep in r["replicas"]), arch
     rel = [abs(a - b) / abs(a) for a, b in zip(losses["cpu"],
                                                losses["cuda"])]
     pcfg = PipelineConfig()                 # the spec sets none of these
-    phase("dist-reference-check", remat=pcfg.remat,
+    phase(tag, trainer="distributed", arch=arch, remat=pcfg.remat,
           remat_mode=pcfg.remat_mode, loss_chunks=pcfg.loss_chunks,
           losses_cpu=json.dumps(losses["cpu"]),
           losses_card=json.dumps(losses["cuda"]), rel_loss_diff=json.dumps(
@@ -2489,15 +2735,20 @@ def main() -> int:
     serve_continuous_guard(torch)
     for arch in CONT_CHECK_WINDOW:
         continuous_reference_check(torch, arch)
-    gemma_launches, cpu_draw_s = serve_gemma2_phase(torch, qp, serve)
+    gemma_launches, cpu_draw_s = serve_cell_phase(torch, qp, serve,
+                                                  "serve-gemma2")
     phase("serve-gemma2-build", cpu_draw_s=f"{cpu_draw_s:.3f}",
           device_draw_s=f"{gemma2_device_draw_s(torch):.3f}")
-    for name, n in GEMMA_LAUNCHES.items():
-        if n:
-            assert gemma_launches[name] > 0, \
-                f"{name} was never launched on the gemma2 serving path"
     reference_check(torch, "gemma2-9b", G_CHECK_PROMPT, G_CHECK_STEPS,
                     tag="serve-gemma2-reference-check")
+    # the remaining dense archs: stablelm-12b at full size (its untied
+    # head, B10 at head_dim 160) and gemma2-27b at full width
+    stablelm_launches, _ = serve_cell_phase(torch, qp, serve,
+                                            "serve-stablelm")
+    g27_launches, _ = serve_cell_phase(torch, qp, serve, "serve-gemma2-27b")
+    for arch, (p, n) in SERVE_CHECKS.items():
+        reference_check(torch, arch, p, n,
+                        tag=f"serve-{arch}-reference-check")
 
     train_run = train_phase(torch, qp)
     train_launches = train_run["launches"]
@@ -2524,6 +2775,11 @@ def main() -> int:
             assert dist_launches[name] > 0, \
                 f"{name} was never launched on the distributed path"
     dist_reference_check(torch)
+    # the untied head (stablelm-12b SMOKE) through both trainers
+    train_reference_check(torch, "stablelm-12b",
+                          tag="train-untied-reference-check")
+    dist_reference_check(torch, "stablelm-12b",
+                         tag="train-untied-reference-check")
     # a row's launches are those of the path its time was taken at:
     # serving for the activation codecs and the attention kernel (gpt2-xl
     # prefill), training for the DP wire, the distributed path for the
@@ -2531,6 +2787,8 @@ def main() -> int:
     # legacy chain for B9a and B9b (0 on every other path)
     by_path = {"serve": serve_launches, "serve_continuous": cont_launches,
                "serve_gemma2": gemma_launches,
+               "serve_stablelm": stablelm_launches,
+               "serve_gemma2_27b": g27_launches,
                "train": train_launches, "train_oncore": oncore_launches,
                "train_full_depth": full["launches"],
                "dist": dist_launches, "legacy_dp": legacy_launches}

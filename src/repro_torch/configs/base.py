@@ -68,7 +68,7 @@ class ModelConfig:
 # ---------------------------------------------------------------------------
 # Registry: only the archs the port runs
 # ---------------------------------------------------------------------------
-ARCHS = ("gpt2-xl-paper", "gemma2-9b")
+ARCHS = ("gpt2-xl-paper", "gemma2-9b", "stablelm-12b", "gemma2-27b")
 
 
 def _module_name(arch: str) -> str:

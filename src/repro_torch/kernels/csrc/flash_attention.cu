@@ -75,19 +75,21 @@
 //     cp.async.bulk a row on an mbarrier, and each warp splits the B
 //     fragments it reads (two 4-byte reads, conflict-free).  A warp owns
 //     up to 4 x 4 m16n8 tiles of the output, all 64 rows where hd
-//     allows, so each v element is split by one warp.  Inside each 8-key
+//     allows, so each v element is split by one warp (at hd 160,
+//     stablelm-12b's, 2 x 5 tiles: two rows of four warps, each v
+//     element split by two).  Inside each 8-key
 //     block the key order is permuted (logical k t is key 2t, t + 4 is
 //     2t + 1) in p's fragments and in the v rows alike, which matches
 //     the wgmma accumulator's layout;
 //   * keys past Sk get -inf (exact zero weight) and zero v rows; query
 //     rows past Sq load zeros and are not stored.  window and causal
 //     are runtime arguments, so local and global layers share one
-//     compiled kernel; hd (32, 64, 128, 256) and the input type are
+//     compiled kernel; hd (32, 64, 128, 160, 256) and the input type are
 //     template parameters.  bf16 inputs, and f32 views whose k or v rows
 //     are not 16-byte aligned, are read element by element (bf16 widened
 //     to f32; its lo parts are zero but all three passes run).
 // Shared memory at hd 256: q 128 KB, k 64 KB, v 33 KB, row statistics,
-// 226 KB of the 227.  Left for later: with one tile of k and v in
+// 226 KB of the 227 (at hd 160: 80, 40 and 20.5 KB, 142 KB).  Left for later: with one tile of k and v in
 // flight and the two warpgroups in step, a tile's loads, split,
 // softmax and products follow one another, and in exploratory builds
 // on the H100 that left out the products, most of the time remained.
@@ -115,10 +117,13 @@ struct Tile {
   static constexpr int NK = BK * C4 / THREADS;     // k chunks a thread
   static constexpr int BAND = 8 * HD;              // floats of an 8-row band
   static constexpr int LDV = HD + 4;               // padded v row (floats)
-  // p v: a warp owns MT x NT m16n8 tiles of the 64 x HD output
-  static constexpr int MT = HD / 16 < 4 ? HD / 16 : 4;
+  // p v: a warp owns MT x NT m16n8 tiles of the 64 x HD output, HD / 16
+  // of them (the 8 warps share its 4 x HD / 8 tiles); MT is the most of
+  // the 4 row tiles that divides that count (4, or 2 at hd 160: 2 x 5)
+  static constexpr int MT = HD / 16 % 4 == 0 ? 4 : HD / 16 % 2 == 0 ? 2 : 1;
   static constexpr int NT = HD / 16 / MT;
   static constexpr int NGN = HD / 8 / NT;          // warps along the columns
+  static constexpr int NGM = BQ / 16 / MT;         // warps along the rows
   static constexpr int QF = BQ * HD;               // a q tile (hi or lo)
   static constexpr int KF = 2 * BK * HD;           // the k tile, hi and lo
   static constexpr int VF = BK * LDV;
@@ -131,6 +136,23 @@ struct Tile {
       sizeof(float) * (size_t)(2 * QF + KF + VF + STATF + (P_IN_K ? 0 : PF)) +
       sizeof(uint64_t);                            // the v tile's mbarrier
   static constexpr uint32_t SBO = 8 * HD * 4;      // bytes between 8-row bands
+
+  // the tilings cover their tiles exactly: a hole would leave output
+  // columns or k chunks unwritten, and nothing would report it
+  static_assert(HD % 32 == 0, "hd: whole 8-row bands of 4-float chunks, "
+                              "and v rows whose padding keeps p v's reads "
+                              "conflict-free");
+  static_assert(NGM * NGN == THREADS / 32 && NGM * MT * 16 == BQ &&
+                    NGN * NT * 8 == HD,
+                "p v: the warps' MT x NT m16n8 tiles must cover the 64 x "
+                "HD output exactly, one warp each");
+  static_assert(BK * C4 % THREADS == 0 && QF / 4 % THREADS == 0,
+                "k and q chunks: a whole number a thread");
+  static_assert(HD / 8 % 4 == 0, "q k^T: whole commit groups of 4 k steps");
+  static_assert(!P_IN_K || 2 * BAND >= BQ * BK,
+                "p's hi and lo fragments fit the k tile's lo bands");
+  static_assert(SBO >> 4 < (1u << 14), "wgmma descriptor: SBO field");
+  static_assert(SMEM <= 227 * 1024, "shared memory of one block");
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -764,6 +786,10 @@ int dispatch(const void* q, const void* k, const void* v, void* o,
       return launch<128, T>(q, k, v, o, lse, st, b, h, hk, sq, sk,
                             q_offset, causal, window, scale, cap,
                             stream);
+    case 160:
+      return launch<160, T>(q, k, v, o, lse, st, b, h, hk, sq, sk,
+                            q_offset, causal, window, scale, cap,
+                            stream);
     case 256:
       return launch<256, T>(q, k, v, o, lse, st, b, h, hk, sq, sk,
                             q_offset, causal, window, scale, cap,
@@ -780,7 +806,7 @@ extern "C" {
 // q, o: (b, h, sq, hd); k, v: (b, hk, sk, hd), f32 or (bf16 != 0)
 // bf16, the last dim contiguous; strides: 12 element strides, batch,
 // head and row of q, k, v, o in turn; h % hk == 0, hd in {32, 64, 128,
-// 256}, q_offset + sq <= sk, window >= 1 (the wrapper checks all of
+// 160, 256}, q_offset + sq <= sk, window >= 1 (the wrapper checks all of
 // it); scale = f32(1 / sqrt(hd)); cap <= 0 disables the softcap; lse:
 // null, or f32 (b, h, sq) contiguous for the rows' log-sum-exp
 int rt_flash_attention_fwd(const void* q, const void* k, const void* v,

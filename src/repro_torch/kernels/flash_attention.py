@@ -30,7 +30,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels import quant_pack as _qp
 from repro_torch.kernels import ref
 
-HEAD_DIMS = (32, 64, 128, 256)
+HEAD_DIMS = (32, 64, 128, 160, 256)
 DTYPES = (torch.float32, torch.bfloat16)
 BIG_WINDOW = 10 ** 9
 _INT_MAX = 2 ** 31 - 1

@@ -32,6 +32,17 @@ and gemma2-9b (9.24B parameters, 37 GB at f32; a prompt past its
   python -m repro_torch.launch.serve --arch gemma2-9b --stages 2 \\
       --mode aqsgd --fw-bits 4 --kv-bits 8 --batch 2 --prompt-len 8160 \\
       --gen 32
+stablelm-12b (12.1B parameters, 48.6 GB at f32; its untied head and
+head_dim 160) over a cache of 4096 tokens:
+  python -m repro_torch.launch.serve --arch stablelm-12b --stages 2 \\
+      --mode aqsgd --fw-bits 4 --kv-bits 8 --batch 2 --prompt-len 4064 \\
+      --gen 32
+gemma2-27b at full width, cut to the first 28 of its 46 layers
+(``--layers``: the whole model, 109 GB at f32, does not fit an 80 GB
+card):
+  python -m repro_torch.launch.serve --arch gemma2-27b --layers 28 \\
+      --stages 2 --mode aqsgd --fw-bits 4 --kv-bits 8 --batch 2 \\
+      --prompt-len 8160 --gen 32
 and a stream of 16 mixed-length requests over 8 slots of gpt2-xl:
   python -m repro_torch.launch.serve --arch gpt2-xl-paper --stages 2 \\
       --mode aqsgd --fw-bits 4 --kv-bits 8 --continuous --slots 8 \\
@@ -80,6 +91,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
     ap.add_argument("--arch", default="gemma2-9b", choices=list(ARCHS))
     ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="serve only the first N layers of the arch at "
+                         "its full width (0: all of them), for a model "
+                         "whose full depth does not fit the card")
     comm_cli.add_cli_args(ap)
     ap.add_argument("--list-wires", action="store_true",
                     help="print the wire registry table and exit")
@@ -115,6 +130,11 @@ def serve(args) -> dict:
     comm = comm_cli.from_args(args)
     print("comm:", comm.to_json())
     cfg = get_config(args.arch, smoke=args.smoke)
+    if args.layers:
+        if not 0 < args.layers <= cfg.num_layers:
+            raise ValueError(f"--layers {args.layers}: {cfg.name} has "
+                             f"{cfg.num_layers}")
+        cfg = cfg.with_(num_layers=args.layers)
     kv_codec = KVCodec.from_comm(comm)
     hop = DeltaHopCodec.from_comm(comm) if args.stages > 1 else None
     if hop is not None:

@@ -41,6 +41,7 @@ host.
 """
 from __future__ import annotations
 
+import math
 from typing import Callable, Optional
 
 import torch
@@ -75,28 +76,33 @@ class Block(nn.Module):
 
 
 class Transformer(nn.Module):
-    """Dense-family decoder (``gpt2-xl-paper``, ``gemma2-9b``: per-layer
-    sliding windows, GQA, attention and final logit softcaps, gated or
-    plain MLP): token embedding, a stack
-    of `Block`s, a final RMSNorm and logits tied to the embedding.
+    """Dense-family decoder (``gpt2-xl-paper``, ``gemma2-9b``,
+    ``gemma2-27b``, ``stablelm-12b``: per-layer sliding windows, GQA,
+    attention and final logit softcaps, gated or plain MLP): token
+    embedding, a stack of `Block`s, a final RMSNorm and the logits, read
+    through the embedding when ``cfg.tie_embeddings``, else through a
+    ``head`` of its own, (d_model, vocab) as in the JAX package.
 
     ``generator`` seeds a random init that follows the JAX package's
-    scales (N(0, 0.02) embedding, N(0, 1/fan_in) projections, zero
-    norms), drawn leaf by leaf on the generator's device (a CPU
-    generator gives the same weights on every device,
+    scales (N(0, 0.02) embedding, N(0, 1/d_model) head, N(0, 1/fan_in)
+    projections, zero norms), drawn leaf by leaf on the generator's
+    device (a CPU generator gives the same weights on every device,
     `layers.init_normal_`); without it the weights are left
     uninitialized, for `repro_torch.weights.from_jax_params` to fill."""
 
     def __init__(self, cfg: ModelConfig, *, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if cfg.family != "dense" or not cfg.tie_embeddings:
+        if cfg.family != "dense":
             raise NotImplementedError(
-                f"{cfg.name}: the port runs the dense family with tied "
-                f"embeddings")
+                f"{cfg.name}: the port runs the dense family; the "
+                f'{cfg.family} family is ROADMAP queue A, "The other '
+                f'families"')
         self.cfg = cfg
         self.embed = nn.Parameter(torch.empty(cfg.vocab_size, cfg.d_model,
                                               device=device))
+        self.head = None if cfg.tie_embeddings else nn.Parameter(
+            torch.empty(cfg.d_model, cfg.vocab_size, device=device))
         self.layers = nn.ModuleList(Block(cfg, device=device)
                                     for _ in range(cfg.num_layers))
         self.final_norm = L.RMSNorm(cfg.d_model, cfg.norm_eps, device=device)
@@ -106,6 +112,9 @@ class Transformer(nn.Module):
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
         L.init_normal_(self.embed, 0.02, generator)
+        if self.head is not None:
+            L.init_normal_(self.head, 1.0 / math.sqrt(self.cfg.d_model),
+                           generator)
         for blk in self.layers:
             blk.attn.reset_parameters(generator)
             blk.ffn.reset_parameters(generator)
@@ -117,9 +126,8 @@ class Transformer(nn.Module):
         return self.embed.to(self.cfg.torch_dtype)[tokens]
 
     def lm_logits(self, h: torch.Tensor) -> torch.Tensor:
-        h = self.final_norm(h)
-        logits = h @ self.embed.t().to(h.dtype)
-        return L.softcap(logits.float(), self.cfg.final_softcap)
+        return head_logits(self.cfg, self.final_norm(h), self.embed,
+                           self.head)
 
     # -- training forward ---------------------------------------------------
 
@@ -237,6 +245,15 @@ class Transformer(nn.Module):
         if logits_last_only:
             h = h[:, -1:]
         return self.lm_logits(h), caches
+
+
+def head_logits(cfg: ModelConfig, h: torch.Tensor, embed: torch.Tensor,
+                head: Optional[torch.Tensor]) -> torch.Tensor:
+    """Logits of final-normed h, f32, final-softcapped (JAX ``lm_logits``
+    after its norm), read through the untied ``head`` (d_model, vocab),
+    or with ``head`` None through the embedding's transpose."""
+    w = embed.t() if head is None else head
+    return L.softcap((h @ w.to(h.dtype)).float(), cfg.final_softcap)
 
 
 def run_layer(blk: Block, h: torch.Tensor, positions: torch.Tensor,

@@ -4,8 +4,9 @@ for the dense family).
 
 Mesh: ``(data=D, model=K)`` processes (`repro_torch.launch.mesh`);
 model rank k runs pipeline stage k (its ceil(L/K) layers; stage 0 also
-the embedding, stage K-1 the final norm and the head tied to the
-embedding), data rank d its shard of every microbatch.
+the embedding, stage K-1 the final norm and the head: a copy of the
+embedding when the config ties them, else the untied ``head``, which
+stage K-1 alone holds), data rank d its shard of every microbatch.
 
 Schedule: GPipe.  Each step runs the M microbatches forward through the
 stages, then backward in reverse order.  A stage boundary is a pair of
@@ -29,14 +30,14 @@ Gradients.  As in the JAX package, the DP wire's input is the gradient
 of the GLOBAL batch's mean loss over the whole pipeline tree: each rank
 writes its stage's gradient into a zero (rows, group_d) f32 bucket in
 the pipeline tree's leaf order (`PipelineBucket`), and one f32
-all-reduce over every rank sums the data shards and the stages (the
-tied embedding's two halves add there).  With ``comm.dp.bits`` the
+all-reduce over every rank sums the data shards and the stages (a tied
+embedding's two halves add there).  With ``comm.dp.bits`` the
 configured DP wire (`comm.wires`, ``ring`` by default) then runs over
 the rank's data group with per-rank error feedback, so it performs D
 independent stochastic quantizations of that shared gradient (the
 JAX package's placement caveat).  The wire's noise is seeded by (seed,
 step, data rank) and never by the model rank, so every model column
-computes the same mean and the two copies of the tied embedding stay
+computes the same mean and the two copies of a tied embedding stay
 equal.  Then AdamW updates each stage's own parameters.
 
 The f32 all-reduce sums in gloo's order, not XLA's, so distributed
@@ -75,7 +76,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import boundary as B
 from repro_torch.core import quantization as Q
 from repro_torch.models import layers as L
-from repro_torch.models.model import Block, Transformer, run_layer
+from repro_torch.models.model import (Block, Transformer, head_logits,
+                                      run_layer)
 from repro_torch.optim import adamw
 from repro_torch.rng import seeded_generator
 from repro_torch.weights import stage_state_dict
@@ -153,8 +155,9 @@ def stage_layout(cfg: ModelConfig, num_stages: int) -> StageLayout:
 
 class Stage(nn.Module):
     """Pipeline stage k: its live layers (global layers k*lps ..), the
-    embedding on the first stage, the final norm and tied head on the
-    last.  Parameter names are the stage's own (``layers.<local>.*``)."""
+    embedding on the first stage, the final norm and the head on the
+    last (a copy of the embedding if tied, else the untied ``head``).
+    Parameter names are the stage's own (``layers.<local>.*``)."""
 
     def __init__(self, cfg: ModelConfig, lay: StageLayout, k: int,
                  device=None):
@@ -165,9 +168,13 @@ class Stage(nn.Module):
                           if k * lay.lps + i < lay.n_layers]
         self.layers = nn.ModuleList(Block(cfg, device=device)
                                     for _ in self.layer_ids)
+        tied = cfg.tie_embeddings
         self.embed = nn.Parameter(torch.empty(
             cfg.vocab_size, cfg.d_model, device=device)) \
-            if self.first or self.last else None
+            if self.first or (self.last and tied) else None
+        self.head = nn.Parameter(torch.empty(
+            cfg.d_model, cfg.vocab_size, device=device)) \
+            if self.last and not tied else None
         self.final_norm = L.RMSNorm(cfg.d_model, cfg.norm_eps,
                                     device=device) if self.last else None
 
@@ -189,7 +196,8 @@ class Stage(nn.Module):
         numpy arrays (`repro_torch.weights.to_pipeline_params`)."""
         state = stage_state_dict(np_pipe, self.cfg, lay.num_stages, self.k,
                                  embed=self.embed is not None,
-                                 final_norm=self.last)
+                                 final_norm=self.last,
+                                 head=self.head is not None)
         self.load_state_dict({k: torch.tensor(np.asarray(v))
                               for k, v in state.items()})
         return self
@@ -228,8 +236,7 @@ class Stage(nn.Module):
 
         def piece(hh, tt, mm):
             hh = self.final_norm(hh)
-            logits = L.softcap((hh @ self.embed.t().to(hh.dtype)).float(),
-                               self.cfg.final_softcap)
+            logits = head_logits(self.cfg, hh, self.embed, self.head)
             lse = torch.logsumexp(logits, dim=-1)
             gold = torch.gather(logits, -1, tt[..., None].long())[..., 0]
             return ((lse - gold) * mm).sum()
@@ -254,9 +261,10 @@ def _numel(shape) -> int:
 class PipelineBucket:
     """The flatten-and-concat DP bucket of the pipeline tree, in the JAX
     package's ``jax.tree.leaves`` order of `to_pipeline_params`:
-    ``embed``, ``final_norm.scale``, then ``stages.<block param>``
-    (sorted) each shaped (K, lps, ...), dead padded layers included as
-    zeros.  Knows where every parameter of a `Stage` sits in it."""
+    ``embed``, ``final_norm.scale``, the untied ``head`` if any, then
+    ``stages.<block param>`` (sorted) each shaped (K, lps, ...), dead
+    padded layers included as zeros.  Knows where every parameter of a
+    `Stage` sits in it."""
 
     def __init__(self, cfg: ModelConfig, lay: StageLayout, group_d: int):
         self.lay, self.group_d = lay, group_d
@@ -267,8 +275,11 @@ class PipelineBucket:
                       block.named_parameters())
         off = 0
         self.offsets, self.sizes = {}, {}
-        for name, shape in [("embed", (cfg.vocab_size, cfg.d_model)),
-                            ("final_norm.scale", (cfg.d_model,))]:
+        top = [("embed", (cfg.vocab_size, cfg.d_model)),
+               ("final_norm.scale", (cfg.d_model,))]
+        if not cfg.tie_embeddings:
+            top.append(("head", (cfg.d_model, cfg.vocab_size)))
+        for name, shape in top:
             self.offsets[name], self.sizes[name] = off, _numel(shape)
             off += _numel(shape)
         for name in names:
@@ -542,7 +553,7 @@ class PipelineRank:
             self.stage.load_pipeline_params(initial_params, self.lay)
         else:
             # every rank draws the whole model on the CPU from the same
-            # seed, so the stages (and both copies of the tied embedding)
+            # seed, so the stages (and both copies of a tied embedding)
             # agree, and a run on the card starts from the weights of the
             # same run on the CPU
             model = Transformer(cfg, device="cpu", generator=seeded_generator(
@@ -760,10 +771,12 @@ def _bits(t: torch.Tensor) -> torch.Tensor:
 
 @torch.no_grad()
 def check_replicas(trainer: PipelineRank) -> dict:
-    """Ship each stage's m_out to the next stage and stage 0's embedding
-    to the last stage (the ``check`` plane, outside the wire planes) and
-    compare bit for bit.  Returns {"m_in_equal": bool or None,
-    "embed_equal": bool or None}, None where this rank checks nothing."""
+    """Ship each stage's m_out to the next stage and, when the embedding
+    is tied, stage 0's embedding to the last stage (the ``check`` plane,
+    outside the wire planes) and compare bit for bit.  Returns
+    {"m_in_equal": bool or None, "embed_equal": bool or None}, None
+    where this rank checks nothing (an untied model has one embedding
+    and checks none)."""
     mesh, tr = trainer.mesh, trainer.mesh.transport
     k, kk = mesh.model_rank, mesh.shape.model
     res = {"m_in_equal": None, "embed_equal": None}
@@ -779,7 +792,7 @@ def check_replicas(trainer: PipelineRank) -> dict:
                               mesh.stage_rank(k - 1), "check")
                 eq &= torch.equal(_bits(got), _bits(mine))
             res["m_in_equal"] = bool(eq)
-    if kk > 1:
+    if kk > 1 and trainer.cfg.tie_embeddings:
         if k == 0:
             tr.send(trainer.stage.embed, mesh.stage_rank(kk - 1), "check")
         elif k == kk - 1:

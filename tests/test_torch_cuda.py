@@ -316,7 +316,11 @@ def test_code_unpacker_tails_match_plain(card, bits):
 # a ragged row count, and rows too wide for registers (the two-pass path)
 KV_PAIR_SHAPES = [(8, 160, 25, 64, 1, 150), (8, 160, 25, 64, 128, 0),
                   (2, 8192, 8, 256, 1, 8191), (2, 8192, 8, 256, 8, 8160),
-                  (3, 7, 10, 32, 2, 5), (1, 5, 3, 1600, 2, 1)]
+                  (3, 7, 10, 32, 2, 5), (1, 5, 3, 1600, 2, 1),
+                  # stablelm-12b's rows of 160 (batch 2, cache 4096, 8
+                  # kv heads) and gemma2-27b's of 128 (cache 8192, 16)
+                  (2, 4096, 8, 160, 1, 4095), (2, 4096, 8, 160, 8, 4064),
+                  (2, 8192, 16, 128, 1, 8191), (2, 8192, 16, 128, 8, 8160)]
 
 
 def _kv_pair_inputs(dev, b, cache, n, g, s, bits, seed):
@@ -552,6 +556,9 @@ def test_counters_and_checks(card):
 
 # (b, h, hk, sq, sk, hd, q_offset, causal, window, softcap)
 FLASH_CASES = [
+    # stablelm-12b's heads (32 on 8 kv heads of 160), ragged, an offset
+    (2, 32, 8, 100, 130, 160, 30, True, 10 ** 9, 0.0),
+    (1, 4, 2, 65, 97, 160, 0, False, 40, 30.0),
     (1, 2, 2, 64, 64, 32, 0, True, 10 ** 9, 0.0),
     (2, 4, 2, 128, 128, 64, 0, True, 10 ** 9, 0.0),      # GQA
     (1, 8, 1, 64, 64, 128, 0, True, 10 ** 9, 0.0),       # MQA
@@ -619,7 +626,7 @@ def _flash_ref64(q, k, v, *, causal, window, softcap, q_offset):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hd", [32, 64, 128, 256])
+@pytest.mark.parametrize("hd", [32, 64, 128, 160, 256])
 def test_flash_attention_tile_edges(card, hd, dtype):
     """f32 against the float64 formula, bf16 against the plain version."""
     for sq, sk, off, window, cap, qs in FLASH_EDGES:
@@ -670,6 +677,67 @@ def test_flash_attention_reads_views_in_place(card):
     torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_hd160_every_column(card, dtype):
+    """hd 160 (stablelm-12b): the p v tiling is 2 x 5 m16n8 tiles a warp,
+    two rows of four warps.  The output is filled with NaN before the
+    launch (through the wrapper's allocation), so an unwritten column
+    shows; o with and without the lse, and the lse, against the plain
+    version (f32 o against the float64 formula)."""
+    b, h, hk, sq, sk, hd = 2, 8, 2, 130, 200, 160
+    g = torch.Generator(device=card).manual_seed(160)
+    q = torch.randn(b, h, sq, hd, generator=g, device=card).to(dtype)
+    k = torch.randn(b, hk, sk, hd, generator=g, device=card).to(dtype)
+    v = torch.randn(b, hk, sk, hd, generator=g, device=card).to(dtype)
+    kw = dict(causal=True, window=10 ** 9, softcap=0.0, q_offset=70)
+    real = torch.empty_like
+
+    def nan_like(t, **kwargs):
+        return real(t, **kwargs).fill_(float("nan"))
+
+    torch.empty_like = nan_like
+    try:
+        TP.reset_launches()
+        o, lse = TFA.flash_attention_fwd(q, k, v, return_lse=True, **kw)
+        plain = TFA.flash_attention_fwd(q, k, v, **kw)
+        torch.cuda.synchronize()
+    finally:
+        torch.empty_like = real
+    assert TP.LAUNCHES["flash_attention_fwd"] == 2
+    assert torch.isfinite(o).all() and torch.isfinite(plain).all()
+    assert torch.equal(o, plain)
+    want, want_lse = TR.flash_attention_ref(q, k, v, return_lse=True, **kw)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    if dtype == torch.float32:
+        want = _flash_ref64(q, k, v, **kw)
+    torch.testing.assert_close(o.float(), want.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(lse, want_lse, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("bits", BITS)
+def test_hops_at_new_widths(card, bits):
+    """B1 and B2 at gemma2-27b's and stablelm-12b's decode hops (2, 4608)
+    and (2, 5120), a block a row: deterministic, with noise, seeded, and
+    the receiver, bit for bit."""
+    seed = torch.tensor((3, -4), dtype=torch.int32, device=card)
+    for d in (4608, 5120):
+        m = _x(2, d, 5, card)
+        a = m + _x(2, d, 6, card)
+        u = torch.rand(2, d, device=card)
+        for uu in (None, u):
+            got = TP.delta_quantize_pack(a, m, uu, bits=bits)
+            _equal(got, TR.delta_quantize_pack_ref(a, m, bits, uu))
+            _equal([TP.dequant_unpack_accumulate(got[0], got[1], m,
+                                                 bits=bits)],
+                   [TR.dequant_unpack_accumulate_ref(got[0], got[1], m,
+                                                     bits)])
+            _equal([got[2]], [TP.dequant_unpack_accumulate(
+                got[0], got[1], m, bits=bits)])
+        _equal(TP.delta_quantize_pack(a, m, bits=bits, seed=seed),
+               TR.delta_quantize_pack_ref(
+                   a, m, bits, TR.oncore_uniform_ref(seed, 2, d)))
+
+
 def test_flash_attention_checks(card):
     q = torch.randn(1, 2, 8, 64, device=card)
     with pytest.raises(ValueError, match="head_dim"):
@@ -689,7 +757,8 @@ def test_flash_attention_checks(card):
 # window, softcap, q scale); gemma2's q scaled so scores reach the cap
 TRAIN_ATTN = [(4, 25, 25, 1024, 64, 1024, 0.0, 1.0),
               (1, 16, 8, 1024, 256, 4096, 50.0, 16.0),
-              (1, 16, 8, 1024, 256, 512, 50.0, 16.0)]
+              (1, 16, 8, 1024, 256, 512, 50.0, 16.0),
+              (2, 32, 8, 512, 160, 10 ** 9, 0.0, 1.0)]     # stablelm-12b
 TRAIN_GRAD_TOL = 1e-4
 
 

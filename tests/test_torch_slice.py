@@ -1,11 +1,13 @@
 """The port's serving slice end to end, against the JAX package.
 
-Each arch-bound test runs for both served archs, ``gpt2-xl-paper`` and
-``gemma2-9b`` (sliding windows on alternate layers, GQA, attention and
-final softcaps, gated GeLU).  Both packages hold the same SMOKE weights
-(moved with `repro_torch.weights.from_jax_params`), prefill the same
-prompt (for gemma2 one of 40 tokens, past SMOKE's window of 16, so the
-window masks keys in prefill and decode) and then decode
+Each arch-bound test runs for every served arch, ``gpt2-xl-paper``,
+``gemma2-9b`` and ``gemma2-27b`` (sliding windows on alternate layers,
+GQA, attention and final softcaps, gated GeLU) and ``stablelm-12b``
+(GQA, gated SiLU, an untied output head).  Both packages hold the same
+SMOKE weights (moved with `repro_torch.weights.from_jax_params`),
+prefill the same prompt (for gemma2 one of 40 tokens, past SMOKE's
+window of 16, so the window masks keys in prefill and decode) and then
+decode
 TEACHER-FORCED: each step both get the same token ids, so a thin
 argmax margin cannot fork the two streams.  The slice is the one the
 chip run drives: a 2-stage delta-coded hop (aqsgd, 4 bits) and an
@@ -46,9 +48,10 @@ from repro_torch.serving import KVCodec as TKV
 from repro_torch.weights import from_jax_params
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-ARCHS = ("gpt2-xl-paper", "gemma2-9b")
+ARCHS = ("gpt2-xl-paper", "gemma2-9b", "stablelm-12b", "gemma2-27b")
 B, STEPS = 2, 6
-PROMPT = {"gpt2-xl-paper": 8, "gemma2-9b": 40}
+PROMPT = {"gpt2-xl-paper": 8, "gemma2-9b": 40, "stablelm-12b": 8,
+          "gemma2-27b": 40}
 PREFILL_ATOL = 2e-5
 DECODE_ATOL = 5e-3
 MAX_FLIP_FRACTION = 0.005
@@ -78,14 +81,15 @@ def test_configs_match_jax(arch):
         for i in range(jc.num_layers):
             assert tc.layer_window(i, 8192) == jc.layer_window(i, 8192)
     with pytest.raises(KeyError):
-        tget("gemma2-27b")                    # not ported
+        tget("mixtral-8x22b")                 # not ported
 
 
 def test_from_jax_params_unstacks_every_leaf(shared):
     cfg, params, model = shared
     sd = model.state_dict()
     per_layer = 9 if cfg.mlp_gated else 8     # + ffn.w_gate
-    assert len(sd) == 2 + cfg.num_layers * per_layer
+    top = 2 if cfg.tie_embeddings else 3      # embed, final_norm (+ head)
+    assert len(sd) == top + cfg.num_layers * per_layer
     assert set(params["layers"]["ffn"]) == \
         ({"w_gate"} if cfg.mlp_gated else set()) | {"w_up", "w_down"}
     for i in range(cfg.num_layers):
@@ -107,6 +111,9 @@ def test_from_jax_params_unstacks_every_leaf(shared):
                 np.asarray(params["layers"]["ffn"]["w_gate"][i]))
     np.testing.assert_array_equal(sd["embed"].numpy(),
                                   np.asarray(params["embed"]))
+    if not cfg.tie_embeddings:
+        np.testing.assert_array_equal(sd["head"].numpy(),
+                                      np.asarray(params["head"]))
 
 
 def _jax_step(cfg, codec, hop, prefill):
@@ -193,7 +200,8 @@ def test_fp32_hop_staging_is_exact(shared):
 
 
 @pytest.mark.parametrize("arch,prompt,kv_per_token", [
-    ("gpt2-xl-paper", 6, 1088), ("gemma2-9b", 20, 544)])
+    ("gpt2-xl-paper", 6, 1088), ("gemma2-9b", 20, 544),
+    ("stablelm-12b", 6, 544), ("gemma2-27b", 20, 544)])
 def test_serve_entry_point_on_cpu(capsys, arch, prompt, kv_per_token):
     """The launcher on the CPU (gemma2: a prompt past SMOKE's window);
     the bytes it prints and the stores it fills are the JAX models'."""

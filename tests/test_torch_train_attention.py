@@ -89,6 +89,7 @@ ATTN_CASES = [
     (1, 40, 4, 2, 32, 16, 50.0, 16, 8.0),      # gemma2 SMOKE's shape
     (2, 33, 6, 2, 16, 40, 30.0, 8, 4.0),       # GQA 6:2, window past S
     (1, 24, 2, 1, 16, BIG, 0.0, 64, 1.0),      # MQA, one padded block
+    (1, 21, 4, 2, 160, BIG, 0.0, 8, 1.0),      # stablelm-12b's head_dim
 ]
 
 

@@ -206,7 +206,25 @@ Phases, each printed on its own line:
    (``stablelm-12b`` SMOKE) through the simulated trainer and the
    distributed one, each on the card against the CPU as the two checks
    above (the distributed run's last stage holds ``head`` and no
-   embedding copy).
+   embedding copy);
+10. the rest of the DP wires and the optimizer: ``[train-sharded]``:
+   ``[train]``'s run with the ZeRO wire (``ring-sharded``: the ring's
+   reduce-scatter half, AdamW on each worker's segment of the f32
+   parameter bucket), its losses bit-equal to ``[train]``'s and its
+   launches the same; ``[dist-train-sharded]``, ``[dist-train-fp16]``
+   and ``[dist-train-adam8]``: ``[dist-train]``'s spec with
+   ``--dp-wire ring-sharded`` (losses bit-equal to ``[dist-train]``'s,
+   B8a/B8b 0 launches, the dp plane at 84,098,252 B a rank a step, the
+   parameter all-gather one f32 segment of 652,398,592 B), with
+   ``--dp-wire fp16`` (one f16 all-reduce of 652,397,568 B, B5-B8b 0
+   launches) and with 8-bit AdamW moments (``state_bits`` 8, losses
+   within `ADAM8_LOSS_RTOL` of ``[dist-train]``'s), all four run in
+   turn by one spawn of the launcher's `run_distributed`; each one's
+   per-rank peak memory and phase times; then the SMOKE card-against-
+   CPU checks of the simulated trainer with ``ring-sharded`` and
+   ``fp16`` and of the distributed one with ``ring-sharded``, ``fp16``
+   and ``state_bits`` 8 (``[train-zero-reference-check]``,
+   ``[dist-zero-reference-check]``).
 
 B10 at head_dim 160 (stablelm-12b's) is in ``[flash-check]`` (ragged
 sweep cases, the tile edges, an odd stride, and stablelm's prefill
@@ -465,6 +483,23 @@ DIST_TIMEOUT = 600
 # forward; the stage's recompute, which stops once it has recomputed
 # the last layer's input; each layer's own recompute), on every rank,
 # microbatch and step
+# the rest of the DP wires and the optimizer on [dist-train]'s spec (the
+# model draws the same weights from the seed in each): the ZeRO wire's
+# dp plane, ring_wire_bytes(DIST_BUCKET, 4, 2, sharded=True); its
+# parameter all-gather, one f32 segment of DIST_SEG rows to the one peer;
+# the fp16 wire's one f16 all-reduce of the bucket
+DIST_SHARDED_BYTES = 84_098_252
+DIST_GATHER_BYTES = DIST_SEG * 512 * 4          # 652,398,592
+DIST_FP16_BYTES = DIST_BUCKET[0] * 512 * 2      # 652,397,568
+# the variants' launcher flags and optimizer fields beside [dist-train]'s
+DIST_VARIANTS = {"dist-train": ([], {}),
+                 "dist-train-sharded": (["--dp-wire", "ring-sharded"], {}),
+                 "dist-train-fp16": (["--dp-wire", "fp16"], {}),
+                 "dist-train-adam8": ([], {"state_bits": 8})}
+# [dist-train-adam8]'s losses against [dist-train]'s (8-bit moments move
+# the updates from step 2 on; step 1 is before any update), a bound set
+# before the first run on the card
+ADAM8_LOSS_RTOL = 2e-2
 DIST_LPS = DIST_LAYERS // DIST_STAGES
 DIST_LAUNCHES = {"delta_quantize_pack": 8, "dequant_unpack_accumulate": 8,
                  "quantize_pack": 8, "unpack_dequant": 8,
@@ -2379,12 +2414,12 @@ def gemma2_device_draw_s(torch) -> float:
 # ---------------------------------------------------------------------------
 
 def _train_config(sim, comm_mod, adamw, *, stochastic, stages, steps,
-                  remat=False):
+                  remat=False, wire="ring"):
     plane = comm_mod.PlaneConfig
     kw = dict(stochastic=stochastic)
     comm = comm_mod.CommConfig(mode="aqsgd", fw=plane(bits=4, **kw),
                                bw=plane(bits=8, **kw),
-                               dp=plane(bits=4, wire="ring", **kw))
+                               dp=plane(bits=4, wire=wire, **kw))
     # the train launcher's optimizer defaults: lr 1e-3, warm-up
     # max(steps // 20, 1), decay to 0 at the last step
     return sim.SimTrainConfig(
@@ -2394,10 +2429,11 @@ def _train_config(sim, comm_mod, adamw, *, stochastic, stages, steps,
                                     total_steps=steps))
 
 
-def train_phase(torch, qp, tag="train", layers=TRAIN_LAYERS, remat=False):
-    """The training main path at full width and ``layers`` deep; returns
-    its launches, final loss, median step time (steps 3-6) and peak
-    memory."""
+def train_phase(torch, qp, tag="train", layers=TRAIN_LAYERS, remat=False,
+                wire="ring"):
+    """The training main path at full width and ``layers`` deep, on the
+    DP wire ``wire``; returns its launches, losses, median step time
+    (steps 3-6) and peak memory."""
     from repro_torch.comm import config as comm_mod
     from repro_torch.configs.base import get_config
     from repro_torch.data.pipeline import Dataset, DatasetConfig
@@ -2407,7 +2443,7 @@ def train_phase(torch, qp, tag="train", layers=TRAIN_LAYERS, remat=False):
     cfg = get_config("gpt2-xl-paper").with_(num_layers=layers)
     tcfg = _train_config(sim, comm_mod, adamw, stochastic=True,
                          stages=TRAIN_STAGES, steps=TRAIN_STEPS,
-                         remat=remat)
+                         remat=remat, wire=wire)
     ds = Dataset(DatasetConfig(num_samples=TRAIN_SAMPLES, seq_len=TRAIN_SEQ,
                                vocab_size=cfg.vocab_size, seed=0))
     torch.cuda.empty_cache()
@@ -2422,7 +2458,8 @@ def train_phase(torch, qp, tag="train", layers=TRAIN_LAYERS, remat=False):
     n_params = sum(p.numel() for p in state["model"].parameters())
     want = dict(TRAIN_LAUNCHES_PER_STEP, flash_attention_fwd=layers
                 * TRAIN_WORKERS * (2 if remat else 1))
-    phase(tag, layers=f"{layers}/48", remat=remat, d_model=cfg.d_model,
+    phase(tag, layers=f"{layers}/48", remat=remat, dp_wire=wire,
+          d_model=cfg.d_model,
           params=n_params, dp_bucket_rows=state["dp_error"].shape[1],
           losses=json.dumps([round(x, 6) for x in losses]),
           step_s=json.dumps([round(x, 4) for x in state["step_seconds"]]),
@@ -2479,11 +2516,27 @@ def train_oncore_phase(torch, qp, env, base):
     return launches
 
 
+def train_sharded_phase(torch, qp, base):
+    """[train-sharded]: the [train] run on the ZeRO wire; its losses bit
+    for bit and its launches against ``base``, the [train] run of this
+    call."""
+    run = train_phase(torch, qp, tag="train-sharded", wire="ring-sharded")
+    phase("train-sharded-vs-train", losses_bit_equal=run["losses"]
+          == base["losses"], launches_equal=run["launches"]
+          == base["launches"], median_step_s=f"{run['step_s']:.4f}",
+          median_step_s_train=f"{base['step_s']:.4f}",
+          peak_mem_gib=f"{run['peak_gib']:.3f}",
+          peak_mem_gib_train=f"{base['peak_gib']:.3f}")
+    assert run["losses"] == base["losses"], (run["losses"], base["losses"])
+    assert run["launches"] == base["launches"], run["launches"]
+    return run["launches"]
+
+
 def train_reference_check(torch, arch="gpt2-xl-paper",
-                          tag="train-reference-check"):
+                          tag="train-reference-check", wire="ring"):
     """The SMOKE trainer of ``arch`` on the card (kernels) against the
     CPU (plain versions), deterministic rounding on every plane, same
-    weights."""
+    weights, on the DP wire ``wire``."""
     from repro_torch.comm import config as comm_mod
     from repro_torch.configs.base import get_config
     from repro_torch.data.pipeline import Dataset, DatasetConfig
@@ -2493,7 +2546,7 @@ def train_reference_check(torch, arch="gpt2-xl-paper",
     cfg = get_config(arch, smoke=True)
     steps, samples, seq, batch = 4, 8, 32, 4
     tcfg = _train_config(sim, comm_mod, adamw, stochastic=False, stages=2,
-                         steps=steps, remat=True)
+                         steps=steps, remat=True, wire=wire)
     batches = list(Dataset(DatasetConfig(
         num_samples=samples, seq_len=seq, vocab_size=cfg.vocab_size)
     ).batches(batch, steps))
@@ -2520,15 +2573,20 @@ def train_reference_check(torch, arch="gpt2-xl-paper",
     # twice the row's largest carry); anything else is ulp-level
     flips = int((diff > 0.5 * ec.abs().amax(-1, keepdim=True)).sum())
     phase(tag, trainer="simulated", arch=arch, remat=tcfg.remat,
-          losses_cpu=json.dumps(lc),
+          dp_wire=wire, losses_cpu=json.dumps(lc),
           losses_card=json.dumps(lg), max_rel_loss_diff=max(rel),
           carry_max_abs_diff_step1=diff.max().item(),
-          carry_flips_step1=f"{flips}/{diff.numel()}",
+          carry_flips_step1=f"{flips}/{diff.numel()}"
+          + (" (f16 casts, not codes)" if wire == "fp16" else ""),
           tolerance=f"step1 {FIRST_STEP_RTOL} later {LATER_STEP_RTOL} "
                     f"flips <= {MAX_FLIP_FRACTION}")
     assert rel[0] <= FIRST_STEP_RTOL, rel
     assert max(rel[1:]) <= LATER_STEP_RTOL, rel
-    assert flips <= MAX_FLIP_FRACTION * diff.numel(), flips
+    # the bound is on DP codes; the fp16 wire has none (its carry is the
+    # f16 cast error, a flip of which is one f16 ulp of its element)
+    assert wire == "fp16" or flips <= MAX_FLIP_FRACTION * diff.numel(), \
+        flips
+    assert torch.isfinite(eg).all().item()
 
 
 # ---------------------------------------------------------------------------
@@ -2551,108 +2609,159 @@ def _dist_spec(torch, flags, *, layers):
     return spec
 
 
-def dist_phase(torch):
-    """The distributed main path at full width; returns its launches."""
+def dist_phases(torch):
+    """The distributed main path at full width, [dist-train], and its
+    three variants (`DIST_VARIANTS`), run in turn by one spawn of the
+    launcher; returns each one's launches, by tag."""
+    from repro_torch.comm import wires as W
     from repro_torch.core import collectives as C
     from repro_torch.core import quantization as Q
     from repro_torch.launch import train as launch_train
     from repro_torch.serving import DeltaHopCodec
     from repro_torch.training.pipeline import PipelineConfig
 
-    spec = _dist_spec(torch, [
-        "--device", "cuda", "--steps", str(DIST_STEPS), "--batch",
-        str(DIST_BATCH), "--seq", str(DIST_SEQ), "--samples",
-        str(DIST_SAMPLES)], layers=DIST_LAYERS)
+    flags = ["--device", "cuda", "--steps", str(DIST_STEPS), "--batch",
+             str(DIST_BATCH), "--seq", str(DIST_SEQ), "--samples",
+             str(DIST_SAMPLES)]
+    specs = []
+    for extra, opt in DIST_VARIANTS.values():
+        specs.append(_dist_spec(torch, [*flags, *extra], layers=DIST_LAYERS))
+        specs[-1]["optimizer"].update(opt)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    res = launch_train.run_distributed(spec, timeout=DIST_TIMEOUT)
+    runs = launch_train.run_distributed(specs, timeout=DIST_TIMEOUT)
     wall = time.perf_counter() - t0
-    losses = res[0]["losses"]
-    # a step lasts as long as its slowest rank
-    step_s = [max(r["step_seconds"][i] for r in res)
-              for i in range(DIST_STEPS)]
-    med = statistics.median(step_s[2:])
-    launches = {name: sum(st[name] for r in res for st in r["launches"])
-                for name in DIST_LAUNCHES}
     d, mb = D_MODEL, DIST_BATCH // DIST_DATA // DIST_MICRO
     hop = DeltaHopCodec(mode="aqsgd", bits=4).hop_bytes(mb * DIST_SEQ, d)
-    want = {"fw_warm": DIST_MICRO * mb * DIST_SEQ * d * 4,
-            "fw": DIST_MICRO * hop,
-            "bw": DIST_MICRO * Q.wire_bytes((mb, DIST_SEQ, d), 8),
-            "dp": C.ring_wire_bytes(DIST_BUCKET, 4, DIST_DATA)}
+    ring = C.ring_wire_bytes(DIST_BUCKET, 4, DIST_DATA)
+    assert C.ring_wire_bytes(DIST_BUCKET, 4, DIST_DATA, sharded=True) \
+        == DIST_SHARDED_BYTES
+    assert C.param_gather_bytes(DIST_BUCKET, DIST_DATA) == DIST_GATHER_BYTES
+    models = {"dist-train": (ring, 0), "dist-train-adam8": (ring, 0),
+              "dist-train-sharded": (DIST_SHARDED_BYTES, DIST_GATHER_BYTES),
+              "dist-train-fp16": (DIST_FP16_BYTES, 0)}
+    manifests = {"dist-train-sharded": W.get_wire(
+        "ring-sharded").expected_collectives(DIST_BUCKET, 4, DIST_DATA),
+        "dist-train-fp16": [("all-reduce", "f16", DIST_FP16_BYTES, 1)]}
+    wants = {"dist-train": DIST_LAUNCHES, "dist-train-adam8": DIST_LAUNCHES,
+             "dist-train-sharded": dict(DIST_LAUNCHES, pack_sums=0,
+                                        unpack_sums=0),
+             "dist-train-fp16": dict(DIST_LAUNCHES, **{
+                 k: 0 for k in ("quantize_codes_scaled", "dequant_sum_mean",
+                                "unpack_accumulate", "pack_sums",
+                                "unpack_sums")})}
     pcfg = PipelineConfig()                 # the spec sets none of these
-    phase("dist-train", mesh=f"{DIST_DATA}x{DIST_STAGES}",
-          layers=DIST_LAYERS, remat=pcfg.remat, remat_mode=pcfg.remat_mode,
-          loss_chunks=pcfg.loss_chunks, d_model=d,
-          dp_bucket=res[0]["dp_bucket"],
-          losses=json.dumps([round(x, 6) for x in losses]),
-          step_s=json.dumps([round(x, 4) for x in step_s]),
-          median_step_s_3_4=f"{med:.4f}",
-          tokens_per_s=f"{DIST_BATCH * DIST_SEQ / med:.1f}",
-          peak_mem_gib_by_rank=json.dumps(
-              [round(r["peak_mem_bytes"] / 2**30, 3) for r in res]),
-          launches=json.dumps(launches),
-          bytes_rank0_by_step=json.dumps(res[0]["bytes"]),
-          bytes_rank1_by_step=json.dumps(res[1]["bytes"]),
-          bytes_models=json.dumps(want),
-          replicas_rank1=json.dumps(res[1]["replicas"]),
-          phase_s_by_rank_step4=json.dumps(
-              [{k: round(v, 4) for k, v in r["phase_seconds"][-1].items()}
-               for r in res]),
-          wall_s=f"{wall:.1f}")
-    assert len(losses) == DIST_STEPS
-    assert all(math.isfinite(x) for x in losses), losses
-    assert all(r["losses"] == losses for r in res), "ranks disagree"
-    assert res[0]["warm_steps"] == 2
-    assert tuple(res[0]["dp_bucket"]) == DIST_BUCKET
-    for r in res:
-        for i, b in enumerate(r["bytes"]):
-            warm = i < 2
-            if r["model_rank"] == 0:
-                assert b["fw"] == (want["fw_warm"] if warm else want["fw"]), b
-            else:
-                assert b["bw"] == (want["fw_warm"] if warm else want["bw"]), b
-            assert b["dp"] == want["dp"], b
-        for rep in r["replicas"]:
-            if r["model_rank"] == DIST_STAGES - 1:
-                assert rep["m_in_equal"] is True, rep
-                assert rep["embed_equal"] is True, rep
-    assert launches == DIST_LAUNCHES, (launches, DIST_LAUNCHES)
-    return launches
+    base = runs[0][0]["losses"]
+    out = {}
+    for tag, spec, res in zip(DIST_VARIANTS, specs, runs):
+        losses = res[0]["losses"]
+        # a step lasts as long as its slowest rank
+        step_s = [max(r["step_seconds"][i] for r in res)
+                  for i in range(DIST_STEPS)]
+        med = statistics.median(step_s[2:])
+        launches = {name: sum(st[name] for r in res for st in r["launches"])
+                    for name in DIST_LAUNCHES}
+        dp, gather = models[tag]
+        want = {"fw_warm": DIST_MICRO * mb * DIST_SEQ * d * 4,
+                "fw": DIST_MICRO * hop,
+                "bw": DIST_MICRO * Q.wire_bytes((mb, DIST_SEQ, d), 8),
+                "dp": dp, "dp-gather": gather}
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, base)]
+        phase(tag, mesh=f"{DIST_DATA}x{DIST_STAGES}",
+              layers=DIST_LAYERS, remat=pcfg.remat,
+              remat_mode=pcfg.remat_mode, loss_chunks=pcfg.loss_chunks,
+              d_model=d, dp_wire=json.loads(spec["comm"])["dp"]["wire"],
+              state_bits=spec["optimizer"]["state_bits"],
+              dp_bucket=res[0]["dp_bucket"],
+              losses=json.dumps([round(x, 6) for x in losses]),
+              losses_exact=json.dumps(losses),
+              rel_loss_diff_vs_dist_train=json.dumps(rel),
+              step_s=json.dumps([round(x, 4) for x in step_s]),
+              median_step_s_3_4=f"{med:.4f}",
+              tokens_per_s=f"{DIST_BATCH * DIST_SEQ / med:.1f}",
+              peak_mem_gib_by_rank=json.dumps(
+                  [round(r["peak_mem_bytes"] / 2**30, 3) for r in res]),
+              launches=json.dumps(launches),
+              bytes_rank0_by_step=json.dumps(res[0]["bytes"]),
+              bytes_rank1_by_step=json.dumps(res[1]["bytes"]),
+              bytes_models=json.dumps(want),
+              replicas_rank1=json.dumps(res[1]["replicas"]),
+              phase_s_by_rank_step4=json.dumps(
+                  [{k: round(v, 4) for k, v in
+                    r["phase_seconds"][-1].items()} for r in res]),
+              wall_s_all_variants=f"{wall:.1f}")
+        assert len(losses) == DIST_STEPS
+        assert all(math.isfinite(x) for x in losses), losses
+        assert all(r["losses"] == losses for r in res), "ranks disagree"
+        assert res[0]["warm_steps"] == 2
+        assert tuple(res[0]["dp_bucket"]) == DIST_BUCKET
+        for r in res:
+            for i, b in enumerate(r["bytes"]):
+                warm = i < 2
+                if r["model_rank"] == 0:
+                    assert b["fw"] == (want["fw_warm"] if warm
+                                       else want["fw"]), b
+                else:
+                    assert b["bw"] == (want["fw_warm"] if warm
+                                       else want["bw"]), b
+                assert b["dp"] == want["dp"], b
+                assert b["dp-gather"] == want["dp-gather"], b
+            if tag in manifests:
+                assert all(m == manifests[tag] for m in r["manifests"]), \
+                    r["manifests"]
+            for rep in r["replicas"]:
+                if r["model_rank"] == DIST_STAGES - 1:
+                    assert rep["m_in_equal"] is True, rep
+                    assert rep["embed_equal"] is True, rep
+        assert launches == wants[tag], (tag, launches, wants[tag])
+        if tag == "dist-train-sharded":
+            assert losses == base, (losses, base)
+        if tag == "dist-train-adam8":
+            assert max(rel) <= ADAM8_LOSS_RTOL, rel
+        out[tag] = launches
+    return out
 
 
 def dist_reference_check(torch, arch="gpt2-xl-paper",
-                         tag="dist-reference-check"):
+                         tag="dist-reference-check",
+                         variants=("dist-train",)):
     """The 2 x 2 mesh at SMOKE width on the card (kernels) against the
     CPU (plain versions), deterministic rounding, same seed, with the
-    pipeline's remat and chunked loss (its defaults)."""
+    pipeline's remat and chunked loss (its defaults).  ``variants``:
+    names of `DIST_VARIANTS` ("" is [dist-train]'s spec), run in turn by
+    one spawn a device."""
     from repro_torch.configs.base import get_config
     from repro_torch.launch import train as launch_train
     from repro_torch.training.pipeline import PipelineConfig
 
     losses = {}
     for dev in ("cpu", "cuda"):
-        spec = _dist_spec(torch, [
-            "--device", dev, "--smoke", "--no-stochastic", "--steps", "3",
-            "--batch", "4", "--seq", "32", "--samples", "4", "--arch",
-            arch], layers=4)
-        res = launch_train.run_distributed(spec, timeout=DIST_TIMEOUT)
-        losses[dev] = res[0]["losses"]
+        specs = []
+        for v in variants:
+            extra, opt = DIST_VARIANTS[v]
+            specs.append(_dist_spec(torch, [
+                "--device", dev, "--smoke", "--no-stochastic", "--steps",
+                "3", "--batch", "4", "--seq", "32", "--samples", "4",
+                "--arch", arch, *extra], layers=4))
+            specs[-1]["optimizer"].update(opt)
+        runs = launch_train.run_distributed(specs, timeout=DIST_TIMEOUT)
+        losses[dev] = [res[0]["losses"] for res in runs]
         if not get_config(arch).tie_embeddings:
             # the last stage holds the head, so no embedding copy
-            assert all(rep["embed_equal"] is None for r in res
-                       for rep in r["replicas"]), arch
-    rel = [abs(a - b) / abs(a) for a, b in zip(losses["cpu"],
-                                               losses["cuda"])]
+            assert all(rep["embed_equal"] is None for res in runs
+                       for r in res for rep in r["replicas"]), arch
     pcfg = PipelineConfig()                 # the spec sets none of these
-    phase(tag, trainer="distributed", arch=arch, remat=pcfg.remat,
-          remat_mode=pcfg.remat_mode, loss_chunks=pcfg.loss_chunks,
-          losses_cpu=json.dumps(losses["cpu"]),
-          losses_card=json.dumps(losses["cuda"]), rel_loss_diff=json.dumps(
-              rel), tolerance=f"step1 {FIRST_STEP_RTOL} later "
-                              f"{LATER_STEP_RTOL}")
-    assert rel[0] <= FIRST_STEP_RTOL, rel
-    assert max(rel[1:]) <= LATER_STEP_RTOL, rel
+    for i, v in enumerate(variants):
+        lc, lg = losses["cpu"][i], losses["cuda"][i]
+        rel = [abs(a - b) / abs(a) for a, b in zip(lc, lg)]
+        phase(tag, trainer="distributed", arch=arch,
+              variant=v, remat=pcfg.remat,
+              remat_mode=pcfg.remat_mode, loss_chunks=pcfg.loss_chunks,
+              losses_cpu=json.dumps(lc), losses_card=json.dumps(lg),
+              rel_loss_diff=json.dumps(rel),
+              tolerance=f"step1 {FIRST_STEP_RTOL} later {LATER_STEP_RTOL}")
+        assert rel[0] <= FIRST_STEP_RTOL, (v, rel)
+        assert max(rel[1:]) <= LATER_STEP_RTOL, (v, rel)
 
 
 # ---------------------------------------------------------------------------
@@ -2759,7 +2868,11 @@ def main() -> int:
     oncore_launches = train_oncore_phase(torch, qp, env, train_run)
     assert oncore_launches["oncore_uniform"] > 0, \
         "the seeded encoders were never launched on the training path"
+    sharded_launches = train_sharded_phase(torch, qp, train_run)
     train_reference_check(torch)
+    for wire in ("ring-sharded", "fp16"):
+        train_reference_check(torch, wire=wire,
+                              tag="train-zero-reference-check")
     full = train_phase(torch, qp, tag="train-full-depth",
                        layers=FULL_DEPTH_LAYERS, remat=True)
     phase("train-full-depth-vs-train", layers=FULL_DEPTH_LAYERS,
@@ -2769,12 +2882,20 @@ def main() -> int:
           b10_launches=full["launches"]["flash_attention_fwd"],
           median_step_s_train=f"{train_run['step_s']:.4f}",
           peak_mem_gib_train=f"{train_run['peak_gib']:.3f}")
-    dist_launches = dist_phase(torch)
+    dist_runs = dist_phases(torch)
+    dist_launches = dist_runs["dist-train"]
     for name in DIST_LAUNCHES:
         if DIST_LAUNCHES[name]:
             assert dist_launches[name] > 0, \
                 f"{name} was never launched on the distributed path"
+    for name in ("quantize_codes_scaled", "dequant_sum_mean",
+                 "unpack_accumulate"):
+        assert dist_runs["dist-train-sharded"][name] > 0, \
+            f"{name} was never launched on the ZeRO wire's path"
     dist_reference_check(torch)
+    dist_reference_check(torch, tag="dist-zero-reference-check",
+                         variants=("dist-train-sharded", "dist-train-fp16",
+                                   "dist-train-adam8"))
     # the untied head (stablelm-12b SMOKE) through both trainers
     train_reference_check(torch, "stablelm-12b",
                           tag="train-untied-reference-check")
@@ -2791,7 +2912,12 @@ def main() -> int:
                "serve_gemma2_27b": g27_launches,
                "train": train_launches, "train_oncore": oncore_launches,
                "train_full_depth": full["launches"],
-               "dist": dist_launches, "legacy_dp": legacy_launches}
+               "train_sharded": sharded_launches,
+               "dist": dist_launches,
+               "dist_sharded": dist_runs["dist-train-sharded"],
+               "dist_fp16": dist_runs["dist-train-fp16"],
+               "dist_adam8": dist_runs["dist-train-adam8"],
+               "legacy_dp": legacy_launches}
     for name in LEGACY_KERNELS:
         assert all(by_path[p][name] == 0 for p in by_path
                    if p != "legacy_dp"), (name, by_path)

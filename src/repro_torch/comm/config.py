@@ -4,17 +4,22 @@
 Five planes, each a :class:`PlaneConfig`: ``fw`` (forward activations,
 and serving's decode hop), ``bw`` (backward activation gradients),
 ``zbuf`` (stored message buffers), ``dp`` (data-parallel gradients) and
-``kv`` (the serving KV cache).  The JSON form (``to_json``/``from_json``,
-the ``--comm-config`` input) has the same keys and defaults as the JAX
+``kv`` (the serving KV cache).  Wire names are checked against the wire
+registry (`repro_torch.comm.wires`) at construction, with a
+did-you-mean.  The JSON form (``to_json``/``from_json``, the
+``--comm-config`` input) has the same keys and defaults as the JAX
 package's, so one config file drives both; the flat CLI flags
-(``add_cli_args``/``from_args``) are the ones ``serve`` and ``train``
-take.
+(``add_cli_args``/``from_args``/``to_flags``) are the ones ``serve``
+and ``train`` take, the ``--dp-wire`` choices and help drawn from the
+registry.
+
+The trainers' configs take no scattered comm kwargs: passing one of the
+JAX package's removed names (``compression=``, ``dp_grad_bits=``, ...)
+raises `reject_legacy_comm`'s migration message, and
+`CommConfig.from_legacy` converts such a knob set.
 
 Differences from the JAX package: a plane's ``backend`` is
-``auto|reference|cuda``, and wire names are checked against the names
-the JAX registry defines (`WIRES`).  The port's registry
-(`repro_torch.comm.wires`) holds only the wires ported so far;
-`CommConfig.dp_wire_spec` raises for a DP wire it does not hold.
+``auto|reference|cuda``.
 """
 from __future__ import annotations
 
@@ -22,8 +27,10 @@ import dataclasses
 import json
 import os
 from dataclasses import dataclass, field
+from typing import Optional
 
 from repro_torch.comm import wires as W
+from repro_torch.comm.codec import Codec
 from repro_torch.core import grad_compress as GC
 from repro_torch.core.aqsgd import CompressionConfig
 
@@ -31,11 +38,11 @@ MODES = ("fp32", "directq", "aqsgd")
 PLANE_FIELDS = ("fw", "bw", "zbuf", "dp", "kv")
 BACKEND_CHOICES = ("auto", "reference", "cuda")
 DEFAULT_DP_GROUP_D = GC.DEFAULT_GROUP_D
-# wire names per plane, the first being the plane's default
-WIRES = {"fw": ("ppermute",), "bw": ("ppermute",), "zbuf": ("hbm",),
-         "dp": ("ring", "psum", "ring-sharded", "fp16"),
-         "kv": ("paged",)}
-CHUNKABLE_DP_WIRES = ("ring", "ring-sharded")
+# plane field name -> the registry plane its wire name resolves against
+PLANE_OF = {"fw": "fw-activation", "bw": "bw-gradient",
+            "zbuf": "z-buffer", "dp": "dp-grad", "kv": "kv-cache"}
+_DEFAULT_WIRE = {"fw": "ppermute", "bw": "ppermute", "zbuf": "hbm",
+                 "dp": "ring", "kv": "paged"}
 
 
 @dataclass(frozen=True)
@@ -54,7 +61,13 @@ class PlaneConfig:
     group_d: int = 0
     chunks: int = 1
 
+    def codec(self) -> Codec:
+        """The plane's `Codec` (bits, stochastic and backend bound)."""
+        return Codec(bits=self.bits, stochastic=self.stochastic,
+                     backend=self.backend)
+
     def with_(self, **kw) -> "PlaneConfig":
+        """`dataclasses.replace` shorthand."""
         return dataclasses.replace(self, **kw)
 
 
@@ -87,11 +100,8 @@ class CommConfig:
             if isinstance(pc, dict):
                 pc = PlaneConfig(**pc)
             if not pc.wire:
-                pc = pc.with_(wire=WIRES[fname][0])
-            if pc.wire not in WIRES[fname]:
-                raise ValueError(f"unknown wire {pc.wire!r} on plane "
-                                 f"{fname!r}; known: "
-                                 f"{', '.join(WIRES[fname])}")
+                pc = pc.with_(wire=_DEFAULT_WIRE[fname])
+            spec = W.get_wire(pc.wire, plane=PLANE_OF[fname])
             if pc.backend not in BACKEND_CHOICES:
                 raise ValueError(f"{fname}.backend={pc.backend!r}; one of "
                                  f"{BACKEND_CHOICES}")
@@ -101,11 +111,10 @@ class CommConfig:
                     or isinstance(pc.chunks, bool) or pc.chunks < 1:
                 raise ValueError(f"{fname}.chunks={pc.chunks!r}: the chunk "
                                  f"count must be a positive int")
-            if fname == "dp" and pc.chunks != 1 \
-                    and pc.wire not in CHUNKABLE_DP_WIRES:
+            if fname == "dp" and pc.chunks != 1 and not spec.chunkable:
                 raise ValueError(f"dp.chunks={pc.chunks} is not supported "
                                  f"by wire {pc.wire!r}; chunkable wires: "
-                                 f"{', '.join(CHUNKABLE_DP_WIRES)}")
+                                 f"{', '.join(_chunkable_dp_wires())}")
             if fname != "dp":
                 pc = pc.with_(chunks=1, error_feedback=False)
             if fname == "zbuf":
@@ -133,14 +142,36 @@ class CommConfig:
     @property
     def dp_wire_spec(self) -> W.WireSpec:
         """The registry spec of the configured DP wire."""
-        ported = W.wire_names()
-        if self.dp.wire not in ported:
-            raise NotImplementedError(
-                f"DP wire {self.dp.wire!r} is not ported yet (ROADMAP "
-                f"queue A, \"The rest of the DP wires and the optimizer\": "
-                f"the ZeRO wire and the fp16 wire); ported: "
-                f"{', '.join(ported)}")
-        return W.get_wire(self.dp.wire)
+        return W.get_wire(self.dp.wire, plane="dp-grad")
+
+    def with_(self, **kw) -> "CommConfig":
+        """`dataclasses.replace` shorthand."""
+        return dataclasses.replace(self, **kw)
+
+    # -- legacy bridge ----------------------------------------------------
+
+    @classmethod
+    def from_legacy(cls, cc: Optional[CompressionConfig] = None, *,
+                    buffer_bits: Optional[int] = None,
+                    dp_grad_bits: int = 0, dp_wire: str = "",
+                    dp_grad_group: int = 0) -> "CommConfig":
+        """Build from the JAX package's pre-registry knob set: a
+        `CompressionConfig` plus the scattered DP fields the trainer
+        configs now refuse (`reject_legacy_comm`)."""
+        cc = cc if cc is not None else CompressionConfig()
+        zb = cc.buffer_bits if buffer_bits is None else buffer_bits
+        return cls(
+            mode=cc.mode,
+            fw=PlaneConfig(bits=cc.fw_bits, stochastic=cc.stochastic,
+                           backend=cc.backend),
+            bw=PlaneConfig(bits=0 if cc.bw_bits >= 32 else cc.bw_bits,
+                           stochastic=cc.stochastic, backend=cc.backend),
+            zbuf=PlaneConfig(bits=zb, stochastic=False, backend=cc.backend),
+            dp=PlaneConfig(bits=dp_grad_bits, error_feedback=True,
+                           wire=dp_wire, group_d=dp_grad_group,
+                           backend=cc.backend, stochastic=cc.stochastic),
+            kv=PlaneConfig(stochastic=False, backend=cc.backend),
+            buffer_dtype=cc.buffer_dtype)
 
     # -- JSON -------------------------------------------------------------
 
@@ -185,9 +216,81 @@ class CommConfig:
         return cls.from_dict(json.loads(s))
 
 
+    # -- flat CLI flags ---------------------------------------------------
+
+    def to_flags(self) -> list:
+        """The flat-flag form of this config (inverse of `from_args`).
+        Raises where the flat flags cannot say it (backends or
+        stochastic rounding that differ across planes, non-default
+        fw/bw/zbuf/kv wires, ...): use ``--comm-config`` JSON for
+        those."""
+        planes = [self.fw, self.bw, self.dp]
+        if len({p.backend for p in planes + [self.zbuf, self.kv]}) > 1:
+            raise ValueError("per-plane backends differ; flat flags "
+                             "cannot express this — use --comm-config")
+        if len({p.stochastic for p in planes}) > 1:
+            raise ValueError("per-plane stochastic differs; use "
+                             "--comm-config")
+        if self.kv.stochastic:
+            raise ValueError("kv.stochastic is not flag-expressible "
+                             "(flat --kv-bits builds a deterministic "
+                             "cache codec); use --comm-config")
+        for fname in ("fw", "bw", "zbuf", "kv"):
+            if getattr(self, fname).wire != _DEFAULT_WIRE[fname]:
+                raise ValueError(f"non-default {fname} wire; use "
+                                 "--comm-config")
+            if getattr(self, fname).group_d:
+                raise ValueError(f"{fname}.group_d is not "
+                                 "flag-expressible; use --comm-config")
+        if self.buffer_dtype != "float32":
+            raise ValueError("non-default buffer_dtype; use "
+                             "--comm-config")
+        flags = ["--mode", self.mode,
+                 "--fw-bits", str(self.fw.bits),
+                 "--bw-bits", str(self.bw.bits),
+                 "--buffer-bits", str(self.zbuf.bits),
+                 "--dp-grad-bits", str(self.dp.bits),
+                 "--dp-wire", self.dp.wire,
+                 "--dp-grad-group", str(self.dp_group_d),
+                 "--dp-chunks", str(self.dp.chunks),
+                 "--kv-bits", str(self.kv.bits),
+                 "--backend", self.fw.backend]
+        if not self.fw.stochastic:
+            flags.append("--no-stochastic")
+        if not self.dp.error_feedback:
+            flags.append("--no-error-feedback")
+        return flags
+
+
+def _chunkable_dp_wires() -> list:
+    return [s.name for s in W.list_wires("dp-grad") if s.chunkable]
+
+
+def reject_legacy_comm(cls_name: str, legacy: dict) -> None:
+    """Refuse the JAX package's removed scattered comm kwargs
+    (``compression=``, ``dp_grad_bits=``, ``dp_wire=``, ...) on a
+    trainer config, with its migration message.  ``legacy`` maps kwarg
+    name -> passed value (None = not passed)."""
+    passed = sorted(k for k, v in legacy.items() if v is not None)
+    if passed:
+        raise TypeError(
+            f"{cls_name}({', '.join(k + '=...' for k in passed)}) was "
+            f"removed: the scattered comm kwargs spent their one "
+            f"deprecation release and are now errors.  Pass "
+            f"comm=CommConfig(...) (repro_torch.comm) instead — "
+            f"CommConfig.from_legacy(CompressionConfig(...), "
+            f"dp_grad_bits=..., dp_wire=...) converts the old knob "
+            f"set verbatim")
+
+
 def add_cli_args(ap) -> None:
     """Install the flat comm flags plus ``--comm-config`` on an argparse
-    parser (the flags of the JAX package's ``serve`` and ``train``)."""
+    parser (the flags of the JAX package's ``serve`` and ``train``).
+    The ``--dp-wire`` choices and their help come from the registry's
+    ``dp-grad`` plane."""
+    dp_names = W.wire_names("dp-grad")
+    dp_help = "; ".join(f"{s.name}: {s.summary}"
+                        for s in W.list_wires("dp-grad"))
     ap.add_argument("--mode", default="aqsgd", choices=list(MODES),
                     help="activation-boundary algorithm (fw plane)")
     ap.add_argument("--fw-bits", type=int, default=4,
@@ -199,13 +302,13 @@ def add_cli_args(ap) -> None:
                     help="z-bit stored message buffers (0 = raw dtype)")
     ap.add_argument("--dp-grad-bits", type=int, default=0,
                     help="DP gradient code width (0 = off)")
-    ap.add_argument("--dp-wire", default="ring", choices=list(WIRES["dp"]),
-                    help="DP gradient collective")
+    ap.add_argument("--dp-wire", default="ring", choices=dp_names,
+                    help="DP gradient collective — " + dp_help)
     ap.add_argument("--dp-grad-group", type=int, default=DEFAULT_DP_GROUP_D,
                     help="DP gradient-bucket scale-group width")
     ap.add_argument("--dp-chunks", type=int, default=1,
                     help="DP ring chunk count (chunkable wires: "
-                         + ", ".join(CHUNKABLE_DP_WIRES) + ")")
+                         + ", ".join(_chunkable_dp_wires()) + ")")
     ap.add_argument("--kv-bits", type=int, default=0,
                     help="serving KV-cache code width (0 = raw cache "
                          "dtype; quantize-on-append, "

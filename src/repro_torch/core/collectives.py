@@ -1,11 +1,10 @@
 """Quantized collectives for data-parallel gradient averaging over a
-process group (port of `repro.core.collectives`, without the ZeRO
-wire's `ring_ef_reduce_scatter_bucket`).
+process group (port of `repro.core.collectives`).
 
 Each rank calls these with its own compensated gradient bucket, its
 error-feedback carry and its stochastic-rounding noise, inside a
 distributed run (`repro_torch.launch.mesh`); ``group`` is the rank's
-data group (`mesh.RingGroup`).  Two wire forms carry the same math:
+data group (`mesh.RingGroup`).  Three wire forms carry the same math:
 
 * `ef_psum_mean_bucket` — the conservative form: the row scale is a
   max all-reduce, then the int32 codes are all-reduced and decoded.
@@ -19,11 +18,16 @@ data group (`mesh.RingGroup`).  Two wire forms carry the same math:
   (`boundary.pack_sums`) and rotates them to every rank the same way,
   storing the segment received at step t in slot (i-t) mod n; every
   rank unpacks the whole sum bucket and decodes the mean.
+* `ring_ef_reduce_scatter_bucket` — the ZeRO wire: the ring stopped
+  after its reduce-scatter half; each rank decodes only the mean of the
+  segment it owns (its optimizer updates that segment, and the updated
+  parameters are all-gathered by the trainer).
 
 int32 code sums are exact in any order and the shared scale is an f32
 max, so both forms are BIT-IDENTICAL to each other and to the
 single-process `grad_compress.compress_allreduce` given the same
-per-rank inputs and noise.  A ragged last segment is padded with zero
+per-rank inputs and noise; the ZeRO wire's segment means are bit-equal
+rows of that mean.  A ragged last segment is padded with zero
 payload rows after encoding (zero codes, zero sums, sliced off).
 
 ``chunks > 1`` cuts each segment into `ring_chunk_bounds` chunks: the
@@ -49,6 +53,8 @@ from repro_torch.core import quantization as Q
 
 # the one segment-geometry source, defined beside the bucket layout
 ring_segment_rows = GC.ring_segment_rows
+# the DP collectives of this module, by wire name
+WIRES = ("psum", "ring", "ring-sharded")
 
 
 def ring_chunk_bounds(seg: int, chunks: int) -> tuple:
@@ -99,6 +105,25 @@ def _rows_padded(x: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
     pad = torch.zeros((hi - lo - got.shape[0], *x.shape[1:]), dtype=x.dtype,
                       device=x.device)
     return torch.cat([got, pad])
+
+
+def quantized_psum_mean(x, group, bits: int, *, stochastic: bool = True,
+                        u: Optional[torch.Tensor] = None,
+                        generator: Optional[torch.Generator] = None,
+                        backend: str = "auto"):
+    """Mean of x (..., d) over ``group`` with a b-bit payload: the row
+    scale is a max all-reduce, then the int32 codes are all-reduced and
+    decoded.  No error feedback.  Returns f32 of x's shape."""
+    n = group.size
+    xf = x.float().reshape(-1, x.shape[-1])
+    s = _shared_scale(xf, group)
+    codes = B.encode_codes_with_scale(
+        xf, s, bits=bits, stochastic=stochastic,
+        u=None if u is None else u.reshape(xf.shape), generator=generator,
+        backend=backend)
+    total = group.all_reduce(codes) if n > 1 else codes
+    mean = B.decode_sum_mean(total, s, bits=bits, n=n, backend=backend)
+    return mean.reshape(x.shape)
 
 
 def ef_psum_mean_bucket(v_grad, err, group, bits: int, *,
@@ -201,6 +226,51 @@ def _chunked_reduce_scatter(v, s, u, group, bits, *, stochastic, backend,
     return acc, seg, v - q
 
 
+def ring_ef_reduce_scatter_bucket(v_grad, err, group, bits: int, *,
+                                  stochastic: bool = True,
+                                  u: Optional[torch.Tensor] = None,
+                                  generator: Optional[torch.Generator] = None,
+                                  backend: str = "auto", chunks: int = 1):
+    """The ZeRO wire: error-feedback compressed reduce-scatter, the
+    ring stopped after its reduce-scatter half (see the module
+    docstring).  Same inputs as `ring_ef_reduce_mean_bucket`.  Returns
+    (the mean of this rank's own segment, (seg, group_d) with seg =
+    `ring_segment_rows(rows, n)`; the new full-bucket carry).
+
+    The segment's int32 code sum is the one the full ring holds at its
+    midpoint, so its live rows equal those rows of the full ring's
+    mean bit for bit.  Rows past the bucket decode against a zero
+    scale, to signed zeros, which callers drop.  The carry stays
+    full-bucket: every rank encodes its whole bucket, to ship each
+    segment to its owner."""
+    n, i = group.size, group.index
+    v = v_grad.float() + err
+    rows, d = v.shape
+    s = _shared_scale(v, group)
+    u = _noise(v, stochastic, u, generator)
+    if chunks != 1:
+        # validate even where nothing overlaps (n == 1)
+        ring_chunk_bounds(ring_segment_rows(rows, n), chunks)
+    if chunks == 1 or n == 1:
+        packed, codes, new_err = GC.ef_encode(
+            v, s, bits, stochastic=stochastic, u=u, backend=backend,
+            pack=True)
+        if n == 1:
+            return B.decode_sum_mean(codes, s, bits=bits, n=1,
+                                     backend=backend), new_err
+        del v
+        acc, seg = _reduce_scatter_codes(packed, codes, group, bits,
+                                         backend)
+        del packed, codes
+    else:
+        acc, seg, new_err = _chunked_reduce_scatter(
+            v, s, u, group, bits, stochastic=stochastic, backend=backend,
+            chunks=chunks)
+    s_own = _rows_padded(s, i * seg, (i + 1) * seg)
+    return B.decode_sum_mean(acc, s_own, bits=bits, n=n,
+                             backend=backend), new_err
+
+
 def ring_ef_reduce_mean_bucket(v_grad, err, group, bits: int, *,
                                stochastic: bool = True,
                                u: Optional[torch.Tensor] = None,
@@ -250,17 +320,25 @@ def ring_ef_reduce_mean_bucket(v_grad, err, group, bits: int, *,
 
 
 def ring_wire_bytes(shape, bits: int, n: int = 2, *,
-                    chunks: int = 1) -> int:
+                    sharded: bool = False, chunks: int = 1) -> int:
     """Bytes each rank sends in the compressed ring for one (rows, d)
     bucket on n ranks: n-1 hops of one packed b-bit segment
     (reduce-scatter), n-1 hops of one packed code-sum segment at
-    `Q.sum_wire_bits` (all-gather), and the f32 scale max (one f32 per
-    row).  ``chunks`` is validated only: chunking ships the same
-    bytes."""
+    `Q.sum_wire_bits` (all-gather; none with ``sharded``, the ZeRO
+    wire), and the f32 scale max (one f32 per row).  ``chunks`` is
+    validated only: chunking ships the same bytes."""
     rows, d = shape
     seg = ring_segment_rows(rows, n)
     if chunks != 1:
         ring_chunk_bounds(seg, chunks)
     hops = max(n - 1, 0)
-    gather = hops * seg * Q.sum_packed_width(d, bits, n)
+    gather = 0 if sharded else hops * seg * Q.sum_packed_width(d, bits, n)
     return hops * seg * Q.packed_width(d, bits) + gather + rows * 4
+
+
+def param_gather_bytes(shape, n: int = 2) -> int:
+    """Bytes each rank sends in the ZeRO wire's parameter all-gather
+    for a (rows, d) bucket on n ranks: its updated f32 segment to each
+    of the n-1 others."""
+    rows, d = shape
+    return max(n - 1, 0) * ring_segment_rows(rows, n) * d * 4

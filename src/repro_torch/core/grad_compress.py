@@ -1,6 +1,5 @@
 """Bucketed error-feedback gradient compression for the data-parallel
-axis (port of `repro.core.grad_compress`, without the ZeRO wire's
-`compress_reduce_scatter`).
+axis (port of `repro.core.grad_compress`).
 
 The paper's §4.3 pairs AQ-SGD with an error-compensated low-bit
 compressor on model gradients ("end-to-end communication compression",
@@ -94,14 +93,17 @@ def _numel(shape) -> int:
     return n
 
 
-def flatten_bucket(tree: Sequence, layout: BucketLayout) -> torch.Tensor:
-    """Gradient tree -> f32 (rows, group_d) bucket (zero-padded tail)."""
+def flatten_bucket(tree: Sequence, layout: BucketLayout,
+                   rows: Optional[int] = None) -> torch.Tensor:
+    """Gradient tree -> f32 (rows, group_d) bucket (zero-padded tail);
+    ``rows`` (at least the layout's) pads it with zero rows."""
+    rows = layout.rows if rows is None else rows
     pieces = [t for leaf in tree for t in _pieces(leaf)]
-    flat = torch.zeros(layout.rows * layout.group_d, dtype=torch.float32,
+    flat = torch.zeros(rows * layout.group_d, dtype=torch.float32,
                        device=pieces[0].device)
     torch.cat([t.detach().float().reshape(-1) for t in pieces],
               out=flat[:layout.total])
-    return flat.reshape(layout.rows, layout.group_d)
+    return flat.reshape(rows, layout.group_d)
 
 
 def unflatten_bucket(bucket: torch.Tensor, layout: BucketLayout,
@@ -195,6 +197,44 @@ def compress_allreduce(grads_list: Sequence, error_state: torch.Tensor,
     del v
     mean = B.decode_sum_mean(total, scale, bits=bits, n=n, backend=backend)
     return unflatten_bucket(mean, lay, grads_list[0]), new_err
+
+
+def compress_reduce_scatter(grads_list: Sequence, error_state: torch.Tensor,
+                            bits: int, *, stochastic: bool = True,
+                            generator: Optional[torch.Generator] = None,
+                            backend: str = "auto",
+                            layout: Optional[BucketLayout] = None):
+    """Simulate the ZeRO wire over n workers: `compress_allreduce`'s
+    encode (the same codes, scale, carries and noise order), stopped at
+    the reduce-scatter midpoint, so worker i keeps only the mean of its
+    own segment of ``ring_segment_rows(rows, n)`` rows.
+
+    Returns (segment means (n, seg, group_d), new error stack (n, rows,
+    group_d)).  A live row's mean equals that row of
+    `compress_allreduce`'s mean bucket bit for bit (the decode is
+    elementwise).  Rows past the bucket decode against a zero scale,
+    to signed zeros; the tail past ``layout.total`` on the last live row
+    holds nonzero values (quantize(0) is not 0 under a shared scale).
+    Callers drop both before they touch a parameter."""
+    n = len(grads_list)
+    lay = layout or bucket_layout(grads_list[0])
+    v = torch.stack([flatten_bucket(g, lay) for g in grads_list])
+    v += error_state
+    scale = torch.clamp(local_scale(v).amax(dim=0), min=Q._EPS)
+    new_err = torch.empty_like(v)
+    seg = ring_segment_rows(lay.rows, n)
+    total = torch.zeros((n * seg, lay.group_d), dtype=torch.int32,
+                        device=v.device)
+    for i in range(n):
+        _, codes, new_err[i] = ef_encode(v[i], scale, bits,
+                                         stochastic=stochastic,
+                                         generator=generator,
+                                         backend=backend)
+        total[:lay.rows] += codes
+    del v
+    scale = torch.cat([scale, scale.new_zeros((n * seg - lay.rows, 1))])
+    means = B.decode_sum_mean(total, scale, bits=bits, n=n, backend=backend)
+    return means.reshape(n, seg, lay.group_d), new_err
 
 
 # ---------------------------------------------------------------------------

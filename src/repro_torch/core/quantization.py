@@ -106,6 +106,18 @@ def dequantize_accumulate(codes: torch.Tensor, scale: torch.Tensor,
                    m.float())
 
 
+def qdq(x: torch.Tensor, bits: int, *,
+        noise: Optional[torch.Tensor] = None,
+        per_row: bool = True) -> torch.Tensor:
+    """Fake-quantization round trip in x's dtype: one scale a row, or
+    with ``per_row=False`` one for the whole tensor.  ``noise`` as in
+    `quantize` (None rounds to nearest)."""
+    scale = None if per_row else torch.clamp(
+        x.float().abs().amax(), min=_EPS)
+    codes, scale = quantize(x, bits, noise=noise, scale=scale)
+    return dequantize(codes, scale, bits, dtype=x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Dense bit-packing — the wire format.
 # ---------------------------------------------------------------------------

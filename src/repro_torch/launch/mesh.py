@@ -35,7 +35,8 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
-DTYPE_NAMES = {torch.float32: "f32", torch.int32: "s32", torch.uint8: "u8"}
+DTYPE_NAMES = {torch.float32: "f32", torch.float16: "f16", torch.int32: "s32",
+               torch.uint8: "u8"}
 
 
 @dataclass(frozen=True)
@@ -80,8 +81,9 @@ class Transport:
     """gloo calls staged through host memory, each recorded as ``(plane,
     kind, dtype, bytes)``.  Kinds: ``send`` and ``recv`` (a pipeline
     hop), ``collective-permute`` (the send half of a ring rotation, whose
-    receive half is not recorded: every rank sends one) and
-    ``all-reduce``."""
+    receive half is not recorded: every rank sends one), ``all-reduce``
+    and ``all-gather`` (recorded with the bytes this rank sends: its
+    tensor to each other member of the group)."""
 
     def __init__(self, device: torch.device):
         self.device = torch.device(device)
@@ -104,9 +106,10 @@ class Transport:
     def to_device(self, h: torch.Tensor) -> torch.Tensor:
         return h if self.device.type == "cpu" else h.to(self.device)
 
-    def _record(self, plane: str, kind: str, t: torch.Tensor) -> None:
+    def _record(self, plane: str, kind: str, t: torch.Tensor,
+                copies: int = 1) -> None:
         self.calls.append((plane, kind, DTYPE_NAMES.get(t.dtype, str(t.dtype)),
-                           t.numel() * t.element_size()))
+                           copies * t.numel() * t.element_size()))
 
     # -- calls --------------------------------------------------------------
 
@@ -144,6 +147,19 @@ class Transport:
             h = h.clone()
         dist.all_reduce(h, op=op, group=group)
         return self.to_device(h)
+
+    def all_gather(self, x: torch.Tensor, out: torch.Tensor, group,
+                   size: int, plane: str) -> torch.Tensor:
+        """Gather x from each of the ``size`` ranks of ``group`` into
+        ``out`` (size, *x.shape) on this rank's device, member j's in
+        slot j, through pinned host memory.  Returns out."""
+        self._record(plane, "all-gather", x, copies=size - 1)
+        hx = self.to_host(x)
+        hs = [self._host_empty(x.shape, x.dtype) for _ in range(size)]
+        dist.all_gather(hs, hx, group=group)
+        for slot, h in zip(out, hs):
+            slot.copy_(h)
+        return out
 
     # -- accounting ---------------------------------------------------------
 
@@ -196,6 +212,15 @@ class RingGroup:
         if self.size == 1:
             return x
         return self.transport.all_reduce(x, op, self.pg, plane)
+
+    def all_gather(self, x: torch.Tensor, out: torch.Tensor,
+                   plane: str = "dp-gather") -> torch.Tensor:
+        """Every member's x into ``out`` (size, *x.shape), member j's in
+        slot j (a ring of one copies x to slot 0)."""
+        if self.size == 1:
+            out[0].copy_(x)
+            return out
+        return self.transport.all_gather(x, out, self.pg, self.size, plane)
 
 
 class Mesh:

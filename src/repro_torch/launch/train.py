@@ -33,7 +33,16 @@ Examples:
       --dp-workers 2
   python -m repro_torch.launch.train --device cpu --smoke --distributed \\
       --data-par 2 --stages 2 --dp-grad-bits 4 --steps 4 --seq 16 \\
-      --samples 8 --batch 4
+      --samples 8 --batch 4 --dp-wire ring-sharded
+
+``--dp-wire`` takes every DP wire of the registry: ``ring`` (the
+default), ``psum``, ``ring-sharded`` (the ZeRO wire: the ring's
+reduce-scatter half, AdamW on each rank's segment of the parameter
+bucket, the updated segments all-gathered) and ``fp16`` (the gradient
+cast to f16, one all-reduce).  8-bit AdamW moments
+(`AdamWConfig.state_bits`) run in the distributed trainer when a
+caller sets ``"state_bits"`` in the spec's ``"optimizer"``
+(`distributed_spec`); as in the JAX launcher, no flag sets them.
 """
 from __future__ import annotations
 
@@ -72,12 +81,17 @@ NOT_PORTED = {
 
 
 def print_wires() -> None:
-    """The --list-wires table: every DP wire the port registers."""
-    specs = W.list_wires()
-    wn = max(len(s.name) for s in specs)
-    print(f"{'wire':{wn}}  summary")
-    for s in specs:
-        print(f"{s.name:{wn}}  {s.summary}")
+    """The --list-wires table: every registered wire of every plane,
+    flagged ``sharded`` (the ZeRO wire) or ``local`` (device memory,
+    not network bytes), as the JAX launcher prints it."""
+    rows = [(s.plane, s.name,
+             ("sharded" if s.sharded else "") + ("" if s.network
+                                                 else "local"),
+             s.summary) for s in W.list_wires()]
+    wp, wn, wf = (max(len(r[i]) for r in rows) for i in range(3))
+    print(f"{'plane':{wp}}  {'wire':{wn}}  {'':{wf}}  summary")
+    for p, n, f, summary in rows:
+        print(f"{p:{wp}}  {n:{wn}}  {f:{wf}}  {summary}")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -152,19 +166,24 @@ def distributed_spec(args, dev: torch.device) -> dict:
                     "path": args.corpus or None}}
 
 
-def run_distributed(spec: dict, *, timeout: float = 3600.0) -> list:
-    """Spawn the ``data_par * stages`` ranks of a distributed run and
-    return their results by rank.  On CUDA the kernels are built here
+def run_distributed(specs: list, *, timeout: float = 3600.0) -> list:
+    """Spawn the ``data_par * stages`` ranks of distributed runs of one
+    mesh and device, which the same processes run in turn, and return
+    each spec's results by rank.  On CUDA the kernels are built here
     first, so the ranks only load them."""
-    world = spec["data_par"] * spec["stages"]
-    if spec["device"] == "cuda":
+    world = specs[0]["data_par"] * specs[0]["stages"]
+    if any(s["data_par"] * s["stages"] != world
+           or s["device"] != specs[0]["device"] for s in specs):
+        raise ValueError("the specs of one spawn need one mesh and device")
+    if specs[0]["device"] == "cuda":
         for name in build.SIGNATURES:
             build.build(name)
         threads = max(1, (os.cpu_count() or 1) // world)
     else:
         threads = 1
-    return spawn(PL.train_rank, world, (spec,), timeout=timeout,
-                 threads=threads)
+    out = spawn(PL.train_ranks, world, (specs,), timeout=timeout,
+                threads=threads)
+    return [[r[i] for r in out] for i in range(len(specs))]
 
 
 def main(argv=None):
@@ -191,8 +210,8 @@ def main(argv=None):
         ap.error(PL.ONCORE_REFUSAL)
     dev = resolve_device(args.device)
     if args.distributed:
-        results = run_distributed(distributed_spec(args, dev),
-                                  timeout=JOIN_TIMEOUT)
+        results, = run_distributed([distributed_spec(args, dev)],
+                                   timeout=JOIN_TIMEOUT)
         losses = results[0]["losses"]
         for i, loss in enumerate(losses):
             if i % 10 == 0:

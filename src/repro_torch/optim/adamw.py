@@ -1,12 +1,22 @@
-"""AdamW with linear warmup then linear decay (port of the per-leaf half
-of `repro.optim.adamw` with f32 moments; the bucket-space optimizer of
-the ZeRO wire and the 8-bit moments (``state_bits``) are not ported
-yet).
+"""AdamW with linear warmup then linear decay (port of
+`repro.optim.adamw`).
 
 The paper fine-tunes with AdamW, linear warmup then linear decay
 (Appendix C).  Scalars (learning rate, bias corrections) are computed
 in float32 as the JAX package computes them.  Unlike the JAX package,
-`apply_updates` updates parameters and moments in place.
+the updates work in place on parameters and moments.
+
+Two state forms:
+
+* per leaf (`init_opt_state`, `apply_updates`): f32 moments a
+  parameter, or with ``state_bits`` (8-bit Adam) each moment as b-bit
+  codes with one f32 scale a row of the parameter's native shape,
+  rounded to nearest, the second moment stored as its square root;
+* in bucket space (`init_bucket_opt_state`, `apply_bucket_updates`):
+  f32 moments of one (seg, group_d) segment of the flattened parameter
+  bucket, the segment owner's update under the ZeRO DP wire
+  (``ring-sharded``).  Its ops are the per-leaf update's, in the same
+  order, so the two give the same bits elementwise.
 """
 from __future__ import annotations
 
@@ -14,6 +24,8 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+from repro_torch.core import quantization as Q
 
 
 @dataclass(frozen=True)
@@ -26,6 +38,8 @@ class AdamWConfig:
     warmup_steps: int = 100
     total_steps: int = 10_000
     schedule: str = "linear"        # linear | constant
+    state_bits: int = 0             # 0 = f32 moments; b = b-bit codes
+                                    # with per-row scales (8-bit Adam)
 
 
 def lr_at(cfg: AdamWConfig, step: int) -> float:
@@ -41,13 +55,57 @@ def lr_at(cfg: AdamWConfig, step: int) -> float:
     return float(f(cfg.lr) * warm * decay)
 
 
-def init_opt_state(params: dict) -> dict:
-    """Zero f32 moments for every parameter, step 0."""
-    return {"mu": {k: torch.zeros_like(p, dtype=torch.float32)
-                   for k, p in params.items()},
-            "nu": {k: torch.zeros_like(p, dtype=torch.float32)
-                   for k, p in params.items()},
+def _q_enc(x: torch.Tensor, bits: int) -> dict:
+    """A moment as b-bit codes with one f32 scale a row of its native
+    shape, rounded to nearest."""
+    codes, scale = Q.quantize(x, bits)
+    return {"codes": codes, "scale": scale}
+
+
+def _q_dec(enc: dict, bits: int) -> torch.Tensor:
+    return Q.dequantize(enc["codes"], enc["scale"], bits)
+
+
+def init_opt_state(params: dict, state_bits: int = 0) -> dict:
+    """Zero moments for every parameter (f32, or b-bit codes with
+    ``state_bits``), step 0."""
+    def zeros(p):
+        z = torch.zeros_like(p, dtype=torch.float32)
+        return _q_enc(z, state_bits) if state_bits else z
+    return {"mu": {k: zeros(p) for k, p in params.items()},
+            "nu": {k: zeros(p) for k, p in params.items()},
             "step": 0}
+
+
+def init_bucket_opt_state(n_ranks: int, seg: int, group_d: int, *,
+                          device=None) -> dict:
+    """Zero f32 moments of ``n_ranks`` (seg, group_d) segments of the
+    parameter bucket, stacked (n_ranks, seg, group_d): the simulator's
+    workers, or with ``n_ranks=1`` one rank's own segment."""
+    shape = (n_ranks, seg, group_d)
+    return {"mu": torch.zeros(shape, dtype=torch.float32, device=device),
+            "nu": torch.zeros(shape, dtype=torch.float32, device=device),
+            "step": 0}
+
+
+def _scalars(cfg: AdamWConfig, step: int) -> tuple:
+    """(lr, c1, c2) at ``step``, in float32."""
+    f = np.float32
+    return (lr_at(cfg, step), float(f(1.0) - f(cfg.b1) ** f(step)),
+            float(f(1.0) - f(cfg.b2) ** f(step)))
+
+
+def _update(cfg: AdamWConfig, lr: float, c1: float, c2: float,
+            p: torch.Tensor, g: torch.Tensor, mu: torch.Tensor,
+            nu: torch.Tensor) -> None:
+    """One AdamW update of p, mu and nu, in place: the one sequence of
+    ops both state forms run."""
+    g = g.float()
+    mu.mul_(cfg.b1).add_(g * (1 - cfg.b1))
+    nu.mul_(cfg.b2).add_(g.square() * (1 - cfg.b2))
+    d = (mu / c1) / (torch.sqrt(nu / c2) + cfg.eps)
+    d += cfg.weight_decay * p.float()
+    p.sub_((lr * d).to(p.dtype))
 
 
 @torch.no_grad()
@@ -56,16 +114,34 @@ def apply_updates(cfg: AdamWConfig, params: dict, grads: dict,
     """One AdamW step on ``params`` (name -> tensor) with ``grads`` of
     the same names, in place.  Returns the new optimizer state."""
     step = state["step"] + 1
-    lr = lr_at(cfg, step)
-    f = np.float32
-    c1 = float(f(1.0) - f(cfg.b1) ** f(step))
-    c2 = float(f(1.0) - f(cfg.b2) ** f(step))
+    lr, c1, c2 = _scalars(cfg, step)
+    qb = cfg.state_bits
     for k, p in params.items():
-        g = grads[k].float()
         mu, nu = state["mu"][k], state["nu"][k]
-        mu.mul_(cfg.b1).add_(g * (1 - cfg.b1))
-        nu.mul_(cfg.b2).add_(g.square() * (1 - cfg.b2))
-        d = (mu / c1) / (torch.sqrt(nu / c2) + cfg.eps)
-        d += cfg.weight_decay * p.float()
-        p.sub_((lr * d).to(p.dtype))
+        if qb:
+            mu = _q_dec(mu, qb)
+            nu = _q_dec(nu, qb).square()      # nu is stored as sqrt(nu)
+        _update(cfg, lr, c1, c2, p, grads[k], mu, nu)
+        if qb:
+            # the square root keeps small second moments resolved
+            state["mu"][k] = _q_enc(mu, qb)
+            state["nu"][k] = _q_enc(torch.sqrt(nu), qb)
+    return {"mu": state["mu"], "nu": state["nu"], "step": step}
+
+
+@torch.no_grad()
+def apply_bucket_updates(cfg: AdamWConfig, pbucket: torch.Tensor,
+                         gbucket: torch.Tensor, state: dict) -> dict:
+    """One AdamW step on segments of the f32 parameter bucket, in place:
+    ``pbucket``, ``gbucket`` (the segment means the ZeRO wire leaves on
+    their owners) and the moments of `init_bucket_opt_state` share one
+    shape.  Elementwise the bits of `apply_updates` on f32 leaves.
+    Returns the new optimizer state."""
+    if cfg.state_bits:
+        raise ValueError(
+            "state_bits (8-bit Adam) is per-leaf; unsupported with the "
+            "bucket-space sharded optimizer (dp_wire='ring-sharded')")
+    step = state["step"] + 1
+    _update(cfg, *_scalars(cfg, step), pbucket, gbucket, state["mu"],
+            state["nu"])
     return {"mu": state["mu"], "nu": state["nu"], "step": step}

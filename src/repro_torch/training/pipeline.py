@@ -38,7 +38,22 @@ independent stochastic quantizations of that shared gradient (the
 JAX package's placement caveat).  The wire's noise is seeded by (seed,
 step, data rank) and never by the model rank, so every model column
 computes the same mean and the two copies of a tied embedding stay
-equal.  Then AdamW updates each stage's own parameters.
+equal.  Then AdamW updates each stage's own parameters, with f32
+moments, or with ``state_bits`` b-bit ones (8-bit Adam).
+
+The ZeRO wire (``ring-sharded``) stops the ring after its
+reduce-scatter half, so each data rank holds the mean of one segment of
+the WHOLE model's bucket, as in the JAX package, whose
+``replicate_leaves`` gathers every stage into it.  A segment spans
+other stages' parameters, so every rank keeps a full-model f32
+parameter bucket, drawn once from the init every rank runs: AdamW
+(`adamw.apply_bucket_updates`, moments one segment a rank) updates its
+own segment there, the updated segments are all-gathered over the data
+group (the ``dp-gather`` plane), which leaves the bucket current on
+every rank, and each stage copies its parameters out of their slots.
+Its losses equal the ``ring`` wire's bit for bit: the segment means are
+rows of the full mean, and the bucket AdamW runs the per-leaf update's
+ops.
 
 The f32 all-reduce sums in gloo's order, not XLA's, so distributed
 losses match the JAX package within a tolerance, not bit for bit.
@@ -51,16 +66,16 @@ recomputed in the backward, so one piece's logits are live at a time.
 The hops (`_SendHop`, `_RecvHop`) and the message buffers stay outside
 every checkpoint, so a recompute never sends, draws or writes again.
 
-Not ported: the other model families, FSDP/ZeRO-3 weight sharding, the
-``ring-sharded`` ZeRO wire (ROADMAP queue A), and the kernels' seeded
-noise: `build_rank` refuses the on-core noise knob
-(`repro_torch.env.oncore_prng`, `ONCORE_REFUSAL`).
+Not ported: the other model families, FSDP/ZeRO-3 weight sharding
+(ROADMAP queue A), and the kernels' seeded noise: `build_rank` refuses
+the on-core noise knob (`repro_torch.env.oncore_prng`,
+`ONCORE_REFUSAL`).
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from dataclasses import dataclass
+from dataclasses import InitVar, dataclass
 from typing import Optional
 
 import numpy as np
@@ -71,9 +86,10 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import env
 from repro_torch.comm import faults
-from repro_torch.comm.config import CommConfig
+from repro_torch.comm.config import CommConfig, reject_legacy_comm
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import boundary as B
+from repro_torch.core import grad_compress as GC
 from repro_torch.core import quantization as Q
 from repro_torch.models import layers as L
 from repro_torch.models.model import (Block, Transformer, head_logits,
@@ -97,7 +113,9 @@ class PipelineConfig:
     layers only, one recompute fewer, more memory); ``loss_chunks``
     bounds the pieces of the sequence the loss runs over (the largest
     divisor of S at most this); ``block_k`` is the attention backward's
-    key block."""
+    key block.  The trailing init-only fields are the JAX package's
+    removed scattered comm kwargs, taken only to refuse them
+    (`reject_legacy_comm`)."""
     microbatches: int = 16
     comm: Optional[CommConfig] = None
     warmup: bool = False
@@ -106,12 +124,21 @@ class PipelineConfig:
     buffer_dtype: str = "bfloat16"
     loss_chunks: int = 64
     remat_mode: str = "nested"
+    compression: InitVar[Optional[object]] = None
+    buffer_bits: InitVar[Optional[int]] = None
+    dp_grad_bits: InitVar[Optional[int]] = None
+    dp_grad_group: InitVar[Optional[int]] = None
+    dp_wire: InitVar[Optional[str]] = None
 
-    def __post_init__(self):
+    def __post_init__(self, compression, buffer_bits, dp_grad_bits,
+                      dp_grad_group, dp_wire):
+        reject_legacy_comm(
+            "PipelineConfig",
+            {"compression": compression, "buffer_bits": buffer_bits,
+             "dp_grad_bits": dp_grad_bits, "dp_grad_group": dp_grad_group,
+             "dp_wire": dp_wire})
         if self.comm is None:
             object.__setattr__(self, "comm", CommConfig())
-        if self.comm.dp.bits:
-            self.comm.dp_wire_spec       # raises for an unported wire
         for name in ("microbatches", "block_k", "loss_chunks"):
             if getattr(self, name) < 1:
                 raise ValueError(f"{name}={getattr(self, name)} must be "
@@ -303,16 +330,19 @@ class PipelineBucket:
             return self.offsets[key] + g * self.sizes[key], self.sizes[key]
         return self.offsets[name], self.sizes[name]
 
-    def flatten(self, stage: Stage, tensors: dict) -> torch.Tensor:
+    def flatten(self, stage: Stage, tensors: dict,
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
         """A zero f32 bucket holding ``tensors`` (stage name -> tensor)
-        at their slots."""
-        dev = next(iter(tensors.values())).device
-        flat = torch.zeros(self.rows * self.group_d, dtype=torch.float32,
-                           device=dev)
+        at their slots, or ``out`` (a bucket of at least ``rows`` rows)
+        with them written in."""
+        if out is None:
+            out = torch.zeros(self.shape, dtype=torch.float32,
+                              device=next(iter(tensors.values())).device)
+        flat = out.reshape(-1)
         for name, t in tensors.items():
             off, n = self.slot(stage, name)
             flat[off:off + n] = t.detach().reshape(-1)
-        return flat.reshape(self.rows, self.group_d)
+        return out
 
     def views(self, stage: Stage, bucket: torch.Tensor, like: dict) -> dict:
         """The stage's slices of a bucket, shaped like ``like``."""
@@ -534,10 +564,14 @@ def make_transfer(pcfg: PipelineConfig, mesh, generator=None) -> Transfer:
 
 class PipelineRank:
     """The state and step of one rank: its stage, AdamW moments, message
-    buffers and DP carry, all on the mesh's device.  After a step,
-    ``phase_seconds`` holds its phases' wall times: ``pipeline`` (the
-    microbatches forward and backward, hops included),
-    ``grad_allreduce``, ``dp_wire`` and ``adamw``."""
+    buffers and DP carry, all on the mesh's device; under the ZeRO wire
+    also the full-model f32 parameter bucket (``pbucket``, rows padded
+    to whole segments) and the moments of this rank's segment of it.
+    After a step, ``phase_seconds`` holds its phases' wall times:
+    ``pipeline`` (the microbatches forward and backward, hops
+    included), ``grad_allreduce``, ``dp_wire``, ``adamw`` and, under
+    the ZeRO wire, ``param_gather`` (the all-gather and the copy into
+    the stage)."""
 
     def __init__(self, cfg: ModelConfig, pcfg: PipelineConfig, mesh,
                  opt_cfg: adamw.AdamWConfig, *, num_samples: int,
@@ -549,8 +583,12 @@ class PipelineRank:
         dev = mesh.device
         self.lay = stage_layout(cfg, mesh.shape.model)
         self.stage = Stage(cfg, self.lay, mesh.model_rank, device=dev)
+        comm = pcfg.comm
+        self.bucket = PipelineBucket(cfg, self.lay, comm.dp_group_d)
+        self.sharded = bool(comm.dp.bits) and comm.dp_wire_spec.sharded
         if initial_params is not None:
-            self.stage.load_pipeline_params(initial_params, self.lay)
+            def load(st):
+                return st.load_pipeline_params(initial_params, self.lay)
         else:
             # every rank draws the whole model on the CPU from the same
             # seed, so the stages (and both copies of a tied embedding)
@@ -558,11 +596,19 @@ class PipelineRank:
             # same run on the CPU
             model = Transformer(cfg, device="cpu", generator=seeded_generator(
                 "cpu", seed, "init"))
-            self.stage.load_from_model(model)
-            del model
+
+            def load(st):
+                return st.load_from_model(model)
+        load(self.stage)
         self.params = dict(self.stage.named_parameters())
-        self.opt = adamw.init_opt_state(self.params)
-        comm = pcfg.comm
+        if self.sharded:
+            n = mesh.shape.data
+            self.seg = GC.ring_segment_rows(self.bucket.rows, n)
+            self.pbucket = self._param_bucket(load, n * self.seg).to(dev)
+            self.opt = adamw.init_bucket_opt_state(
+                1, self.seg, self.bucket.group_d, device=dev)
+        else:
+            self.opt = adamw.init_opt_state(self.params, opt_cfg.state_bits)
         self.has_bufs = comm.mode == "aqsgd"
         k, kk = mesh.model_rank, mesh.shape.model
         d = cfg.d_model
@@ -570,9 +616,19 @@ class PipelineRank:
             if self.has_bufs and k < kk - 1 else None
         self.m_in = init_buffer(pcfg, num_samples, seq_len, d, dev) \
             if self.has_bufs and k > 0 else None
-        self.bucket = PipelineBucket(cfg, self.lay, comm.dp_group_d)
         self.dp_error = init_dp_error(self.bucket, dev) \
             if comm.dp.bits else None
+
+    def _param_bucket(self, load, rows: int) -> torch.Tensor:
+        """The whole model's f32 parameter bucket on the CPU, ``rows``
+        rows (zero past the model): every stage built on the CPU with
+        ``load`` and written into its slots (a tied embedding's two
+        copies into the one slot they share)."""
+        out = torch.zeros((rows, self.bucket.group_d), dtype=torch.float32)
+        for k in range(self.lay.num_stages):
+            st = load(Stage(self.cfg, self.lay, k, device="cpu"))
+            self.bucket.flatten(st, dict(st.named_parameters()), out=out)
+        return out
 
     def step(self, batch: dict, step: int, *, warmup: bool) -> float:
         """One training step on this rank's shard ``batch`` (numpy,
@@ -650,14 +706,36 @@ class PipelineRank:
                 stochastic=dpc.stochastic, backend=dpc.backend,
                 generator=seeded_generator(mesh.device, self.seed, step,
                                            "dp", mesh.data_rank), **extra)
-            mean, new_err = faults.guard_dp_pair(mean, new_err)
+            # a sharded wire returns this rank's segment, which a small
+            # model can leave all padding (legitimately zero)
+            mean, new_err = faults.guard_dp_pair(
+                mean, new_err, expect_nonzero=not spec.sharded)
             self.dp_error = new_err if dpc.error_feedback \
                 else torch.zeros_like(new_err)
             self._lap("dp_wire")
+        if self.sharded:
+            self._sharded_update(mean)
+            return
         g = self.bucket.views(self.stage, mean, self.params)
         self.opt = adamw.apply_updates(self.opt_cfg, self.params, g,
                                        self.opt)
         self._lap("adamw")
+
+    @torch.no_grad()
+    def _sharded_update(self, seg_mean: torch.Tensor) -> None:
+        """The ZeRO wire's owner update: AdamW on this rank's segment of
+        the full-model parameter bucket, the segments all-gathered over
+        the data group, the stage's parameters copied out."""
+        group, seg = self.mesh.data_group, self.seg
+        own = self.pbucket[group.index * seg:(group.index + 1) * seg]
+        self.opt = adamw.apply_bucket_updates(self.opt_cfg, own[None],
+                                              seg_mean[None], self.opt)
+        self._lap("adamw")
+        group.all_gather(own, self.pbucket.view(group.size, seg, -1))
+        for name, v in self.bucket.views(self.stage, self.pbucket,
+                                         self.params).items():
+            self.params[name].copy_(v)
+        self._lap("param_gather")
 
     def _lap(self, name: str) -> None:
         """Record the wall time since the last lap under ``name``, at
@@ -752,7 +830,8 @@ def train_rank(rank: int, world: int, spec: dict) -> dict:
         out["launches"].append(dict(qp.LAUNCHES))
         tr = mesh.transport
         out["bytes"].append({p: tr.bytes_sent(p)
-                             for p in ("fw", "bw", "dp", "grad")})
+                             for p in ("fw", "bw", "dp", "dp-gather",
+                                       "grad")})
         out["manifests"].append(tr.manifest("dp"))
         out["replicas"].append(check_replicas(trainer))
     if dev.type == "cuda":
@@ -760,6 +839,11 @@ def train_rank(rank: int, world: int, spec: dict) -> dict:
     out["dp_bucket"] = list(trainer.bucket.shape)
     out["warm_steps"] = warm_steps
     return out
+
+
+def train_ranks(rank: int, world: int, specs: list) -> list:
+    """`train_rank` of each spec in turn, in one process."""
+    return [train_rank(rank, world, spec) for spec in specs]
 
 
 def _bits(t: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,5 @@
 """Single-process simulation of AQ-SGD pipeline training (port of
-`repro.training.simulated`, without the ZeRO wire).
+`repro.training.simulated`).
 
 The model trunk is cut into K stage groups; at each of the K-1
 boundaries the activation is replaced by the message m(ξ) (full
@@ -13,6 +13,15 @@ tree goes into one ``(rows, group_d)`` bucket, and the configured DP
 wire's simulator (`WireSpec.sim_allreduce`, the error-feedback codec of
 `repro_torch.core.grad_compress`) returns the mean and the new
 carried errors, which `comm.faults.guard_dp_pair` checks before AdamW.
+A sharded wire (``ring-sharded``, the ZeRO wire) stops at the
+reduce-scatter midpoint (`grad_compress.compress_reduce_scatter`:
+worker i keeps the mean of its own segment of the bucket), AdamW runs
+in bucket space on each owner's segment (`optim.adamw.
+apply_bucket_updates`, moments one segment a worker) over the
+zero-padded f32 parameter bucket, and the parameters are written back
+from its live rows.  Its losses equal the ``ring`` wire's bit for bit:
+the segment means are rows of the full mean, and the bucket AdamW runs
+the per-leaf update's ops.
 
 Random numbers: `train` draws the initial weights from a CPU
 ``torch.Generator().manual_seed(seed)``, leaf by leaf, each leaf moved
@@ -43,14 +52,14 @@ moments, buffers and carries are updated in place.
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass, field
+from dataclasses import InitVar, dataclass, field
 from typing import Optional
 
 import torch
 from torch.profiler import record_function
 
 from repro_torch.comm import faults
-from repro_torch.comm.config import CommConfig
+from repro_torch.comm.config import CommConfig, reject_legacy_comm
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import aqsgd
 from repro_torch.core import grad_compress as GC
@@ -66,20 +75,38 @@ class SimTrainConfig:
     ``dp_workers`` is the simulated DP degree when ``comm.dp.bits``;
     ``remat`` recomputes each layer's activations in the backward
     (`repro_torch.models.model.run_layer`; the stage boundaries are
-    never recomputed)."""
+    never recomputed).  The trailing init-only fields are the JAX
+    package's removed scattered comm kwargs, taken only to refuse them
+    (`reject_legacy_comm`).  8-bit moments (``optimizer.state_bits``)
+    run in the distributed trainer only: the JAX package's simulator
+    builds f32 moments and would fail in its first update, so they are
+    refused here."""
     num_stages: int = 4
     comm: Optional[CommConfig] = None
     optimizer: adamw.AdamWConfig = field(default_factory=adamw.AdamWConfig)
     dp_workers: int = 1
     remat: bool = False
+    compression: InitVar[Optional[object]] = None
+    dp_grad_bits: InitVar[Optional[int]] = None
+    dp_grad_group: InitVar[Optional[int]] = None
+    dp_sharded: InitVar[Optional[bool]] = None
 
-    def __post_init__(self):
+    def __post_init__(self, compression, dp_grad_bits, dp_grad_group,
+                      dp_sharded):
+        reject_legacy_comm(
+            "SimTrainConfig",
+            {"compression": compression, "dp_grad_bits": dp_grad_bits,
+             "dp_grad_group": dp_grad_group, "dp_sharded": dp_sharded})
         if self.comm is None:
             object.__setattr__(self, "comm", CommConfig())
-        if self.comm.dp.bits:
-            self.comm.dp_wire_spec      # raises for an unported wire
         if self.dp_workers < 1:
             raise ValueError(f"dp_workers={self.dp_workers} must be >= 1")
+        if self.optimizer.state_bits:
+            raise ValueError(
+                f"optimizer.state_bits={self.optimizer.state_bits}: 8-bit "
+                f"AdamW moments run in the distributed trainer "
+                f"(repro_torch.training.pipeline); the simulated trainer "
+                f"keeps f32 moments")
 
 
 def init_train_state(mcfg: ModelConfig, tcfg: SimTrainConfig,
@@ -89,14 +116,22 @@ def init_train_state(mcfg: ModelConfig, tcfg: SimTrainConfig,
     carries, all on ``device``."""
     model = Mo.Transformer(mcfg, device=device, generator=generator)
     params = dict(model.named_parameters())
+    dpc = tcfg.comm.dp
+    if dpc.bits and tcfg.comm.dp_wire_spec.sharded:
+        # the ZeRO wire: bucket moments, one segment a worker
+        lay = GC.bucket_layout(jax_leaves(params), dpc.group_d)
+        opt = adamw.init_bucket_opt_state(
+            tcfg.dp_workers, GC.ring_segment_rows(lay.rows, tcfg.dp_workers),
+            lay.group_d, device=device)
+    else:
+        opt = adamw.init_opt_state(params)
     state = {
         "model": model,
-        "opt": adamw.init_opt_state(params),
+        "opt": opt,
         "buffers": aqsgd.init_buffers(
             tcfg.comm.activation, tcfg.num_stages - 1, num_samples,
             seq_len, mcfg.d_model, device=device),
     }
-    dpc = tcfg.comm.dp
     if dpc.bits:
         lay = GC.bucket_layout(jax_leaves(params), dpc.group_d)
         state["dp_error"] = torch.zeros(
@@ -164,9 +199,9 @@ def train_step(state: dict, batch: dict, generator: torch.Generator, *,
         parts.append(met["boundary_state"])
 
     params = dict(model.named_parameters())
+    spec = tcfg.comm.dp_wire_spec if dpc.bits else None
     if dpc.bits:
         # the configured wire's simulator over the per-worker trees
-        spec = tcfg.comm.dp_wire_spec
         trees = [jax_leaves(g) for g in gdicts]
         del gdicts
         lay = GC.bucket_layout(trees[0], dpc.group_d)
@@ -181,22 +216,48 @@ def train_step(state: dict, batch: dict, generator: torch.Generator, *,
             mean, new_err = faults.guard_dp_pair(mean, new_err)
         state["dp_error"] = new_err if dpc.error_feedback \
             else torch.zeros_like(new_err)
-        names = [n for _, ns in jax_leaf_names(params) for n in ns]
-        pieces = [t for leaf in mean
-                  for t in (leaf if isinstance(leaf, list) else [leaf])]
-        grads = dict(zip(names, pieces))
+        if not spec.sharded:
+            names = [n for _, ns in jax_leaf_names(params) for n in ns]
+            grads = dict(zip(names, _tensors(mean)))
     else:
         grads = gdicts[0]
 
     with record_function("train.adamw"):
-        state["opt"] = adamw.apply_updates(tcfg.optimizer, params, grads,
-                                           state["opt"])
+        if spec is not None and spec.sharded:
+            _sharded_update(tcfg, state, params, mean)
+        else:
+            state["opt"] = adamw.apply_updates(tcfg.optimizer, params,
+                                               grads, state["opt"])
     if cc.mode == "aqsgd":
         with record_function("train.write_buffers"):
             for j in range(nb):
                 m_new = torch.cat([parts[i][j] for i in range(w)], dim=0)
                 aqsgd.write_buffer(cc, bufs, j, ids, m_new)
     return state, {"loss": loss, "ce": ce, "aux": 0.0}
+
+
+@torch.no_grad()
+def _sharded_update(tcfg: SimTrainConfig, state: dict, params: dict,
+                    means: torch.Tensor) -> None:
+    """The ZeRO wire's update: AdamW on every worker's segment of the
+    zero-padded f32 parameter bucket (``means``: (workers, seg,
+    group_d)), then the parameters written back from its live rows."""
+    w, seg, gd = means.shape
+    tree = jax_leaves(params)
+    lay = GC.bucket_layout(tree, gd)
+    pb = GC.flatten_bucket(tree, lay, rows=w * seg)
+    state["opt"] = adamw.apply_bucket_updates(
+        tcfg.optimizer, pb.reshape(w, seg, gd), means, state["opt"])
+    for src, dst in zip(_tensors(GC.unflatten_bucket(pb, lay, tree)),
+                        _tensors(tree)):
+        dst.copy_(src)
+
+
+def _tensors(tree: list) -> list:
+    """The tensors of a tree in JAX leaf order, stacked leaves' layers
+    in turn."""
+    return [t for leaf in tree
+            for t in (leaf if isinstance(leaf, list) else [leaf])]
 
 
 def device_batch(batch: dict, device) -> dict:

@@ -482,9 +482,12 @@ def test_serve_continuous_launcher(arch):
 def test_serve_list_wires(capsys):
     assert tserve.main(["--list-wires"]) is None
     out = capsys.readouterr().out
-    assert out.splitlines()[0].split() == ["wire", "summary"]
-    assert {line.split()[0] for line in out.splitlines()[1:]} == \
-        {"ring", "psum"}
+    assert out.splitlines()[0].split() == ["plane", "wire", "summary"]
+    assert [tuple(line.split()[:2]) for line in out.splitlines()[1:]] == [
+        ("fw-activation", "ppermute"), ("bw-gradient", "ppermute"),
+        ("z-buffer", "hbm"), ("kv-cache", "paged"), ("dp-grad", "ring"),
+        ("dp-grad", "psum"), ("dp-grad", "ring-sharded"),
+        ("dp-grad", "fp16")]
 
 
 @pytest.mark.parametrize("flag", ["--data-par", "--model-par"])

@@ -46,7 +46,18 @@ within 2e-5 (rtol = atol), dq, dk and dv within 1e-4 of each one's
 largest value (bounds set before the first run on the card); B10's o
 is bit-identical with and without the lse; and ``remat`` on and off
 give bit-equal losses and gradients, with B10 launched once a layer
-and once more a layer in the recompute.
+and once more a layer in the recompute.  The rest of the DP wires and
+the optimizer: the ZeRO wire's simulator on the card (B5, B6) equals
+the CPU's plain run bit for bit, its live segment rows equal the
+ring's mean and its pad rows are signed zeros; the bucket-space AdamW
+gives the bits of the per-leaf one elementwise on the card; the
+simulated trainer's ``ring-sharded`` stream equals its ``ring`` stream
+bit for bit on the card, and ``fp16``'s f16 sum equals the CPU's;
+8-bit AdamW moments on the card (the same PyTorch ops, no kernel) hold
+the CPU's parameters within 1e-6 relative, scales within 1e-6, and
+codes equal except within 1e-3 code units of a half-code tie (or where
+they already differed): PyTorch on CUDA divides by a scalar as a
+multiply by its reciprocal.
 """
 import math
 
@@ -837,3 +848,120 @@ def test_remat_gradients_are_bit_equal(card, arch):
     assert torch.equal(out[0][0], out[1][0])
     for a, b in zip(out[0][1], out[1][1]):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the rest of the DP wires and the optimizer
+# ---------------------------------------------------------------------------
+
+def _grad_trees(n, dev, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return [[(torch.randn(57, 33, generator=g) * 0.1).to(dev),
+             torch.randn(19, generator=g).to(dev),
+             torch.randn(4064, 2, generator=g).to(dev)] for _ in range(n)]
+
+
+@pytest.mark.parametrize("n", [2, 3])
+def test_reduce_scatter_sim_matches_cpu(card, n):
+    from repro_torch.core import grad_compress as TG
+    lay = TG.bucket_layout(_grad_trees(1, "cpu")[0], 512)
+    err = torch.randn(n, lay.rows, 512,
+                      generator=torch.Generator().manual_seed(5)) * 1e-3
+    out = {}
+    for dev in ("cpu", card):
+        TP.reset_launches()
+        segs, new_err = TG.compress_reduce_scatter(
+            _grad_trees(n, dev), err.to(dev), 4, stochastic=False,
+            layout=lay)
+        mean, full_err = TG.compress_allreduce(
+            _grad_trees(n, dev), err.to(dev), 4, stochastic=False,
+            layout=lay)
+        if dev != "cpu":
+            assert TP.LAUNCHES["quantize_codes_scaled"] == 2 * n
+        flat = TG.flatten_bucket(mean, lay).reshape(-1)[:lay.total]
+        assert torch.equal(segs.reshape(-1)[:lay.total], flat)
+        assert torch.equal(new_err, full_err)
+        assert (segs.reshape(-1)[lay.rows * 512:] == 0).all()
+        out[str(dev)] = (segs.cpu(), new_err.cpu())
+    a, b = out.values()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def test_bucket_adamw_equals_leaf_adamw_on_card(card):
+    from repro_torch.optim import adamw as TO
+    cfg = TO.AdamWConfig(lr=1e-2, warmup_steps=2, total_steps=6)
+    g = torch.Generator().manual_seed(3)
+    p = torch.randn(300, 512, generator=g).to(card)
+    leaf = {"w": p.clone()}
+    bucket = p.clone()[None]
+    ls, bs = TO.init_opt_state(leaf), TO.init_bucket_opt_state(
+        1, 300, 512, device=card)
+    for _ in range(4):
+        grad = torch.randn(300, 512, generator=g).to(card)
+        ls = TO.apply_updates(cfg, leaf, {"w": grad}, ls)
+        bs = TO.apply_bucket_updates(cfg, bucket, grad[None], bs)
+        assert torch.equal(leaf["w"], bucket[0])
+        assert torch.equal(ls["nu"]["w"], bs["nu"][0])
+
+
+def test_sim_ring_sharded_stream_equals_ring_on_card(card):
+    from repro_torch.comm.config import CommConfig, PlaneConfig
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import Dataset, DatasetConfig
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.training import simulated as TS
+    cfg = get_config("gpt2-xl-paper", smoke=True).with_(num_layers=2)
+    losses = {}
+    for wire in ("ring", "ring-sharded", "fp16"):
+        tcfg = TS.SimTrainConfig(
+            num_stages=2, dp_workers=2,
+            comm=CommConfig(dp=PlaneConfig(bits=4, wire=wire)),
+            optimizer=AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4))
+        ds = Dataset(DatasetConfig(num_samples=8, seq_len=16,
+                                   vocab_size=cfg.vocab_size))
+        _, losses[wire] = TS.train(cfg, tcfg, ds, num_steps=4, batch_size=4,
+                                   device=card)
+    assert losses["ring-sharded"] == losses["ring"]
+    assert all(math.isfinite(x) for x in losses["fp16"])
+
+
+def test_fp16_sum_and_8bit_moments_match_cpu(card):
+    from repro_torch.comm import wires as TW
+    from repro_torch.core import grad_compress as TG
+    from repro_torch.optim import adamw as TO
+    lay = TG.bucket_layout(_grad_trees(1, "cpu")[0], 512)
+    err = torch.zeros(3, lay.rows, 512)
+    got = [TW.fp16_sim_allreduce(_grad_trees(3, dev), err.to(dev), 4,
+                                 layout=lay) for dev in ("cpu", card)]
+    for a, b in zip(got[0][0], got[1][0]):
+        assert torch.equal(a, b.cpu())
+    cfg = TO.AdamWConfig(lr=1e-2, warmup_steps=2, total_steps=6,
+                         state_bits=8)
+    g = torch.Generator().manual_seed(4)
+    p = torch.randn(64, 33, generator=g)
+    params = {dev: {"w": p.clone().to(dev)} for dev in ("cpu", card)}
+    states = {dev: TO.init_opt_state(params[dev], 8) for dev in params}
+    differed = {m: torch.zeros(64, 33, dtype=torch.bool) for m in states[card]
+                if m != "step"}
+    for _ in range(4):
+        grad = torch.randn(64, 33, generator=g)
+        cpu = states["cpu"]
+        # the moments before rounding, from the CPU's incoming state
+        mu = TO._q_dec(cpu["mu"]["w"], 8).double()
+        nu = TO._q_dec(cpu["nu"]["w"], 8).double() ** 2
+        pre = {"mu": 0.9 * mu + 0.1 * grad.double(),
+               "nu": (0.999 * nu + 0.001 * grad.double() ** 2).sqrt()}
+        for dev in params:
+            states[dev] = TO.apply_updates(cfg, params[dev],
+                                           {"w": grad.to(dev)}, states[dev])
+        torch.testing.assert_close(params[card]["w"].cpu(),
+                                   params["cpu"]["w"], rtol=1e-6, atol=1e-7)
+        for m in differed:
+            a, b = states["cpu"][m]["w"], states[card][m]["w"]
+            torch.testing.assert_close(b["scale"].cpu(), a["scale"],
+                                       rtol=1e-6, atol=0)
+            diff = a["codes"] != b["codes"].cpu()
+            y = (pre[m] / a["scale"].double() + 1) * 127.5
+            near = (y - y.floor() - 0.5).abs() <= 1e-3
+            assert bool((~diff | near | differed[m]).all()), m
+            differed[m] |= diff

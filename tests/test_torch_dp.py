@@ -289,7 +289,7 @@ def test_bucket_layout_and_flatten_follow_jax_leaf_order():
 # ---------------------------------------------------------------------------
 
 def test_wire_byte_models_match_jax():
-    for name in TW.wire_names():
+    for name in TW.wire_names("dp-grad"):
         jspec, tspec = JW.get_wire(name, "dp-grad"), TW.get_wire(name)
         for shape in [(877132, 512), (37, 64), (5, 13)]:
             for bits in (2, 4, 8):
@@ -297,7 +297,8 @@ def test_wire_byte_models_match_jax():
                     assert tspec.wire_bytes(shape, bits, n) == \
                         jspec.wire_bytes(shape, bits, n), \
                         (name, shape, bits, n)
-    assert TW.wire_names() == ["ring", "psum"]
+    assert TW.wire_names("dp-grad") == JW.wire_names("dp-grad") == \
+        ["ring", "psum", "ring-sharded", "fp16"]
     with pytest.raises(ValueError, match="did you mean 'ring'"):
         TW.get_wire("rng")
     for bits in (1, 2, 4, 8):
@@ -308,13 +309,22 @@ def test_wire_byte_models_match_jax():
 
 
 def test_unported_dp_wires_raise_at_config():
+    """Once refused at config time, the ZeRO and fp16 wires now build
+    and name their registry specs."""
     from repro_torch.training.simulated import SimTrainConfig
-    for wire in ("ring-sharded", "fp16"):
+    for wire, sharded in (("ring-sharded", True), ("fp16", False)):
         comm = CommConfig(dp=PlaneConfig(bits=4, wire=wire))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            SimTrainConfig(num_stages=2, comm=comm, dp_workers=2)
+        tcfg = SimTrainConfig(num_stages=2, comm=comm, dp_workers=2)
+        spec = tcfg.comm.dp_wire_spec
+        assert spec is TW.get_wire(wire) and spec.name == wire
+        assert spec.sharded is sharded
     assert CommConfig(dp=PlaneConfig(bits=4)).dp_wire_spec.sim_allreduce \
         is TG.compress_allreduce
+    assert CommConfig(dp=PlaneConfig(
+        bits=4, wire="ring-sharded")).dp_wire_spec.sim_allreduce \
+        is TG.compress_reduce_scatter
+    assert CommConfig(dp=PlaneConfig(bits=4, wire="fp16")).dp_wire_spec \
+        .sim_allreduce is TW.fp16_sim_allreduce
 
 
 # ---------------------------------------------------------------------------

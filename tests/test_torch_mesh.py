@@ -9,14 +9,17 @@ column; the `Transport` stages every payload through host memory and
 records each call by plane, kind, dtype and bytes.
 
 This file imports no JAX, so the spawned ranks of
-tests/test_torch_ring.py import their worker (`wire_worker`) from here
-without loading JAX in every process.
+tests/test_torch_ring.py and tests/test_torch_zero.py import their
+workers (`wire_worker`, `zero_worker`) from here without loading JAX in
+every process.
 """
 import pytest
 import torch
+import torch.distributed as dist
 
 from repro_torch.comm import wires as TW
-from repro_torch.launch.mesh import Mesh, MeshShape, spawn
+from repro_torch.core import collectives as TC
+from repro_torch.launch.mesh import Mesh, MeshShape, RingGroup, spawn
 
 SPAWN_TIMEOUT = 120
 # the DP wires held against the simulator: (wire, chunks)
@@ -47,6 +50,46 @@ def wire_worker(rank, world, inputs):
                             mesh.transport.bytes_sent("dp"),
                             mesh.transport.manifest("dp")))
             out[(stochastic, wire, chunks)] = got
+    return out
+
+
+def zero_worker(rank, world, inputs):
+    """Rank ``rank`` of a 3-rank world, over the whole world (n = 3) and
+    over ranks {0, 1} (n = 2): the ZeRO wire (chunks 1 and 2, two steps
+    with the noise in ``inputs``), the fp16 wire (two steps), the
+    segments' all-gather and `quantized_psum_mean` (deterministic).
+    Returns numpy results, bytes and manifests by (n, case)."""
+    mesh = Mesh(MeshShape(world, 1), rank, "cpu")
+    pg2 = dist.new_group([0, 1], backend="gloo")    # every rank calls it
+    groups = {3: mesh.data_group}
+    if rank < 2:
+        groups[2] = RingGroup([0, 1], rank, pg2, mesh.transport)
+    tr, out = mesh.transport, {}
+    for n, group in groups.items():
+        for wire, chunks in (("ring-sharded", 1), ("ring-sharded", 2),
+                             ("fp16", 1)):
+            spec = TW.get_wire(wire)
+            kw = {"chunks": chunks} if spec.chunkable else {}
+            err = torch.zeros(inputs["shape"])
+            got = []
+            for step in range(2):
+                tr.reset()
+                mean, err = spec.collective(
+                    torch.from_numpy(inputs["v"][n][step][rank]), err, group,
+                    inputs["bits"], stochastic=True,
+                    u=torch.from_numpy(inputs["noise"][n][step][rank]),
+                    backend="reference", **kw)
+                got.append((mean.numpy(), err.numpy().copy(),
+                            tr.bytes_sent("dp"), tr.manifest("dp")))
+            out[(n, wire, chunks)] = got
+        tr.reset()
+        seg = torch.full((3, 4), float(rank))
+        gathered = group.all_gather(seg, torch.empty(n, 3, 4))
+        out[(n, "gather")] = (gathered.numpy(), tr.bytes_sent("dp-gather"),
+                              tr.manifest("dp-gather"))
+        out[(n, "psum-mean")] = TC.quantized_psum_mean(
+            torch.from_numpy(inputs["x"][rank]), group, inputs["bits"],
+            stochastic=False, backend="reference").numpy()
     return out
 
 

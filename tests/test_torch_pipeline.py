@@ -26,6 +26,16 @@ results:
 * the same with 8-bit z-bit buffers;
 * the 4-bit DP wire: ``ring`` and ``psum`` give bit-identical losses
   over 4 steps, and the 2-chunk ring the monolithic one's;
+* the ZeRO wire (``ring-sharded``, 4-bit, stochastic): the ``ring``
+  wire's losses bit for bit, and with 2 chunks the monolithic one's;
+  each rank's ``dp`` bytes and calls are the registry's model and
+  manifest, and its parameter all-gather (the ``dp-gather`` plane) one
+  f32 segment to the other data rank;
+* the ``fp16`` wire: one f16 all-reduce of the bucket a rank a step,
+  finite losses;
+* 8-bit AdamW moments (``state_bits=8``, the ring wire, deterministic,
+  on explicit batches): every step's parameters are the port's
+  per-leaf 8-bit AdamW applied to the stage's gradient, bit for bit;
 * in every run the two copies of the tied embedding (stages 0 and 1)
   are bit-equal after every step;
 * the untied head: ``stablelm-12b`` SMOKE cut to 4 layers from the JAX
@@ -80,7 +90,7 @@ SPAWN_TIMEOUT = 240
 def run_scenarios(rank, world, specs, explicit):
     """Every spec of ``specs`` in turn on this rank, then every
     (spec, batches, warm steps) of ``explicit`` through `step_batches`."""
-    return [PL.train_rank(rank, world, s) for s in specs] + \
+    return PL.train_ranks(rank, world, specs) + \
         [step_batches(rank, world, *e) for e in explicit]
 
 
@@ -123,13 +133,13 @@ def _comm(mode, *, buffer_bits=0, dp_bits=0, wire="ring", chunks=1,
 
 
 def _spec(comm, *, steps, warmup_epochs=1, lr=1e-3, initial_params=None,
-          arch=ARCH):
+          arch=ARCH, state_bits=0):
     return {"arch": arch, "smoke": True, "num_layers": LAYERS,
             "comm": comm.to_json(), "device": "cpu", "data_par": D,
             "stages": K, "microbatches": M, "steps": steps, "batch": BATCH,
             "warmup_epochs": warmup_epochs, "seed": 0,
             "optimizer": {"lr": lr, "warmup_steps": 1,
-                          "schedule": "constant"},
+                          "schedule": "constant", "state_bits": state_bits},
             "dataset": {"num_samples": SAMPLES, "seq_len": SEQ,
                         "vocab_size": tget(arch, smoke=True).vocab_size},
             "initial_params": initial_params}
@@ -166,6 +176,13 @@ SCENARIOS = {
                  warmup_epochs=0),
     "ring/K2": dict(comm=_comm("aqsgd", dp_bits=4, chunks=2), steps=4,
                     warmup_epochs=0),
+    "ring-sharded": dict(comm=_comm("aqsgd", dp_bits=4, wire="ring-sharded"),
+                         steps=4, warmup_epochs=0),
+    "ring-sharded/K2": dict(comm=_comm("aqsgd", dp_bits=4, chunks=2,
+                                       wire="ring-sharded"), steps=2,
+                            warmup_epochs=0),
+    "fp16": dict(comm=_comm("aqsgd", dp_bits=4, wire="fp16"), steps=2,
+                 warmup_epochs=0),
 }
 # scenarios on explicit batches from the JAX package's parameters, at
 # lr 1e-3: name -> (comm, warm-up steps)
@@ -189,6 +206,8 @@ UNTIED = {"untied/fp32": "fp32", "untied/aqsgd-ring-det": "aqsgd-ring-det"}
 # stream under f32 noise, the yardstick against the JAX pipeline's
 MOVE, MOVED_SEEDS = 1e-7, (1, 2, 3, 4, 5)
 UNTIED_MOVED = [f"untied/moved/{s}" for s in MOVED_SEEDS]
+# 8-bit AdamW moments, on explicit batches: the EXPLICIT scenario it runs
+ADAM8 = {"adam8": "aqsgd-ring-det"}
 # the JAX pipeline's buffers hold SAMPLES // D samples a data rank, and
 # a data rank's ids index its own; so each data rank's two samples of a
 # step (one a microbatch) are its slots 0 and 1
@@ -279,6 +298,9 @@ def runs(tmp_path_factory):
                         initial_params=_moved(untied_pipe, seed),
                         arch=UNTIED_ARCH), batches, warm)
                  for seed in MOVED_SEEDS]
+    explicit += [(_spec(EXPLICIT[name][0], steps=EXPLICIT_STEPS,
+                        initial_params=pipe, state_bits=8), batches,
+                  EXPLICIT[name][1]) for name in ADAM8.values()]
     # the JAX pipeline runs in a process of its own meanwhile
     tmp = tmp_path_factory.mktemp("jax")
     np.savez(tmp / "batches.npz", **{f"{i}/{k}": v
@@ -301,7 +323,7 @@ def runs(tmp_path_factory):
         jax_proc.kill()
     assert jax_proc.returncode == 0, log
     names = list(SCENARIOS) + list(EXPLICIT) + list(REMAT) + list(UNTIED) \
-        + UNTIED_MOVED
+        + UNTIED_MOVED + list(ADAM8)
     res = {name: [out[r][i] for r in range(D * K)]
            for i, name in enumerate(names)}
     res["jax-pipeline"] = json.loads((tmp / "losses.json").read_text())
@@ -507,6 +529,80 @@ def test_ring_and_psum_losses_are_bit_identical(runs):
             tuple(rows), 4, D)
 
 
+def test_ring_sharded_losses_equal_ring(runs):
+    """The ZeRO wire: the ring's losses bit for bit (the segment means
+    are rows of the ring's mean, the bucket AdamW the per-leaf update's
+    ops), 2 chunks the same; the dp plane's bytes and calls are the
+    registry's, the parameter all-gather's bytes one f32 segment."""
+    from repro_torch.core import collectives as TC
+    ring = runs["ring"][0]["losses"]
+    rows = tuple(runs["ring-sharded"][0]["dp_bucket"])
+    spec = TW.get_wire("ring-sharded")
+    for name, steps in (("ring-sharded", 4), ("ring-sharded/K2", 2)):
+        for r in runs[name]:
+            assert r["losses"] == ring[:steps], name
+            for b in r["bytes"]:
+                assert b["dp"] == spec.wire_bytes(rows, 4, D) \
+                    == TC.ring_wire_bytes(rows, 4, D, sharded=True)
+                assert b["dp-gather"] == TC.param_gather_bytes(rows, D) \
+                    == TC.ring_segment_rows(rows[0], D) * rows[1] * 4
+            if name == "ring-sharded":
+                assert r["manifests"][0] == spec.expected_collectives(
+                    rows, 4, D)
+            if r["model_rank"] == K - 1:
+                assert all(rep["m_in_equal"] is True
+                           for rep in r["replicas"])
+
+
+def test_fp16_wire_bytes(runs):
+    rows = tuple(runs["fp16"][0]["dp_bucket"])
+    for r in runs["fp16"]:
+        assert np.all(np.isfinite(r["losses"]))
+        assert r["losses"] == runs["fp16"][0]["losses"]
+        for b, man in zip(r["bytes"], r["manifests"]):
+            assert b["dp"] == rows[0] * rows[1] * 2
+            assert b["dp-gather"] == 0
+            assert man == [("all-reduce", "f16", rows[0] * rows[1] * 2, 1)]
+
+
+def test_adam8_steps_like_per_leaf_8bit_adamw(runs):
+    """8-bit moments on the distributed trainer: each stage's parameters
+    after every step equal the port's per-leaf 8-bit AdamW applied to
+    that step's gradient, bit for bit, from the same start."""
+    cfg = PL.adamw.AdamWConfig(lr=1e-3, warmup_steps=1, schedule="constant",
+                               state_bits=8)
+    # one thread, as the ranks run: in this process, which has run JAX,
+    # a replay over torch's thread pool was seen to put one thread's
+    # chunk of the embedding (1/8 of it) a rounding off the ranks'
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        _replay_adam8(runs, cfg)
+    finally:
+        torch.set_num_threads(threads)
+    # the f32-moment run of the same batches ends on other weights (the
+    # first step's update is sign(g) with either moments)
+    for r, f32 in zip(runs["adam8"], runs["aqsgd-ring-det"]):
+        assert any(not np.array_equal(a, f32["params"][-1][n])
+                   for n, a in r["params"][-1].items())
+
+
+def _replay_adam8(runs, cfg):
+    for r in runs["adam8"]:
+        assert r["losses"] == runs["adam8"][0]["losses"]
+        params = {n: torch.from_numpy(a.copy())
+                  for n, a in r["params"][0].items()}
+        opt = PL.adamw.init_opt_state(params, 8)
+        for step in range(EXPLICIT_STEPS):
+            opt = PL.adamw.apply_updates(
+                cfg, params, {n: torch.from_numpy(g)
+                              for n, g in r["grads"][step].items()}, opt)
+            for n, p in params.items():
+                assert np.array_equal(p.numpy().view(np.int32),
+                                      r["params"][step + 1][n].view(
+                                          np.int32)), (r["rank"], n, step)
+
+
 def test_remat_modes_are_bit_identical(runs):
     """Remat off and per layer against the nested default: the same
     losses, gradients and parameters at every step, bit for bit, and
@@ -528,7 +624,7 @@ def test_remat_modes_are_bit_identical(runs):
 
 
 def test_tied_embedding_copies_stay_equal(runs):
-    for name in [*SCENARIOS, *EXPLICIT, *REMAT]:
+    for name in [*SCENARIOS, *EXPLICIT, *REMAT, *ADAM8]:
         for r in runs[name]:
             if r["model_rank"] == K - 1:
                 assert len(r["replicas"]) == len(r["losses"])
@@ -623,9 +719,9 @@ def test_distributed_launcher_on_cpu(capsys, monkeypatch):
             tlaunch.main(["--device", "cpu", "--smoke", "--distributed",
                           *flag])
         assert "multi-process pipeline" in capsys.readouterr().err
-    with pytest.raises(NotImplementedError, match="ring-sharded"):
-        PL.PipelineConfig(comm=_comm("aqsgd", dp_bits=4,
-                                     wire="ring-sharded"))
+    for wire in ("ring-sharded", "fp16"):
+        pcfg = PL.PipelineConfig(comm=_comm("aqsgd", dp_bits=4, wire=wire))
+        assert pcfg.comm.dp_wire_spec is TW.get_wire(wire)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tlaunch.main(["--smoke", "--distributed", "--steps", "1"])

@@ -157,8 +157,9 @@ Phases, each printed on its own line:
    head), batch 2, a prompt of 4064 into a cache of its 4096-token
    context, 32 decode steps, and ``[serve-gemma2-27b]``: ``gemma2-27b``
    at full width (d 4608, 32 heads on 16 kv heads of 128, d_ff 36864)
-   cut to the first 28 of its 46 layers (``--layers``; the most, in an
-   even count, that the card holds, `G27_LAYERS`), batch 2, prompt 8160
+   cut to the first 8 of its 46 layers (``--layers``, `G27_LAYERS`;
+   28, the most the card holds, costs ~80 s more of host weight draws),
+   batch 2, prompt 8160
    into 8192, 32 decode steps; both with the same comm flags and checks
    as ``[serve-gemma2]`` (launches exactly, hop and KV bytes against
    the byte models); then each one's SMOKE card-against-CPU check
@@ -224,7 +225,30 @@ Phases, each printed on its own line:
    CPU checks of the simulated trainer with ``ring-sharded`` and
    ``fp16`` and of the distributed one with ``ring-sharded``, ``fp16``
    and ``state_bits`` 8 (``[train-zero-reference-check]``,
-   ``[dist-zero-reference-check]``).
+   ``[dist-zero-reference-check]``);
+11. fault tolerance, at full width with the depth cut to 2 layers
+   (checkpoints of 2.94 GB under ``results/``, which git ignores; the
+   free disk is checked against the reckoned bytes first, and the
+   directory removed after): ``[train-resume]``: ``[train]``'s settings
+   at 2 layers and 2 stage groups through `launch.runner` — an
+   uninterrupted run of 6 steps, a fresh process (spawned as
+   `launch.mesh.spawn` spawns) that checkpoints every 2 steps and
+   hard-exits with 17 after step 4's loss, and a fresh process that
+   resumes; the killed prefix and the resumed steps equal the
+   uninterrupted losses bit for bit, launches per step exact, replayed
+   step included, each save's and restore's bytes and seconds printed;
+   ``[train-fault]``: the same run with the plan `FAULT_PLAN` (fw, dp
+   and bw) and 3 retries: each guard line names the injected plane and
+   step, each recovery is printed, the losses equal the clean run's bit
+   for bit and the launches count every replayed step;
+   ``[dist-train-resume]``: ``[dist-train]``'s spec at 2 layers, an
+   uninterrupted run of 4 steps, one stopped after step 2 with per-rank
+   checkpoints, and a resume, in one spawn: the resumed steps 2 and 3
+   equal the uninterrupted ones bit for bit on every rank, the replicas
+   hold, launches per step exact; ``[train-resume-cli]``: ``python -m
+   repro_torch.launch.train --smoke --device cuda`` with ``--kill-at
+   7`` (exit 17) and then ``--resume``, whose loss lines (the loss bits
+   in hex) equal an uninterrupted CLI run's.
 
 B10 at head_dim 160 (stablelm-12b's) is in ``[flash-check]`` (ragged
 sweep cases, the tile edges, an odd stride, and stablelm's prefill
@@ -240,8 +264,9 @@ no trainer or server runs the legacy pair, in the JAX package either.
 Then one JSON line with every kernel's numbers (``launches``: the
 count on the path its time was taken at, named by ``launches_path``;
 each path's own count in ``launches_by_path``, ``serve_continuous``,
-``serve_stablelm``, ``serve_gemma2_27b`` and ``train_full_depth``
-among them), the card's name and
+``serve_stablelm``, ``serve_gemma2_27b``, ``train_full_depth``,
+``train_resume``, ``train_fault`` and ``dist_resume`` among them), the
+card's name and
 power limit, and as the last line ``{"ok": true, "device": {...}}``.
 Any failure raises and exits non-zero; with no CUDA device it exits 1
 and prints no result.  Imports nothing of JAX or of the JAX package.
@@ -369,13 +394,15 @@ STABLELM_ARGS = ["--arch", "stablelm-12b", "--stages", "2", "--mode",
                  str(S_GEN), "--device", "cuda", "--seed", "0"]
 # gemma2-27b at full width (d 4608, 32 heads on 16 kv heads of 128,
 # d_ff 36864, vocab 256000) cut to the first G27_LAYERS of its 46
-# layers, the most in an even count (local and global layers alternate)
-# that the card holds with 2 GiB of headroom: serving it at batch 2,
-# prompt 8160 into a cache of 8192 peaks at 17.371 GiB at 2 layers and
-# 21.719 at 4 on the H100 (tools/serve_memory.py; 2.174 GiB a layer:
-# 2.109 of weights, 0.064 of 8-bit KV stores), so 73.9 GiB at 28 and
-# 78.3 at 30 of the card's 79.18
-G27_LAYERS, G27_D = 28, 4608
+# layers (local and global layers alternate, so an even count).  The
+# most the card holds with 2 GiB of headroom is 28: serving it at batch
+# 2, prompt 8160 into a cache of 8192 peaks at 17.371 GiB at 2 layers
+# and 21.719 at 4 on the H100 (tools/serve_memory.py; 2.174 GiB a
+# layer: 2.109 of weights, 0.064 of 8-bit KV stores), so 73.9 GiB at 28
+# and 78.3 at 30 of the card's 79.18.  chip_smoke runs 8 (28 until the
+# fault-tolerance phases joined): the host draws ~0.57e9 weights a
+# layer, and the whole run stays near 900 s
+G27_LAYERS, G27_D = 8, 4608
 G27_HEADS, G27_KV_HEADS, G27_HEAD_DIM = 32, 16, 128
 G27_ARGS = ["--arch", "gemma2-27b", "--layers", str(G27_LAYERS), "--stages",
             "2", "--mode", "aqsgd", "--fw-bits", "4", "--kv-bits", "8",
@@ -509,6 +536,23 @@ DIST_LAUNCHES = {"delta_quantize_pack": 8, "dequant_unpack_accumulate": 8,
                  "unpack_sums": 16,
                  "flash_attention_fwd": DIST_DATA * DIST_STAGES
                  * DIST_STEPS * DIST_MICRO * (3 * DIST_LPS - 1)}
+# fault tolerance: [train]'s and [dist-train]'s settings at full width,
+# the depth cut to 2 layers in 2 stage groups (one boundary), so a
+# checkpoint holds 141,859,200 parameters: 2.94 GB a simulated state,
+# ~1.96 GB a distributed rank
+RESUME_LAYERS, RESUME_STAGES, RESUME_STEPS = 2, 2, 6
+RESUME_SAVE_EVERY, RESUME_KILL_AT, RESUME_KEEP = 2, 4, 2
+FAULT_PLAN = "2:fw:drop-hop,3:dp:nan-scale,5:bw:corrupt-codes"
+FAULT_RETRIES = 3
+# the steps the fault run executes: 0, 1, 2 (fw trips, back to 2), 2,
+# 3 (dp trips, back to 2), 2, 3, 4, 5 (bw trips, back to 4), 4, 5
+FAULT_STEPS_RUN = 11
+CKPT_ROOT = os.path.join(ROOT, "results", "chip_smoke_ckpt")
+# [train-resume-cli]: the launcher at SMOKE size on the card
+CLI_ARGS = ["--smoke", "--device", "cuda", "--stages", "2", "--steps", "12",
+            "--batch", "4", "--samples", "16", "--seq", "32", "--mode",
+            "aqsgd", "--fw-bits", "4", "--bw-bits", "8", "--dp-grad-bits",
+            "4", "--dp-wire", "ring"]
 
 
 def phase(tag: str, **kv) -> None:
@@ -2765,6 +2809,394 @@ def dist_reference_check(torch, arch="gpt2-xl-paper",
 
 
 # ---------------------------------------------------------------------------
+# phase 11: fault tolerance (checkpoints, kill and resume, fault recovery)
+# ---------------------------------------------------------------------------
+
+LOSS_LINE = r"^step\s+(\d+) loss \S+ \[(\S+)\]$"
+CKPT_LINE = (r"^checkpoint: (saved|restored) step (\d+) "
+             r"\((\d+) B, ([\d.]+) s\)$")
+
+
+def _resume_config():
+    """[train-resume]'s model, trainer config and dataset: [train]'s
+    settings at `RESUME_LAYERS` layers in `RESUME_STAGES` stage groups."""
+    from repro_torch.comm import config as comm_mod
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import Dataset, DatasetConfig
+    from repro_torch.optim import adamw
+    from repro_torch.training import simulated as sim
+
+    cfg = get_config("gpt2-xl-paper").with_(num_layers=RESUME_LAYERS)
+    tcfg = _train_config(sim, comm_mod, adamw, stochastic=True,
+                         stages=RESUME_STAGES, steps=RESUME_STEPS)
+    ds = Dataset(DatasetConfig(num_samples=TRAIN_SAMPLES, seq_len=TRAIN_SEQ,
+                               vocab_size=cfg.vocab_size, seed=0))
+    return cfg, tcfg, ds
+
+
+def _resume_launches_per_step() -> dict:
+    """[train]'s launches a step at one boundary and 2 layers."""
+    nb = RESUME_STAGES - 1
+    want = {k: v // (TRAIN_STAGES - 1) * nb if k in (
+        "delta_quantize_pack", "quantize_pack", "unpack_dequant") else v
+        for k, v in TRAIN_LAUNCHES_PER_STEP.items()}
+    want["flash_attention_fwd"] = RESUME_LAYERS * TRAIN_WORKERS
+    return want
+
+
+def _block_params(cfg) -> int:
+    from repro_torch.models.model import Block
+    return sum(p.numel() for p in Block(cfg, device="meta").parameters())
+
+
+def reckoned_sim_bytes(cfg) -> int:
+    """A [train-resume] checkpoint's array bytes: params and the two
+    moments in f32, the 2 workers' f32 carries over the 512-wide bucket,
+    one boundary's f32 messages and seen flags, the noise state."""
+    n = cfg.vocab_size * cfg.d_model + cfg.d_model \
+        + cfg.num_layers * _block_params(cfg)
+    rows = -(-n // DP_BUCKET[1])
+    return (12 * n + TRAIN_WORKERS * rows * DP_BUCKET[1] * 4
+            + (RESUME_STAGES - 1) * TRAIN_SAMPLES * (TRAIN_SEQ * cfg.d_model
+                                                     * 4 + 1) + 16 + 8)
+
+
+def reckoned_rank_bytes(cfg) -> int:
+    """A [dist-train-resume] rank's array bytes, the larger stage's:
+    the embedding and its layers, f32 with two f32 moments, the carry
+    over the pipeline's whole bucket, its side of the bf16 messages
+    (stored as f32)."""
+    n_model = cfg.vocab_size * cfg.d_model + cfg.d_model \
+        + cfg.num_layers * _block_params(cfg)
+    rows = -(-n_model // DP_BUCKET[1])
+    stage = cfg.vocab_size * cfg.d_model + cfg.d_model \
+        + cfg.num_layers // DIST_STAGES * _block_params(cfg)
+    return (12 * stage + rows * DP_BUCKET[1] * 4
+            + DIST_SAMPLES * DIST_SEQ * cfg.d_model * 4)
+
+
+def _need_disk(path: str, nbytes: int, what: str) -> None:
+    """Fail loudly unless the disk under ``path`` has ``nbytes`` free."""
+    import shutil
+    os.makedirs(path, exist_ok=True)
+    free = shutil.disk_usage(path).free
+    phase("ckpt-disk", what=what, free_bytes=free, need_bytes=nbytes)
+    if free < nbytes:
+        raise RuntimeError(f"{path}: {free} B free, {what} needs {nbytes}")
+
+
+def resume_child(mode: str, ckpt_dir: str, log_path: str) -> None:
+    """A fresh process of [train-resume] (the spawn target): ``mode``
+    "kill" checkpoints every `RESUME_SAVE_EVERY` steps and hard-exits
+    with 17 after step `RESUME_KILL_AT`'s loss; "resume" resumes from
+    the newest checkpoint.  Every line the runner prints goes to
+    ``log_path`` as JSON with the kernel launches so far, so the killed
+    process leaves its record."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.kernels import quant_pack as qp
+    from repro_torch.launch import runner
+
+    cfg, tcfg, ds = _resume_config()
+    qp.reset_launches()
+    with open(log_path, "w") as log:
+        def emit(line: str) -> None:
+            print(f"[train-resume-{mode}] {line}", flush=True)
+            log.write(json.dumps({"line": line,
+                                  "launches": dict(qp.LAUNCHES)}) + "\n")
+            log.flush()
+
+        runner.run_sim_training(
+            cfg, tcfg, ds, num_steps=RESUME_STEPS, batch_size=TRAIN_BATCH,
+            log_every=1, ckpt_dir=ckpt_dir, save_every=RESUME_SAVE_EVERY,
+            keep=RESUME_KEEP, resume=mode == "resume",
+            kill_at=RESUME_KILL_AT if mode == "kill" else None, seed=0,
+            device="cuda", print_fn=emit)
+
+
+def _parse_run(lines: list) -> dict:
+    """Losses by step (from the hex), and the saves and restores."""
+    import re
+    out = {"losses": {}, "saved": [], "restored": []}
+    for line in lines:
+        m = re.match(LOSS_LINE, line)
+        if m:
+            out["losses"][int(m.group(1))] = float.fromhex(m.group(2))
+        m = re.match(CKPT_LINE, line)
+        if m:
+            out[m.group(1)].append({"step": int(m.group(2)),
+                                    "bytes": int(m.group(3)),
+                                    "s": float(m.group(4))})
+    return out
+
+
+def _spawn_child(mode: str, ckpt_dir: str) -> tuple:
+    """Run `resume_child` in a fresh spawned process; returns (exit
+    code, its records)."""
+    import multiprocessing as mp
+    log_path = os.path.join(CKPT_ROOT, f"{mode}.jsonl")
+    proc = mp.get_context("spawn").Process(
+        target=resume_child, args=(mode, ckpt_dir, log_path))
+    proc.start()
+    proc.join(timeout=DIST_TIMEOUT)
+    if proc.is_alive():
+        proc.kill()
+        proc.join()
+        raise RuntimeError(f"[train-resume] {mode} child timed out")
+    with open(log_path) as f:
+        records = [json.loads(line) for line in f]
+    return proc.exitcode, records
+
+
+def train_resume_phase(torch, qp) -> dict:
+    """[train-resume] and [train-fault]; returns their launches."""
+    import shutil
+    from repro_torch.comm.faults import FaultPlan
+    from repro_torch.launch import runner
+
+    cfg, tcfg, ds = _resume_config()
+    per_step = _resume_launches_per_step()
+    reckoned = reckoned_sim_bytes(cfg)
+    shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+    _need_disk(CKPT_ROOT, (RESUME_KEEP + 1) * reckoned, "train-resume")
+
+    torch.cuda.empty_cache()
+    qp.reset_launches()
+    _, base = runner.run_sim_training(
+        cfg, tcfg, ds, num_steps=RESUME_STEPS, batch_size=TRAIN_BATCH,
+        log_every=0, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    base_launches = dict(qp.LAUNCHES)
+    torch.cuda.empty_cache()
+
+    ckpt_dir = os.path.join(CKPT_ROOT, "sim")
+    t0 = time.perf_counter()
+    code, kill_rec = _spawn_child("kill", ckpt_dir)
+    kill_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    code_r, res_rec = _spawn_child("resume", ckpt_dir)
+    res_s = time.perf_counter() - t0
+    killed = _parse_run([r["line"] for r in kill_rec])
+    resumed = _parse_run([r["line"] for r in res_rec])
+    kill_launches, res_launches = kill_rec[-1]["launches"], \
+        res_rec[-1]["launches"]
+    phase("train-resume", layers=f"{RESUME_LAYERS}/48", d_model=cfg.d_model,
+          vocab=cfg.vocab_size, steps=RESUME_STEPS,
+          save_every=RESUME_SAVE_EVERY, kill_at=RESUME_KILL_AT,
+          keep=RESUME_KEEP, reckoned_bytes=reckoned,
+          losses_exact=json.dumps(base),
+          killed_losses=json.dumps(killed["losses"]),
+          resumed_losses=json.dumps(resumed["losses"]),
+          kill_exit=code, resume_exit=code_r,
+          saves=json.dumps(killed["saved"] + resumed["saved"]),
+          restores=json.dumps(resumed["restored"]),
+          kill_process_s=f"{kill_s:.1f}", resume_process_s=f"{res_s:.1f}",
+          launches=json.dumps(base_launches),
+          launches_killed=json.dumps(kill_launches),
+          launches_resumed=json.dumps(res_launches))
+    assert code == runner.KILL_EXIT_CODE == 17, code
+    assert code_r == 0, code_r
+    assert kill_rec[-1]["line"].startswith(
+        f"killing at step {RESUME_KILL_AT}"), kill_rec[-1]
+    assert [killed["losses"][i] for i in range(RESUME_KILL_AT + 1)] \
+        == base[:RESUME_KILL_AT + 1], (killed["losses"], base)
+    assert sorted(resumed["losses"]) == list(range(RESUME_KILL_AT,
+                                                   RESUME_STEPS))
+    assert [resumed["losses"][i] for i in sorted(resumed["losses"])] \
+        == base[RESUME_KILL_AT:], (resumed["losses"], base)
+    assert [c["step"] for c in killed["saved"]] == [0, 2, 4]
+    assert [c["step"] for c in resumed["restored"]] == [RESUME_KILL_AT]
+    for c in killed["saved"] + resumed["saved"] + resumed["restored"]:
+        assert reckoned < c["bytes"] < reckoned + 2 ** 20, (c, reckoned)
+    for name, n in per_step.items():
+        assert base_launches[name] == n * RESUME_STEPS, (name, base_launches)
+        assert kill_launches[name] == n * (RESUME_KILL_AT + 1), \
+            (name, kill_launches)
+        assert res_launches[name] == n * (RESUME_STEPS - RESUME_KILL_AT), \
+            (name, res_launches)
+    shutil.rmtree(ckpt_dir)
+
+    # [train-fault]: the same run with a fault on fw, dp and bw
+    lines = []
+    qp.reset_launches()
+    t0 = time.perf_counter()
+    _, losses = runner.run_sim_training(
+        cfg, tcfg, ds, num_steps=RESUME_STEPS, batch_size=TRAIN_BATCH,
+        log_every=1, ckpt_dir=os.path.join(CKPT_ROOT, "fault"),
+        save_every=RESUME_SAVE_EVERY, keep=RESUME_KEEP,
+        max_retries=FAULT_RETRIES, fault_plan=FaultPlan.parse(FAULT_PLAN),
+        seed=0, device="cuda", print_fn=lines.append)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fault_launches = dict(qp.LAUNCHES)
+    run = _parse_run(lines)
+    tripped = [ln for ln in lines if ln.startswith("guard tripped")]
+    recovered = [ln for ln in lines if ln.startswith("recovered from")]
+    phase("train-fault", plan=FAULT_PLAN, max_retries=FAULT_RETRIES,
+          guard_lines=json.dumps(tripped), recoveries=json.dumps(recovered),
+          losses_exact=json.dumps(losses), losses_bit_equal=losses == base,
+          saves=json.dumps(run["saved"]),
+          restores=json.dumps(run["restored"]), wall_s=f"{wall:.1f}",
+          steps_run=FAULT_STEPS_RUN, launches=json.dumps(fault_launches))
+    assert losses == base, (losses, base)
+    want = [("fw", 2), ("dp", 3), ("bw", 5)]
+    assert len(tripped) == len(want), tripped
+    for line, (plane, step) in zip(tripped, want):
+        wire = getattr(tcfg.comm, plane).wire
+        assert f"plane={plane} wire={wire!r} step={step}" in line, line
+    assert recovered == [f"recovered from checkpoint step {s} "
+                         f"(retry {i + 1}/{FAULT_RETRIES})"
+                         for i, s in enumerate((2, 2, 4))], recovered
+    for name, n in per_step.items():
+        assert fault_launches[name] == n * FAULT_STEPS_RUN, \
+            (name, fault_launches)
+    shutil.rmtree(CKPT_ROOT)
+    torch.cuda.empty_cache()
+    both = {k: kill_launches.get(k, 0) + res_launches.get(k, 0)
+            for k in base_launches}
+    return {"train_resume": both, "train_fault": fault_launches}
+
+
+def dist_resume_phase(torch) -> dict:
+    """[dist-train-resume]: [dist-train]'s spec at 2 layers, run
+    uninterrupted, stopped after step 2 with per-rank checkpoints, and
+    resumed, in one spawn; returns the stopped and resumed runs'
+    launches summed over the ranks."""
+    import shutil
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import train as launch_train
+
+    cfg = get_config("gpt2-xl-paper").with_(num_layers=RESUME_LAYERS)
+    reckoned = reckoned_rank_bytes(cfg)
+    shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+    d = os.path.join(CKPT_ROOT, "dist")
+    _need_disk(CKPT_ROOT, DIST_DATA * DIST_STAGES * reckoned,
+               "dist-train-resume")
+    flags = ["--device", "cuda", "--steps", str(DIST_STEPS), "--batch",
+             str(DIST_BATCH), "--seq", str(DIST_SEQ), "--samples",
+             str(DIST_SAMPLES)]
+    base = _dist_spec(torch, flags, layers=RESUME_LAYERS)
+    stop = _dist_spec(torch, [*flags, "--ckpt-dir", d, "--save-every", "2"],
+                      layers=RESUME_LAYERS)
+    stop["steps"] = 2          # the optimizer's schedule stays 4 steps
+    resume = _dist_spec(torch, [*flags, "--ckpt-dir", d, "--resume"],
+                        layers=RESUME_LAYERS)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    b, st, rs = launch_train.run_distributed([base, stop, resume],
+                                             timeout=DIST_TIMEOUT)
+    wall = time.perf_counter() - t0
+    # launches a step summed over the ranks: the DP ring on every rank
+    # every step, B10 2 a microbatch a rank (3 x 1 - 1 under nested
+    # remat), the hop kernels a microbatch a data rank once compressed
+    warm = {"quantize_codes_scaled": 4, "dequant_sum_mean": 8,
+            "unpack_accumulate": 4, "pack_sums": 4, "unpack_sums": 4,
+            "flash_attention_fwd": DIST_DATA * DIST_STAGES * DIST_MICRO * 2}
+    hop = DIST_DATA * DIST_MICRO
+    comp = dict(warm, delta_quantize_pack=hop, dequant_unpack_accumulate=hop,
+                quantize_pack=hop, unpack_dequant=hop)
+
+    def summed(res, i):
+        return {k: sum(r["launches"][i].get(k, 0) for r in res)
+                for k in DIST_LAUNCHES}
+
+    launches = {k: 0 for k in DIST_LAUNCHES}
+    for res, steps in ((st, (0, 1)), (rs, (2, 3))):
+        for i, step in enumerate(steps):
+            got = summed(res, i)
+            want = {k: (warm if step < 2 else comp).get(k, 0)
+                    for k in DIST_LAUNCHES}
+            assert got == want, (step, got, want)
+            assert got == summed(b, step), (step, got)
+            for k in launches:
+                launches[k] += got[k]
+    phase("dist-train-resume", mesh=f"{DIST_DATA}x{DIST_STAGES}",
+          layers=RESUME_LAYERS, d_model=cfg.d_model, dp_wire="ring",
+          reckoned_bytes_largest_rank=reckoned,
+          losses_exact=json.dumps(b[0]["losses"]),
+          stopped_losses=json.dumps(st[0]["losses"]),
+          resumed_losses=json.dumps(rs[0]["losses"]),
+          resumed_from=rs[0]["start"],
+          ckpt_by_rank=json.dumps([r["ckpt"] for r in st + rs]),
+          replicas_last_stage=json.dumps(
+              [rep for r in rs if r["model_rank"] == DIST_STAGES - 1
+               for rep in r["replicas"]]),
+          launches_stop_and_resume=json.dumps(launches),
+          wall_s_three_runs=f"{wall:.1f}")
+    for r_b, r_s, r_r in zip(b, st, rs):
+        assert r_s["losses"] == r_b["losses"][:2], (r_s["losses"],
+                                                    r_b["losses"])
+        assert r_r["start"] == 2 and r_r["losses"] == r_b["losses"][2:], \
+            (r_r["losses"], r_b["losses"])
+        assert [c["step"] for c in r_s["ckpt"]] == [2]
+        assert [(c["op"], c["step"]) for c in r_r["ckpt"]] == [("restore",
+                                                                2)]
+        for c in r_s["ckpt"] + r_r["ckpt"]:
+            assert 0 < c["bytes"] < reckoned + 2 ** 20, (c, reckoned)
+        if r_r["model_rank"] == DIST_STAGES - 1:
+            for rep in r_r["replicas"]:
+                assert rep["m_in_equal"] is True, rep
+                assert rep["embed_equal"] is True, rep
+    shutil.rmtree(CKPT_ROOT)
+    return launches
+
+
+def train_resume_cli_phase() -> None:
+    """[train-resume-cli]: the launcher killed at step 7 and resumed,
+    each in its own process on the card, and uninterrupted in a third
+    beside them."""
+    import re
+    import shutil
+
+    shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+    d = os.path.join(CKPT_ROOT, "cli")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+
+    def start(extra):
+        return subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.train", *CLI_ARGS,
+             *extra], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True, env=env, cwd=ROOT)
+
+    def finish(proc):
+        out, err = proc.communicate(timeout=DIST_TIMEOUT)
+        return subprocess.CompletedProcess(proc.args, proc.returncode, out,
+                                           err)
+
+    def loss_lines(out):
+        return [ln for ln in out.splitlines()
+                if re.match(r"(step\s+\d+ loss|final loss)", ln)]
+
+    t0 = time.perf_counter()
+    base = start([])            # beside the killed and resumed runs
+    killed = finish(start(["--ckpt-dir", d, "--save-every", "3",
+                           "--kill-at", "7"]))
+    resumed = finish(start(["--ckpt-dir", d, "--save-every", "3",
+                            "--resume"]))
+    base = finish(base)
+    wall = time.perf_counter() - t0
+    for run in (base, killed, resumed):
+        if run.returncode not in (0, 17):
+            print(run.stdout, run.stderr[-4000:], file=sys.stderr)
+    phase("train-resume-cli", args=f"'{' '.join(CLI_ARGS)}'",
+          exit_codes=json.dumps([base.returncode, killed.returncode,
+                                 resumed.returncode]),
+          base_lines=json.dumps(loss_lines(base.stdout)),
+          resumed_lines=json.dumps(loss_lines(resumed.stdout)),
+          wall_s_three_runs=f"{wall:.1f}")
+    assert base.returncode == 0 and resumed.returncode == 0
+    assert killed.returncode == 17, killed.returncode
+    assert "killing at step 7" in killed.stdout
+    assert "resumed from step 6" in resumed.stdout
+    want = [ln for ln in loss_lines(base.stdout)
+            if not ln.startswith("step     0 ")]
+    assert len(want) == 2 and loss_lines(resumed.stdout) == want, \
+        (loss_lines(resumed.stdout), want)
+    shutil.rmtree(CKPT_ROOT)
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     import torch
@@ -2882,6 +3314,7 @@ def main() -> int:
           b10_launches=full["launches"]["flash_attention_fwd"],
           median_step_s_train=f"{train_run['step_s']:.4f}",
           peak_mem_gib_train=f"{train_run['peak_gib']:.3f}")
+    resume_launches = train_resume_phase(torch, qp)
     dist_runs = dist_phases(torch)
     dist_launches = dist_runs["dist-train"]
     for name in DIST_LAUNCHES:
@@ -2901,6 +3334,8 @@ def main() -> int:
                           tag="train-untied-reference-check")
     dist_reference_check(torch, "stablelm-12b",
                          tag="train-untied-reference-check")
+    dist_resume_launches = dist_resume_phase(torch)
+    train_resume_cli_phase()
     # a row's launches are those of the path its time was taken at:
     # serving for the activation codecs and the attention kernel (gpt2-xl
     # prefill), training for the DP wire, the distributed path for the
@@ -2917,6 +3352,9 @@ def main() -> int:
                "dist_sharded": dist_runs["dist-train-sharded"],
                "dist_fp16": dist_runs["dist-train-fp16"],
                "dist_adam8": dist_runs["dist-train-adam8"],
+               "train_resume": resume_launches["train_resume"],
+               "train_fault": resume_launches["train_fault"],
+               "dist_resume": dist_resume_launches,
                "legacy_dp": legacy_launches}
     for name in LEGACY_KERNELS:
         assert all(by_path[p][name] == 0 for p in by_path

@@ -51,7 +51,11 @@ class WireSpec:
     """One registered wire: identity, help text, byte model, and for DP
     wires the collective, its simulator and its manifest.
     ``chunkable``: the collective takes ``chunks=`` (the double-buffered
-    schedule, bit- and byte-identical to one chunk)."""
+    schedule, bit- and byte-identical to one chunk).  ``internal``: a
+    harness-owned wrapper (the fault wires of `repro_torch.comm.faults`),
+    resolvable by `get_wire` and hidden from `list_wires` and
+    `wire_names`, so from the ``--dp-wire`` choices and
+    ``--list-wires``."""
     name: str
     plane: str
     summary: str
@@ -63,6 +67,7 @@ class WireSpec:
     network: bool = True
     chunkable: bool = False
     psum_lowered: bool = False
+    internal: bool = False
 
 
 _REGISTRY: dict = {}
@@ -73,16 +78,20 @@ def register_wire(name: str, *, summary: str, wire_bytes,
                   sim_allreduce=None, expected_collectives=None,
                   sharded: bool = False, network: bool = True,
                   chunkable: bool = False,
-                  psum_lowered: bool = False) -> WireSpec:
+                  psum_lowered: bool = False,
+                  internal: bool = False) -> WireSpec:
     """Register a wire under ``(plane, name)`` (names are unique per
-    plane).  Returns the spec."""
+    plane).  Returns the spec.  ``internal=True`` registers a
+    harness-owned wrapper: hidden from enumeration, and its collective
+    needs no manifest of its own."""
     if plane not in PLANES:
         raise ValueError(f"unknown plane {plane!r}; one of {PLANES}")
     if (plane, name) in _REGISTRY:
         raise ValueError(f"wire {name!r} already registered on plane "
                          f"{plane!r}")
-    if collective is not None and (sim_allreduce is None
-                                   or expected_collectives is None):
+    if collective is not None and (
+            sim_allreduce is None
+            or (expected_collectives is None and not internal)):
         raise ValueError(f"wire {name!r}: a collective needs its "
                          f"sim_allreduce and expected_collectives")
     spec = WireSpec(name=name, plane=plane, summary=summary,
@@ -90,7 +99,7 @@ def register_wire(name: str, *, summary: str, wire_bytes,
                     sim_allreduce=sim_allreduce,
                     expected_collectives=expected_collectives,
                     sharded=sharded, network=network, chunkable=chunkable,
-                    psum_lowered=psum_lowered)
+                    psum_lowered=psum_lowered, internal=internal)
     _REGISTRY[(plane, name)] = spec
     return spec
 
@@ -115,17 +124,23 @@ def get_wire(name: str, plane: str = "dp-grad") -> WireSpec:
     return spec
 
 
-def list_wires(plane: Optional[str] = None) -> list:
+def list_wires(plane: Optional[str] = None, *,
+               include_internal: bool = False) -> list:
     """All registered specs (of one plane, or every plane), in
-    registration order."""
+    registration order; internal wrappers only with
+    ``include_internal``."""
     return [s for (p, _), s in _REGISTRY.items()
-            if plane is None or p == plane]
+            if (plane is None or p == plane)
+            and (include_internal or not s.internal)]
 
 
-def wire_names(plane: Optional[str] = None) -> list:
+def wire_names(plane: Optional[str] = None, *,
+               include_internal: bool = False) -> list:
     """Registered wire names (of one plane, or every plane), in
-    registration order."""
-    return [s.name for s in list_wires(plane)]
+    registration order; internal wrappers only with
+    ``include_internal``."""
+    return [s.name for s in list_wires(plane,
+                                       include_internal=include_internal)]
 
 
 # ---------------------------------------------------------------------------

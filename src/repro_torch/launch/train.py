@@ -8,17 +8,24 @@ knobs build one `CommConfig` (or pass it whole as JSON with
 CPU; with no card and no such request it raises.  The weights are a
 random init from ``--seed``.
 
+The single-host path runs through `repro_torch.launch.runner`:
+``--ckpt-dir`` with ``--save-every`` checkpoints the full state in the
+JAX package's layout, ``--resume`` continues from the newest committed
+checkpoint (the loss stream bit for bit), ``--fault`` injects a fault
+plan that the guard catches and recovery replays, and ``--kill-at``
+hard-exits (status 17) after a step's loss.  ``--checkpoint`` exports
+the final params in JAX's layout (`repro_torch.checkpoint.save`).
+Each ``step N loss X [hex]`` line carries the loss's bits.
+
 ``--distributed`` spawns one process per rank (`repro_torch.launch.mesh`,
 gloo; on one card every rank shares it), builds the CUDA kernels once
 before spawning, runs the warm-up step for the first
 ``--warmup-epochs`` epochs and the compressed step after, and stops
-every rank if the run outlasts ``JOIN_TIMEOUT`` seconds.
-
-Not ported yet, and refused with the title of the ROADMAP item that
-ports them: ``--ckpt-dir``/``--resume``/``--save-every``/``--checkpoint``
-and ``--fault``/``--kill-at`` (checkpoints, fault injection and
-recovery, queue A "Fault tolerance"); as in the JAX package, ``--fault``
-and ``--kill-at`` target the single-host trainer only.
+every rank if the run outlasts ``JOIN_TIMEOUT`` seconds.  There
+``--ckpt-dir``/``--save-every``/``--resume``/``--keep`` give each rank
+its own checkpoints (`repro_torch.training.pipeline`); as in the JAX
+package, ``--fault`` and ``--kill-at`` target the single-host trainer
+only.
 
 The on-core noise knob (`repro_torch.env.oncore_prng`) puts the
 simulated trainer's stochastic encodes on the card onto the kernels'
@@ -53,31 +60,24 @@ import os
 import numpy as np
 import torch
 
+from repro_torch import checkpoint as ckpt
 from repro_torch import env
 from repro_torch.comm import config as comm_cli
 from repro_torch.comm import wires as W
+from repro_torch.comm.faults import FaultPlan
 from repro_torch.configs.base import ARCHS, get_config
 from repro_torch.data.pipeline import Dataset, DatasetConfig
 from repro_torch.kernels import build
+from repro_torch.launch import runner
 from repro_torch.launch.mesh import spawn
 from repro_torch.launch.serve import resolve_device
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.training import pipeline as PL
 from repro_torch.training import simulated as sim
+from repro_torch.weights import to_jax_params
 
 # seconds a --distributed run may take before every rank is stopped
 JOIN_TIMEOUT = 3600.0
-
-# flags of the JAX launcher the port refuses, and the title of the
-# ROADMAP item that ports them
-NOT_PORTED = {
-    "ckpt_dir": 'checkpoints (ROADMAP queue A, "Fault tolerance")',
-    "resume": 'checkpoints (ROADMAP queue A, "Fault tolerance")',
-    "save_every": 'checkpoints (ROADMAP queue A, "Fault tolerance")',
-    "checkpoint": 'checkpoints (ROADMAP queue A, "Fault tolerance")',
-    "fault": 'fault injection (ROADMAP queue A, "Fault tolerance")',
-    "kill_at": 'kill-and-resume (ROADMAP queue A, "Fault tolerance")',
-}
 
 
 def print_wires() -> None:
@@ -128,12 +128,38 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--distributed", action="store_true",
                     help="the multi-process GPipe pipeline over a "
                          "(--data-par, --stages) process mesh")
-    ap.add_argument("--checkpoint", default="")
-    ap.add_argument("--ckpt-dir", default="")
-    ap.add_argument("--save-every", type=int, default=0)
-    ap.add_argument("--resume", action="store_true")
-    ap.add_argument("--fault", default="")
-    ap.add_argument("--kill-at", type=int, default=None)
+    ap.add_argument("--checkpoint", default="",
+                    help="legacy params-only .npz export at exit "
+                         "(full-state checkpointing is --ckpt-dir)")
+    ap.add_argument("--ckpt-dir", default="",
+                    help="versioned full-state checkpoint directory "
+                         "(repro_torch.checkpoint manifest subsystem)")
+    ap.add_argument("--save-every", type=int, default=0,
+                    help="checkpoint the FULL train state every N "
+                         "steps (0 = off; needs --ckpt-dir)")
+    ap.add_argument("--resume", action="store_true",
+                    help="resume from the newest committed checkpoint "
+                         "in --ckpt-dir (checksums, structure and "
+                         "comm config are verified; the replayed loss "
+                         "stream is bit-identical)")
+    ap.add_argument("--keep", type=int, default=3,
+                    help="keep-last-k checkpoint rotation (0 = keep "
+                         "all)")
+    ap.add_argument("--max-retries", type=int, default=2,
+                    help="bounded fault recovery: reload the last "
+                         "good checkpoint and replay at most this "
+                         "many times")
+    ap.add_argument("--fault", default="",
+                    help="deterministic fault injection plan, "
+                         "step:plane:kind[,...] — e.g. "
+                         "'3:dp:nan-scale,5:fw:drop-hop' (kinds: "
+                         "corrupt-codes, nan-scale, drop-hop; "
+                         "single-host trainer only)")
+    ap.add_argument("--kill-at", type=int, default=None,
+                    help="hard-exit (os._exit 17) right after "
+                         "printing step N's loss, before any save — "
+                         "the kill half of the kill-and-resume parity "
+                         "gate (single-host trainer only)")
     return ap
 
 
@@ -156,7 +182,9 @@ def distributed_spec(args, dev: torch.device) -> dict:
         "data_par": args.data_par, "stages": args.stages,
         "microbatches": args.microbatches, "steps": args.steps,
         "batch": args.batch, "warmup_epochs": args.warmup_epochs,
-        "seed": args.seed,
+        "seed": args.seed, "ckpt_dir": args.ckpt_dir,
+        "save_every": args.save_every, "keep": args.keep,
+        "resume": args.resume,
         "optimizer": dataclasses.asdict(optimizer_config(args)),
         "dataset": {"num_samples": args.samples, "seq_len": args.seq,
                     "vocab_size": get_config(args.arch,
@@ -187,25 +215,24 @@ def run_distributed(specs: list, *, timeout: float = 3600.0) -> list:
 
 
 def main(argv=None):
-    """Parse the flags, train, print ``step N loss X`` every 10 steps and
-    ``final loss`` (the mean of the last 5).  Returns (state, losses), or
-    with --distributed (the ranks' results, losses)."""
+    """Parse the flags, train, print ``step N loss X [hex]`` every 10
+    steps and ``final loss`` (the mean of the last 5).  Returns (state,
+    losses), or with --distributed (the ranks' results, losses); the
+    losses are those of the steps this call ran."""
     ap = build_parser()
     args = ap.parse_args(argv)
     if args.list_wires:
         print_wires()
         return None
-    for flag in ("fault", "kill_at"):
-        value = getattr(args, flag)
-        if args.distributed and \
-                ((value is not None) if flag == "kill_at" else bool(value)):
-            ap.error(f"--{flag.replace('_', '-')} targets the single-host "
-                     f"simulated trainer, not the multi-process pipeline")
-    for flag, what in NOT_PORTED.items():
-        value = getattr(args, flag)
-        if (value is not None) if flag == "kill_at" else bool(value):
-            ap.error(f"--{flag.replace('_', '-')}: {what} is not ported "
-                     f"yet")
+    if args.fault and args.distributed:
+        ap.error("--fault targets the single-host simulated trainer, "
+                 "not the multi-process pipeline")
+    if args.kill_at is not None and args.distributed:
+        ap.error("--kill-at targets the single-host simulated trainer, "
+                 "not the multi-process pipeline")
+    if (args.resume or args.save_every or args.fault) \
+            and not args.ckpt_dir:
+        ap.error("--resume/--save-every/--fault need --ckpt-dir")
     if args.distributed and env.oncore_prng():
         ap.error(PL.ONCORE_REFUSAL)
     dev = resolve_device(args.device)
@@ -213,10 +240,14 @@ def main(argv=None):
         results, = run_distributed([distributed_spec(args, dev)],
                                    timeout=JOIN_TIMEOUT)
         losses = results[0]["losses"]
-        for i, loss in enumerate(losses):
+        start = results[0]["start"]
+        if start:
+            print(f"resumed from step {start}")
+        for i, loss in enumerate(losses, start=start):
             if i % 10 == 0:
-                print(f"step {i:5d} loss {loss:.4f}", flush=True)
-        print(f"final loss {np.mean(losses[-5:]):.4f}")
+                print(runner._loss_line(i, loss), flush=True)
+        if losses:                  # a resume at the last step runs none
+            print(f"final loss {np.mean(losses[-5:]):.4f}")
         return results, losses
     comm = comm_cli.from_args(args)
     cfg = get_config(args.arch, smoke=args.smoke)
@@ -229,10 +260,17 @@ def main(argv=None):
                               optimizer=optimizer_config(args),
                               dp_workers=args.dp_workers
                               if comm.dp.bits else 1)
-    state, losses = sim.train(cfg, tcfg, ds, num_steps=args.steps,
-                              batch_size=args.batch, seed=args.seed,
-                              device=dev, log_every=10)
-    print(f"final loss {np.mean(losses[-5:]):.4f}")
+    state, losses = runner.run_sim_training(
+        cfg, tcfg, ds, num_steps=args.steps, batch_size=args.batch,
+        log_every=10, ckpt_dir=args.ckpt_dir, save_every=args.save_every,
+        keep=args.keep, resume=args.resume, max_retries=args.max_retries,
+        fault_plan=FaultPlan.parse(args.fault), kill_at=args.kill_at,
+        seed=args.seed, device=dev)
+    if losses:
+        print(f"final loss {np.mean(losses[-5:]):.4f}")
+    if args.checkpoint:
+        ckpt.save(args.checkpoint, to_jax_params(state["model"]))
+        print("saved", args.checkpoint)
     return state, losses
 
 

@@ -45,6 +45,7 @@ import math
 from typing import Callable, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
@@ -123,7 +124,7 @@ class Transformer(nn.Module):
 
     def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
         """tokens (B, S) -> (B, S, d)."""
-        return self.embed.to(self.cfg.torch_dtype)[tokens]
+        return embed_rows(self.cfg, self.embed, tokens)
 
     def lm_logits(self, h: torch.Tensor) -> torch.Tensor:
         return head_logits(self.cfg, self.final_norm(h), self.embed,
@@ -245,6 +246,16 @@ class Transformer(nn.Module):
         if logits_last_only:
             h = h[:, -1:]
         return self.lm_logits(h), caches
+
+
+def embed_rows(cfg: ModelConfig, embed: torch.Tensor,
+               tokens: torch.Tensor) -> torch.Tensor:
+    """The embedding's rows of ``tokens``, in the model's dtype.  Through
+    `F.embedding`, whose backward adds a repeated token's gradients in a
+    fixed order on the CPU too (an indexing's backward, ``index_put_``
+    with accumulation, adds them in the threads' order there), so a
+    training run is bit-reproducible, as a resumed run needs."""
+    return F.embedding(tokens, embed.to(cfg.torch_dtype))
 
 
 def head_logits(cfg: ModelConfig, h: torch.Tensor, embed: torch.Tensor,

@@ -66,6 +66,19 @@ recomputed in the backward, so one piece's logits are live at a time.
 The hops (`_SendHop`, `_RecvHop`) and the message buffers stay outside
 every checkpoint, so a recompute never sends, draws or writes again.
 
+Checkpoints (the JAX launcher's ``--ckpt-dir``/``--save-every``/
+``--resume``): every rank writes its own state, in the manifest format
+of `repro_torch.checkpoint`, under ``<ckpt-dir>/rank_<data>_<model>/``
+(`rank_state`: its stage's parameters, AdamW's moments and step, the
+DP carry, ``m_out``/``m_in`` and, under the ZeRO wire, the full-model
+parameter bucket), so no rank ships another's state over the network.
+A resume takes the newest step that every rank committed
+(`common_step`, one MIN all-reduce of the ranks' committed steps) and
+replays the data stream by skipping; the warm-up choice and the
+per-step seeds take the global step index, so a stopped-and-resumed
+run gives the uninterrupted run's losses.  As in the JAX package there
+is no fault plan or guard on this path.
+
 Not ported: the other model families, FSDP/ZeRO-3 weight sharding
 (ROADMAP queue A), and the kernels' seeded noise: `build_rank` refuses
 the on-core noise knob (`repro_torch.env.oncore_prng`,
@@ -74,6 +87,7 @@ the on-core noise knob (`repro_torch.env.oncore_prng`,
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from dataclasses import InitVar, dataclass
 from typing import Optional
@@ -84,6 +98,7 @@ import torch.distributed as dist
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import checkpoint as ckpt
 from repro_torch import env
 from repro_torch.comm import faults
 from repro_torch.comm.config import CommConfig, reject_legacy_comm
@@ -92,8 +107,8 @@ from repro_torch.core import boundary as B
 from repro_torch.core import grad_compress as GC
 from repro_torch.core import quantization as Q
 from repro_torch.models import layers as L
-from repro_torch.models.model import (Block, Transformer, head_logits,
-                                      run_layer)
+from repro_torch.models.model import (Block, Transformer, embed_rows,
+                                      head_logits, run_layer)
 from repro_torch.optim import adamw
 from repro_torch.rng import seeded_generator
 from repro_torch.weights import stage_state_dict
@@ -230,7 +245,7 @@ class Stage(nn.Module):
         return self
 
     def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
-        return self.embed.to(self.cfg.torch_dtype)[tokens]
+        return embed_rows(self.cfg, self.embed, tokens)
 
     def trunk(self, h: torch.Tensor, pcfg: PipelineConfig) -> torch.Tensor:
         """The stage's layers over one microbatch, checkpointed as
@@ -793,28 +808,108 @@ def rank_batch(trainer: PipelineRank, batch: dict) -> dict:
     return local
 
 
+# ---------------------------------------------------------------------------
+# per-rank checkpoints
+# ---------------------------------------------------------------------------
+
+def rank_ckpt_dir(ckpt_dir: str, mesh) -> str:
+    """This rank's checkpoint directory under the run's ``ckpt_dir``."""
+    return os.path.join(ckpt_dir,
+                        f"rank_{mesh.data_rank}_{mesh.model_rank}")
+
+
+def rank_state(trainer: PipelineRank) -> dict:
+    """The rank's training state as a checkpoint tree, keyed by the
+    stage's own names: ``params``, ``opt`` (moments, f32 or b-bit codes
+    and scales, and ``step``), and where the rank has them ``dp_error``,
+    ``m_out``, ``m_in`` and the ZeRO wire's ``pbucket``.  The leaves are
+    the trainer's own tensors."""
+    tree = {"params": trainer.params, "opt": trainer.opt}
+    for name in ("dp_error", "m_out", "m_in", "pbucket"):
+        if getattr(trainer, name, None) is not None:
+            tree[name] = getattr(trainer, name)
+    return tree
+
+
+@torch.no_grad()
+def _copy_into(dst: dict, src: dict) -> None:
+    """Copy a restored tree into ``dst``'s tensors in place (ints, the
+    optimizer's step, by assignment)."""
+    for k, v in src.items():
+        if isinstance(v, dict):
+            _copy_into(dst[k], v)
+        elif isinstance(v, torch.Tensor):
+            dst[k].copy_(v)
+        else:
+            dst[k] = v
+
+
+def common_step(trainer: PipelineRank, directory: str, steps: int) -> int:
+    """The newest step of ``0..steps`` that every rank committed under
+    its own directory: one MIN all-reduce over every rank of each one's
+    committed steps.  Raises `CheckpointError` when there is none."""
+    mine = torch.zeros(steps + 1, dtype=torch.int32)
+    for s in ckpt.checkpoint_steps(directory):
+        if s <= steps:
+            mine[s] = 1
+    every = trainer.mesh.transport.all_reduce(mine, dist.ReduceOp.MIN, None,
+                                              "ckpt").cpu()
+    done = torch.nonzero(every).flatten().tolist()
+    if not done:
+        raise ckpt.CheckpointError(
+            f"{directory}: no checkpoint step that every rank committed "
+            f"(this rank has {ckpt.checkpoint_steps(directory)})")
+    return done[-1]
+
+
 def train_rank(rank: int, world: int, spec: dict) -> dict:
     """One process of a distributed run (`repro_torch.launch.mesh.spawn`
     target).  ``spec``: the run's plain-data description (see
-    `repro_torch.launch.train.distributed_spec`).  Returns the rank's
-    losses, step and phase times, peak device memory, kernel launches,
-    transport bytes and manifests, and replica checks (after every
-    step), as plain data."""
+    `repro_torch.launch.train.distributed_spec`; ``ckpt_dir``,
+    ``save_every``, ``keep`` and ``resume`` are the checkpoint flags).
+    Returns the rank's losses (of the steps this call ran), step and
+    phase times, peak device memory, kernel launches, transport bytes
+    and manifests, replica checks (after every step) and its
+    checkpoints' saves and restores (``ckpt``: step, bytes, seconds),
+    as plain data."""
     from repro_torch.kernels import quant_pack as qp
 
     trainer, ds = build_rank(rank, world, spec)
     mesh, dev = trainer.mesh, trainer.mesh.device
+    comm = trainer.pcfg.comm
     steps, gb = spec["steps"], spec["batch"]
     warm_steps = max(ds.num_samples // gb, 1) * spec["warmup_epochs"] \
         if trainer.has_bufs else 0
     out = {"rank": rank, "data_rank": mesh.data_rank,
            "model_rank": mesh.model_rank, "losses": [], "step_seconds": [],
            "replicas": [], "bytes": [], "launches": [], "manifests": [],
-           "phase_seconds": []}
+           "phase_seconds": [], "ckpt": [], "start": 0}
+    ckpt_dir = spec.get("ckpt_dir", "")
+    save_every = spec.get("save_every", 0)
+    own = rank_ckpt_dir(ckpt_dir, mesh) if ckpt_dir else ""
+    if own:
+        ckpt.clean_orphans(own)
+    if spec.get("resume"):
+        t0 = time.perf_counter()
+        at = common_step(trainer, own, steps)
+        tree, body = ckpt.restore_state(own, rank_state(trainer), step=at,
+                                        comm=comm)
+        _copy_into(rank_state(trainer), tree)
+        del tree
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        out["start"] = int(body["step"])
+        out["ckpt"].append({"op": "restore", "step": out["start"],
+                            "bytes": ckpt.checkpoint_nbytes(own, out["start"]),
+                            "seconds": time.perf_counter() - t0})
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
-    for step_i, batch in enumerate(ds.batches(gb, steps)):
+    batches = ds.batches(gb, steps)
+    for _ in range(out["start"]):
+        next(batches)       # the data stream is deterministic: replay by
+                            # skipping to the checkpointed position
+    for step_i, batch in enumerate(batches, start=out["start"]):
         local = rank_batch(trainer, batch)
         mesh.transport.reset()
         qp.reset_launches()
@@ -834,6 +929,15 @@ def train_rank(rank: int, world: int, spec: dict) -> dict:
                                        "grad")})
         out["manifests"].append(tr.manifest("dp"))
         out["replicas"].append(check_replicas(trainer))
+        done = step_i + 1
+        if own and save_every and done % save_every == 0:
+            t0 = time.perf_counter()
+            ckpt.save_state(own, rank_state(trainer), step=done, comm=comm,
+                            extra={"data_position": done},
+                            keep=spec.get("keep", 3))
+            out["ckpt"].append({"op": "save", "step": done,
+                                "bytes": ckpt.checkpoint_nbytes(own, done),
+                                "seconds": time.perf_counter() - t0})
     if dev.type == "cuda":
         out["peak_mem_bytes"] = torch.cuda.max_memory_allocated(dev)
     out["dp_bucket"] = list(trainer.bucket.shape)

@@ -47,7 +47,10 @@ profiler they cost a few microseconds.
 The training state is a dict: ``model`` (a `Transformer`), ``opt``
 (AdamW moments), ``buffers`` (AQ-SGD messages) and, with DP
 compression, ``dp_error`` ((workers, rows, group_d) f32).  Parameters,
-moments, buffers and carries are updated in place.
+moments, buffers and carries are updated in place.  `to_jax_state` and
+`load_jax_state` carry it to and from the JAX package's state tree
+(``params``, ``opt/{mu,nu,step}``, ``buffers``, ``dp_error``), the tree
+a checkpoint holds (`repro_torch.checkpoint`, `launch.runner`).
 """
 from __future__ import annotations
 
@@ -66,7 +69,8 @@ from repro_torch.core import grad_compress as GC
 from repro_torch.models import model as Mo
 from repro_torch.optim import adamw
 from repro_torch.rng import seeded_generator
-from repro_torch.weights import jax_leaf_names, jax_leaves, load_jax_params
+from repro_torch.weights import (from_jax_tree, jax_leaf_names, jax_leaves,
+                                 jax_tree, load_jax_params, to_jax_params)
 
 
 @dataclass(frozen=True)
@@ -137,6 +141,50 @@ def init_train_state(mcfg: ModelConfig, tcfg: SimTrainConfig,
         state["dp_error"] = torch.zeros(
             (tcfg.dp_workers, lay.rows, lay.group_d), dtype=torch.float32,
             device=device)
+    return state
+
+
+def to_jax_state(state: dict) -> dict:
+    """The training state as the JAX package's simulated-trainer state
+    tree (`repro.training.simulated.init_train_state`'s layout, shapes
+    and dtypes): ``params`` (JAX names, layers stacked), ``opt`` as
+    ``{mu, nu, step}`` (per-leaf moments in the params' layout, or the
+    ZeRO wire's (workers, seg, group_d) bucket moments; ``step`` an int,
+    JAX's 0-d int32), ``buffers`` (absent outside aqsgd) and
+    ``dp_error``.  Stacked leaves are new tensors; the others share the
+    state's storage."""
+    opt = state["opt"]
+    mu, nu = opt["mu"], opt["nu"]
+    if isinstance(mu, dict):
+        mu, nu = jax_tree(mu), jax_tree(nu)
+    tree = {"params": to_jax_params(state["model"]),
+            "opt": {"mu": mu, "nu": nu, "step": int(opt["step"])}}
+    if state["buffers"] is not None:
+        tree["buffers"] = dict(state["buffers"])
+    if "dp_error" in state:
+        tree["dp_error"] = state["dp_error"]
+    return tree
+
+
+@torch.no_grad()
+def load_jax_state(state: dict, tree: dict) -> dict:
+    """Copy a state tree in `to_jax_state`'s layout (tensors on any
+    device) into the training state, in place; returns the state."""
+    params = dict(state["model"].named_parameters())
+    for name, t in from_jax_tree(tree["params"]).items():
+        params[name].copy_(t)
+    opt = state["opt"]
+    for k in ("mu", "nu"):
+        if isinstance(opt[k], dict):
+            for name, t in from_jax_tree(tree["opt"][k]).items():
+                opt[k][name].copy_(t)
+        else:
+            opt[k].copy_(tree["opt"][k])
+    opt["step"] = int(tree["opt"]["step"])
+    for k, t in tree.get("buffers", {}).items():
+        state["buffers"][k].copy_(t)
+    if "dp_error" in state:
+        state["dp_error"].copy_(tree["dp_error"])
     return state
 
 

@@ -14,6 +14,13 @@ The distributed trainer's tree is the JAX package's pipeline layout
 (`to_pipeline_params`): ``layers`` zero-padded to K * lps layers and
 reshaped to ``stages`` (K, lps, ...), lps = ceil(L / K).
 `stage_state_dict` gives one pipeline stage its weights from it.
+
+`jax_tree` goes the other way: any name -> tensor dict keyed by the
+port's parameter names (the parameters, the AdamW moments) as the JAX
+package's nested tree, the layers restacked; `to_jax_params` is it on a
+model, the layout of a checkpoint's ``params`` (`repro_torch.checkpoint`)
+and of ``launch.train --checkpoint``.  `from_jax_tree` unstacks a tree
+back into the port's names.
 """
 from __future__ import annotations
 
@@ -36,22 +43,30 @@ def _flatten(tree: dict, prefix: str = "") -> dict:
     return out
 
 
+def from_jax_tree(tree: dict) -> dict:
+    """A JAX params-shaped tree (tensors or numpy arrays; ``layers``
+    stacked along dim 0) as ``{port parameter name: leaf}``, each layer
+    a view of its stacked leaf."""
+    out = {}
+    for name, leaf in _flatten(tree).items():
+        if name.startswith("layers."):
+            for i in range(leaf.shape[0]):
+                out[f"layers.{i}.{name[len('layers.'):]}"] = leaf[i]
+        else:
+            out[name] = leaf
+    return out
+
+
 def from_jax_params(np_tree: dict, cfg: ModelConfig, *,
                     device="cpu") -> Transformer:
     """Build a `Transformer` holding the weights of a JAX params pytree
     (numpy arrays; ``layers`` stacked along dim 0)."""
     model = Transformer(cfg, device=device)
-    state = {}
-    for name, arr in _flatten(
-            {k: v for k, v in np_tree.items() if k != "layers"}).items():
-        state[name] = np.asarray(arr)
     for name, arr in _flatten(np_tree["layers"]).items():
-        arr = np.asarray(arr)
-        if arr.shape[0] != cfg.num_layers:
-            raise ValueError(f"layers.{name}: {arr.shape[0]} stacked "
+        if np.shape(arr)[0] != cfg.num_layers:
+            raise ValueError(f"layers.{name}: {np.shape(arr)[0]} stacked "
                              f"layers, config has {cfg.num_layers}")
-        for i in range(cfg.num_layers):
-            state[f"layers.{i}.{name}"] = arr[i]
+    state = {k: np.asarray(v) for k, v in from_jax_tree(np_tree).items()}
     own = model.state_dict()
     if set(state) != set(own):
         raise KeyError(f"params do not match the model: missing "
@@ -84,6 +99,30 @@ def jax_leaves(params: dict) -> list:
     return [[params[n] for n in names] if key.startswith("layers.")
             else params[names[0]]
             for key, names in jax_leaf_names(params)]
+
+
+def jax_tree(named: dict) -> dict:
+    """``named`` (port parameter name -> tensor) as the JAX package's
+    nested tree: dotted names nested, ``layers.<i>.<rest>`` stacked
+    along a new dim 0 (a new tensor on their device) under
+    ``layers/<rest>``; the other leaves are ``named``'s own tensors."""
+    out: dict = {}
+    for key, names in jax_leaf_names(named):
+        parts = key.split(".")
+        leaf = torch.stack([named[n] for n in names]) \
+            if parts[0] == "layers" else named[names[0]]
+        node = out
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = leaf
+    return out
+
+
+@torch.no_grad()
+def to_jax_params(model: Transformer) -> dict:
+    """The inverse of `from_jax_params`: the model's weights as a JAX
+    params tree of tensors, ``layers`` restacked along dim 0."""
+    return jax_tree({n: p.detach() for n, p in model.named_parameters()})
 
 
 def load_jax_params(model: Transformer, np_tree: dict) -> Transformer:

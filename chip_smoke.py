@@ -14,13 +14,17 @@ Phases, each printed on its own line:
    prefill append, R=8*160*25 per store read, d=64; the DP gradient
    bucket R=877132, d=512), at bits 2/4/8, a ragged R, an odd d (the
    scalar path), the encoders at their tiling's edges past 256 values
-   (d 260, 1600, 3584, 4608, 5120 and 8196, past the register cap; 1
-   and 5 rows; B2 at the hops of 3584, 4608 and 5120), stochastic cases with shared noise, a bf16 read, both
+   (d 260, 1600, 2048, 2560, 3584, 4608, 5120 and 8196, past the
+   register cap; 1 and 5 rows; B2 at the hops of 3584, 4608 and 5120,
+   and at mamba2's (8, 2048) and zamba2's (2, 2560)), stochastic cases
+   with shared noise, a bf16 read, both
    ``pack`` variants, zero scale rows and n = 1/2/3/5 workers; then each
    kernel's median device time (CUDA events around a CUDA graph of
    back-to-back launches), its byte bound and the plain version's time;
    the activation codecs the training path runs are also checked
-   bit-exact and timed at its shape (R=4*1024, d=1600); the ring's
+   bit-exact and timed at its shape (R=4*1024, d=1600), and checked
+   at [train-zamba2]'s (R=4*1024, d=2560, with and without the noise;
+   B5 and B6 at its 1,299,696-row bucket); the ring's
    three kernels (accumulate, sum pack and unpack) at every sum width
    (2/4/8/16/32 bits), ragged rows, the element path, the sums'
    unpacker past its last whole 512-byte segment and on a misaligned
@@ -152,15 +156,15 @@ Phases, each printed on its own line:
    the window of 16), 6 decode steps, card against CPU, and
    ``[serve-gemma2-build]``: the launcher's model build (weights drawn
    on the CPU from the seed) against a build drawn on the card;
-   ``[serve-stablelm]``: ``stablelm-12b`` at full size (40 layers, d
-   5120, 32 query heads on 8 kv heads of 160, vocab 100352, an untied
-   head), batch 2, a prompt of 4064 into a cache of its 4096-token
-   context, 32 decode steps, and ``[serve-gemma2-27b]``: ``gemma2-27b``
-   at full width (d 4608, 32 heads on 16 kv heads of 128, d_ff 36864)
-   cut to the first 8 of its 46 layers (``--layers``, `G27_LAYERS`;
-   28, the most the card holds, costs ~80 s more of host weight draws),
-   batch 2, prompt 8160
-   into 8192, 32 decode steps; both with the same comm flags and checks
+   ``[serve-stablelm]``: ``stablelm-12b`` at full width (d 5120, 32
+   query heads on 8 kv heads of 160, vocab 100352, an untied head), the
+   first 20 of its 40 layers (`S_LAYERS`), batch 2, a prompt of 4064
+   into a cache of its 4096-token context, 32 decode steps, and
+   ``[serve-gemma2-27b]``: ``gemma2-27b`` at full width (d 4608, 32
+   heads on 16 kv heads of 128, d_ff 36864) cut to the first 8 of its
+   46 layers (``--layers``, `G27_LAYERS`; 28, the most the card holds,
+   costs ~80 s more of host weight draws), batch 2, prompt 8160 into
+   8192, 32 decode steps; both with the same comm flags and checks
    as ``[serve-gemma2]`` (launches exactly, hop and KV bytes against
    the byte models); then each one's SMOKE card-against-CPU check
    (``[serve-stablelm-12b-reference-check]``,
@@ -259,12 +263,41 @@ rows, where SDPA (``enable_gqa``) is the library time of stablelm's
 calls; gemma2-27b's prefill (2, 32, 16, 8160, 8192, 128), local and
 global, is in ``[flash-check]`` and ``[kernel-time]``.
 
+The ssm and hybrid families (since their slice): B10 at head_dim 80
+(zamba2-2.7b's shared block; the wrapper zero-pads q, k and v to the
+hd-96 instance) in ``[flash-check]`` (the sweep's small cases at 80, f32
+and bf16, and zamba2's prefill (2, 32, 32, 4064, 4096, 80) held to the
+float64 formula; its training shape (4, 32, 32, 1024, 1024, 80) with
+the lse), ``[flash-train-check]`` and ``[kernel-time]`` (the bound at
+hd 80, ``pad_ms`` the three copies timed apart, SDPA beside);
+``[serve-mamba2]``: ``mamba2-1.3b`` at full size (48 layers, d 2048,
+64 SSM heads of 64, state 128), batch 8, prompt 2048, 32 decode steps,
+2 stage groups, ``--kv-bits 8`` passed through; ``[serve-zamba2]``:
+``zamba2-2.7b`` at full size (54 layers in 9 blocks), batch 2, prompt
+4064 into 4096, 32 decode steps, 3 stage groups, kv bits 0; both with
+the launches checked exactly (B1 = B2 = steps x boundaries, B3 = B4 =
+0, B10 9 for zamba2's prefill and 0 for mamba2), the hop bytes as sent,
+the state bytes (ssm + conv) and zamba2's raw KV bytes against their
+byte models; ``[serve-mamba2-reference-check]`` and
+``[serve-zamba2-reference-check]`` (SMOKE, zamba2 at head_dim 80, card
+against CPU, the final states held to PREFILL_ATOL scaled to each
+state's magnitude); ``[train-zamba2]``:
+the simulated trainer at full width, 12 of 54 layers (2 blocks), 2
+stage groups, ``[train]``'s other settings, no remat (its peak, 42.7
+GiB, fits: tools/train_memory.py); ``[train-mamba2-reference-check]``,
+``[train-zamba2-reference-check]`` (simulated, zamba2 at head_dim 80)
+and ``[dist-zamba2-reference-check]`` (the 2 x 2 mesh at SMOKE, the
+shared block's copies bit-equal on every stage after every step).
+Every distributed card-against-CPU check runs in one spawn a device
+(`DIST_CHECKS`).
+
 B9a and B9b launch 0 times on every path but ``[legacy-dp-codec]``:
 no trainer or server runs the legacy pair, in the JAX package either.
 Then one JSON line with every kernel's numbers (``launches``: the
 count on the path its time was taken at, named by ``launches_path``;
 each path's own count in ``launches_by_path``, ``serve_continuous``,
-``serve_stablelm``, ``serve_gemma2_27b``, ``train_full_depth``,
+``serve_stablelm``, ``serve_gemma2_27b``, ``serve_mamba2``,
+``serve_zamba2``, ``train_zamba2``, ``train_full_depth``,
 ``train_resume``, ``train_fault`` and ``dist_resume`` among them), the
 card's name and
 power limit, and as the last line ``{"ok": true, "device": {...}}``.
@@ -381,14 +414,16 @@ GEMMA_ARGS = ["--arch", "gemma2-9b", "--stages", "2", "--mode", "aqsgd",
               "--device", "cuda", "--seed", "0"]
 # the gemma2 reference check: SMOKE, a prompt past its window of 16
 G_CHECK_PROMPT, G_CHECK_STEPS = 40, 6
-# stablelm-12b served at full size (40 layers, d 5120, 32 heads on 8 kv
-# heads of 160, vocab 100352, an untied head): a prompt of 4064 into a
-# cache of its 4096-token context
+# stablelm-12b served at full width (d 5120, 32 heads on 8 kv heads of
+# 160, vocab 100352, an untied head), the first 20 of its 40 layers (the
+# run's time: the host draws ~0.3e9 weights a layer): a prompt of 4064
+# into a cache of its 4096-token context
 S_BATCH, S_PROMPT, S_GEN = 2, 4064, 32
 S_CACHE = S_PROMPT + S_GEN
-S_LAYERS, S_D, S_VOCAB = 40, 5120, 100352
+S_LAYERS, S_D, S_VOCAB = 20, 5120, 100352
 S_HEADS, S_KV_HEADS, S_HEAD_DIM = 32, 8, 160
-STABLELM_ARGS = ["--arch", "stablelm-12b", "--stages", "2", "--mode",
+STABLELM_ARGS = ["--arch", "stablelm-12b", "--layers", str(S_LAYERS),
+                 "--stages", "2", "--mode",
                  "aqsgd", "--fw-bits", "4", "--kv-bits", "8", "--batch",
                  str(S_BATCH), "--prompt-len", str(S_PROMPT), "--gen",
                  str(S_GEN), "--device", "cuda", "--seed", "0"]
@@ -408,6 +443,60 @@ G27_ARGS = ["--arch", "gemma2-27b", "--layers", str(G27_LAYERS), "--stages",
             "2", "--mode", "aqsgd", "--fw-bits", "4", "--kv-bits", "8",
             "--batch", str(G_BATCH), "--prompt-len", str(G_PROMPT), "--gen",
             str(G_GEN), "--device", "cuda", "--seed", "0"]
+
+
+# the ssm and hybrid families at full size.  mamba2-1.3b (48 layers, d
+# 2048, d_inner 4096, 64 SSM heads of 64, state 128, vocab 50280,
+# 1.34e9 parameters): batch 8, a prompt of 2048 (the Mamba2 paper's
+# training context), 32 decode steps, 2 stage groups, the 4-bit hop and
+# --kv-bits 8, which passes through (no KV cache).  zamba2-2.7b (54
+# layers in 9 blocks of 6, d 2560, the shared block's 32 heads of 80 and
+# d_ff 10240, vocab 32000, 2.34e9): batch 2, a prompt of 4064 into a
+# cache of 4096, 32 decode steps, 3 stage groups of 3 blocks (2 hop
+# boundaries), kv bits 0 (JAX's rule for the shared block).  State
+# bytes (ssm + conv, f32): 805,306,368 + 20,054,016 and 141,557,760 +
+# 6,801,408, whatever the prompt's length
+M_BATCH, M_PROMPT, M_GEN, M_STAGES = 8, 2048, 32, 2
+Z_BATCH, Z_PROMPT, Z_GEN, Z_STAGES = 2, 4064, 32, 3
+Z_CACHE = Z_PROMPT + Z_GEN
+Z_HEADS, Z_HEAD_DIM = 32, 80
+MAMBA_ARGS = ["--arch", "mamba2-1.3b", "--stages", str(M_STAGES), "--mode",
+              "aqsgd", "--fw-bits", "4", "--kv-bits", "8", "--batch",
+              str(M_BATCH), "--prompt-len", str(M_PROMPT), "--gen",
+              str(M_GEN), "--device", "cuda", "--seed", "0"]
+ZAMBA_ARGS = ["--arch", "zamba2-2.7b", "--stages", str(Z_STAGES), "--mode",
+              "aqsgd", "--fw-bits", "4", "--kv-bits", "0", "--batch",
+              str(Z_BATCH), "--prompt-len", str(Z_PROMPT), "--gen",
+              str(Z_GEN), "--device", "cuda", "--seed", "0"]
+# tag -> (arch, launcher args, batch, prompt, decode steps, stage groups)
+SSM_CELLS = {
+    "serve-mamba2": ("mamba2-1.3b", MAMBA_ARGS, M_BATCH, M_PROMPT, M_GEN,
+                     M_STAGES),
+    "serve-zamba2": ("zamba2-2.7b", ZAMBA_ARGS, Z_BATCH, Z_PROMPT, Z_GEN,
+                     Z_STAGES),
+}
+# their SMOKE card-vs-CPU checks: a prompt past SMOKE's chunk of 32, 6
+# decode steps; zamba2 at head_dim 80, so the card's hd-80 B10 path runs
+SSM_CHECK_PROMPT, SSM_CHECK_STEPS = 40, 6
+SSM_CHECK_CFG = {"mamba2-1.3b": {}, "zamba2-2.7b": {"head_dim": Z_HEAD_DIM}}
+# [train-zamba2]: the simulated trainer at full width, 12 of 54 layers (2
+# blocks, 665e6 parameters), 2 stage groups, [train]'s other settings
+TZ_LAYERS, TZ_STAGES = 12, 2
+M_D, Z_D = 2048, 2560
+# the hops the new serving paths send (a decode step's rows), and
+# [train-zamba2]'s DP bucket (665,444,160 parameters in 512-wide rows)
+SSM_HOPS = ((M_BATCH, M_D), (Z_BATCH, Z_D))
+TZ_BUCKET = (1299696, 512)
+
+
+def ssm_state_bytes(cfg, batch) -> tuple:
+    """The byte model of an ssm or hybrid model's serving state: the
+    ``ssm`` states (L, B, h, p, n) and ``conv`` windows (L, B, width-1,
+    d_inner + 2 g n), f32 both."""
+    conv_dim = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
+    return (cfg.num_layers * batch * cfg.ssm_heads * cfg.ssm_headdim
+            * cfg.ssm_state * 4,
+            cfg.num_layers * batch * (cfg.ssm_conv_width - 1) * conv_dim * 4)
 
 
 def cell_launches(gen, layers):
@@ -450,12 +539,13 @@ TRAIN_LAYERS, TRAIN_STAGES, TRAIN_WORKERS = 12, 4, 2
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_SAMPLES, TRAIN_STEPS = 8, 1024, 16, 6
 DP_BUCKET = (877132, 512)      # 449,091,200 parameters in 512-wide rows
 TRAIN_ROWS = (TRAIN_BATCH // TRAIN_WORKERS * TRAIN_SEQ, D_MODEL)  # a worker
+TZ_ROWS = (TRAIN_ROWS[0], Z_D)          # a [train-zamba2] worker
 # the encoders' tiling edges past 256 values (quant_pack._encode_tiling: a
 # block a row): the first width a block takes, the hops' (gpt2-xl's,
-# gemma2-9b's, gemma2-27b's and stablelm-12b's d_model), and the first
-# width past the register cap (8192 values), which the block walks
-# twice; 1 and 5 rows each
-WIDE_ROWS = [(r, d) for d in (260, 1600, 3584, 4608, 5120, 8196)
+# mamba2-1.3b's, zamba2-2.7b's, gemma2-9b's, gemma2-27b's and
+# stablelm-12b's d_model), and the first width past the register cap
+# (8192 values), which the block walks twice; 1 and 5 rows each
+WIDE_ROWS = [(r, d) for d in (260, 1600, 2048, 2560, 3584, 4608, 5120, 8196)
              for r in (1, 5)]
 # kernel launches per training step: 3 boundaries x 2 workers forward
 # (sender) and backward (gradient round trip); per worker one DP sender
@@ -794,9 +884,12 @@ def kernel_phase(torch, qp, ref):
     cases += [(n, r, d, b, {"stochastic": st})
               for n in ("delta_quantize_pack", "quantize_pack")
               for r, d in WIDE_ROWS for b in (2, 4, 8) for st in (False, True)]
-    # B2 at the wide hops (gemma2-9b's, gemma2-27b's, stablelm-12b's)
+    # B2 at the wide hops (gemma2-9b's, gemma2-27b's, stablelm-12b's),
+    # and at mamba2-1.3b's and zamba2-2.7b's as their decode steps send
     cases += [("dequant_unpack_accumulate", 2, d, b, {})
               for d in (3584, G27_D, S_D) for b in (2, 4, 8)]
+    cases += [("dequant_unpack_accumulate", r, d, b, {})
+              for r, d in SSM_HOPS for b in (2, 4, 8)]
     cases += [("quantize_pack", *kv_append, b, {"stochastic": True})
               for b in (2, 4, 8)]
     cases += [("quantize_pack", *kv_prefill, 8, {}),
@@ -825,6 +918,14 @@ def kernel_phase(torch, qp, ref):
     cases += [("delta_quantize_pack", *TRAIN_ROWS, 4, {"stochastic": True}),
               ("quantize_pack", *TRAIN_ROWS, 8, {"stochastic": True}),
               ("unpack_dequant", *TRAIN_ROWS, 8, {})]
+    # and at [train-zamba2]'s (a worker's 4 x 1024 rows of d 2560, the
+    # encoders with and without the noise; its 1,299,696-row DP bucket)
+    cases += [(n, *TZ_ROWS, b, {"stochastic": st})
+              for n, b in (("delta_quantize_pack", 4), ("quantize_pack", 8))
+              for st in (False, True)]
+    cases += [("unpack_dequant", *TZ_ROWS, 8, {}),
+              ("quantize_codes_scaled", *TZ_BUCKET, 4, {"stochastic": True}),
+              ("dequant_sum_mean", *TZ_BUCKET, 4, {"n": 2})]
     # the ring: accumulate at bits 2/4/8, sum packers at every sum width
     # (2, 4, 8, 16, 32 bits), ragged rows, the element path (an element
     # count that is not a multiple of 4), and the distributed path's
@@ -1567,12 +1668,26 @@ FLASH_SWEEP = [
     # softcap of 50, f32 and bf16
     *[("edge", 2, 4, 2, 65, 97, hd, 32, True, 10 ** 9, 50.0, dt, 16.0)
       for hd in (32, 64, 128, 160, 256) for dt in ("float32", "bfloat16")],
+    # zamba2's head_dim 80 (the wrapper pads it to the kernel's 96):
+    # whole tiles, GQA, a window and a softcap with q scaled by 16 at a
+    # query offset, and the tiles' edges; f32 and bf16
+    *[("shape-hd80", 1, 2, 2, 64, 64, 80, 0, True, 10 ** 9, 0.0, dt, 1.0)
+      for dt in ("float32", "bfloat16")],
+    ("ragged", 2, 4, 2, 37, 53, 80, 9, True, 16, 50.0, "float32", 16.0),
+    ("ragged", 2, 32, 32, 77, 300, 80, 150, True, 10 ** 9, 0.0, "float32",
+     1.0),
+    ("ragged", 1, 4, 2, 100, 230, 80, 130, False, 50, 30.0, "bfloat16",
+     1.0),
+    *[("edge", 2, 4, 2, 65, 97, 80, 32, True, 10 ** 9, 50.0, dt, 16.0)
+      for dt in ("float32", "bfloat16")],
     # f32 k and v rows off 16-byte alignment: the register copy
     ("odd-stride", 1, 4, 2, 70, 100, 64, 30, True, 10 ** 9, 50.0,
      "float32", 1.0),
     ("odd-stride", 1, 4, 2, 70, 100, 256, 30, True, 40, 50.0, "float32",
      16.0),
     ("odd-stride", 1, 4, 2, 70, 100, 160, 30, True, 10 ** 9, 0.0,
+     "float32", 1.0),
+    ("odd-stride", 1, 4, 2, 70, 100, 80, 30, True, 10 ** 9, 0.0,
      "float32", 1.0),
     # the continuous batcher's B = 1 prefills into a row cache of 160, as
     # the model passes them (transposed views)
@@ -1602,10 +1717,14 @@ FLASH_PATHS = {
     "gemma2-27b-global": ("path", G_BATCH, G27_HEADS, G27_KV_HEADS,
                           G_PROMPT, G_CACHE, G27_HEAD_DIM, 0, True, G_CACHE,
                           G_CAP, "float32", 16.0),
+    # zamba2-2.7b's shared block at its prefill (32 heads of 80, window =
+    # its cache of 4096)
+    "zamba2": ("path", Z_BATCH, Z_HEADS, Z_HEADS, Z_PROMPT, Z_CACHE,
+               Z_HEAD_DIM, 0, True, Z_CACHE, 0.0, "float32", 1.0),
 }
 # the hd-160 calls are held to the float64 formula (at the sweep's f32
 # tolerance), the others to the f32 plain version at FLASH_PATH_TOL
-FLASH_F64_PATHS = ("stablelm", "stablelm-ragged")
+FLASH_F64_PATHS = ("stablelm", "stablelm-ragged", "zamba2")
 
 
 # the training attention (B10 asked for its rows' log-sum-exp, and JAX's
@@ -1627,6 +1746,10 @@ FLASH_TRAIN = {
     # stablelm-12b's heads (32 on 8 kv heads of 160) at 4 x 1024 tokens
     "stablelm-train": ("path", 4, S_HEADS, S_KV_HEADS, 1024, 1024,
                        S_HEAD_DIM, 0, True, 1024, 0.0, "float32", 1.0),
+    # a [train-zamba2] worker's shared block (4 x 1024, 32 heads of 80)
+    "zamba2-train": ("path", TRAIN_BATCH // TRAIN_WORKERS, Z_HEADS, Z_HEADS,
+                     TRAIN_SEQ, TRAIN_SEQ, Z_HEAD_DIM, 0, True, TRAIN_SEQ,
+                     0.0, "float32", 1.0),
 }
 # against the float64 formula: o at the sweep's f32 tolerance, the lse
 # at rtol = atol = 2e-5, and each of dq, dk, dv within 1e-4 of its
@@ -1757,12 +1880,14 @@ def _sdpa(torch, case):
 
 def time_flash(torch, fa, ref, case, lse=False):
     """(ms, ms_head_major, plain_ms, library_ms, bound_ms, bound_by,
-    bytes, ops) at one path shape, ms on the path's views and
+    bytes, ops, pad_ms) at one path shape, ms on the path's views and
     ms_head_major on contiguous copies of them; the library call is
     checked equal to the kernel (rtol = atol = FLASH_PATH_TOL) before it
     is timed.  With ``lse`` the kernel and the plain version also write
     the rows' log-sum-exp (its bytes counted); the library call computes
-    the output alone."""
+    the output alone.  The bound counts the call's own head dim, whatever
+    width the kernel computes; ``pad_ms`` times a padded head dim's
+    three copies apart (None at the kernel's own widths)."""
     _, b, h, hk, sq, sk, hd, off, causal, window, cap, *_ = case
     kw = dict(_flash_kw(case), **({"return_lse": True} if lse else {}))
     one = _flash_inputs(torch, case, seed=1)
@@ -1788,6 +1913,12 @@ def time_flash(torch, fa, ref, case, lse=False):
         torch, lambda *a: fa.flash_attention_fwd(*a, **kw), dense, launches,
         reps)
     del dense
+    # a head dim the wrapper zero-pads (zamba2's 80 to 96): the three
+    # copies, inside ms, timed apart
+    width = fa.PADDED_HEAD_DIMS.get(hd)
+    pad_ms = None if width is None else device_ms(
+        torch, lambda *a: [fa.pad_head_dim(t, width) for t in a], sets,
+        launches, reps)
     plain_ms = device_ms(torch, lambda *a: ref.flash_attention_ref(*a, **kw),
                          sets, launches, reps)
     library_ms = None if library is None else \
@@ -1800,7 +1931,7 @@ def time_flash(torch, fa, ref, case, lse=False):
     ops_ms = ops / F32_OPS_PER_S * 1e3
     bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
     return ms, ms_head_major, plain_ms, library_ms, max(bytes_ms, ops_ms), \
-        bound_by, nbytes, ops
+        bound_by, nbytes, ops, pad_ms
 
 
 def tensor_core_bound_ms(ops, nbytes) -> float:
@@ -1855,7 +1986,7 @@ def flash_phase(torch, fa, ref):
     for name, case in [*FLASH_PATHS.items(), *FLASH_TRAIN.items()]:
         lse = name in FLASH_TRAIN
         ms, ms_head_major, plain_ms, library_ms, bound_ms, bound_by, \
-            nbytes, ops = time_flash(torch, fa, ref, case, lse=lse)
+            nbytes, ops, pad_ms = time_flash(torch, fa, ref, case, lse=lse)
         bound_tc_ms = tensor_core_bound_ms(ops, nbytes)
         # bound_ms: the f32 units' rate; bound_tc_ms: the tensor cores'
         # (tflops: the visible scores' operations a second; tflops_tc:
@@ -1871,13 +2002,14 @@ def flash_phase(torch, fa, ref):
               library_ms=None if library_ms is None
               else f"{library_ms:.6f}",
               tflops=f"{ops / ms / 1e9:.3f}",
-              tflops_tc=f"{TF32_PASSES * ops / ms / 1e9:.3f}")
+              tflops_tc=f"{TF32_PASSES * ops / ms / 1e9:.3f}",
+              pad_ms=None if pad_ms is None else f"{pad_ms:.6f}")
         timed[name] = {"shape": list(case[1:7]), "window": case[9],
                        "softcap": case[10], "ms": ms,
                        "ms_head_major": ms_head_major, "plain_ms": plain_ms,
                        "bound_ms": bound_ms, "bound_by": bound_by,
                        "bound_tc_ms": bound_tc_ms,
-                       "library_ms": library_ms,
+                       "library_ms": library_ms, "pad_ms": pad_ms,
                        "max_abs_err": path_errs[name]}
         if lse:
             timed[name]["max_abs_err_lse"] = lse_errs[name]
@@ -2099,19 +2231,23 @@ def hop_sync(hc, mc, nc, hg, mg, ng):
 
 
 def reference_check(torch, arch="gpt2-xl-paper", p=8, n=6,
-                    tag="reference-check"):
-    """The SMOKE model of ``arch`` served on the card (kernels) against
-    the same weights, drawn on the CPU, served on the CPU (plain
-    versions): prompt ``p``, then ``n`` teacher-forced decode steps,
-    every row compared at every step.  The card runs first; where a
-    rounding near-tie put one element of a row's hop message on the
-    other side (`HopTap`, `hop_sync`), the CPU carries the card's
-    message on in that row (printed)."""
+                    tag="reference-check", **cfg_kw):
+    """The SMOKE model of ``arch`` (its config fields ``cfg_kw``
+    replaced) served on the card (kernels) against the same weights,
+    drawn on the CPU, served on the CPU (plain versions): prompt ``p``,
+    then ``n`` teacher-forced decode steps, every row compared at every
+    step.  The card runs first; where a rounding near-tie put one
+    element of a row's hop message on the other side (`HopTap`,
+    `hop_sync`), the CPU carries the card's message on in that row
+    (printed).  The KV codec is 8-bit (the ssm family keeps no KV, and
+    it passes through), or raw for the hybrid family (JAX's rule); an
+    ssm or hybrid model's final states are held to PREFILL_ATOL scaled
+    to each state's largest magnitude."""
     from repro_torch.configs.base import get_config
     from repro_torch.models.model import Transformer
     from repro_torch.serving import DeltaHopCodec, KVCodec
 
-    cfg = get_config(arch, smoke=True)
+    cfg = get_config(arch, smoke=True).with_(**cfg_kw)
     # one CPU generator seeds both: the weights do not depend on the device
     cpu, gpu = (Transformer(cfg, device=dev,
                             generator=torch.Generator().manual_seed(0))
@@ -2119,7 +2255,8 @@ def reference_check(torch, arch="gpt2-xl-paper", p=8, n=6,
     b = 2
     toks = torch.randint(0, cfg.vocab_size, (b, p + n),
                          generator=torch.Generator().manual_seed(1))
-    kv, hop = KVCodec(bits=8), DeltaHopCodec(mode="aqsgd", bits=4)
+    kv = KVCodec(bits=0 if cfg.family == "hybrid" else 8)
+    hop = DeltaHopCodec(mode="aqsgd", bits=4)
 
     def run(model, dev, tap):
         c = model.init_caches(b, p + n, torch.float32, kv_codec=kv)
@@ -2144,18 +2281,29 @@ def reference_check(torch, arch="gpt2-xl-paper", p=8, n=6,
     dec = max((lc[i] - lg[i]).abs().max().item() for i in range(1, n + 1))
     flips = total = 0
     for name in ("k_codes", "v_codes"):
+        if name not in cc:
+            continue
         diff = (cc[name].int() - cg[name].cpu().int()).abs()
         assert diff.max().item() <= 1, name
         flips += int((diff > 0).sum())
         total += diff.numel()
+    # the final states, each held to PREFILL_ATOL scaled to its magnitude
+    states = {name: (cc[name] - cg[name].cpu()).abs().max().item()
+              for name in ("ssm", "conv", "k", "v") if name in cc}
+    state_tol = {name: PREFILL_ATOL * max(1.0, cc[name].abs().max().item())
+                 for name in states}
     phase(tag, arch=arch, prompt=p, decode_steps=n, prefill_max_abs=pre,
           decode_max_abs=dec, kv_code_flips=f"{flips}/{total}",
+          head_dim=cfg.head_dim, cache_max_abs=json.dumps(states),
+          cache_tol=json.dumps(state_tol),
           hop_flips_carried=json.dumps(tap.flips),
           tolerance=f"prefill {PREFILL_ATOL} decode {DECODE_ATOL} flips <= "
                     f"{MAX_FLIP_FRACTION}; hop near-tie {HOP_TIE} code")
     assert pre <= PREFILL_ATOL, pre
     assert dec <= DECODE_ATOL, dec
     assert flips <= MAX_FLIP_FRACTION * total, (flips, total)
+    for name, err in states.items():
+        assert err <= state_tol[name], (name, err, state_tol[name])
 
 
 def serve_continuous_phase(torch, qp, serve):
@@ -2377,6 +2525,8 @@ def continuous_reference_check(torch, arch):
     assert dec <= DECODE_ATOL, dec
     assert worst <= 1, worst
     assert flips <= MAX_FLIP_FRACTION * total, (flips, total)
+    assert cfg.family != "ssm" or not any(
+        n in cc for n in ("k", "v", "k_codes", "v_codes")), "ssm KV store"
 
 
 def serve_cell_phase(torch, qp, serve, tag):
@@ -2434,6 +2584,76 @@ def serve_cell_phase(torch, qp, serve, tag):
     return launches, build_s
 
 
+def ssm_serve_phase(torch, qp, serve, tag):
+    """A full-size ssm or hybrid serving cell of `SSM_CELLS` through the
+    launcher, the counters set to 0 just before and checked exactly just
+    after: the hop's B1 and B2 once a decode step a boundary, B3 and B4
+    never (no KV codec: the ssm family keeps no KV, the hybrid raw k and
+    v), B10 once a block in the prefill (hybrid, at head_dim 80) or
+    never (ssm); the hop bytes as sent, the state bytes and the raw KV
+    bytes against their byte models.  Returns its launches."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.serving import DeltaHopCodec, delta
+
+    arch, args, batch, prompt, gen, stages = SSM_CELLS[tag]
+    cfg = get_config(arch)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    qp.reset_launches()
+    delta.reset_sent()
+    out = serve.main(args)
+    torch.cuda.synchronize()
+    launches = dict(qp.LAUNCHES)
+    sent = dict(delta.SENT)
+    peak = torch.cuda.max_memory_allocated()
+    logits, tokens = out["logits"], out["tokens"]
+    bounds = stages - 1
+    hop_model = DeltaHopCodec(mode="aqsgd", bits=4).hop_bytes(
+        batch, cfg.d_model) * gen * bounds
+    ssm_model, conv_model = ssm_state_bytes(cfg, batch)
+    hybrid = cfg.family == "hybrid"
+    kv_model = 2 * cfg.n_blocks * batch * out["cache_len"] \
+        * cfg.num_kv_heads * cfg.head_dim * 4 if hybrid else 0
+    want = dict(cell_launches(gen, 0), delta_quantize_pack=gen * bounds,
+                dequant_unpack_accumulate=gen * bounds,
+                flash_attention_fwd=cfg.n_blocks if hybrid else 0)
+    phase(tag, layers=cfg.num_layers, d_model=cfg.d_model,
+          d_inner=cfg.d_inner, ssm_heads=cfg.ssm_heads,
+          ssm_state=cfg.ssm_state, vocab=cfg.vocab_size,
+          params=cfg.params_count(), stages=stages,
+          attn_heads=cfg.num_heads, head_dim=cfg.head_dim,
+          batch=batch, prompt=prompt, cache=out["cache_len"],
+          build_s=f"{out['build_s']:.3f}",
+          prefill_s=f"{out['prefill_s']:.4f}",
+          decode_s=f"{out['decode_s']:.4f}",
+          decode_tok_s=f"{out['decode_tok_s']:.2f}",
+          peak_mem_gib=f"{peak / 2**30:.3f}", launches=json.dumps(launches),
+          hops=sent["hops"], hop_bytes=sent["bytes"],
+          hop_bytes_model=hop_model,
+          hop_bytes_per_token_boundary=hop_model // (gen * bounds),
+          hop_bytes_f32=batch * cfg.d_model * 4,
+          state_bytes=out["state_bytes"],
+          state_bytes_model=f"{ssm_model}+{conv_model}",
+          kv_store_bytes=out["kv_store_bytes"], kv_store_bytes_model=kv_model,
+          decode_steps=gen)
+    assert tokens.shape == (batch, gen), tokens.shape
+    assert logits.shape == (batch, 1, cfg.vocab_size), logits.shape
+    assert torch.isfinite(logits).all().item(), "non-finite logits"
+    assert sent == {"hops": gen * bounds, "bytes": hop_model}, sent
+    assert out["state_bytes"] == ssm_model + conv_model, out["state_bytes"]
+    assert out["kv_store_bytes"] == kv_model, out["kv_store_bytes"]
+    assert launches == want, (launches, want)
+    for name, n in want.items():
+        if n:
+            assert launches[name] > 0, \
+                f"{name} was never launched on the {tag} path"
+    # the hop shape kernel_phase checks B1 and B2 at
+    assert (batch, cfg.d_model) in SSM_HOPS, (batch, cfg.d_model)
+    del out, logits, tokens
+    torch.cuda.empty_cache()
+    return launches
+
+
 def gemma2_device_draw_s(torch) -> float:
     """Seconds to build gemma2-9b as the serving launcher did before its
     weights came from a CPU generator: every leaf drawn on the card from
@@ -2473,20 +2693,35 @@ def _train_config(sim, comm_mod, adamw, *, stochastic, stages, steps,
                                     total_steps=steps))
 
 
+def train_launches_per_step(cfg, stages, remat) -> dict:
+    """`TRAIN_LAUNCHES_PER_STEP` for ``cfg`` in ``stages`` groups: each
+    boundary once a worker forward (B1) and backward (B3, B4); the DP
+    wire as there; B10 once a worker per attention call (a dense layer,
+    or a hybrid's shared block), twice with remat."""
+    calls = cfg.n_blocks if cfg.family == "hybrid" else \
+        0 if cfg.family == "ssm" else cfg.num_layers
+    per = (stages - 1) * TRAIN_WORKERS
+    return dict(TRAIN_LAUNCHES_PER_STEP, delta_quantize_pack=per,
+                quantize_pack=per, unpack_dequant=per,
+                flash_attention_fwd=calls * TRAIN_WORKERS * (2 if remat
+                                                             else 1))
+
+
 def train_phase(torch, qp, tag="train", layers=TRAIN_LAYERS, remat=False,
-                wire="ring"):
-    """The training main path at full width and ``layers`` deep, on the
-    DP wire ``wire``; returns its launches, losses, median step time
-    (steps 3-6) and peak memory."""
+                wire="ring", arch="gpt2-xl-paper", stages=TRAIN_STAGES):
+    """The training main path of ``arch`` at full width, ``layers`` deep
+    in ``stages`` groups, on the DP wire ``wire``; returns its
+    launches, losses, median step time (steps 3-6) and peak memory."""
     from repro_torch.comm import config as comm_mod
     from repro_torch.configs.base import get_config
     from repro_torch.data.pipeline import Dataset, DatasetConfig
     from repro_torch.optim import adamw
     from repro_torch.training import simulated as sim
 
-    cfg = get_config("gpt2-xl-paper").with_(num_layers=layers)
+    full = get_config(arch)
+    cfg = full.with_(num_layers=layers)
     tcfg = _train_config(sim, comm_mod, adamw, stochastic=True,
-                         stages=TRAIN_STAGES, steps=TRAIN_STEPS,
+                         stages=stages, steps=TRAIN_STEPS,
                          remat=remat, wire=wire)
     ds = Dataset(DatasetConfig(num_samples=TRAIN_SAMPLES, seq_len=TRAIN_SEQ,
                                vocab_size=cfg.vocab_size, seed=0))
@@ -2500,10 +2735,9 @@ def train_phase(torch, qp, tag="train", layers=TRAIN_LAYERS, remat=False,
     peak = torch.cuda.max_memory_allocated()
     step_s = statistics.median(state["step_seconds"][2:])
     n_params = sum(p.numel() for p in state["model"].parameters())
-    want = dict(TRAIN_LAUNCHES_PER_STEP, flash_attention_fwd=layers
-                * TRAIN_WORKERS * (2 if remat else 1))
-    phase(tag, layers=f"{layers}/48", remat=remat, dp_wire=wire,
-          d_model=cfg.d_model,
+    want = train_launches_per_step(cfg, stages, remat)
+    phase(tag, arch=arch, layers=f"{layers}/{full.num_layers}",
+          stages=stages, remat=remat, dp_wire=wire, d_model=cfg.d_model,
           params=n_params, dp_bucket_rows=state["dp_error"].shape[1],
           losses=json.dumps([round(x, 6) for x in losses]),
           step_s=json.dumps([round(x, 4) for x in state["step_seconds"]]),
@@ -2516,7 +2750,11 @@ def train_phase(torch, qp, tag="train", layers=TRAIN_LAYERS, remat=False,
     assert all(math.isfinite(x) for x in losses), losses
     rows = -(-n_params // DP_BUCKET[1])
     assert state["dp_error"].shape == (TRAIN_WORKERS, rows, DP_BUCKET[1])
-    assert layers != TRAIN_LAYERS or rows == DP_BUCKET[0], rows
+    assert arch != "gpt2-xl-paper" or layers != TRAIN_LAYERS \
+        or rows == DP_BUCKET[0], rows
+    # the shapes kernel_phase checks the new paths' kernels at
+    assert arch != "zamba2-2.7b" or layers != TZ_LAYERS \
+        or (rows, cfg.d_model) == (TZ_BUCKET[0], TZ_ROWS[1]), rows
     assert torch.isfinite(state["dp_error"]).all().item(), "carry not finite"
     assert state["buffers"]["seen"].all().item(), "a sample never seen"
     for name, per_step in want.items():
@@ -2577,17 +2815,19 @@ def train_sharded_phase(torch, qp, base):
 
 
 def train_reference_check(torch, arch="gpt2-xl-paper",
-                          tag="train-reference-check", wire="ring"):
-    """The SMOKE trainer of ``arch`` on the card (kernels) against the
-    CPU (plain versions), deterministic rounding on every plane, same
-    weights, on the DP wire ``wire``."""
+                          tag="train-reference-check", wire="ring",
+                          **cfg_kw):
+    """The SMOKE trainer of ``arch`` (its config fields ``cfg_kw``
+    replaced) on the card (kernels) against the CPU (plain versions),
+    deterministic rounding on every plane, same weights, on the DP wire
+    ``wire``."""
     from repro_torch.comm import config as comm_mod
     from repro_torch.configs.base import get_config
     from repro_torch.data.pipeline import Dataset, DatasetConfig
     from repro_torch.optim import adamw
     from repro_torch.training import simulated as sim
 
-    cfg = get_config(arch, smoke=True)
+    cfg = get_config(arch, smoke=True).with_(**cfg_kw)
     steps, samples, seq, batch = 4, 8, 32, 4
     tcfg = _train_config(sim, comm_mod, adamw, stochastic=False, stages=2,
                          steps=steps, remat=True, wire=wire)
@@ -2616,7 +2856,8 @@ def train_reference_check(torch, arch="gpt2-xl-paper",
     # a DP code that flips moves the carry by a whole grid step (about
     # twice the row's largest carry); anything else is ulp-level
     flips = int((diff > 0.5 * ec.abs().amax(-1, keepdim=True)).sum())
-    phase(tag, trainer="simulated", arch=arch, remat=tcfg.remat,
+    phase(tag, trainer="simulated", arch=arch, head_dim=cfg.head_dim,
+          remat=tcfg.remat,
           dp_wire=wire, losses_cpu=json.dumps(lc),
           losses_card=json.dumps(lg), max_rel_loss_diff=max(rel),
           carry_max_abs_diff_step1=diff.max().item(),
@@ -2766,22 +3007,34 @@ def dist_phases(torch):
     return out
 
 
-def dist_reference_check(torch, arch="gpt2-xl-paper",
-                         tag="dist-reference-check",
-                         variants=("dist-train",)):
-    """The 2 x 2 mesh at SMOKE width on the card (kernels) against the
-    CPU (plain versions), deterministic rounding, same seed, with the
-    pipeline's remat and chunked loss (its defaults).  ``variants``:
-    names of `DIST_VARIANTS` ("" is [dist-train]'s spec), run in turn by
-    one spawn a device."""
+# the distributed SMOKE checks, card against CPU, run in one spawn a
+# device: (tag, arch, name of a `DIST_VARIANTS` entry)
+DIST_CHECKS = [
+    ("dist-reference-check", "gpt2-xl-paper", "dist-train"),
+    *[("dist-zero-reference-check", "gpt2-xl-paper", v)
+      for v in ("dist-train-sharded", "dist-train-fp16", "dist-train-adam8")],
+    # the untied head (stablelm-12b), the hybrid's shared block (zamba2)
+    ("train-untied-reference-check", "stablelm-12b", "dist-train"),
+    ("dist-zamba2-reference-check", "zamba2-2.7b", "dist-train"),
+]
+
+
+def dist_reference_checks(torch, checks=DIST_CHECKS):
+    """The 2 x 2 mesh at SMOKE width (4 layers) on the card (kernels)
+    against the CPU (plain versions), deterministic rounding, same
+    seed, with the pipeline's remat and chunked loss (its defaults):
+    every check of ``checks`` ((tag, arch, `DIST_VARIANTS` name)) run in
+    turn by one spawn a device.  An untied model's last stage holds the
+    head, so no embedding copy is checked; a hybrid's shared block
+    copies must be bit-equal on every stage after every step."""
     from repro_torch.configs.base import get_config
     from repro_torch.launch import train as launch_train
     from repro_torch.training.pipeline import PipelineConfig
 
-    losses = {}
+    losses, shared = {}, {}
     for dev in ("cpu", "cuda"):
         specs = []
-        for v in variants:
+        for _, arch, v in checks:
             extra, opt = DIST_VARIANTS[v]
             specs.append(_dist_spec(torch, [
                 "--device", dev, "--smoke", "--no-stochastic", "--steps",
@@ -2790,22 +3043,31 @@ def dist_reference_check(torch, arch="gpt2-xl-paper",
             specs[-1]["optimizer"].update(opt)
         runs = launch_train.run_distributed(specs, timeout=DIST_TIMEOUT)
         losses[dev] = [res[0]["losses"] for res in runs]
-        if not get_config(arch).tie_embeddings:
-            # the last stage holds the head, so no embedding copy
-            assert all(rep["embed_equal"] is None for res in runs
-                       for r in res for rep in r["replicas"]), arch
+        for i, ((_, arch, _), res) in enumerate(zip(checks, runs)):
+            cfg = get_config(arch)
+            reps = [rep for r in res for rep in r["replicas"]]
+            if not cfg.tie_embeddings:
+                assert all(rep["embed_equal"] is None for rep in reps), arch
+            flags = [rep["shared_equal"] for r in res for rep in
+                     r["replicas"] if r["model_rank"] > 0]
+            assert all(flags) if cfg.family == "hybrid" \
+                else not any(flags), (arch, flags)
+            shared[i] = len(flags)
     pcfg = PipelineConfig()                 # the spec sets none of these
-    for i, v in enumerate(variants):
+    for i, (tag, arch, v) in enumerate(checks):
         lc, lg = losses["cpu"][i], losses["cuda"][i]
         rel = [abs(a - b) / abs(a) for a, b in zip(lc, lg)]
+        hybrid = get_config(arch).family == "hybrid"
         phase(tag, trainer="distributed", arch=arch,
               variant=v, remat=pcfg.remat,
               remat_mode=pcfg.remat_mode, loss_chunks=pcfg.loss_chunks,
               losses_cpu=json.dumps(lc), losses_card=json.dumps(lg),
               rel_loss_diff=json.dumps(rel),
+              shared_block_copies_equal=f"{shared[i]} checks" if hybrid
+              else None,
               tolerance=f"step1 {FIRST_STEP_RTOL} later {LATER_STEP_RTOL}")
-        assert rel[0] <= FIRST_STEP_RTOL, (v, rel)
-        assert max(rel[1:]) <= LATER_STEP_RTOL, (v, rel)
+        assert rel[0] <= FIRST_STEP_RTOL, (tag, v, rel)
+        assert max(rel[1:]) <= LATER_STEP_RTOL, (tag, v, rel)
 
 
 # ---------------------------------------------------------------------------
@@ -3290,6 +3552,13 @@ def main() -> int:
     for arch, (p, n) in SERVE_CHECKS.items():
         reference_check(torch, arch, p, n,
                         tag=f"serve-{arch}-reference-check")
+    # the ssm and hybrid families at full size, and their SMOKE checks
+    ssm_launches = {tag: ssm_serve_phase(torch, qp, serve, tag)
+                    for tag in SSM_CELLS}
+    for arch, kw in SSM_CHECK_CFG.items():
+        reference_check(torch, arch, SSM_CHECK_PROMPT, SSM_CHECK_STEPS,
+                        tag=f"serve-{arch.split('-')[0]}-reference-check",
+                        **kw)
 
     train_run = train_phase(torch, qp)
     train_launches = train_run["launches"]
@@ -3314,6 +3583,9 @@ def main() -> int:
           b10_launches=full["launches"]["flash_attention_fwd"],
           median_step_s_train=f"{train_run['step_s']:.4f}",
           peak_mem_gib_train=f"{train_run['peak_gib']:.3f}")
+    zamba_train = train_phase(torch, qp, tag="train-zamba2",
+                              layers=TZ_LAYERS, arch="zamba2-2.7b",
+                              stages=TZ_STAGES)
     resume_launches = train_resume_phase(torch, qp)
     dist_runs = dist_phases(torch)
     dist_launches = dist_runs["dist-train"]
@@ -3325,15 +3597,16 @@ def main() -> int:
                  "unpack_accumulate"):
         assert dist_runs["dist-train-sharded"][name] > 0, \
             f"{name} was never launched on the ZeRO wire's path"
-    dist_reference_check(torch)
-    dist_reference_check(torch, tag="dist-zero-reference-check",
-                         variants=("dist-train-sharded", "dist-train-fp16",
-                                   "dist-train-adam8"))
-    # the untied head (stablelm-12b SMOKE) through both trainers
+    # the untied head (stablelm-12b SMOKE) and the ssm and hybrid
+    # families (zamba2 at head_dim 80) through the simulated trainer, and
+    # every distributed check in one spawn a device
     train_reference_check(torch, "stablelm-12b",
                           tag="train-untied-reference-check")
-    dist_reference_check(torch, "stablelm-12b",
-                         tag="train-untied-reference-check")
+    for arch, kw in SSM_CHECK_CFG.items():
+        train_reference_check(
+            torch, arch, tag=f"train-{arch.split('-')[0]}-reference-check",
+            **kw)
+    dist_reference_checks(torch)
     dist_resume_launches = dist_resume_phase(torch)
     train_resume_cli_phase()
     # a row's launches are those of the path its time was taken at:
@@ -3345,6 +3618,9 @@ def main() -> int:
                "serve_gemma2": gemma_launches,
                "serve_stablelm": stablelm_launches,
                "serve_gemma2_27b": g27_launches,
+               "serve_mamba2": ssm_launches["serve-mamba2"],
+               "serve_zamba2": ssm_launches["serve-zamba2"],
+               "train_zamba2": zamba_train["launches"],
                "train": train_launches, "train_oncore": oncore_launches,
                "train_full_depth": full["launches"],
                "train_sharded": sharded_launches,

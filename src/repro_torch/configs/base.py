@@ -1,9 +1,9 @@
 """Architecture config schema + registry (port of `repro.configs.base`).
 
 Each arch the port runs has one ``configs/<id>.py`` with the full-scale
-``CONFIG`` and a reduced ``SMOKE`` variant (<=2 layers, d_model<=512)
+``CONFIG`` and a reduced ``SMOKE`` variant (a few layers, d_model<=512)
 for the CPU tests.  The registry lists only the archs whose families
-the port implements; any other name raises.
+the port implements (dense, ssm and hybrid); any other name raises.
 """
 from __future__ import annotations
 
@@ -34,6 +34,17 @@ class ModelConfig:
     attn_softcap: float = 0.0
     final_softcap: float = 0.0
 
+    # --- SSM (Mamba2 / SSD) ---------------------------------------------
+    ssm_state: int = 0
+    ssm_headdim: int = 64
+    ssm_expand: int = 2
+    ssm_conv_width: int = 4
+    ssm_chunk: int = 256
+    ssm_groups: int = 1
+
+    # --- hybrid (zamba2) --------------------------------------------------
+    shared_attn_every: int = 0      # shared-weight attention block cadence
+
     # --- misc --------------------------------------------------------------
     act: str = "silu"               # silu (SwiGLU) | gelu
     mlp_gated: bool = True          # gated (3-matrix) FFN vs plain 2-matrix
@@ -50,6 +61,24 @@ class ModelConfig:
     def torch_dtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)
 
+    @property
+    def is_attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_headdim
+
+    @property
+    def n_blocks(self) -> int:
+        """Hybrid: blocks of ``shared_attn_every`` mamba layers, each
+        followed by the shared block."""
+        return self.num_layers // self.shared_attn_every
+
     def layer_is_local(self, i: int) -> bool:
         """Sliding-window (local) attention at layer i?"""
         if self.sliding_window == 0:
@@ -61,14 +90,52 @@ class ModelConfig:
     def layer_window(self, i: int, seq_len: int) -> int:
         return self.sliding_window if self.layer_is_local(i) else seq_len
 
+    def layer_is_mamba(self, i: int) -> bool:
+        return self.family in ("ssm", "hybrid")
+
+    def layer_has_shared_attn(self, i: int) -> bool:
+        if not self.shared_attn_every:
+            return False
+        return i % self.shared_attn_every == self.shared_attn_every - 1
+
     def with_(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+    def params_count(self) -> int:
+        """The JAX package's analytic parameter count (its 6ND model
+        FLOPs), for the families the port runs.  Like JAX's, it counts
+        two norms a layer in every family, so a mamba layer, which has
+        one, is over-counted by d_model."""
+        d, L = self.d_model, self.num_layers
+        n = self.vocab_size * d                      # embedding
+        if not self.tie_embeddings:
+            n += self.vocab_size * d
+        per_attn = (self.num_heads * self.head_dim * d       # wq
+                    + 2 * self.num_kv_heads * self.head_dim * d  # wk, wv
+                    + self.num_heads * self.head_dim * d)    # wo
+        per_dense_ffn = (3 if self.mlp_gated else 2) * d * self.d_ff
+        for i in range(L):
+            if self.layer_is_mamba(i):
+                di, hs = self.d_inner, self.ssm_heads
+                conv_dim = di + 2 * self.ssm_groups * self.ssm_state
+                n += d * (2 * di + 2 * self.ssm_groups * self.ssm_state + hs)
+                n += conv_dim * self.ssm_conv_width
+                n += 2 * hs + di                    # A_log, D, gated-norm
+                n += di * d                          # out_proj
+            else:
+                n += per_attn + per_dense_ffn        # ssm/hybrid: no FFN
+            n += 2 * d                               # 2 norms
+        if self.shared_attn_every:                   # zamba2 shared block
+            n += per_attn + per_dense_ffn + 2 * d
+        n += d                                       # final norm
+        return n
 
 
 # ---------------------------------------------------------------------------
 # Registry: only the archs the port runs
 # ---------------------------------------------------------------------------
-ARCHS = ("gpt2-xl-paper", "gemma2-9b", "stablelm-12b", "gemma2-27b")
+ARCHS = ("gpt2-xl-paper", "gemma2-9b", "stablelm-12b", "gemma2-27b",
+         "mamba2-1.3b", "zamba2-2.7b")
 
 
 def _module_name(arch: str) -> str:

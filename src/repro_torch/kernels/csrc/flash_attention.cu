@@ -77,14 +77,15 @@
 //     up to 4 x 4 m16n8 tiles of the output, all 64 rows where hd
 //     allows, so each v element is split by one warp (at hd 160,
 //     stablelm-12b's, 2 x 5 tiles: two rows of four warps, each v
-//     element split by two).  Inside each 8-key
+//     element split by two; at hd 96, zamba2's 80 zero-padded by the
+//     wrapper, 2 x 3 tiles in the same two rows of four).  Inside each 8-key
 //     block the key order is permuted (logical k t is key 2t, t + 4 is
 //     2t + 1) in p's fragments and in the v rows alike, which matches
 //     the wgmma accumulator's layout;
 //   * keys past Sk get -inf (exact zero weight) and zero v rows; query
 //     rows past Sq load zeros and are not stored.  window and causal
 //     are runtime arguments, so local and global layers share one
-//     compiled kernel; hd (32, 64, 128, 160, 256) and the input type are
+//     compiled kernel; hd (32, 64, 96, 128, 160, 256) and the input type are
 //     template parameters.  bf16 inputs, and f32 views whose k or v rows
 //     are not 16-byte aligned, are read element by element (bf16 widened
 //     to f32; its lo parts are zero but all three passes run).
@@ -119,7 +120,8 @@ struct Tile {
   static constexpr int LDV = HD + 4;               // padded v row (floats)
   // p v: a warp owns MT x NT m16n8 tiles of the 64 x HD output, HD / 16
   // of them (the 8 warps share its 4 x HD / 8 tiles); MT is the most of
-  // the 4 row tiles that divides that count (4, or 2 at hd 160: 2 x 5)
+  // the 4 row tiles that divides that count (4, or 2 at hd 160: 2 x 5,
+  // and at hd 96: 2 x 3)
   static constexpr int MT = HD / 16 % 4 == 0 ? 4 : HD / 16 % 2 == 0 ? 2 : 1;
   static constexpr int NT = HD / 16 / MT;
   static constexpr int NGN = HD / 8 / NT;          // warps along the columns
@@ -782,6 +784,10 @@ int dispatch(const void* q, const void* k, const void* v, void* o,
       return launch<64, T>(q, k, v, o, lse, st, b, h, hk, sq, sk,
                            q_offset, causal, window, scale, cap,
                            stream);
+    case 96:
+      return launch<96, T>(q, k, v, o, lse, st, b, h, hk, sq, sk,
+                           q_offset, causal, window, scale, cap,
+                           stream);
     case 128:
       return launch<128, T>(q, k, v, o, lse, st, b, h, hk, sq, sk,
                             q_offset, causal, window, scale, cap,
@@ -805,8 +811,8 @@ extern "C" {
 
 // q, o: (b, h, sq, hd); k, v: (b, hk, sk, hd), f32 or (bf16 != 0)
 // bf16, the last dim contiguous; strides: 12 element strides, batch,
-// head and row of q, k, v, o in turn; h % hk == 0, hd in {32, 64, 128,
-// 160, 256}, q_offset + sq <= sk, window >= 1 (the wrapper checks all of
+// head and row of q, k, v, o in turn; h % hk == 0, hd in {32, 64, 96,
+// 128, 160, 256}, q_offset + sq <= sk, window >= 1 (the wrapper checks all of
 // it); scale = f32(1 / sqrt(hd)); cap <= 0 disables the softcap; lse:
 // null, or f32 (b, h, sq) contiguous for the rows' log-sum-exp
 int rt_flash_attention_fwd(const void* q, const void* k, const void* v,

@@ -18,6 +18,15 @@ the training attention saves for its backward
 writes no such row.  Launches are counted in
 `repro_torch.kernels.quant_pack.LAUNCHES` under ``flash_attention_fwd``
 (the CPU path does not count).
+
+The kernel is compiled for head dims `HEAD_DIMS`.  A head dim of
+`PADDED_HEAD_DIMS` (zamba2's 80) is a kernel path too: the wrapper
+zero-pads q, k and v to the next instance (96 columns), launches it
+with the scale of the true head dim, ``1/sqrt(80)``, and returns the
+first 80 columns of its output (a view).  The zero columns add nothing
+to ``q k^T``, so the scores, the lse and the first 80 output columns are
+those of the unpadded call; the pads are three copies beside the one
+launch.  Any other head dim raises on CUDA.
 """
 from __future__ import annotations
 
@@ -25,12 +34,15 @@ import ctypes
 import math
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import build
 from repro_torch.kernels import quant_pack as _qp
 from repro_torch.kernels import ref
 
-HEAD_DIMS = (32, 64, 128, 160, 256)
+HEAD_DIMS = (32, 64, 96, 128, 160, 256)
+# head dims the wrapper zero-pads to a compiled instance
+PADDED_HEAD_DIMS = {80: 96}
 DTYPES = (torch.float32, torch.bfloat16)
 BIG_WINDOW = 10 ** 9
 _INT_MAX = 2 ** 31 - 1
@@ -74,8 +86,10 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                        return_lse=return_lse)
     b, h, sq, hd = q.shape
     hk, sk = k.shape[1], k.shape[2]
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"the kernel takes head_dim {HEAD_DIMS}, got {hd}")
+    width = PADDED_HEAD_DIMS.get(hd, hd)
+    if width not in HEAD_DIMS:
+        raise ValueError(f"the kernel takes head_dim {HEAD_DIMS} (and "
+                         f"{tuple(PADDED_HEAD_DIMS)} zero-padded), got {hd}")
     if q.dtype not in DTYPES:
         raise TypeError(f"the kernel takes {DTYPES}, got {q.dtype}")
     for t, name in ((q, "q"), (k, "k"), (v, "v")):
@@ -86,6 +100,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if max(h, b) > 65535:
         raise ValueError(f"batch {b} or heads {h} past the kernel's grid "
                          f"(65535)")
+    if width != hd:
+        q, k, v = (pad_head_dim(t, width) for t in (q, k, v))
     out = torch.empty_like(q)             # q's layout, if q's is dense
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) \
         if return_lse else None
@@ -96,7 +112,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         rc = lib.rt_flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr(),
-            strides, b, h, hk, sq, sk, hd, q_offset, int(bool(causal)),
+            strides, b, h, hk, sq, sk, width, q_offset, int(bool(causal)),
             min(window, _INT_MAX), 1.0 / math.sqrt(hd), float(softcap),
             int(q.dtype == torch.bfloat16),
             torch.cuda.current_stream().cuda_stream)
@@ -104,4 +120,10 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise RuntimeError(f"rt_flash_attention_fwd failed to launch: "
                                f"CUDA error {rc}")
         _qp.LAUNCHES["flash_attention_fwd"] += 1
+    out = out[..., :hd]
     return (out, lse) if return_lse else out
+
+
+def pad_head_dim(t: torch.Tensor, width: int) -> torch.Tensor:
+    """``t`` (..., hd) zero-padded to (..., width): a new dense tensor."""
+    return F.pad(t, (0, width - t.shape[-1]))

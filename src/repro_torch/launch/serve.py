@@ -13,12 +13,15 @@ generating ``--gen`` tokens, over ``--slots`` cache slots
 JSON are those of the JAX package, and the resolved config is echoed
 back as JSON; ``--list-wires`` prints the wire registry.  Sharded
 serving (``--data-par``/``--model-par`` above 1) is refused with the
-title of the ROADMAP item that ports it.  The weights and the prompt are a
-random init from ``--seed``, drawn on the CPU and moved to the device
-leaf by leaf, so a seed gives the same model on the card and on the
-CPU; sampling noise (``--temperature``) comes from a generator on the
-device (`repro_torch.rng`).  ``--arch`` defaults to ``gemma2-9b``, as
-in the JAX launcher.
+title of the ROADMAP item that ports it, and so is ``--continuous``
+with the ssm and hybrid families.  The stage groups follow the JAX
+package's rule: ``--stages`` divides the layers, or a hybrid's blocks.
+The weights and the prompt are a random init from ``--seed``, drawn
+on the CPU and moved to the device leaf by leaf, so a seed gives the
+same model on the card and on the CPU; sampling noise
+(``--temperature``) comes from a generator on the device
+(`repro_torch.rng`).  ``--arch`` defaults to ``gemma2-9b``, as in the
+JAX launcher.
 
 Runs on CUDA unless ``--device cpu`` asks for the CPU; with no card and
 no such request it raises.
@@ -43,6 +46,18 @@ card):
   python -m repro_torch.launch.serve --arch gemma2-27b --layers 28 \\
       --stages 2 --mode aqsgd --fw-bits 4 --kv-bits 8 --batch 2 \\
       --prompt-len 8160 --gen 32
+mamba2-1.3b (the ssm family: 1.34B parameters; no KV cache, so
+``--kv-bits`` passes through, and a state of 805 MB + 20 MB at batch 8
+whatever the prompt's length):
+  python -m repro_torch.launch.serve --arch mamba2-1.3b --stages 2 \\
+      --mode aqsgd --fw-bits 4 --kv-bits 8 --batch 8 --prompt-len 2048 \\
+      --gen 32
+zamba2-2.7b (the hybrid family: 54 mamba layers in 9 blocks, each
+followed by one shared attention block of head_dim 80, 2.34B
+parameters; its stage groups cut the blocks, so ``--stages`` 1, 3 or
+9; its shared block keeps raw k and v, so ``--kv-bits`` 0):
+  python -m repro_torch.launch.serve --arch zamba2-2.7b --stages 3 \\
+      --mode aqsgd --fw-bits 4 --batch 2 --prompt-len 4064 --gen 32
 and a stream of 16 mixed-length requests over 8 slots of gpt2-xl:
   python -m repro_torch.launch.serve --arch gpt2-xl-paper --stages 2 \\
       --mode aqsgd --fw-bits 4 --kv-bits 8 --continuous --slots 8 \\
@@ -58,7 +73,7 @@ import torch
 
 from repro_torch.comm import config as comm_cli
 from repro_torch.configs.base import ARCHS, get_config
-from repro_torch.models.model import Transformer
+from repro_torch.models.model import Transformer, stage_size
 from repro_torch.rng import seeded_generator
 from repro_torch.serving import ContinuousBatcher, DeltaHopCodec, KVCodec
 
@@ -124,8 +139,9 @@ def build_parser() -> argparse.ArgumentParser:
 def serve(args) -> dict:
     """Run prefill + ``args.gen`` decode steps; returns the timings (the
     model build's, ``build_s``, too), the generated tokens, the last
-    logits and the KV stores' device bytes (``kv_store_bytes`` over
-    ``cache_len`` token rows)."""
+    logits, the KV stores' device bytes (``kv_store_bytes`` over
+    ``cache_len`` token rows) and the ssm and hybrid families' state
+    bytes (``state_bytes``: the ``ssm`` states and ``conv`` windows)."""
     dev = resolve_device(args.device)
     comm = comm_cli.from_args(args)
     print("comm:", comm.to_json())
@@ -135,6 +151,7 @@ def serve(args) -> dict:
             raise ValueError(f"--layers {args.layers}: {cfg.name} has "
                              f"{cfg.num_layers}")
         cfg = cfg.with_(num_layers=args.layers)
+    stage_size(cfg, args.stages)
     kv_codec = KVCodec.from_comm(comm)
     hop = DeltaHopCodec.from_comm(comm) if args.stages > 1 else None
     if hop is not None:
@@ -142,7 +159,10 @@ def serve(args) -> dict:
               f"{hop.hop_bytes(args.batch, cfg.d_model)} B/token/boundary "
               f"x {args.stages - 1} boundaries "
               f"(fp32 {args.batch * cfg.d_model * 4} B)")
-    if kv_codec.bits:
+    if kv_codec.bits and cfg.is_attention_free:
+        print(f"kv cache: none ({cfg.family} family: {kv_codec.bits}-bit "
+              f"kv passes through)")
+    elif kv_codec.bits:
         per_tok = kv_codec.stored_bytes(
             (1, 1, cfg.num_kv_heads, cfg.head_dim)) * 2 * cfg.num_layers
         raw_tok = 2 * cfg.num_layers * cfg.num_kv_heads * cfg.head_dim * 4
@@ -200,13 +220,19 @@ def serve(args) -> dict:
     tok_s = args.gen * args.batch / (t2 - t1)
     print(f"decode {args.gen} tokens: {t2 - t1:.3f}s ({tok_s:.1f} tok/s)")
     print("sample token ids:", generated[0][:12].tolist())
-    kv_bytes = sum(caches[n].numel() * caches[n].element_size()
-                   for n in ("k", "v", "k_codes", "k_scale", "v_codes",
-                             "v_scale") if n in caches)
+    kv_bytes, state_bytes = (
+        sum(caches[n].numel() * caches[n].element_size()
+            for n in names if n in caches)
+        for names in (("k", "v", "k_codes", "k_scale", "v_codes",
+                       "v_scale"), ("ssm", "conv")))
+    if state_bytes:
+        print(f"ssm state: {state_bytes} B ({caches['ssm'].nbytes} ssm + "
+              f"{caches['conv'].nbytes} conv)")
     return {"build_s": build_s, "prefill_s": t1 - t0, "decode_s": t2 - t1,
             "decode_tok_s": tok_s,
             "tokens": generated, "logits": logits,
-            "kv_store_bytes": kv_bytes, "cache_len": cache_len}
+            "kv_store_bytes": kv_bytes, "state_bytes": state_bytes,
+            "cache_len": cache_len}
 
 
 def submit_stream(bat: ContinuousBatcher, args) -> None:

@@ -41,6 +41,15 @@ Examples:
   python -m repro_torch.launch.train --device cpu --smoke --distributed \\
       --data-par 2 --stages 2 --dp-grad-bits 4 --steps 4 --seq 16 \\
       --samples 8 --batch 4 --dp-wire ring-sharded
+and the ssm and hybrid families (a hybrid's blocks of
+``shared_attn_every`` layers: the simulated trainer's --stages divides
+them, zamba2-2.7b's 9 into 1, 3 or 9, its SMOKE's 2 into 1 or 2; the
+distributed trainer cuts the layers, as for every family):
+  python -m repro_torch.launch.train --device cpu --smoke \\
+      --arch zamba2-2.7b --stages 2 --dp-grad-bits 4 --steps 4
+  python -m repro_torch.launch.train --device cpu --smoke \\
+      --arch mamba2-1.3b --distributed --data-par 2 --stages 2 \\
+      --dp-grad-bits 4 --steps 4 --seq 16 --samples 8 --batch 4
 
 ``--dp-wire`` takes every DP wire of the registry: ``ring`` (the
 default), ``psum``, ``ring-sharded`` (the ZeRO wire: the ring's
@@ -216,7 +225,11 @@ def run_distributed(specs: list, *, timeout: float = 3600.0) -> list:
 
 def main(argv=None):
     """Parse the flags, train, print ``step N loss X [hex]`` every 10
-    steps and ``final loss`` (the mean of the last 5).  Returns (state,
+    steps and ``final loss``: the mean of the last 5 on the single-host
+    path, the last step's with ``--distributed``, as the JAX launcher
+    prints them; ``--distributed`` also prints how many staged ``.tmp-*``
+    entries the ranks removed from their checkpoint directories, if
+    any.  Returns (state,
     losses), or with --distributed (the ranks' results, losses); the
     losses are those of the steps this call ran."""
     ap = build_parser()
@@ -241,13 +254,16 @@ def main(argv=None):
                                    timeout=JOIN_TIMEOUT)
         losses = results[0]["losses"]
         start = results[0]["start"]
+        removed = sum(r["orphans_removed"] for r in results)
+        if removed:
+            print(f"checkpoint: removed {removed} orphaned tmp entries")
         if start:
             print(f"resumed from step {start}")
         for i, loss in enumerate(losses, start=start):
             if i % 10 == 0:
                 print(runner._loss_line(i, loss), flush=True)
         if losses:                  # a resume at the last step runs none
-            print(f"final loss {np.mean(losses[-5:]):.4f}")
+            print(f"final loss {losses[-1]:.4f}")
         return results, losses
     comm = comm_cli.from_args(args)
     cfg = get_config(args.arch, smoke=args.smoke)

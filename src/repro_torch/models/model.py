@@ -1,13 +1,25 @@
-"""The dense-family Transformer: training forward and loss, and serving
-with KV caches and stage groups (port of `repro.models.model`).
+"""The decoder of the dense, ssm and hybrid families: training forward
+and loss, and serving with KV caches, SSM states and stage groups (port
+of `repro.models.model`).
+
+One `Transformer` class serves every family the port runs, so the
+launchers, trainers, `repro_torch.weights` and checkpoints have one
+entry point.  Its ``layers`` are dense `Block`s (``dense``) or
+`MambaBlock`s (``ssm``: mamba2; ``hybrid``: zamba2, whose one
+``shared_block``, a dense `Block`, runs after every
+``shared_attn_every``-th mamba layer with the same weights each time).
+The stage groups (and remat's unit) are the JAX package's: the layers
+for dense and ssm, blocks of ``shared_attn_every`` mamba layers and the
+shared block for hybrid (so a hybrid's block count must divide by the
+stage groups).  The other families raise.
 
 `loss_fn` is the training forward over whole sequences, with autograd:
 `Transformer.trunk_forward` cuts the layer stack into ``num_stages``
 stage groups and runs ``boundary_fn(state, h, idx) -> (state, h)``
 between them, where the simulated trainer plugs in the AQ-SGD
 boundary (`repro_torch.core.aqsgd.apply_boundary`); with ``remat``
-each layer (`run_layer`), never a boundary, is recomputed in the
-backward.
+each unit (a layer, or a hybrid's block: `run_remat`), never a
+boundary, is recomputed in the backward.
 
 `Transformer.forward_with_caches` is the unified prefill (S > 1) /
 decode (S = 1) step.  Its serving-plane hooks are the JAX package's:
@@ -28,7 +40,13 @@ decode (S = 1) step.  Its serving-plane hooks are the JAX package's:
   the two scatters.
 
 Unlike the JAX package, caches are updated IN PLACE (a decode step
-writes B rows per layer instead of copying the whole store).  The
+writes B rows per layer instead of copying the whole store; an ssm or
+hybrid layer overwrites its ``ssm`` state (L, B, h, p, n) f32 and its
+``conv`` window (L, B, width-1, conv_dim) of raw pre-conv rows; the
+hybrid's raw ``k``/``v`` are (n_blocks, B, Sc, Hk, hd), one a shared
+block call).  An ssm or hybrid step runs a prefill (S > 1) through
+`ssm.mamba2_forward` from the stored state, a decode step (S = 1)
+through `ssm.mamba2_decode_step`.  The
 write head ``caches["pos"]`` is a Python int for a uniform batch, or a
 (B,) int32 tensor on the device, a head a row: the continuous
 batcher's pool (`repro_torch.serving.batcher`), whose rows sit at
@@ -52,6 +70,14 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.cache_rows import clamp_heads
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
+
+FAMILIES = ("dense", "ssm", "hybrid")
+# the title of the ROADMAP item that ports the continuous batcher to the
+# families whose caches hold SSM states
+CONTINUOUS_SSM = ('continuous batching of the ssm and hybrid families '
+                  '(ROADMAP queue A, "Continuous batching of the SSM and '
+                  'hybrid families")')
 
 
 class Block(nn.Module):
@@ -76,17 +102,78 @@ class Block(nn.Module):
         return h + self.ffn(self.norm2(h)), k, v
 
 
+class MambaBlock(nn.Module):
+    """One ssm/hybrid trunk layer: pre-norm Mamba2 mixer with the
+    residual (JAX ``_init_mamba_layer`` / ``_mamba_layer``)."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.norm1 = L.RMSNorm(cfg.d_model, cfg.norm_eps, device=device)
+        self.mamba = S.Mamba2(cfg, device=device)
+
+    def forward(self, h: torch.Tensor) -> torch.Tensor:
+        out, _ = S.mamba2_forward(self.mamba, self.norm1(h), self.cfg)
+        return h + out
+
+    def step(self, h: torch.Tensor, ssm_state: torch.Tensor,
+             conv_state: torch.Tensor) -> torch.Tensor:
+        """One serving step from the stored states, written back in
+        place: a prefill (S > 1) from ``ssm_state`` (the conv starts from
+        zeros, as JAX's), or a decode step (S = 1) over the stored conv
+        window."""
+        hin = self.norm1(h)
+        if h.shape[1] == 1:
+            out, nst, ncv = S.mamba2_decode_step(self.mamba, hin, self.cfg,
+                                                 ssm_state, conv_state)
+        else:
+            out, st = S.mamba2_forward(self.mamba, hin, self.cfg,
+                                       initial_state=ssm_state)
+            nst, ncv = st["ssm"], st["conv"]
+        ssm_state.copy_(nst)
+        conv_state.copy_(ncv)
+        return h + out
+
+
+def trunk_layer(cfg: ModelConfig, device=None) -> nn.Module:
+    """One trunk layer of the family: a dense `Block` or a `MambaBlock`."""
+    return (Block if cfg.family == "dense" else MambaBlock)(cfg,
+                                                           device=device)
+
+
+def layer_fn(cfg: ModelConfig, i: int, blk: nn.Module,
+             positions: torch.Tensor, seq: int, block_k: int,
+             shared_block: Optional[Block] = None) -> Callable:
+    """Global layer ``i``'s training function over h (JAX's scan body):
+    a dense layer at its window, or a mamba layer followed, where
+    ``shared_block`` is given, by the hybrid's shared block over the
+    whole sequence (``cfg.sliding_window or seq``)."""
+    if isinstance(blk, Block):
+        window = cfg.layer_window(i, seq)
+        return lambda x: blk(x, positions, window, block_k=block_k)[0]
+    if shared_block is None:
+        return blk
+
+    def layer(x):
+        return shared_block(blk(x), positions, cfg.sliding_window or seq,
+                            block_k=block_k)[0]
+    return layer
+
+
 class Transformer(nn.Module):
-    """Dense-family decoder (``gpt2-xl-paper``, ``gemma2-9b``,
-    ``gemma2-27b``, ``stablelm-12b``: per-layer sliding windows, GQA,
-    attention and final logit softcaps, gated or plain MLP): token
-    embedding, a stack of `Block`s, a final RMSNorm and the logits, read
-    through the embedding when ``cfg.tie_embeddings``, else through a
-    ``head`` of its own, (d_model, vocab) as in the JAX package.
+    """The decoder (dense: ``gpt2-xl-paper``, ``gemma2-9b``,
+    ``gemma2-27b``, ``stablelm-12b``, with per-layer sliding windows,
+    GQA, attention and final logit softcaps, gated or plain MLP; ssm:
+    ``mamba2-1.3b``; hybrid: ``zamba2-2.7b``): token embedding, a stack
+    of `Block`s or `MambaBlock`s (and the hybrid's ``shared_block``), a
+    final RMSNorm and the logits, read through the embedding when
+    ``cfg.tie_embeddings``, else through a ``head`` of its own, (d_model,
+    vocab) as in the JAX package.
 
     ``generator`` seeds a random init that follows the JAX package's
     scales (N(0, 0.02) embedding, N(0, 1/d_model) head, N(0, 1/fan_in)
-    projections, zero norms), drawn leaf by leaf on the generator's
+    projections, zero norms, `ssm.Mamba2.reset_parameters`' mixer),
+    drawn leaf by leaf on the generator's
     device (a CPU generator gives the same weights on every device,
     `layers.init_normal_`); without it the weights are left
     uninitialized, for `repro_torch.weights.from_jax_params` to fill."""
@@ -94,18 +181,23 @@ class Transformer(nn.Module):
     def __init__(self, cfg: ModelConfig, *, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if cfg.family != "dense":
+        if cfg.family not in FAMILIES:
             raise NotImplementedError(
-                f"{cfg.name}: the port runs the dense family; the "
-                f'{cfg.family} family is ROADMAP queue A, "The other '
-                f'families"')
+                f"{cfg.name}: the port runs the {', '.join(FAMILIES)} "
+                f'families; the {cfg.family} family is ROADMAP queue A, '
+                f'"The other families"')
+        if cfg.family == "hybrid" and cfg.num_layers % cfg.shared_attn_every:
+            raise ValueError(f"{cfg.name}: {cfg.num_layers} layers are not "
+                             f"whole blocks of {cfg.shared_attn_every}")
         self.cfg = cfg
         self.embed = nn.Parameter(torch.empty(cfg.vocab_size, cfg.d_model,
                                               device=device))
         self.head = None if cfg.tie_embeddings else nn.Parameter(
             torch.empty(cfg.d_model, cfg.vocab_size, device=device))
-        self.layers = nn.ModuleList(Block(cfg, device=device)
+        self.layers = nn.ModuleList(trunk_layer(cfg, device=device)
                                     for _ in range(cfg.num_layers))
+        self.shared_block = Block(cfg, device=device) \
+            if cfg.family == "hybrid" else None
         self.final_norm = L.RMSNorm(cfg.d_model, cfg.norm_eps, device=device)
         if generator is not None:
             self.reset_parameters(generator)
@@ -117,8 +209,14 @@ class Transformer(nn.Module):
             L.init_normal_(self.head, 1.0 / math.sqrt(self.cfg.d_model),
                            generator)
         for blk in self.layers:
-            blk.attn.reset_parameters(generator)
-            blk.ffn.reset_parameters(generator)
+            if isinstance(blk, MambaBlock):
+                blk.mamba.reset_parameters(generator)
+            else:
+                blk.attn.reset_parameters(generator)
+                blk.ffn.reset_parameters(generator)
+        if self.shared_block is not None:
+            self.shared_block.attn.reset_parameters(generator)
+            self.shared_block.ffn.reset_parameters(generator)
 
     # -- embedding / head ---------------------------------------------------
 
@@ -137,45 +235,83 @@ class Transformer(nn.Module):
                       boundary_fn: Optional[Callable] = None,
                       boundary_state=None, remat: bool = False,
                       block_k: int = 512):
-        """The layer trunk over whole sequences.  h: (B, S, d) after the
+        """The trunk over whole sequences.  h: (B, S, d) after the
         embedding, positions ``arange(S)`` a row.  ``boundary_fn(state,
         h, idx) -> (state, h)`` runs between stage groups (idx = 0 ..
-        num_stages-2).  ``remat`` checkpoints each layer, as JAX's
+        num_stages-2), which cut the units: the layers (dense, ssm) or
+        the hybrid's blocks.  ``remat`` checkpoints each unit, as JAX's
         ``_scan_layers`` does: its activations are recomputed in the
         backward.  The boundaries stay outside every checkpoint, since
         they draw noise from explicit generators (which a recompute
         would not restore) and write the message buffers.  ``block_k``
         is the attention backward's key block.  Returns (h,
         boundary_state)."""
-        n = self.cfg.num_layers
-        if n % num_stages:
-            raise ValueError(f"{n} layers do not split into {num_stages} "
-                             f"stage groups")
-        per = n // num_stages
-        seq = h.shape[1]
-        for i, blk in enumerate(self.layers):
-            h = run_layer(blk, h, positions, self.cfg.layer_window(i, seq),
-                          remat=remat, block_k=block_k)
-            if boundary_fn is not None and (i + 1) % per == 0 \
-                    and i + 1 < n:
+        per = stage_size(self.cfg, num_stages)
+        n = per * num_stages
+        for u in range(n):
+            h = run_remat(self.unit(u, positions, h.shape[1], block_k), h,
+                          remat=remat)
+            if boundary_fn is not None and (u + 1) % per == 0 \
+                    and u + 1 < n:
                 boundary_state, h = boundary_fn(boundary_state, h,
-                                                (i + 1) // per - 1)
+                                                (u + 1) // per - 1)
         return h, boundary_state
+
+    def unit(self, u: int, positions: torch.Tensor, seq: int,
+             block_k: int) -> Callable:
+        """The training function of unit ``u`` over h: a layer (dense,
+        ssm), or a hybrid block (its mamba layers, the shared block after
+        the last, `layer_fn`)."""
+        cfg = self.cfg
+        if cfg.family != "hybrid":
+            return layer_fn(cfg, u, self.layers[u], positions, seq, block_k)
+        per = cfg.shared_attn_every
+        fns = [layer_fn(cfg, i, self.layers[i], positions, seq, block_k,
+                        self.shared_block
+                        if cfg.layer_has_shared_attn(i) else None)
+               for i in range(u * per, (u + 1) * per)]
+
+        def block(x):
+            for fn in fns:
+                x = fn(x)
+            return x
+        return block
 
     # -- caches -------------------------------------------------------------
 
     def init_caches(self, batch_size: int, cache_len: int,
                     dtype: torch.dtype = torch.bfloat16, device=None,
                     kv_codec=None) -> dict:
-        """Zero caches for prefill/decode: raw k, v (L, B, Sc, Hk, hd),
-        or, with a quantizing ``kv_codec``, its ``{k,v}_codes`` and
-        ``{k,v}_scale`` stores for that shape (the layout of JAX
-        `quantize_caches`; no raw store is allocated)."""
+        """Zero caches for prefill/decode (JAX ``init_caches``): dense,
+        raw k, v (L, B, Sc, Hk, hd), or, with a quantizing ``kv_codec``,
+        its ``{k,v}_codes`` and ``{k,v}_scale`` stores for that shape
+        (the layout of JAX `quantize_caches`; no raw store is
+        allocated); ssm and hybrid, the ``ssm`` states f32 (L, B, h, p,
+        n) and ``conv`` windows (L, B, width-1, conv_dim), and for hybrid
+        raw k, v (n_blocks, B, Sc, Hk, hd).  The family rules of JAX
+        `quantize_caches` hold (`serving.kvcache.store_codec`): ssm has
+        nothing to quantize, so ``kv_codec`` passes through; hybrid with
+        ``kv_codec.bits`` raises."""
         cfg = self.cfg
         device = device if device is not None else self.embed.device
-        shape = (cfg.num_layers, batch_size, cache_len, cfg.num_kv_heads,
-                 cfg.head_dim)
+        # imported here: the serving package imports this module
+        from repro_torch.serving.kvcache import store_codec
+        kv_codec = store_codec(cfg, kv_codec)
         caches: dict = {"pos": 0}
+        if cfg.family in ("ssm", "hybrid"):
+            b, L_ = batch_size, cfg.num_layers
+            conv_dim = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
+            caches["ssm"] = torch.zeros(
+                (L_, b, cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state),
+                dtype=torch.float32, device=device)
+            caches["conv"] = torch.zeros(
+                (L_, b, cfg.ssm_conv_width - 1, conv_dim), dtype=dtype,
+                device=device)
+            if cfg.family == "ssm":
+                return caches
+        n_kv = cfg.n_blocks if cfg.family == "hybrid" else cfg.num_layers
+        shape = (n_kv, batch_size, cache_len, cfg.num_kv_heads,
+                 cfg.head_dim)
         for name in ("k", "v"):
             if kv_codec is not None and kv_codec.bits:
                 store = kv_codec.empty(shape, device=device)
@@ -199,46 +335,48 @@ class Transformer(nn.Module):
         heads."""
         cfg = self.cfg
         pos0 = caches["pos"]
-        quant = kv_codec is not None and bool(kv_codec.bits)
+        quant = kv_codec is not None and bool(kv_codec.bits) \
+            and cfg.family == "dense"
+        if isinstance(pos0, torch.Tensor) and cfg.family != "dense":
+            raise NotImplementedError(f"per-row write heads: {CONTINUOUS_SSM} "
+                                      f"is not ported yet")
         h = self.embed_tokens(tokens)
         b, s = h.shape[0], h.shape[1]
         steps = torch.arange(s, dtype=torch.int32, device=h.device)
         positions = pos0[:, None] + steps \
             if isinstance(pos0, torch.Tensor) else pos0 + steps.expand(b, s)
-        cache_len = caches["k_codes" if quant else "k"].shape[2]
+        if cfg.family == "ssm":
+            cache_len = 0
+        else:
+            cache_len = caches["k_codes" if quant else "k"].shape[2]
         # per-row heads: the raw-cache writes take them clamped, once a
         # step; B3's append clamps in the kernel
         write_at = clamp_heads(pos0, cache_len, s) \
             if isinstance(pos0, torch.Tensor) else pos0
-        n = cfg.num_layers
-        if n % num_stages:
-            raise ValueError(f"{n} layers do not split into {num_stages} "
-                             f"stage groups")
-        per = n // num_stages
+        per = stage_size(cfg, num_stages)
+        n = per * num_stages
         boundary_state = {"m": caches["hop_m"]} if "hop_m" in caches \
             else None
 
-        for i, blk in enumerate(self.layers):
-            window = cfg.layer_window(i, cache_len)
-            if quant:
-                ck, cv = kv_codec.decode_pair(
-                    (caches["k_codes"][i], caches["v_codes"][i]),
-                    (caches["k_scale"][i], caches["v_scale"][i]),
-                    cfg.torch_dtype)
+        for u in range(n):
+            if cfg.family == "dense":
+                h = self._dense_cached(u, h, positions, cache_len, caches,
+                                       write_at, kv_codec if quant else None)
+            elif cfg.family == "ssm":
+                h = self.layers[u].step(h, caches["ssm"][u],
+                                        caches["conv"][u])
             else:
-                ck, cv = caches["k"][i], caches["v"][i]
-            h, fk, fv = blk(h, positions, window, ck, cv, write_at)
-            if quant:
-                # encode ONLY this step's fresh rows: old tokens keep
-                # their original single encoding
-                kv_codec.append_pair(
-                    (caches["k_codes"][i], caches["v_codes"][i]),
-                    (caches["k_scale"][i], caches["v_scale"][i]),
-                    (fk, fv), pos0)
-            if boundary_fn is not None and (i + 1) % per == 0 \
-                    and i + 1 < n:
+                per_b = cfg.shared_attn_every
+                for i in range(u * per_b, (u + 1) * per_b):
+                    h = self.layers[i].step(h, caches["ssm"][i],
+                                            caches["conv"][i])
+                h = self.shared_block(
+                    h, positions, cfg.sliding_window or cache_len,
+                    caches["k"][u], caches["v"][u], write_at)[0]
+            if boundary_fn is not None and (u + 1) % per == 0 \
+                    and u + 1 < n:
                 boundary_state, h = boundary_fn(boundary_state, h,
-                                                (i + 1) // per - 1)
+                                                (u + 1) // per - 1)
 
         caches["pos"] = pos0 + s
         if boundary_state is not None:
@@ -246,6 +384,44 @@ class Transformer(nn.Module):
         if logits_last_only:
             h = h[:, -1:]
         return self.lm_logits(h), caches
+
+    def _dense_cached(self, i, h, positions, cache_len, caches, write_at,
+                      kv_codec):
+        """Dense layer ``i`` of a serving step: attention over its raw
+        cache, or with ``kv_codec`` over its dequantized store, the fresh
+        rows encoded back."""
+        cfg = self.cfg
+        window = cfg.layer_window(i, cache_len)
+        if kv_codec is not None:
+            ck, cv = kv_codec.decode_pair(
+                (caches["k_codes"][i], caches["v_codes"][i]),
+                (caches["k_scale"][i], caches["v_scale"][i]),
+                cfg.torch_dtype)
+        else:
+            ck, cv = caches["k"][i], caches["v"][i]
+        h, fk, fv = self.layers[i](h, positions, window, ck, cv, write_at)
+        if kv_codec is not None:
+            # encode ONLY this step's fresh rows: old tokens keep their
+            # original single encoding
+            kv_codec.append_pair(
+                (caches["k_codes"][i], caches["v_codes"][i]),
+                (caches["k_scale"][i], caches["v_scale"][i]),
+                (fk, fv), caches["pos"])
+        return h
+
+
+def stage_size(cfg: ModelConfig, num_stages: int) -> int:
+    """Units of the trunk (its layers, or the hybrid's blocks) a stage
+    group holds: the JAX package's rule, the units split evenly."""
+    if cfg.family == "hybrid":
+        n, what = cfg.n_blocks, (f"{cfg.n_blocks} blocks of "
+                                 f"{cfg.shared_attn_every} layers")
+    else:
+        n, what = cfg.num_layers, f"{cfg.num_layers} layers"
+    if num_stages < 1 or n % num_stages:
+        raise ValueError(f"{cfg.name}: {what} do not split into "
+                         f"{num_stages} stage groups")
+    return n // num_stages
 
 
 def embed_rows(cfg: ModelConfig, embed: torch.Tensor,
@@ -267,18 +443,14 @@ def head_logits(cfg: ModelConfig, h: torch.Tensor, embed: torch.Tensor,
     return L.softcap((h @ w.to(h.dtype)).float(), cfg.final_softcap)
 
 
-def run_layer(blk: Block, h: torch.Tensor, positions: torch.Tensor,
-              window: int, *, remat: bool, block_k: int) -> torch.Tensor:
-    """One training layer, under `torch.utils.checkpoint` with
-    ``remat``.  A layer draws no random numbers, so the checkpoint
-    stashes no generator state."""
-    def layer(x):
-        return blk(x, positions, window, block_k=block_k)[0]
-
+def run_remat(fn: Callable, h: torch.Tensor, *,
+              remat: bool) -> torch.Tensor:
+    """``fn(h)``, under `torch.utils.checkpoint` with ``remat``.  A unit
+    of the trunk draws no random numbers, so the checkpoint stashes no
+    generator state."""
     if not remat:
-        return layer(h)
-    return checkpoint(layer, h, use_reentrant=False,
-                      preserve_rng_state=False)
+        return fn(h)
+    return checkpoint(fn, h, use_reentrant=False, preserve_rng_state=False)
 
 
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
@@ -295,8 +467,8 @@ def loss_fn(model: Transformer, batch: dict, *, num_stages: int = 1,
             boundary_fn: Optional[Callable] = None, boundary_state=None,
             remat: bool = False, block_k: int = 512):
     """batch: tokens, targets, mask (B, S) tensors.  Returns (loss,
-    {"ce", "aux", "boundary_state"}); the dense family has no auxiliary
-    loss.  ``remat`` and ``block_k``: `Transformer.trunk_forward`."""
+    {"ce", "aux", "boundary_state"}); the families the port runs have no
+    auxiliary loss.  ``remat`` and ``block_k``: `Transformer.trunk_forward`."""
     h = model.embed_tokens(batch["tokens"])
     b, s = h.shape[0], h.shape[1]
     positions = torch.arange(s, dtype=torch.int32,

@@ -161,3 +161,22 @@ class KVCodec:
             bits=self.bits, stochastic=self.stochastic,
             generator=generator, backend=self.backend)
 
+
+
+# JAX `quantize_caches`' refusal for the hybrid family
+HYBRID_KV_REFUSAL = ("kv.bits > 0 is not wired for the hybrid family's "
+                     "shared attention block yet — set kv.bits=0 for zamba2")
+
+
+def store_codec(cfg, codec):
+    """The KV codec a model's caches are built with, by the family
+    rules of JAX `quantize_caches`: the ssm family keeps no KV cache, so
+    a codec has nothing to quantize and passes through (None); the
+    hybrid family's shared attention block keeps raw k and v, and a
+    quantizing codec raises `NotImplementedError`; a dense model takes
+    ``codec`` as given."""
+    if cfg.family == "ssm":
+        return None
+    if cfg.family == "hybrid" and codec is not None and codec.bits:
+        raise NotImplementedError(HYBRID_KV_REFUSAL)
+    return codec

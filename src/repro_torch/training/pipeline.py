@@ -1,12 +1,17 @@
 """Distributed pipeline-parallel training with AQ-SGD boundary
 compression over torch.distributed (port of `repro.training.pipeline`
-for the dense family).
+for the dense, ssm and hybrid families).
 
 Mesh: ``(data=D, model=K)`` processes (`repro_torch.launch.mesh`);
 model rank k runs pipeline stage k (its ceil(L/K) layers; stage 0 also
 the embedding, stage K-1 the final norm and the head: a copy of the
 embedding when the config ties them, else the untied ``head``, which
 stage K-1 alone holds), data rank d its shard of every microbatch.
+As in the JAX package the layers are cut into stages one by one in
+every family; a hybrid's shared block runs after each layer that
+``cfg.layer_has_shared_attn`` flags, and every stage holds a copy of
+it (JAX passes it into the ``shard_map`` replicated over the pipe
+axis).
 
 Schedule: GPipe.  Each step runs the M microbatches forward through the
 stages, then backward in reverse order.  A stage boundary is a pair of
@@ -31,7 +36,9 @@ of the GLOBAL batch's mean loss over the whole pipeline tree: each rank
 writes its stage's gradient into a zero (rows, group_d) f32 bucket in
 the pipeline tree's leaf order (`PipelineBucket`), and one f32
 all-reduce over every rank sums the data shards and the stages (a tied
-embedding's two halves add there).  With ``comm.dp.bits`` the
+embedding's two halves add there, as do the hybrid shared block's
+copies, one a stage, so every stage gets the sum of all the stages'
+contributions).  With ``comm.dp.bits`` the
 configured DP wire (`comm.wires`, ``ring`` by default) then runs over
 the rank's data group with per-rank error feedback, so it performs D
 independent stochastic quantizations of that shared gradient (the
@@ -79,7 +86,7 @@ per-step seeds take the global step index, so a stopped-and-resumed
 run gives the uninterrupted run's losses.  As in the JAX package there
 is no fault plan or guard on this path.
 
-Not ported: the other model families, FSDP/ZeRO-3 weight sharding
+Not ported: the moe, audio and vlm families, FSDP/ZeRO-3 weight sharding
 (ROADMAP queue A), and the kernels' seeded noise: `build_rank` refuses
 the on-core noise knob (`repro_torch.env.oncore_prng`,
 `ONCORE_REFUSAL`).
@@ -107,8 +114,9 @@ from repro_torch.core import boundary as B
 from repro_torch.core import grad_compress as GC
 from repro_torch.core import quantization as Q
 from repro_torch.models import layers as L
-from repro_torch.models.model import (Block, Transformer, embed_rows,
-                                      head_logits, run_layer)
+from repro_torch.models.model import (FAMILIES, Block, Transformer,
+                                      embed_rows, head_logits, layer_fn,
+                                      run_remat, trunk_layer)
 from repro_torch.optim import adamw
 from repro_torch.rng import seeded_generator
 from repro_torch.weights import stage_state_dict
@@ -182,24 +190,35 @@ class StageLayout:
     lps: int                         # layers per stage (padded)
     n_layers: int                    # live layers
     n_padded: int                    # dead zero layers after them
+    shared_attn: bool = False        # zamba2's shared block
 
 
 def stage_layout(cfg: ModelConfig, num_stages: int) -> StageLayout:
-    if cfg.family != "dense":
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: the distributed trainer runs the dense family; "
-            f'the other families are ROADMAP queue A, "The other '
-            f'families"')
+            f"{cfg.name}: the distributed trainer runs the "
+            f"{', '.join(FAMILIES)} families; the {cfg.family} family is "
+            f'ROADMAP queue A, "The other families"')
     n = cfg.num_layers
     lps = -(-n // num_stages)
-    return StageLayout(num_stages, lps, n, num_stages * lps - n)
+    return StageLayout(num_stages, lps, n, num_stages * lps - n,
+                       cfg.family == "hybrid")
+
+
+def layer_flags(cfg: ModelConfig, lay: StageLayout) -> list:
+    """Per stage, per padded layer: whether the shared block runs after
+    it (JAX ``layer_flags``' third vector; False on dead layers)."""
+    return [[k * lay.lps + i < lay.n_layers
+             and cfg.layer_has_shared_attn(k * lay.lps + i)
+             for i in range(lay.lps)] for k in range(lay.num_stages)]
 
 
 class Stage(nn.Module):
     """Pipeline stage k: its live layers (global layers k*lps ..), the
     embedding on the first stage, the final norm and the head on the
-    last (a copy of the embedding if tied, else the untied ``head``).
-    Parameter names are the stage's own (``layers.<local>.*``)."""
+    last (a copy of the embedding if tied, else the untied ``head``),
+    and a hybrid's ``shared_block`` on every stage.  Parameter names are
+    the stage's own (``layers.<local>.*``, ``shared_block.*``)."""
 
     def __init__(self, cfg: ModelConfig, lay: StageLayout, k: int,
                  device=None):
@@ -208,8 +227,11 @@ class Stage(nn.Module):
         self.first, self.last = k == 0, k == lay.num_stages - 1
         self.layer_ids = [k * lay.lps + i for i in range(lay.lps)
                           if k * lay.lps + i < lay.n_layers]
-        self.layers = nn.ModuleList(Block(cfg, device=device)
+        self.layers = nn.ModuleList(trunk_layer(cfg, device=device)
                                     for _ in self.layer_ids)
+        self.shared_after = layer_flags(cfg, lay)[k][:len(self.layer_ids)]
+        self.shared_block = Block(cfg, device=device) \
+            if lay.shared_attn else None
         tied = cfg.tie_embeddings
         self.embed = nn.Parameter(torch.empty(
             cfg.vocab_size, cfg.d_model, device=device)) \
@@ -239,7 +261,8 @@ class Stage(nn.Module):
         state = stage_state_dict(np_pipe, self.cfg, lay.num_stages, self.k,
                                  embed=self.embed is not None,
                                  final_norm=self.last,
-                                 head=self.head is not None)
+                                 head=self.head is not None,
+                                 shared=self.shared_block is not None)
         self.load_state_dict({k: torch.tensor(np.asarray(v))
                               for k, v in state.items()})
         return self
@@ -255,9 +278,11 @@ class Stage(nn.Module):
                                  device=h.device).expand(b, s)
 
         def run(x):
-            for i, blk in zip(self.layer_ids, self.layers):
-                x = run_layer(blk, x, positions, self.cfg.layer_window(i, s),
-                              remat=pcfg.remat, block_k=pcfg.block_k)
+            for i, blk, shared in zip(self.layer_ids, self.layers,
+                                      self.shared_after):
+                fn = layer_fn(self.cfg, i, blk, positions, s, pcfg.block_k,
+                              self.shared_block if shared else None)
+                x = run_remat(fn, x, remat=pcfg.remat)
             return x
 
         if pcfg.remat and pcfg.remat_mode == "nested" and self.layers:
@@ -303,14 +328,15 @@ def _numel(shape) -> int:
 class PipelineBucket:
     """The flatten-and-concat DP bucket of the pipeline tree, in the JAX
     package's ``jax.tree.leaves`` order of `to_pipeline_params`:
-    ``embed``, ``final_norm.scale``, the untied ``head`` if any, then
-    ``stages.<block param>`` (sorted) each shaped (K, lps, ...), dead
-    padded layers included as zeros.  Knows where every parameter of a
-    `Stage` sits in it."""
+    ``embed``, ``final_norm.scale``, the untied ``head`` if any, the
+    hybrid's ``shared_block.*`` (sorted; one slot, which every stage's
+    copy writes), then ``stages.<block param>`` (sorted) each shaped
+    (K, lps, ...), dead padded layers included as zeros.  Knows where
+    every parameter of a `Stage` sits in it."""
 
     def __init__(self, cfg: ModelConfig, lay: StageLayout, group_d: int):
         self.lay, self.group_d = lay, group_d
-        block = Block(cfg, device="meta")
+        block = trunk_layer(cfg, device="meta")
         names = sorted((n for n, _ in block.named_parameters()),
                        key=lambda n: tuple(n.split(".")))
         shapes = dict((n, tuple(p.shape)) for n, p in
@@ -321,6 +347,11 @@ class PipelineBucket:
                ("final_norm.scale", (cfg.d_model,))]
         if not cfg.tie_embeddings:
             top.append(("head", (cfg.d_model, cfg.vocab_size)))
+        if lay.shared_attn:
+            shared = Block(cfg, device="meta")
+            top += sorted((("shared_block." + n, tuple(p.shape))
+                           for n, p in shared.named_parameters()),
+                          key=lambda x: tuple(x[0].split(".")))
         for name, shape in top:
             self.offsets[name], self.sizes[name] = off, _numel(shape)
             off += _numel(shape)
@@ -867,11 +898,12 @@ def train_rank(rank: int, world: int, spec: dict) -> dict:
     target).  ``spec``: the run's plain-data description (see
     `repro_torch.launch.train.distributed_spec`; ``ckpt_dir``,
     ``save_every``, ``keep`` and ``resume`` are the checkpoint flags).
-    Returns the rank's losses (of the steps this call ran), step and
-    phase times, peak device memory, kernel launches, transport bytes
-    and manifests, replica checks (after every step) and its
-    checkpoints' saves and restores (``ckpt``: step, bytes, seconds),
-    as plain data."""
+    Returns the rank's losses (of the steps this call ran), the count
+    of staged ``.tmp-*`` entries it removed from its checkpoint
+    directory (``orphans_removed``), step and phase times, peak device
+    memory, kernel launches, transport bytes and manifests, replica
+    checks (after every step) and its checkpoints' saves and restores
+    (``ckpt``: step, bytes, seconds), as plain data."""
     from repro_torch.kernels import quant_pack as qp
 
     trainer, ds = build_rank(rank, world, spec)
@@ -883,12 +915,13 @@ def train_rank(rank: int, world: int, spec: dict) -> dict:
     out = {"rank": rank, "data_rank": mesh.data_rank,
            "model_rank": mesh.model_rank, "losses": [], "step_seconds": [],
            "replicas": [], "bytes": [], "launches": [], "manifests": [],
-           "phase_seconds": [], "ckpt": [], "start": 0}
+           "phase_seconds": [], "ckpt": [], "start": 0,
+           "orphans_removed": 0}
     ckpt_dir = spec.get("ckpt_dir", "")
     save_every = spec.get("save_every", 0)
     own = rank_ckpt_dir(ckpt_dir, mesh) if ckpt_dir else ""
     if own:
-        ckpt.clean_orphans(own)
+        out["orphans_removed"] = len(ckpt.clean_orphans(own))
     if spec.get("resume"):
         t0 = time.perf_counter()
         at = common_step(trainer, own, steps)
@@ -959,15 +992,16 @@ def _bits(t: torch.Tensor) -> torch.Tensor:
 
 @torch.no_grad()
 def check_replicas(trainer: PipelineRank) -> dict:
-    """Ship each stage's m_out to the next stage and, when the embedding
-    is tied, stage 0's embedding to the last stage (the ``check`` plane,
-    outside the wire planes) and compare bit for bit.  Returns
-    {"m_in_equal": bool or None, "embed_equal": bool or None}, None
+    """Ship each stage's m_out to the next stage, when the embedding is
+    tied stage 0's embedding to the last stage, and a hybrid's shared
+    block from stage 0 to every other stage (the ``check`` plane,
+    outside the wire planes), and compare bit for bit.  Returns
+    {"m_in_equal", "embed_equal", "shared_equal"}, each a bool or None
     where this rank checks nothing (an untied model has one embedding
     and checks none)."""
     mesh, tr = trainer.mesh, trainer.mesh.transport
     k, kk = mesh.model_rank, mesh.shape.model
-    res = {"m_in_equal": None, "embed_equal": None}
+    res = {"m_in_equal": None, "embed_equal": None, "shared_equal": None}
     if trainer.has_bufs:
         if k < kk - 1:
             for name in sorted(trainer.m_out):
@@ -987,4 +1021,17 @@ def check_replicas(trainer: PipelineRank) -> dict:
             e = trainer.stage.embed
             got = tr.recv(e.shape, e.dtype, mesh.stage_rank(0), "check")
             res["embed_equal"] = bool(torch.equal(_bits(got), _bits(e)))
+    shared = trainer.stage.shared_block
+    if kk > 1 and shared is not None:
+        params = [p for _, p in sorted(shared.named_parameters())]
+        if k == 0:
+            for dst in range(1, kk):
+                for p in params:
+                    tr.send(p, mesh.stage_rank(dst), "check")
+        else:
+            eq = True
+            for p in params:
+                got = tr.recv(p.shape, p.dtype, mesh.stage_rank(0), "check")
+                eq &= torch.equal(_bits(got), _bits(p))
+            res["shared_equal"] = bool(eq)
     return res

@@ -77,14 +77,14 @@ from repro_torch.weights import (from_jax_tree, jax_leaf_names, jax_leaves,
 class SimTrainConfig:
     """Simulated-trainer knobs.  All communication lives in ``comm``;
     ``dp_workers`` is the simulated DP degree when ``comm.dp.bits``;
-    ``remat`` recomputes each layer's activations in the backward
-    (`repro_torch.models.model.run_layer`; the stage boundaries are
-    never recomputed).  The trailing init-only fields are the JAX
-    package's removed scattered comm kwargs, taken only to refuse them
-    (`reject_legacy_comm`).  8-bit moments (``optimizer.state_bits``)
-    run in the distributed trainer only: the JAX package's simulator
-    builds f32 moments and would fail in its first update, so they are
-    refused here."""
+    ``remat`` recomputes each unit's activations in the backward (a
+    layer, or a hybrid's block: `repro_torch.models.model.run_remat`;
+    the stage boundaries are never recomputed).  The trailing init-only
+    fields are the JAX package's removed scattered comm kwargs, taken
+    only to refuse them (`reject_legacy_comm`).  8-bit moments
+    (``optimizer.state_bits``) run in the distributed trainer only: the
+    JAX package's simulator builds f32 moments and would fail in its
+    first update, so they are refused here."""
     num_stages: int = 4
     comm: Optional[CommConfig] = None
     optimizer: adamw.AdamWConfig = field(default_factory=adamw.AdamWConfig)

@@ -5,15 +5,18 @@ The JAX package keeps per-layer weights stacked along dim 0 under
 per layer.  `from_jax_params` takes that pytree as numpy arrays, keyed
 by the JAX names, and unstacks it leaf by leaf, so both packages
 compute with the same weights (an untied ``head``, (d_model, vocab),
-included).  `jax_leaf_names` and `jax_leaves` give the port's
-parameters in ``jax.tree.leaves`` order, the order of the data-parallel
-gradient bucket (`repro_torch.core.grad_compress`): keys sorted, so
-``embed``, ``final_norm``, ``head``, ``layers``.
+the mamba layers' ``layers.mamba.*`` and ``layers.norm1.*``, and the
+hybrid's unstacked ``shared_block.*`` included).  `jax_leaf_names` and
+`jax_leaves` give the port's parameters in ``jax.tree.leaves`` order,
+the order of the data-parallel gradient bucket
+(`repro_torch.core.grad_compress`): keys sorted, so ``embed``,
+``final_norm``, ``head``, ``layers``, ``shared_block``.
 
 The distributed trainer's tree is the JAX package's pipeline layout
 (`to_pipeline_params`): ``layers`` zero-padded to K * lps layers and
 reshaped to ``stages`` (K, lps, ...), lps = ceil(L / K).
-`stage_state_dict` gives one pipeline stage its weights from it.
+`stage_state_dict` gives one pipeline stage its weights from it (every
+stage of a hybrid holds the whole ``shared_block``).
 
 `jax_tree` goes the other way: any name -> tensor dict keyed by the
 port's parameter names (the parameters, the AdamW moments) as the JAX
@@ -169,12 +172,12 @@ def from_pipeline_params(np_tree: dict, cfg: ModelConfig,
 
 def stage_state_dict(np_pipe: dict, cfg: ModelConfig, num_stages: int,
                      stage: int, *, embed: bool, final_norm: bool,
-                     head: bool = False) -> dict:
+                     head: bool = False, shared: bool = False) -> dict:
     """One pipeline stage's weights from a pipeline-layout tree (numpy):
     ``layers.<l>.*`` for its live layers l = 0.. (global layer
-    stage * lps + l), plus ``embed``, ``final_norm.scale`` and the
-    untied ``head`` where the stage holds them.  Keys are the stage
-    module's parameter names."""
+    stage * lps + l), plus ``embed``, ``final_norm.scale``, the untied
+    ``head`` and the hybrid's ``shared_block.*`` where the stage holds
+    them.  Keys are the stage module's parameter names."""
     lps = _layers_per_stage(cfg, num_stages)
     out = {}
     flat = _flatten({k: v for k, v in np_pipe.items() if k != "stages"})
@@ -184,6 +187,9 @@ def stage_state_dict(np_pipe: dict, cfg: ModelConfig, num_stages: int,
         out["final_norm.scale"] = flat["final_norm.scale"]
     if head:
         out["head"] = flat["head"]
+    if shared:
+        out.update({k: v for k, v in flat.items()
+                    if k.startswith("shared_block.")})
     for name, a in _flatten(np_pipe["stages"]).items():
         for l in range(lps):
             if stage * lps + l < cfg.num_layers:

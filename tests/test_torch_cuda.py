@@ -57,7 +57,12 @@ bit for bit on the card, and ``fp16``'s f16 sum equals the CPU's;
 the CPU's parameters within 1e-6 relative, scales within 1e-6, and
 codes equal except within 1e-3 code units of a half-code tie (or where
 they already differed): PyTorch on CUDA divides by a scalar as a
-multiply by its reciprocal.
+multiply by its reciprocal.  B10 at head_dim 80 (zamba2-2.7b's shared
+block) runs the hd-96 instance on the wrapper's zero-padded copies: its
+80 columns, with and without the lse, against the plain version at 80
+(f32 against the float64 formula), one launch a call, the tile edges
+and the training attention at zamba2's (4, 32, 1024, 80); a head_dim of
+neither an instance nor a padded width (48, 72) still raises.
 """
 import math
 
@@ -570,6 +575,10 @@ FLASH_CASES = [
     # stablelm-12b's heads (32 on 8 kv heads of 160), ragged, an offset
     (2, 32, 8, 100, 130, 160, 30, True, 10 ** 9, 0.0),
     (1, 4, 2, 65, 97, 160, 0, False, 40, 30.0),
+    # zamba2-2.7b's shared block (32 heads of 80, zero-padded to the
+    # kernel's 96 by the wrapper), ragged, an offset; and GQA at 80
+    (2, 32, 32, 100, 130, 80, 30, True, 10 ** 9, 0.0),
+    (1, 4, 2, 65, 97, 80, 0, False, 40, 30.0),
     (1, 2, 2, 64, 64, 32, 0, True, 10 ** 9, 0.0),
     (2, 4, 2, 128, 128, 64, 0, True, 10 ** 9, 0.0),      # GQA
     (1, 8, 1, 64, 64, 128, 0, True, 10 ** 9, 0.0),       # MQA
@@ -637,7 +646,7 @@ def _flash_ref64(q, k, v, *, causal, window, softcap, q_offset):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hd", [32, 64, 128, 160, 256])
+@pytest.mark.parametrize("hd", [32, 64, 80, 128, 160, 256])
 def test_flash_attention_tile_edges(card, hd, dtype):
     """f32 against the float64 formula, bf16 against the plain version."""
     for sq, sk, off, window, cap, qs in FLASH_EDGES:
@@ -725,6 +734,44 @@ def test_flash_attention_hd160_every_column(card, dtype):
     torch.testing.assert_close(lse, want_lse, rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_hd80_is_the_padded_kernel(card, dtype):
+    """hd 80 (zamba2-2.7b): the wrapper zero-pads q, k and v to 96
+    columns and launches the hd-96 instance once, with the scale of 80.
+    Its allocations are filled with NaN first, so a column the kernel
+    left unwritten shows; o (80 columns) with and without the lse, and
+    the lse, against the plain version at 80 (f32 o against the float64
+    formula)."""
+    b, h, hk, sq, sk, hd = 2, 8, 8, 130, 200, 80
+    g = torch.Generator(device=card).manual_seed(80)
+    q = torch.randn(b, h, sq, hd, generator=g, device=card).to(dtype)
+    k = torch.randn(b, hk, sk, hd, generator=g, device=card).to(dtype)
+    v = torch.randn(b, hk, sk, hd, generator=g, device=card).to(dtype)
+    kw = dict(causal=True, window=10 ** 9, softcap=0.0, q_offset=70)
+    real = torch.empty_like
+
+    def nan_like(t, **kwargs):
+        return real(t, **kwargs).fill_(float("nan"))
+
+    torch.empty_like = nan_like
+    try:
+        TP.reset_launches()
+        o, lse = TFA.flash_attention_fwd(q, k, v, return_lse=True, **kw)
+        plain = TFA.flash_attention_fwd(q, k, v, **kw)
+        torch.cuda.synchronize()
+    finally:
+        torch.empty_like = real
+    assert TP.LAUNCHES["flash_attention_fwd"] == 2
+    assert o.shape == q.shape and o.dtype == dtype
+    assert torch.isfinite(o).all() and torch.equal(o, plain)
+    want, want_lse = TR.flash_attention_ref(q, k, v, return_lse=True, **kw)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    if dtype == torch.float32:
+        want = _flash_ref64(q, k, v, **kw)
+    torch.testing.assert_close(o.float(), want.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(lse, want_lse, rtol=tol, atol=tol)
+
+
 @pytest.mark.parametrize("bits", BITS)
 def test_hops_at_new_widths(card, bits):
     """B1 and B2 at gemma2-27b's and stablelm-12b's decode hops (2, 4608)
@@ -751,10 +798,11 @@ def test_hops_at_new_widths(card, bits):
 
 def test_flash_attention_checks(card):
     q = torch.randn(1, 2, 8, 64, device=card)
-    with pytest.raises(ValueError, match="head_dim"):
-        TFA.flash_attention_fwd(q[..., :48].contiguous(),
-                                q[..., :48].contiguous(),
-                                q[..., :48].contiguous())
+    wide = torch.randn(1, 2, 8, 72, device=card)
+    for hd in (48, 72):          # no instance and no padded width
+        t = wide[..., :hd].contiguous()
+        with pytest.raises(ValueError, match="head_dim"):
+            TFA.flash_attention_fwd(t, t, t)
     with pytest.raises(TypeError):
         TFA.flash_attention_fwd(q.double(), q.double(), q.double())
     with pytest.raises(ValueError, match="contiguous"):
@@ -767,6 +815,7 @@ def test_flash_attention_checks(card):
 # the training attention at the trainers' shapes: (b, h, hk, s, hd,
 # window, softcap, q scale); gemma2's q scaled so scores reach the cap
 TRAIN_ATTN = [(4, 25, 25, 1024, 64, 1024, 0.0, 1.0),
+              (4, 32, 32, 1024, 80, 1024, 0.0, 1.0),      # zamba2
               (1, 16, 8, 1024, 256, 4096, 50.0, 16.0),
               (1, 16, 8, 1024, 256, 512, 50.0, 16.0),
               (2, 32, 8, 512, 160, 10 ** 9, 0.0, 1.0)]     # stablelm-12b

@@ -60,6 +60,7 @@ def _port(fn, arrays, dtype, **kw):
     (1, 8, 1, 64, 128, 64, 16),     # MQA
     (1, 2, 2, 96, 32, 32, 32),
     (1, 4, 2, 64, 160, 32, 16),     # stablelm-12b's head_dim, GQA 2
+    (1, 4, 4, 64, 80, 32, 16),      # zamba2-2.7b's head_dim
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_plain_matches_jax_oracle_and_pallas(b, h, hk, s, hd, bq, bk, dtype):

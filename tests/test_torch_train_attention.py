@@ -90,6 +90,7 @@ ATTN_CASES = [
     (2, 33, 6, 2, 16, 40, 30.0, 8, 4.0),       # GQA 6:2, window past S
     (1, 24, 2, 1, 16, BIG, 0.0, 64, 1.0),      # MQA, one padded block
     (1, 21, 4, 2, 160, BIG, 0.0, 8, 1.0),      # stablelm-12b's head_dim
+    (1, 21, 4, 4, 80, BIG, 0.0, 8, 1.0),       # zamba2-2.7b's head_dim
 ]
 
 

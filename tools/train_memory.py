@@ -3,10 +3,12 @@
 with depth.
 
     python3 tools/train_memory.py [--layers 4 8 12] [--remat off on]
-        [--steps 4] [--src TREE]
+        [--steps 4] [--src TREE] [--arch ARCH --stages K]
 
 Runs `chip_smoke.py`'s ``[train]`` configuration (``gpt2-xl-paper`` at
-full width, 4 stage groups, aqsgd fw 4 / bw 8 stochastic, 4-bit DP on
+full width, 4 stage groups, or ``--arch`` at full width in ``--stages``
+groups, as ``[train-zamba2]`` runs ``zamba2-2.7b --layers 12 --stages
+2``; aqsgd fw 4 / bw 8 stochastic, 4-bit DP on
 the ``ring`` over 2 simulated workers, batch 8 x seq 1024, 16 samples,
 random weights from seed 0) at each depth of ``--layers``, with remat
 off and on, ``--steps`` steps each (from step 3 the delta path runs).
@@ -40,7 +42,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GIB = 2 ** 30
 
 
-def run(layers: int, remat: bool, steps: int) -> dict:
+def run(layers: int, remat: bool, steps: int, arch: str = "gpt2-xl-paper",
+        stages: int = 4) -> dict:
     import torch
 
     from repro_torch.comm import config as comm_mod
@@ -54,9 +57,9 @@ def run(layers: int, remat: bool, steps: int) -> dict:
     comm = comm_mod.CommConfig(mode="aqsgd", fw=plane(bits=4),
                                bw=plane(bits=8),
                                dp=plane(bits=4, wire="ring"))
-    cfg = get_config("gpt2-xl-paper").with_(num_layers=layers)
+    cfg = get_config(arch).with_(num_layers=layers)
     tcfg = sim.SimTrainConfig(
-        num_stages=4, comm=comm, dp_workers=2,
+        num_stages=stages, comm=comm, dp_workers=2,
         optimizer=adamw.AdamWConfig(lr=1e-3, warmup_steps=1,
                                     total_steps=steps),
         **({"remat": True} if remat else {}))
@@ -139,6 +142,8 @@ def main(argv=None) -> dict:
                     default=["off", "on"])
     ap.add_argument("--steps", type=int, default=4)
     ap.add_argument("--src", default=ROOT)
+    ap.add_argument("--arch", default="gpt2-xl-paper")
+    ap.add_argument("--stages", type=int, default=4)
     args = ap.parse_args(argv)
     sys.path.insert(0, os.path.join(os.path.abspath(args.src), "src"))
     if not torch.cuda.is_available():
@@ -147,8 +152,8 @@ def main(argv=None) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = torch.cuda.get_device_properties(0)
-    runs = [run(n, mode == "on", args.steps) for mode in args.remat
-            for n in args.layers]
+    runs = [run(n, mode == "on", args.steps, args.arch, args.stages)
+            for mode in args.remat for n in args.layers]
     fits = {}
     for mode in args.remat:
         mine = [r for r in runs if r["remat"] == (mode == "on")]
@@ -164,7 +169,8 @@ def main(argv=None) -> dict:
         fits[mode] = {"gib_a_plus_b_per_layer": per, "top_phase": top[0],
                       "layers_at_card_memory": (cap - a) / b if b else None,
                       "card_gib": cap}
-    out = {"src": os.path.abspath(args.src),
+    out = {"src": os.path.abspath(args.src), "arch": args.arch,
+           "stages": args.stages,
            "device": torch.cuda.get_device_name(0), "runs": runs,
            "fits": fits}
     print(json.dumps(out))

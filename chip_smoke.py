@@ -288,6 +288,24 @@ GiB, fits: tools/train_memory.py); ``[train-mamba2-reference-check]``,
 ``[train-zamba2-reference-check]`` (simulated, zamba2 at head_dim 80)
 and ``[dist-zamba2-reference-check]`` (the 2 x 2 mesh at SMOKE, the
 shared block's copies bit-equal on every stage after every step).
+The moe family: ``[serve-deepseek-moe]``
+and ``[serve-mixtral]``, each at full width and cut in depth
+(`DS_LAYERS`: the dense prefix and 4 MoE layers; `MX_LAYERS`), through
+the launcher with ``[serve-gemma2]``'s flags and checks (the prefix's
+KV raw); their SMOKE card-against-CPU checks at ``capacity_factor``
+1.25 with the 8-bit KV cache, the routing compared past ROUTE_MARGIN
+and the uniform decode step's drop case (``-routing``), the card's KV
+codes carried on at rounding near-ties (`KVTap`);
+``[serve-moe-continuous]``: the launcher's ``--continuous`` run on
+deepseek-moe-16b at full width, `DS_LAYERS` deep, ``[serve-continuous]``'s
+flags, launches and byte models (the KV pair on the 4 coded layers
+alone); ``[serve-moe-continuous-reference-check]`` (SMOKE, raw caches,
+streams token for token) and ``[serve-moe-continuous-kv8-reference-check]``
+(SMOKE, `continuous_reference_check` with the KV carry);
+``[train-moe]``: the simulated trainer at full width, 3 layers, one
+worker; ``[train-moe-reference-check]``, ``[dist-moe-reference-check]``
+and ``[dist-moe-ep-reference-check]`` (``zero3`` and
+``expert_parallel``, the ``ep`` bytes against the byte model).
 Every distributed card-against-CPU check runs in one spawn a device
 (`DIST_CHECKS`).
 
@@ -297,7 +315,9 @@ Then one JSON line with every kernel's numbers (``launches``: the
 count on the path its time was taken at, named by ``launches_path``;
 each path's own count in ``launches_by_path``, ``serve_continuous``,
 ``serve_stablelm``, ``serve_gemma2_27b``, ``serve_mamba2``,
-``serve_zamba2``, ``train_zamba2``, ``train_full_depth``,
+``serve_zamba2``, ``serve_deepseek_moe``, ``serve_mixtral``,
+``serve_moe_continuous``, ``train_zamba2``, ``train_moe``,
+``train_full_depth``,
 ``train_resume``, ``train_fault`` and ``dist_resume`` among them), the
 card's name and
 power limit, and as the last line ``{"ok": true, "device": {...}}``.
@@ -383,6 +403,14 @@ PREFILL_ATOL, DECODE_ATOL, MAX_FLIP_FRACTION = 2e-5, 5e-3, 0.005
 # and the card's, lie within HOP_TIE of a code step of each other and
 # round apart (`HopTap`)
 HOP_NOISE, HOP_TIE, HOP_BITS = 1e-4, 1e-3, 4
+# the 8-bit KV codes of a fresh row agree between the card and the CPU
+# but where a rounding near-tie puts one on the other side: its values
+# before rounding lie within KV_TIE of a code step of each other
+# (`KVTap`, the moe checks, which carry the card's code on).  Fresh
+# values of magnitude ~3 that agree within PREFILL_ATOL lie up to
+# 255 x 2e-5 / 3 ~ 1.7e-3 of a code step apart before rounding (the
+# CPU against itself at weights moved by 1e-8: 6.4e-4 over all codes)
+KV_TIE = 5e-3
 # the continuous batcher at gpt2-xl-paper full size: 2 x BATCH requests of
 # 4-PROMPT tokens (the launcher's draw, numpy seed 1) over CONT_SLOTS
 # slots of CACHE_LEN rows, GEN tokens each
@@ -499,14 +527,16 @@ def ssm_state_bytes(cfg, batch) -> tuple:
             cfg.num_layers * batch * (cfg.ssm_conv_width - 1) * conv_dim * 4)
 
 
-def cell_launches(gen, layers):
+def cell_launches(gen, layers, coded=None):
     """The launches of one uniform-batch serve at 2 stage groups: the
     hop once a decode step (B1, B2); B3 and B4 (k and v in one launch
-    each) on every layer of every step; B10 on every layer of the
-    prefill."""
+    each) on every step of every layer whose KV is coded (``coded``, all
+    ``layers`` by default; a MoE model's dense prefix keeps raw k and v);
+    B10 on every layer of the prefill."""
+    coded = layers if coded is None else coded
     return {"delta_quantize_pack": gen, "dequant_unpack_accumulate": gen,
-            "quantize_pack": (1 + gen) * layers,
-            "unpack_dequant": (1 + gen) * layers,
+            "quantize_pack": (1 + gen) * coded,
+            "unpack_dequant": (1 + gen) * coded,
             "quantize_pack_scaled": 0, "unpack_codes": 0,
             "quantize_codes_scaled": 0, "dequant_sum_mean": 0,
             "unpack_accumulate": 0, "pack_sums": 0, "unpack_sums": 0,
@@ -528,6 +558,53 @@ SERVE_CELLS = {
 # (gemma2-27b's prompt past SMOKE's window of 16)
 SERVE_CHECKS = {"stablelm-12b": (8, 6), "gemma2-27b": (G_CHECK_PROMPT,
                                                        G_CHECK_STEPS)}
+# the moe family at full width, the depth cut (the host draws ~7 s a
+# billion weights): deepseek-moe-16b (d 2048, 16 heads of 128, 64 routed
+# experts of 1408 top-6 and 2 shared, the first layer dense, vocab
+# 102400) at 5 of its 28 layers (the dense prefix and 4 MoE layers,
+# 2.645e9 parameters), batch 2, a prompt of 4064 into 4096; mixtral-8x22b
+# (d 6144, 48 heads on 8 kv heads of 128, 8 experts of 16384 top-2, a
+# 4096-token window, an untied head, vocab 32768) at 2 of its 56 layers
+# (5.41e9), batch 2, a prompt of 8160 into 8192, so the window cuts;
+# both 32 decode steps in 2 stage groups over the MoE layers, the 4-bit
+# hop and 8-bit KV (the dense prefix's k and v raw, JAX's rule)
+DS_LAYERS, DS_D, DS_VOCAB, DS_HEADS = 5, 2048, 102400, 16
+MX_LAYERS, MX_D, MX_VOCAB, MX_HEADS, MX_KV_HEADS = 2, 6144, 32768, 48, 8
+MOE_HEAD_DIM, MX_WINDOW = 128, 4096
+DEEPSEEK_ARGS = ["--arch", "deepseek-moe-16b", "--layers", str(DS_LAYERS),
+                 "--stages", "2", "--mode", "aqsgd", "--fw-bits", "4",
+                 "--kv-bits", "8", "--batch", str(S_BATCH), "--prompt-len",
+                 str(S_PROMPT), "--gen", str(S_GEN), "--device", "cuda",
+                 "--seed", "0"]
+MIXTRAL_ARGS = ["--arch", "mixtral-8x22b", "--layers", str(MX_LAYERS),
+                "--stages", "2", "--mode", "aqsgd", "--fw-bits", "4",
+                "--kv-bits", "8", "--batch", str(G_BATCH), "--prompt-len",
+                str(G_PROMPT), "--gen", str(G_GEN), "--device", "cuda",
+                "--seed", "0"]
+# the continuous batcher on deepseek-moe-16b at full width, DS_LAYERS
+# deep, through the launcher as CONT_ARGS drives gpt2-xl: the pooled step
+# dispatching a row at a time, the trunk's 8-bit KV, the prefix's raw
+# pk/pv at per-row heads and the 4-bit hop
+MOE_CONT_ARGS = ["--arch", "deepseek-moe-16b", "--layers", str(DS_LAYERS),
+                 *CONT_ARGS[2:]]
+SERVE_CELLS.update({
+    "serve-deepseek-moe": (DEEPSEEK_ARGS, S_BATCH, S_PROMPT, S_CACHE, S_GEN,
+                           DS_LAYERS, DS_D, DS_VOCAB, DS_HEADS,
+                           MOE_HEAD_DIM),
+    "serve-mixtral": (MIXTRAL_ARGS, G_BATCH, G_PROMPT, G_CACHE, G_GEN,
+                      MX_LAYERS, MX_D, MX_VOCAB, MX_KV_HEADS, MOE_HEAD_DIM),
+})
+# their SMOKE card-vs-CPU checks at capacity_factor 1.25 (the full
+# configs'; SMOKE's 8 never drops): a prompt of 8 (mixtral's: 40, past
+# SMOKE's window of 16), 6 decode steps; the routing compared exactly
+# wherever the CPU's k-th and (k+1)-th router probabilities lie more than
+# ROUTE_MARGIN apart; then the uniform decode step's drop case, at 8
+# experts (capacity ceil(2 k / 8 x 1.25) = 1 over the step's 2 rows)
+MOE_CHECKS = {"deepseek-moe-16b": ("serve-deepseek-moe-reference-check", 8,
+                                  6),
+              "mixtral-8x22b": ("serve-mixtral-reference-check",
+                                G_CHECK_PROMPT, G_CHECK_STEPS)}
+ROUTE_MARGIN = 1e-5
 # B10 against its plain version: tests/test_flash_kernel.py's tolerances
 # (rtol = atol) at the sweep's shapes; at the paths' shapes (up to 8192
 # keys a row, a softmax summed in another order) a bound set before the
@@ -540,12 +617,22 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_SAMPLES, TRAIN_STEPS = 8, 1024, 16, 6
 DP_BUCKET = (877132, 512)      # 449,091,200 parameters in 512-wide rows
 TRAIN_ROWS = (TRAIN_BATCH // TRAIN_WORKERS * TRAIN_SEQ, D_MODEL)  # a worker
 TZ_ROWS = (TRAIN_ROWS[0], Z_D)          # a [train-zamba2] worker
+# the hops the moe serving cells send (a decode step's rows), and
+# [train-moe]: deepseek-moe-16b at full width, 3 of 28 layers (the dense
+# prefix and 2 MoE layers, 1.47e9 parameters), 2 stage groups over the
+# MoE layers, one worker and no DP plane ([train]'s other settings: at
+# ~60 B a parameter the ring's copies would need ~82 GiB), so a boundary
+# carries the whole batch's 8 x 1024 rows
+MOE_HOPS = ((S_BATCH, DS_D), (G_BATCH, MX_D))
+TM_LAYERS, TM_STAGES = 3, 2
+TM_ROWS = (TRAIN_BATCH * TRAIN_SEQ, DS_D)
 # the encoders' tiling edges past 256 values (quant_pack._encode_tiling: a
 # block a row): the first width a block takes, the hops' (gpt2-xl's,
-# mamba2-1.3b's, zamba2-2.7b's, gemma2-9b's, gemma2-27b's and
-# stablelm-12b's d_model), and the first width past the register cap
+# mamba2-1.3b's and deepseek-moe-16b's, zamba2-2.7b's, gemma2-9b's,
+# gemma2-27b's, stablelm-12b's and mixtral-8x22b's d_model), and the first width past the register cap
 # (8192 values), which the block walks twice; 1 and 5 rows each
-WIDE_ROWS = [(r, d) for d in (260, 1600, 2048, 2560, 3584, 4608, 5120, 8196)
+WIDE_ROWS = [(r, d) for d in (260, 1600, 2048, 2560, 3584, 4608, 5120, 6144,
+                            8196)
              for r in (1, 5)]
 # kernel launches per training step: 3 boundaries x 2 workers forward
 # (sender) and backward (gradient round trip); per worker one DP sender
@@ -889,7 +976,7 @@ def kernel_phase(torch, qp, ref):
     cases += [("dequant_unpack_accumulate", 2, d, b, {})
               for d in (3584, G27_D, S_D) for b in (2, 4, 8)]
     cases += [("dequant_unpack_accumulate", r, d, b, {})
-              for r, d in SSM_HOPS for b in (2, 4, 8)]
+              for r, d in SSM_HOPS + MOE_HOPS for b in (2, 4, 8)]
     cases += [("quantize_pack", *kv_append, b, {"stochastic": True})
               for b in (2, 4, 8)]
     cases += [("quantize_pack", *kv_prefill, 8, {}),
@@ -926,6 +1013,11 @@ def kernel_phase(torch, qp, ref):
     cases += [("unpack_dequant", *TZ_ROWS, 8, {}),
               ("quantize_codes_scaled", *TZ_BUCKET, 4, {"stochastic": True}),
               ("dequant_sum_mean", *TZ_BUCKET, 4, {"n": 2})]
+    # and at [train-moe]'s boundary (one worker: 8 x 1024 rows of 2048)
+    cases += [(n, *TM_ROWS, b, {"stochastic": st})
+              for n, b in (("delta_quantize_pack", 4), ("quantize_pack", 8))
+              for st in (False, True)]
+    cases += [("unpack_dequant", *TM_ROWS, 8, {})]
     # the ring: accumulate at bits 2/4/8, sum packers at every sum width
     # (2, 4, 8, 16, 32 bits), ragged rows, the element path (an element
     # count that is not a multiple of 4), and the distributed path's
@@ -1357,6 +1449,12 @@ KV_PAIR_CASES = [
      0),
     ("gemma2-27b decode", G_BATCH, G_CACHE, G27_KV_HEADS, G27_HEAD_DIM, 1,
      G_CACHE - 1),
+    ("deepseek-moe decode", S_BATCH, S_CACHE, DS_HEADS, MOE_HEAD_DIM, 1,
+     S_CACHE - 1),
+    ("mixtral decode", G_BATCH, G_CACHE, MX_KV_HEADS, MOE_HEAD_DIM, 1,
+     G_CACHE - 1),
+    ("mixtral prefill", G_BATCH, G_CACHE, MX_KV_HEADS, MOE_HEAD_DIM,
+     G_PROMPT, 0),
     ("group 32", 3, 7, 10, 32, 2, 5),
     ("wide rows", 1, 5, 3, 1600, 2, 1),
     ("g % 4 != 0", 2, 6, 5, 66, 3, 2)]
@@ -1721,10 +1819,23 @@ FLASH_PATHS = {
     # its cache of 4096)
     "zamba2": ("path", Z_BATCH, Z_HEADS, Z_HEADS, Z_PROMPT, Z_CACHE,
                Z_HEAD_DIM, 0, True, Z_CACHE, 0.0, "float32", 1.0),
+    # the moe family's prefills: deepseek-moe-16b (16 heads of 128, causal
+    # over its cache of 4096) and mixtral-8x22b (48 heads on 8 kv heads of
+    # 128, GQA 6:1, its 4096-token window inside a cache of 8192)
+    "deepseek-moe": ("path", S_BATCH, DS_HEADS, DS_HEADS, S_PROMPT, S_CACHE,
+                     MOE_HEAD_DIM, 0, True, S_CACHE, 0.0, "float32", 1.0),
+    "mixtral": ("path", G_BATCH, MX_HEADS, MX_KV_HEADS, G_PROMPT, G_CACHE,
+                MOE_HEAD_DIM, 0, True, MX_WINDOW, 0.0, "float32", 1.0),
 }
 # the hd-160 calls are held to the float64 formula (at the sweep's f32
 # tolerance), the others to the f32 plain version at FLASH_PATH_TOL
-FLASH_F64_PATHS = ("stablelm", "stablelm-ragged", "zamba2")
+FLASH_F64_PATHS = ("stablelm", "stablelm-ragged", "zamba2", "deepseek-moe",
+                   "mixtral")
+# calls whose whole (B, H, Sq, Sk) score tensor would not fit beside
+# its copies (mixtral's, 25.7 GB in f32): their float64 formula, plain
+# version and library call run a batch row and kv head at a time
+# (`_by_group`), the same function with 1 / (B Hk) of the temporaries
+FLASH_GROUPED = ("mixtral",)
 
 
 # the training attention (B10 asked for its rows' log-sum-exp, and JAX's
@@ -1810,14 +1921,30 @@ def flash_ref64(torch, ref, q, k, v, *, causal, window, softcap, q_offset):
     return out.reshape(b, h, sq, hd).float()
 
 
-def check_flash(torch, fa, ref, case, tol, f64=False, lse=False):
+def _by_group(torch, fn):
+    """``fn(q, k, v)`` a batch row and kv head (with the query heads that
+    read it) at a time, the outputs put back in place: attention's
+    function with 1 / (B Hk) of its temporaries."""
+    def call(q, k, v):
+        b, h, hk = q.shape[0], q.shape[1], k.shape[1]
+        g = h // hk
+        return torch.cat([torch.cat([
+            fn(q[i:i + 1, j * g:(j + 1) * g], k[i:i + 1, j:j + 1],
+               v[i:i + 1, j:j + 1]) for j in range(hk)], 1)
+            for i in range(b)])
+    return call
+
+
+def check_flash(torch, fa, ref, case, tol, f64=False, lse=False,
+                grouped=False):
     """Kernel vs plain version (rtol = atol = tol), or (f64) vs the plain
     version's formula in float64; returns (max |diff| from the yardstick,
     max |diff| from the f32 plain version, and with f64 the f32 plain
     version's own max |diff| from the float64 formula and its count of
     elements past the tolerance).  With ``lse`` the kernel also writes
     the rows' log-sum-exp, held to the plain version's at the same
-    tolerance; its max |diff| is returned last."""
+    tolerance; its max |diff| is returned last.  ``grouped``: the plain
+    version and the formula run by `_by_group`."""
     q, k, v = _flash_inputs(torch, case, seed=sum(case[1:7]))
     kw = _flash_kw(case)
     lse_err = None
@@ -1831,8 +1958,12 @@ def check_flash(torch, fa, ref, case, tol, f64=False, lse=False):
         del got_lse, plain_lse
     else:
         got = fa.flash_attention_fwd(q, k, v, **kw)
-        plain = ref.flash_attention_ref(q, k, v, **kw)
-    want = flash_ref64(torch, ref, q, k, v, **kw) if f64 else plain
+        plain_fn = lambda *a: ref.flash_attention_ref(*a, **kw)  # noqa: E731
+        plain = (_by_group(torch, plain_fn) if grouped else plain_fn)(
+            q, k, v)
+    f64_fn = lambda *a: flash_ref64(torch, ref, *a, **kw)  # noqa: E731
+    want = (_by_group(torch, f64_fn) if grouped else f64_fn)(q, k, v) \
+        if f64 else plain
     torch.cuda.synchronize()
     assert got.shape == plain.shape and got.dtype == plain.dtype, case
     diff = (got.float() - want.float()).abs()
@@ -1878,7 +2009,7 @@ def _sdpa(torch, case):
         q, k, v, attn_mask=vis, enable_gqa=h != hk)
 
 
-def time_flash(torch, fa, ref, case, lse=False):
+def time_flash(torch, fa, ref, case, lse=False, grouped=False):
     """(ms, ms_head_major, plain_ms, library_ms, bound_ms, bound_by,
     bytes, ops, pad_ms) at one path shape, ms on the path's views and
     ms_head_major on contiguous copies of them; the library call is
@@ -1887,7 +2018,9 @@ def time_flash(torch, fa, ref, case, lse=False):
     the rows' log-sum-exp (its bytes counted); the library call computes
     the output alone.  The bound counts the call's own head dim, whatever
     width the kernel computes; ``pad_ms`` times a padded head dim's
-    three copies apart (None at the kernel's own widths)."""
+    three copies apart (None at the kernel's own widths).  ``grouped``:
+    the plain version and the library call run by `_by_group`, their
+    times those of the whole loop."""
     _, b, h, hk, sq, sk, hd, off, causal, window, cap, *_ = case
     kw = dict(_flash_kw(case), **({"return_lse": True} if lse else {}))
     one = _flash_inputs(torch, case, seed=1)
@@ -1895,6 +2028,8 @@ def time_flash(torch, fa, ref, case, lse=False):
     outs = list(out) if lse else [out]
     nbytes = _bytes(one, outs)
     library = _sdpa(torch, case)
+    if grouped and library is not None:
+        library = _by_group(torch, library)
     if library is not None:
         torch.testing.assert_close(library(*one), outs[0],
                                    rtol=FLASH_PATH_TOL, atol=FLASH_PATH_TOL)
@@ -1919,8 +2054,9 @@ def time_flash(torch, fa, ref, case, lse=False):
     pad_ms = None if width is None else device_ms(
         torch, lambda *a: [fa.pad_head_dim(t, width) for t in a], sets,
         launches, reps)
-    plain_ms = device_ms(torch, lambda *a: ref.flash_attention_ref(*a, **kw),
-                         sets, launches, reps)
+    plain = lambda *a: ref.flash_attention_ref(*a, **kw)  # noqa: E731
+    plain_ms = device_ms(torch, _by_group(torch, plain) if grouped
+                         else plain, sets, launches, reps)
     library_ms = None if library is None else \
         device_ms(torch, library, sets, launches, reps)
     del sets, one
@@ -1964,7 +2100,7 @@ def flash_phase(torch, fa, ref):
         f64 = name in FLASH_F64_PATHS
         path_errs[name] = check_flash(
             torch, fa, ref, case, FLASH_TOL["float32"] if f64
-            else FLASH_PATH_TOL, f64=f64)[0]
+            else FLASH_PATH_TOL, f64=f64, grouped=name in FLASH_GROUPED)[0]
     for name, case in FLASH_TRAIN.items():     # the kernel with its lse
         res = check_flash(torch, fa, ref, case, FLASH_PATH_TOL, lse=True)
         path_errs[name], lse_errs[name] = res[0], res[-1]
@@ -1986,7 +2122,8 @@ def flash_phase(torch, fa, ref):
     for name, case in [*FLASH_PATHS.items(), *FLASH_TRAIN.items()]:
         lse = name in FLASH_TRAIN
         ms, ms_head_major, plain_ms, library_ms, bound_ms, bound_by, \
-            nbytes, ops, pad_ms = time_flash(torch, fa, ref, case, lse=lse)
+            nbytes, ops, pad_ms = time_flash(torch, fa, ref, case, lse=lse,
+                                             grouped=name in FLASH_GROUPED)
         bound_tc_ms = tensor_core_bound_ms(ops, nbytes)
         # bound_ms: the f32 units' rate; bound_tc_ms: the tensor cores'
         # (tflops: the visible scores' operations a second; tflops_tc:
@@ -2230,8 +2367,96 @@ def hop_sync(hc, mc, nc, hg, mg, ng):
     return flip
 
 
+class KVTap:
+    """The 8-bit KV codec's appends, tapped (as `HopTap` taps the hop).
+    On the card it records each append's fresh k and v values and the
+    codes and scales it wrote, on the CPU.  On the CPU, given the card's
+    tap, it holds each append's rows (``rows()``, every row by default;
+    every row of a B = 1 prefill's row cache) against the card's record
+    of the same append (`kv_sync`) and, where a rounding near-tie put a
+    code on the other side, carries the card's codes and scale on in
+    that group, so later steps read the card's store.  ``flips`` and
+    ``codes`` count the codes that differed and those compared.
+    Stands in for the codec (``append_pair``; the rest passes
+    through)."""
+
+    def __init__(self, kv, card=None, rows=None):
+        assert kv.bits == 8 and not kv.stochastic, kv
+        self.kv, self.card, self.rows = kv, card, rows
+        self.log, self.flips, self.codes = [], [], 0
+
+    def __getattr__(self, name):
+        return getattr(self.kv, name)
+
+    def append_pair(self, codes, scales, values, pos, *, generator=None):
+        import torch
+        from repro_torch.core.cache_rows import clamp_heads
+
+        self.kv.append_pair(codes, scales, values, pos, generator=generator)
+        b, cache = codes[0].shape[:2]
+        n = values[0].shape[1]
+        heads = clamp_heads(pos, cache, n).cpu() \
+            if isinstance(pos, torch.Tensor) else torch.full((b,), pos)
+        at = (heads[:, None] + torch.arange(n)).to(codes[0].device)
+        rid = torch.arange(b, device=codes[0].device)[:, None]
+        step = len(self.log)
+        self.log.append(tuple(
+            (v.detach().cpu().clone(), c[rid, at].cpu(), s[rid, at].cpu())
+            for v, c, s in zip(values, codes, scales)))
+        if self.card is None:
+            return
+        rows = range(b) if self.rows is None or b == 1 else self.rows()
+        for j, ((vc, cc, sc), (vg, cg, sg)) in enumerate(
+                zip(self.log[step], self.card.log[step])):
+            for r in rows:
+                sync = kv_sync(vc[r], cc[r], sc[r], vg[r], cg[r], sg[r])
+                self.codes += cc[r].numel()
+                if sync is None:
+                    continue
+                carry, gap = sync
+                cr, sr = codes[j][r, at[r]], scales[j][r, at[r]]
+                cr[carry] = cg[r][carry].to(cr.device)
+                sr[carry] = sg[r][carry].to(sr.device)
+                codes[j][r, at[r]], scales[j][r, at[r]] = cr, sr
+                self.flips.append({"append": step, "kv": "kv"[j], "row": r,
+                                   "codes": int((cc[r] != cg[r]).sum()),
+                                   "gap": gap})
+
+
+def kv_sync(vc, cc, sc, vg, cg, sg):
+    """One row of one 8-bit KV append, the CPU's (fresh values vc (s, Hk,
+    hd), codes cc (s, Hk, G, group), scales sc (s, Hk, G)) against the
+    card's (vg, cg, sg), all on the CPU.  The card's codes and scales
+    must be the plain encoder's on the card's own values, bit for bit.
+    None when the codes agree.  Else each code that differs does so by
+    one, and its values before rounding, ``(x / s + 1) * 255 / 2`` from
+    each side's own values and scale, lie within KV_TIE (of a code step)
+    of each other: a rounding near-tie.  Returns the groups (s, Hk, G)
+    to carry and the largest such gap.  Anything else fails."""
+    from repro_torch.serving import KVCodec
+
+    want_c, want_s = KVCodec(bits=8).encode(vg)
+    assert want_c.equal(cg) and want_s.equal(sg), \
+        "the card's KV codes are not the plain encoder's on its inputs"
+    off = cc != cg
+    if not off.any():
+        return None
+    assert (cc.int() - cg.int()).abs().max().item() == 1, \
+        "a KV code off by more than one"
+
+    def before_rounding(v, s):
+        return (v.float().reshape(cc.shape) / s[..., None] + 1.0) * 127.5
+
+    gap = (before_rounding(vc, sc) - before_rounding(vg, sg)).abs()[off]
+    gap = gap.max().item()
+    assert gap <= KV_TIE, ("a KV code off where no rounding near-tie is",
+                           gap)
+    return off.any(-1), gap
+
+
 def reference_check(torch, arch="gpt2-xl-paper", p=8, n=6,
-                    tag="reference-check", **cfg_kw):
+                    tag="reference-check", kv_bits=None, carry_kv=False,
+                    **cfg_kw):
     """The SMOKE model of ``arch`` (its config fields ``cfg_kw``
     replaced) served on the card (kernels) against the same weights,
     drawn on the CPU, served on the CPU (plain versions): prompt ``p``,
@@ -2240,7 +2465,11 @@ def reference_check(torch, arch="gpt2-xl-paper", p=8, n=6,
     element of a row's hop message on the other side (`HopTap`,
     `hop_sync`), the CPU carries the card's message on in that row
     (printed).  The KV codec is 8-bit (the ssm family keeps no KV, and
-    it passes through), or raw for the hybrid family (JAX's rule); an
+    it passes through), or raw for the hybrid family (JAX's rule), or
+    ``kv_bits`` where given.  With ``carry_kv`` every append's fresh KV
+    codes are held against the card's as they are written, and where a
+    rounding near-tie put a code on the other side the CPU carries the
+    card's on (`KVTap`; the flips are counted there).  An
     ssm or hybrid model's final states are held to PREFILL_ATOL scaled
     to each state's largest magnitude."""
     from repro_torch.configs.base import get_config
@@ -2255,11 +2484,12 @@ def reference_check(torch, arch="gpt2-xl-paper", p=8, n=6,
     b = 2
     toks = torch.randint(0, cfg.vocab_size, (b, p + n),
                          generator=torch.Generator().manual_seed(1))
-    kv = KVCodec(bits=0 if cfg.family == "hybrid" else 8)
+    kv = KVCodec(bits=(0 if cfg.family == "hybrid" else 8)
+                 if kv_bits is None else kv_bits)
     hop = DeltaHopCodec(mode="aqsgd", bits=4)
 
-    def run(model, dev, tap):
-        c = model.init_caches(b, p + n, torch.float32, kv_codec=kv)
+    def run(model, dev, tap, kvc):
+        c = model.init_caches(b, p + n, torch.float32, kv_codec=kvc)
         c["hop_m"] = tap.init_state(1, b, cfg.d_model, device=dev)["m"]
         t = toks.to(dev)
         logits = []
@@ -2268,14 +2498,16 @@ def reference_check(torch, arch="gpt2-xl-paper", p=8, n=6,
             x = t[:, :p] if i == 0 else t[:, p + i - 1:p + i]
             lg, c = model.forward_with_caches(x, c, logits_last_only=True,
                                               num_stages=2, boundary_fn=fn,
-                                              kv_codec=kv)
+                                              kv_codec=kvc)
             logits.append(lg.cpu())
         return logits, c
 
     card = HopTap(hop)
-    lg, cg = run(gpu, "cuda", card)
+    kv_card = KVTap(kv) if carry_kv else kv
+    lg, cg = run(gpu, "cuda", card, kv_card)
     tap = HopTap(hop, card=card)
-    lc, cc = run(cpu, "cpu", tap)
+    kv_tap = KVTap(kv, card=kv_card) if carry_kv else kv
+    lc, cc = run(cpu, "cpu", tap, kv_tap)
     assert len(tap.log) == len(card.log) == n
     pre = (lc[0] - lg[0]).abs().max().item()
     dec = max((lc[i] - lg[i]).abs().max().item() for i in range(1, n + 1))
@@ -2287,6 +2519,10 @@ def reference_check(torch, arch="gpt2-xl-paper", p=8, n=6,
         assert diff.max().item() <= 1, name
         flips += int((diff > 0).sum())
         total += diff.numel()
+    if carry_kv:
+        assert len(kv_tap.log) == len(kv_card.log) > 0
+        flips = sum(f["codes"] for f in kv_tap.flips)
+        total = kv_tap.codes
     # the final states, each held to PREFILL_ATOL scaled to its magnitude
     states = {name: (cc[name] - cg[name].cpu()).abs().max().item()
               for name in ("ssm", "conv", "k", "v") if name in cc}
@@ -2297,8 +2533,10 @@ def reference_check(torch, arch="gpt2-xl-paper", p=8, n=6,
           head_dim=cfg.head_dim, cache_max_abs=json.dumps(states),
           cache_tol=json.dumps(state_tol),
           hop_flips_carried=json.dumps(tap.flips),
+          kv_flips_carried=json.dumps(kv_tap.flips) if carry_kv else None,
           tolerance=f"prefill {PREFILL_ATOL} decode {DECODE_ATOL} flips <= "
-                    f"{MAX_FLIP_FRACTION}; hop near-tie {HOP_TIE} code")
+                    f"{MAX_FLIP_FRACTION}; hop near-tie {HOP_TIE} code"
+                    + (f"; KV near-tie {KV_TIE} code" if carry_kv else ""))
     assert pre <= PREFILL_ATOL, pre
     assert dec <= DECODE_ATOL, dec
     assert flips <= MAX_FLIP_FRACTION * total, (flips, total)
@@ -2430,7 +2668,9 @@ def serve_continuous_guard(torch):
     torch.cuda.empty_cache()
 
 
-def continuous_reference_check(torch, arch):
+def continuous_reference_check(torch, arch,
+                               tag="serve-continuous-reference-check",
+                               carry_kv=False):
     """[serve-continuous-reference-check]: the batcher on the card
     (kernels) against the same SMOKE weights on the CPU (plain versions),
     in lockstep (no EOS, so both fill and free the same slots at the same
@@ -2443,15 +2683,22 @@ def continuous_reference_check(torch, arch):
     that slot (printed), and the stream is compared on.  A stream that
     forks at a near tie (the CPU's top two logits within DECODE_ATOL
     where it forks) stops being compared from that tick, and is
-    printed; one may, a second, or a fork at a wider gap, fails."""
+    printed; one may, a second, or a fork at a wider gap, fails.  With
+    ``carry_kv`` (the moe family: ``tag`` names its check) every append's
+    fresh KV codes of a live stream are held against the card's as they
+    are written, and a code a rounding near-tie put on the other side is
+    carried on (`KVTap`; the flips counted there); the raw stores (a
+    MoE model's dense prefix's pk/pv) are f32 then, as `reference_check`'s
+    (bf16 stores round near-ties apart as the codes do, uncarried)."""
     import numpy as np
     from repro_torch.configs.base import get_config
     from repro_torch.models.model import Transformer
     from repro_torch.serving import DeltaHopCodec
 
+    window = CONT_CHECK_WINDOW.get(arch)
     cfg = get_config(arch, smoke=True)
-    if CONT_CHECK_WINDOW[arch]:
-        cfg = cfg.with_(sliding_window=CONT_CHECK_WINDOW[arch])
+    if window:
+        cfg = cfg.with_(sliding_window=window)
     rng = np.random.default_rng(2)
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
                for n in (3, 12, 7, 5, 9)]
@@ -2463,12 +2710,26 @@ def continuous_reference_check(torch, arch):
     for dev, tap in zip(("cuda", "cpu"), taps):
         model = Transformer(cfg, device=dev,
                             generator=torch.Generator().manual_seed(0))
-        bat = _slice_batcher(model, 3, 24)
+        bat = _slice_batcher(model, 3, 24, **(
+            {"dtype": torch.float32} if carry_kv else {}))
         bat.hop_codec = tap
         for p in prompts:
             bat.submit(p, max_new_tokens=6)
         bats.append(bat)
     gpu, cpu = bats
+    if carry_kv:
+        gpu.kv_codec = KVTap(gpu.kv_codec)
+        cpu.kv_codec = KVTap(cpu.kv_codec, card=gpu.kv_codec,
+                             rows=lambda: list(live.values()))
+
+    def cpu_prefill_logits(prompt):
+        # outside the KV tap: the card made no such append
+        codec = cpu.kv_codec
+        cpu.kv_codec = getattr(codec, "kv", codec)
+        try:
+            return cpu._prefill(prompt)[0][0]
+        finally:
+            cpu.kv_codec = codec
 
     def gap(logits):
         top = torch.topk(logits, 2).values
@@ -2480,7 +2741,7 @@ def continuous_reference_check(torch, arch):
         rc, rg = cpu.requests[j], gpu.requests[j]
         if j not in forked and rc.tokens != rg.tokens:
             forked[j] = {"at_token": len(rc.tokens) - 1, "cpu": rc.tokens,
-                         "card": rg.tokens, "cpu_top2_gap": gap(logits)}
+                         "card": rg.tokens, "cpu_top2_gap": gap(logits())}
 
     while True:
         before = [r.state for r in cpu.requests]
@@ -2488,7 +2749,7 @@ def continuous_reference_check(torch, arch):
             bat._admit()
         for j, r in enumerate(cpu.requests):
             if before[j] == "PENDING" and r.state != "PENDING":
-                fork_check(j, cpu._prefill(r.prompt)[0][0])
+                fork_check(j, lambda: cpu_prefill_logits(r.prompt))
         if all(r.state == "DONE" for r in cpu.requests):
             break
         live.clear()
@@ -2507,15 +2768,22 @@ def continuous_reference_check(torch, arch):
                 worst = max(worst, d.max().item())
                 flips += int((d > 0).sum())
                 total += d.numel()
-            fork_check(j, lc[i])
-    phase("serve-continuous-reference-check", arch=arch,
-          window=CONT_CHECK_WINDOW[arch], requests=len(prompts), slots=3,
+            fork_check(j, lambda: lc[i])
+    if carry_kv:
+        assert len(cpu.kv_codec.log) == len(gpu.kv_codec.log) > 0
+        flips = sum(f["codes"] for f in cpu.kv_codec.flips)
+        total = cpu.kv_codec.codes
+    phase(tag, arch=arch,
+          window=window, requests=len(prompts), slots=3,
           ticks=cpu._tick, streams_equal=len(prompts) - len(forked),
           forked_at_near_tie=json.dumps(forked),
           hop_flips_carried=json.dumps(taps[1].flips), decode_max_abs=dec,
           kv_code_max_diff=worst, kv_code_flips=f"{flips}/{total}",
+          kv_flips_carried=json.dumps(cpu.kv_codec.flips)
+          if carry_kv else None,
           tolerance=f"decode {DECODE_ATOL} flips <= {MAX_FLIP_FRACTION}; "
-                    f"hop near-tie {HOP_TIE} code; forks <= 1")
+                    f"hop near-tie {HOP_TIE} code; forks <= 1"
+                    + (f"; KV near-tie {KV_TIE} code" if carry_kv else ""))
     assert cpu._tick == gpu._tick == len(card.log) == len(taps[1].log)
     assert all(r.state == "DONE" and len(r.tokens) == 6
                for r in cpu.requests + gpu.requests)
@@ -2529,17 +2797,244 @@ def continuous_reference_check(torch, arch):
         n in cc for n in ("k", "v", "k_codes", "v_codes")), "ssm KV store"
 
 
+class RouteTap:
+    """While active, records every MoE dispatch's routing
+    (`repro_torch.models.moe.route`): its device, the router's
+    probabilities, ``top_i`` and the keep mask, on the CPU."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.log, self._moe, self._route = [], moe, moe.route
+
+        def tapped(p, xg, top_k, cap):
+            r = self._route(p, xg, top_k, cap)
+            self.log.append({"device": xg.device.type, **{
+                k: r[k].detach().cpu() for k in ("probs", "top_i", "keep")}})
+            return r
+        moe.route = tapped
+        return self
+
+    def __exit__(self, *exc):
+        self._moe.route = self._route
+
+    def compare(self, torch, top_k) -> dict:
+        """The card's dispatches against the CPU's, in order: ``top_i``
+        (as each token's set of experts) equal for every token whose
+        k-th and (k+1)-th CPU probabilities lie more than ROUTE_MARGIN
+        apart, the keep mask equal for every dispatch all of whose
+        tokens do; fails otherwise.  Returns the counts compared and
+        the dropped slots."""
+        cpu = [r for r in self.log if r["device"] == "cpu"]
+        card = [r for r in self.log if r["device"] == "cuda"]
+        assert len(cpu) == len(card) > 0, (len(cpu), len(card))
+        out = {"dispatches": len(cpu), "tokens": 0, "tokens_clear": 0,
+               "keep_compared": 0, "dropped": 0, "probs_max_abs": 0.0}
+        for c, g in zip(cpu, card):
+            top = torch.sort(c["probs"], dim=-1, descending=True).values
+            clear = top[..., top_k - 1] - top[..., top_k] > ROUTE_MARGIN \
+                if top.shape[-1] > top_k else torch.ones(top.shape[:-1],
+                                                         dtype=torch.bool)
+            same = (c["top_i"].sort(-1).values
+                    == g["top_i"].sort(-1).values).all(-1)
+            assert bool(same[clear].all()), "routing differs past the margin"
+            out["tokens"] += clear.numel()
+            out["tokens_clear"] += int(clear.sum())
+            out["probs_max_abs"] = max(out["probs_max_abs"], (
+                c["probs"] - g["probs"]).abs().max().item())
+            for i in range(clear.shape[0]):
+                if clear[i].all():
+                    assert c["keep"][i].equal(g["keep"][i]), "keep differs"
+                    out["keep_compared"] += 1
+            out["dropped"] += int((~c["keep"]).sum())
+        return out
+
+
+def moe_reference_check(torch, arch, p, n, tag):
+    """[serve-<arch>-reference-check] for the moe family: `reference_check`
+    at ``capacity_factor`` 1.25 with the 8-bit KV cache, the card's KV
+    codes carried on at rounding near-ties (``carry_kv``), and the routing
+    compared (`RouteTap.compare`), then the uniform decode step's drop
+    case: 8
+    experts (capacity 1 over the step's 2 rows), two equal prompts of
+    10, prefill and one decode step, raw caches, on the card and the
+    CPU: the decode step's dispatches drop the second row's slots in
+    both, its logits within DECODE_ATOL."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.model import Transformer
+
+    # the KV carry: at these SMOKE widths (4 heads of 64) one 8-bit KV
+    # code flip, which the dense checks allow in 0.5% of the codes, moves
+    # the next hop's input by ~3.8e-4 (on the CPU, weights moved by
+    # 1e-6), past the hop comparison's HOP_NOISE
+    with RouteTap() as tap:
+        reference_check(torch, arch, p, n, tag=tag, carry_kv=True,
+                        capacity_factor=1.25)
+    cfg = get_config(arch, smoke=True)
+    routing = tap.compare(torch, cfg.top_k)
+    cfg = cfg.with_(capacity_factor=1.25, n_experts=8)
+    prompt = torch.randint(0, cfg.vocab_size, (1, 10),
+                           generator=torch.Generator().manual_seed(3))
+    prompt = prompt.repeat(2, 1)
+    logits = {}
+    with RouteTap() as drop:
+        for dev in ("cuda", "cpu"):
+            model = Transformer(cfg, device=dev,
+                                generator=torch.Generator().manual_seed(0))
+            c = model.init_caches(2, 11, torch.float32)
+            _, c = model.forward_with_caches(prompt.to(dev), c)
+            lg, _ = model.forward_with_caches(prompt[:, -1:].to(dev), c)
+            logits[dev] = lg.cpu()
+    decode = [r for r in drop.log if r["top_i"].shape[1] == 2]
+    dec = (logits["cpu"] - logits["cuda"]).abs().max().item()
+    rows_apart = (logits["cpu"][0] - logits["cpu"][1]).abs().max().item()
+    phase(tag + "-routing", arch=arch, capacity_factor=1.25,
+          **routing, route_margin=ROUTE_MARGIN,
+          drop_case_experts=cfg.n_experts,
+          drop_case_decode_max_abs=dec,
+          drop_case_rows_max_abs_apart=rows_apart,
+          drop_case_keep=json.dumps([r["keep"].tolist() for r in decode]),
+          tolerance=f"decode {DECODE_ATOL}")
+    assert len(decode) == 2 * cfg.n_trunk, len(decode)
+    drop.compare(torch, cfg.top_k)
+    # the first MoE layer's dispatch (the card's, then the CPU's): both
+    # rows pick the same k experts, each keeps one slot, the first row's
+    for r in (decode[0], decode[cfg.n_trunk]):
+        assert int(r["keep"].sum()) == cfg.top_k, r["keep"]
+    assert dec <= DECODE_ATOL, dec
+    assert rows_apart > DECODE_ATOL, rows_apart
+
+
+def serve_moe_continuous_phase(torch, qp, serve):
+    """[serve-moe-continuous]: the launcher's --continuous run on
+    deepseek-moe-16b at full width, DS_LAYERS deep (`MOE_CONT_ARGS`), its
+    counters set to 0 just before and checked exactly just after: B10
+    on every layer of each admission's prefill, the KV pair on the coded
+    trunk layers only (the dense prefix's pk/pv raw, in the batcher's
+    bf16), the hop a tick; the hop's and the KV stores' bytes against
+    their models.  Returns its launches."""
+    from repro_torch.serving import DeltaHopCodec, KVCodec, delta
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    qp.reset_launches()
+    delta.reset_sent()
+    out = serve.main(MOE_CONT_ARGS)
+    torch.cuda.synchronize()
+    launches = dict(qp.LAUNCHES)
+    sent = dict(delta.SENT)
+    peak = torch.cuda.max_memory_allocated()
+    reqs, ticks, adm = out["requests"], out["ticks"], out["admissions"]
+    cfg = out["model"].cfg
+    layers, coded = cfg.num_layers, cfg.n_trunk
+    hop_model = DeltaHopCodec(mode="aqsgd", bits=4).hop_bytes(
+        CONT_SLOTS, cfg.d_model) * ticks
+    # the trunk's 8-bit stores, and the prefix's raw pk/pv in the
+    # batcher's bf16
+    row = (CONT_SLOTS, CACHE_LEN, cfg.num_kv_heads, cfg.head_dim)
+    kv_model = KVCodec(bits=8).stored_bytes(row) * 2 * coded \
+        + math.prod(row) * torch.bfloat16.itemsize * 2 \
+        * cfg.first_dense_layers
+    phase("serve-moe-continuous", arch=cfg.name,
+          layers=f"{layers}/28 ({cfg.first_dense_layers} dense + {coded} "
+                 f"moe)", d_model=cfg.d_model, slots=CONT_SLOTS,
+          requests=len(reqs), prompt_lens=json.dumps([len(r.prompt)
+                                                      for r in reqs]),
+          cache=out["cache_len"], admissions=adm, ticks=ticks,
+          tokens=out["tokens"], decode_tokens=out["decode_tokens"],
+          build_s=f"{out['build_s']:.3f}", wall_s=f"{out['wall_s']:.4f}",
+          tok_s=f"{out['tok_s']:.2f}", prefill_s=f"{out['prefill_s']:.4f}",
+          decode_s=f"{out['decode_s']:.4f}",
+          decode_tok_s=f"{out['decode_tok_s']:.2f}",
+          ms_per_tick=f"{out['decode_s'] / ticks * 1e3:.3f}",
+          peak_mem_gib=f"{peak / 2**30:.3f}", launches=json.dumps(launches),
+          hops=sent["hops"], hop_bytes=sent["bytes"],
+          hop_bytes_model=hop_model, kv_store_bytes=out["kv_store_bytes"],
+          kv_store_bytes_model=kv_model)
+    assert (layers, coded, cfg.d_model) == (DS_LAYERS, DS_LAYERS - 1,
+                                            DS_D), (layers, cfg.d_model)
+    assert len(reqs) == CONT_REQUESTS and adm == CONT_REQUESTS, (len(reqs),
+                                                                 adm)
+    for r in reqs:
+        assert r.state == "DONE" and not r.error, (r.state, r.error)
+        assert len(r.tokens) == GEN, len(r.tokens)
+        assert all(0 <= t < DS_VOCAB for t in r.tokens), r.tokens
+    assert out["tokens"] == CONT_REQUESTS * GEN
+    assert out["cache_len"] == CACHE_LEN
+    want = {name: 0 for name in launches}
+    want.update(flash_attention_fwd=layers * adm,
+                quantize_pack=coded * (adm + ticks),
+                unpack_dequant=coded * (adm + ticks),
+                delta_quantize_pack=ticks, dequant_unpack_accumulate=ticks)
+    assert launches == want, (launches, want)
+    assert sent == {"hops": ticks, "bytes": hop_model}, sent
+    assert out["kv_store_bytes"] == kv_model, out["kv_store_bytes"]
+    del out
+    torch.cuda.empty_cache()
+    return launches
+
+
+def moe_continuous_check(torch, qp):
+    """[serve-moe-continuous-reference-check]: the continuous batcher on
+    deepseek-moe-16b SMOKE with raw f32 caches and one stage on the card
+    (kernels) against the same weights on the CPU: 5 requests of 3-12
+    tokens over 3 slots, 6 tokens each, token for token (the pooled step
+    dispatches a row at a time, as JAX's).  The 8-bit KV cache and the
+    hop are `continuous_reference_check`'s, with the KV carry."""
+    import numpy as np
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.model import Transformer
+    from repro_torch.serving import ContinuousBatcher
+
+    cfg = get_config("deepseek-moe-16b", smoke=True)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in (3, 12, 7, 5, 9)]
+    streams = {}
+    for dev in ("cuda", "cpu"):
+        model = Transformer(cfg, device=dev,
+                            generator=torch.Generator().manual_seed(0))
+        bat = ContinuousBatcher(model, num_slots=3, cache_len=24,
+                                dtype=torch.float32)
+        for pr in prompts:
+            bat.submit(pr, max_new_tokens=6)
+        qp.reset_launches()
+        streams[dev] = [r.tokens for r in bat.run()]
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launches = dict(qp.LAUNCHES)
+            ticks = bat._tick
+    phase("serve-moe-continuous-reference-check", arch=cfg.name,
+          requests=len(prompts), slots=3, ticks=ticks, kv="raw f32",
+          streams_card=json.dumps(streams["cuda"]),
+          streams_equal=streams["cuda"] == streams["cpu"],
+          launches=json.dumps(launches))
+    assert streams["cuda"] == streams["cpu"], streams
+    assert all(len(t) == 6 for t in streams["cuda"])
+    # raw caches and one stage: the prefills' attention alone
+    assert launches["flash_attention_fwd"] > 0, launches
+    assert all(v == 0 for k, v in launches.items()
+               if k != "flash_attention_fwd"), launches
+    continuous_reference_check(
+        torch, cfg.name, tag="serve-moe-continuous-kv8-reference-check",
+        carry_kv=True)
+
+
 def serve_cell_phase(torch, qp, serve, tag):
     """A full-size serving cell of `SERVE_CELLS` through the launcher
     (gemma2-9b, the slice's own; stablelm-12b; gemma2-27b at full width
-    and `G27_LAYERS` deep), the counters set to 0 just before and checked
-    exactly just after, the hop's bytes as the encoder emits them and the
-    KV stores' bytes against the byte models; returns its launches and
-    the model build's seconds."""
+    and `G27_LAYERS` deep; deepseek-moe-16b and mixtral-8x22b at full
+    width, `DS_LAYERS` and `MX_LAYERS` deep), the counters set to 0 just
+    before and checked exactly just after, the hop's bytes as the encoder
+    emits them and the KV stores' bytes against the byte models (a MoE
+    model's dense prefix raw); returns its launches and the model
+    build's seconds."""
+    from repro_torch.configs.base import get_config
     from repro_torch.serving import DeltaHopCodec, KVCodec, delta
 
     args, batch, prompt, cache, gen, layers, d, vocab, kv_heads, hd = \
         SERVE_CELLS[tag]
+    cfg = get_config(args[args.index("--arch") + 1]).with_(num_layers=layers)
+    prefix = cfg.first_dense_layers
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     qp.reset_launches()
@@ -2554,10 +3049,23 @@ def serve_cell_phase(torch, qp, serve, tag):
     # stores it filled, against the byte models
     hop, kv = DeltaHopCodec(mode="aqsgd", bits=4), KVCodec(bits=8)
     hop_model = hop.hop_bytes(batch, d) * gen
-    kv_model = kv.stored_bytes((batch, cache, kv_heads, hd)) * 2 * layers
-    want = cell_launches(gen, layers)
+    raw_row = kv_heads * hd * 4
+    kv_model = kv.stored_bytes((batch, cache, kv_heads, hd)) * 2 \
+        * cfg.n_trunk + 2 * prefix * batch * cache * raw_row
+    want = cell_launches(gen, layers, cfg.n_trunk)
+    # the hop shape kernel_phase checks B2 at
+    assert not cfg.has_moe or (batch, d) in MOE_HOPS, (batch, d)
+    moe = {} if not cfg.has_moe else dict(
+        params=cfg.params_count(), active_params=cfg.active_params_count(),
+        experts=f"{cfg.n_experts} top-{cfg.top_k} "
+                f"+{cfg.n_shared_experts} shared",
+        dense_prefix=prefix, hop_bytes_per_token=hop.hop_bytes(1, d),
+        kv_bytes_per_token=kv.stored_bytes((1, 1, kv_heads, hd)) * 2
+        * cfg.n_trunk + 2 * prefix * raw_row,
+        kv_bytes_per_token_f32=2 * layers * raw_row)
     phase(tag, layers=layers, d_model=d, vocab=vocab, kv_heads=kv_heads,
-          head_dim=hd, batch=batch, prompt=prompt, cache=out["cache_len"],
+          head_dim=hd, **moe, batch=batch, prompt=prompt,
+          cache=out["cache_len"],
           build_s=f"{out['build_s']:.3f}",
           prefill_s=f"{out['prefill_s']:.4f}",
           decode_s=f"{out['decode_s']:.4f}",
@@ -2678,40 +3186,55 @@ def gemma2_device_draw_s(torch) -> float:
 # ---------------------------------------------------------------------------
 
 def _train_config(sim, comm_mod, adamw, *, stochastic, stages, steps,
-                  remat=False, wire="ring"):
+                  remat=False, wire="ring", workers=TRAIN_WORKERS):
+    """aqsgd fw 4 / bw 8 and the 4-bit DP ``wire`` over ``workers``
+    simulated workers, or with ``workers`` 0 one worker and no DP
+    plane."""
     plane = comm_mod.PlaneConfig
     kw = dict(stochastic=stochastic)
     comm = comm_mod.CommConfig(mode="aqsgd", fw=plane(bits=4, **kw),
                                bw=plane(bits=8, **kw),
-                               dp=plane(bits=4, wire=wire, **kw))
+                               dp=plane(bits=4 if workers else 0, wire=wire,
+                                        **kw))
     # the train launcher's optimizer defaults: lr 1e-3, warm-up
     # max(steps // 20, 1), decay to 0 at the last step
     return sim.SimTrainConfig(
-        num_stages=stages, comm=comm, dp_workers=TRAIN_WORKERS, remat=remat,
+        num_stages=stages, comm=comm, dp_workers=max(workers, 1),
+        remat=remat,
         optimizer=adamw.AdamWConfig(lr=1e-3, warmup_steps=max(steps // 20,
                                                               1),
                                     total_steps=steps))
 
 
-def train_launches_per_step(cfg, stages, remat) -> dict:
-    """`TRAIN_LAUNCHES_PER_STEP` for ``cfg`` in ``stages`` groups: each
-    boundary once a worker forward (B1) and backward (B3, B4); the DP
-    wire as there; B10 once a worker per attention call (a dense layer,
-    or a hybrid's shared block), twice with remat."""
+def train_launches_per_step(cfg, stages, remat,
+                            workers=TRAIN_WORKERS) -> dict:
+    """`TRAIN_LAUNCHES_PER_STEP` for ``cfg`` in ``stages`` groups over
+    ``workers`` (0: one worker, no DP plane): each boundary once a
+    worker forward (B1) and backward (B3, B4); the DP wire as there, or
+    none; B10 once a worker per attention call (a dense or MoE layer, a
+    MoE model's dense prefix, or a hybrid's shared block), twice with
+    remat (the prefix, outside the checkpoints, once)."""
     calls = cfg.n_blocks if cfg.family == "hybrid" else \
         0 if cfg.family == "ssm" else cfg.num_layers
-    per = (stages - 1) * TRAIN_WORKERS
+    recompute = cfg.n_blocks if cfg.family == "hybrid" else \
+        0 if cfg.family == "ssm" else cfg.n_trunk
+    n = max(workers, 1)
+    per = (stages - 1) * n
+    dp = {} if workers else {k: 0 for k in DP_KERNELS}
     return dict(TRAIN_LAUNCHES_PER_STEP, delta_quantize_pack=per,
-                quantize_pack=per, unpack_dequant=per,
-                flash_attention_fwd=calls * TRAIN_WORKERS * (2 if remat
-                                                             else 1))
+                quantize_pack=per, unpack_dequant=per, **dp,
+                flash_attention_fwd=(calls + (recompute if remat else 0))
+                * n)
 
 
 def train_phase(torch, qp, tag="train", layers=TRAIN_LAYERS, remat=False,
-                wire="ring", arch="gpt2-xl-paper", stages=TRAIN_STAGES):
+                wire="ring", arch="gpt2-xl-paper", stages=TRAIN_STAGES,
+                workers=TRAIN_WORKERS):
     """The training main path of ``arch`` at full width, ``layers`` deep
-    in ``stages`` groups, on the DP wire ``wire``; returns its
-    launches, losses, median step time (steps 3-6) and peak memory."""
+    in ``stages`` groups, on the DP wire ``wire`` over ``workers`` (0:
+    one worker, no DP plane); returns its launches, losses, median step
+    time (steps 3-6) and peak memory.  The last step's ce and aux are
+    printed beside the losses (a MoE model's loss is ce + 0.01 aux)."""
     from repro_torch.comm import config as comm_mod
     from repro_torch.configs.base import get_config
     from repro_torch.data.pipeline import Dataset, DatasetConfig
@@ -2722,7 +3245,7 @@ def train_phase(torch, qp, tag="train", layers=TRAIN_LAYERS, remat=False,
     cfg = full.with_(num_layers=layers)
     tcfg = _train_config(sim, comm_mod, adamw, stochastic=True,
                          stages=stages, steps=TRAIN_STEPS,
-                         remat=remat, wire=wire)
+                         remat=remat, wire=wire, workers=workers)
     ds = Dataset(DatasetConfig(num_samples=TRAIN_SAMPLES, seq_len=TRAIN_SEQ,
                                vocab_size=cfg.vocab_size, seed=0))
     torch.cuda.empty_cache()
@@ -2730,16 +3253,20 @@ def train_phase(torch, qp, tag="train", layers=TRAIN_LAYERS, remat=False,
     qp.reset_launches()
     state, losses = sim.train(cfg, tcfg, ds, num_steps=TRAIN_STEPS,
                               batch_size=TRAIN_BATCH, seed=0, device="cuda")
+    metrics = state["last_metrics"]
     torch.cuda.synchronize()
     launches = dict(qp.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     step_s = statistics.median(state["step_seconds"][2:])
     n_params = sum(p.numel() for p in state["model"].parameters())
-    want = train_launches_per_step(cfg, stages, remat)
+    want = train_launches_per_step(cfg, stages, remat, workers)
     phase(tag, arch=arch, layers=f"{layers}/{full.num_layers}",
-          stages=stages, remat=remat, dp_wire=wire, d_model=cfg.d_model,
-          params=n_params, dp_bucket_rows=state["dp_error"].shape[1],
+          stages=stages, remat=remat, dp_wire=wire if workers else None,
+          dp_workers=workers, d_model=cfg.d_model, params=n_params,
+          dp_bucket_rows=state["dp_error"].shape[1] if workers else None,
           losses=json.dumps([round(x, 6) for x in losses]),
+          final_ce=f"{float(metrics['ce']):.6f}",
+          final_aux=f"{float(metrics['aux']):.6f}",
           step_s=json.dumps([round(x, 4) for x in state["step_seconds"]]),
           median_step_s_3_6=f"{step_s:.4f}",
           tokens_per_s=f"{TRAIN_BATCH * TRAIN_SEQ / step_s:.1f}",
@@ -2749,13 +3276,20 @@ def train_phase(torch, qp, tag="train", layers=TRAIN_LAYERS, remat=False,
     assert len(losses) == TRAIN_STEPS
     assert all(math.isfinite(x) for x in losses), losses
     rows = -(-n_params // DP_BUCKET[1])
-    assert state["dp_error"].shape == (TRAIN_WORKERS, rows, DP_BUCKET[1])
+    assert not workers or state["dp_error"].shape == (TRAIN_WORKERS, rows,
+                                                      DP_BUCKET[1])
     assert arch != "gpt2-xl-paper" or layers != TRAIN_LAYERS \
         or rows == DP_BUCKET[0], rows
     # the shapes kernel_phase checks the new paths' kernels at
     assert arch != "zamba2-2.7b" or layers != TZ_LAYERS \
         or (rows, cfg.d_model) == (TZ_BUCKET[0], TZ_ROWS[1]), rows
-    assert torch.isfinite(state["dp_error"]).all().item(), "carry not finite"
+    assert arch != "deepseek-moe-16b" or workers \
+        or (TRAIN_BATCH * TRAIN_SEQ, cfg.d_model) == TM_ROWS
+    assert not workers or torch.isfinite(state["dp_error"]).all().item(), \
+        "carry not finite"
+    assert math.isfinite(float(metrics["aux"])), metrics
+    assert (float(metrics["aux"]) > 0) == (cfg.has_moe and not workers), \
+        metrics
     assert state["buffers"]["seen"].all().item(), "a sample never seen"
     for name, per_step in want.items():
         assert launches[name] == per_step * TRAIN_STEPS, \
@@ -3008,43 +3542,75 @@ def dist_phases(torch):
 
 
 # the distributed SMOKE checks, card against CPU, run in one spawn a
-# device: (tag, arch, name of a `DIST_VARIANTS` entry)
+# device: (tag, arch, name of a `DIST_VARIANTS` entry, `PipelineConfig`
+# fields the spec sets)
 DIST_CHECKS = [
-    ("dist-reference-check", "gpt2-xl-paper", "dist-train"),
-    *[("dist-zero-reference-check", "gpt2-xl-paper", v)
+    ("dist-reference-check", "gpt2-xl-paper", "dist-train", {}),
+    *[("dist-zero-reference-check", "gpt2-xl-paper", v, {})
       for v in ("dist-train-sharded", "dist-train-fp16", "dist-train-adam8")],
     # the untied head (stablelm-12b), the hybrid's shared block (zamba2)
-    ("train-untied-reference-check", "stablelm-12b", "dist-train"),
-    ("dist-zamba2-reference-check", "zamba2-2.7b", "dist-train"),
+    ("train-untied-reference-check", "stablelm-12b", "dist-train", {}),
+    ("dist-zamba2-reference-check", "zamba2-2.7b", "dist-train", {}),
+    # the moe family (deepseek-moe-16b: the dense prefix on the first
+    # stage), each rank with its stage's experts and with expert
+    # parallelism over the data group
+    ("dist-moe-reference-check", "deepseek-moe-16b", "dist-train",
+     {"moe_mode": "zero3"}),
+    ("dist-moe-ep-reference-check", "deepseek-moe-16b", "dist-train",
+     {"moe_mode": "expert_parallel"}),
 ]
+DIST_CHECK_LAYERS, DIST_CHECK_BATCH, DIST_CHECK_SEQ = 4, 4, 32
 
 
 def dist_reference_checks(torch, checks=DIST_CHECKS):
     """The 2 x 2 mesh at SMOKE width (4 layers) on the card (kernels)
     against the CPU (plain versions), deterministic rounding, same
     seed, with the pipeline's remat and chunked loss (its defaults):
-    every check of ``checks`` ((tag, arch, `DIST_VARIANTS` name)) run in
-    turn by one spawn a device.  An untied model's last stage holds the
-    head, so no embedding copy is checked; a hybrid's shared block
-    copies must be bit-equal on every stage after every step."""
+    every check of ``checks`` ((tag, arch, `DIST_VARIANTS` name,
+    `PipelineConfig` fields)) run in turn by one spawn a device.  An
+    untied model's last stage holds the head, so no embedding copy is
+    checked; a hybrid's shared block copies must be bit-equal on every
+    stage after every step; under expert parallelism each rank's ``ep``
+    bytes equal `training.pipeline.ep_wire_bytes` at every step, and 0
+    otherwise."""
     from repro_torch.configs.base import get_config
     from repro_torch.launch import train as launch_train
+    from repro_torch.training import pipeline as PL
     from repro_torch.training.pipeline import PipelineConfig
 
-    losses, shared = {}, {}
+    losses, shared, ep = {}, {}, {}
     for dev in ("cpu", "cuda"):
         specs = []
-        for _, arch, v in checks:
+        for _, arch, v, pipe in checks:
             extra, opt = DIST_VARIANTS[v]
             specs.append(_dist_spec(torch, [
                 "--device", dev, "--smoke", "--no-stochastic", "--steps",
-                "3", "--batch", "4", "--seq", "32", "--samples", "4",
-                "--arch", arch, *extra], layers=4))
+                "3", "--batch", str(DIST_CHECK_BATCH), "--seq",
+                str(DIST_CHECK_SEQ), "--samples", "4",
+                "--arch", arch, *extra], layers=DIST_CHECK_LAYERS))
             specs[-1]["optimizer"].update(opt)
+            if pipe:
+                specs[-1]["pipeline"] = dict(pipe)
         runs = launch_train.run_distributed(specs, timeout=DIST_TIMEOUT)
         losses[dev] = [res[0]["losses"] for res in runs]
-        for i, ((_, arch, _), res) in enumerate(zip(checks, runs)):
+        for i, ((_, arch, _, pipe), res) in enumerate(zip(checks, runs)):
             cfg = get_config(arch)
+            if cfg.has_moe:
+                small = get_config(arch, smoke=True).with_(
+                    num_layers=DIST_CHECK_LAYERS)
+                lay = PL.stage_layout(small, DIST_STAGES)
+                pcfg = PipelineConfig(microbatches=DIST_MICRO, **pipe)
+                tokens = DIST_CHECK_BATCH // DIST_MICRO // DIST_DATA \
+                    * DIST_CHECK_SEQ
+                for r in res:
+                    n = min(lay.lps, lay.n_layers - r["model_rank"]
+                            * lay.lps)
+                    want = PL.ep_wire_bytes(small, pcfg, n, tokens,
+                                            DIST_DATA, DIST_MICRO) \
+                        if pcfg.moe_mode == "expert_parallel" else 0
+                    got = [b["ep"] for b in r["bytes"]]
+                    assert got == [want] * len(got), (arch, pipe, got, want)
+                    ep.setdefault(i, []).append(want)
             reps = [rep for r in res for rep in r["replicas"]]
             if not cfg.tie_embeddings:
                 assert all(rep["embed_equal"] is None for rep in reps), arch
@@ -3053,13 +3619,16 @@ def dist_reference_checks(torch, checks=DIST_CHECKS):
             assert all(flags) if cfg.family == "hybrid" \
                 else not any(flags), (arch, flags)
             shared[i] = len(flags)
-    pcfg = PipelineConfig()                 # the spec sets none of these
-    for i, (tag, arch, v) in enumerate(checks):
+    for i, (tag, arch, v, pipe) in enumerate(checks):
+        pcfg = PipelineConfig(**pipe)
         lc, lg = losses["cpu"][i], losses["cuda"][i]
         rel = [abs(a - b) / abs(a) for a, b in zip(lc, lg)]
         hybrid = get_config(arch).family == "hybrid"
         phase(tag, trainer="distributed", arch=arch,
-              variant=v, remat=pcfg.remat,
+              variant=v, moe_mode=pcfg.moe_mode if get_config(
+                  arch).has_moe else None,
+              ep_bytes_per_step_by_rank=json.dumps(ep.get(i)),
+              remat=pcfg.remat,
               remat_mode=pcfg.remat_mode, loss_chunks=pcfg.loss_chunks,
               losses_cpu=json.dumps(lc), losses_card=json.dumps(lg),
               rel_loss_diff=json.dumps(rel),
@@ -3559,6 +4128,14 @@ def main() -> int:
         reference_check(torch, arch, SSM_CHECK_PROMPT, SSM_CHECK_STEPS,
                         tag=f"serve-{arch.split('-')[0]}-reference-check",
                         **kw)
+    # the moe family at full width (the depth cut), its SMOKE checks with
+    # the routing compared, and the batcher
+    moe_launches = {tag: serve_cell_phase(torch, qp, serve, tag)[0]
+                    for tag in ("serve-deepseek-moe", "serve-mixtral")}
+    for arch, (tag, p, n) in MOE_CHECKS.items():
+        moe_reference_check(torch, arch, p, n, tag)
+    moe_cont_launches = serve_moe_continuous_phase(torch, qp, serve)
+    moe_continuous_check(torch, qp)
 
     train_run = train_phase(torch, qp)
     train_launches = train_run["launches"]
@@ -3586,6 +4163,9 @@ def main() -> int:
     zamba_train = train_phase(torch, qp, tag="train-zamba2",
                               layers=TZ_LAYERS, arch="zamba2-2.7b",
                               stages=TZ_STAGES)
+    moe_train = train_phase(torch, qp, tag="train-moe", layers=TM_LAYERS,
+                            arch="deepseek-moe-16b", stages=TM_STAGES,
+                            workers=0)
     resume_launches = train_resume_phase(torch, qp)
     dist_runs = dist_phases(torch)
     dist_launches = dist_runs["dist-train"]
@@ -3606,6 +4186,8 @@ def main() -> int:
         train_reference_check(
             torch, arch, tag=f"train-{arch.split('-')[0]}-reference-check",
             **kw)
+    train_reference_check(torch, "deepseek-moe-16b",
+                          tag="train-moe-reference-check")
     dist_reference_checks(torch)
     dist_resume_launches = dist_resume_phase(torch)
     train_resume_cli_phase()
@@ -3620,7 +4202,11 @@ def main() -> int:
                "serve_gemma2_27b": g27_launches,
                "serve_mamba2": ssm_launches["serve-mamba2"],
                "serve_zamba2": ssm_launches["serve-zamba2"],
+               "serve_deepseek_moe": moe_launches["serve-deepseek-moe"],
+               "serve_mixtral": moe_launches["serve-mixtral"],
+               "serve_moe_continuous": moe_cont_launches,
                "train_zamba2": zamba_train["launches"],
+               "train_moe": moe_train["launches"],
                "train": train_launches, "train_oncore": oncore_launches,
                "train_full_depth": full["launches"],
                "train_sharded": sharded_launches,

@@ -3,7 +3,8 @@
 Each arch the port runs has one ``configs/<id>.py`` with the full-scale
 ``CONFIG`` and a reduced ``SMOKE`` variant (a few layers, d_model<=512)
 for the CPU tests.  The registry lists only the archs whose families
-the port implements (dense, ssm and hybrid); any other name raises.
+the port implements (dense, moe, ssm and hybrid); any other name
+raises.
 """
 from __future__ import annotations
 
@@ -33,6 +34,15 @@ class ModelConfig:
     local_global_period: int = 0    # 2 -> alternate local/global
     attn_softcap: float = 0.0
     final_softcap: float = 0.0
+
+    # --- MoE ----------------------------------------------------------------
+    n_experts: int = 0
+    top_k: int = 0
+    n_shared_experts: int = 0
+    moe_d_ff: int = 0               # routed-expert hidden size
+    first_dense_layers: int = 0     # deepseek-moe: leading dense FFN layers
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
 
     # --- SSM (Mamba2 / SSD) ---------------------------------------------
     ssm_state: int = 0
@@ -64,6 +74,16 @@ class ModelConfig:
     @property
     def is_attention_free(self) -> bool:
         return self.family == "ssm"
+
+    @property
+    def has_moe(self) -> bool:
+        return self.n_experts > 0
+
+    @property
+    def n_trunk(self) -> int:
+        """Layers of the stacked trunk: all of them but a MoE model's
+        leading dense ``prefix`` (JAX ``init_params``' ``n_scan``)."""
+        return self.num_layers - self.first_dense_layers
 
     @property
     def d_inner(self) -> int:
@@ -98,6 +118,9 @@ class ModelConfig:
             return False
         return i % self.shared_attn_every == self.shared_attn_every - 1
 
+    def layer_is_moe(self, i: int) -> bool:
+        return self.has_moe and i >= self.first_dense_layers
+
     def with_(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
@@ -123,19 +146,34 @@ class ModelConfig:
                 n += 2 * hs + di                    # A_log, D, gated-norm
                 n += di * d                          # out_proj
             else:
-                n += per_attn + per_dense_ffn        # ssm/hybrid: no FFN
+                n += per_attn                        # ssm/hybrid: no FFN
+                if self.layer_is_moe(i):
+                    n += 3 * d * self.moe_d_ff * self.n_experts
+                    n += 3 * d * self.moe_d_ff * self.n_shared_experts
+                    n += d * self.n_experts          # router
+                else:
+                    n += per_dense_ffn
             n += 2 * d                               # 2 norms
         if self.shared_attn_every:                   # zamba2 shared block
             n += per_attn + per_dense_ffn + 2 * d
         n += d                                       # final norm
         return n
 
+    def active_params_count(self) -> int:
+        """Active params per token (MoE: top_k + shared only)."""
+        if not self.has_moe:
+            return self.params_count()
+        inactive = 3 * self.d_model * self.moe_d_ff * \
+            (self.n_experts - self.top_k) * self.n_trunk
+        return self.params_count() - inactive
+
 
 # ---------------------------------------------------------------------------
 # Registry: only the archs the port runs
 # ---------------------------------------------------------------------------
 ARCHS = ("gpt2-xl-paper", "gemma2-9b", "stablelm-12b", "gemma2-27b",
-         "mamba2-1.3b", "zamba2-2.7b")
+         "mamba2-1.3b", "zamba2-2.7b", "mixtral-8x22b", "deepseek-moe-16b",
+         "moonshot-v1-16b-a3b")
 
 
 def _module_name(arch: str) -> str:

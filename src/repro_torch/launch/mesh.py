@@ -17,7 +17,10 @@ mesh runs on a single GPU.  The codecs still run on the card; only the
 packed bytes cross the host, as they would cross a slow network.  The
 transport records every call it makes by plane, kind, dtype and bytes,
 so a run can hold its traffic against the wire registry's byte models
-and manifests (`repro_torch.comm.wires`).
+and manifests (`repro_torch.comm.wires`).  The distributed trainer's
+expert parallelism sends its MoE dispatch buffers across the data group
+by all-to-all (`RingGroup.all_to_all`, the ``ep`` plane), an autograd
+function whose backward is the inverse all-to-all.
 """
 from __future__ import annotations
 
@@ -83,7 +86,9 @@ class Transport:
     hop), ``collective-permute`` (the send half of a ring rotation, whose
     receive half is not recorded: every rank sends one), ``all-reduce``
     and ``all-gather`` (recorded with the bytes this rank sends: its
-    tensor to each other member of the group)."""
+    tensor to each other member of the group), and ``all-to-all``
+    (recorded with the bytes this rank sends: its slices for the other
+    members)."""
 
     def __init__(self, device: torch.device):
         self.device = torch.device(device)
@@ -161,6 +166,18 @@ class Transport:
             slot.copy_(h)
         return out
 
+    def all_to_all(self, x: torch.Tensor, group, size: int, plane: str
+                   ) -> torch.Tensor:
+        """Split x (size, ...) along dim 0 over the ``size`` ranks of
+        ``group``, member j getting slice j, through pinned host memory;
+        returns (size, ...) on this rank's device, member j's slice for
+        this rank in slot j."""
+        self._record(plane, "all-to-all", x[0], copies=size - 1)
+        hx = self.to_host(x.contiguous())
+        out = self._host_empty(x.shape, x.dtype)
+        dist.all_to_all_single(out, hx, group=group)
+        return self.to_device(out)
+
     # -- accounting ---------------------------------------------------------
 
     def bytes_sent(self, plane: str) -> int:
@@ -221,6 +238,29 @@ class RingGroup:
             out[0].copy_(x)
             return out
         return self.transport.all_gather(x, out, self.pg, self.size, plane)
+
+    def all_to_all(self, x: torch.Tensor, plane: str = "ep"
+                   ) -> torch.Tensor:
+        """x (size, ...): member j's slice j of every member's x, in slot
+        j (a ring of one returns x).  Differentiable: the backward sends
+        the gradient back by the inverse all-to-all, which every member
+        runs in the same order as its forward ones."""
+        if self.size == 1:
+            return x
+        return _AllToAll.apply(x, self, plane)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, plane):
+        ctx.group, ctx.plane = group, plane
+        return group.transport.all_to_all(x, group.pg, group.size, plane)
+
+    @staticmethod
+    def backward(ctx, g):
+        group = ctx.group
+        return group.transport.all_to_all(g, group.pg, group.size,
+                                          ctx.plane), None, None
 
 
 class Mesh:

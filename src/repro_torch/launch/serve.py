@@ -15,7 +15,8 @@ back as JSON; ``--list-wires`` prints the wire registry.  Sharded
 serving (``--data-par``/``--model-par`` above 1) is refused with the
 title of the ROADMAP item that ports it, and so is ``--continuous``
 with the ssm and hybrid families.  The stage groups follow the JAX
-package's rule: ``--stages`` divides the layers, or a hybrid's blocks.
+package's rule: ``--stages`` divides the layers (a MoE model's past its
+dense prefix), or a hybrid's blocks.
 The weights and the prompt are a random init from ``--seed``, drawn
 on the CPU and moved to the device leaf by leaf, so a seed gives the
 same model on the card and on the CPU; sampling noise
@@ -58,6 +59,19 @@ parameters; its stage groups cut the blocks, so ``--stages`` 1, 3 or
 9; its shared block keeps raw k and v, so ``--kv-bits`` 0):
   python -m repro_torch.launch.serve --arch zamba2-2.7b --stages 3 \\
       --mode aqsgd --fw-bits 4 --batch 2 --prompt-len 4064 --gen 32
+the moe family at full width, depth cut (``--layers`` counts the dense
+prefix; the stage groups cut the MoE layers after it): deepseek-moe-16b
+(64 experts top-6, 2 shared, the first layer dense; 5 of its 28 layers,
+2.65B parameters) over a cache of 4096 tokens, and mixtral-8x22b (8
+experts top-2, a 4096-token window, untied head; 2 of its 56 layers,
+5.41B parameters) over 8192; the launcher prints the total and active
+parameters, and the KV bytes a token, the prefix's raw:
+  python -m repro_torch.launch.serve --arch deepseek-moe-16b --layers 5 \\
+      --stages 2 --mode aqsgd --fw-bits 4 --kv-bits 8 --batch 2 \\
+      --prompt-len 4064 --gen 32
+  python -m repro_torch.launch.serve --arch mixtral-8x22b --layers 2 \\
+      --stages 2 --mode aqsgd --fw-bits 4 --kv-bits 8 --batch 2 \\
+      --prompt-len 8160 --gen 32
 and a stream of 16 mixed-length requests over 8 slots of gpt2-xl:
   python -m repro_torch.launch.serve --arch gpt2-xl-paper --stages 2 \\
       --mode aqsgd --fw-bits 4 --kv-bits 8 --continuous --slots 8 \\
@@ -163,11 +177,23 @@ def serve(args) -> dict:
         print(f"kv cache: none ({cfg.family} family: {kv_codec.bits}-bit "
               f"kv passes through)")
     elif kv_codec.bits:
-        per_tok = kv_codec.stored_bytes(
-            (1, 1, cfg.num_kv_heads, cfg.head_dim)) * 2 * cfg.num_layers
+        row = (1, 1, cfg.num_kv_heads, cfg.head_dim)
         raw_tok = 2 * cfg.num_layers * cfg.num_kv_heads * cfg.head_dim * 4
+        # the dense prefix's raw stores: f32 caches, or the batcher's
+        # bf16 pool
+        raw = "bf16" if args.continuous else "f32"
+        prefix_tok = raw_tok // cfg.num_layers * cfg.first_dense_layers \
+            // (2 if args.continuous else 1)
+        per_tok = kv_codec.stored_bytes(row) * 2 * cfg.n_trunk + prefix_tok
         print(f"kv cache: {per_tok} B/token stored "
-              f"({kv_codec.bits}-bit; raw f32 {raw_tok} B)")
+              f"({kv_codec.bits}-bit; raw f32 {raw_tok} B)"
+              + (f", the dense prefix's {prefix_tok} B raw {raw}"
+                 if prefix_tok else ""))
+    if cfg.has_moe:
+        print(f"params: {cfg.params_count()} total, "
+              f"{cfg.active_params_count()} active a token "
+              f"({cfg.n_experts} experts top-{cfg.top_k}, "
+              f"{cfg.n_shared_experts} shared)")
 
     _sync(dev)
     tb = time.perf_counter()
@@ -224,7 +250,7 @@ def serve(args) -> dict:
         sum(caches[n].numel() * caches[n].element_size()
             for n in names if n in caches)
         for names in (("k", "v", "k_codes", "k_scale", "v_codes",
-                       "v_scale"), ("ssm", "conv")))
+                       "v_scale", "pk", "pv"), ("ssm", "conv")))
     if state_bytes:
         print(f"ssm state: {state_bytes} B ({caches['ssm'].nbytes} ssm + "
               f"{caches['conv'].nbytes} conv)")
@@ -277,7 +303,7 @@ def serve_continuous(args, model, dev, cache_len: int, kv_codec, hop):
     kv_bytes = sum(t.numel() * t.element_size()
                    for n, t in bat.caches.items()
                    if n in ("k", "v", "k_codes", "k_scale", "v_codes",
-                            "v_scale"))
+                            "v_scale", "pk", "pv"))
     return {"model": model, "requests": reqs, "num_slots": slots,
             "ticks": st["ticks"],
             "admissions": st["prefills"], "tokens": n_tok, "wall_s": dt,

@@ -50,6 +50,18 @@ distributed trainer cuts the layers, as for every family):
   python -m repro_torch.launch.train --device cpu --smoke \\
       --arch mamba2-1.3b --distributed --data-par 2 --stages 2 \\
       --dp-grad-bits 4 --steps 4 --seq 16 --samples 8 --batch 4
+and the moe family (mixtral-8x22b, deepseek-moe-16b, moonshot-v1-16b-a3b:
+the stage groups cut the layers past a model's dense prefix, 2 of
+deepseek's SMOKE 3; the simulated trainer's loss holds the router's
+auxiliary loss, the distributed trainer's does not, as in JAX; the
+distributed trainer's ``moe_mode``, ``zero3`` or ``expert_parallel``,
+is a `PipelineConfig` field that the spec's ``"pipeline"`` sets, as in
+the JAX launcher no flag sets it):
+  python -m repro_torch.launch.train --device cpu --smoke \\
+      --arch deepseek-moe-16b --stages 2 --dp-grad-bits 4 --steps 4
+  python -m repro_torch.launch.train --device cpu --smoke \\
+      --arch mixtral-8x22b --distributed --data-par 2 --stages 2 \\
+      --dp-grad-bits 4 --steps 4 --seq 16 --samples 8 --batch 4
 
 ``--dp-wire`` takes every DP wire of the registry: ``ring`` (the
 default), ``psum``, ``ring-sharded`` (the ZeRO wire: the ring's

@@ -284,10 +284,13 @@ class Attention(nn.Module):
                                        attn_softcap=self.attn_softcap)
             else:
                 # prefill: the kernel over head-major views of q and the
-                # cache, read in place; its output is (B, S, H, hd) memory
+                # cache, read in place; a raw store of another dtype (the
+                # batcher's bf16 rows) is read in q's, as JAX's attention
+                # promotes it; its output is (B, S, H, hd) memory
+                kc, vc = (c.transpose(1, 2).to(q.dtype)
+                          for c in (k_cache, v_cache))
                 out = ops.flash_attention(
-                    q.transpose(1, 2), k_cache.transpose(1, 2),
-                    v_cache.transpose(1, 2), causal=True, window=window,
+                    q.transpose(1, 2), kc, vc, causal=True, window=window,
                     softcap=self.attn_softcap, q_offset=cache_index
                 ).transpose(1, 2)
         out = out.reshape(b, s, self.num_heads * hd) @ self.wo.to(dtype)

@@ -1,17 +1,21 @@
-"""The decoder of the dense, ssm and hybrid families: training forward
-and loss, and serving with KV caches, SSM states and stage groups (port
-of `repro.models.model`).
+"""The decoder of the dense, moe, ssm and hybrid families: training
+forward and loss, and serving with KV caches, SSM states and stage
+groups (port of `repro.models.model`).
 
 One `Transformer` class serves every family the port runs, so the
 launchers, trainers, `repro_torch.weights` and checkpoints have one
-entry point.  Its ``layers`` are dense `Block`s (``dense``) or
-`MambaBlock`s (``ssm``: mamba2; ``hybrid``: zamba2, whose one
-``shared_block``, a dense `Block`, runs after every
-``shared_attn_every``-th mamba layer with the same weights each time).
-The stage groups (and remat's unit) are the JAX package's: the layers
-for dense and ssm, blocks of ``shared_attn_every`` mamba layers and the
-shared block for hybrid (so a hybrid's block count must divide by the
-stage groups).  The other families raise.
+entry point.  Its ``layers`` are dense `Block`s (``dense``), MoE
+`Block`s (``moe``: mixtral, deepseek-moe, moonshot; their FFN a
+`moe.MoE`, after a ``prefix`` of ``first_dense_layers`` dense `Block`s,
+JAX's ``prefix`` list outside the stacked layers) or `MambaBlock`s
+(``ssm``: mamba2; ``hybrid``: zamba2, whose one ``shared_block``, a
+dense `Block`, runs after every ``shared_attn_every``-th mamba layer
+with the same weights each time).  The stage groups (and remat's unit)
+are the JAX package's: the layers for dense, moe (its MoE layers; the
+prefix runs before them) and ssm, blocks of ``shared_attn_every`` mamba
+layers and the shared block for hybrid (so a hybrid's block count must
+divide by the stage groups).  The audio and vlm families raise (ROADMAP
+queue A, "The other families").
 
 `loss_fn` is the training forward over whole sequences, with autograd:
 `Transformer.trunk_forward` cuts the layer stack into ``num_stages``
@@ -56,6 +60,12 @@ written at the head clamped into the store (``dynamic_update_slice``'s
 rule, which the JAX batcher applies row by row under ``vmap``), and
 the heads advance on the device, so the step reads no position on the
 host.
+
+A MoE layer dispatches as JAX's serving does: a prefill (S > 1) per
+sequence, a uniform decode step over its B rows (so two rows that pick
+one expert past its capacity drop the later slot), and a pooled step
+per row (JAX's batcher ``vmap``s a one-row step over the slots).  The
+prefix's raw ``pk``/``pv`` caches are never quantized.
 """
 from __future__ import annotations
 
@@ -70,9 +80,10 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.cache_rows import clamp_heads
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 
-FAMILIES = ("dense", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
 # the title of the ROADMAP item that ports the continuous batcher to the
 # families whose caches hold SSM states
 CONTINUOUS_SSM = ('continuous batching of the ssm and hybrid families '
@@ -81,25 +92,39 @@ CONTINUOUS_SSM = ('continuous batching of the ssm and hybrid families '
 
 
 class Block(nn.Module):
-    """One dense decoder layer: pre-norm attention + pre-norm MLP."""
+    """One dense or MoE decoder layer: pre-norm attention + pre-norm FFN,
+    a `layers.MLP` or, with ``moe``, a `moe.MoE`."""
 
-    def __init__(self, cfg: ModelConfig, device=None):
+    def __init__(self, cfg: ModelConfig, device=None, moe: bool = False):
         super().__init__()
         self.norm1 = L.RMSNorm(cfg.d_model, cfg.norm_eps, device=device)
         self.attn = L.Attention(cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                                 cfg.head_dim, cfg.rope_theta,
                                 cfg.attn_softcap, device=device)
         self.norm2 = L.RMSNorm(cfg.d_model, cfg.norm_eps, device=device)
-        self.ffn = L.MLP(cfg.d_model, cfg.d_ff, cfg.act, cfg.mlp_gated,
-                         device=device)
+        self.ffn = M.MoE(cfg, device=device) if moe else \
+            L.MLP(cfg.d_model, cfg.d_ff, cfg.act, cfg.mlp_gated,
+                  device=device)
+
+    @property
+    def is_moe(self) -> bool:
+        return isinstance(self.ffn, M.MoE)
 
     def forward(self, h, positions, window, k_cache=None, v_cache=None,
-                cache_index=0, block_k=512):
-        """Returns (h, fresh_k, fresh_v)."""
+                cache_index=0, block_k=512, *, per_sequence: bool = False,
+                ep=None):
+        """Returns (h, fresh_k, fresh_v, aux): aux the MoE router's
+        load-balance loss, 0.0 for an MLP.  ``per_sequence`` and ``ep``:
+        `moe.moe_ffn`'s."""
         a, k, v = self.attn(self.norm1(h), positions, window, k_cache,
                             v_cache, cache_index, block_k)
         h = h + a
-        return h + self.ffn(self.norm2(h)), k, v
+        hn = self.norm2(h)
+        if self.is_moe:
+            f, aux = self.ffn(hn, per_sequence=per_sequence, ep=ep)
+        else:
+            f, aux = self.ffn(hn), 0.0
+        return h + f, k, v, aux
 
 
 class MambaBlock(nn.Module):
@@ -136,43 +161,53 @@ class MambaBlock(nn.Module):
 
 
 def trunk_layer(cfg: ModelConfig, device=None) -> nn.Module:
-    """One trunk layer of the family: a dense `Block` or a `MambaBlock`."""
-    return (Block if cfg.family == "dense" else MambaBlock)(cfg,
-                                                           device=device)
+    """One trunk layer of the family: a dense or MoE `Block`, or a
+    `MambaBlock`."""
+    if cfg.family in ("ssm", "hybrid"):
+        return MambaBlock(cfg, device=device)
+    return Block(cfg, device=device, moe=cfg.family == "moe")
 
 
 def layer_fn(cfg: ModelConfig, i: int, blk: nn.Module,
              positions: torch.Tensor, seq: int, block_k: int,
-             shared_block: Optional[Block] = None) -> Callable:
-    """Global layer ``i``'s training function over h (JAX's scan body):
-    a dense layer at its window, or a mamba layer followed, where
-    ``shared_block`` is given, by the hybrid's shared block over the
-    whole sequence (``cfg.sliding_window or seq``)."""
+             shared_block: Optional[Block] = None, ep=None) -> Callable:
+    """Global layer ``i``'s training function h -> (h, aux) (JAX's scan
+    body), aux a MoE layer's router loss (``ep``: `moe.moe_ffn`'s) and
+    0.0 in any other layer: a dense or MoE layer at its window, or a
+    mamba layer followed, where ``shared_block`` is given, by the
+    hybrid's shared block over the whole sequence (``cfg.sliding_window
+    or seq``)."""
     if isinstance(blk, Block):
         window = cfg.layer_window(i, seq)
-        return lambda x: blk(x, positions, window, block_k=block_k)[0]
+
+        def attn_layer(x):
+            out = blk(x, positions, window, block_k=block_k, ep=ep)
+            return out[0], out[3]
+        return attn_layer
     if shared_block is None:
-        return blk
+        return lambda x: (blk(x), 0.0)
 
     def layer(x):
         return shared_block(blk(x), positions, cfg.sliding_window or seq,
-                            block_k=block_k)[0]
+                            block_k=block_k)[0], 0.0
     return layer
 
 
 class Transformer(nn.Module):
     """The decoder (dense: ``gpt2-xl-paper``, ``gemma2-9b``,
     ``gemma2-27b``, ``stablelm-12b``, with per-layer sliding windows,
-    GQA, attention and final logit softcaps, gated or plain MLP; ssm:
-    ``mamba2-1.3b``; hybrid: ``zamba2-2.7b``): token embedding, a stack
-    of `Block`s or `MambaBlock`s (and the hybrid's ``shared_block``), a
-    final RMSNorm and the logits, read through the embedding when
-    ``cfg.tie_embeddings``, else through a ``head`` of its own, (d_model,
-    vocab) as in the JAX package.
+    GQA, attention and final logit softcaps, gated or plain MLP; moe:
+    ``mixtral-8x22b``, ``deepseek-moe-16b``, ``moonshot-v1-16b-a3b``;
+    ssm: ``mamba2-1.3b``; hybrid: ``zamba2-2.7b``): token embedding, a
+    MoE model's dense ``prefix``, a stack of `Block`s or `MambaBlock`s
+    (and the hybrid's ``shared_block``), a final RMSNorm and the logits,
+    read through the embedding when ``cfg.tie_embeddings``, else through
+    a ``head`` of its own, (d_model, vocab) as in the JAX package.
 
     ``generator`` seeds a random init that follows the JAX package's
     scales (N(0, 0.02) embedding, N(0, 1/d_model) head, N(0, 1/fan_in)
-    projections, zero norms, `ssm.Mamba2.reset_parameters`' mixer),
+    projections, zero norms, `ssm.Mamba2.reset_parameters`' mixer,
+    `moe.MoE.reset_parameters`' experts),
     drawn leaf by leaf on the generator's
     device (a CPU generator gives the same weights on every device,
     `layers.init_normal_`); without it the weights are left
@@ -194,8 +229,10 @@ class Transformer(nn.Module):
                                               device=device))
         self.head = None if cfg.tie_embeddings else nn.Parameter(
             torch.empty(cfg.d_model, cfg.vocab_size, device=device))
+        self.prefix = nn.ModuleList(Block(cfg, device=device)
+                                    for _ in range(cfg.first_dense_layers))
         self.layers = nn.ModuleList(trunk_layer(cfg, device=device)
-                                    for _ in range(cfg.num_layers))
+                                    for _ in range(cfg.n_trunk))
         self.shared_block = Block(cfg, device=device) \
             if cfg.family == "hybrid" else None
         self.final_norm = L.RMSNorm(cfg.d_model, cfg.norm_eps, device=device)
@@ -208,7 +245,7 @@ class Transformer(nn.Module):
         if self.head is not None:
             L.init_normal_(self.head, 1.0 / math.sqrt(self.cfg.d_model),
                            generator)
-        for blk in self.layers:
+        for blk in [*self.prefix, *self.layers]:
             if isinstance(blk, MambaBlock):
                 blk.mamba.reset_parameters(generator)
             else:
@@ -236,35 +273,43 @@ class Transformer(nn.Module):
                       boundary_state=None, remat: bool = False,
                       block_k: int = 512):
         """The trunk over whole sequences.  h: (B, S, d) after the
-        embedding, positions ``arange(S)`` a row.  ``boundary_fn(state,
-        h, idx) -> (state, h)`` runs between stage groups (idx = 0 ..
-        num_stages-2), which cut the units: the layers (dense, ssm) or
-        the hybrid's blocks.  ``remat`` checkpoints each unit, as JAX's
-        ``_scan_layers`` does: its activations are recomputed in the
-        backward.  The boundaries stay outside every checkpoint, since
-        they draw noise from explicit generators (which a recompute
-        would not restore) and write the message buffers.  ``block_k``
-        is the attention backward's key block.  Returns (h,
-        boundary_state)."""
-        per = stage_size(self.cfg, num_stages)
+        embedding, positions ``arange(S)`` a row.  A MoE model's dense
+        ``prefix`` runs first, outside the stage groups and any
+        checkpoint, as in JAX.  ``boundary_fn(state, h, idx) -> (state,
+        h)`` runs between stage groups (idx = 0 .. num_stages-2), which
+        cut the units: the layers (dense, moe: its MoE layers, windows
+        offset by the prefix; ssm) or the hybrid's blocks.  ``remat``
+        checkpoints each unit, as JAX's ``_scan_layers`` does: its
+        activations are recomputed in the backward.  The boundaries stay
+        outside every checkpoint, since they draw noise from explicit
+        generators (which a recompute would not restore) and write the
+        message buffers.  ``block_k`` is the attention backward's key
+        block.  Returns (h, aux, boundary_state), as JAX's: aux the MoE
+        layers' router losses summed (0.0 in the other families)."""
+        cfg, seq = self.cfg, h.shape[1]
+        aux = 0.0
+        h = prefix_forward(cfg, self.prefix, h, positions, block_k)
+        per = stage_size(cfg, num_stages)
         n = per * num_stages
         for u in range(n):
-            h = run_remat(self.unit(u, positions, h.shape[1], block_k), h,
-                          remat=remat)
+            h, a = run_remat(self.unit(u, positions, seq, block_k), h,
+                             remat=remat)
+            aux = aux + a
             if boundary_fn is not None and (u + 1) % per == 0 \
                     and u + 1 < n:
                 boundary_state, h = boundary_fn(boundary_state, h,
                                                 (u + 1) // per - 1)
-        return h, boundary_state
+        return h, aux, boundary_state
 
     def unit(self, u: int, positions: torch.Tensor, seq: int,
              block_k: int) -> Callable:
-        """The training function of unit ``u`` over h: a layer (dense,
-        ssm), or a hybrid block (its mamba layers, the shared block after
-        the last, `layer_fn`)."""
+        """The training function of unit ``u``, h -> (h, aux): a layer
+        (dense, moe, ssm), or a hybrid block (its mamba layers, the
+        shared block after the last, `layer_fn`)."""
         cfg = self.cfg
         if cfg.family != "hybrid":
-            return layer_fn(cfg, u, self.layers[u], positions, seq, block_k)
+            return layer_fn(cfg, u + cfg.first_dense_layers, self.layers[u],
+                            positions, seq, block_k)
         per = cfg.shared_attn_every
         fns = [layer_fn(cfg, i, self.layers[i], positions, seq, block_k,
                         self.shared_block
@@ -273,8 +318,8 @@ class Transformer(nn.Module):
 
         def block(x):
             for fn in fns:
-                x = fn(x)
-            return x
+                x = fn(x)[0]
+            return x, 0.0
         return block
 
     # -- caches -------------------------------------------------------------
@@ -282,16 +327,19 @@ class Transformer(nn.Module):
     def init_caches(self, batch_size: int, cache_len: int,
                     dtype: torch.dtype = torch.bfloat16, device=None,
                     kv_codec=None) -> dict:
-        """Zero caches for prefill/decode (JAX ``init_caches``): dense,
-        raw k, v (L, B, Sc, Hk, hd), or, with a quantizing ``kv_codec``,
-        its ``{k,v}_codes`` and ``{k,v}_scale`` stores for that shape
-        (the layout of JAX `quantize_caches`; no raw store is
-        allocated); ssm and hybrid, the ``ssm`` states f32 (L, B, h, p,
-        n) and ``conv`` windows (L, B, width-1, conv_dim), and for hybrid
-        raw k, v (n_blocks, B, Sc, Hk, hd).  The family rules of JAX
-        `quantize_caches` hold (`serving.kvcache.store_codec`): ssm has
-        nothing to quantize, so ``kv_codec`` passes through; hybrid with
-        ``kv_codec.bits`` raises."""
+        """Zero caches for prefill/decode (JAX ``init_caches``): dense
+        and moe, raw k, v (L, B, Sc, Hk, hd) over the trunk's L layers,
+        or, with a quantizing ``kv_codec``, its ``{k,v}_codes`` and
+        ``{k,v}_scale`` stores for that shape (the layout of JAX
+        `quantize_caches`; no raw store is allocated), and a MoE model's
+        dense prefix raw ``pk``, ``pv`` (first_dense_layers, B, Sc, Hk,
+        hd) whatever the codec; ssm and hybrid, the ``ssm`` states f32
+        (L, B, h, p, n) and ``conv`` windows (L, B, width-1, conv_dim),
+        and for hybrid raw k, v (n_blocks, B, Sc, Hk, hd).  The family
+        rules of JAX `quantize_caches` hold
+        (`serving.kvcache.store_codec`): ssm has nothing to quantize, so
+        ``kv_codec`` passes through; hybrid with ``kv_codec.bits``
+        raises."""
         cfg = self.cfg
         device = device if device is not None else self.embed.device
         # imported here: the serving package imports this module
@@ -309,9 +357,14 @@ class Transformer(nn.Module):
                 device=device)
             if cfg.family == "ssm":
                 return caches
-        n_kv = cfg.n_blocks if cfg.family == "hybrid" else cfg.num_layers
+        n_kv = cfg.n_blocks if cfg.family == "hybrid" else cfg.n_trunk
         shape = (n_kv, batch_size, cache_len, cfg.num_kv_heads,
                  cfg.head_dim)
+        if cfg.first_dense_layers:
+            for name in ("pk", "pv"):
+                caches[name] = torch.zeros(
+                    (cfg.first_dense_layers, *shape[1:]), dtype=dtype,
+                    device=device)
         for name in ("k", "v"):
             if kv_codec is not None and kv_codec.bits:
                 store = kv_codec.empty(shape, device=device)
@@ -336,8 +389,8 @@ class Transformer(nn.Module):
         cfg = self.cfg
         pos0 = caches["pos"]
         quant = kv_codec is not None and bool(kv_codec.bits) \
-            and cfg.family == "dense"
-        if isinstance(pos0, torch.Tensor) and cfg.family != "dense":
+            and cfg.family in ("dense", "moe")
+        if isinstance(pos0, torch.Tensor) and cfg.family in ("ssm", "hybrid"):
             raise NotImplementedError(f"per-row write heads: {CONTINUOUS_SSM} "
                                       f"is not ported yet")
         h = self.embed_tokens(tokens)
@@ -357,11 +410,19 @@ class Transformer(nn.Module):
         n = per * num_stages
         boundary_state = {"m": caches["hop_m"]} if "hop_m" in caches \
             else None
+        # a MoE dispatch: a prefill's per sequence, the pool's per row
+        # (JAX's batcher vmaps a one-row step), a uniform decode step's
+        # over its B rows
+        per_sequence = s > 1 or isinstance(pos0, torch.Tensor)
+        for i, blk in enumerate(self.prefix):
+            h = blk(h, positions, cfg.layer_window(i, cache_len),
+                    caches["pk"][i], caches["pv"][i], write_at)[0]
 
         for u in range(n):
-            if cfg.family == "dense":
-                h = self._dense_cached(u, h, positions, cache_len, caches,
-                                       write_at, kv_codec if quant else None)
+            if cfg.family in ("dense", "moe"):
+                h = self._attn_cached(u, h, positions, cache_len, caches,
+                                      write_at, kv_codec if quant else None,
+                                      per_sequence)
             elif cfg.family == "ssm":
                 h = self.layers[u].step(h, caches["ssm"][u],
                                         caches["conv"][u])
@@ -385,13 +446,13 @@ class Transformer(nn.Module):
             h = h[:, -1:]
         return self.lm_logits(h), caches
 
-    def _dense_cached(self, i, h, positions, cache_len, caches, write_at,
-                      kv_codec):
-        """Dense layer ``i`` of a serving step: attention over its raw
-        cache, or with ``kv_codec`` over its dequantized store, the fresh
-        rows encoded back."""
+    def _attn_cached(self, i, h, positions, cache_len, caches, write_at,
+                     kv_codec, per_sequence):
+        """Trunk layer ``i`` (dense or MoE) of a serving step: attention
+        over its raw cache, or with ``kv_codec`` over its dequantized
+        store, the fresh rows encoded back."""
         cfg = self.cfg
-        window = cfg.layer_window(i, cache_len)
+        window = cfg.layer_window(i + cfg.first_dense_layers, cache_len)
         if kv_codec is not None:
             ck, cv = kv_codec.decode_pair(
                 (caches["k_codes"][i], caches["v_codes"][i]),
@@ -399,7 +460,8 @@ class Transformer(nn.Module):
                 cfg.torch_dtype)
         else:
             ck, cv = caches["k"][i], caches["v"][i]
-        h, fk, fv = self.layers[i](h, positions, window, ck, cv, write_at)
+        h, fk, fv, _ = self.layers[i](h, positions, window, ck, cv, write_at,
+                                      per_sequence=per_sequence)
         if kv_codec is not None:
             # encode ONLY this step's fresh rows: old tokens keep their
             # original single encoding
@@ -410,14 +472,27 @@ class Transformer(nn.Module):
         return h
 
 
+def prefix_forward(cfg: ModelConfig, prefix: nn.ModuleList, h: torch.Tensor,
+                   positions: torch.Tensor, block_k: int) -> torch.Tensor:
+    """A MoE model's dense ``prefix`` layers over whole sequences (JAX
+    runs them outside the stacked layers and any checkpoint)."""
+    for i, blk in enumerate(prefix):
+        h = blk(h, positions, cfg.layer_window(i, h.shape[1]),
+                block_k=block_k)[0]
+    return h
+
+
 def stage_size(cfg: ModelConfig, num_stages: int) -> int:
-    """Units of the trunk (its layers, or the hybrid's blocks) a stage
-    group holds: the JAX package's rule, the units split evenly."""
+    """Units of the trunk (its layers past a MoE model's dense prefix,
+    or the hybrid's blocks) a stage group holds: the JAX package's rule,
+    the units split evenly."""
     if cfg.family == "hybrid":
         n, what = cfg.n_blocks, (f"{cfg.n_blocks} blocks of "
                                  f"{cfg.shared_attn_every} layers")
     else:
-        n, what = cfg.num_layers, f"{cfg.num_layers} layers"
+        n, what = cfg.n_trunk, f"{cfg.n_trunk} layers"
+        if cfg.first_dense_layers:
+            what += f" after the {cfg.first_dense_layers} dense ones"
     if num_stages < 1 or n % num_stages:
         raise ValueError(f"{cfg.name}: {what} do not split into "
                          f"{num_stages} stage groups")
@@ -467,14 +542,18 @@ def loss_fn(model: Transformer, batch: dict, *, num_stages: int = 1,
             boundary_fn: Optional[Callable] = None, boundary_state=None,
             remat: bool = False, block_k: int = 512):
     """batch: tokens, targets, mask (B, S) tensors.  Returns (loss,
-    {"ce", "aux", "boundary_state"}); the families the port runs have no
-    auxiliary loss.  ``remat`` and ``block_k``: `Transformer.trunk_forward`."""
+    {"ce", "aux", "boundary_state"}): a MoE model's loss is ce +
+    ``router_aux_weight`` x aux, its MoE layers' router losses summed,
+    as JAX's; the other families have no auxiliary loss (aux 0.0, the
+    loss is ce).  ``remat`` and ``block_k``: `Transformer.trunk_forward`."""
+    cfg = model.cfg
     h = model.embed_tokens(batch["tokens"])
     b, s = h.shape[0], h.shape[1]
     positions = torch.arange(s, dtype=torch.int32,
                              device=h.device).expand(b, s)
-    h, boundary_state = model.trunk_forward(
+    h, aux, boundary_state = model.trunk_forward(
         h, positions, num_stages=num_stages, boundary_fn=boundary_fn,
         boundary_state=boundary_state, remat=remat, block_k=block_k)
     ce = cross_entropy(model.lm_logits(h), batch["targets"], batch["mask"])
-    return ce, {"ce": ce, "aux": 0.0, "boundary_state": boundary_state}
+    total = ce + cfg.router_aux_weight * aux if cfg.has_moe else ce
+    return total, {"ce": ce, "aux": aux, "boundary_state": boundary_state}

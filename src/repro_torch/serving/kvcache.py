@@ -173,8 +173,9 @@ def store_codec(cfg, codec):
     rules of JAX `quantize_caches`: the ssm family keeps no KV cache, so
     a codec has nothing to quantize and passes through (None); the
     hybrid family's shared attention block keeps raw k and v, and a
-    quantizing codec raises `NotImplementedError`; a dense model takes
-    ``codec`` as given."""
+    quantizing codec raises `NotImplementedError`; a dense or MoE model
+    takes ``codec`` as given for its stacked layers (a MoE model's dense
+    prefix keeps raw ``pk``/``pv``, `Transformer.init_caches`)."""
     if cfg.family == "ssm":
         return None
     if cfg.family == "hybrid" and codec is not None and codec.bits:

@@ -1,6 +1,6 @@
 """Distributed pipeline-parallel training with AQ-SGD boundary
 compression over torch.distributed (port of `repro.training.pipeline`
-for the dense, ssm and hybrid families).
+for the dense, moe, ssm and hybrid families).
 
 Mesh: ``(data=D, model=K)`` processes (`repro_torch.launch.mesh`);
 model rank k runs pipeline stage k (its ceil(L/K) layers; stage 0 also
@@ -11,7 +11,18 @@ As in the JAX package the layers are cut into stages one by one in
 every family; a hybrid's shared block runs after each layer that
 ``cfg.layer_has_shared_attn`` flags, and every stage holds a copy of
 it (JAX passes it into the ``shard_map`` replicated over the pipe
-axis).
+axis).  A MoE model's stages cut the layers past its dense ``prefix``,
+which runs on the first stage after the embedding (JAX runs it with the
+embedding, before the pipeline), its gradients in the bucket under the
+``prefix`` leaves.  As JAX's ``_apply_layer``, the stages drop the MoE
+router's auxiliary loss: the distributed loss is the cross-entropy.
+``PipelineConfig.moe_mode`` is ``zero3`` (every rank computes with its
+whole stage's experts; the port has no FSDP, so nothing is gathered) or
+``expert_parallel`` (JAX's unsharded branch: each data rank computes
+its own experts on every data rank's tokens, which cross the data group
+by all-to-all, `models.moe._expert_parallel_ffn`, on the ``ep`` plane;
+an expert's gradient then lives on its owner alone and the bucket's
+sum over the data ranks equals ``zero3``'s).
 
 Schedule: GPipe.  Each step runs the M microbatches forward through the
 stages, then backward in reverse order.  A stage boundary is a pair of
@@ -86,7 +97,7 @@ per-step seeds take the global step index, so a stopped-and-resumed
 run gives the uninterrupted run's losses.  As in the JAX package there
 is no fault plan or guard on this path.
 
-Not ported: the moe, audio and vlm families, FSDP/ZeRO-3 weight sharding
+Not ported: the audio and vlm families, FSDP/ZeRO-3 weight sharding
 (ROADMAP queue A), and the kernels' seeded noise: `build_rank` refuses
 the on-core noise knob (`repro_torch.env.oncore_prng`,
 `ONCORE_REFUSAL`).
@@ -114,15 +125,18 @@ from repro_torch.core import boundary as B
 from repro_torch.core import grad_compress as GC
 from repro_torch.core import quantization as Q
 from repro_torch.models import layers as L
+from repro_torch.models.moe import capacity
 from repro_torch.models.model import (FAMILIES, Block, Transformer,
                                       embed_rows, head_logits, layer_fn,
-                                      run_remat, trunk_layer)
+                                      prefix_forward, run_remat,
+                                      trunk_layer)
 from repro_torch.optim import adamw
 from repro_torch.rng import seeded_generator
 from repro_torch.weights import stage_state_dict
 
 MODES = ("fp32", "warmup", "directq", "aqsgd")
 REMAT_MODES = ("nested", "layer")
+MOE_MODES = ("zero3", "expert_parallel")
 
 
 @dataclass(frozen=True)
@@ -136,7 +150,8 @@ class PipelineConfig:
     layers only, one recompute fewer, more memory); ``loss_chunks``
     bounds the pieces of the sequence the loss runs over (the largest
     divisor of S at most this); ``block_k`` is the attention backward's
-    key block.  The trailing init-only fields are the JAX package's
+    key block; ``moe_mode`` is ``zero3`` or ``expert_parallel`` (the
+    module docstring).  The trailing init-only fields are the JAX package's
     removed scattered comm kwargs, taken only to refuse them
     (`reject_legacy_comm`)."""
     microbatches: int = 16
@@ -147,6 +162,7 @@ class PipelineConfig:
     buffer_dtype: str = "bfloat16"
     loss_chunks: int = 64
     remat_mode: str = "nested"
+    moe_mode: str = "zero3"
     compression: InitVar[Optional[object]] = None
     buffer_bits: InitVar[Optional[int]] = None
     dp_grad_bits: InitVar[Optional[int]] = None
@@ -169,6 +185,9 @@ class PipelineConfig:
         if self.remat_mode not in REMAT_MODES:
             raise ValueError(f"remat_mode={self.remat_mode!r}; one of "
                              f"{REMAT_MODES}")
+        if self.moe_mode not in MOE_MODES:
+            raise ValueError(f"moe_mode={self.moe_mode!r}; one of "
+                             f"{MOE_MODES}")
 
 
 # the distributed trainer's answer to the on-core noise knob: its hop
@@ -188,7 +207,7 @@ ONCORE_REFUSAL = (f'{env.ONCORE_PRNG}=1 (kernel-drawn noise) is not ported '
 class StageLayout:
     num_stages: int
     lps: int                         # layers per stage (padded)
-    n_layers: int                    # live layers
+    n_layers: int                    # live layers (past a MoE prefix)
     n_padded: int                    # dead zero layers after them
     shared_attn: bool = False        # zamba2's shared block
 
@@ -199,10 +218,34 @@ def stage_layout(cfg: ModelConfig, num_stages: int) -> StageLayout:
             f"{cfg.name}: the distributed trainer runs the "
             f"{', '.join(FAMILIES)} families; the {cfg.family} family is "
             f'ROADMAP queue A, "The other families"')
-    n = cfg.num_layers
+    n = cfg.n_trunk
     lps = -(-n // num_stages)
     return StageLayout(num_stages, lps, n, num_stages * lps - n,
                        cfg.family == "hybrid")
+
+
+def ep_wire_bytes(cfg: ModelConfig, pcfg: PipelineConfig, n_layers: int,
+                  tokens: int, data_par: int, microbatches: int) -> int:
+    """The ``ep`` plane's bytes a rank sends in a step under expert
+    parallelism, its stage holding ``n_layers`` MoE layers and each
+    microbatch's dispatch ``tokens`` tokens.  Each pass of a layer's
+    forward sends its dispatch and its return all-to-all, and its
+    backward the two inverse ones, each (D-1)/D of the (E, cap, d)
+    buffer.  A layer's forward runs once, again in its checkpoint's
+    recompute with ``remat``, and with nested remat again in the
+    stage's recompute for every layer but the stage's last (that
+    recompute stops once the last layer's input is back: torch's
+    checkpoint recomputes only up to the last tensor it saved)."""
+    if data_par == 1:
+        return 0
+    cap = capacity(tokens, cfg.top_k, cfg.n_experts, cfg.capacity_factor,
+                   data_par)
+    one = (data_par - 1) * (cfg.n_experts * cap // data_par) \
+        * cfg.d_model * cfg.torch_dtype.itemsize
+    nested = pcfg.remat and pcfg.remat_mode == "nested"
+    passes = sum(2 * (1 + pcfg.remat + (nested and l < n_layers - 1)) + 2
+                 for l in range(n_layers))
+    return microbatches * passes * one
 
 
 def layer_flags(cfg: ModelConfig, lay: StageLayout) -> list:
@@ -214,11 +257,12 @@ def layer_flags(cfg: ModelConfig, lay: StageLayout) -> list:
 
 
 class Stage(nn.Module):
-    """Pipeline stage k: its live layers (global layers k*lps ..), the
-    embedding on the first stage, the final norm and the head on the
-    last (a copy of the embedding if tied, else the untied ``head``),
-    and a hybrid's ``shared_block`` on every stage.  Parameter names are
-    the stage's own (``layers.<local>.*``, ``shared_block.*``)."""
+    """Pipeline stage k: its live layers (trunk layers k*lps ..), the
+    embedding and a MoE model's dense ``prefix`` on the first stage, the
+    final norm and the head on the last (a copy of the embedding if
+    tied, else the untied ``head``), and a hybrid's ``shared_block`` on
+    every stage.  Parameter names are the stage's own
+    (``layers.<local>.*``, ``prefix.<i>.*``, ``shared_block.*``)."""
 
     def __init__(self, cfg: ModelConfig, lay: StageLayout, k: int,
                  device=None):
@@ -229,6 +273,9 @@ class Stage(nn.Module):
                           if k * lay.lps + i < lay.n_layers]
         self.layers = nn.ModuleList(trunk_layer(cfg, device=device)
                                     for _ in self.layer_ids)
+        self.prefix = nn.ModuleList(
+            Block(cfg, device=device)
+            for _ in range(cfg.first_dense_layers if self.first else 0))
         self.shared_after = layer_flags(cfg, lay)[k][:len(self.layer_ids)]
         self.shared_block = Block(cfg, device=device) \
             if lay.shared_attn else None
@@ -262,27 +309,41 @@ class Stage(nn.Module):
                                  embed=self.embed is not None,
                                  final_norm=self.last,
                                  head=self.head is not None,
-                                 shared=self.shared_block is not None)
+                                 shared=self.shared_block is not None,
+                                 prefix=len(self.prefix) > 0)
         self.load_state_dict({k: torch.tensor(np.asarray(v))
                               for k, v in state.items()})
         return self
 
-    def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
-        return embed_rows(self.cfg, self.embed, tokens)
-
-    def trunk(self, h: torch.Tensor, pcfg: PipelineConfig) -> torch.Tensor:
-        """The stage's layers over one microbatch, checkpointed as
-        ``pcfg`` says (`PipelineConfig`)."""
+    def embed_tokens(self, tokens: torch.Tensor,
+                     block_k: int = 512) -> torch.Tensor:
+        """The first stage's input: the embedding, then a MoE model's
+        dense prefix (`models.model.prefix_forward`; ``block_k`` its
+        attention backward's key block)."""
+        h = embed_rows(self.cfg, self.embed, tokens)
         b, s = h.shape[0], h.shape[1]
         positions = torch.arange(s, dtype=torch.int32,
                                  device=h.device).expand(b, s)
+        return prefix_forward(self.cfg, self.prefix, h, positions, block_k)
+
+    def trunk(self, h: torch.Tensor, pcfg: PipelineConfig,
+              ep=None) -> torch.Tensor:
+        """The stage's layers over one microbatch, checkpointed as
+        ``pcfg`` says (`PipelineConfig`); a MoE layer's aux is dropped,
+        as JAX's ``_apply_layer`` drops it.  ``ep``: the data group of
+        expert parallelism, or None."""
+        b, s = h.shape[0], h.shape[1]
+        positions = torch.arange(s, dtype=torch.int32,
+                                 device=h.device).expand(b, s)
+        offset = self.cfg.first_dense_layers
 
         def run(x):
             for i, blk, shared in zip(self.layer_ids, self.layers,
                                       self.shared_after):
-                fn = layer_fn(self.cfg, i, blk, positions, s, pcfg.block_k,
-                              self.shared_block if shared else None)
-                x = run_remat(fn, x, remat=pcfg.remat)
+                fn = layer_fn(self.cfg, i + offset, blk, positions, s,
+                              pcfg.block_k,
+                              self.shared_block if shared else None, ep=ep)
+                x = run_remat(fn, x, remat=pcfg.remat)[0]
             return x
 
         if pcfg.remat and pcfg.remat_mode == "nested" and self.layers:
@@ -328,7 +389,8 @@ def _numel(shape) -> int:
 class PipelineBucket:
     """The flatten-and-concat DP bucket of the pipeline tree, in the JAX
     package's ``jax.tree.leaves`` order of `to_pipeline_params`:
-    ``embed``, ``final_norm.scale``, the untied ``head`` if any, the
+    ``embed``, ``final_norm.scale``, the untied ``head`` if any, a MoE
+    model's ``prefix.<i>.*`` (its items in turn, each sorted), the
     hybrid's ``shared_block.*`` (sorted; one slot, which every stage's
     copy writes), then ``stages.<block param>`` (sorted) each shaped
     (K, lps, ...), dead padded layers included as zeros.  Knows where
@@ -347,6 +409,11 @@ class PipelineBucket:
                ("final_norm.scale", (cfg.d_model,))]
         if not cfg.tie_embeddings:
             top.append(("head", (cfg.d_model, cfg.vocab_size)))
+        dense = Block(cfg, device="meta")
+        for i in range(cfg.first_dense_layers):
+            top += sorted(((f"prefix.{i}.{n}", tuple(p.shape))
+                           for n, p in dense.named_parameters()),
+                          key=lambda x: tuple(x[0].split(".")))
         if lay.shared_attn:
             shared = Block(cfg, device="meta")
             top += sorted((("shared_block." + n, tuple(p.shape))
@@ -629,6 +696,8 @@ class PipelineRank:
         dev = mesh.device
         self.lay = stage_layout(cfg, mesh.shape.model)
         self.stage = Stage(cfg, self.lay, mesh.model_rank, device=dev)
+        self.ep = mesh.data_group if cfg.has_moe \
+            and pcfg.moe_mode == "expert_parallel" else None
         comm = pcfg.comm
         self.bucket = PipelineBucket(cfg, self.lay, comm.dp_group_d)
         self.sharded = bool(comm.dp.bits) and comm.dp_wire_spec.sharded
@@ -699,14 +768,14 @@ class PipelineRank:
         for j in range(M):
             ids = t["sample_ids"][j].long()
             if k == 0:
-                h = st.embed_tokens(t["tokens"][j])
+                h = st.embed_tokens(t["tokens"][j], pcfg.block_k)
             else:
                 m_in_s = buffer_read(pcfg, self.m_in, ids,
                                      self.cfg.d_model) if aq else None
                 h, nmi = hop.recv(shape, self.cfg.torch_dtype, m_in_s)
                 if nmi is not None and self.has_bufs:
                     buffer_write(pcfg, self.m_in, ids, nmi)
-            out = st.trunk(h, pcfg)
+            out = st.trunk(h, pcfg, self.ep)
             if k < kk - 1:
                 m_out_s = buffer_read(pcfg, self.m_out, ids,
                                       self.cfg.d_model) if aq else None
@@ -958,7 +1027,7 @@ def train_rank(rank: int, world: int, spec: dict) -> dict:
         out["launches"].append(dict(qp.LAUNCHES))
         tr = mesh.transport
         out["bytes"].append({p: tr.bytes_sent(p)
-                             for p in ("fw", "bw", "dp", "dp-gather",
+                             for p in ("fw", "bw", "dp", "dp-gather", "ep",
                                        "grad")})
         out["manifests"].append(tr.manifest("dp"))
         out["replicas"].append(check_replicas(trainer))

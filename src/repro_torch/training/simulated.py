@@ -39,6 +39,10 @@ reproduced, so stochastic runs match the JAX package statistically;
 deterministic runs match its loss stream within a tolerance
 (tests/test_torch_train.py).
 
+A MoE model's loss holds its router's load-balance term (`models.model.
+loss_fn`), each worker's its own; as in JAX, the metrics' ``aux`` is
+that term's aux with one worker and 0.0 in the DP-workers branch.
+
 `train_step` marks its phases for `torch.profiler` (``train.*``
 ranges: each worker's forward, the DP wire, AdamW, the buffer writes;
 the backward runs on autograd's own thread, outside them); outside a
@@ -248,6 +252,11 @@ def train_step(state: dict, batch: dict, generator: torch.Generator, *,
 
     params = dict(model.named_parameters())
     spec = tcfg.comm.dp_wire_spec if dpc.bits else None
+    # JAX's DP-workers branch reports aux 0.0 (each worker's loss holds
+    # its own); one worker reports its loss_fn's
+    aux = 0.0 if dpc.bits and (w > 1 or spec.sharded) else met["aux"]
+    if isinstance(aux, torch.Tensor):
+        aux = aux.detach()
     if dpc.bits:
         # the configured wire's simulator over the per-worker trees
         trees = [jax_leaves(g) for g in gdicts]
@@ -281,7 +290,7 @@ def train_step(state: dict, batch: dict, generator: torch.Generator, *,
             for j in range(nb):
                 m_new = torch.cat([parts[i][j] for i in range(w)], dim=0)
                 aqsgd.write_buffer(cc, bufs, j, ids, m_new)
-    return state, {"loss": loss, "ce": ce, "aux": 0.0}
+    return state, {"loss": loss, "ce": ce, "aux": aux}
 
 
 @torch.no_grad()
@@ -323,7 +332,8 @@ def train(mcfg: ModelConfig, tcfg: SimTrainConfig, dataset, *,
           log_every: int = 0, initial_params: Optional[dict] = None):
     """Run the simulated trainer.  Returns (state, per-step losses);
     ``state["step_seconds"]`` holds each step's wall time, measured to
-    the end of its device work.
+    the end of its device work, and ``state["last_metrics"]`` the last
+    step's metrics (loss, ce, aux; empty when no step ran).
 
     initial_params: a JAX params pytree (numpy arrays) to start from,
     the paper's fine-tuning setting, in place of the random init."""
@@ -335,7 +345,7 @@ def train(mcfg: ModelConfig, tcfg: SimTrainConfig, dataset, *,
     gen = seeded_generator(device, seed, "noise")
     if initial_params is not None:
         load_jax_params(state["model"], initial_params)
-    losses, seconds = [], []
+    losses, seconds, metrics = [], [], {}
     for step, batch in enumerate(dataset.batches(batch_size, num_steps)):
         t0 = time.perf_counter()
         state, metrics = train_step(state, device_batch(batch, device),
@@ -345,4 +355,5 @@ def train(mcfg: ModelConfig, tcfg: SimTrainConfig, dataset, *,
         if log_every and step % log_every == 0:
             print(f"step {step:5d} loss {losses[-1]:.4f}", flush=True)
     state["step_seconds"] = seconds
+    state["last_metrics"] = metrics
     return state, losses

@@ -5,18 +5,22 @@ The JAX package keeps per-layer weights stacked along dim 0 under
 per layer.  `from_jax_params` takes that pytree as numpy arrays, keyed
 by the JAX names, and unstacks it leaf by leaf, so both packages
 compute with the same weights (an untied ``head``, (d_model, vocab),
-the mamba layers' ``layers.mamba.*`` and ``layers.norm1.*``, and the
-hybrid's unstacked ``shared_block.*`` included).  `jax_leaf_names` and
-`jax_leaves` give the port's parameters in ``jax.tree.leaves`` order,
-the order of the data-parallel gradient bucket
+the mamba layers' ``layers.mamba.*`` and ``layers.norm1.*``, the
+hybrid's unstacked ``shared_block.*``, and a MoE model's ``prefix``, a
+list of dense layers, as ``prefix.<i>.*`` included).  `jax_leaf_names`
+and `jax_leaves` give the port's parameters in ``jax.tree.leaves``
+order, the order of the data-parallel gradient bucket
 (`repro_torch.core.grad_compress`): keys sorted, so ``embed``,
-``final_norm``, ``head``, ``layers``, ``shared_block``.
+``final_norm``, ``head``, ``layers``, ``prefix`` (its items in turn),
+``shared_block``.
 
 The distributed trainer's tree is the JAX package's pipeline layout
 (`to_pipeline_params`): ``layers`` zero-padded to K * lps layers and
-reshaped to ``stages`` (K, lps, ...), lps = ceil(L / K).
-`stage_state_dict` gives one pipeline stage its weights from it (every
-stage of a hybrid holds the whole ``shared_block``).
+reshaped to ``stages`` (K, lps, ...), lps = ceil(L / K) over the L
+layers past the prefix (a MoE layer's expert stacks become 5-D, (K,
+lps, E, d, ff)).  `stage_state_dict` gives one pipeline stage its
+weights from it (every stage of a hybrid holds the whole
+``shared_block``, the first stage a MoE model's ``prefix``).
 
 `jax_tree` goes the other way: any name -> tensor dict keyed by the
 port's parameter names (the parameters, the AdamW moments) as the JAX
@@ -34,16 +38,24 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.model import Transformer
 
 
-def _flatten(tree: dict, prefix: str = "") -> dict:
-    """{'a': {'b': x}} -> {'a.b': x}."""
+def _flatten(tree, prefix: str = "") -> dict:
+    """{'a': {'b': x}, 'p': [{'c': y}]} -> {'a.b': x, 'p.0.c': y}."""
     out = {}
-    for k, v in tree.items():
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    for k, v in items:
         name = f"{prefix}{k}"
-        if isinstance(v, dict):
+        if isinstance(v, (dict, list)):
             out.update(_flatten(v, name + "."))
         else:
             out[name] = v
     return out
+
+
+def _name_key(name: str) -> tuple:
+    """A dotted name's sort key in ``jax.tree.leaves`` order: dict keys
+    sorted, list items (numeric parts) in turn."""
+    return tuple((0, int(p), "") if p.isdigit() else (1, 0, p)
+                 for p in name.split("."))
 
 
 def from_jax_tree(tree: dict) -> dict:
@@ -66,9 +78,9 @@ def from_jax_params(np_tree: dict, cfg: ModelConfig, *,
     (numpy arrays; ``layers`` stacked along dim 0)."""
     model = Transformer(cfg, device=device)
     for name, arr in _flatten(np_tree["layers"]).items():
-        if np.shape(arr)[0] != cfg.num_layers:
+        if np.shape(arr)[0] != cfg.n_trunk:
             raise ValueError(f"layers.{name}: {np.shape(arr)[0]} stacked "
-                             f"layers, config has {cfg.num_layers}")
+                             f"layers, config has {cfg.n_trunk}")
     state = {k: np.asarray(v) for k, v in from_jax_tree(np_tree).items()}
     own = model.state_dict()
     if set(state) != set(own):
@@ -81,9 +93,10 @@ def from_jax_params(np_tree: dict, cfg: ModelConfig, *,
 
 def jax_leaf_names(names) -> list:
     """Group the port's parameter names into the JAX package's leaves,
-    in ``jax.tree.leaves`` order (dict keys sorted at every level):
-    ``[(jax_name, [port names])]``, where ``layers.<i>.<rest>`` for
-    every i forms the one stacked leaf ``layers.<rest>``, layer-major."""
+    in ``jax.tree.leaves`` order (dict keys sorted at every level, a
+    MoE model's ``prefix`` list in turn): ``[(jax_name, [port
+    names])]``, where ``layers.<i>.<rest>`` for every i forms the one
+    stacked leaf ``layers.<rest>``, layer-major."""
     groups: dict = {}
     for name in names:
         parts = name.split(".")
@@ -92,7 +105,7 @@ def jax_leaf_names(names) -> list:
         groups.setdefault(key, []).append(
             (int(parts[1]) if stacked else 0, name))
     return [(k, [n for _, n in sorted(groups[k])])
-            for k in sorted(groups, key=lambda k: tuple(k.split(".")))]
+            for k in sorted(groups, key=_name_key)]
 
 
 def jax_leaves(params: dict) -> list:
@@ -106,17 +119,24 @@ def jax_leaves(params: dict) -> list:
 
 def jax_tree(named: dict) -> dict:
     """``named`` (port parameter name -> tensor) as the JAX package's
-    nested tree: dotted names nested, ``layers.<i>.<rest>`` stacked
-    along a new dim 0 (a new tensor on their device) under
-    ``layers/<rest>``; the other leaves are ``named``'s own tensors."""
+    nested tree: dotted names nested (``prefix.<i>.<rest>`` as item i
+    of the ``prefix`` list), ``layers.<i>.<rest>`` stacked along a new
+    dim 0 (a new tensor on their device) under ``layers/<rest>``; the
+    other leaves are ``named``'s own tensors."""
     out: dict = {}
     for key, names in jax_leaf_names(named):
         parts = key.split(".")
         leaf = torch.stack([named[n] for n in names]) \
             if parts[0] == "layers" else named[names[0]]
         node = out
-        for p in parts[:-1]:
-            node = node.setdefault(p, {})
+        for p, nxt in zip(parts[:-1], parts[1:]):
+            empty = [] if nxt.isdigit() else {}
+            if isinstance(node, list):
+                if int(p) == len(node):
+                    node.append(empty)
+                node = node[int(p)]
+            else:
+                node = node.setdefault(p, empty)
         node[parts[-1]] = leaf
     return out
 
@@ -136,7 +156,7 @@ def load_jax_params(model: Transformer, np_tree: dict) -> Transformer:
 
 
 def _layers_per_stage(cfg: ModelConfig, num_stages: int) -> int:
-    return -(-cfg.num_layers // num_stages)
+    return -(-cfg.n_trunk // num_stages)
 
 
 def to_pipeline_params(np_tree: dict, cfg: ModelConfig,
@@ -145,7 +165,7 @@ def to_pipeline_params(np_tree: dict, cfg: ModelConfig,
     becomes ``stages``, zero-padded to K * lps layers and reshaped to
     (K, lps, ...)."""
     lps = _layers_per_stage(cfg, num_stages)
-    pad = num_stages * lps - cfg.num_layers
+    pad = num_stages * lps - cfg.n_trunk
 
     def stage(a):
         a = np.asarray(a)
@@ -166,18 +186,20 @@ def from_pipeline_params(np_tree: dict, cfg: ModelConfig,
     out = {k: v for k, v in np_tree.items() if k != "stages"}
     out["layers"] = {
         name: np.asarray(a).reshape(-1, *np.asarray(a).shape[2:])
-        [:cfg.num_layers] for name, a in _flatten(np_tree["stages"]).items()}
+        [:cfg.n_trunk] for name, a in _flatten(np_tree["stages"]).items()}
     return out
 
 
 def stage_state_dict(np_pipe: dict, cfg: ModelConfig, num_stages: int,
                      stage: int, *, embed: bool, final_norm: bool,
-                     head: bool = False, shared: bool = False) -> dict:
+                     head: bool = False, shared: bool = False,
+                     prefix: bool = False) -> dict:
     """One pipeline stage's weights from a pipeline-layout tree (numpy):
-    ``layers.<l>.*`` for its live layers l = 0.. (global layer
+    ``layers.<l>.*`` for its live layers l = 0.. (trunk layer
     stage * lps + l), plus ``embed``, ``final_norm.scale``, the untied
-    ``head`` and the hybrid's ``shared_block.*`` where the stage holds
-    them.  Keys are the stage module's parameter names."""
+    ``head``, the hybrid's ``shared_block.*`` and a MoE model's dense
+    ``prefix.<i>.*`` where the stage holds them.  Keys are the stage
+    module's parameter names."""
     lps = _layers_per_stage(cfg, num_stages)
     out = {}
     flat = _flatten({k: v for k, v in np_pipe.items() if k != "stages"})
@@ -187,11 +209,11 @@ def stage_state_dict(np_pipe: dict, cfg: ModelConfig, num_stages: int,
         out["final_norm.scale"] = flat["final_norm.scale"]
     if head:
         out["head"] = flat["head"]
-    if shared:
-        out.update({k: v for k, v in flat.items()
-                    if k.startswith("shared_block.")})
+    for part, want in (("shared_block.", shared), ("prefix.", prefix)):
+        if want:
+            out.update({k: v for k, v in flat.items() if k.startswith(part)})
     for name, a in _flatten(np_pipe["stages"]).items():
         for l in range(lps):
-            if stage * lps + l < cfg.num_layers:
+            if stage * lps + l < cfg.n_trunk:
                 out[f"layers.{l}.{name}"] = np.asarray(a)[stage, l]
     return out

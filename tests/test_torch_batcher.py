@@ -7,7 +7,9 @@ with per-row write heads (`Transformer.forward_with_caches` with
 ``caches["pos"]`` a (B,) tensor, B3's append at per-row heads).  Both
 hold the same SMOKE weights (moved by `weights.from_jax_params`) and
 serve the same numpy-drawn prompts.  gemma2-9b runs with
-``sliding_window`` 4 so that its per-row windows mask keys in decode.
+``sliding_window`` 4 so that its per-row windows mask keys in decode;
+the pooled step and the launcher also run deepseek-moe-16b (a row's MoE
+dispatch, its dense prefix's raw ``pk``/``pv`` at per-row heads).
 
 Tolerances.  With raw f32 caches the two packages' logits differ by
 ~1e-6 (other matmul kernels), so their greedy streams are held equal
@@ -163,18 +165,23 @@ def _jax_pool_logits(jc, params, jkv, jhop, pool, tok):
 
 
 @pytest.mark.parametrize("arch,window", [("gemma2-9b", 4),
-                                         ("gpt2-xl-paper", None)])
+                                         ("gpt2-xl-paper", None),
+                                         ("deepseek-moe-16b", None)])
 def test_pooled_step_matches_jax(arch, window):
     """One pooled step with the 8-bit KV cache and the 4-bit aqsgd hop
     over 2 stages, from one pool carried JAX -> port as numpy: three
     slots filled by the JAX batcher (prompts 3, 9 and 6, two ticks, so
     heads 5, 11 and 8), then slot 2 made idle with its head past the
-    cache (19 of 16)."""
+    cache (19 of 16).  deepseek-moe-16b: the MoE layers dispatch a row
+    at a time, the dense prefix's raw ``pk``/``pv`` (f32, the pool's
+    raw dtype) are written at the per-row heads and held as the scales
+    are."""
     jc, params, model = _models(arch, window)
     cache_len = 16
     jkv, jhop = JKV(bits=8), JHop(mode="aqsgd", bits=4)
     jb = JBatcher(params, jc, num_slots=3, cache_len=cache_len,
-                  kv_codec=jkv, hop_codec=jhop, num_stages=2)
+                  kv_codec=jkv, hop_codec=jhop, num_stages=2,
+                  dtype=jnp.float32)
     for p in _prompts(jc.vocab_size, (3, 9, 6), 5):
         jb.submit(p, max_new_tokens=8)
     jb._admit()
@@ -209,7 +216,10 @@ def test_pooled_step_matches_jax(arch, window):
         flips += int((diff > 0).sum())
         total += diff.size
     assert flips <= MAX_FLIP_FRACTION * total, (flips, total)
-    for name in ("k_scale", "v_scale", "hop_m"):
+    for name in ("k_scale", "v_scale", "hop_m", "pk", "pv"):
+        if name not in jnew:
+            continue
+        assert name in tc, name
         want = np.asarray(jnew[name])
         np.testing.assert_allclose(tc[name].numpy(), want, rtol=0,
                                    atol=STATE_RTOL * np.abs(want).max())
@@ -457,7 +467,8 @@ def test_batcher_admission_guard_rejects_poisoned_prefill():
 # the launcher
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ["gpt2-xl-paper", "gemma2-9b"])
+@pytest.mark.parametrize("arch", ["gpt2-xl-paper", "gemma2-9b",
+                                  "deepseek-moe-16b"])
 def test_serve_continuous_launcher(arch):
     out = tserve.main(["--device", "cpu", "--smoke", "--arch", arch,
                        "--stages", "2", "--mode", "aqsgd", "--fw-bits", "4",

@@ -105,9 +105,10 @@ def _np(leaf):
 
 
 def _flat(tree, prefix=""):
-    if isinstance(tree, dict):
+    if isinstance(tree, (dict, list)):
         out = {}
-        for k, v in tree.items():
+        items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+        for k, v in items:
             out.update(_flat(v, f"{prefix}{k}/"))
         return out
     return {prefix[:-1]: tree}

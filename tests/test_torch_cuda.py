@@ -62,7 +62,17 @@ block) runs the hd-96 instance on the wrapper's zero-padded copies: its
 80 columns, with and without the lse, against the plain version at 80
 (f32 against the float64 formula), one launch a call, the tile edges
 and the training attention at zamba2's (4, 32, 1024, 80); a head_dim of
-neither an instance nor a padded width (48, 72) still raises.
+neither an instance nor a padded width (48, 72) still raises.  The moe
+family: B10 at deepseek-moe-16b's heads (16 of 128) and mixtral-8x22b's
+(48 on 8 kv heads of 128, a window) against the plain version, short
+and at their full prefill shapes (the plain version a batch row and kv
+head at a time); the MoE
+FFN (plain PyTorch, no kernel) on the card against the CPU at SMOKE
+width and capacity_factor 1.25: routing and keep masks equal, values
+and gradients within 1e-4, two card runs bit-equal.  A prefill over
+raw bf16 stores (the batcher's default dtype; a MoE model's dense
+prefix) reads them in the queries' f32, one B10 launch within 1e-4 of
+the plain version.
 """
 import math
 
@@ -579,6 +589,11 @@ FLASH_CASES = [
     # kernel's 96 by the wrapper), ragged, an offset; and GQA at 80
     (2, 32, 32, 100, 130, 80, 30, True, 10 ** 9, 0.0),
     (1, 4, 2, 65, 97, 80, 0, False, 40, 30.0),
+    # the moe family's heads: deepseek-moe-16b's (16 of 128, causal) and
+    # mixtral-8x22b's (48 on 8 kv heads of 128, GQA 6:1, a window under
+    # the keys), ragged, an offset
+    (2, 16, 16, 100, 130, 128, 30, True, 10 ** 9, 0.0),
+    (1, 48, 8, 300, 400, 128, 100, True, 128, 0.0),
     (1, 2, 2, 64, 64, 32, 0, True, 10 ** 9, 0.0),
     (2, 4, 2, 128, 128, 64, 0, True, 10 ** 9, 0.0),      # GQA
     (1, 8, 1, 64, 64, 128, 0, True, 10 ** 9, 0.0),       # MQA
@@ -1014,3 +1029,111 @@ def test_fp16_sum_and_8bit_moments_match_cpu(card):
             near = (y - y.floor() - 0.5).abs() <= 1e-3
             assert bool((~diff | near | differed[m]).all()), m
             differed[m] |= diff
+
+
+@pytest.mark.parametrize("case", [
+    (2, 16, 16, 4064, 4096, 10 ** 9),      # deepseek-moe-16b's prefill
+    (2, 48, 8, 8160, 8192, 4096),          # mixtral-8x22b's, GQA 6:1
+])
+def test_flash_attention_moe_prefills(card, case):
+    """B10 at the moe family's full prefill shapes (hd 128, causal, as
+    the model passes them: transposed (B, S, H, hd) views) against the
+    plain version, a batch row and kv head at a time (mixtral's whole
+    score tensor is 25.7 GB), within 1e-4 (chip_smoke's path
+    tolerance); one launch."""
+    b, h, hk, sq, sk, window = case
+    g = torch.Generator(device=card).manual_seed(sq)
+    q = torch.randn(b, sq, h, 128, generator=g, device=card).transpose(1, 2)
+    k, v = (torch.randn(b, sk, hk, 128, generator=g,
+                        device=card).transpose(1, 2) for _ in range(2))
+    kw = dict(causal=True, window=window, softcap=0.0, q_offset=0)
+    TP.reset_launches()
+    got = TFA.flash_attention_fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert TP.LAUNCHES["flash_attention_fwd"] == 1
+    r = h // hk
+    for i in range(b):
+        for j in range(hk):
+            heads = slice(j * r, (j + 1) * r)
+            want = TR.flash_attention_ref(q[i:i + 1, heads],
+                                          k[i:i + 1, j:j + 1],
+                                          v[i:i + 1, j:j + 1], **kw)
+            torch.testing.assert_close(got[i:i + 1, heads], want,
+                                       rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "mixtral-8x22b"])
+def test_moe_ffn_on_card_matches_cpu(card, arch):
+    """The MoE FFN (plain PyTorch: router, stable sort, dispatch, expert
+    matmuls, the fixed-order combine) at SMOKE width and capacity_factor
+    1.25 on the card against the CPU on the same weights and x: the
+    routing equal where the k-th and (k+1)-th probabilities lie 1e-5
+    apart, the keep masks equal, out, aux and every gradient within
+    1e-4; two card runs bit-equal (no atomics in the combine)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import moe as TMoE
+
+    cfg = get_config(arch, smoke=True).with_(capacity_factor=1.25)
+    m = {"cpu": TMoE.MoE(cfg)}
+    m["cpu"].reset_parameters(torch.Generator().manual_seed(0))
+    m[card] = TMoE.MoE(cfg, device=card)
+    m[card].load_state_dict(m["cpu"].state_dict())
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(3, 40, cfg.d_model, generator=g) \
+        + torch.randn(cfg.d_model, generator=g)
+    w = torch.randn(3, 40, cfg.d_model, generator=g)
+    runs = {}
+    for dev in ("cpu", card, card):
+        xd = x.to(dev).requires_grad_()
+        out, aux = TMoE.moe_ffn(m[dev], xd, top_k=cfg.top_k,
+                                capacity_factor=1.25)
+        grads = torch.autograd.grad((out * w.to(dev)).sum() + aux,
+                                    [xd, *m[dev].parameters()])
+        with torch.no_grad():
+            r = TMoE.route(m[dev], xd.reshape(1, -1, cfg.d_model),
+                           cfg.top_k, TMoE.capacity(120, cfg.top_k,
+                                                    cfg.n_experts, 1.25))
+        runs.setdefault(str(dev), []).append(
+            [t.detach().cpu() for t in (out, aux, *grads)]
+            + [r[k].cpu() for k in ("probs", "top_i", "keep")])
+    (cpu,), (one, two) = runs["cpu"], runs[str(card)]
+    for a, b in zip(one, two):
+        assert torch.equal(a, b)
+    top = cpu[-3].sort(-1, descending=True).values
+    clear = top[..., cfg.top_k - 1] - top[..., cfg.top_k] > 1e-5
+    assert bool(clear.all())
+    assert torch.equal(cpu[-2].sort(-1).values, one[-2].sort(-1).values)
+    assert torch.equal(cpu[-1], one[-1]) and not bool(cpu[-1].all())
+    for a, b in zip(cpu[:-3], one[:-3]):
+        scale = max(1.0, a.abs().max().item())
+        torch.testing.assert_close(b, a, rtol=1e-4, atol=1e-4 * scale)
+
+
+
+def test_prefill_over_a_bf16_raw_cache(card):
+    """A prefill over raw bf16 k and v stores (the continuous batcher's
+    default dtype, which a MoE model's dense prefix keeps raw) with f32
+    queries: the layer reads the stores in q's dtype, as JAX's attention
+    promotes them; one B10 launch, within 1e-4 of the plain version over
+    the same q and the stores as written."""
+    from repro_torch.models import layers as L
+
+    att = L.Attention(256, 4, 4, 64, 10000.0, device=card)
+    att.reset_parameters(torch.Generator().manual_seed(0))
+    x = torch.randn(1, 12, 256, generator=torch.Generator().manual_seed(1))
+    x = x.to(card)
+    kc, vc = (torch.zeros(1, 24, 4, 64, dtype=torch.bfloat16, device=card)
+              for _ in range(2))
+    pos = torch.arange(12, dtype=torch.int32, device=card)[None]
+    TP.reset_launches()
+    with torch.no_grad():
+        out, _, _ = att(x, pos, TFA.BIG_WINDOW, kc, vc, 0)
+        torch.cuda.synchronize()
+        assert TP.LAUNCHES["flash_attention_fwd"] == 1
+        q = L.rope((x @ att.wq).reshape(1, 12, 4, 64), pos, 10000.0)
+        want = TR.flash_attention_ref(
+            q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2),
+            causal=True, window=TFA.BIG_WINDOW, softcap=0.0, q_offset=0)
+        want = want.transpose(1, 2).reshape(1, 12, 256) @ att.wo
+    assert kc.dtype == torch.bfloat16 and bool(kc[0, :12].abs().gt(0).any())
+    torch.testing.assert_close(out, want, rtol=1e-4, atol=1e-4)

@@ -9,9 +9,11 @@ column; the `Transport` stages every payload through host memory and
 records each call by plane, kind, dtype and bytes.
 
 This file imports no JAX, so the spawned ranks of
-tests/test_torch_ring.py and tests/test_torch_zero.py import their
-workers (`wire_worker`, `zero_worker`) from here without loading JAX in
-every process.
+tests/test_torch_ring.py, tests/test_torch_zero.py and
+tests/test_torch_moe_dist.py import their workers (`wire_worker`,
+`zero_worker`, `ep_worker`) from here without loading JAX in every
+process.  The all-to-all (`RingGroup.all_to_all`, an autograd function
+whose backward is the inverse all-to-all) is tested here too.
 """
 import pytest
 import torch
@@ -91,6 +93,58 @@ def zero_worker(rank, world, inputs):
             torch.from_numpy(inputs["x"][rank]), group, inputs["bits"],
             stochastic=False, backend="reference").numpy()
     return out
+
+
+def ep_worker(rank, world, inputs):
+    """Rank ``rank`` of a ``world`` x 1 mesh: for each case of
+    ``inputs["cases"]`` (a port ``ModelConfig``, its MoE weights and this
+    rank's x and output gradient as numpy), the expert-parallel
+    `moe.moe_ffn` over the data group, then its backward.  Returns the
+    outputs, aux, x's and the weights' gradients, and the ``ep`` calls
+    (numpy and plain data)."""
+    from repro_torch.models import moe as TMoE
+    mesh = Mesh(MeshShape(world, 1), rank, "cpu")
+    out = []
+    for case in inputs["cases"]:
+        cfg = case["cfg"]
+        m = TMoE.MoE(cfg)
+        m.load_state_dict({k: torch.from_numpy(v)
+                           for k, v in case["weights"].items()})
+        x = torch.from_numpy(case["x"][rank]).requires_grad_()
+        mesh.transport.reset()
+        y, aux = TMoE.moe_ffn(m, x, top_k=cfg.top_k,
+                              capacity_factor=cfg.capacity_factor,
+                              ep=mesh.data_group)
+        (y * torch.from_numpy(case["g"][rank])).sum().backward()
+        out.append({"y": y.detach().numpy(), "aux": aux.item(),
+                    "x_grad": x.grad.numpy(),
+                    "grads": {n: p.grad.numpy()
+                              for n, p in m.named_parameters()},
+                    "calls": list(mesh.transport.calls)})
+    return out
+
+
+def _a2a_worker(rank, world):
+    mesh = Mesh(MeshShape(world, 1), rank, "cpu")
+    x = (torch.arange(world * 2, dtype=torch.float32).reshape(world, 2)
+         + 10 * rank).requires_grad_()
+    y = mesh.data_group.all_to_all(x)
+    (y * torch.arange(1.0, world + 1)[:, None]).sum().backward()
+    return {"y": y.detach().tolist(), "grad": x.grad.tolist(),
+            "calls": list(mesh.transport.calls)}
+
+
+def test_all_to_all_and_its_backward(tmp_path):
+    """Member j's slice i goes to slot j of member i; the backward sends
+    the gradient back (member i's slices all land in slot i, weighted
+    i + 1, so their gradient is i + 1); both calls recorded on ``ep``
+    with the bytes for the other members."""
+    out = spawn(_a2a_worker, 3, timeout=SPAWN_TIMEOUT, store_dir=tmp_path)
+    for i, got in enumerate(out):
+        assert got["y"] == [[2 * i + 10 * j, 2 * i + 1 + 10 * j]
+                            for j in range(3)]
+        assert got["grad"] == [[float(i + 1)] * 2] * 3
+        assert got["calls"] == [("ep", "all-to-all", "f32", 16)] * 2
 
 
 def _mesh_worker(rank, world, shape):

@@ -356,7 +356,7 @@ def test_prefill_then_decode_matches_full_forward(arch):
     with torch.no_grad():
         h = model.embed_tokens(toks)
         pos = torch.arange(24, dtype=torch.int32).expand(B, 24)
-        h, _ = model.trunk_forward(h, pos)
+        h, _, _ = model.trunk_forward(h, pos)
         want = model.lm_logits(h)
         caches = model.init_caches(B, 24, torch.float32)
         got, caches = model.forward_with_caches(toks[:, :16], caches)

@@ -85,7 +85,7 @@ def test_model_owns_an_untied_head(untied):
     assert tied.head is None
     assert "head" not in dict(tied.named_parameters())
     with pytest.raises(NotImplementedError, match="The other families"):
-        TM.Transformer(tcfg.with_(family="moe"))
+        TM.Transformer(tcfg.with_(family="audio"))
 
 
 @pytest.mark.parametrize("num_stages,remat", [(1, False), (1, True),

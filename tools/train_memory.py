@@ -4,12 +4,16 @@ with depth.
 
     python3 tools/train_memory.py [--layers 4 8 12] [--remat off on]
         [--steps 4] [--src TREE] [--arch ARCH --stages K]
+        [--dp-workers N]
 
 Runs `chip_smoke.py`'s ``[train]`` configuration (``gpt2-xl-paper`` at
 full width, 4 stage groups, or ``--arch`` at full width in ``--stages``
 groups, as ``[train-zamba2]`` runs ``zamba2-2.7b --layers 12 --stages
 2``; aqsgd fw 4 / bw 8 stochastic, 4-bit DP on
-the ``ring`` over 2 simulated workers, batch 8 x seq 1024, 16 samples,
+the ``ring`` over ``--dp-workers`` simulated workers, 2 by default, or
+with ``--dp-workers 0`` one worker and no DP plane, as ``[train-moe]``
+runs ``deepseek-moe-16b --layers 3 --stages 2``; batch 8 x seq 1024, 16
+samples,
 random weights from seed 0) at each depth of ``--layers``, with remat
 off and on, ``--steps`` steps each (from step 3 the delta path runs).
 For every step it records the bytes resident at its start (weights,
@@ -43,7 +47,7 @@ GIB = 2 ** 30
 
 
 def run(layers: int, remat: bool, steps: int, arch: str = "gpt2-xl-paper",
-        stages: int = 4) -> dict:
+        stages: int = 4, dp_workers: int = 2) -> dict:
     import torch
 
     from repro_torch.comm import config as comm_mod
@@ -56,10 +60,11 @@ def run(layers: int, remat: bool, steps: int, arch: str = "gpt2-xl-paper",
     plane = comm_mod.PlaneConfig
     comm = comm_mod.CommConfig(mode="aqsgd", fw=plane(bits=4),
                                bw=plane(bits=8),
-                               dp=plane(bits=4, wire="ring"))
+                               dp=plane(bits=4 if dp_workers else 0,
+                                        wire="ring"))
     cfg = get_config(arch).with_(num_layers=layers)
     tcfg = sim.SimTrainConfig(
-        num_stages=stages, comm=comm, dp_workers=2,
+        num_stages=stages, comm=comm, dp_workers=max(dp_workers, 1),
         optimizer=adamw.AdamWConfig(lr=1e-3, warmup_steps=1,
                                     total_steps=steps),
         **({"remat": True} if remat else {}))
@@ -144,6 +149,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--src", default=ROOT)
     ap.add_argument("--arch", default="gpt2-xl-paper")
     ap.add_argument("--stages", type=int, default=4)
+    ap.add_argument("--dp-workers", type=int, default=2)
     args = ap.parse_args(argv)
     sys.path.insert(0, os.path.join(os.path.abspath(args.src), "src"))
     if not torch.cuda.is_available():
@@ -152,7 +158,8 @@ def main(argv=None) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = torch.cuda.get_device_properties(0)
-    runs = [run(n, mode == "on", args.steps, args.arch, args.stages)
+    runs = [run(n, mode == "on", args.steps, args.arch, args.stages,
+                args.dp_workers)
             for mode in args.remat for n in args.layers]
     fits = {}
     for mode in args.remat:
@@ -170,7 +177,7 @@ def main(argv=None) -> dict:
                       "layers_at_card_memory": (cap - a) / b if b else None,
                       "card_gib": cap}
     out = {"src": os.path.abspath(args.src), "arch": args.arch,
-           "stages": args.stages,
+           "stages": args.stages, "dp_workers": args.dp_workers,
            "device": torch.cuda.get_device_name(0), "runs": runs,
            "fits": fits}
     print(json.dumps(out))

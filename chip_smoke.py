@@ -158,12 +158,12 @@ Phases, each printed on its own line:
    on the CPU from the seed) against a build drawn on the card;
    ``[serve-stablelm]``: ``stablelm-12b`` at full width (d 5120, 32
    query heads on 8 kv heads of 160, vocab 100352, an untied head), the
-   first 20 of its 40 layers (`S_LAYERS`), batch 2, a prompt of 4064
+   first 4 of its 40 layers (`S_LAYERS`), batch 2, a prompt of 4064
    into a cache of its 4096-token context, 32 decode steps, and
    ``[serve-gemma2-27b]``: ``gemma2-27b`` at full width (d 4608, 32
-   heads on 16 kv heads of 128, d_ff 36864) cut to the first 8 of its
+   heads on 16 kv heads of 128, d_ff 36864) cut to the first 2 of its
    46 layers (``--layers``, `G27_LAYERS`; 28, the most the card holds,
-   costs ~80 s more of host weight draws), batch 2, prompt 8160 into
+   costs ~100 s more of host weight draws), batch 2, prompt 8160 into
    8192, 32 decode steps; both with the same comm flags and checks
    as ``[serve-gemma2]`` (launches exactly, hop and KV bytes against
    the byte models); then each one's SMOKE card-against-CPU check
@@ -290,7 +290,7 @@ and ``[dist-zamba2-reference-check]`` (the 2 x 2 mesh at SMOKE, the
 shared block's copies bit-equal on every stage after every step).
 The moe family: ``[serve-deepseek-moe]``
 and ``[serve-mixtral]``, each at full width and cut in depth
-(`DS_LAYERS`: the dense prefix and 4 MoE layers; `MX_LAYERS`), through
+(`DS_LAYERS`: the dense prefix and 2 MoE layers; `MX_LAYERS`), through
 the launcher with ``[serve-gemma2]``'s flags and checks (the prefix's
 KV raw); their SMOKE card-against-CPU checks at ``capacity_factor``
 1.25 with the 8-bit KV cache, the routing compared past ROUTE_MARGIN
@@ -306,8 +306,26 @@ streams token for token) and ``[serve-moe-continuous-kv8-reference-check]``
 worker; ``[train-moe-reference-check]``, ``[dist-moe-reference-check]``
 and ``[dist-moe-ep-reference-check]`` (``zero3`` and
 ``expert_parallel``, the ``ep`` bytes against the byte model).
+The audio and vlm families: B10's non-causal calls in
+``[flash-check]`` (Sk 1500 off the 32-key tile, Sq past Sk at a query
+offset) and ``[kernel-time]`` (whisper's encoder, decoder and cross
+prefill calls and pixtral's, `FLASH_PATHS`, held to the float64
+formula; whisper's training calls with the lse, `FLASH_TRAIN`);
+``[serve-whisper]`` (whisper-small at full size, stub frames, the
+encoder inside the timed prefill) and ``[serve-pixtral]`` (pixtral-12b
+at full width, `P_LAYERS` of 40 layers, 1024 stub patches ahead of a
+3040-token prompt) through the launcher (`media_serve_phase`: launches
+exactly, hop, KV and raw cross-cache bytes against their byte models);
+their SMOKE card-against-CPU checks with raw and with 8-bit KV (the
+card's codes carried at near-ties), the cross caches compared;
+``[train-whisper]``: the simulated trainer at full size, 448-token
+batches with stub frames; ``[train-whisper-reference-check]``,
+``[train-pixtral-reference-check]``, ``[dist-whisper-reference-check]``
+(the encoder's copies bit-equal on every stage) and
+``[dist-pixtral-reference-check]``.
 Every distributed card-against-CPU check runs in one spawn a device
-(`DIST_CHECKS`).
+(`DIST_CHECKS`).  Each phase's line ends with ``at``, its seconds since
+the script started.
 
 B9a and B9b launch 0 times on every path but ``[legacy-dp-codec]``:
 no trainer or server runs the legacy pair, in the JAX package either.
@@ -316,8 +334,8 @@ count on the path its time was taken at, named by ``launches_path``;
 each path's own count in ``launches_by_path``, ``serve_continuous``,
 ``serve_stablelm``, ``serve_gemma2_27b``, ``serve_mamba2``,
 ``serve_zamba2``, ``serve_deepseek_moe``, ``serve_mixtral``,
-``serve_moe_continuous``, ``train_zamba2``, ``train_moe``,
-``train_full_depth``,
+``serve_moe_continuous``, ``serve_whisper``, ``serve_pixtral``,
+``train_zamba2``, ``train_moe``, ``train_whisper``, ``train_full_depth``,
 ``train_resume``, ``train_fault`` and ``dist_resume`` among them), the
 card's name and
 power limit, and as the last line ``{"ok": true, "device": {...}}``.
@@ -337,6 +355,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
+T_START = time.perf_counter()
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 F32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
@@ -443,12 +462,13 @@ GEMMA_ARGS = ["--arch", "gemma2-9b", "--stages", "2", "--mode", "aqsgd",
 # the gemma2 reference check: SMOKE, a prompt past its window of 16
 G_CHECK_PROMPT, G_CHECK_STEPS = 40, 6
 # stablelm-12b served at full width (d 5120, 32 heads on 8 kv heads of
-# 160, vocab 100352, an untied head), the first 20 of its 40 layers (the
-# run's time: the host draws ~0.3e9 weights a layer): a prompt of 4064
-# into a cache of its 4096-token context
+# 160, vocab 100352, an untied head), the first 4 of its 40 layers (the
+# run's time: the host draws ~0.3e9 weights a layer; 20 until the audio
+# and vlm phases joined): a prompt of 4064 into a cache of its
+# 4096-token context
 S_BATCH, S_PROMPT, S_GEN = 2, 4064, 32
 S_CACHE = S_PROMPT + S_GEN
-S_LAYERS, S_D, S_VOCAB = 20, 5120, 100352
+S_LAYERS, S_D, S_VOCAB = 4, 5120, 100352
 S_HEADS, S_KV_HEADS, S_HEAD_DIM = 32, 8, 160
 STABLELM_ARGS = ["--arch", "stablelm-12b", "--layers", str(S_LAYERS),
                  "--stages", "2", "--mode",
@@ -462,10 +482,11 @@ STABLELM_ARGS = ["--arch", "stablelm-12b", "--layers", str(S_LAYERS),
 # 2, prompt 8160 into a cache of 8192 peaks at 17.371 GiB at 2 layers
 # and 21.719 at 4 on the H100 (tools/serve_memory.py; 2.174 GiB a
 # layer: 2.109 of weights, 0.064 of 8-bit KV stores), so 73.9 GiB at 28
-# and 78.3 at 30 of the card's 79.18.  chip_smoke runs 8 (28 until the
-# fault-tolerance phases joined): the host draws ~0.57e9 weights a
-# layer, and the whole run stays near 900 s
-G27_LAYERS, G27_D = 8, 4608
+# and 78.3 at 30 of the card's 79.18.  chip_smoke runs 2 (28 until the
+# fault-tolerance phases joined, 8 until the audio and vlm phases did):
+# the host draws ~0.57e9 weights a layer, and the whole run must stay
+# inside its 1200 s
+G27_LAYERS, G27_D = 2, 4608
 G27_HEADS, G27_KV_HEADS, G27_HEAD_DIM = 32, 16, 128
 G27_ARGS = ["--arch", "gemma2-27b", "--layers", str(G27_LAYERS), "--stages",
             "2", "--mode", "aqsgd", "--fw-bits", "4", "--kv-bits", "8",
@@ -561,14 +582,15 @@ SERVE_CHECKS = {"stablelm-12b": (8, 6), "gemma2-27b": (G_CHECK_PROMPT,
 # the moe family at full width, the depth cut (the host draws ~7 s a
 # billion weights): deepseek-moe-16b (d 2048, 16 heads of 128, 64 routed
 # experts of 1408 top-6 and 2 shared, the first layer dense, vocab
-# 102400) at 5 of its 28 layers (the dense prefix and 4 MoE layers,
-# 2.645e9 parameters), batch 2, a prompt of 4064 into 4096; mixtral-8x22b
+# 102400) at 3 of its 28 layers (the dense prefix and 2 MoE layers,
+# 1.469e9 parameters; 5 until the audio and vlm phases joined), batch
+# 2, a prompt of 4064 into 4096; mixtral-8x22b
 # (d 6144, 48 heads on 8 kv heads of 128, 8 experts of 16384 top-2, a
 # 4096-token window, an untied head, vocab 32768) at 2 of its 56 layers
 # (5.41e9), batch 2, a prompt of 8160 into 8192, so the window cuts;
 # both 32 decode steps in 2 stage groups over the MoE layers, the 4-bit
 # hop and 8-bit KV (the dense prefix's k and v raw, JAX's rule)
-DS_LAYERS, DS_D, DS_VOCAB, DS_HEADS = 5, 2048, 102400, 16
+DS_LAYERS, DS_D, DS_VOCAB, DS_HEADS = 3, 2048, 102400, 16
 MX_LAYERS, MX_D, MX_VOCAB, MX_HEADS, MX_KV_HEADS = 2, 6144, 32768, 48, 8
 MOE_HEAD_DIM, MX_WINDOW = 128, 4096
 DEEPSEEK_ARGS = ["--arch", "deepseek-moe-16b", "--layers", str(DS_LAYERS),
@@ -605,6 +627,57 @@ MOE_CHECKS = {"deepseek-moe-16b": ("serve-deepseek-moe-reference-check", 8,
               "mixtral-8x22b": ("serve-mixtral-reference-check",
                                 G_CHECK_PROMPT, G_CHECK_STEPS)}
 ROUTE_MARGIN = 1e-5
+# the audio and vlm families.  whisper-small at full size (12 encoder
+# and 12 decoder layers, d 768, 12 heads of 64, d_ff 3072, vocab 51865,
+# 2.38e8 parameters): batch 8, a prompt of 128 into a cache of 160, 32
+# decode steps, 2 stage groups over the decoder, the 4-bit hop, 8-bit KV
+# on the decoder's self-attention and the raw f32 cross caches of the
+# 1500 stub frames.  B10 runs 36 times in the prefill: 12 encoder calls
+# (8, 12, 12, 1500, 1500, 64) non-causal, 12 causal over the cache and
+# 12 cross calls (8, 12, 12, 128, 1500, 64) non-causal.  pixtral-12b at
+# full width (d 5120, 32 heads on 8 kv heads of 128, d_ff 14336, vocab
+# 131072, RoPE theta 1e9, an untied head) cut to P_LAYERS of its 40
+# layers (2.43e9 parameters; the host draws ~7 s a billion): batch 2,
+# its 1024 stub patches and a prompt of 3040, a trunk of 4064 rows in a
+# cache of 4096, 32 decode steps, 2 stage groups, 4-bit hop, 8-bit KV
+W_BATCH, W_PROMPT, W_GEN, W_LAYERS, W_D, W_VOCAB = 8, 128, 32, 12, 768, \
+    51865
+W_HEADS, W_HEAD_DIM, W_FRAMES = 12, 64, 1500
+W_CACHE = W_PROMPT + W_GEN
+P_BATCH, P_PROMPT, P_GEN, P_LAYERS, P_PATCHES = 2, 3040, 32, 4, 1024
+P_D, P_VOCAB, P_HEADS, P_KV_HEADS, P_HEAD_DIM = 5120, 131072, 32, 8, 128
+P_TRUNK = P_PATCHES + P_PROMPT
+P_CACHE = P_TRUNK + P_GEN
+WHISPER_ARGS = ["--arch", "whisper-small", "--stages", "2", "--mode",
+                "aqsgd", "--fw-bits", "4", "--kv-bits", "8", "--batch",
+                str(W_BATCH), "--prompt-len", str(W_PROMPT), "--gen",
+                str(W_GEN), "--device", "cuda", "--seed", "0"]
+PIXTRAL_ARGS = ["--arch", "pixtral-12b", "--layers", str(P_LAYERS),
+                "--stages", "2", "--mode", "aqsgd", "--fw-bits", "4",
+                "--kv-bits", "8", "--batch", str(P_BATCH), "--prompt-len",
+                str(P_PROMPT), "--gen", str(P_GEN), "--device", "cuda",
+                "--seed", "0"]
+# tag -> (arch, launcher args, batch, prompt, cache, decode steps, layers)
+MEDIA_CELLS = {
+    "serve-whisper": ("whisper-small", WHISPER_ARGS, W_BATCH, W_PROMPT,
+                      W_CACHE, W_GEN, W_LAYERS),
+    "serve-pixtral": ("pixtral-12b", PIXTRAL_ARGS, P_BATCH, P_PROMPT,
+                      P_CACHE, P_GEN, P_LAYERS),
+}
+MEDIA_HOPS = ((W_BATCH, W_D), (P_BATCH, P_D))
+# their SMOKE card-vs-CPU checks: a prompt of 8 (whisper's 32 stub frames,
+# pixtral's 16 patches ahead of it), 6 decode steps, raw KV and 8-bit KV
+# with the card's codes carried at near-ties
+MEDIA_CHECK_PROMPT, MEDIA_CHECK_STEPS = 8, 6
+# [train-whisper]: the simulated trainer at full size, batch 8 x 448
+# tokens (whisper's decoder context) with stub frames (8, 1500, 768), 2
+# stage groups over the decoder, [train]'s other settings (aqsgd fw 4 /
+# bw 8 stochastic, the 4-bit ring over 2 workers, 6 steps); a worker's
+# boundary rows and the DP bucket (238,060,800 parameters in 512-wide
+# rows)
+TW_SEQ, TW_STAGES = 448, 2
+TW_ROWS = (4 * TW_SEQ, W_D)             # a worker's 4 of the 8 rows
+TW_BUCKET = (464963, 512)
 # B10 against its plain version: tests/test_flash_kernel.py's tolerances
 # (rtol = atol) at the sweep's shapes; at the paths' shapes (up to 8192
 # keys a row, a softmax summed in another order) a bound set before the
@@ -733,6 +806,9 @@ CLI_ARGS = ["--smoke", "--device", "cuda", "--stages", "2", "--steps", "12",
 
 
 def phase(tag: str, **kv) -> None:
+    """Print a phase's line, ``at`` its seconds since the script
+    started."""
+    kv["at"] = f"{time.perf_counter() - T_START:.1f}"
     print(f"[{tag}] " + " ".join(f"{k}={v}" for k, v in kv.items()),
           flush=True)
 
@@ -1018,6 +1094,17 @@ def kernel_phase(torch, qp, ref):
               for n, b in (("delta_quantize_pack", 4), ("quantize_pack", 8))
               for st in (False, True)]
     cases += [("unpack_dequant", *TM_ROWS, 8, {})]
+    # the audio and vlm paths: B2 at whisper's and pixtral's decode hops,
+    # and [train-whisper]'s boundary (a worker's 4 x 448 rows of 768)
+    # and DP bucket
+    cases += [("dequant_unpack_accumulate", r, d, b, {})
+              for r, d in MEDIA_HOPS for b in (2, 4, 8)]
+    cases += [(n, *TW_ROWS, b, {"stochastic": st})
+              for n, b in (("delta_quantize_pack", 4), ("quantize_pack", 8))
+              for st in (False, True)]
+    cases += [("unpack_dequant", *TW_ROWS, 8, {}),
+              ("quantize_codes_scaled", *TW_BUCKET, 4, {"stochastic": True}),
+              ("dequant_sum_mean", *TW_BUCKET, 4, {"n": 2})]
     # the ring: accumulate at bits 2/4/8, sum packers at every sum width
     # (2, 4, 8, 16, 32 bits), ragged rows, the element path (an element
     # count that is not a multiple of 4), and the distributed path's
@@ -1455,6 +1542,13 @@ KV_PAIR_CASES = [
      G_CACHE - 1),
     ("mixtral prefill", G_BATCH, G_CACHE, MX_KV_HEADS, MOE_HEAD_DIM,
      G_PROMPT, 0),
+    ("whisper decode", W_BATCH, W_CACHE, W_HEADS, W_HEAD_DIM, 1,
+     W_CACHE - 1),
+    ("whisper prefill", W_BATCH, W_CACHE, W_HEADS, W_HEAD_DIM, W_PROMPT, 0),
+    ("pixtral decode", P_BATCH, P_CACHE, P_KV_HEADS, P_HEAD_DIM, 1,
+     P_CACHE - 1),
+    ("pixtral prefill", P_BATCH, P_CACHE, P_KV_HEADS, P_HEAD_DIM, P_TRUNK,
+     0),
     ("group 32", 3, 7, 10, 32, 2, 5),
     ("wide rows", 1, 5, 3, 1600, 2, 1),
     ("g % 4 != 0", 2, 6, 5, 66, 3, 2)]
@@ -1787,6 +1881,18 @@ FLASH_SWEEP = [
      "float32", 1.0),
     ("odd-stride", 1, 4, 2, 70, 100, 80, 30, True, 10 ** 9, 0.0,
      "float32", 1.0),
+    # non-causal calls where every row sees every key (the whisper
+    # encoder's self-attention, cross attention): Sk off the 32-key tile
+    # and Sq past Sk (at a query offset too), GQA, hd 64 and 128, f32
+    # and bf16, through several query tiles walked latest first
+    *[("cross", 2, 4, 4, 200, 75, 64, 0, False, 10 ** 9, 0.0, dt, 1.0)
+      for dt in ("float32", "bfloat16")],
+    ("cross", 1, 4, 2, 130, 37, 128, 50, False, 10 ** 9, 0.0, "float32",
+     4.0),
+    ("cross", 1, 12, 12, 448, 1500, 64, 0, False, 10 ** 9, 0.0, "float32",
+     1.0),
+    ("cross", 1, 12, 12, 1500, 1500, 64, 0, False, 10 ** 9, 0.0,
+     "bfloat16", 1.0),
     # the continuous batcher's B = 1 prefills into a row cache of 160, as
     # the model passes them (transposed views)
     *[("path", 1, 25, KV_HEADS, sq, CACHE_LEN, HEAD_DIM, 0, True, CACHE_LEN,
@@ -1826,16 +1932,32 @@ FLASH_PATHS = {
                      MOE_HEAD_DIM, 0, True, S_CACHE, 0.0, "float32", 1.0),
     "mixtral": ("path", G_BATCH, MX_HEADS, MX_KV_HEADS, G_PROMPT, G_CACHE,
                 MOE_HEAD_DIM, 0, True, MX_WINDOW, 0.0, "float32", 1.0),
+    # the audio and vlm prefills: whisper's encoder over its 1500 frames
+    # (non-causal), its decoder's self-attention over its cache of 160
+    # and its cross attention over the frames (non-causal); pixtral's
+    # trunk of 4064 rows (1024 patches and 3040 text) over its cache of
+    # 4096 (GQA 4:1)
+    "whisper-encoder": ("path", W_BATCH, W_HEADS, W_HEADS, W_FRAMES,
+                        W_FRAMES, W_HEAD_DIM, 0, False, 10 ** 9, 0.0,
+                        "float32", 1.0),
+    "whisper-self": ("path", W_BATCH, W_HEADS, W_HEADS, W_PROMPT, W_CACHE,
+                     W_HEAD_DIM, 0, True, W_CACHE, 0.0, "float32", 1.0),
+    "whisper-cross": ("path", W_BATCH, W_HEADS, W_HEADS, W_PROMPT,
+                      W_FRAMES, W_HEAD_DIM, 0, False, 10 ** 9, 0.0,
+                      "float32", 1.0),
+    "pixtral": ("path", P_BATCH, P_HEADS, P_KV_HEADS, P_TRUNK, P_CACHE,
+                P_HEAD_DIM, 0, True, P_CACHE, 0.0, "float32", 1.0),
 }
 # the hd-160 calls are held to the float64 formula (at the sweep's f32
 # tolerance), the others to the f32 plain version at FLASH_PATH_TOL
 FLASH_F64_PATHS = ("stablelm", "stablelm-ragged", "zamba2", "deepseek-moe",
-                   "mixtral")
+                   "mixtral", "whisper-encoder", "whisper-self",
+                   "whisper-cross", "pixtral")
 # calls whose whole (B, H, Sq, Sk) score tensor would not fit beside
 # its copies (mixtral's, 25.7 GB in f32): their float64 formula, plain
 # version and library call run a batch row and kv head at a time
 # (`_by_group`), the same function with 1 / (B Hk) of the temporaries
-FLASH_GROUPED = ("mixtral",)
+FLASH_GROUPED = ("mixtral", "pixtral")
 
 
 # the training attention (B10 asked for its rows' log-sum-exp, and JAX's
@@ -1861,6 +1983,14 @@ FLASH_TRAIN = {
     "zamba2-train": ("path", TRAIN_BATCH // TRAIN_WORKERS, Z_HEADS, Z_HEADS,
                      TRAIN_SEQ, TRAIN_SEQ, Z_HEAD_DIM, 0, True, TRAIN_SEQ,
                      0.0, "float32", 1.0),
+    # a [train-whisper] worker's encoder (4 x 1500 frames, non-causal) and
+    # cross attention (448 decoder rows over the 1500 frames)
+    "whisper-train-encoder": ("path", 4, W_HEADS, W_HEADS, W_FRAMES,
+                              W_FRAMES, W_HEAD_DIM, 0, False, 10 ** 9, 0.0,
+                              "float32", 1.0),
+    "whisper-train-cross": ("path", 4, W_HEADS, W_HEADS, TW_SEQ, W_FRAMES,
+                            W_HEAD_DIM, 0, False, 10 ** 9, 0.0, "float32",
+                            1.0),
 }
 # against the float64 formula: o at the sweep's f32 tolerance, the lse
 # at rtol = atol = 2e-5, and each of dq, dk, dv within 1e-4 of its
@@ -2166,10 +2296,10 @@ def flash_phase(torch, fa, ref):
     return row
 
 
-def train_attn64(torch, ref, q, k, v, *, window, cap):
+def train_attn64(torch, ref, q, k, v, *, window, cap, causal=True):
     """The training attention's formula in float64, differentiable: (o
-    (B, S, H, hd), lse (B, H, S)); q (B, S, H, hd), k and v (B, S, Hk,
-    hd), query i and key j at positions i and j."""
+    (B, Sq, H, hd), lse (B, H, Sq)); q (B, Sq, H, hd), k and v (B, Sk,
+    Hk, hd), query i and key j at positions i and j."""
     b, s, h, hd = q.shape
     grp = h // k.shape[2]
     kk, vv = (t.repeat_interleave(grp, dim=2) for t in (k, v))
@@ -2177,8 +2307,9 @@ def train_attn64(torch, ref, q, k, v, *, window, cap):
     if cap > 0:
         sc = cap * torch.tanh(sc / cap)
     i = torch.arange(s, device=q.device)[:, None]
-    j = torch.arange(s, device=q.device)[None, :]
-    sc = torch.where((j <= i) & (j > i - window), sc, ref.NEG_INF)
+    j = torch.arange(k.shape[1], device=q.device)[None, :]
+    sc = torch.where(((j <= i) | (not causal)) & (j > i - window), sc,
+                     ref.NEG_INF)
     o = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(sc, dim=-1), vv)
     return o, torch.logsumexp(sc, dim=-1)
 
@@ -2191,9 +2322,9 @@ def flash_train_phase(torch, fa, ref, qp):
     from repro_torch.models import layers as L
     errs = {}
     for name, case in FLASH_TRAIN.items():
-        window, cap = case[9], case[10]
+        causal, window, cap = case[8:11]
         q, k, v = _flash_inputs(torch, case, seed=sum(case[1:7]))
-        kw = dict(causal=True, window=window, softcap=cap)
+        kw = dict(causal=causal, window=window, softcap=cap)
         qp.reset_launches()
         o, lse = fa.flash_attention_fwd(q, k, v, return_lse=True, **kw)
         same = torch.equal(o, fa.flash_attention_fwd(q, k, v, **kw))
@@ -2204,12 +2335,13 @@ def flash_train_phase(torch, fa, ref, qp):
         g = torch.randn(leaves[0].shape, device="cuda",
                         generator=torch.Generator(device="cuda")
                         .manual_seed(5))
-        out = L.flash_attention(*leaves, window=window, attn_softcap=cap)
+        out = L.flash_attention(*leaves, window=window, attn_softcap=cap,
+                                causal=causal)
         grads = torch.autograd.grad(out, leaves, g)
         same_fn = torch.equal(out.detach(), o.transpose(1, 2))
         ref64 = [t.detach().double().requires_grad_() for t in leaves]
         o64, lse64 = train_attn64(torch, ref, *ref64, window=window,
-                                  cap=cap)
+                                  cap=cap, causal=causal)
         grads64 = torch.autograd.grad(o64, ref64, g.double())
         torch.cuda.synchronize()
         tol = FLASH_TOL["float32"]
@@ -2470,9 +2602,13 @@ def reference_check(torch, arch="gpt2-xl-paper", p=8, n=6,
     codes are held against the card's as they are written, and where a
     rounding near-tie put a code on the other side the CPU carries the
     card's on (`KVTap`; the flips are counted there).  An
-    ssm or hybrid model's final states are held to PREFILL_ATOL scaled
-    to each state's largest magnitude."""
+    ssm or hybrid model's final states, and an audio model's cross
+    caches, are held to PREFILL_ATOL scaled to each one's largest
+    magnitude.  An audio or vlm model's prefill takes stub frames or
+    patches (`data.pipeline.with_stub_media`, seed 2), a vlm cache the
+    patches' rows too."""
     from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import with_stub_media
     from repro_torch.models.model import Transformer
     from repro_torch.serving import DeltaHopCodec, KVCodec
 
@@ -2487,18 +2623,23 @@ def reference_check(torch, arch="gpt2-xl-paper", p=8, n=6,
     kv = KVCodec(bits=(0 if cfg.family == "hybrid" else 8)
                  if kv_bits is None else kv_bits)
     hop = DeltaHopCodec(mode="aqsgd", bits=4)
+    media = {k: torch.from_numpy(v) for k, v in with_stub_media(
+        cfg, {"tokens": toks}, seed=2, step=0).items() if k != "tokens"}
 
     def run(model, dev, tap, kvc):
-        c = model.init_caches(b, p + n, torch.float32, kv_codec=kvc)
+        c = model.init_caches(b, p + n + cfg.num_patches, torch.float32,
+                              kv_codec=kvc)
         c["hop_m"] = tap.init_state(1, b, cfg.d_model, device=dev)["m"]
         t = toks.to(dev)
         logits = []
         for i, fn in enumerate([tap.boundary_fn(prefill=True)]
                                + [tap.boundary_fn(prefill=False)] * n):
             x = t[:, :p] if i == 0 else t[:, p + i - 1:p + i]
+            extra = {k: v.to(dev) for k, v in media.items()} if i == 0 \
+                else {}
             lg, c = model.forward_with_caches(x, c, logits_last_only=True,
                                               num_stages=2, boundary_fn=fn,
-                                              kv_codec=kvc)
+                                              kv_codec=kvc, **extra)
             logits.append(lg.cpu())
         return logits, c
 
@@ -2525,10 +2666,13 @@ def reference_check(torch, arch="gpt2-xl-paper", p=8, n=6,
         total = kv_tap.codes
     # the final states, each held to PREFILL_ATOL scaled to its magnitude
     states = {name: (cc[name] - cg[name].cpu()).abs().max().item()
-              for name in ("ssm", "conv", "k", "v") if name in cc}
+              for name in ("ssm", "conv", "k", "v", "xk", "xv")
+              if name in cc}
     state_tol = {name: PREFILL_ATOL * max(1.0, cc[name].abs().max().item())
                  for name in states}
-    phase(tag, arch=arch, prompt=p, decode_steps=n, prefill_max_abs=pre,
+    phase(tag, arch=arch, kv_bits=kv.bits, media=json.dumps(
+              {k: list(v.shape) for k, v in media.items()}),
+          prompt=p, decode_steps=n, prefill_max_abs=pre,
           decode_max_abs=dec, kv_code_flips=f"{flips}/{total}",
           head_dim=cfg.head_dim, cache_max_abs=json.dumps(states),
           cache_tol=json.dumps(state_tol),
@@ -3162,6 +3306,77 @@ def ssm_serve_phase(torch, qp, serve, tag):
     return launches
 
 
+def media_serve_phase(torch, qp, serve, tag):
+    """A full-size audio or vlm serving cell of `MEDIA_CELLS` through the
+    launcher (whisper-small; pixtral-12b at full width, `P_LAYERS`
+    deep), the counters set to 0 just before and checked exactly just
+    after: the hop's B1 and B2 once a decode step, B3 and B4 on every
+    step of every decoder layer (k and v in one launch each), B10 in the
+    prefill once a layer (pixtral) or three times (whisper: its encoder
+    layer, its decoder layer's self-attention and cross attention); the
+    hop bytes as sent, the 8-bit KV stores and whisper's raw f32 cross
+    caches against their byte models.  Returns its launches."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.serving import DeltaHopCodec, KVCodec, delta
+
+    arch, args, batch, prompt, cache, gen, layers = MEDIA_CELLS[tag]
+    cfg = get_config(arch).with_(num_layers=layers)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    qp.reset_launches()
+    delta.reset_sent()
+    out = serve.main(args)
+    torch.cuda.synchronize()
+    launches = dict(qp.LAUNCHES)
+    sent = dict(delta.SENT)
+    peak = torch.cuda.max_memory_allocated()
+    logits, tokens = out["logits"], out["tokens"]
+    hk, hd, d = cfg.num_kv_heads, cfg.head_dim, cfg.d_model
+    hop, kv = DeltaHopCodec(mode="aqsgd", bits=4), KVCodec(bits=8)
+    hop_model = hop.hop_bytes(batch, d) * gen
+    kv_model = kv.stored_bytes((batch, cache, hk, hd)) * 2 * layers
+    cross_model = 2 * layers * batch * cfg.encoder_seq * hk * hd * 4
+    b10 = cfg.encoder_layers + 2 * layers if cfg.cross_attention \
+        else layers
+    want = dict(cell_launches(gen, layers), flash_attention_fwd=b10)
+    phase(tag, arch=arch, family=cfg.family,
+          layers=f"{layers}/{get_config(arch).num_layers}",
+          encoder_layers=cfg.encoder_layers or None,
+          frames=cfg.encoder_seq or None, patches=cfg.num_patches or None,
+          d_model=d, heads=cfg.num_heads, kv_heads=hk, head_dim=hd,
+          vocab=cfg.vocab_size, params=cfg.params_count(), batch=batch,
+          prompt=prompt, cache=out["cache_len"],
+          build_s=f"{out['build_s']:.3f}",
+          prefill_s=f"{out['prefill_s']:.4f}",
+          decode_s=f"{out['decode_s']:.4f}",
+          decode_tok_s=f"{out['decode_tok_s']:.2f}",
+          peak_mem_gib=f"{peak / 2**30:.3f}", launches=json.dumps(launches),
+          hops=sent["hops"], hop_bytes=sent["bytes"],
+          hop_bytes_model=hop_model,
+          hop_bytes_per_token=hop.hop_bytes(1, d),
+          kv_store_bytes=out["kv_store_bytes"], kv_store_bytes_model=kv_model,
+          kv_bytes_per_token=kv.stored_bytes((1, 1, hk, hd)) * 2 * layers,
+          kv_bytes_per_token_f32=2 * layers * hk * hd * 4,
+          cross_cache_bytes=out["cross_bytes"],
+          cross_cache_bytes_model=cross_model, decode_steps=gen)
+    assert tokens.shape == (batch, gen), tokens.shape
+    assert logits.shape == (batch, 1, cfg.vocab_size), logits.shape
+    assert torch.isfinite(logits).all().item(), "non-finite logits"
+    assert out["cache_len"] == cache == prompt + gen + cfg.num_patches
+    assert sent == {"hops": gen, "bytes": hop_model}, sent
+    assert out["kv_store_bytes"] == kv_model, out["kv_store_bytes"]
+    assert out["cross_bytes"] == cross_model, out["cross_bytes"]
+    assert launches == want, (launches, want)
+    for name, n in want.items():
+        if n:
+            assert launches[name] > 0, \
+                f"{name} was never launched on the {tag} path"
+    assert (batch, d) in MEDIA_HOPS, (batch, d)
+    del out, logits, tokens
+    torch.cuda.empty_cache()
+    return launches
+
+
 def gemma2_device_draw_s(torch) -> float:
     """Seconds to build gemma2-9b as the serving launcher did before its
     weights came from a CPU generator: every leaf drawn on the card from
@@ -3212,12 +3427,16 @@ def train_launches_per_step(cfg, stages, remat,
     ``workers`` (0: one worker, no DP plane): each boundary once a
     worker forward (B1) and backward (B3, B4); the DP wire as there, or
     none; B10 once a worker per attention call (a dense or MoE layer, a
-    MoE model's dense prefix, or a hybrid's shared block), twice with
+    MoE model's dense prefix, a hybrid's shared block, an audio model's
+    encoder layer and its decoder layer's cross attention), twice with
     remat (the prefix, outside the checkpoints, once)."""
     calls = cfg.n_blocks if cfg.family == "hybrid" else \
         0 if cfg.family == "ssm" else cfg.num_layers
     recompute = cfg.n_blocks if cfg.family == "hybrid" else \
         0 if cfg.family == "ssm" else cfg.n_trunk
+    if cfg.cross_attention:
+        calls += cfg.num_layers + cfg.encoder_layers
+        recompute += cfg.num_layers + cfg.encoder_layers
     n = max(workers, 1)
     per = (stages - 1) * n
     dp = {} if workers else {k: 0 for k in DP_KERNELS}
@@ -3229,12 +3448,14 @@ def train_launches_per_step(cfg, stages, remat,
 
 def train_phase(torch, qp, tag="train", layers=TRAIN_LAYERS, remat=False,
                 wire="ring", arch="gpt2-xl-paper", stages=TRAIN_STAGES,
-                workers=TRAIN_WORKERS):
+                workers=TRAIN_WORKERS, seq=TRAIN_SEQ):
     """The training main path of ``arch`` at full width, ``layers`` deep
     in ``stages`` groups, on the DP wire ``wire`` over ``workers`` (0:
-    one worker, no DP plane); returns its launches, losses, median step
-    time (steps 3-6) and peak memory.  The last step's ce and aux are
-    printed beside the losses (a MoE model's loss is ce + 0.01 aux)."""
+    one worker, no DP plane), batches of ``seq`` tokens (an audio
+    model's with `sim.train`'s stub frames); returns its
+    launches, losses, median step time (steps 3-6) and peak memory.  The
+    last step's ce and aux are printed beside the losses (a MoE model's
+    loss is ce + 0.01 aux)."""
     from repro_torch.comm import config as comm_mod
     from repro_torch.configs.base import get_config
     from repro_torch.data.pipeline import Dataset, DatasetConfig
@@ -3246,7 +3467,7 @@ def train_phase(torch, qp, tag="train", layers=TRAIN_LAYERS, remat=False,
     tcfg = _train_config(sim, comm_mod, adamw, stochastic=True,
                          stages=stages, steps=TRAIN_STEPS,
                          remat=remat, wire=wire, workers=workers)
-    ds = Dataset(DatasetConfig(num_samples=TRAIN_SAMPLES, seq_len=TRAIN_SEQ,
+    ds = Dataset(DatasetConfig(num_samples=TRAIN_SAMPLES, seq_len=seq,
                                vocab_size=cfg.vocab_size, seed=0))
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -3269,7 +3490,8 @@ def train_phase(torch, qp, tag="train", layers=TRAIN_LAYERS, remat=False,
           final_aux=f"{float(metrics['aux']):.6f}",
           step_s=json.dumps([round(x, 4) for x in state["step_seconds"]]),
           median_step_s_3_6=f"{step_s:.4f}",
-          tokens_per_s=f"{TRAIN_BATCH * TRAIN_SEQ / step_s:.1f}",
+          seq=seq, frames=cfg.encoder_seq or None,
+          tokens_per_s=f"{TRAIN_BATCH * seq / step_s:.1f}",
           peak_mem_gib=f"{peak / 2**30:.3f}",
           b10_launches_per_step=launches["flash_attention_fwd"]
           // TRAIN_STEPS, launches=json.dumps(launches))
@@ -3285,6 +3507,9 @@ def train_phase(torch, qp, tag="train", layers=TRAIN_LAYERS, remat=False,
         or (rows, cfg.d_model) == (TZ_BUCKET[0], TZ_ROWS[1]), rows
     assert arch != "deepseek-moe-16b" or workers \
         or (TRAIN_BATCH * TRAIN_SEQ, cfg.d_model) == TM_ROWS
+    assert arch != "whisper-small" or (
+        rows, TRAIN_BATCH // TRAIN_WORKERS * seq, cfg.d_model) \
+        == (TW_BUCKET[0], *TW_ROWS), rows
     assert not workers or torch.isfinite(state["dp_error"]).all().item(), \
         "carry not finite"
     assert math.isfinite(float(metrics["aux"])), metrics
@@ -3354,10 +3579,12 @@ def train_reference_check(torch, arch="gpt2-xl-paper",
     """The SMOKE trainer of ``arch`` (its config fields ``cfg_kw``
     replaced) on the card (kernels) against the CPU (plain versions),
     deterministic rounding on every plane, same weights, on the DP wire
-    ``wire``."""
+    ``wire``; an audio or vlm model's batches carry stub frames or
+    patches (`data.pipeline.with_stub_media`, seed 3)."""
     from repro_torch.comm import config as comm_mod
     from repro_torch.configs.base import get_config
-    from repro_torch.data.pipeline import Dataset, DatasetConfig
+    from repro_torch.data.pipeline import (Dataset, DatasetConfig,
+                                           with_stub_media)
     from repro_torch.optim import adamw
     from repro_torch.training import simulated as sim
 
@@ -3365,11 +3592,12 @@ def train_reference_check(torch, arch="gpt2-xl-paper",
     steps, samples, seq, batch = 4, 8, 32, 4
     tcfg = _train_config(sim, comm_mod, adamw, stochastic=False, stages=2,
                          steps=steps, remat=True, wire=wire)
-    batches = list(Dataset(DatasetConfig(
-        num_samples=samples, seq_len=seq, vocab_size=cfg.vocab_size)
-    ).batches(batch, steps))
+    batches = [with_stub_media(cfg, b, seed=3, step=i)
+               for i, b in enumerate(Dataset(DatasetConfig(
+                   num_samples=samples, seq_len=seq,
+                   vocab_size=cfg.vocab_size)).batches(batch, steps))]
     cpu, gpu = (sim.init_train_state(
-        cfg, tcfg, samples, seq, device=dev,
+        cfg, tcfg, samples, seq + cfg.num_patches, device=dev,
         generator=torch.Generator().manual_seed(0)) for dev in ("cpu", "cuda"))
 
     def run(state, dev):
@@ -3558,6 +3786,10 @@ DIST_CHECKS = [
      {"moe_mode": "zero3"}),
     ("dist-moe-ep-reference-check", "deepseek-moe-16b", "dist-train",
      {"moe_mode": "expert_parallel"}),
+    # the audio and vlm families on stub frames or patches (whisper's
+    # encoder on every stage, pixtral's patches on the first)
+    ("dist-whisper-reference-check", "whisper-small", "dist-train", {}),
+    ("dist-pixtral-reference-check", "pixtral-12b", "dist-train", {}),
 ]
 DIST_CHECK_LAYERS, DIST_CHECK_BATCH, DIST_CHECK_SEQ = 4, 4, 32
 
@@ -3618,7 +3850,11 @@ def dist_reference_checks(torch, checks=DIST_CHECKS):
                      r["replicas"] if r["model_rank"] > 0]
             assert all(flags) if cfg.family == "hybrid" \
                 else not any(flags), (arch, flags)
-            shared[i] = len(flags)
+            enc = [rep["encoder_equal"] for r in res for rep in
+                   r["replicas"] if r["model_rank"] > 0]
+            assert all(enc) if cfg.family == "audio" \
+                else not any(enc), (arch, enc)
+            shared[i] = len(flags) if cfg.family == "hybrid" else len(enc)
     for i, (tag, arch, v, pipe) in enumerate(checks):
         pcfg = PipelineConfig(**pipe)
         lc, lg = losses["cpu"][i], losses["cuda"][i]
@@ -3634,6 +3870,8 @@ def dist_reference_checks(torch, checks=DIST_CHECKS):
               rel_loss_diff=json.dumps(rel),
               shared_block_copies_equal=f"{shared[i]} checks" if hybrid
               else None,
+              encoder_copies_equal=f"{shared[i]} checks"
+              if get_config(arch).family == "audio" else None,
               tolerance=f"step1 {FIRST_STEP_RTOL} later {LATER_STEP_RTOL}")
         assert rel[0] <= FIRST_STEP_RTOL, (tag, v, rel)
         assert max(rel[1:]) <= LATER_STEP_RTOL, (tag, v, rel)
@@ -4136,6 +4374,16 @@ def main() -> int:
         moe_reference_check(torch, arch, p, n, tag)
     moe_cont_launches = serve_moe_continuous_phase(torch, qp, serve)
     moe_continuous_check(torch, qp)
+    # the audio and vlm families: whisper at full size, pixtral at full
+    # width, and their SMOKE checks with raw and with 8-bit KV
+    media_launches = {tag: media_serve_phase(torch, qp, serve, tag)
+                      for tag in MEDIA_CELLS}
+    for arch, *_ in MEDIA_CELLS.values():
+        for kv_bits in (0, 8):
+            reference_check(torch, arch, MEDIA_CHECK_PROMPT,
+                            MEDIA_CHECK_STEPS, kv_bits=kv_bits,
+                            carry_kv=kv_bits == 8,
+                            tag=f"serve-{arch.split('-')[0]}-reference-check")
 
     train_run = train_phase(torch, qp)
     train_launches = train_run["launches"]
@@ -4166,6 +4414,9 @@ def main() -> int:
     moe_train = train_phase(torch, qp, tag="train-moe", layers=TM_LAYERS,
                             arch="deepseek-moe-16b", stages=TM_STAGES,
                             workers=0)
+    whisper_train = train_phase(torch, qp, tag="train-whisper",
+                                layers=W_LAYERS, arch="whisper-small",
+                                stages=TW_STAGES, seq=TW_SEQ)
     resume_launches = train_resume_phase(torch, qp)
     dist_runs = dist_phases(torch)
     dist_launches = dist_runs["dist-train"]
@@ -4188,6 +4439,9 @@ def main() -> int:
             **kw)
     train_reference_check(torch, "deepseek-moe-16b",
                           tag="train-moe-reference-check")
+    for arch, *_ in MEDIA_CELLS.values():
+        train_reference_check(
+            torch, arch, tag=f"train-{arch.split('-')[0]}-reference-check")
     dist_reference_checks(torch)
     dist_resume_launches = dist_resume_phase(torch)
     train_resume_cli_phase()
@@ -4205,6 +4459,9 @@ def main() -> int:
                "serve_deepseek_moe": moe_launches["serve-deepseek-moe"],
                "serve_mixtral": moe_launches["serve-mixtral"],
                "serve_moe_continuous": moe_cont_launches,
+               "serve_whisper": media_launches["serve-whisper"],
+               "serve_pixtral": media_launches["serve-pixtral"],
+               "train_whisper": whisper_train["launches"],
                "train_zamba2": zamba_train["launches"],
                "train_moe": moe_train["launches"],
                "train": train_launches, "train_oncore": oncore_launches,

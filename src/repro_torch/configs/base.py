@@ -2,9 +2,9 @@
 
 Each arch the port runs has one ``configs/<id>.py`` with the full-scale
 ``CONFIG`` and a reduced ``SMOKE`` variant (a few layers, d_model<=512)
-for the CPU tests.  The registry lists only the archs whose families
-the port implements (dense, moe, ssm and hybrid); any other name
-raises.
+for the CPU tests.  The registry lists every arch of the JAX package:
+the dense, moe, ssm, hybrid, audio (an encoder and cross attention) and
+vlm (a patch prefix) families.
 """
 from __future__ import annotations
 
@@ -54,6 +54,14 @@ class ModelConfig:
 
     # --- hybrid (zamba2) --------------------------------------------------
     shared_attn_every: int = 0      # shared-weight attention block cadence
+
+    # --- encoder/decoder (whisper) ---------------------------------------
+    encoder_layers: int = 0
+    encoder_seq: int = 0            # precomputed frame embeddings (stub)
+    cross_attention: bool = False
+
+    # --- multimodal stub (pixtral) ----------------------------------------
+    num_patches: int = 0            # leading positions fed by patch embeds
 
     # --- misc --------------------------------------------------------------
     act: str = "silu"               # silu (SwiGLU) | gelu
@@ -126,7 +134,7 @@ class ModelConfig:
 
     def params_count(self) -> int:
         """The JAX package's analytic parameter count (its 6ND model
-        FLOPs), for the families the port runs.  Like JAX's, it counts
+        FLOPs).  Like JAX's, it counts
         two norms a layer in every family, so a mamba layer, which has
         one, is over-counted by d_model."""
         d, L = self.d_model, self.num_layers
@@ -156,6 +164,9 @@ class ModelConfig:
             n += 2 * d                               # 2 norms
         if self.shared_attn_every:                   # zamba2 shared block
             n += per_attn + per_dense_ffn + 2 * d
+        if self.encoder_layers:                      # whisper encoder
+            n += self.encoder_layers * (per_attn + per_dense_ffn + 2 * d)
+            n += L * (per_attn + d)                  # decoder cross-attn
         n += d                                       # final norm
         return n
 
@@ -169,11 +180,11 @@ class ModelConfig:
 
 
 # ---------------------------------------------------------------------------
-# Registry: only the archs the port runs
+# Registry: every arch of the JAX package
 # ---------------------------------------------------------------------------
 ARCHS = ("gpt2-xl-paper", "gemma2-9b", "stablelm-12b", "gemma2-27b",
          "mamba2-1.3b", "zamba2-2.7b", "mixtral-8x22b", "deepseek-moe-16b",
-         "moonshot-v1-16b-a3b")
+         "moonshot-v1-16b-a3b", "whisper-small", "pixtral-12b")
 
 
 def _module_name(arch: str) -> str:

@@ -8,7 +8,9 @@ device).
 
 Two corpus sources: synthetic Zipf-distributed token sequences with
 planted bigram structure (so loss curves are meaningful), and a
-byte-level encoding of a local text file.
+byte-level encoding of a local text file.  Neither holds the audio
+family's frames or the vlm family's patches (as in the JAX package);
+`with_stub_media` adds stub ones to a batch.
 """
 from __future__ import annotations
 
@@ -111,6 +113,24 @@ class Dataset:
                 done += 1
                 if done >= num_steps:
                     return
+
+
+def with_stub_media(cfg, batch: dict, *, seed: int, step: int) -> dict:
+    """``batch`` with the stub frontend's input a model of ``cfg``
+    reads: an audio model's ``frames`` (B, encoder_seq, d) or a vlm
+    model's ``patches`` (B, num_patches, d), f32 N(0, 0.02) (the serve
+    launcher's stub scale) from numpy's generator on (seed, step), so
+    every rank of a distributed run draws the same global batch.  Other
+    families' batches come back as they are."""
+    name, n = {"audio": ("frames", cfg.encoder_seq),
+               "vlm": ("patches", cfg.num_patches)}.get(cfg.family,
+                                                      (None, 0))
+    if name is None:
+        return batch
+    rng = np.random.default_rng([seed, step])
+    b = batch["tokens"].shape[0]
+    return dict(batch, **{name: (rng.standard_normal((b, n, cfg.d_model))
+                                 * 0.02).astype(np.float32)})
 
 
 def microbatch_major(batch: dict, microbatches: int) -> dict:

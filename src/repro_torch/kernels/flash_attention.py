@@ -5,8 +5,12 @@
 `flash_attention_fwd` takes head-major tensors, q ``(B, H, Sq, hd)``
 and k, v ``(B, Hk, Sk, hd)`` with ``H % Hk == 0`` (GQA: query head h
 reads kv head ``h // (H // Hk)``, never a repeated copy), query row i
-at position ``q_offset + i`` and key j at position j.  Any strides are
-taken as long as the last dim is contiguous: the kernel reads views
+at position ``q_offset + i`` and key j at position j.  A non-causal
+call whose window covers every key (the whisper encoder's
+self-attention, a cross attention over its 1500 frames) may have more
+query rows than keys; any other call keeps its rows' positions among
+the keys.  Any strides are taken as long as the last dim is
+contiguous: the kernel reads views
 (a serving prefill's transposed ``(B, S, H, hd)`` queries and cache) in
 place, and the output has q's memory layout.  A tensor on the
 CPU goes to the plain version `repro_torch.kernels.ref.flash_attention_ref`;
@@ -49,9 +53,11 @@ _INT_MAX = 2 ** 31 - 1
 
 
 def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                  window: int, q_offset: int) -> None:
+                  causal: bool, window: int, q_offset: int) -> None:
     """Raise on what neither version takes: every query row must see at
-    least one key (``q_offset + Sq <= Sk``, ``window >= 1``)."""
+    least one key (`ref.check_rows_see_keys`: ``q_offset + Sq <= Sk``
+    and ``window >= 1``, or, where every row sees every key, any
+    ``q_offset + Sq``)."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"expected q (B, H, Sq, hd) and k, v (B, Hk, Sk, "
                          f"hd), got {tuple(q.shape)}, {tuple(k.shape)}, "
@@ -63,11 +69,8 @@ def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if h % k.shape[1]:
         raise ValueError(f"{h} query heads do not share {k.shape[1]} kv "
                          f"heads evenly")
-    if q_offset < 0 or q_offset + sq > k.shape[2]:
-        raise ValueError(f"query positions {q_offset}..{q_offset + sq - 1} "
-                         f"run past the {k.shape[2]} keys")
-    if window < 1:
-        raise ValueError(f"window must be >= 1, got {window}")
+    ref.check_rows_see_keys(sq, k.shape[2], causal=causal, window=window,
+                            q_offset=q_offset)
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -79,7 +82,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     in q's dtype, or with ``return_lse`` the pair (that, the rows'
     log-sum-exp ``m + log(max(l, 1e-30))`` as (B, H, Sq) f32)."""
     window, q_offset = int(window), int(q_offset)
-    _check_shapes(q, k, v, window=window, q_offset=q_offset)
+    _check_shapes(q, k, v, causal=bool(causal), window=window,
+                  q_offset=q_offset)
     if not _qp._on_cuda(q, k, v):
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                        softcap=softcap, q_offset=q_offset,

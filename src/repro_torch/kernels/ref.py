@@ -214,6 +214,24 @@ def unpack_sums_ref(packed: torch.Tensor, bits: int, n: int) -> torch.Tensor:
 NEG_INF = -1.0e9
 
 
+def check_rows_see_keys(sq: int, sk: int, *, causal: bool, window: int,
+                        q_offset: int) -> None:
+    """Raise where a query row could see no key.  A call where every row
+    sees every key (no causal mask, and a window past the last row's
+    position: the whisper encoder's self-attention, cross attention)
+    takes any ``q_offset + Sq``; any other call keeps its rows'
+    positions among the keys (``q_offset + Sq <= Sk``), and its window
+    at 1 or more."""
+    if window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    if sk < 1:
+        raise ValueError(f"no keys: Sk={sk}")
+    every_key = not causal and window > q_offset + sq - 1
+    if q_offset < 0 or (q_offset + sq > sk and not every_key):
+        raise ValueError(f"query positions {q_offset}..{q_offset + sq - 1} "
+                         f"run past the {sk} keys")
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, window: int = 10 ** 9,
                         softcap: float = 0.0, q_offset: int = 0,
@@ -225,9 +243,12 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     are ``NEG_INF``.  f32 throughout; returns q's dtype, and with
     ``return_lse`` also each row's log-sum-exp ``m + log(max(l,
     1e-30))`` (m the row max, l the sum of exp(s - m)), (B, H, Sq) f32,
-    as the JAX-level forward (`repro.models.layers`, ``_fwd``)."""
+    as the JAX-level forward (`repro.models.layers`, ``_fwd``).  Raises
+    where a row could see no key (`check_rows_see_keys`)."""
     b, h, sq, hd = q.shape
     hk, sk = k.shape[1], k.shape[2]
+    check_rows_see_keys(sq, sk, causal=causal, window=window,
+                        q_offset=q_offset)
     g = h // hk
     qg = q.float().reshape(b, hk, g, sq, hd)
     s = torch.matmul(qg, k.float()[:, :, None].transpose(-1, -2)) \

@@ -14,13 +14,17 @@ JSON are those of the JAX package, and the resolved config is echoed
 back as JSON; ``--list-wires`` prints the wire registry.  Sharded
 serving (``--data-par``/``--model-par`` above 1) is refused with the
 title of the ROADMAP item that ports it, and so is ``--continuous``
-with the ssm and hybrid families.  The stage groups follow the JAX
+with the ssm, hybrid, audio and vlm families.  The stage groups follow the JAX
 package's rule: ``--stages`` divides the layers (a MoE model's past its
 dense prefix), or a hybrid's blocks.
 The weights and the prompt are a random init from ``--seed``, drawn
 on the CPU and moved to the device leaf by leaf, so a seed gives the
-same model on the card and on the CPU; sampling noise
-(``--temperature``) comes from a generator on the device
+same model on the card and on the CPU; so are an audio model's stub
+frames (B, encoder_seq, d) and a vlm model's stub patches (B,
+num_patches, d), N(0, 0.02) as the JAX launcher draws them (its
+threefry stream is not reproduced), which the timed prefill takes (the
+encoder runs inside it); a vlm cache holds ``num_patches`` more rows;
+sampling noise (``--temperature``) comes from a generator on the device
 (`repro_torch.rng`).  ``--arch`` defaults to ``gemma2-9b``, as in the
 JAX launcher.
 
@@ -72,6 +76,18 @@ parameters, and the KV bytes a token, the prefix's raw:
   python -m repro_torch.launch.serve --arch mixtral-8x22b --layers 2 \\
       --stages 2 --mode aqsgd --fw-bits 4 --kv-bits 8 --batch 2 \\
       --prompt-len 8160 --gen 32
+whisper-small (the audio family: 12 encoder layers over 1500 frames
+and 12 decoder layers with cross attention, 2.4e8 parameters; the cross
+caches stay raw beside the 8-bit self-attention KV):
+  python -m repro_torch.launch.serve --arch whisper-small --stages 2 \\
+      --mode aqsgd --fw-bits 4 --kv-bits 8 --batch 8 --prompt-len 128 \\
+      --gen 32
+pixtral-12b at full width (the vlm family: 1024 patch rows ahead of the
+text, GQA 32:8, head_dim 128, untied head), cut to 4 of its 40 layers,
+a trunk of 4064 rows in a cache of 4096:
+  python -m repro_torch.launch.serve --arch pixtral-12b --layers 4 \\
+      --stages 2 --mode aqsgd --fw-bits 4 --kv-bits 8 --batch 2 \\
+      --prompt-len 3040 --gen 32
 and a stream of 16 mixed-length requests over 8 slots of gpt2-xl:
   python -m repro_torch.launch.serve --arch gpt2-xl-paper --stages 2 \\
       --mode aqsgd --fw-bits 4 --kv-bits 8 --continuous --slots 8 \\
@@ -87,7 +103,8 @@ import torch
 
 from repro_torch.comm import config as comm_cli
 from repro_torch.configs.base import ARCHS, get_config
-from repro_torch.models.model import Transformer, stage_size
+from repro_torch.models.model import (CONTINUOUS_MEDIA, Transformer,
+                                      stage_size)
 from repro_torch.rng import seeded_generator
 from repro_torch.serving import ContinuousBatcher, DeltaHopCodec, KVCodec
 
@@ -202,7 +219,7 @@ def serve(args) -> dict:
     _sync(dev)
     build_s = time.perf_counter() - tb
     print(f"model build: {build_s:.3f}s")
-    cache_len = args.prompt_len + args.gen
+    cache_len = args.prompt_len + args.gen + cfg.num_patches
     if args.continuous:
         out = serve_continuous(args, model, dev, cache_len, kv_codec, hop)
         out["build_s"] = build_s
@@ -214,6 +231,7 @@ def serve(args) -> dict:
                                          cfg.d_model, device=dev)["m"]
     tokens = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                            generator=gen).to(dev)
+    extras = stub_inputs(cfg, args.batch, gen, dev)
     noise = seeded_generator(dev, args.seed, "noise")
     kvc = kv_codec if kv_codec.bits else None
     bfn_p = hop.boundary_fn(prefill=True) if hop is not None else None
@@ -223,9 +241,10 @@ def serve(args) -> dict:
     t0 = time.perf_counter()
     logits, caches = model.forward_with_caches(
         tokens, caches, logits_last_only=True, num_stages=args.stages,
-        boundary_fn=bfn_p, kv_codec=kvc)
+        boundary_fn=bfn_p, kv_codec=kvc, **extras)
     _sync(dev)
     t1 = time.perf_counter()
+    del extras
     print(f"prefill {args.batch}x{args.prompt_len}: {t1 - t0:.3f}s")
 
     out_tokens = []
@@ -246,19 +265,36 @@ def serve(args) -> dict:
     tok_s = args.gen * args.batch / (t2 - t1)
     print(f"decode {args.gen} tokens: {t2 - t1:.3f}s ({tok_s:.1f} tok/s)")
     print("sample token ids:", generated[0][:12].tolist())
-    kv_bytes, state_bytes = (
+    kv_bytes, state_bytes, cross_bytes = (
         sum(caches[n].numel() * caches[n].element_size()
             for n in names if n in caches)
         for names in (("k", "v", "k_codes", "k_scale", "v_codes",
-                       "v_scale", "pk", "pv"), ("ssm", "conv")))
+                       "v_scale", "pk", "pv"), ("ssm", "conv"),
+                      ("xk", "xv")))
     if state_bytes:
         print(f"ssm state: {state_bytes} B ({caches['ssm'].nbytes} ssm + "
               f"{caches['conv'].nbytes} conv)")
+    if cross_bytes:
+        print(f"cross caches: {cross_bytes} B raw f32 ({cfg.num_layers} "
+              f"layers x {cfg.encoder_seq} frames, k and v)")
     return {"build_s": build_s, "prefill_s": t1 - t0, "decode_s": t2 - t1,
             "decode_tok_s": tok_s,
             "tokens": generated, "logits": logits,
             "kv_store_bytes": kv_bytes, "state_bytes": state_bytes,
-            "cache_len": cache_len}
+            "cross_bytes": cross_bytes, "cache_len": cache_len}
+
+
+def stub_inputs(cfg, batch: int, gen: torch.Generator, dev) -> dict:
+    """The stub frontends' inputs of a serving prefill, N(0, 0.02) from
+    the launcher's CPU generator: an audio model's ``frames`` (B,
+    encoder_seq, d), a vlm model's ``patches`` (B, num_patches, d)
+    (JAX `repro.launch.serve` draws them the same way from threefry)."""
+    shape = {"audio": ("frames", cfg.encoder_seq),
+             "vlm": ("patches", cfg.num_patches)}.get(cfg.family)
+    if shape is None:
+        return {}
+    return {shape[0]: (torch.randn((batch, shape[1], cfg.d_model),
+                                   generator=gen) * 0.02).to(dev)}
 
 
 def submit_stream(bat: ContinuousBatcher, args) -> None:
@@ -324,6 +360,9 @@ def main(argv=None):
         if getattr(args, flag) > 1:
             ap.error(f"--{flag.replace('_', '-')}: {what} is not ported "
                      f"yet")
+    if args.continuous and get_config(args.arch).family in ("audio", "vlm"):
+        # JAX's batcher passes its requests no frames or patches
+        ap.error(f"--continuous: {CONTINUOUS_MEDIA} is not ported yet")
     return serve(args)
 
 

@@ -62,6 +62,17 @@ the JAX launcher no flag sets it):
   python -m repro_torch.launch.train --device cpu --smoke \\
       --arch mixtral-8x22b --distributed --data-par 2 --stages 2 \\
       --dp-grad-bits 4 --steps 4 --seq 16 --samples 8 --batch 4
+and the vlm family as the JAX launcher trains it, text-only (the data
+pipeline makes no patches):
+  python -m repro_torch.launch.train --device cpu --smoke \\
+      --arch pixtral-12b --stages 2 --dp-grad-bits 4 --steps 4
+The audio family's loss needs frames, which the data pipeline does not
+make (the JAX launcher fails with ``KeyError: 'frames'``), so
+``--arch whisper-small`` is refused, and ``--distributed`` refuses both
+families, whose batch specs in the JAX launcher name frames or patches
+its batches lack; `training.simulated.train` (whisper) and
+`run_distributed` (both) train them on stub ones
+(`data.pipeline.with_stub_media`).
 
 ``--dp-wire`` takes every DP wire of the registry: ``ring`` (the
 default), ``psum``, ``ring-sharded`` (the ZeRO wire: the ring's
@@ -99,6 +110,19 @@ from repro_torch.weights import to_jax_params
 
 # seconds a --distributed run may take before every rank is stopped
 JOIN_TIMEOUT = 3600.0
+
+
+# what the JAX launcher lacks for the families whose batches carry
+# frames or patches: its data pipeline makes none
+AUDIO_DATA_REFUSAL = (
+    "the audio family's loss reads batch['frames'] (B, encoder_seq, "
+    "d_model), and the launcher's data pipeline makes no frames (the JAX "
+    "launcher fails there with KeyError: 'frames'); "
+    "training.simulated.train gives it stub frames")
+MEDIA_DIST_REFUSAL = (
+    "the JAX launcher's distributed batches carry no frames or patches, "
+    "which its make_train_step's batch specs name for the audio and vlm "
+    "families; launch.train.run_distributed gives them stub ones")
 
 
 def print_wires() -> None:
@@ -260,6 +284,11 @@ def main(argv=None):
         ap.error("--resume/--save-every/--fault need --ckpt-dir")
     if args.distributed and env.oncore_prng():
         ap.error(PL.ONCORE_REFUSAL)
+    family = get_config(args.arch).family
+    if args.distributed and family in ("audio", "vlm"):
+        ap.error(f"--distributed --arch {args.arch}: {MEDIA_DIST_REFUSAL}")
+    if family == "audio":
+        ap.error(f"--arch {args.arch}: {AUDIO_DATA_REFUSAL}")
     dev = resolve_device(args.device)
     if args.distributed:
         results, = run_distributed([distributed_spec(args, dev)],

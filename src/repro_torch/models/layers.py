@@ -22,6 +22,14 @@ Attention has three paths, chosen by which step runs:
   No ``(B, H, S, S)`` tensor is built, and the kv heads are never
   repeated: the kernel reads them in place, and the backward sums dk
   and dv over each group of query heads.
+
+The whisper model adds two non-causal calls, with a window of
+`BIG_WINDOW` that lets every row see every key: its encoder's
+self-attention (``causal=False`` in `Attention.forward`) and each
+decoder layer's cross attention over the encoder's output
+(`Attention.cross`, JAX ``attention(cross_kv=)``: q without RoPE, the
+keys of another length, the training attention's kernel in a prefill,
+`onehot_attention` in a decode step).
 """
 from __future__ import annotations
 
@@ -35,6 +43,7 @@ from repro_torch.core.cache_rows import write_rows_
 from repro_torch.kernels import ops
 
 NEG_INF = -1.0e9
+BIG_WINDOW = 10 ** 9
 
 
 @torch.no_grad()
@@ -113,13 +122,15 @@ def _visible(q_pos, k_pos, window, causal: bool) -> torch.Tensor:
 
 
 def _flash_bwd(q, k, v, o, lse, g, *, window: int, cap: float,
-               block_k: int):
+               block_k: int, causal: bool = True):
     """JAX's ``_bwd`` (`repro.models.layers`, ``_make_flash``) line for
-    line, with GQA: q, o, g (B, S, H, hd); k, v (B, S, Hk, hd); lse (B,
-    H, S) f32; query row i and key j at positions i and j.  Keys go in
+    line, with GQA: q, o, g (B, Sq, H, hd); k, v (B, Sk, Hk, hd); lse (B,
+    H, Sq) f32; query row i and key j at positions i and j, key j
+    visible iff j > i - window and, if ``causal``, j <= i.  Keys go in
     blocks of ``block_k``, Sk padded up to a multiple of it (the padded
-    keys hidden).  The G = H / Hk query heads of a kv head are the rows
-    of one matrix product, so dk and dv come out summed over the group.
+    keys hidden, as JAX's at position -1e9).  The G = H / Hk query
+    heads of a kv head are the rows of one matrix product, so dk and dv
+    come out summed over the group.
     Returns (dq, dk, dv) in the inputs' dtypes."""
     b, sq, h, hd = q.shape
     sk, hk = k.shape[1], k.shape[2]
@@ -143,7 +154,9 @@ def _flash_bwd(q, k, v, o, lse, g, *, window: int, cap: float,
         sl = slice(j * block_k, (j + 1) * block_k)
         kb, vb = kf[:, :, sl], vf[:, :, sl]
         kp = torch.arange(sl.start, sl.stop, device=q.device)[None, :]
-        vis = (kp <= qpos) & (kp > qpos - window) & (kp < sk)  # (Sq, bk)
+        vis = (kp > qpos - window) & (kp < sk)                # (Sq, bk)
+        if causal:
+            vis &= kp <= qpos
         u = (torch.matmul(qf, kb.transpose(-1, -2)) * scale).reshape(
             b, hk, grp, sq, block_k)
         if cap > 0.0:
@@ -170,33 +183,37 @@ class _FlashAttention(torch.autograd.Function):
     log-sum-exp, JAX's ``_bwd`` as its backward."""
 
     @staticmethod
-    def forward(ctx, q, k, v, window, cap, block_k):
+    def forward(ctx, q, k, v, window, cap, block_k, causal):
         o, lse = ops.flash_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            causal=True, window=window, softcap=cap, return_lse=True)
+            causal=causal, window=window, softcap=cap, return_lse=True)
         o = o.transpose(1, 2)                    # (B, S, H, hd), q's layout
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.args = (window, cap, block_k)
+        ctx.args = (window, cap, block_k, causal)
         return o
 
     @staticmethod
     def backward(ctx, g):
-        window, cap, block_k = ctx.args
+        window, cap, block_k, causal = ctx.args
         dq, dk, dv = _flash_bwd(*ctx.saved_tensors, g, window=window,
-                                cap=cap, block_k=block_k)
-        return dq, dk, dv, None, None, None
+                                cap=cap, block_k=block_k, causal=causal)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(q, k, v, *, window: int, attn_softcap: float = 0.0,
-                    block_k: int = 512):
-    """Causal training attention over a call's own keys, differentiable.
-    q: (B, S, H, hd); k, v: (B, S, Hk, hd) with H % Hk == 0 (GQA, read
+                    block_k: int = 512, causal: bool = True):
+    """Training attention over a call's keys, differentiable.  q: (B, Sq,
+    H, hd); k, v: (B, Sk, Hk, hd) with H % Hk == 0 (GQA, read
     unrepeated).  Query row i and key j sit at positions i and j: both
     trainers' positions are ``arange(S)``, so the kernel runs at
-    ``q_offset = 0``.  The forward keeps no score tensor; ``block_k`` is
-    the backward's key block (JAX's default, 512)."""
+    ``q_offset = 0``.  Causal calls have Sq = Sk; a non-causal one
+    (``causal=False``) with a window covering every key (`BIG_WINDOW`:
+    the whisper encoder's self-attention, and cross attention, whose
+    keys are the encoder's frames) lets every row see every key and
+    takes any Sk.  The forward keeps no score tensor; ``block_k`` is the
+    backward's key block (JAX's default, 512)."""
     return _FlashAttention.apply(q, k, v, int(window), float(attn_softcap),
-                                 int(block_k))
+                                 int(block_k), bool(causal))
 
 
 def onehot_attention(q, k, v, *, q_pos, k_pos, window, causal=True,
@@ -243,7 +260,7 @@ class Attention(nn.Module):
         init_normal_(self.wo, 1.0 / math.sqrt(self.wo.shape[0]), generator)
 
     def forward(self, x, positions, window, k_cache=None, v_cache=None,
-                cache_index=0, block_k=512):
+                cache_index=0, block_k=512, causal=True):
         """x: (B, S, d).  k_cache, v_cache: (B, Sc, Hk, hd), written in
         place at ``cache_index`` with this step's fresh rows; attention
         runs over the whole cache (rows past the write head are masked
@@ -254,9 +271,11 @@ class Attention(nn.Module):
         scatter launch.  Without caches (training) attention runs over
         this call's own keys at positions ``arange(S)``
         (`flash_attention`, whose backward takes key blocks of
-        ``block_k``).  The attention path follows from the call (see the
-        module docstring), never from a caught error.  Returns (out,
-        fresh_k, fresh_v)."""
+        ``block_k``); ``causal=False`` there, with a window of
+        `BIG_WINDOW`, is the whisper encoder's self-attention (JAX
+        ``encode_audio``: RoPE still at ``arange(S)``).  The attention
+        path follows from the call (see the module docstring), never
+        from a caught error.  Returns (out, fresh_k, fresh_v)."""
         b, s, _ = x.shape
         dtype = x.dtype
         hk, hd = self.num_kv_heads, self.head_dim
@@ -268,7 +287,7 @@ class Attention(nn.Module):
         if k_cache is None:
             out = flash_attention(q, k, v, window=window,
                                   attn_softcap=self.attn_softcap,
-                                  block_k=block_k)
+                                  block_k=block_k, causal=causal)
         else:
             if isinstance(cache_index, torch.Tensor) and s != 1:
                 raise ValueError(f"per-row write heads take one token a "
@@ -295,6 +314,41 @@ class Attention(nn.Module):
                 ).transpose(1, 2)
         out = out.reshape(b, s, self.num_heads * hd) @ self.wo.to(dtype)
         return out, k, v
+
+    def cross_kv(self, enc: torch.Tensor):
+        """This layer's cross keys and values of the encoder's output
+        ``enc`` (B, Se, d): (B, Se, Hk, hd) each, no RoPE (JAX
+        ``_cross_kv_all``, the pipeline's ``_apply_layer``)."""
+        b, se, _ = enc.shape
+        hk, hd = self.num_kv_heads, self.head_dim
+        return tuple((enc @ w.to(enc.dtype)).reshape(b, se, hk, hd)
+                     for w in (self.wk, self.wv))
+
+    def cross(self, x, positions, xk, xv, *, block_k: int = 512):
+        """Cross attention of x (B, S, d) over the encoder's keys and
+        values ``xk``, ``xv`` (B, Se, Hk, hd), as JAX ``attention`` with
+        ``cross_kv``: q without RoPE, no causal mask, window
+        `BIG_WINDOW` (every row sees every frame, the keys at position
+        0), the kv heads never repeated, read in q's dtype (as JAX's
+        attention promotes a cache of another).  A decode step (S = 1)
+        runs `onehot_attention` over them, a longer call the kernel
+        through the training attention (`flash_attention`)."""
+        b, s, _ = x.shape
+        dtype = x.dtype
+        q = (x @ self.wq.to(dtype)).reshape(b, s, self.num_heads,
+                                             self.head_dim)
+        if s == 1:
+            se = xk.shape[1]
+            out = onehot_attention(
+                q, xk, xv, q_pos=positions,
+                k_pos=torch.zeros((b, se), dtype=torch.int32,
+                                  device=x.device),
+                window=BIG_WINDOW, causal=False)
+        else:
+            out = flash_attention(q, xk.to(dtype), xv.to(dtype),
+                                  window=BIG_WINDOW, block_k=block_k,
+                                  causal=False)
+        return out.reshape(b, s, -1) @ self.wo.to(dtype)
 
 
 # ---------------------------------------------------------------------------

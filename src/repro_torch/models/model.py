@@ -1,6 +1,6 @@
-"""The decoder of the dense, moe, ssm and hybrid families: training
-forward and loss, and serving with KV caches, SSM states and stage
-groups (port of `repro.models.model`).
+"""The model of every family (dense, moe, ssm, hybrid, audio, vlm):
+training forward and loss, and serving with KV caches, SSM states and
+stage groups (port of `repro.models.model`).
 
 One `Transformer` class serves every family the port runs, so the
 launchers, trainers, `repro_torch.weights` and checkpoints have one
@@ -14,8 +14,17 @@ with the same weights each time).  The stage groups (and remat's unit)
 are the JAX package's: the layers for dense, moe (its MoE layers; the
 prefix runs before them) and ssm, blocks of ``shared_attn_every`` mamba
 layers and the shared block for hybrid (so a hybrid's block count must
-divide by the stage groups).  The audio and vlm families raise (ROADMAP
-queue A, "The other families").
+divide by the stage groups).  ``vlm`` (pixtral) is the dense decoder
+with stub patch embeddings ahead of the text (`embed_rows`): they run
+through the trunk and the stage groups like text rows, and their rows
+are dropped before the head.  ``audio`` (whisper) adds an encoder
+(``enc_layers``, dense `Block`s whose self-attention is non-causal over
+the stub frame embeddings, then ``enc_norm``: `encode`), run before
+the decoder and outside its stage groups, and each decoder layer a
+cross attention (``norm_x``, ``xattn``) after its FFN over the
+encoder's output, keys and values projected by the layer, no RoPE;
+serving keeps them in raw ``xk``/``xv`` caches written at the step
+that carries ``frames``.
 
 `loss_fn` is the training forward over whole sequences, with autograd:
 `Transformer.trunk_forward` cuts the layer stack into ``num_stages``
@@ -83,7 +92,12 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
+# the title of the ROADMAP item that ports the continuous batcher to the
+# families whose requests carry frames or patches
+CONTINUOUS_MEDIA = ('continuous batching of the audio and vlm families '
+                    '(ROADMAP queue A, "Continuous batching of the audio '
+                    'and vlm families")')
 # the title of the ROADMAP item that ports the continuous batcher to the
 # families whose caches hold SSM states
 CONTINUOUS_SSM = ('continuous batching of the ssm and hybrid families '
@@ -93,9 +107,12 @@ CONTINUOUS_SSM = ('continuous batching of the ssm and hybrid families '
 
 class Block(nn.Module):
     """One dense or MoE decoder layer: pre-norm attention + pre-norm FFN,
-    a `layers.MLP` or, with ``moe``, a `moe.MoE`."""
+    a `layers.MLP` or, with ``moe``, a `moe.MoE`; with ``cross`` (the
+    whisper decoder's layers, JAX ``_init_dec_layer``) a pre-norm cross
+    attention after the FFN, ``norm_x`` and ``xattn``."""
 
-    def __init__(self, cfg: ModelConfig, device=None, moe: bool = False):
+    def __init__(self, cfg: ModelConfig, device=None, moe: bool = False,
+                 cross: bool = False):
         super().__init__()
         self.norm1 = L.RMSNorm(cfg.d_model, cfg.norm_eps, device=device)
         self.attn = L.Attention(cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
@@ -105,26 +122,48 @@ class Block(nn.Module):
         self.ffn = M.MoE(cfg, device=device) if moe else \
             L.MLP(cfg.d_model, cfg.d_ff, cfg.act, cfg.mlp_gated,
                   device=device)
+        if cross:
+            self.norm_x = L.RMSNorm(cfg.d_model, cfg.norm_eps, device=device)
+            self.xattn = L.Attention(cfg.d_model, cfg.num_heads,
+                                     cfg.num_kv_heads, cfg.head_dim,
+                                     cfg.rope_theta, device=device)
+        else:
+            self.norm_x = self.xattn = None
 
     @property
     def is_moe(self) -> bool:
         return isinstance(self.ffn, M.MoE)
 
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """JAX's init scales: the attentions' and the FFN's (norms
+        zero)."""
+        self.attn.reset_parameters(generator)
+        self.ffn.reset_parameters(generator)
+        if self.xattn is not None:
+            self.xattn.reset_parameters(generator)
+
     def forward(self, h, positions, window, k_cache=None, v_cache=None,
                 cache_index=0, block_k=512, *, per_sequence: bool = False,
-                ep=None):
+                ep=None, causal: bool = True, xkv=None):
         """Returns (h, fresh_k, fresh_v, aux): aux the MoE router's
         load-balance loss, 0.0 for an MLP.  ``per_sequence`` and ``ep``:
-        `moe.moe_ffn`'s."""
+        `moe.moe_ffn`'s; ``causal=False``: the whisper encoder's
+        self-attention; ``xkv``: a cross layer's keys and values of the
+        encoder's output (B, Se, Hk, hd) each, read after the FFN (JAX's
+        audio step)."""
         a, k, v = self.attn(self.norm1(h), positions, window, k_cache,
-                            v_cache, cache_index, block_k)
+                            v_cache, cache_index, block_k, causal)
         h = h + a
         hn = self.norm2(h)
         if self.is_moe:
             f, aux = self.ffn(hn, per_sequence=per_sequence, ep=ep)
         else:
             f, aux = self.ffn(hn), 0.0
-        return h + f, k, v, aux
+        h = h + f
+        if xkv is not None:
+            h = h + self.xattn.cross(self.norm_x(h), positions, *xkv,
+                                     block_k=block_k)
+        return h, k, v, aux
 
 
 class MambaBlock(nn.Module):
@@ -161,27 +200,35 @@ class MambaBlock(nn.Module):
 
 
 def trunk_layer(cfg: ModelConfig, device=None) -> nn.Module:
-    """One trunk layer of the family: a dense or MoE `Block`, or a
-    `MambaBlock`."""
+    """One trunk layer of the family: a dense or MoE `Block` (an audio
+    model's with cross attention; vlm's is dense), or a `MambaBlock`."""
     if cfg.family in ("ssm", "hybrid"):
         return MambaBlock(cfg, device=device)
-    return Block(cfg, device=device, moe=cfg.family == "moe")
+    return Block(cfg, device=device, moe=cfg.family == "moe",
+                 cross=cfg.family == "audio")
 
 
 def layer_fn(cfg: ModelConfig, i: int, blk: nn.Module,
              positions: torch.Tensor, seq: int, block_k: int,
-             shared_block: Optional[Block] = None, ep=None) -> Callable:
+             shared_block: Optional[Block] = None, ep=None,
+             enc: Optional[torch.Tensor] = None) -> Callable:
     """Global layer ``i``'s training function h -> (h, aux) (JAX's scan
     body), aux a MoE layer's router loss (``ep``: `moe.moe_ffn`'s) and
-    0.0 in any other layer: a dense or MoE layer at its window, or a
-    mamba layer followed, where ``shared_block`` is given, by the
-    hybrid's shared block over the whole sequence (``cfg.sliding_window
-    or seq``)."""
+    0.0 in any other layer: a dense or MoE layer at its window (an
+    audio layer with its cross attention over the encoder's output
+    ``enc``, its keys and values projected inside, as the pipeline's
+    ``_apply_layer`` does), or a mamba layer followed, where
+    ``shared_block`` is given, by the hybrid's shared block over the
+    whole sequence (``cfg.sliding_window or seq``)."""
     if isinstance(blk, Block):
         window = cfg.layer_window(i, seq)
+        if blk.xattn is not None and enc is None:
+            raise ValueError(f"{cfg.name}: a cross-attention layer needs "
+                             f"the encoder's output")
 
         def attn_layer(x):
-            out = blk(x, positions, window, block_k=block_k, ep=ep)
+            xkv = blk.xattn.cross_kv(enc) if blk.xattn is not None else None
+            out = blk(x, positions, window, block_k=block_k, ep=ep, xkv=xkv)
             return out[0], out[3]
         return attn_layer
     if shared_block is None:
@@ -198,9 +245,12 @@ class Transformer(nn.Module):
     ``gemma2-27b``, ``stablelm-12b``, with per-layer sliding windows,
     GQA, attention and final logit softcaps, gated or plain MLP; moe:
     ``mixtral-8x22b``, ``deepseek-moe-16b``, ``moonshot-v1-16b-a3b``;
-    ssm: ``mamba2-1.3b``; hybrid: ``zamba2-2.7b``): token embedding, a
-    MoE model's dense ``prefix``, a stack of `Block`s or `MambaBlock`s
-    (and the hybrid's ``shared_block``), a final RMSNorm and the logits,
+    ssm: ``mamba2-1.3b``; hybrid: ``zamba2-2.7b``; vlm: ``pixtral-12b``;
+    audio: ``whisper-small``): token embedding (after a vlm model's
+    patches), an audio model's encoder (``enc_layers``, ``enc_norm``), a
+    MoE model's dense ``prefix``, a stack of `Block`s (an audio model's
+    with cross attention) or `MambaBlock`s (and the hybrid's
+    ``shared_block``), a final RMSNorm and the logits,
     read through the embedding when ``cfg.tie_embeddings``, else through
     a ``head`` of its own, (d_model, vocab) as in the JAX package.
 
@@ -217,10 +267,9 @@ class Transformer(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         if cfg.family not in FAMILIES:
-            raise NotImplementedError(
-                f"{cfg.name}: the port runs the {', '.join(FAMILIES)} "
-                f'families; the {cfg.family} family is ROADMAP queue A, '
-                f'"The other families"')
+            raise ValueError(
+                f"{cfg.name}: unknown family {cfg.family!r}; the port runs "
+                f"the {', '.join(FAMILIES)} families")
         if cfg.family == "hybrid" and cfg.num_layers % cfg.shared_attn_every:
             raise ValueError(f"{cfg.name}: {cfg.num_layers} layers are not "
                              f"whole blocks of {cfg.shared_attn_every}")
@@ -235,6 +284,10 @@ class Transformer(nn.Module):
                                     for _ in range(cfg.n_trunk))
         self.shared_block = Block(cfg, device=device) \
             if cfg.family == "hybrid" else None
+        self.enc_layers = nn.ModuleList(
+            Block(cfg, device=device) for _ in range(cfg.encoder_layers))
+        self.enc_norm = L.RMSNorm(cfg.d_model, cfg.norm_eps, device=device) \
+            if cfg.encoder_layers else None
         self.final_norm = L.RMSNorm(cfg.d_model, cfg.norm_eps, device=device)
         if generator is not None:
             self.reset_parameters(generator)
@@ -249,17 +302,26 @@ class Transformer(nn.Module):
             if isinstance(blk, MambaBlock):
                 blk.mamba.reset_parameters(generator)
             else:
-                blk.attn.reset_parameters(generator)
-                blk.ffn.reset_parameters(generator)
+                blk.reset_parameters(generator)
         if self.shared_block is not None:
-            self.shared_block.attn.reset_parameters(generator)
-            self.shared_block.ffn.reset_parameters(generator)
+            self.shared_block.reset_parameters(generator)
+        for blk in self.enc_layers:
+            blk.reset_parameters(generator)
 
-    # -- embedding / head ---------------------------------------------------
+    # -- embedding / head / encoder -----------------------------------------
 
-    def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
-        """tokens (B, S) -> (B, S, d)."""
-        return embed_rows(self.cfg, self.embed, tokens)
+    def embed_tokens(self, tokens: torch.Tensor,
+                     patches: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """tokens (B, S) -> (B, S, d); a vlm model's ``patches`` (B, P, d)
+        go ahead of the text (JAX ``embed_tokens(extra_embeds=)``)."""
+        return embed_rows(self.cfg, self.embed, tokens, patches)
+
+    def encode_audio(self, frames: torch.Tensor, *, remat: bool = False,
+                     block_k: int = 512) -> torch.Tensor:
+        """The whisper encoder over the stub frame embeddings (B, Se, d)
+        (JAX ``encode_audio``): `encode` with this model's layers."""
+        return encode(self.cfg, self.enc_layers, self.enc_norm, frames,
+                      remat=remat, block_k=block_k)
 
     def lm_logits(self, h: torch.Tensor) -> torch.Tensor:
         return head_logits(self.cfg, self.final_norm(h), self.embed,
@@ -271,7 +333,8 @@ class Transformer(nn.Module):
                       num_stages: int = 1,
                       boundary_fn: Optional[Callable] = None,
                       boundary_state=None, remat: bool = False,
-                      block_k: int = 512):
+                      block_k: int = 512,
+                      enc: Optional[torch.Tensor] = None):
         """The trunk over whole sequences.  h: (B, S, d) after the
         embedding, positions ``arange(S)`` a row.  A MoE model's dense
         ``prefix`` runs first, outside the stage groups and any
@@ -284,15 +347,17 @@ class Transformer(nn.Module):
         outside every checkpoint, since they draw noise from explicit
         generators (which a recompute would not restore) and write the
         message buffers.  ``block_k`` is the attention backward's key
-        block.  Returns (h, aux, boundary_state), as JAX's: aux the MoE
-        layers' router losses summed (0.0 in the other families)."""
+        block; ``enc`` an audio model's encoder output (B, Se, d), which
+        every decoder layer's cross attention reads.  Returns (h, aux,
+        boundary_state), as JAX's: aux the MoE layers' router losses
+        summed (0.0 in the other families)."""
         cfg, seq = self.cfg, h.shape[1]
         aux = 0.0
         h = prefix_forward(cfg, self.prefix, h, positions, block_k)
         per = stage_size(cfg, num_stages)
         n = per * num_stages
         for u in range(n):
-            h, a = run_remat(self.unit(u, positions, seq, block_k), h,
+            h, a = run_remat(self.unit(u, positions, seq, block_k, enc), h,
                              remat=remat)
             aux = aux + a
             if boundary_fn is not None and (u + 1) % per == 0 \
@@ -302,14 +367,15 @@ class Transformer(nn.Module):
         return h, aux, boundary_state
 
     def unit(self, u: int, positions: torch.Tensor, seq: int,
-             block_k: int) -> Callable:
+             block_k: int, enc: Optional[torch.Tensor] = None) -> Callable:
         """The training function of unit ``u``, h -> (h, aux): a layer
-        (dense, moe, ssm), or a hybrid block (its mamba layers, the
-        shared block after the last, `layer_fn`)."""
+        (dense, moe, ssm, vlm, audio: over ``enc``), or a hybrid block
+        (its mamba layers, the shared block after the last,
+        `layer_fn`)."""
         cfg = self.cfg
         if cfg.family != "hybrid":
             return layer_fn(cfg, u + cfg.first_dense_layers, self.layers[u],
-                            positions, seq, block_k)
+                            positions, seq, block_k, enc=enc)
         per = cfg.shared_attn_every
         fns = [layer_fn(cfg, i, self.layers[i], positions, seq, block_k,
                         self.shared_block
@@ -328,13 +394,15 @@ class Transformer(nn.Module):
                     dtype: torch.dtype = torch.bfloat16, device=None,
                     kv_codec=None) -> dict:
         """Zero caches for prefill/decode (JAX ``init_caches``): dense
-        and moe, raw k, v (L, B, Sc, Hk, hd) over the trunk's L layers,
-        or, with a quantizing ``kv_codec``, its ``{k,v}_codes`` and
-        ``{k,v}_scale`` stores for that shape (the layout of JAX
-        `quantize_caches`; no raw store is allocated), and a MoE model's
-        dense prefix raw ``pk``, ``pv`` (first_dense_layers, B, Sc, Hk,
-        hd) whatever the codec; ssm and hybrid, the ``ssm`` states f32
-        (L, B, h, p, n) and ``conv`` windows (L, B, width-1, conv_dim),
+        and moe (and vlm, audio), raw k, v (L, B, Sc, Hk, hd) over the
+        trunk's L layers, or, with a quantizing ``kv_codec``, its
+        ``{k,v}_codes`` and ``{k,v}_scale`` stores for that shape (the
+        layout of JAX `quantize_caches`; no raw store is allocated), a
+        MoE model's dense prefix raw ``pk``, ``pv`` (first_dense_layers,
+        B, Sc, Hk, hd) and an audio model's raw cross caches ``xk``,
+        ``xv`` (L, B, encoder_seq, Hk, hd), whatever the codec; ssm and
+        hybrid, the ``ssm`` states f32 (L, B, h, p, n) and ``conv``
+        windows (L, B, width-1, conv_dim),
         and for hybrid raw k, v (n_blocks, B, Sc, Hk, hd).  The family
         rules of JAX `quantize_caches` hold
         (`serving.kvcache.store_codec`): ssm has nothing to quantize, so
@@ -365,6 +433,12 @@ class Transformer(nn.Module):
                 caches[name] = torch.zeros(
                     (cfg.first_dense_layers, *shape[1:]), dtype=dtype,
                     device=device)
+        if cfg.cross_attention:
+            for name in ("xk", "xv"):
+                caches[name] = torch.zeros(
+                    (cfg.num_layers, batch_size, cfg.encoder_seq,
+                     cfg.num_kv_heads, cfg.head_dim), dtype=dtype,
+                    device=device)
         for name in ("k", "v"):
             if kv_codec is not None and kv_codec.bits:
                 store = kv_codec.empty(shape, device=device)
@@ -378,6 +452,8 @@ class Transformer(nn.Module):
 
     @torch.no_grad()
     def forward_with_caches(self, tokens: torch.Tensor, caches: dict, *,
+                            patches: Optional[torch.Tensor] = None,
+                            frames: Optional[torch.Tensor] = None,
                             logits_last_only: bool = False,
                             num_stages: int = 1,
                             boundary_fn: Optional[Callable] = None,
@@ -385,15 +461,29 @@ class Transformer(nn.Module):
         """tokens (B, S).  Returns (logits (B, S or 1, V) f32, caches),
         the caches updated in place (see the module docstring);
         ``caches["pos"]`` an int or a (B,) int32 tensor of per-row
-        heads."""
+        heads.  A vlm prefill's ``patches`` (B, P, d) go ahead of the
+        text, at positions ``pos .. pos + P - 1``, and their rows are
+        dropped from the logits; an audio step with ``frames`` (B, Se,
+        d) runs the encoder and writes every layer's cross keys and
+        values into the raw ``xk``/``xv`` caches, cast to their dtype
+        (JAX: at prefill), which the step and later ones read."""
         cfg = self.cfg
         pos0 = caches["pos"]
         quant = kv_codec is not None and bool(kv_codec.bits) \
-            and cfg.family in ("dense", "moe")
+            and cfg.family not in ("ssm", "hybrid")
         if isinstance(pos0, torch.Tensor) and cfg.family in ("ssm", "hybrid"):
             raise NotImplementedError(f"per-row write heads: {CONTINUOUS_SSM} "
                                       f"is not ported yet")
-        h = self.embed_tokens(tokens)
+        if isinstance(pos0, torch.Tensor) and cfg.family in ("audio", "vlm"):
+            raise NotImplementedError(f"per-row write heads: "
+                                      f"{CONTINUOUS_MEDIA} is not ported yet")
+        if frames is not None:
+            enc = self.encode_audio(frames)
+            for i, blk in enumerate(self.layers):
+                for name, t in zip(("xk", "xv"), blk.xattn.cross_kv(enc)):
+                    caches[name][i].copy_(t)
+            del enc
+        h = self.embed_tokens(tokens, patches)
         b, s = h.shape[0], h.shape[1]
         steps = torch.arange(s, dtype=torch.int32, device=h.device)
         positions = pos0[:, None] + steps \
@@ -419,7 +509,7 @@ class Transformer(nn.Module):
                     caches["pk"][i], caches["pv"][i], write_at)[0]
 
         for u in range(n):
-            if cfg.family in ("dense", "moe"):
+            if cfg.family not in ("ssm", "hybrid"):
                 h = self._attn_cached(u, h, positions, cache_len, caches,
                                       write_at, kv_codec if quant else None,
                                       per_sequence)
@@ -442,6 +532,8 @@ class Transformer(nn.Module):
         caches["pos"] = pos0 + s
         if boundary_state is not None:
             caches["hop_m"] = boundary_state["m"]
+        if patches is not None:
+            h = h[:, patches.shape[1]:]
         if logits_last_only:
             h = h[:, -1:]
         return self.lm_logits(h), caches
@@ -460,8 +552,10 @@ class Transformer(nn.Module):
                 cfg.torch_dtype)
         else:
             ck, cv = caches["k"][i], caches["v"][i]
+        xkv = (caches["xk"][i], caches["xv"][i]) \
+            if cfg.cross_attention else None
         h, fk, fv, _ = self.layers[i](h, positions, window, ck, cv, write_at,
-                                      per_sequence=per_sequence)
+                                      per_sequence=per_sequence, xkv=xkv)
         if kv_codec is not None:
             # encode ONLY this step's fresh rows: old tokens keep their
             # original single encoding
@@ -500,13 +594,37 @@ def stage_size(cfg: ModelConfig, num_stages: int) -> int:
 
 
 def embed_rows(cfg: ModelConfig, embed: torch.Tensor,
-               tokens: torch.Tensor) -> torch.Tensor:
-    """The embedding's rows of ``tokens``, in the model's dtype.  Through
-    `F.embedding`, whose backward adds a repeated token's gradients in a
-    fixed order on the CPU too (an indexing's backward, ``index_put_``
-    with accumulation, adds them in the threads' order there), so a
-    training run is bit-reproducible, as a resumed run needs."""
-    return F.embedding(tokens, embed.to(cfg.torch_dtype))
+               tokens: torch.Tensor,
+               patches: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The embedding's rows of ``tokens``, in the model's dtype, after a
+    vlm model's ``patches`` (B, P, d) where given (JAX ``embed_tokens``
+    with ``extra_embeds``).  Through `F.embedding`, whose backward adds a
+    repeated token's gradients in a fixed order on the CPU too (an
+    indexing's backward, ``index_put_`` with accumulation, adds them in
+    the threads' order there), so a training run is bit-reproducible, as
+    a resumed run needs."""
+    h = F.embedding(tokens, embed.to(cfg.torch_dtype))
+    if patches is None:
+        return h
+    return torch.cat([patches.to(h.dtype), h], dim=-2)
+
+
+def encode(cfg: ModelConfig, enc_layers: nn.ModuleList, enc_norm: nn.Module,
+           frames: torch.Tensor, *, remat: bool = False,
+           block_k: int = 512) -> torch.Tensor:
+    """The whisper encoder (JAX ``encode_audio``): dense layers whose
+    self-attention is non-causal over the frames (B, Se, d), window
+    `layers.BIG_WINDOW`, RoPE at ``arange(Se)``, each a remat unit; then
+    ``enc_norm``."""
+    b, se = frames.shape[0], frames.shape[1]
+    pos = torch.arange(se, dtype=torch.int32,
+                       device=frames.device).expand(b, se)
+    h = frames
+    for blk in enc_layers:
+        h = run_remat(lambda x, blk=blk: blk(
+            x, pos, L.BIG_WINDOW, block_k=block_k, causal=False)[0], h,
+            remat=remat)
+    return enc_norm(h)
 
 
 def head_logits(cfg: ModelConfig, h: torch.Tensor, embed: torch.Tensor,
@@ -541,19 +659,35 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
 def loss_fn(model: Transformer, batch: dict, *, num_stages: int = 1,
             boundary_fn: Optional[Callable] = None, boundary_state=None,
             remat: bool = False, block_k: int = 512):
-    """batch: tokens, targets, mask (B, S) tensors.  Returns (loss,
-    {"ce", "aux", "boundary_state"}): a MoE model's loss is ce +
-    ``router_aux_weight`` x aux, its MoE layers' router losses summed,
-    as JAX's; the other families have no auxiliary loss (aux 0.0, the
-    loss is ce).  ``remat`` and ``block_k``: `Transformer.trunk_forward`."""
+    """batch: tokens, targets, mask (B, S) tensors, and a vlm model's
+    optional ``patches`` (B, P, d) (without them it trains text-only, as
+    JAX's) or an audio model's ``frames`` (B, Se, d), which it needs.
+    Returns (loss, {"ce", "aux", "boundary_state"}): a MoE model's loss
+    is ce + ``router_aux_weight`` x aux, its MoE layers' router losses
+    summed, as JAX's; the other families have no auxiliary loss (aux
+    0.0, the loss is ce).  The patches' rows run through the trunk
+    (and the stage boundaries) and are dropped before the head.
+    ``remat`` and ``block_k``: `Transformer.trunk_forward`."""
     cfg = model.cfg
-    h = model.embed_tokens(batch["tokens"])
+    patches = batch.get("patches")
+    h = model.embed_tokens(batch["tokens"], patches)
     b, s = h.shape[0], h.shape[1]
     positions = torch.arange(s, dtype=torch.int32,
                              device=h.device).expand(b, s)
+    enc = None
+    if cfg.cross_attention:
+        if "frames" not in batch:
+            raise KeyError(f"{cfg.name}: the audio family's loss reads "
+                           f"batch['frames'] (B, {cfg.encoder_seq}, "
+                           f"{cfg.d_model}), which this batch lacks")
+        enc = model.encode_audio(batch["frames"], remat=remat,
+                                 block_k=block_k)
     h, aux, boundary_state = model.trunk_forward(
         h, positions, num_stages=num_stages, boundary_fn=boundary_fn,
-        boundary_state=boundary_state, remat=remat, block_k=block_k)
+        boundary_state=boundary_state, remat=remat, block_k=block_k,
+        enc=enc)
+    if patches is not None:                    # drop the patch positions
+        h = h[:, patches.shape[1]:]
     ce = cross_entropy(model.lm_logits(h), batch["targets"], batch["mask"])
     total = ce + cfg.router_aux_weight * aux if cfg.has_moe else ce
     return total, {"ce": ce, "aux": aux, "boundary_state": boundary_state}

@@ -173,9 +173,11 @@ def store_codec(cfg, codec):
     rules of JAX `quantize_caches`: the ssm family keeps no KV cache, so
     a codec has nothing to quantize and passes through (None); the
     hybrid family's shared attention block keeps raw k and v, and a
-    quantizing codec raises `NotImplementedError`; a dense or MoE model
-    takes ``codec`` as given for its stacked layers (a MoE model's dense
-    prefix keeps raw ``pk``/``pv``, `Transformer.init_caches`)."""
+    quantizing codec raises `NotImplementedError`; a dense, MoE, vlm or
+    audio model takes ``codec`` as given for its stacked layers' ``k``
+    and ``v`` (a MoE model's dense prefix keeps raw ``pk``/``pv`` and an
+    audio model its cross caches raw ``xk``/``xv``, which hold no
+    position-dependent growth, `Transformer.init_caches`)."""
     if cfg.family == "ssm":
         return None
     if cfg.family == "hybrid" and codec is not None and codec.bits:

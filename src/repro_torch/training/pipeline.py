@@ -1,6 +1,6 @@
 """Distributed pipeline-parallel training with AQ-SGD boundary
 compression over torch.distributed (port of `repro.training.pipeline`
-for the dense, moe, ssm and hybrid families).
+for every family: dense, moe, ssm, hybrid, audio, vlm).
 
 Mesh: ``(data=D, model=K)`` processes (`repro_torch.launch.mesh`);
 model rank k runs pipeline stage k (its ceil(L/K) layers; stage 0 also
@@ -23,6 +23,19 @@ its own experts on every data rank's tokens, which cross the data group
 by all-to-all, `models.moe._expert_parallel_ffn`, on the ``ep`` plane;
 an expert's gradient then lives on its owner alone and the bucket's
 sum over the data ranks equals ``zero3``'s).
+
+A vlm model's batch carries ``patches`` (M, mb, P, d): the first stage
+embeds them ahead of the text, the boundaries and the message buffers
+span the trunk's P + S rows, and the last stage drops the patch rows
+before the loss (JAX ``train_step``).  An audio model's batch carries
+``frames`` (M, mb, Se, d).  JAX runs the encoder once, outside the
+stage map, and feeds its output to every stage, whose layers project
+their cross keys and values from it (``_apply_layer``).  Here every
+stage holds the whole encoder, as the hybrid's shared block, and runs
+it on each microbatch's frames; each stage's encoder gradient is the
+part its layers' cross attention sends back, and the bucket's
+all-reduce sums the stages' parts into the whole gradient, which every
+copy then applies, so the copies stay equal.
 
 Schedule: GPipe.  Each step runs the M microbatches forward through the
 stages, then backward in reverse order.  A stage boundary is a pair of
@@ -97,8 +110,8 @@ per-step seeds take the global step index, so a stopped-and-resumed
 run gives the uninterrupted run's losses.  As in the JAX package there
 is no fault plan or guard on this path.
 
-Not ported: the audio and vlm families, FSDP/ZeRO-3 weight sharding
-(ROADMAP queue A), and the kernels' seeded noise: `build_rank` refuses
+Not ported: FSDP/ZeRO-3 weight sharding (ROADMAP queue A), and the
+kernels' seeded noise: `build_rank` refuses
 the on-core noise knob (`repro_torch.env.oncore_prng`,
 `ONCORE_REFUSAL`).
 """
@@ -124,11 +137,12 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import boundary as B
 from repro_torch.core import grad_compress as GC
 from repro_torch.core import quantization as Q
+from repro_torch.data.pipeline import with_stub_media
 from repro_torch.models import layers as L
 from repro_torch.models.moe import capacity
 from repro_torch.models.model import (FAMILIES, Block, Transformer,
-                                      embed_rows, head_logits, layer_fn,
-                                      prefix_forward, run_remat,
+                                      embed_rows, encode, head_logits,
+                                      layer_fn, prefix_forward, run_remat,
                                       trunk_layer)
 from repro_torch.optim import adamw
 from repro_torch.rng import seeded_generator
@@ -214,10 +228,9 @@ class StageLayout:
 
 def stage_layout(cfg: ModelConfig, num_stages: int) -> StageLayout:
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the distributed trainer runs the "
-            f"{', '.join(FAMILIES)} families; the {cfg.family} family is "
-            f'ROADMAP queue A, "The other families"')
+        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}; the "
+                         f"distributed trainer runs the "
+                         f"{', '.join(FAMILIES)} families")
     n = cfg.n_trunk
     lps = -(-n // num_stages)
     return StageLayout(num_stages, lps, n, num_stages * lps - n,
@@ -260,9 +273,10 @@ class Stage(nn.Module):
     """Pipeline stage k: its live layers (trunk layers k*lps ..), the
     embedding and a MoE model's dense ``prefix`` on the first stage, the
     final norm and the head on the last (a copy of the embedding if
-    tied, else the untied ``head``), and a hybrid's ``shared_block`` on
-    every stage.  Parameter names are the stage's own
-    (``layers.<local>.*``, ``prefix.<i>.*``, ``shared_block.*``)."""
+    tied, else the untied ``head``), and a hybrid's ``shared_block`` and
+    an audio model's encoder (``enc_layers``, ``enc_norm``) on every
+    stage.  Parameter names are the stage's own (``layers.<local>.*``,
+    ``prefix.<i>.*``, ``shared_block.*``, ``enc_layers.<i>.*``)."""
 
     def __init__(self, cfg: ModelConfig, lay: StageLayout, k: int,
                  device=None):
@@ -279,6 +293,11 @@ class Stage(nn.Module):
         self.shared_after = layer_flags(cfg, lay)[k][:len(self.layer_ids)]
         self.shared_block = Block(cfg, device=device) \
             if lay.shared_attn else None
+        self.enc_layers = nn.ModuleList(
+            Block(cfg, device=device) for _ in range(cfg.encoder_layers))
+        self.enc_norm = L.RMSNorm(cfg.d_model, cfg.norm_eps,
+                                  device=device) \
+            if cfg.encoder_layers else None
         tied = cfg.tie_embeddings
         self.embed = nn.Parameter(torch.empty(
             cfg.vocab_size, cfg.d_model, device=device)) \
@@ -310,28 +329,39 @@ class Stage(nn.Module):
                                  final_norm=self.last,
                                  head=self.head is not None,
                                  shared=self.shared_block is not None,
-                                 prefix=len(self.prefix) > 0)
+                                 prefix=len(self.prefix) > 0,
+                                 encoder=self.enc_norm is not None)
         self.load_state_dict({k: torch.tensor(np.asarray(v))
                               for k, v in state.items()})
         return self
 
-    def embed_tokens(self, tokens: torch.Tensor,
-                     block_k: int = 512) -> torch.Tensor:
-        """The first stage's input: the embedding, then a MoE model's
-        dense prefix (`models.model.prefix_forward`; ``block_k`` its
-        attention backward's key block)."""
-        h = embed_rows(self.cfg, self.embed, tokens)
+    def embed_tokens(self, tokens: torch.Tensor, block_k: int = 512,
+                     patches: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The first stage's input: the embedding (after a vlm model's
+        ``patches``), then a MoE model's dense prefix
+        (`models.model.prefix_forward`; ``block_k`` its attention
+        backward's key block)."""
+        h = embed_rows(self.cfg, self.embed, tokens, patches)
         b, s = h.shape[0], h.shape[1]
         positions = torch.arange(s, dtype=torch.int32,
                                  device=h.device).expand(b, s)
         return prefix_forward(self.cfg, self.prefix, h, positions, block_k)
 
+    def encode(self, frames: torch.Tensor,
+               pcfg: PipelineConfig) -> torch.Tensor:
+        """An audio model's encoder over one microbatch's frames (mb, Se,
+        d), each layer a remat unit with ``pcfg.remat`` (JAX's
+        ``encode_audio`` under ``vmap``)."""
+        return encode(self.cfg, self.enc_layers, self.enc_norm, frames,
+                      remat=pcfg.remat, block_k=pcfg.block_k)
+
     def trunk(self, h: torch.Tensor, pcfg: PipelineConfig,
-              ep=None) -> torch.Tensor:
+              ep=None, enc: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The stage's layers over one microbatch, checkpointed as
         ``pcfg`` says (`PipelineConfig`); a MoE layer's aux is dropped,
         as JAX's ``_apply_layer`` drops it.  ``ep``: the data group of
-        expert parallelism, or None."""
+        expert parallelism, or None; ``enc``: an audio model's encoder
+        output, which each layer's cross attention reads."""
         b, s = h.shape[0], h.shape[1]
         positions = torch.arange(s, dtype=torch.int32,
                                  device=h.device).expand(b, s)
@@ -342,7 +372,8 @@ class Stage(nn.Module):
                                       self.shared_after):
                 fn = layer_fn(self.cfg, i + offset, blk, positions, s,
                               pcfg.block_k,
-                              self.shared_block if shared else None, ep=ep)
+                              self.shared_block if shared else None, ep=ep,
+                              enc=enc)
                 x = run_remat(fn, x, remat=pcfg.remat)[0]
             return x
 
@@ -389,12 +420,15 @@ def _numel(shape) -> int:
 class PipelineBucket:
     """The flatten-and-concat DP bucket of the pipeline tree, in the JAX
     package's ``jax.tree.leaves`` order of `to_pipeline_params`:
-    ``embed``, ``final_norm.scale``, the untied ``head`` if any, a MoE
-    model's ``prefix.<i>.*`` (its items in turn, each sorted), the
-    hybrid's ``shared_block.*`` (sorted; one slot, which every stage's
-    copy writes), then ``stages.<block param>`` (sorted) each shaped
-    (K, lps, ...), dead padded layers included as zeros.  Knows where
-    every parameter of a `Stage` sits in it."""
+    ``embed``, an audio model's ``enc_layers.<layer param>`` (sorted,
+    each stacked (encoder_layers, ...)) and ``enc_norm.scale``,
+    ``final_norm.scale``, the untied ``head`` if any, a MoE model's
+    ``prefix.<i>.*`` (its items in turn, each sorted), the hybrid's
+    ``shared_block.*`` (sorted), then ``stages.<block param>`` (sorted)
+    each shaped (K, lps, ...), dead padded layers included as zeros.
+    The encoder and the shared block have one slot, which every stage's
+    copy writes.  Knows where every parameter of a `Stage` sits in
+    it."""
 
     def __init__(self, cfg: ModelConfig, lay: StageLayout, group_d: int):
         self.lay, self.group_d = lay, group_d
@@ -403,30 +437,36 @@ class PipelineBucket:
                        key=lambda n: tuple(n.split(".")))
         shapes = dict((n, tuple(p.shape)) for n, p in
                       block.named_parameters())
-        off = 0
-        self.offsets, self.sizes = {}, {}
-        top = [("embed", (cfg.vocab_size, cfg.d_model)),
-               ("final_norm.scale", (cfg.d_model,))]
+
+        def sort(entries):
+            return sorted(entries, key=lambda x: tuple(x[0].split(".")))
+
+        # (name, shape of one copy, copies stacked in the slot)
+        top = [("embed", (cfg.vocab_size, cfg.d_model), 1)]
+        if cfg.encoder_layers:
+            top += sort(("enc_layers." + n, tuple(p.shape),
+                         cfg.encoder_layers)
+                        for n, p in Block(cfg, device="meta")
+                        .named_parameters())
+            top.append(("enc_norm.scale", (cfg.d_model,), 1))
+        top.append(("final_norm.scale", (cfg.d_model,), 1))
         if not cfg.tie_embeddings:
-            top.append(("head", (cfg.d_model, cfg.vocab_size)))
+            top.append(("head", (cfg.d_model, cfg.vocab_size), 1))
         dense = Block(cfg, device="meta")
         for i in range(cfg.first_dense_layers):
-            top += sorted(((f"prefix.{i}.{n}", tuple(p.shape))
-                           for n, p in dense.named_parameters()),
-                          key=lambda x: tuple(x[0].split(".")))
+            top += sort((f"prefix.{i}.{n}", tuple(p.shape), 1)
+                        for n, p in dense.named_parameters())
         if lay.shared_attn:
-            shared = Block(cfg, device="meta")
-            top += sorted((("shared_block." + n, tuple(p.shape))
-                           for n, p in shared.named_parameters()),
-                          key=lambda x: tuple(x[0].split(".")))
-        for name, shape in top:
+            top += sort(("shared_block." + n, tuple(p.shape), 1)
+                        for n, p in Block(cfg, device="meta")
+                        .named_parameters())
+        top += [("stages." + n, shapes[n], lay.num_stages * lay.lps)
+                for n in names]
+        off = 0
+        self.offsets, self.sizes = {}, {}
+        for name, shape, copies in top:
             self.offsets[name], self.sizes[name] = off, _numel(shape)
-            off += _numel(shape)
-        for name in names:
-            n = _numel(shapes[name])
-            self.offsets["stages." + name] = off
-            self.sizes["stages." + name] = n
-            off += lay.num_stages * lay.lps * n
+            off += copies * _numel(shape)
         self.total = off
         self.rows = max(-(-off // group_d), 1)
 
@@ -436,10 +476,13 @@ class PipelineBucket:
 
     def slot(self, stage: Stage, name: str) -> tuple:
         """(offset, numel) of one stage parameter in the flat bucket."""
-        if name.startswith("layers."):
-            _, i, rest = name.split(".", 2)
-            key = "stages." + rest
-            g = stage.layer_ids[int(i)]
+        top, _, rest = name.partition(".")
+        if top in ("layers", "enc_layers"):
+            i, rest = rest.split(".", 1)
+            if top == "layers":
+                key, g = "stages." + rest, stage.layer_ids[int(i)]
+            else:
+                key, g = "enc_layers." + rest, int(i)
             return self.offsets[key] + g * self.sizes[key], self.sizes[key]
         return self.offsets[name], self.sizes[name]
 
@@ -684,7 +727,8 @@ class PipelineRank:
     ``pipeline`` (the microbatches forward and backward, hops
     included), ``grad_allreduce``, ``dp_wire``, ``adamw`` and, under
     the ZeRO wire, ``param_gather`` (the all-gather and the copy into
-    the stage)."""
+    the stage).  ``seq_len`` is the text's length; a vlm model's
+    message buffers span its ``num_patches`` rows too."""
 
     def __init__(self, cfg: ModelConfig, pcfg: PipelineConfig, mesh,
                  opt_cfg: adamw.AdamWConfig, *, num_samples: int,
@@ -727,9 +771,11 @@ class PipelineRank:
         self.has_bufs = comm.mode == "aqsgd"
         k, kk = mesh.model_rank, mesh.shape.model
         d = cfg.d_model
-        self.m_out = init_buffer(pcfg, num_samples, seq_len, d, dev) \
+        # a vlm model's boundaries carry its patch rows ahead of the text
+        trunk = seq_len + cfg.num_patches
+        self.m_out = init_buffer(pcfg, num_samples, trunk, d, dev) \
             if self.has_bufs and k < kk - 1 else None
-        self.m_in = init_buffer(pcfg, num_samples, seq_len, d, dev) \
+        self.m_in = init_buffer(pcfg, num_samples, trunk, d, dev) \
             if self.has_bufs and k > 0 else None
         self.dp_error = init_dp_error(self.bucket, dev) \
             if comm.dp.bits else None
@@ -748,7 +794,8 @@ class PipelineRank:
     def step(self, batch: dict, step: int, *, warmup: bool) -> float:
         """One training step on this rank's shard ``batch`` (numpy,
         microbatch-major (M, mb, ...), with the global batch's mask
-        count under ``"count"``).  Returns the global mean loss."""
+        count under ``"count"``; a vlm model's with ``patches``, an
+        audio model's with ``frames``).  Returns the global mean loss."""
         pcfg = dataclasses.replace(self.pcfg, warmup=warmup)
         mesh, st, dev = self.mesh, self.stage, self.mesh.device
         self.phase_seconds, self._t = {}, time.perf_counter()
@@ -759,23 +806,32 @@ class PipelineRank:
         t = {name: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
              for name, v in batch.items() if name != "count"}
         count = float(batch["count"])
+        need = {"audio": "frames", "vlm": "patches"}.get(self.cfg.family)
+        if need is not None and need not in t:
+            raise KeyError(f"{self.cfg.name}: the {self.cfg.family} "
+                           f"family's batch needs {need!r}")
         M, mb, seq = t["tokens"].shape
-        shape = (mb, seq, self.cfg.d_model)
+        n_patch = self.cfg.num_patches if "patches" in t else 0
+        shape = (mb, n_patch + seq, self.cfg.d_model)
         for p in self.params.values():
             p.grad = None
 
         terminals, loss = [], torch.zeros((), device=dev)
         for j in range(M):
             ids = t["sample_ids"][j].long()
+            enc = st.encode(t["frames"][j], pcfg) if "frames" in t \
+                else None
             if k == 0:
-                h = st.embed_tokens(t["tokens"][j], pcfg.block_k)
+                h = st.embed_tokens(t["tokens"][j], pcfg.block_k,
+                                    t["patches"][j] if n_patch else None)
             else:
                 m_in_s = buffer_read(pcfg, self.m_in, ids,
                                      self.cfg.d_model) if aq else None
                 h, nmi = hop.recv(shape, self.cfg.torch_dtype, m_in_s)
                 if nmi is not None and self.has_bufs:
                     buffer_write(pcfg, self.m_in, ids, nmi)
-            out = st.trunk(h, pcfg, self.ep)
+            out = st.trunk(h, pcfg, self.ep, enc)
+            del enc
             if k < kk - 1:
                 m_out_s = buffer_read(pcfg, self.m_out, ids,
                                       self.cfg.d_model) if aq else None
@@ -784,7 +840,8 @@ class PipelineRank:
                     buffer_write(pcfg, self.m_out, ids, nmo)
                 terminals.append(token)
             else:
-                nll = st.nll_sum(out, t["targets"][j], t["mask"][j].float(),
+                nll = st.nll_sum(out[:, n_patch:], t["targets"][j],
+                                 t["mask"][j].float(),
                                  pcfg.loss_chunks) / max(count, 1.0)
                 terminals.append(nll)
                 loss = loss + nll.detach()
@@ -972,7 +1029,10 @@ def train_rank(rank: int, world: int, spec: dict) -> dict:
     directory (``orphans_removed``), step and phase times, peak device
     memory, kernel launches, transport bytes and manifests, replica
     checks (after every step) and its checkpoints' saves and restores
-    (``ckpt``: step, bytes, seconds), as plain data."""
+    (``ckpt``: step, bytes, seconds), as plain data.  An audio or vlm
+    model's global batches get stub frames or patches
+    (`data.pipeline.with_stub_media`, seeded by the run's seed), which
+    the `Dataset` does not make and its step needs."""
     from repro_torch.kernels import quant_pack as qp
 
     trainer, ds = build_rank(rank, world, spec)
@@ -1012,6 +1072,8 @@ def train_rank(rank: int, world: int, spec: dict) -> dict:
         next(batches)       # the data stream is deterministic: replay by
                             # skipping to the checkpointed position
     for step_i, batch in enumerate(batches, start=out["start"]):
+        batch = with_stub_media(trainer.cfg, batch, seed=spec["seed"],
+                                step=step_i)
         local = rank_batch(trainer, batch)
         mesh.transport.reset()
         qp.reset_launches()
@@ -1063,14 +1125,15 @@ def _bits(t: torch.Tensor) -> torch.Tensor:
 def check_replicas(trainer: PipelineRank) -> dict:
     """Ship each stage's m_out to the next stage, when the embedding is
     tied stage 0's embedding to the last stage, and a hybrid's shared
-    block from stage 0 to every other stage (the ``check`` plane,
-    outside the wire planes), and compare bit for bit.  Returns
-    {"m_in_equal", "embed_equal", "shared_equal"}, each a bool or None
-    where this rank checks nothing (an untied model has one embedding
-    and checks none)."""
+    block and an audio model's encoder from stage 0 to every other stage
+    (the ``check`` plane, outside the wire planes), and compare bit for
+    bit.  Returns {"m_in_equal", "embed_equal", "shared_equal",
+    "encoder_equal"}, each a bool or None where this rank checks
+    nothing (an untied model has one embedding and checks none)."""
     mesh, tr = trainer.mesh, trainer.mesh.transport
     k, kk = mesh.model_rank, mesh.shape.model
-    res = {"m_in_equal": None, "embed_equal": None, "shared_equal": None}
+    res = {"m_in_equal": None, "embed_equal": None, "shared_equal": None,
+           "encoder_equal": None}
     if trainer.has_bufs:
         if k < kk - 1:
             for name in sorted(trainer.m_out):
@@ -1090,9 +1153,12 @@ def check_replicas(trainer: PipelineRank) -> dict:
             e = trainer.stage.embed
             got = tr.recv(e.shape, e.dtype, mesh.stage_rank(0), "check")
             res["embed_equal"] = bool(torch.equal(_bits(got), _bits(e)))
-    shared = trainer.stage.shared_block
-    if kk > 1 and shared is not None:
-        params = [p for _, p in sorted(shared.named_parameters())]
+    st = trainer.stage
+    for key, mods in (("shared_equal", [st.shared_block]),
+                      ("encoder_equal", [st.enc_layers, st.enc_norm])):
+        if kk == 1 or mods[-1] is None:
+            continue
+        params = [p for m in mods for _, p in sorted(m.named_parameters())]
         if k == 0:
             for dst in range(1, kk):
                 for p in params:
@@ -1102,5 +1168,5 @@ def check_replicas(trainer: PipelineRank) -> dict:
             for p in params:
                 got = tr.recv(p.shape, p.dtype, mesh.stage_rank(0), "check")
                 eq &= torch.equal(_bits(got), _bits(p))
-            res["shared_equal"] = bool(eq)
+            res[key] = bool(eq)
     return res

@@ -43,6 +43,16 @@ A MoE model's loss holds its router's load-balance term (`models.model.
 loss_fn`), each worker's its own; as in JAX, the metrics' ``aux`` is
 that term's aux with one worker and 0.0 in the DP-workers branch.
 
+A batch may carry a vlm model's ``patches`` (B, P, d) or an audio
+model's ``frames`` (B, Se, d) (`train_step`; the worker split slices
+them with the rest, as JAX's).  The patches' rows cross the stage
+boundaries with the text, so the message buffers then span P + S rows
+(``seq_len`` of `init_train_state` is the trunk's length).  `train`
+feeds the `Dataset`'s batches, which hold neither: a vlm model trains
+text-only there, as in the JAX package, and an audio model, whose loss
+cannot run without frames (JAX's fails there), gets stub ones
+(`data.pipeline.with_stub_media`, seeded by the run's seed).
+
 `train_step` marks its phases for `torch.profiler` (``train.*``
 ranges: each worker's forward, the DP wire, AdamW, the buffer writes;
 the backward runs on autograd's own thread, outside them); outside a
@@ -62,6 +72,7 @@ import time
 from dataclasses import InitVar, dataclass, field
 from typing import Optional
 
+import numpy as np
 import torch
 from torch.profiler import record_function
 
@@ -70,6 +81,7 @@ from repro_torch.comm.config import CommConfig, reject_legacy_comm
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import aqsgd
 from repro_torch.core import grad_compress as GC
+from repro_torch.data.pipeline import with_stub_media
 from repro_torch.models import model as Mo
 from repro_torch.optim import adamw
 from repro_torch.rng import seeded_generator
@@ -319,11 +331,13 @@ def _tensors(tree: list) -> list:
 
 def device_batch(batch: dict, device) -> dict:
     """A `Dataset` batch (numpy) as tensors on ``device``: token ids as
-    int64, the mask as f32."""
+    int64; the mask, and frames or patches where a batch carries them,
+    as f32."""
     out = {}
     for k, v in batch.items():
-        t = torch.from_numpy(v)
-        out[k] = (t.float() if k == "mask" else t.long()).to(device)
+        t = torch.from_numpy(np.ascontiguousarray(v))
+        out[k] = (t.float() if k in ("mask", "frames", "patches")
+                  else t.long()).to(device)
     return out
 
 
@@ -347,6 +361,8 @@ def train(mcfg: ModelConfig, tcfg: SimTrainConfig, dataset, *,
         load_jax_params(state["model"], initial_params)
     losses, seconds, metrics = [], [], {}
     for step, batch in enumerate(dataset.batches(batch_size, num_steps)):
+        if mcfg.family == "audio":
+            batch = with_stub_media(mcfg, batch, seed=seed, step=step)
         t0 = time.perf_counter()
         state, metrics = train_step(state, device_batch(batch, device),
                                     gen, mcfg=mcfg, tcfg=tcfg)

@@ -6,21 +6,25 @@ per layer.  `from_jax_params` takes that pytree as numpy arrays, keyed
 by the JAX names, and unstacks it leaf by leaf, so both packages
 compute with the same weights (an untied ``head``, (d_model, vocab),
 the mamba layers' ``layers.mamba.*`` and ``layers.norm1.*``, the
-hybrid's unstacked ``shared_block.*``, and a MoE model's ``prefix``, a
-list of dense layers, as ``prefix.<i>.*`` included).  `jax_leaf_names`
-and `jax_leaves` give the port's parameters in ``jax.tree.leaves``
-order, the order of the data-parallel gradient bucket
-(`repro_torch.core.grad_compress`): keys sorted, so ``embed``,
-``final_norm``, ``head``, ``layers``, ``prefix`` (its items in turn),
-``shared_block``.
+hybrid's unstacked ``shared_block.*``, a MoE model's ``prefix``, a
+list of dense layers, as ``prefix.<i>.*``, and an audio model's
+encoder, ``enc_layers`` stacked as ``layers`` is, and ``enc_norm``,
+included).  `jax_leaf_names` and `jax_leaves` give the port's
+parameters in ``jax.tree.leaves`` order, the order of the data-parallel
+gradient bucket (`repro_torch.core.grad_compress`): keys sorted, so
+``embed``, ``enc_layers``, ``enc_norm``, ``final_norm``, ``head``,
+``layers`` (an audio layer's ``norm_x`` and ``xattn`` after its
+``norm2``), ``prefix`` (its items in turn), ``shared_block``.
 
 The distributed trainer's tree is the JAX package's pipeline layout
 (`to_pipeline_params`): ``layers`` zero-padded to K * lps layers and
 reshaped to ``stages`` (K, lps, ...), lps = ceil(L / K) over the L
 layers past the prefix (a MoE layer's expert stacks become 5-D, (K,
-lps, E, d, ff)).  `stage_state_dict` gives one pipeline stage its
-weights from it (every stage of a hybrid holds the whole
-``shared_block``, the first stage a MoE model's ``prefix``).
+lps, E, d, ff)); the encoder stays stacked beside them.
+`stage_state_dict` gives one pipeline stage its weights from it (every
+stage of a hybrid holds the whole ``shared_block``, every stage of an
+audio model the whole encoder, the first stage a MoE model's
+``prefix``).
 
 `jax_tree` goes the other way: any name -> tensor dict keyed by the
 port's parameter names (the parameters, the AdamW moments) as the JAX
@@ -36,6 +40,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.model import Transformer
+
+# the JAX trees' leaves stacked along dim 0, a layer a row
+STACKED = ("layers", "enc_layers")
 
 
 def _flatten(tree, prefix: str = "") -> dict:
@@ -59,14 +66,15 @@ def _name_key(name: str) -> tuple:
 
 
 def from_jax_tree(tree: dict) -> dict:
-    """A JAX params-shaped tree (tensors or numpy arrays; ``layers``
-    stacked along dim 0) as ``{port parameter name: leaf}``, each layer
-    a view of its stacked leaf."""
+    """A JAX params-shaped tree (tensors or numpy arrays; ``layers`` and
+    ``enc_layers`` stacked along dim 0) as ``{port parameter name:
+    leaf}``, each layer a view of its stacked leaf."""
     out = {}
     for name, leaf in _flatten(tree).items():
-        if name.startswith("layers."):
+        top, _, rest = name.partition(".")
+        if top in STACKED:
             for i in range(leaf.shape[0]):
-                out[f"layers.{i}.{name[len('layers.'):]}"] = leaf[i]
+                out[f"{top}.{i}.{rest}"] = leaf[i]
         else:
             out[name] = leaf
     return out
@@ -77,10 +85,12 @@ def from_jax_params(np_tree: dict, cfg: ModelConfig, *,
     """Build a `Transformer` holding the weights of a JAX params pytree
     (numpy arrays; ``layers`` stacked along dim 0)."""
     model = Transformer(cfg, device=device)
-    for name, arr in _flatten(np_tree["layers"]).items():
-        if np.shape(arr)[0] != cfg.n_trunk:
-            raise ValueError(f"layers.{name}: {np.shape(arr)[0]} stacked "
-                             f"layers, config has {cfg.n_trunk}")
+    for top, n in (("layers", cfg.n_trunk),
+                   ("enc_layers", cfg.encoder_layers)):
+        for name, arr in _flatten(np_tree.get(top, {})).items():
+            if np.shape(arr)[0] != n:
+                raise ValueError(f"{top}.{name}: {np.shape(arr)[0]} "
+                                 f"stacked layers, config has {n}")
     state = {k: np.asarray(v) for k, v in from_jax_tree(np_tree).items()}
     own = model.state_dict()
     if set(state) != set(own):
@@ -96,12 +106,13 @@ def jax_leaf_names(names) -> list:
     in ``jax.tree.leaves`` order (dict keys sorted at every level, a
     MoE model's ``prefix`` list in turn): ``[(jax_name, [port
     names])]``, where ``layers.<i>.<rest>`` for every i forms the one
-    stacked leaf ``layers.<rest>``, layer-major."""
+    stacked leaf ``layers.<rest>``, layer-major (and so
+    ``enc_layers.<i>.<rest>``)."""
     groups: dict = {}
     for name in names:
         parts = name.split(".")
-        stacked = parts[0] == "layers"
-        key = ".".join(["layers"] + parts[2:]) if stacked else name
+        stacked = parts[0] in STACKED
+        key = ".".join([parts[0]] + parts[2:]) if stacked else name
         groups.setdefault(key, []).append(
             (int(parts[1]) if stacked else 0, name))
     return [(k, [n for _, n in sorted(groups[k])])
@@ -111,8 +122,9 @@ def jax_leaf_names(names) -> list:
 def jax_leaves(params: dict) -> list:
     """``params`` (name -> tensor, as ``named_parameters`` gives them)
     as a tree in JAX leaf order: a tensor per top-level leaf and a list
-    of per-layer tensors per stacked ``layers.*`` leaf."""
-    return [[params[n] for n in names] if key.startswith("layers.")
+    of per-layer tensors per stacked ``layers.*`` or ``enc_layers.*``
+    leaf."""
+    return [[params[n] for n in names] if key.split(".")[0] in STACKED
             else params[names[0]]
             for key, names in jax_leaf_names(params)]
 
@@ -121,13 +133,13 @@ def jax_tree(named: dict) -> dict:
     """``named`` (port parameter name -> tensor) as the JAX package's
     nested tree: dotted names nested (``prefix.<i>.<rest>`` as item i
     of the ``prefix`` list), ``layers.<i>.<rest>`` stacked along a new
-    dim 0 (a new tensor on their device) under ``layers/<rest>``; the
-    other leaves are ``named``'s own tensors."""
+    dim 0 (a new tensor on their device) under ``layers/<rest>``, and so
+    ``enc_layers``; the other leaves are ``named``'s own tensors."""
     out: dict = {}
     for key, names in jax_leaf_names(named):
         parts = key.split(".")
         leaf = torch.stack([named[n] for n in names]) \
-            if parts[0] == "layers" else named[names[0]]
+            if parts[0] in STACKED else named[names[0]]
         node = out
         for p, nxt in zip(parts[:-1], parts[1:]):
             empty = [] if nxt.isdigit() else {}
@@ -193,11 +205,12 @@ def from_pipeline_params(np_tree: dict, cfg: ModelConfig,
 def stage_state_dict(np_pipe: dict, cfg: ModelConfig, num_stages: int,
                      stage: int, *, embed: bool, final_norm: bool,
                      head: bool = False, shared: bool = False,
-                     prefix: bool = False) -> dict:
+                     prefix: bool = False, encoder: bool = False) -> dict:
     """One pipeline stage's weights from a pipeline-layout tree (numpy):
     ``layers.<l>.*`` for its live layers l = 0.. (trunk layer
     stage * lps + l), plus ``embed``, ``final_norm.scale``, the untied
-    ``head``, the hybrid's ``shared_block.*`` and a MoE model's dense
+    ``head``, the hybrid's ``shared_block.*``, an audio model's encoder
+    (``enc_layers.<i>.*``, ``enc_norm.scale``) and a MoE model's dense
     ``prefix.<i>.*`` where the stage holds them.  Keys are the stage
     module's parameter names."""
     lps = _layers_per_stage(cfg, num_stages)
@@ -209,9 +222,13 @@ def stage_state_dict(np_pipe: dict, cfg: ModelConfig, num_stages: int,
         out["final_norm.scale"] = flat["final_norm.scale"]
     if head:
         out["head"] = flat["head"]
-    for part, want in (("shared_block.", shared), ("prefix.", prefix)):
+    for part, want in (("shared_block.", shared), ("prefix.", prefix),
+                       ("enc_norm.", encoder)):
         if want:
             out.update({k: v for k, v in flat.items() if k.startswith(part)})
+    if encoder:
+        out.update({k: np.asarray(v) for k, v in from_jax_tree(
+            {"enc_layers": np_pipe["enc_layers"]}).items()})
     for name, a in _flatten(np_pipe["stages"]).items():
         for l in range(lps):
             if stage * lps + l < cfg.n_trunk:

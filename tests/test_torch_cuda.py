@@ -887,6 +887,73 @@ def test_training_attention_matches_float64(card, case):
         assert err <= TRAIN_GRAD_TOL * want.abs().max().item(), (name, err)
 
 
+# non-causal calls, every key visible to every row (the whisper
+# encoder's self-attention, cross attention over its frames): (b, h, hk,
+# sq, sk, hd, q_offset); Sk of 1500 off the 32-key tile, Sq past Sk (the
+# decoder rows outnumbering the frames, at a query offset too), GQA,
+# several query tiles walked latest first
+NONCAUSAL_ATTN = [(2, 12, 12, 1500, 1500, 64, 0),
+                  (2, 12, 12, 128, 1500, 64, 0),
+                  (1, 4, 4, 200, 75, 64, 0),
+                  (1, 4, 2, 130, 37, 128, 50),
+                  (1, 2, 2, 65, 33, 256, 7)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", NONCAUSAL_ATTN)
+def test_flash_attention_noncausal_matches_float64(card, case, dtype):
+    """f32 against the float64 formula (2e-5), bf16 against the plain
+    version (2e-2); one launch a call."""
+    b, h, hk, sq, sk, hd, off = case
+    g = torch.Generator(device=card).manual_seed(sq + sk + hd)
+    q = torch.randn(b, h, sq, hd, generator=g, device=card).to(dtype)
+    k, v = (torch.randn(b, hk, sk, hd, generator=g, device=card).to(dtype)
+            for _ in "kv")
+    kw = dict(causal=False, window=10 ** 9, softcap=0.0, q_offset=off)
+    TP.reset_launches()
+    got = TFA.flash_attention_fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert TP.LAUNCHES["flash_attention_fwd"] == 1
+    if dtype == torch.float32:
+        want, tol = _flash_ref64(q, k, v, **kw), 2e-5
+    else:
+        want, tol = TR.flash_attention_ref(q, k, v, **kw), 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("sq,sk", [(300, 300), (448, 1500), (200, 75)])
+def test_noncausal_training_attention_matches_float64(card, sq, sk):
+    """The training attention at ``causal=False`` (the encoder's, Sq =
+    Sk, and cross attention's, keys of another length): o and lse within
+    2e-5 of the float64 formula, dq, dk, dv within 1e-4 of each one's
+    largest."""
+    from repro_torch.models import layers as TL
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b, h, hd = 2, 12, 64
+    gen = torch.Generator(device=card).manual_seed(sq + sk)
+    q = torch.randn(b, sq, h, hd, generator=gen, device=card)
+    k, v = (torch.randn(b, sk, h, hd, generator=gen, device=card)
+            for _ in "kv")
+    g = torch.randn(b, sq, h, hd, generator=gen, device=card)
+    o, lse = TFA.flash_attention_fwd(*(t.transpose(1, 2) for t in (q, k, v)),
+                                     causal=False, return_lse=True)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = TL.flash_attention(*leaves, window=TL.BIG_WINDOW, causal=False)
+    grads = torch.autograd.grad(out, leaves, g)
+    assert torch.equal(out.detach(), o.transpose(1, 2))
+    ref = [t.double().requires_grad_() for t in (q, k, v)]
+    sc = torch.einsum("bqhd,bkhd->bhqk", ref[0], ref[1]) / math.sqrt(hd)
+    o64 = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(sc, -1), ref[2])
+    grads64 = torch.autograd.grad(o64, ref, g.double())
+    torch.testing.assert_close(o.transpose(1, 2), o64.float(), rtol=2e-5,
+                               atol=2e-5)
+    torch.testing.assert_close(lse, torch.logsumexp(sc, -1).float(),
+                               rtol=2e-5, atol=2e-5)
+    for name, got, want in zip("qkv", grads, grads64):
+        err = (got.double() - want).abs().max().item()
+        assert err <= TRAIN_GRAD_TOL * want.abs().max().item(), (name, err)
+
+
 @pytest.mark.parametrize("arch", ["gpt2-xl-paper", "gemma2-9b"])
 def test_remat_gradients_are_bit_equal(card, arch):
     from repro_torch.configs.base import get_config

@@ -16,8 +16,8 @@ tests/test_torch_moe_dist.py's).
   restored in the other bit for bit (tests/test_torch_checkpoint.py's
   checks);
 * the three configs field for field with JAX's, their parameter counts
-  total and active; the audio and vlm families still refused by the
-  ROADMAP title "The other families".
+  total and active, and so the audio and vlm configs (whisper-small,
+  pixtral-12b), which the model and the distributed trainer take.
 """
 import jax
 import jax.numpy as jnp
@@ -256,16 +256,19 @@ def test_configs_match_jax(name):
 
 @pytest.mark.parametrize("name", ["whisper-small", "pixtral-12b"])
 def test_audio_and_vlm_still_refused(name):
-    """`get_config` refuses the archs the port does not run, and the
-    model and the distributed trainer refuse their families by the
-    ROADMAP title."""
-    with pytest.raises(KeyError, match="not ported"):
-        tget(name)
-    jc = jget(name, smoke=True)
-    fields = {f: getattr(jc, f) for f in tget(
-        "gemma2-9b").__dataclass_fields__}
-    cfg = tget("gemma2-9b", smoke=True).with_(**fields)
-    for build in (lambda: TM.Transformer(cfg, device="meta"),
-                  lambda: PL.stage_layout(cfg, 2)):
-        with pytest.raises(NotImplementedError, match="The other families"):
-            build()
+    """The audio and vlm configs, once refused, are ported: CONFIG and
+    SMOKE field for field with JAX's (the encoder and patch fields
+    included), their parameter counts total and active JAX's, and the
+    model and the distributed trainer take their families."""
+    for smoke in (False, True):
+        jc, tc = jget(name, smoke=smoke), tget(name, smoke=smoke)
+        for f in tc.__dataclass_fields__:
+            assert getattr(tc, f) == getattr(jc, f), f
+        assert tc.params_count() == jc.params_count()
+        assert tc.active_params_count() == jc.active_params_count()
+    cfg = tget(name, smoke=True)
+    assert bool(cfg.encoder_layers) == (name == "whisper-small")
+    assert bool(cfg.num_patches) == (name == "pixtral-12b")
+    TM.Transformer(cfg, device="meta")
+    assert PL.stage_layout(cfg, 2).lps == JPL.stage_layout(
+        jget(name, smoke=True), 2).lps

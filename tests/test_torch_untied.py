@@ -84,8 +84,8 @@ def test_model_owns_an_untied_head(untied):
     tied = TM.Transformer(tget("gemma2-27b", smoke=True))
     assert tied.head is None
     assert "head" not in dict(tied.named_parameters())
-    with pytest.raises(NotImplementedError, match="The other families"):
-        TM.Transformer(tcfg.with_(family="audio"))
+    with pytest.raises(ValueError, match="unknown family"):
+        TM.Transformer(tcfg.with_(family="no-such-family"))
 
 
 @pytest.mark.parametrize("num_stages,remat", [(1, False), (1, True),

@@ -4,7 +4,7 @@ with depth.
 
     python3 tools/train_memory.py [--layers 4 8 12] [--remat off on]
         [--steps 4] [--src TREE] [--arch ARCH --stages K]
-        [--dp-workers N]
+        [--dp-workers N] [--seq S]
 
 Runs `chip_smoke.py`'s ``[train]`` configuration (``gpt2-xl-paper`` at
 full width, 4 stage groups, or ``--arch`` at full width in ``--stages``
@@ -12,10 +12,12 @@ groups, as ``[train-zamba2]`` runs ``zamba2-2.7b --layers 12 --stages
 2``; aqsgd fw 4 / bw 8 stochastic, 4-bit DP on
 the ``ring`` over ``--dp-workers`` simulated workers, 2 by default, or
 with ``--dp-workers 0`` one worker and no DP plane, as ``[train-moe]``
-runs ``deepseek-moe-16b --layers 3 --stages 2``; batch 8 x seq 1024, 16
-samples,
-random weights from seed 0) at each depth of ``--layers``, with remat
-off and on, ``--steps`` steps each (from step 3 the delta path runs).
+runs ``deepseek-moe-16b --layers 3 --stages 2``; batch 8 x seq 1024
+(``--seq``), 16 samples, random weights from seed 0; ``whisper-small``
+takes stub frames (8, 1500, 768) a batch, as ``[train-whisper]`` runs
+it with ``--stages 2 --seq 448``, its ``--layers`` the decoder's) at
+each depth of ``--layers``, with remat off and on, ``--steps`` steps
+each (from step 3 the delta path runs).
 For every step it records the bytes resident at its start (weights,
 AdamW moments, message buffers, carries) and the peak of each phase,
 read with `torch.cuda.max_memory_allocated` after a reset at the
@@ -47,7 +49,7 @@ GIB = 2 ** 30
 
 
 def run(layers: int, remat: bool, steps: int, arch: str = "gpt2-xl-paper",
-        stages: int = 4, dp_workers: int = 2) -> dict:
+        stages: int = 4, dp_workers: int = 2, seq: int = 1024) -> dict:
     import torch
 
     from repro_torch.comm import config as comm_mod
@@ -68,12 +70,12 @@ def run(layers: int, remat: bool, steps: int, arch: str = "gpt2-xl-paper",
         optimizer=adamw.AdamWConfig(lr=1e-3, warmup_steps=1,
                                     total_steps=steps),
         **({"remat": True} if remat else {}))
-    ds = Dataset(DatasetConfig(num_samples=16, seq_len=1024,
+    ds = Dataset(DatasetConfig(num_samples=16, seq_len=seq,
                                vocab_size=cfg.vocab_size))
     dev = torch.device("cuda")
     torch.cuda.empty_cache()
     state = sim.init_train_state(
-        cfg, tcfg, 16, 1024, generator=torch.Generator().manual_seed(0),
+        cfg, tcfg, 16, seq, generator=torch.Generator().manual_seed(0),
         device=dev)
     gen = seeded_generator(dev, 0, "noise")
     phases: dict = {}
@@ -103,7 +105,10 @@ def run(layers: int, remat: bool, steps: int, arch: str = "gpt2-xl-paper",
     sim._loss_and_grads, sim.adamw.apply_updates = grads_spy, adamw_spy
     records = []
     try:
-        for batch in ds.batches(8, steps):
+        for i, batch in enumerate(ds.batches(8, steps)):
+            if cfg.family == "audio":
+                from repro_torch.data.pipeline import with_stub_media
+                batch = with_stub_media(cfg, batch, seed=0, step=i)
             b = sim.device_batch(batch, dev)
             torch.cuda.synchronize()
             resident = torch.cuda.memory_allocated()
@@ -150,6 +155,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--arch", default="gpt2-xl-paper")
     ap.add_argument("--stages", type=int, default=4)
     ap.add_argument("--dp-workers", type=int, default=2)
+    ap.add_argument("--seq", type=int, default=1024)
     args = ap.parse_args(argv)
     sys.path.insert(0, os.path.join(os.path.abspath(args.src), "src"))
     if not torch.cuda.is_available():
@@ -159,7 +165,7 @@ def main(argv=None) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     card = torch.cuda.get_device_properties(0)
     runs = [run(n, mode == "on", args.steps, args.arch, args.stages,
-                args.dp_workers)
+                args.dp_workers, args.seq)
             for mode in args.remat for n in args.layers]
     fits = {}
     for mode in args.remat:
@@ -178,6 +184,7 @@ def main(argv=None) -> dict:
                       "card_gib": cap}
     out = {"src": os.path.abspath(args.src), "arch": args.arch,
            "stages": args.stages, "dp_workers": args.dp_workers,
+           "seq": args.seq,
            "device": torch.cuda.get_device_name(0), "runs": runs,
            "fits": fits}
     print(json.dumps(out))

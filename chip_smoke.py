@@ -538,14 +538,16 @@ SSM_HOPS = ((M_BATCH, M_D), (Z_BATCH, Z_D))
 TZ_BUCKET = (1299696, 512)
 
 
-def ssm_state_bytes(cfg, batch) -> tuple:
+def ssm_state_bytes(cfg, batch, conv_itemsize=4) -> tuple:
     """The byte model of an ssm or hybrid model's serving state: the
-    ``ssm`` states (L, B, h, p, n) and ``conv`` windows (L, B, width-1,
-    d_inner + 2 g n), f32 both."""
+    ``ssm`` states (L, B, h, p, n) f32 and ``conv`` windows (L, B,
+    width-1, d_inner + 2 g n), f32 (a uniform batch's) or bf16 (the
+    batcher's pool: ``conv_itemsize`` 2)."""
     conv_dim = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
     return (cfg.num_layers * batch * cfg.ssm_heads * cfg.ssm_headdim
             * cfg.ssm_state * 4,
-            cfg.num_layers * batch * (cfg.ssm_conv_width - 1) * conv_dim * 4)
+            cfg.num_layers * batch * (cfg.ssm_conv_width - 1) * conv_dim
+            * conv_itemsize)
 
 
 def cell_launches(gen, layers, coded=None):
@@ -669,6 +671,45 @@ MEDIA_HOPS = ((W_BATCH, W_D), (P_BATCH, P_D))
 # pixtral's 16 patches ahead of it), 6 decode steps, raw KV and 8-bit KV
 # with the card's codes carried at near-ties
 MEDIA_CHECK_PROMPT, MEDIA_CHECK_STEPS = 8, 6
+
+
+def cont_args(arch, *, layers=0, stages=2, kv_bits=8) -> list:
+    """The launcher's --continuous run of ``arch`` on `CONT_ARGS`'s
+    stream: CONT_REQUESTS requests of 4-PROMPT tokens over CONT_SLOTS
+    slots, GEN tokens each, ``stages`` stage groups with the 4-bit aqsgd
+    hop, ``kv_bits``-bit KV, the first ``layers`` layers (0: all)."""
+    return ["--arch", arch, *(["--layers", str(layers)] if layers else []),
+            "--stages", str(stages), "--mode", "aqsgd", "--fw-bits", "4",
+            "--kv-bits", str(kv_bits), "--continuous", "--slots",
+            str(CONT_SLOTS), "--batch", str(BATCH), "--prompt-len",
+            str(PROMPT), "--gen", str(GEN), "--device", "cuda", "--seed",
+            "0"]
+
+
+# the continuous batcher on the ssm, hybrid, audio and vlm families through
+# the launcher's --continuous, [serve-continuous]'s stream: mamba2-1.3b at
+# full size (--kv-bits 8 passes through: no KV); zamba2-2.7b at full width
+# cut to ZC_LAYERS of its 54 layers (3 of 9 blocks, for the host's weight
+# draw), 3 stage groups as [serve-zamba2], raw k and v (--kv-bits 0, JAX's
+# rule); whisper-small at full size and pixtral-12b at P_LAYERS of 40, both
+# 8-bit KV.  The JAX batcher passes no frames or patches, so whisper's cross
+# caches stay zero and pixtral serves text in a cache num_patches rows
+# longer; the pool's raw leaves (conv windows, the hybrid's k and v, the
+# cross caches) are bf16, the launcher's dtype.  tag -> [(arch, args)]
+ZC_LAYERS, ZC_STAGES = 18, 3
+FAMILY_CONT = {
+    "serve-ssm-continuous": [("mamba2-1.3b", cont_args("mamba2-1.3b"))],
+    "serve-hybrid-continuous": [("zamba2-2.7b", cont_args(
+        "zamba2-2.7b", layers=ZC_LAYERS, stages=ZC_STAGES, kv_bits=0))],
+    "serve-media-continuous": [
+        ("whisper-small", cont_args("whisper-small")),
+        ("pixtral-12b", cont_args("pixtral-12b", layers=P_LAYERS))],
+}
+# their SMOKE card-vs-CPU checks: config fields replaced (zamba2 at
+# head_dim 80, so the card's hd-80 B10 path reads the pool's bf16 k and v)
+FAMILY_CONT_CHECKS = {"mamba2-1.3b": {},
+                      "zamba2-2.7b": {"head_dim": Z_HEAD_DIM},
+                      "whisper-small": {}, "pixtral-12b": {}}
 # [train-whisper]: the simulated trainer at full size, batch 8 x 448
 # tokens (whisper's decoder context) with stub frames (8, 1500, 768), 2
 # stage groups over the decoder, [train]'s other settings (aqsgd fw 4 /
@@ -2745,9 +2786,13 @@ def serve_continuous_phase(torch, qp, serve):
 
 
 def _slice_batcher(model, num_slots, cache_len, **kw):
+    """A batcher with the slice's codecs: the 4-bit aqsgd hop over 2
+    stage groups and 8-bit KV (raw for the hybrid family, JAX's rule;
+    the ssm family's passes through)."""
     from repro_torch.serving import ContinuousBatcher, DeltaHopCodec, KVCodec
+    bits = 0 if model.cfg.family == "hybrid" else 8
     return ContinuousBatcher(model, num_slots=num_slots, cache_len=cache_len,
-                             kv_codec=KVCodec(bits=8),
+                             kv_codec=KVCodec(bits=bits),
                              hop_codec=DeltaHopCodec(mode="aqsgd", bits=4),
                              num_stages=2, **kw)
 
@@ -2814,7 +2859,7 @@ def serve_continuous_guard(torch):
 
 def continuous_reference_check(torch, arch,
                                tag="serve-continuous-reference-check",
-                               carry_kv=False):
+                               carry_kv=False, **cfg_kw):
     """[serve-continuous-reference-check]: the batcher on the card
     (kernels) against the same SMOKE weights on the CPU (plain versions),
     in lockstep (no EOS, so both fill and free the same slots at the same
@@ -2833,14 +2878,18 @@ def continuous_reference_check(torch, arch,
     are written, and a code a rounding near-tie put on the other side is
     carried on (`KVTap`; the flips counted there); the raw stores (a
     MoE model's dense prefix's pk/pv) are f32 then, as `reference_check`'s
-    (bf16 stores round near-ties apart as the codes do, uncarried)."""
+    (bf16 stores round near-ties apart as the codes do, uncarried).
+    ``cfg_kw`` replaces config fields (zamba2 at head_dim 80).  The ssm
+    and hybrid families keep no KV codes (`_slice_batcher`): their bf16
+    pool's conv windows (and the hybrid's raw k and v) feed the logits
+    compared."""
     import numpy as np
     from repro_torch.configs.base import get_config
     from repro_torch.models.model import Transformer
     from repro_torch.serving import DeltaHopCodec
 
     window = CONT_CHECK_WINDOW.get(arch)
-    cfg = get_config(arch, smoke=True)
+    cfg = get_config(arch, smoke=True).with_(**cfg_kw)
     if window:
         cfg = cfg.with_(sliding_window=window)
     rng = np.random.default_rng(2)
@@ -2907,6 +2956,8 @@ def continuous_reference_check(torch, arch,
         for j, i in live.items():
             dec = max(dec, (lc[i] - lg[i]).abs().max().item())
             for name in ("k_codes", "v_codes"):
+                if name not in cpu.caches:
+                    continue
                 d = (cpu.caches[name][:, i].int()
                      - gpu.caches[name][:, i].cpu().int()).abs()
                 worst = max(worst, d.max().item())
@@ -2917,7 +2968,7 @@ def continuous_reference_check(torch, arch,
         assert len(cpu.kv_codec.log) == len(gpu.kv_codec.log) > 0
         flips = sum(f["codes"] for f in cpu.kv_codec.flips)
         total = cpu.kv_codec.codes
-    phase(tag, arch=arch,
+    phase(tag, arch=arch, head_dim=cfg.head_dim,
           window=window, requests=len(prompts), slots=3,
           ticks=cpu._tick, streams_equal=len(prompts) - len(forked),
           forked_at_near_tie=json.dumps(forked),
@@ -2938,7 +2989,8 @@ def continuous_reference_check(torch, arch,
     assert worst <= 1, worst
     assert flips <= MAX_FLIP_FRACTION * total, (flips, total)
     assert cfg.family != "ssm" or not any(
-        n in cc for n in ("k", "v", "k_codes", "v_codes")), "ssm KV store"
+        n in bat.caches for bat in bats
+        for n in ("k", "v", "k_codes", "v_codes")), "ssm KV store"
 
 
 class RouteTap:
@@ -3117,19 +3169,19 @@ def serve_moe_continuous_phase(torch, qp, serve):
     return launches
 
 
-def moe_continuous_check(torch, qp):
-    """[serve-moe-continuous-reference-check]: the continuous batcher on
-    deepseek-moe-16b SMOKE with raw f32 caches and one stage on the card
+def raw_continuous_check(torch, qp, arch, tag, **cfg_kw):
+    """The continuous batcher on ``arch``'s SMOKE model (config fields
+    ``cfg_kw`` replaced) with raw f32 caches and one stage on the card
     (kernels) against the same weights on the CPU: 5 requests of 3-12
-    tokens over 3 slots, 6 tokens each, token for token (the pooled step
-    dispatches a row at a time, as JAX's).  The 8-bit KV cache and the
-    hop are `continuous_reference_check`'s, with the KV carry."""
+    tokens over 3 slots, 6 tokens each, token for token.  Only B10 may
+    launch (the admissions' prefills), and it must wherever the model
+    attends (never in the ssm family).  Returns the card's launches."""
     import numpy as np
     from repro_torch.configs.base import get_config
     from repro_torch.models.model import Transformer
     from repro_torch.serving import ContinuousBatcher
 
-    cfg = get_config("deepseek-moe-16b", smoke=True)
+    cfg = get_config(arch, smoke=True).with_(**cfg_kw)
     rng = np.random.default_rng(2)
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
                for n in (3, 12, 7, 5, 9)]
@@ -3147,7 +3199,7 @@ def moe_continuous_check(torch, qp):
             torch.cuda.synchronize()
             launches = dict(qp.LAUNCHES)
             ticks = bat._tick
-    phase("serve-moe-continuous-reference-check", arch=cfg.name,
+    phase(tag, arch=cfg.name, head_dim=cfg.head_dim,
           requests=len(prompts), slots=3, ticks=ticks, kv="raw f32",
           streams_card=json.dumps(streams["cuda"]),
           streams_equal=streams["cuda"] == streams["cpu"],
@@ -3155,12 +3207,137 @@ def moe_continuous_check(torch, qp):
     assert streams["cuda"] == streams["cpu"], streams
     assert all(len(t) == 6 for t in streams["cuda"])
     # raw caches and one stage: the prefills' attention alone
-    assert launches["flash_attention_fwd"] > 0, launches
+    assert (launches["flash_attention_fwd"] > 0) == (cfg.family != "ssm"), \
+        launches
     assert all(v == 0 for k, v in launches.items()
                if k != "flash_attention_fwd"), launches
+    return launches
+
+
+def moe_continuous_check(torch, qp):
+    """[serve-moe-continuous-reference-check]: `raw_continuous_check` on
+    deepseek-moe-16b SMOKE (the pooled step dispatches a row at a time,
+    as JAX's), then the 8-bit KV cache and the hop of
+    `continuous_reference_check`, with the KV carry."""
+    raw_continuous_check(torch, qp, "deepseek-moe-16b",
+                         "serve-moe-continuous-reference-check")
     continuous_reference_check(
-        torch, cfg.name, tag="serve-moe-continuous-kv8-reference-check",
-        carry_kv=True)
+        torch, "deepseek-moe-16b",
+        tag="serve-moe-continuous-kv8-reference-check", carry_kv=True)
+
+
+def family_continuous_phase(torch, qp, serve, tag, arch, args):
+    """[serve-ssm-continuous], [serve-hybrid-continuous] and
+    [serve-media-continuous]: the launcher's --continuous run of
+    ``args`` (`FAMILY_CONT`), its counters set to 0 just before and
+    checked exactly just after: the hop's B1 and B2 once a tick a
+    boundary; B3 and B4 (k and v in one launch each) on every coded
+    layer of every admission and tick (whisper and pixtral; never on
+    mamba2 or zamba2); B10 in each admission's prefill, once a shared
+    block call (zamba2), twice a decoder layer (whisper: its
+    self-attention and its cross attention over the zero cross caches,
+    no encoder: no frames), once a layer (pixtral), never (mamba2).  The
+    hop bytes as sent, the pool's state bytes (f32 ssm states, bf16 conv
+    windows), KV bytes and bf16 cross caches against their byte models.
+    Returns its launches."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.serving import DeltaHopCodec, KVCodec, delta
+
+    full = get_config(arch)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    qp.reset_launches()
+    delta.reset_sent()
+    out = serve.main(args)
+    torch.cuda.synchronize()
+    launches = dict(qp.LAUNCHES)
+    sent = dict(delta.SENT)
+    peak = torch.cuda.max_memory_allocated()
+    reqs, ticks, adm = out["requests"], out["ticks"], out["admissions"]
+    cfg = out["model"].cfg
+    fam, layers, slots, cache = cfg.family, cfg.num_layers, CONT_SLOTS, \
+        out["cache_len"]
+    hk, hd = cfg.num_kv_heads, cfg.head_dim
+    bounds = int(args[args.index("--stages") + 1]) - 1
+    hop_model = DeltaHopCodec(mode="aqsgd", bits=4).hop_bytes(
+        slots, cfg.d_model) * ticks * bounds
+    ssm_model, conv_model = ssm_state_bytes(cfg, slots, 2) \
+        if fam in ("ssm", "hybrid") else (0, 0)
+    coded = layers if fam in ("audio", "vlm") else 0
+    kv_model = KVCodec(bits=8).stored_bytes((slots, cache, hk, hd)) * 2 \
+        * coded if coded else 0
+    if fam == "hybrid":
+        kv_model = 2 * cfg.n_blocks * slots * cache * hk * hd \
+            * torch.bfloat16.itemsize
+    cross_model = 2 * layers * slots * cfg.encoder_seq * hk * hd \
+        * torch.bfloat16.itemsize if fam == "audio" else 0
+    b10 = adm * (cfg.n_blocks if fam == "hybrid" else
+                 {"ssm": 0, "audio": 2 * layers, "vlm": layers}[fam])
+    want = {name: 0 for name in launches}
+    want.update(flash_attention_fwd=b10, quantize_pack=coded * (adm + ticks),
+                unpack_dequant=coded * (adm + ticks),
+                delta_quantize_pack=ticks * bounds,
+                dequant_unpack_accumulate=ticks * bounds)
+    phase(tag, arch=arch, family=fam,
+          layers=f"{layers}/{full.num_layers}", d_model=cfg.d_model,
+          params=cfg.params_count(), stages=bounds + 1, slots=slots,
+          requests=len(reqs), prompt_lens=json.dumps([len(r.prompt)
+                                                      for r in reqs]),
+          cache=cache, admissions=adm, ticks=ticks, tokens=out["tokens"],
+          decode_tokens=out["decode_tokens"],
+          build_s=f"{out['build_s']:.3f}", wall_s=f"{out['wall_s']:.4f}",
+          tok_s=f"{out['tok_s']:.2f}", prefill_s=f"{out['prefill_s']:.4f}",
+          decode_s=f"{out['decode_s']:.4f}",
+          decode_tok_s=f"{out['decode_tok_s']:.2f}",
+          ms_per_tick=f"{out['decode_s'] / ticks * 1e3:.3f}",
+          peak_mem_gib=f"{peak / 2**30:.3f}", launches=json.dumps(launches),
+          hops=sent["hops"], hop_bytes=sent["bytes"],
+          hop_bytes_model=hop_model, state_bytes=out["state_bytes"],
+          state_bytes_model=f"{ssm_model}+{conv_model}",
+          kv_store_bytes=out["kv_store_bytes"], kv_store_bytes_model=kv_model,
+          cross_cache_bytes=out["cross_bytes"],
+          cross_cache_bytes_model=cross_model)
+    assert cfg.d_model == full.d_model, (cfg.d_model, full.d_model)
+    assert len(reqs) == CONT_REQUESTS and adm == CONT_REQUESTS, (len(reqs),
+                                                                 adm)
+    for r in reqs:
+        assert r.state == "DONE" and not r.error, (r.state, r.error)
+        assert len(r.tokens) == GEN, len(r.tokens)
+        assert all(0 <= t < cfg.vocab_size for t in r.tokens), r.tokens
+    assert out["tokens"] == CONT_REQUESTS * GEN
+    assert cache == CACHE_LEN + cfg.num_patches, cache
+    assert launches == want, (launches, want)
+    assert sent == {"hops": ticks * bounds, "bytes": hop_model}, sent
+    assert out["state_bytes"] == ssm_model + conv_model, out["state_bytes"]
+    assert out["kv_store_bytes"] == kv_model, out["kv_store_bytes"]
+    assert out["cross_bytes"] == cross_model, out["cross_bytes"]
+    for name, n in want.items():
+        if n:
+            assert launches[name] > 0, \
+                f"{name} was never launched on the {tag} path ({arch})"
+    del out
+    torch.cuda.empty_cache()
+    return launches
+
+
+def family_continuous_checks(torch, qp, arch, **cfg_kw):
+    """The SMOKE card-vs-CPU checks of the batcher on ``arch``
+    (`FAMILY_CONT_CHECKS`): raw f32 streams token for token
+    (`raw_continuous_check`), then the bf16 pool with the 4-bit hop over
+    2 stages in lockstep (`continuous_reference_check`), whisper's and
+    pixtral's with 8-bit KV and the card's codes carried at rounding
+    near-ties (`KVTap`)."""
+    from repro_torch.configs.base import get_config
+
+    short = arch.split("-")[0]
+    raw_continuous_check(
+        torch, qp, arch, f"serve-{short}-continuous-reference-check",
+        **cfg_kw)
+    media = get_config(arch, smoke=True).family in ("audio", "vlm")
+    continuous_reference_check(
+        torch, arch, tag=f"serve-{short}-continuous-"
+                         f"{'kv8' if media else 'hop'}-reference-check",
+        carry_kv=media, **cfg_kw)
 
 
 def serve_cell_phase(torch, qp, serve, tag):
@@ -4384,6 +4561,14 @@ def main() -> int:
                             MEDIA_CHECK_STEPS, kv_bits=kv_bits,
                             carry_kv=kv_bits == 8,
                             tag=f"serve-{arch.split('-')[0]}-reference-check")
+    # the continuous batcher on the ssm, hybrid, audio and vlm families
+    # through the launcher, and its SMOKE checks on each arch
+    family_cont = {arch: family_continuous_phase(torch, qp, serve, tag, arch,
+                                                 args)
+                   for tag, cells in FAMILY_CONT.items()
+                   for arch, args in cells}
+    for arch, kw in FAMILY_CONT_CHECKS.items():
+        family_continuous_checks(torch, qp, arch, **kw)
 
     train_run = train_phase(torch, qp)
     train_launches = train_run["launches"]
@@ -4459,6 +4644,8 @@ def main() -> int:
                "serve_deepseek_moe": moe_launches["serve-deepseek-moe"],
                "serve_mixtral": moe_launches["serve-mixtral"],
                "serve_moe_continuous": moe_cont_launches,
+               **{f"serve_{arch.split('-')[0]}_continuous": launches
+                  for arch, launches in family_cont.items()},
                "serve_whisper": media_launches["serve-whisper"],
                "serve_pixtral": media_launches["serve-pixtral"],
                "train_whisper": whisper_train["launches"],

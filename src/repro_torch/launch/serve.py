@@ -13,10 +13,12 @@ generating ``--gen`` tokens, over ``--slots`` cache slots
 JSON are those of the JAX package, and the resolved config is echoed
 back as JSON; ``--list-wires`` prints the wire registry.  Sharded
 serving (``--data-par``/``--model-par`` above 1) is refused with the
-title of the ROADMAP item that ports it, and so is ``--continuous``
-with the ssm, hybrid, audio and vlm families.  The stage groups follow the JAX
-package's rule: ``--stages`` divides the layers (a MoE model's past its
-dense prefix), or a hybrid's blocks.
+title of the ROADMAP item that ports it.  ``--continuous`` takes every
+family, as JAX's: its requests carry no frames or patches (an audio
+pool's cross caches stay zero, a vlm model serves text only), and a
+vlm pool still holds ``num_patches`` more rows.  The stage groups
+follow the JAX package's rule: ``--stages`` divides the layers (a MoE
+model's past its dense prefix), or a hybrid's blocks.
 The weights and the prompt are a random init from ``--seed``, drawn
 on the CPU and moved to the device leaf by leaf, so a seed gives the
 same model on the card and on the CPU; so are an audio model's stub
@@ -103,8 +105,7 @@ import torch
 
 from repro_torch.comm import config as comm_cli
 from repro_torch.configs.base import ARCHS, get_config
-from repro_torch.models.model import (CONTINUOUS_MEDIA, Transformer,
-                                      stage_size)
+from repro_torch.models.model import Transformer, stage_size
 from repro_torch.rng import seeded_generator
 from repro_torch.serving import ContinuousBatcher, DeltaHopCodec, KVCodec
 
@@ -265,12 +266,7 @@ def serve(args) -> dict:
     tok_s = args.gen * args.batch / (t2 - t1)
     print(f"decode {args.gen} tokens: {t2 - t1:.3f}s ({tok_s:.1f} tok/s)")
     print("sample token ids:", generated[0][:12].tolist())
-    kv_bytes, state_bytes, cross_bytes = (
-        sum(caches[n].numel() * caches[n].element_size()
-            for n in names if n in caches)
-        for names in (("k", "v", "k_codes", "k_scale", "v_codes",
-                       "v_scale", "pk", "pv"), ("ssm", "conv"),
-                      ("xk", "xv")))
+    kv_bytes, state_bytes, cross_bytes = pool_bytes(caches)
     if state_bytes:
         print(f"ssm state: {state_bytes} B ({caches['ssm'].nbytes} ssm + "
               f"{caches['conv'].nbytes} conv)")
@@ -313,7 +309,8 @@ def serve_continuous(args, model, dev, cache_len: int, kv_codec, hop):
     `ContinuousBatcher` of ``args.slots`` slots (default ``args.batch``).
     Returns the model, the requests, the tick and token counts, the
     wall time and its tokens a second, the prefill and decode seconds
-    apart (the batcher's ``stats``) and the pool's KV store bytes."""
+    apart (the batcher's ``stats``) and the pool's KV store, state and
+    cross-cache bytes (`pool_bytes`)."""
     slots = args.slots or args.batch
     bat = ContinuousBatcher(model, num_slots=slots, cache_len=cache_len,
                             kv_codec=kv_codec, hop_codec=hop,
@@ -336,17 +333,39 @@ def serve_continuous(args, model, dev, cache_len: int, kv_codec, hop):
     print(f"continuous: {st['prefills']} prefills {st['prefill_s']:.3f}s, "
           f"{st['ticks']} decode ticks {st['decode_s']:.3f}s "
           f"({dec_tok_s:.1f} tok/s)")
-    kv_bytes = sum(t.numel() * t.element_size()
-                   for n, t in bat.caches.items()
-                   if n in ("k", "v", "k_codes", "k_scale", "v_codes",
-                            "v_scale", "pk", "pv"))
+    kv_bytes, state_bytes, cross_bytes = pool_bytes(bat.caches)
+    pool = bat.caches
+    if state_bytes:
+        print(f"ssm state: {state_bytes} B ({pool['ssm'].nbytes} ssm "
+              f"{_dtype_name(pool['ssm'])} + {pool['conv'].nbytes} conv "
+              f"{_dtype_name(pool['conv'])}, {slots} slots)")
+    if cross_bytes:
+        print(f"cross caches: {cross_bytes} B raw "
+              f"{_dtype_name(pool['xk'])} ({model.cfg.num_layers} layers x "
+              f"{model.cfg.encoder_seq} frames, k and v, {slots} slots)")
     return {"model": model, "requests": reqs, "num_slots": slots,
             "ticks": st["ticks"],
             "admissions": st["prefills"], "tokens": n_tok, "wall_s": dt,
             "tok_s": n_tok / dt, "prefill_s": st["prefill_s"],
             "decode_s": st["decode_s"], "decode_tokens": dec_tok,
             "decode_tok_s": dec_tok_s,
-            "kv_store_bytes": kv_bytes, "cache_len": cache_len}
+            "kv_store_bytes": kv_bytes, "state_bytes": state_bytes,
+            "cross_bytes": cross_bytes, "cache_len": cache_len}
+
+
+def pool_bytes(caches: dict) -> tuple:
+    """Device bytes of a cache dict's KV stores (raw or coded, a MoE
+    model's raw prefix included), its ``ssm`` states and ``conv``
+    windows, and an audio model's cross caches ``xk``/``xv``."""
+    return tuple(sum(caches[n].nbytes for n in names if n in caches)
+                 for names in (("k", "v", "k_codes", "k_scale", "v_codes",
+                                "v_scale", "pk", "pv"), ("ssm", "conv"),
+                               ("xk", "xv")))
+
+
+def _dtype_name(t: torch.Tensor) -> str:
+    return {torch.float32: "f32", torch.bfloat16: "bf16"}.get(
+        t.dtype, str(t.dtype).removeprefix("torch."))
 
 
 def main(argv=None):
@@ -360,9 +379,6 @@ def main(argv=None):
         if getattr(args, flag) > 1:
             ap.error(f"--{flag.replace('_', '-')}: {what} is not ported "
                      f"yet")
-    if args.continuous and get_config(args.arch).family in ("audio", "vlm"):
-        # JAX's batcher passes its requests no frames or patches
-        ap.error(f"--continuous: {CONTINUOUS_MEDIA} is not ported yet")
     return serve(args)
 
 

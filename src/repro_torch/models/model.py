@@ -68,7 +68,13 @@ positions start at its own head, its raw-cache row and KV append are
 written at the head clamped into the store (``dynamic_update_slice``'s
 rule, which the JAX batcher applies row by row under ``vmap``), and
 the heads advance on the device, so the step reads no position on the
-host.
+host.  Every family takes such a pool: an ssm or hybrid step reads and
+writes each row's ``ssm`` state and ``conv`` window in place (an ssm
+step reads no position at all), a hybrid's shared block and an audio
+model's decoder self-attention write at the per-row heads, and an audio
+model's cross attention reads each row's own ``xk``/``xv`` (zeros in
+the batcher's pool, which passes no ``frames`` or ``patches``, as the
+JAX batcher passes none).
 
 A MoE layer dispatches as JAX's serving does: a prefill (S > 1) per
 sequence, a uniform decode step over its B rows (so two rows that pick
@@ -93,16 +99,6 @@ from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
-# the title of the ROADMAP item that ports the continuous batcher to the
-# families whose requests carry frames or patches
-CONTINUOUS_MEDIA = ('continuous batching of the audio and vlm families '
-                    '(ROADMAP queue A, "Continuous batching of the audio '
-                    'and vlm families")')
-# the title of the ROADMAP item that ports the continuous batcher to the
-# families whose caches hold SSM states
-CONTINUOUS_SSM = ('continuous batching of the ssm and hybrid families '
-                  '(ROADMAP queue A, "Continuous batching of the SSM and '
-                  'hybrid families")')
 
 
 class Block(nn.Module):
@@ -185,7 +181,10 @@ class MambaBlock(nn.Module):
         """One serving step from the stored states, written back in
         place: a prefill (S > 1) from ``ssm_state`` (the conv starts from
         zeros, as JAX's), or a decode step (S = 1) over the stored conv
-        window."""
+        window.  ``ssm_state`` (B, h, p, n) f32 and ``conv_state`` (B,
+        width-1, conv_dim) in the cache's dtype are views of a layer's
+        rows, a uniform batch's or the continuous batcher's whole pool,
+        so a pooled step touches no other copy of the pool."""
         hin = self.norm1(h)
         if h.shape[1] == 1:
             out, nst, ncv = S.mamba2_decode_step(self.mamba, hin, self.cfg,
@@ -471,12 +470,6 @@ class Transformer(nn.Module):
         pos0 = caches["pos"]
         quant = kv_codec is not None and bool(kv_codec.bits) \
             and cfg.family not in ("ssm", "hybrid")
-        if isinstance(pos0, torch.Tensor) and cfg.family in ("ssm", "hybrid"):
-            raise NotImplementedError(f"per-row write heads: {CONTINUOUS_SSM} "
-                                      f"is not ported yet")
-        if isinstance(pos0, torch.Tensor) and cfg.family in ("audio", "vlm"):
-            raise NotImplementedError(f"per-row write heads: "
-                                      f"{CONTINUOUS_MEDIA} is not ported yet")
         if frames is not None:
             enc = self.encode_audio(frames)
             for i, blk in enumerate(self.layers):
@@ -489,13 +482,14 @@ class Transformer(nn.Module):
         positions = pos0[:, None] + steps \
             if isinstance(pos0, torch.Tensor) else pos0 + steps.expand(b, s)
         if cfg.family == "ssm":
-            cache_len = 0
+            # no KV: the step reads no position and writes no row
+            cache_len, write_at = 0, None
         else:
             cache_len = caches["k_codes" if quant else "k"].shape[2]
-        # per-row heads: the raw-cache writes take them clamped, once a
-        # step; B3's append clamps in the kernel
-        write_at = clamp_heads(pos0, cache_len, s) \
-            if isinstance(pos0, torch.Tensor) else pos0
+            # per-row heads: the raw-cache writes take them clamped, once
+            # a step; B3's append clamps in the kernel
+            write_at = clamp_heads(pos0, cache_len, s) \
+                if isinstance(pos0, torch.Tensor) else pos0
         per = stage_size(cfg, num_stages)
         n = per * num_stages
         boundary_state = {"m": caches["hop_m"]} if "hop_m" in caches \

@@ -30,6 +30,18 @@ advance on garbage, as in the reference; their heads may pass
 row's own store.  Each admission prefills at B = 1 and the prompt's own
 length (B10 over the row's cache), so the pooled step never prefills.
 
+Every family serves, as in the reference, whose pooled step carries
+every cache leaf at the slot axis 1: an ssm or hybrid slot's rows are
+its layers' SSD states (f32) and conv windows (the pool's dtype), which
+an admission's prefill fills from zero states and the pooled step reads
+and writes in place (the hybrid's shared block also keeps raw k and v
+at the per-row heads; a quantizing ``kv_codec`` there raises JAX's
+``quantize_caches`` message when the batcher is built).  Requests carry
+no frames or patches, as the reference's: an audio slot's cross caches
+``xk``/``xv`` stay zero, a vlm model serves text only.  `_write_slot`,
+the fault injection and the slot guard take every leaf, these
+included.
+
 Compression hooks: a `serving.kvcache.KVCodec` switches the pool to the
 quantized layout, and a `serving.delta.DeltaHopCodec` with
 ``num_stages`` routes every hidden-state hop between stage groups

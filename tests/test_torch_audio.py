@@ -464,7 +464,7 @@ def test_serve_entry_point_on_cpu(media, capsys):
     """The launcher at SMOKE size on the CPU: 8-bit KV, the 4-bit hop;
     the bytes it prints and the stores it fills are the JAX models'; a
     vlm cache holds the patches' rows too, an audio model's cross
-    caches their own count."""
+    caches their own count; ``--continuous`` serves either family."""
     jcfg = media[0]
     out = tserve.main(["--arch", jcfg.name, "--smoke", "--stages", "2",
                        "--mode", "aqsgd", "--fw-bits", "4", "--kv-bits", "8",
@@ -482,9 +482,14 @@ def test_serve_entry_point_on_cpu(media, capsys):
         * jcfg.num_kv_heads * jcfg.head_dim * 4
     assert out["cross_bytes"] == cross
     assert ("cross caches:" in text) == bool(cross)
-    with pytest.raises(SystemExit):
-        tserve.main(["--arch", jcfg.name, "--smoke", "--continuous",
-                     "--device", "cpu"])
+    # the batcher, as JAX's, passes no frames or patches: its bf16 pool
+    # keeps zero cross caches, and a vlm pool the patches' rows
+    out = tserve.main(["--arch", jcfg.name, "--smoke", "--continuous",
+                       "--device", "cpu", "--batch", "2", "--prompt-len", "6",
+                       "--gen", "3"])
+    assert [len(r.tokens) for r in out["requests"]] == [3] * 4
+    assert out["cache_len"] == 6 + 3 + jcfg.num_patches
+    assert out["cross_bytes"] == cross // 2
 
 
 def test_train_launcher_refusals(media, capsys):

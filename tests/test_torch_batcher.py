@@ -51,6 +51,15 @@ from repro_torch.serving import DeltaHopCodec as THop
 from repro_torch.serving import KVCodec as TKV
 from repro_torch.weights import from_jax_params
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 BITS = [2, 4, 8]
 PORT_BACKENDS = ["auto", "cuda"]
 DECODE_ATOL = 5e-3

@@ -28,6 +28,15 @@ from repro_torch.core import quantization as TQ
 from repro_torch.kernels import ops as TO
 from repro_torch.kernels import quant_pack as TP
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 BITS = [2, 4, 8]
 SHAPES = [(5, 64), (37, 1600)]       # ragged rows; head_dim and d_model
 

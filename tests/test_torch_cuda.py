@@ -72,7 +72,12 @@ width and capacity_factor 1.25: routing and keep masks equal, values
 and gradients within 1e-4, two card runs bit-equal.  A prefill over
 raw bf16 stores (the batcher's default dtype; a MoE model's dense
 prefix) reads them in the queries' f32, one B10 launch within 1e-4 of
-the plain version.
+the plain version.  The continuous batcher's pool on the other
+families: mamba2's pooled step over f32 ssm states and bf16 conv
+windows, written in place, and whisper's over bf16 cross caches (8-bit
+KV), against the CPU within 5e-3; zamba2's admission prefill at
+head_dim 80 over the fresh bf16 row, B10 once a block through the hd-96
+copies, its shared attention within 1e-4 of the plain version.
 """
 import math
 
@@ -1204,3 +1209,144 @@ def test_prefill_over_a_bf16_raw_cache(card):
         want = want.transpose(1, 2).reshape(1, 12, 256) @ att.wo
     assert kc.dtype == torch.bfloat16 and bool(kc[0, :12].abs().gt(0).any())
     torch.testing.assert_close(out, want, rtol=1e-4, atol=1e-4)
+
+
+# the continuous batcher's pool on the ssm, hybrid and audio families:
+# one pooled step (or admission) on the card against the same weights and
+# pool on the CPU, logits within the serving checks' decode tolerance
+POOL_DECODE_ATOL = 5e-3
+
+
+def _family_pool(arch, card, *, kv_bits=0, **cfg_kw):
+    """``arch``'s SMOKE model (fields ``cfg_kw`` replaced) on the CPU and
+    on the card from one CPU seed, and a 3-slot bf16 pool the CPU batcher
+    filled by admitting prompts of 4, 9 and 6 tokens (heads 4, 9, 6),
+    copied to the card: (models, batchers, pools by device)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.model import Transformer
+    from repro_torch.serving import ContinuousBatcher, KVCodec
+
+    cfg = get_config(arch, smoke=True).with_(**cfg_kw)
+    models, bats = {}, {}
+    for dev in ("cpu", card):
+        models[dev] = Transformer(cfg, device=dev,
+                                  generator=torch.Generator().manual_seed(0))
+        bats[dev] = ContinuousBatcher(models[dev], num_slots=3, cache_len=16,
+                                      kv_codec=KVCodec(bits=kv_bits))
+    gen = torch.Generator().manual_seed(5)
+    for n in (4, 9, 6):
+        bats["cpu"].submit(torch.randint(0, cfg.vocab_size, (n,),
+                                         generator=gen).tolist(),
+                           max_new_tokens=8)
+    bats["cpu"]._admit()
+    return models, bats
+
+
+def _pooled_step(bat, pool, tokens):
+    """One pooled decode step of ``bat`` over ``pool`` (written in
+    place) from ``tokens``: (its logits on the CPU, the pool)."""
+    bat.caches = pool
+    bat._next_tok = tokens
+    bat._decode()
+    return bat.last_logits.cpu(), bat.caches
+
+
+def test_pooled_ssm_step_on_card_matches_cpu(card):
+    """mamba2's pooled decode step over a bf16 pool (f32 ssm states,
+    bf16 conv windows) on the card against the CPU: logits within
+    POOL_DECODE_ATOL, the new states within 1e-4 of their largest value
+    (the conv windows also within one bf16 step), written in place into
+    the pool's own storage; no kernel launches (no KV, one stage)."""
+    models, bats = _family_pool("mamba2-1.3b", card)
+    pool = {k: v.clone() for k, v in bats["cpu"].caches.items()}
+    gpool = {k: v.to(card, copy=True) for k, v in pool.items()}
+    tokens = bats["cpu"]._next_tok.clone()
+    want, new_cpu = _pooled_step(bats["cpu"], pool, tokens)
+    ptrs = {k: gpool[k].data_ptr() for k in ("ssm", "conv")}
+    TP.reset_launches()
+    got, new_card = _pooled_step(bats[card], gpool, tokens.to(card))
+    torch.cuda.synchronize()
+    assert all(n == 0 for n in TP.LAUNCHES.values()), TP.LAUNCHES
+    assert {k: new_card[k].data_ptr() for k in ptrs} == ptrs
+    assert new_card["conv"].dtype == torch.bfloat16
+    torch.testing.assert_close(got, want, rtol=0, atol=POOL_DECODE_ATOL)
+    for name in ("ssm", "conv"):
+        c, g = new_cpu[name].float(), new_card[name].cpu().float()
+        tol = 1e-4 * c.abs().max().item()
+        if name == "conv":
+            tol = torch.maximum(torch.full_like(c, tol),
+                                c.abs() * 2.0 ** -7)
+        assert bool(((c - g).abs() <= tol).all()), name
+    assert torch.equal(new_card["pos"].cpu(), new_cpu["pos"])
+
+
+def test_hybrid_admission_over_bf16_pool_at_hd80(card):
+    """zamba2's admission prefill into a fresh bf16 row (the launcher's
+    pool dtype) at head_dim 80: the shared block's B10 call reads the
+    raw bf16 k and v in the queries' f32 through the hd-96 copies, one
+    launch a block, the layer's output within 1e-4 of the plain version
+    over the same stores; the row's logits within POOL_DECODE_ATOL of
+    the CPU's."""
+    from repro_torch.models import layers as L
+
+    models, bats = _family_pool("zamba2-2.7b", card, head_dim=80)
+    prompt = list(range(3, 15))
+    want, _ = bats["cpu"]._prefill(prompt)
+    TP.reset_launches()
+    got, row = bats[card]._prefill(prompt)
+    torch.cuda.synchronize()
+    cfg = models[card].cfg
+    assert TP.LAUNCHES["flash_attention_fwd"] == cfg.n_blocks
+    assert row["k"].dtype == torch.bfloat16 and row["k"].shape[-1] == 80
+    torch.testing.assert_close(got.cpu(), want, rtol=0,
+                               atol=POOL_DECODE_ATOL)
+    att = models[card].shared_block.attn
+    x = torch.randn(1, 12, cfg.d_model,
+                    generator=torch.Generator().manual_seed(1)).to(card)
+    kc, vc = (torch.zeros(1, 16, cfg.num_kv_heads, 80, dtype=torch.bfloat16,
+                          device=card) for _ in range(2))
+    pos = torch.arange(12, dtype=torch.int32, device=card)[None]
+    TP.reset_launches()
+    with torch.no_grad():
+        out, _, _ = att(x, pos, TFA.BIG_WINDOW, kc, vc, 0)
+        torch.cuda.synchronize()
+        assert TP.LAUNCHES["flash_attention_fwd"] == 1
+        q = L.rope((x @ att.wq).reshape(1, 12, cfg.num_heads, 80), pos,
+                   cfg.rope_theta)
+        ref = TR.flash_attention_ref(
+            q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2),
+            causal=True, window=TFA.BIG_WINDOW, softcap=0.0, q_offset=0)
+        ref = ref.transpose(1, 2).reshape(1, 12, -1) @ att.wo
+    assert bool(kc[0, :12].abs().gt(0).any())
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+
+
+def test_whisper_decode_over_bf16_cross_caches(card):
+    """whisper's pooled decode step with 8-bit KV over the pool's bf16
+    cross caches, filled here with random values (the batcher leaves
+    them zero): on the card against the CPU, logits within
+    POOL_DECODE_ATOL, the KV pair once a layer; the cross attention
+    reads bf16 ``xk``/``xv`` to the bits it reads their f32 widening."""
+    models, bats = _family_pool("whisper-small", card, kv_bits=8)
+    pool = {k: v.clone() for k, v in bats["cpu"].caches.items()}
+    gen = torch.Generator().manual_seed(9)
+    for name in ("xk", "xv"):
+        assert pool[name].dtype == torch.bfloat16
+        pool[name].copy_(torch.randn(pool[name].shape, generator=gen))
+    tokens = bats["cpu"]._next_tok.clone()
+    gpool = {k: v.to(card, copy=True) for k, v in pool.items()}
+    want, _ = _pooled_step(bats["cpu"], pool, tokens)
+    TP.reset_launches()
+    got, _ = _pooled_step(bats[card], gpool, tokens.to(card))
+    torch.cuda.synchronize()
+    layers = models[card].cfg.num_layers
+    assert TP.LAUNCHES["quantize_pack"] == layers
+    assert TP.LAUNCHES["unpack_dequant"] == layers
+    torch.testing.assert_close(got, want, rtol=0, atol=POOL_DECODE_ATOL)
+    xattn = models[card].layers[0].xattn
+    x = torch.randn(3, 1, models[card].cfg.d_model, device=card)
+    qpos = gpool["pos"][:, None]
+    xk, xv = gpool["xk"][0], gpool["xv"][0]
+    with torch.no_grad():
+        assert torch.equal(xattn.cross(x, qpos, xk, xv),
+                           xattn.cross(x, qpos, xk.float(), xv.float()))

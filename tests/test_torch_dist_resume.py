@@ -29,6 +29,15 @@ from repro_torch.launch import train as tlaunch
 from repro_torch.launch.mesh import MeshShape, spawn
 from repro_torch.training import pipeline as PL
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 SPAWN_TIMEOUT = 240.0
 WIRES = ("psum", "ring", "ring-sharded")
 DROPPED = (1, 0)        # the rank (data, model) that loses its step 2

@@ -47,6 +47,15 @@ from repro_torch.kernels import ops as TO
 from repro_torch.kernels import quant_pack as TP
 from repro_torch.weights import from_jax_params, jax_leaves
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 BITS = [2, 4, 8]
 BACKENDS = ["reference", "pallas"]
 

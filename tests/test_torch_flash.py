@@ -36,6 +36,14 @@ from repro_torch.models import layers as TL
 F32_TOL, BF16_TOL = 2e-5, 2e-2
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _qkv(b, h, hk, sq, sk, hd, seed):
     rng = np.random.default_rng(seed)
     return (rng.standard_normal((b, h, sq, hd)).astype(np.float32),

@@ -70,7 +70,8 @@ def arch0(request):
 def test_block_stages_are_refused_as_jax_refuses_them():
     """2 blocks do not split into 3 stage groups (nor 4 layers' worth):
     JAX's trunk asserts; the port's trunk, serving step and launcher
-    raise, naming the blocks."""
+    (uniform or ``--continuous``) raise, naming the blocks; the
+    continuous batcher serves at 2 stage groups."""
     jcfg, tcfg, params, np_params = arch_params(ARCH, {})
     batch = {k: jnp.zeros((1, 8), jnp.int32 if k != "mask" else jnp.float32)
              for k in ("tokens", "targets", "mask")}
@@ -89,9 +90,13 @@ def test_block_stages_are_refused_as_jax_refuses_them():
                      "--stages", "3"])
     with pytest.raises(ValueError, match="whole blocks"):
         TM.Transformer(tcfg.with_(num_layers=3))
-    with pytest.raises(NotImplementedError, match="Continuous batching"):
+    with pytest.raises(ValueError, match="do not split into 3"):
         tserve.main(["--arch", ARCH, "--smoke", "--device", "cpu",
-                     "--continuous"])
+                     "--continuous", "--stages", "3"])
+    out = tserve.main(["--arch", ARCH, "--smoke", "--device", "cpu",
+                       "--continuous", "--stages", "2", "--batch", "2",
+                       "--prompt-len", "6", "--gen", "2"])
+    assert [r.state for r in out["requests"]] == ["DONE"] * 4
 
 
 @pytest.mark.parametrize("causal,window", [(True, 10 ** 9), (True, 9),

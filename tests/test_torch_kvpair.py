@@ -31,6 +31,15 @@ from repro_torch.kernels import quant_pack as TP
 from repro_torch.kernels import ref as TR
 from repro_torch.serving import KVCodec as TKV
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 BITS = [2, 4, 8]
 PORT_BACKENDS = ["auto", "cuda"]
 

@@ -29,6 +29,15 @@ from repro_torch.kernels import ops as TO
 from repro_torch.kernels import quant_pack as TP
 from repro_torch.kernels import ref as TR
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 BITS = [2, 4, 8]
 PORT_BACKENDS = ["reference", "cuda"]
 # more rows than one Pallas block (128), and a ragged count below it

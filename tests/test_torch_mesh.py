@@ -23,6 +23,15 @@ from repro_torch.comm import wires as TW
 from repro_torch.core import collectives as TC
 from repro_torch.launch.mesh import Mesh, MeshShape, RingGroup, spawn
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 SPAWN_TIMEOUT = 120
 # the DP wires held against the simulator: (wire, chunks)
 CASES = [("psum", 1), ("ring", 1), ("ring", 2), ("ring", 3)]

@@ -41,6 +41,15 @@ from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.training import pipeline as PL
 from repro_torch.training import simulated as TS
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 KNOB = "ACSGD_ONCORE_PRNG"
 N_TRIALS = 10_000

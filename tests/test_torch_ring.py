@@ -38,6 +38,15 @@ from repro_torch.launch.mesh import spawn
 
 from test_torch_mesh import CASES, wire_worker
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 BITS = [2, 4, 8]
 # (bits, n) giving each sum width: 2, 4, 8, 16 and 32 bits
 SUM_WIDTH_CASES = [(2, 1), (2, 3), (4, 1), (4, 2), (8, 2), (8, 300)]

@@ -24,6 +24,15 @@ from repro_torch.serving import DeltaHopCodec as THop
 from repro_torch.serving import KVCodec as TKV
 from repro_torch.serving import delta as tdelta
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 BITS = [2, 4, 8]
 
 

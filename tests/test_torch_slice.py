@@ -47,6 +47,15 @@ from repro_torch.serving import DeltaHopCodec as THop
 from repro_torch.serving import KVCodec as TKV
 from repro_torch.weights import from_jax_params
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 ARCHS = ("gpt2-xl-paper", "gemma2-9b", "stablelm-12b", "gemma2-27b")
 B, STEPS = 2, 6

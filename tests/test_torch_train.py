@@ -51,6 +51,15 @@ from repro_torch.training import simulated as TS
 from repro_torch.weights import from_jax_params, jax_leaf_names, \
     load_jax_params
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 ARCH = "gpt2-xl-paper"
 LOSS_RTOL = 1e-5
 LATER_STEP_RTOL = 1e-3

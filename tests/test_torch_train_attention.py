@@ -67,6 +67,15 @@ from repro_torch.training import pipeline as PL
 from repro_torch.training import simulated as TS
 from repro_torch.weights import from_jax_params
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 BIG = 10 ** 9
 OUT_TOL = 1e-5
 GRAD_ATOL, GRAD_RTOL = 1e-5, 1e-4

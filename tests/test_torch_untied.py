@@ -56,6 +56,15 @@ from test_torch_train_attention import (GRAD_ATOL, GRAD_RTOL,
                                         _jax_chunked_nll, _np_params,
                                         _port_grad, _t, _tbatch)
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 ARCH = "stablelm-12b"
 SERVE_ATOL = 2e-5
 

@@ -26,6 +26,15 @@ from repro.kernels import ref as JR
 from repro_torch.kernels import quant_pack as TP
 from repro_torch.kernels import ref as TR
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 BITS = [2, 4, 8]
 LANE_GROUPS = {(8, 1), (16, 1), (32, 2)}     # the launcher's lane groups
 CAP = TP.ROW_VALUES                          # widest row read once: 8192

@@ -81,6 +81,15 @@ from repro_torch.training import simulated as TS
 
 from test_torch_mesh import zero_worker
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 # the bucket width of the JAX comparisons: at 128 and wider, jitted JAX
 # on the CPU contracts the carry ``v - p * f32(1/lv)`` into one FMA on
 # both backends (ROADMAP queue C); at 64 it rounds q first, as the port

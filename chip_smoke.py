@@ -146,8 +146,9 @@ Phases, each printed on its own line:
    the decode tolerance while the streams agree, KV codes within one,
    a fork allowed only at a near tie (printed), one at most;
    ``[serve-gemma2]``: the slice's own path, ``gemma2-9b`` at full
-   width and depth (42 layers, d 3584, vocab 256000; local layers see
-   4096 keys, softcaps 50 and 30, 16 query heads on 8 kv heads of 256),
+   width, the first 10 of its 42 layers (`G_LAYERS`; all 42 until the
+   FSDP slice; d 3584, vocab 256000; local layers see 4096 keys,
+   softcaps 50 and 30, 16 query heads on 8 kv heads of 256),
    batch 2, a prompt of 8160 into a cache of 8192, 32 greedy decode
    steps, the same comm flags, the counters set to 0 just before and
    checked exactly just after; the hop's bytes as the encoder emits
@@ -324,7 +325,21 @@ batches with stub frames; ``[train-whisper-reference-check]``,
 (the encoder's copies bit-equal on every stage) and
 ``[dist-pixtral-reference-check]``.
 Every distributed card-against-CPU check runs in one spawn a device
-(`DIST_CHECKS`).  Each phase's line ends with ``at``, its seconds since
+(`DIST_CHECKS`).
+ZeRO-3 (since its slice): the distributed trainer shards every stage's
+parameters and AdamW moments over its 2 data ranks and gathers each
+unit's weights where it runs (`training.pipeline.StageFsdp`, the
+``fsdp`` plane).  ``[dist-train]`` and its three variants assert each
+rank's ``fsdp`` bytes a step against `training.pipeline.fsdp_gather_bytes`
+and its resident parameter and moment bytes against
+`training.pipeline.rank_param_bytes`, and print each rank's peak memory
+and the step's ``fsdp_gather`` seconds (the gathers' part of the
+pipeline phase); the SMOKE checks hold the ``fsdp`` bytes to the model
+too; ``[dist-fsdp-check]`` runs `FSDP_CHECKS` (gpt2-xl-paper,
+zamba2-2.7b, deepseek-moe-16b in ``zero3`` and ``expert_parallel``,
+whisper-small) again on the card in the whole-stage layout in the same
+spawn, losses bit for bit; ``[dist-train-resume]`` holds each rank's
+checkpoint to its sharded state's reckoned bytes.  Each phase's line ends with ``at``, its seconds since
 the script started.
 
 B9a and B9b launch 0 times on every path but ``[legacy-dp-codec]``:
@@ -449,13 +464,17 @@ CONT_CHECK_WINDOW = {"gpt2-xl-paper": None, "gemma2-9b": 4,
 # the per-row write heads of gpt2-xl's pool append: at 0, inside, at the
 # last row and past the store (clamped to CACHE_LEN - 1)
 ROW_HEADS = (0, 5, 77, PROMPT, CACHE_LEN - 1, CACHE_LEN, CACHE_LEN + 40, 3)
-# the gemma2-9b serving slice at full width and depth: a prompt past the
-# 4096-key window into a cache of the 8192-token context
+# the gemma2-9b serving slice at full width: a prompt past the 4096-key
+# window into a cache of the 8192-token context, the first 10 of its 42
+# layers (5 local, 5 global) since the FSDP slice, whose distributed
+# phases took the time the host spent drawing the other 32 (~51 s at
+# ~7.6 s a billion weights)
 G_BATCH, G_PROMPT, G_GEN = 2, 8160, 32
 G_CACHE = G_PROMPT + G_GEN
-G_LAYERS, G_D, G_VOCAB = 42, 3584, 256000
+G_LAYERS, G_D, G_VOCAB = 10, 3584, 256000
 G_HEADS, G_KV_HEADS, G_HEAD_DIM, G_WINDOW, G_CAP = 16, 8, 256, 4096, 50.0
-GEMMA_ARGS = ["--arch", "gemma2-9b", "--stages", "2", "--mode", "aqsgd",
+GEMMA_ARGS = ["--arch", "gemma2-9b", "--layers", str(G_LAYERS),
+              "--stages", "2", "--mode", "aqsgd",
               "--fw-bits", "4", "--kv-bits", "8", "--batch", str(G_BATCH),
               "--prompt-len", str(G_PROMPT), "--gen", str(G_GEN),
               "--device", "cuda", "--seed", "0"]
@@ -3555,17 +3574,19 @@ def media_serve_phase(torch, qp, serve, tag):
 
 
 def gemma2_device_draw_s(torch) -> float:
-    """Seconds to build gemma2-9b as the serving launcher did before its
-    weights came from a CPU generator: every leaf drawn on the card from
-    a CUDA generator (other numbers than the CPU's from one seed)."""
+    """Seconds to build gemma2-9b (`G_LAYERS` deep, as `[serve-gemma2]`
+    serves it) as the serving launcher did before its weights came from
+    a CPU generator: every leaf drawn on the card from a CUDA generator
+    (other numbers than the CPU's from one seed)."""
     from repro_torch.configs.base import get_config
     from repro_torch.models.model import Transformer
 
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    model = Transformer(get_config("gemma2-9b"), device="cuda",
-                        generator=torch.Generator(device="cuda").manual_seed(0))
+    model = Transformer(
+        get_config("gemma2-9b").with_(num_layers=G_LAYERS), device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(0))
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     del model
@@ -3841,7 +3862,10 @@ def dist_phases(torch):
     from repro_torch.core import collectives as C
     from repro_torch.core import quantization as Q
     from repro_torch.launch import train as launch_train
+    from repro_torch.comm.config import CommConfig
+    from repro_torch.configs.base import get_config
     from repro_torch.serving import DeltaHopCodec
+    from repro_torch.training import pipeline as PL
     from repro_torch.training.pipeline import PipelineConfig
 
     flags = ["--device", "cuda", "--steps", str(DIST_STEPS), "--batch",
@@ -3875,9 +3899,19 @@ def dist_phases(torch):
                                 "unpack_accumulate", "pack_sums",
                                 "unpack_sums")})}
     pcfg = PipelineConfig()                 # the spec sets none of these
+    cfg = get_config("gpt2-xl-paper").with_(num_layers=DIST_LAYERS)
+    lay = PL.stage_layout(cfg, DIST_STAGES)
+    # ZeRO-3: the weight gathers a rank of each stage sends a step (the
+    # same under every wire), and its resident parameter and moment bytes
+    fsdp = [PL.fsdp_gather_bytes(cfg, pcfg, lay, k, DIST_DATA, DIST_MICRO)
+            for k in range(DIST_STAGES)]
     base = runs[0][0]["losses"]
     out = {}
     for tag, spec, res in zip(DIST_VARIANTS, specs, runs):
+        scfg = PipelineConfig(comm=CommConfig.from_json(spec["comm"]))
+        resident = [PL.rank_param_bytes(cfg, scfg, lay, k, DIST_DATA,
+                                        spec["optimizer"]["state_bits"])
+                    for k in range(DIST_STAGES)]
         losses = res[0]["losses"]
         # a step lasts as long as its slowest rank
         step_s = [max(r["step_seconds"][i] for r in res)
@@ -3913,6 +3947,12 @@ def dist_phases(torch):
               phase_s_by_rank_step4=json.dumps(
                   [{k: round(v, 4) for k, v in
                     r["phase_seconds"][-1].items()} for r in res]),
+              fsdp_gather_s_by_rank_step4=json.dumps(
+                  [r["phase_seconds"][-1]["fsdp_gather"] for r in res]),
+              fsdp_bytes_model_by_stage=json.dumps(fsdp),
+              resident_bytes_by_rank=json.dumps(
+                  [r["resident_bytes"] for r in res]),
+              resident_bytes_model_by_stage=json.dumps(resident),
               wall_s_all_variants=f"{wall:.1f}")
         assert len(losses) == DIST_STEPS
         assert all(math.isfinite(x) for x in losses), losses
@@ -3930,6 +3970,9 @@ def dist_phases(torch):
                                        else want["bw"]), b
                 assert b["dp"] == want["dp"], b
                 assert b["dp-gather"] == want["dp-gather"], b
+                assert b["fsdp"] == fsdp[r["model_rank"]], b
+            assert r["resident_bytes"] == resident[r["model_rank"]], \
+                (tag, r["resident_bytes"], resident)
             if tag in manifests:
                 assert all(m == manifests[tag] for m in r["manifests"]), \
                     r["manifests"]
@@ -3969,6 +4012,12 @@ DIST_CHECKS = [
     ("dist-pixtral-reference-check", "pixtral-12b", "dist-train", {}),
 ]
 DIST_CHECK_LAYERS, DIST_CHECK_BATCH, DIST_CHECK_SEQ = 4, 4, 32
+# [dist-fsdp-check]: the checks whose card runs (ZeRO-3 over the 2 data
+# ranks) run again on the card in the whole-stage layout, in the same
+# spawn, and must give their losses bit for bit
+FSDP_CHECKS = ("dist-reference-check", "dist-zamba2-reference-check",
+               "dist-moe-reference-check", "dist-moe-ep-reference-check",
+               "dist-whisper-reference-check")
 
 
 def dist_reference_checks(torch, checks=DIST_CHECKS):
@@ -3981,7 +4030,11 @@ def dist_reference_checks(torch, checks=DIST_CHECKS):
     checked; a hybrid's shared block copies must be bit-equal on every
     stage after every step; under expert parallelism each rank's ``ep``
     bytes equal `training.pipeline.ep_wire_bytes` at every step, and 0
-    otherwise."""
+    otherwise; each rank's ``fsdp`` bytes equal
+    `training.pipeline.fsdp_gather_bytes` at every step.  Then
+    [dist-fsdp-check]: the `FSDP_CHECKS` run on the card in the
+    whole-stage layout too (the spec's private ``_whole_stage``), in the
+    card's spawn, their losses bit-equal to the sharded runs'."""
     from repro_torch.configs.base import get_config
     from repro_torch.launch import train as launch_train
     from repro_torch.training import pipeline as PL
@@ -4000,9 +4053,37 @@ def dist_reference_checks(torch, checks=DIST_CHECKS):
             specs[-1]["optimizer"].update(opt)
             if pipe:
                 specs[-1]["pipeline"] = dict(pipe)
+        twins = [i for i, c in enumerate(checks) if c[0] in FSDP_CHECKS] \
+            if dev == "cuda" else []
+        specs += [dict(specs[i], _whole_stage=True) for i in twins]
         runs = launch_train.run_distributed(specs, timeout=DIST_TIMEOUT)
+        runs, whole = runs[:len(checks)], runs[len(checks):]
         losses[dev] = [res[0]["losses"] for res in runs]
+        for i, res in zip(twins, whole):
+            sharded = [r["losses"] for r in runs[i]]
+            phase("dist-fsdp-check", arch=checks[i][1], check=checks[i][0],
+                  moe_mode=checks[i][3].get("moe_mode"),
+                  losses_sharded=json.dumps(sharded[0]),
+                  losses_whole_stage=json.dumps(res[0]["losses"]),
+                  bit_equal=sharded == [r["losses"] for r in res],
+                  fsdp_bytes_sharded=json.dumps(
+                      [r["bytes"][-1]["fsdp"] for r in runs[i]]),
+                  resident_bytes_sharded=json.dumps(
+                      [r["resident_bytes"] for r in runs[i]]),
+                  resident_bytes_whole_stage=json.dumps(
+                      [r["resident_bytes"] for r in res]))
+            assert sharded == [r["losses"] for r in res], checks[i]
+            assert all(b["fsdp"] == 0 for r in res for b in r["bytes"])
         for i, ((_, arch, _, pipe), res) in enumerate(zip(checks, runs)):
+            small = get_config(arch, smoke=True).with_(
+                num_layers=DIST_CHECK_LAYERS)
+            lay = PL.stage_layout(small, DIST_STAGES)
+            pcfg = PipelineConfig(microbatches=DIST_MICRO, **pipe)
+            for r in res:
+                want = PL.fsdp_gather_bytes(small, pcfg, lay, r["model_rank"],
+                                            DIST_DATA, DIST_MICRO)
+                assert [b["fsdp"] for b in r["bytes"]] \
+                    == [want] * len(r["bytes"]), (arch, pipe, want)
             cfg = get_config(arch)
             if cfg.has_moe:
                 small = get_config(arch, smoke=True).with_(
@@ -4107,17 +4188,20 @@ def reckoned_sim_bytes(cfg) -> int:
                                                      * 4 + 1) + 16 + 8)
 
 
-def reckoned_rank_bytes(cfg) -> int:
-    """A [dist-train-resume] rank's array bytes, the larger stage's:
-    the embedding and its layers, f32 with two f32 moments, the carry
-    over the pipeline's whole bucket, its side of the bf16 messages
-    (stored as f32)."""
+def reckoned_rank_bytes(cfg, k: int) -> int:
+    """A [dist-train-resume] rank of stage ``k``'s array bytes: its
+    shards of the stage's parameters (ZeRO-3 over the data ranks) in f32
+    with two f32 moments (`training.pipeline.rank_param_bytes`), the
+    carry over the pipeline's whole bucket, its side of the bf16
+    messages (stored as f32)."""
+    from repro_torch.training import pipeline as PL
     n_model = cfg.vocab_size * cfg.d_model + cfg.d_model \
         + cfg.num_layers * _block_params(cfg)
     rows = -(-n_model // DP_BUCKET[1])
-    stage = cfg.vocab_size * cfg.d_model + cfg.d_model \
-        + cfg.num_layers // DIST_STAGES * _block_params(cfg)
-    return (12 * stage + rows * DP_BUCKET[1] * 4
+    shards = PL.rank_param_bytes(cfg, PL.PipelineConfig(),
+                                 PL.stage_layout(cfg, DIST_STAGES), k,
+                                 DIST_DATA)
+    return (shards + rows * DP_BUCKET[1] * 4
             + DIST_SAMPLES * DIST_SEQ * cfg.d_model * 4)
 
 
@@ -4314,11 +4398,10 @@ def dist_resume_phase(torch) -> dict:
     from repro_torch.launch import train as launch_train
 
     cfg = get_config("gpt2-xl-paper").with_(num_layers=RESUME_LAYERS)
-    reckoned = reckoned_rank_bytes(cfg)
+    reckoned = [reckoned_rank_bytes(cfg, k) for k in range(DIST_STAGES)]
     shutil.rmtree(CKPT_ROOT, ignore_errors=True)
     d = os.path.join(CKPT_ROOT, "dist")
-    _need_disk(CKPT_ROOT, DIST_DATA * DIST_STAGES * reckoned,
-               "dist-train-resume")
+    _need_disk(CKPT_ROOT, DIST_DATA * sum(reckoned), "dist-train-resume")
     flags = ["--device", "cuda", "--steps", str(DIST_STEPS), "--batch",
              str(DIST_BATCH), "--seq", str(DIST_SEQ), "--samples",
              str(DIST_SAMPLES)]
@@ -4359,7 +4442,7 @@ def dist_resume_phase(torch) -> dict:
                 launches[k] += got[k]
     phase("dist-train-resume", mesh=f"{DIST_DATA}x{DIST_STAGES}",
           layers=RESUME_LAYERS, d_model=cfg.d_model, dp_wire="ring",
-          reckoned_bytes_largest_rank=reckoned,
+          reckoned_bytes_by_stage=json.dumps(reckoned),
           losses_exact=json.dumps(b[0]["losses"]),
           stopped_losses=json.dumps(st[0]["losses"]),
           resumed_losses=json.dumps(rs[0]["losses"]),
@@ -4378,8 +4461,9 @@ def dist_resume_phase(torch) -> dict:
         assert [c["step"] for c in r_s["ckpt"]] == [2]
         assert [(c["op"], c["step"]) for c in r_r["ckpt"]] == [("restore",
                                                                 2)]
+        own = reckoned[r_s["model_rank"]]
         for c in r_s["ckpt"] + r_r["ckpt"]:
-            assert 0 < c["bytes"] < reckoned + 2 ** 20, (c, reckoned)
+            assert 0 < c["bytes"] < own + 2 ** 20, (c, own)
         if r_r["model_rank"] == DIST_STAGES - 1:
             for rep in r_r["replicas"]:
                 assert rep["m_in_equal"] is True, rep

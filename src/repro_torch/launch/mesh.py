@@ -21,6 +21,14 @@ and manifests (`repro_torch.comm.wires`).  The distributed trainer's
 expert parallelism sends its MoE dispatch buffers across the data group
 by all-to-all (`RingGroup.all_to_all`, the ``ep`` plane), an autograd
 function whose backward is the inverse all-to-all.
+
+ZeRO-3 (`repro_torch.training.pipeline.StageFsdp`) gathers a unit's
+weight shards over the data group in one flat all-gather on the
+``fsdp`` plane (`RingGroup.all_gather_sunk`), and under expert
+parallelism exchanges expert weights by one all-to-all on the same
+plane (`RingGroup.all_to_all_sunk`).  Both are autograd functions whose
+backward sends nothing: it hands the whole weights' gradients to a
+sink, the trainer's f32 accumulators, and gives the shards none.
 """
 from __future__ import annotations
 
@@ -153,17 +161,27 @@ class Transport:
         dist.all_reduce(h, op=op, group=group)
         return self.to_device(h)
 
-    def all_gather(self, x: torch.Tensor, out: torch.Tensor, group,
-                   size: int, plane: str) -> torch.Tensor:
-        """Gather x from each of the ``size`` ranks of ``group`` into
-        ``out`` (size, *x.shape) on this rank's device, member j's in
-        slot j, through pinned host memory.  Returns out."""
-        self._record(plane, "all-gather", x, copies=size - 1)
+    def all_gather(self, x: torch.Tensor, out: torch.Tensor,
+                   ranks: Sequence[int], plane: str) -> torch.Tensor:
+        """Gather x from each of ``ranks`` (global ranks, this one among
+        them) into ``out`` (len(ranks), *x.shape) on this rank's device,
+        member j's in slot j, through pinned host memory: one send to
+        each other member and one receive from each, all posted at once
+        (gloo's own all-gather was the slower of the two between the
+        ranks of one host).  Returns out."""
+        self._record(plane, "all-gather", x, copies=len(ranks) - 1)
+        me = dist.get_rank()
         hx = self.to_host(x)
-        hs = [self._host_empty(x.shape, x.dtype) for _ in range(size)]
-        dist.all_gather(hs, hx, group=group)
-        for slot, h in zip(out, hs):
-            slot.copy_(h)
+        host = self._host_empty(out.shape, out.dtype)
+        reqs = []
+        for slot, r in zip(host, ranks):
+            if r == me:
+                slot.copy_(hx)
+            else:
+                reqs += [dist.isend(hx, r), dist.irecv(slot, r)]
+        for q in reqs:
+            q.wait()
+        out.copy_(host)
         return out
 
     def all_to_all(self, x: torch.Tensor, group, size: int, plane: str
@@ -237,7 +255,7 @@ class RingGroup:
         if self.size == 1:
             out[0].copy_(x)
             return out
-        return self.transport.all_gather(x, out, self.pg, self.size, plane)
+        return self.transport.all_gather(x, out, self.ranks, plane)
 
     def all_to_all(self, x: torch.Tensor, plane: str = "ep"
                    ) -> torch.Tensor:
@@ -248,6 +266,47 @@ class RingGroup:
         if self.size == 1:
             return x
         return _AllToAll.apply(x, self, plane)
+
+    def all_gather_sunk(self, tensors: Sequence[torch.Tensor],
+                        assemble: Callable, sink: Callable,
+                        plane: str = "fsdp") -> tuple:
+        """Every member's ``tensors``, flattened into one buffer, gathered
+        as `all_gather` lays them out ((size, n), member j's in row j;
+        the members' n must agree) and turned into whole tensors by
+        ``assemble(rows)``.  Differentiable: the backward hands the whole
+        tensors' gradients to ``sink(grads)`` and gives ``tensors``
+        none, so nothing crosses the group backward."""
+        def collect(*ts):
+            flat = torch.cat([t.reshape(-1) for t in ts])
+            out = flat.new_empty((self.size, flat.numel()))
+            return tuple(assemble(self.all_gather(flat, out, plane)))
+        return _Sunk.apply(collect, sink, *tensors)
+
+    def all_to_all_sunk(self, x: torch.Tensor, assemble: Callable,
+                        sink: Callable, plane: str = "fsdp") -> tuple:
+        """`all_to_all` of x (size, ...) turned into whole tensors by
+        ``assemble(received)``, differentiable as `all_gather_sunk`: the
+        backward hands their gradients to ``sink`` and sends nothing."""
+        def collect(t):
+            return tuple(assemble(self.transport.all_to_all(
+                t, self.pg, self.size, plane)))
+        return _Sunk.apply(collect, sink, x)
+
+
+class _Sunk(torch.autograd.Function):
+    """Tensors ``collect(*inputs)`` makes over a collective (new tensors,
+    no views of the inputs); the backward passes their gradients to
+    ``sink`` and returns none to the inputs."""
+
+    @staticmethod
+    def forward(ctx, collect, sink, *inputs):
+        ctx.sink, ctx.n = sink, len(inputs)
+        return collect(*inputs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        ctx.sink(grads)
+        return (None, None) + (None,) * ctx.n
 
 
 class _AllToAll(torch.autograd.Function):

@@ -84,6 +84,7 @@ prefix's raw ``pk``/``pv`` caches are never quantized.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Callable, Optional
 
@@ -561,12 +562,16 @@ class Transformer(nn.Module):
 
 
 def prefix_forward(cfg: ModelConfig, prefix: nn.ModuleList, h: torch.Tensor,
-                   positions: torch.Tensor, block_k: int) -> torch.Tensor:
+                   positions: torch.Tensor, block_k: int,
+                   around: Optional[Callable] = None) -> torch.Tensor:
     """A MoE model's dense ``prefix`` layers over whole sequences (JAX
-    runs them outside the stacked layers and any checkpoint)."""
+    runs them outside the stacked layers and any checkpoint).
+    ``around(i)``: a context layer i runs in (the distributed trainer's
+    gather of its sharded weights)."""
     for i, blk in enumerate(prefix):
-        h = blk(h, positions, cfg.layer_window(i, h.shape[1]),
-                block_k=block_k)[0]
+        with around(i) if around is not None else contextlib.nullcontext():
+            h = blk(h, positions, cfg.layer_window(i, h.shape[1]),
+                    block_k=block_k)[0]
     return h
 
 
@@ -605,19 +610,25 @@ def embed_rows(cfg: ModelConfig, embed: torch.Tensor,
 
 def encode(cfg: ModelConfig, enc_layers: nn.ModuleList, enc_norm: nn.Module,
            frames: torch.Tensor, *, remat: bool = False,
-           block_k: int = 512) -> torch.Tensor:
+           block_k: int = 512, around: Optional[Callable] = None
+           ) -> torch.Tensor:
     """The whisper encoder (JAX ``encode_audio``): dense layers whose
     self-attention is non-causal over the frames (B, Se, d), window
     `layers.BIG_WINDOW`, RoPE at ``arange(Se)``, each a remat unit; then
-    ``enc_norm``."""
+    ``enc_norm``.  ``around(i)``: a context layer i runs in, inside its
+    unit (so its recompute too: the distributed trainer's gathered
+    weights)."""
     b, se = frames.shape[0], frames.shape[1]
     pos = torch.arange(se, dtype=torch.int32,
                        device=frames.device).expand(b, se)
     h = frames
-    for blk in enc_layers:
-        h = run_remat(lambda x, blk=blk: blk(
-            x, pos, L.BIG_WINDOW, block_k=block_k, causal=False)[0], h,
-            remat=remat)
+    for i, blk in enumerate(enc_layers):
+        def layer(x, i=i, blk=blk):
+            with around(i) if around is not None \
+                    else contextlib.nullcontext():
+                return blk(x, pos, L.BIG_WINDOW, block_k=block_k,
+                           causal=False)[0]
+        h = run_remat(layer, h, remat=remat)
     return enc_norm(h)
 
 

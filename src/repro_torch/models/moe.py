@@ -34,8 +34,12 @@ each data rank computes its own E/D experts on every rank's tokens (or,
 where E < D, its 1/(D/E) share of one expert's), and the inverse
 all-to-all brings the rows back, so the combine is unchanged.  ``cap``
 is rounded up to a multiple of D / gcd(E, D) so the buffer splits
-evenly.  The port keeps every expert on every rank (it has no FSDP), so
-a rank slices its own experts' weights locally, JAX's unsharded branch.
+evenly.  A rank computes with its own experts' weights: sliced from the
+whole stacks where it holds them (JAX's unsharded branch), or, where
+the distributed trainer shards the stacks over the data group (ZeRO-3,
+`repro_torch.training.pipeline.StageFsdp`), handed in whole by its
+weight all-to-all (JAX's sharded branch, ``ep_weights``), which then
+stand in the stacks' place, (E/D, ...) or (1, ...) instead of (E, ...).
 """
 from __future__ import annotations
 
@@ -204,7 +208,9 @@ def _expert_parallel_ffn(buf: torch.Tensor, w: tuple, fn, ep
     ranks of ``ep`` (JAX ``_expert_parallel_ffn``): rank g computes
     experts [g E/D, (g+1) E/D) (E >= D) or its 1/(D/E) token share of
     expert g E/D (E < D) on every rank's rows; the inverse all-to-all
-    restores the dispatch layout.  Wire per call: 2 x E cap d values."""
+    restores the dispatch layout.  ``w``: the whole stacks (E, ...), or
+    this rank's own experts (ne, ...) where a weight all-to-all brought
+    them (module docstring).  Wire per call: 2 x E cap d values."""
     e, cap, d = buf.shape
     dd = ep.size
     ne = max(e // dd, 1)                   # experts computed per rank
@@ -213,8 +219,10 @@ def _expert_parallel_ffn(buf: torch.Tensor, w: tuple, fn, ep
     # rows for my expert e_loc from every source, contiguous per expert
     recv = recv.reshape(dd, ne, chunk // ne, d).transpose(0, 1).reshape(
         ne, dd * (chunk // ne), d)
-    start = ep.index * e // dd
-    y = _experts(fn, recv, *(t[start:start + ne] for t in w))
+    if w[0].shape[0] == e:                 # the whole stacks: slice mine
+        start = ep.index * e // dd
+        w = tuple(t[start:start + ne] for t in w)
+    y = _experts(fn, recv, *w)
     y = y.reshape(ne, dd, chunk // ne, d).transpose(0, 1).reshape(
         dd, chunk, d)
     return ep.all_to_all(y).reshape(e, cap, d)

@@ -11,7 +11,11 @@ Two state forms:
 * per leaf (`init_opt_state`, `apply_updates`): f32 moments a
   parameter, or with ``state_bits`` (8-bit Adam) each moment as b-bit
   codes with one f32 scale a row of the parameter's native shape,
-  rounded to nearest, the second moment stored as its square root;
+  rounded to nearest, the second moment stored as its square root.  A
+  leaf sharded along its last dim holds part of each row; the sharded
+  trainer holds its moments in f32 over the update (`widen_moments`)
+  and codes them with the whole rows' scales (`code_moments`), the
+  reduction over the ranks JAX leaves to GSPMD;
 * in bucket space (`init_bucket_opt_state`, `apply_bucket_updates`):
   f32 moments of one (seg, group_d) segment of the flattened parameter
   bucket, the segment owner's update under the ZeRO DP wire
@@ -66,6 +70,41 @@ def _q_dec(enc: dict, bits: int) -> torch.Tensor:
     return Q.dequantize(enc["codes"], enc["scale"], bits)
 
 
+def widen_moments(state: dict, names, bits: int) -> None:
+    """Hold the b-bit moments of ``names`` in f32 (the second moment
+    squared back), in place: `apply_updates` then updates them in f32,
+    and `code_moments` codes them again."""
+    for k in names:
+        state["mu"][k] = _q_dec(state["mu"][k], bits)
+        state["nu"][k] = _q_dec(state["nu"][k], bits).square()
+
+
+def code_moments(state: dict, names, bits: int, row_max) -> None:
+    """Code the f32 moments `widen_moments` left of ``names`` back to b
+    bits (the second as its square root), in place, as `apply_updates`
+    codes a leaf, but each row's scale from ``row_max``: given the rows'
+    absolute maxima concatenated (every first moment's rows, then every
+    second's), it returns them reduced over the ranks that share the
+    rows (a MAX all-reduce), so a leaf sharded along its last dim gets
+    the whole rows' scales and codes."""
+    names = list(names)
+    if not names:
+        return
+    xs = [state["mu"][k] for k in names] \
+        + [torch.sqrt(state["nu"][k]) for k in names]
+    maxima = row_max(torch.cat([x.float().abs().amax(-1).reshape(-1)
+                                for x in xs]))
+    off, coded = 0, []
+    for x in xs:
+        rows = x.numel() // x.shape[-1]
+        s = maxima[off:off + rows].reshape(*x.shape[:-1], 1)
+        off += rows
+        coded.append(dict(zip(("codes", "scale"), Q.quantize(
+            x, bits, scale=Q.absmax_scale(s)))))
+    for i, k in enumerate(names):
+        state["mu"][k], state["nu"][k] = coded[i], coded[len(names) + i]
+
+
 def init_opt_state(params: dict, state_bits: int = 0) -> dict:
     """Zero moments for every parameter (f32, or b-bit codes with
     ``state_bits``), step 0."""
@@ -112,17 +151,20 @@ def _update(cfg: AdamWConfig, lr: float, c1: float, c2: float,
 def apply_updates(cfg: AdamWConfig, params: dict, grads: dict,
                   state: dict) -> dict:
     """One AdamW step on ``params`` (name -> tensor) with ``grads`` of
-    the same names, in place.  Returns the new optimizer state."""
+    the same names, in place.  Returns the new optimizer state.  A leaf
+    whose moments are f32 tensors in a b-bit state (`widen_moments`)
+    is updated in f32 and left so."""
     step = state["step"] + 1
     lr, c1, c2 = _scalars(cfg, step)
     qb = cfg.state_bits
     for k, p in params.items():
         mu, nu = state["mu"][k], state["nu"][k]
-        if qb:
+        coded = isinstance(mu, dict)
+        if coded:
             mu = _q_dec(mu, qb)
             nu = _q_dec(nu, qb).square()      # nu is stored as sqrt(nu)
         _update(cfg, lr, c1, c2, p, grads[k], mu, nu)
-        if qb:
+        if coded:
             # the square root keeps small second moments resolved
             state["mu"][k] = _q_enc(mu, qb)
             state["nu"][k] = _q_enc(torch.sqrt(nu), qb)

@@ -17,12 +17,15 @@ embedding, before the pipeline), its gradients in the bucket under the
 ``prefix`` leaves.  As JAX's ``_apply_layer``, the stages drop the MoE
 router's auxiliary loss: the distributed loss is the cross-entropy.
 ``PipelineConfig.moe_mode`` is ``zero3`` (every rank computes with its
-whole stage's experts; the port has no FSDP, so nothing is gathered) or
-``expert_parallel`` (JAX's unsharded branch: each data rank computes
-its own experts on every data rank's tokens, which cross the data group
-by all-to-all, `models.moe._expert_parallel_ffn`, on the ``ep`` plane;
-an expert's gradient then lives on its owner alone and the bucket's
-sum over the data ranks equals ``zero3``'s).
+stage's experts, each layer's expert stacks gathered whole with the
+layer, the bytes of JAX's one-expert-at-a-time gather) or
+``expert_parallel`` (each data rank computes its own experts on every
+data rank's tokens, which cross the data group by all-to-all,
+`models.moe._expert_parallel_ffn`, on the ``ep`` plane; their weights
+reach it by JAX's sharded branch, one weight all-to-all of the other
+ranks' shards of them on the ``fsdp`` plane; an expert's gradient then
+lives on its owner alone and the bucket's sum over the data ranks
+equals ``zero3``'s).
 
 A vlm model's batch carries ``patches`` (M, mb, P, d): the first stage
 embeds them ahead of the text, the boundaries and the message buffers
@@ -100,9 +103,10 @@ every checkpoint, so a recompute never sends, draws or writes again.
 Checkpoints (the JAX launcher's ``--ckpt-dir``/``--save-every``/
 ``--resume``): every rank writes its own state, in the manifest format
 of `repro_torch.checkpoint`, under ``<ckpt-dir>/rank_<data>_<model>/``
-(`rank_state`: its stage's parameters, AdamW's moments and step, the
-DP carry, ``m_out``/``m_in`` and, under the ZeRO wire, the full-model
-parameter bucket), so no rank ships another's state over the network.
+(`rank_state`: its shards of the stage's parameters, AdamW's moments
+and step, the DP carry, ``m_out``/``m_in`` and, under the ZeRO wire,
+the full-model parameter bucket), so no rank ships another's state over
+the network.
 A resume takes the newest step that every rank committed
 (`common_step`, one MIN all-reduce of the ranks' committed steps) and
 replays the data stream by skipping; the warm-up choice and the
@@ -110,13 +114,34 @@ per-step seeds take the global step index, so a stopped-and-resumed
 run gives the uninterrupted run's losses.  As in the JAX package there
 is no fault plan or guard on this path.
 
-Not ported: FSDP/ZeRO-3 weight sharding (ROADMAP queue A), and the
-kernels' seeded noise: `build_rank` refuses
+FSDP (ZeRO-3), as the JAX package's trainer always shards over its
+``data`` axis (`StageFsdp`): where the data group has D > 1 ranks, each
+rank keeps 1/D of every stage leaf the JAX package shards (its rule,
+`shard_dims`, on the pipeline layout's shapes: `fsdp_dim` past the
+stage dims, the expert dim skipped), and AdamW's moments of that shard.
+A unit's leaves are all-gathered whole, in one flat buffer staged
+through the host like every transport call (the ``fsdp`` plane), where
+the unit runs: a layer (with the shared block after it) inside its
+remat unit, so again in its recompute and in the nested stage
+recompute; the encoder, a dense prefix layer and the embedding, final
+norm and head once a microbatch pass.  The backward sends nothing: a
+gathered weight's gradient is added whole into an f32 accumulator of
+the leaf, which takes ``p.grad``'s place in the DP bucket, so the
+bucket, its all-reduce and the DP wire (JAX's ``replicate_leaves``
+placement) are unchanged and the losses equal the whole-stage layout's
+bit for bit; AdamW then updates each rank's part.  8-bit moments of a
+leaf split along its last dim take their rows' scales over the data
+group (`adamw.code_moments`).  `fsdp_gather_bytes` and
+`rank_param_bytes` model the plane's bytes and a rank's resident
+state.
+
+Not ported: the kernels' seeded noise: `build_rank` refuses
 the on-core noise knob (`repro_torch.env.oncore_prng`,
 `ONCORE_REFUSAL`).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import time
@@ -255,10 +280,90 @@ def ep_wire_bytes(cfg: ModelConfig, pcfg: PipelineConfig, n_layers: int,
                    data_par)
     one = (data_par - 1) * (cfg.n_experts * cap // data_par) \
         * cfg.d_model * cfg.torch_dtype.itemsize
-    nested = pcfg.remat and pcfg.remat_mode == "nested"
-    passes = sum(2 * (1 + pcfg.remat + (nested and l < n_layers - 1)) + 2
-                 for l in range(n_layers))
+    passes = sum(2 * _passes(pcfg, l, n_layers) + 2 for l in range(n_layers))
     return microbatches * passes * one
+
+
+def _passes(pcfg: PipelineConfig, l: int, n_layers: int) -> int:
+    """Forward runs of a stage's layer l (of ``n_layers``) in a
+    microbatch: the forward, its checkpoint's recompute with ``remat``,
+    and with nested remat the stage's recompute for every layer but the
+    last (`ep_wire_bytes`)."""
+    nested = pcfg.remat and pcfg.remat_mode == "nested"
+    return 1 + pcfg.remat + (nested and l < n_layers - 1)
+
+
+def fsdp_gather_bytes(cfg: ModelConfig, pcfg: PipelineConfig,
+                      lay: StageLayout, k: int, data_par: int,
+                      microbatches: int) -> int:
+    """The ``fsdp`` plane's bytes a rank of stage ``k`` sends in a step
+    over ``data_par`` data ranks (`StageFsdp`): each gather of a unit
+    sends the rank's f32 shards of it to the D-1 others.  A layer's unit
+    (and the shared block, once a layer it follows) is gathered at each
+    forward run of the layer (`_passes`); the encoder, a dense prefix
+    layer and the ``io`` unit (embedding, final norm, head) once a
+    microbatch.  Under expert parallelism each forward run of a MoE
+    layer also exchanges its sharded expert stacks by one all-to-all,
+    the rank's shard of each of the ne experts a peer computes to each
+    of the D-1 peers."""
+    if data_par == 1:
+        return 0
+    st = Stage(cfg, lay, k, device="meta")
+    shards = stage_shards(st, lay, data_par)
+    units, experts = fsdp_units(
+        shards, cfg.has_moe and pcfg.moe_mode == "expert_parallel")
+    n = len(st.layer_ids)
+
+    def sent(names, share=1):
+        return (data_par - 1) * 4 * sum(shards[x].numel_on(0) // share
+                                        for x in names)
+
+    total = 0
+    for unit, names in units.items():
+        kind, _, i = unit.partition(".")
+        if kind == "layers":
+            runs = _passes(pcfg, int(i), n)
+        elif kind == "shared_block":
+            runs = sum(_passes(pcfg, l, n)
+                       for l, f in enumerate(st.shared_after) if f)
+        else:
+            runs = 1
+        total += runs * sent(names)
+    for l, names in experts.items():
+        e = cfg.n_experts
+        total += _passes(pcfg, l, n) * max(e // data_par, 1) \
+            * sent(names, share=e)
+    return microbatches * total
+
+
+def rank_param_bytes(cfg: ModelConfig, pcfg: PipelineConfig,
+                     lay: StageLayout, k: int, data_par: int,
+                     state_bits: int = 0) -> int:
+    """A rank of stage ``k``'s resident parameter and AdamW moment bytes
+    (the same on every data rank; `resident_param_bytes` counts them):
+    its shards of the stage's parameters in f32 (1/D of each leaf the
+    JAX package shards, the rest whole), and two moments of each, in
+    f32 or as ``state_bits``-bit codes (a byte a value) with an f32
+    scale a row; under the ZeRO wire instead the full-model f32
+    parameter bucket and the f32 moments of one ring segment of it."""
+    st = Stage(cfg, lay, k, device="meta")
+    shards = stage_shards(st, lay, data_par) if data_par > 1 else {}
+    total = moments = 0
+    for name, p in st.named_parameters():
+        spec = shards.get(name)
+        if spec is not None and not spec.held(0):
+            continue
+        shape = spec.local_shape() if spec is not None else tuple(p.shape)
+        size = _numel(shape)
+        total += 4 * size
+        moments += 2 * (size + 4 * _numel(shape[:-1]) if state_bits
+                        else 4 * size)
+    comm = pcfg.comm
+    if comm.dp.bits and comm.dp_wire_spec.sharded:
+        bucket = PipelineBucket(cfg, lay, comm.dp_group_d)
+        seg = GC.ring_segment_rows(bucket.rows, data_par)
+        return total + 4 * bucket.group_d * seg * (data_par + 2)
+    return total + moments
 
 
 def layer_flags(cfg: ModelConfig, lay: StageLayout) -> list:
@@ -269,6 +374,418 @@ def layer_flags(cfg: ModelConfig, lay: StageLayout) -> list:
              for i in range(lay.lps)] for k in range(lay.num_stages)]
 
 
+# ---------------------------------------------------------------------------
+# FSDP (ZeRO-3): the shard rule of the JAX package
+# ---------------------------------------------------------------------------
+
+def fsdp_dim(shape, dsize: int, skip: int) -> Optional[int]:
+    """The dim (>= ``skip``) a leaf is sharded along over ``dsize`` data
+    ranks: the first one they divide (JAX ``fsdp_dim``)."""
+    for i in range(skip, len(shape)):
+        if shape[i] % dsize == 0 and shape[i] >= dsize:
+            return i
+    return None
+
+
+def _is_expert_leaf(shape, stage_leaf: bool) -> bool:
+    """MoE expert stacks are the only 5-D stage leaves (K, lps, E, d,
+    ff); their expert dim is never sharded (JAX ``_is_expert_leaf``)."""
+    return stage_leaf and len(shape) >= 5
+
+
+def _stage_fsdp_dim(shape, dsize: int) -> Optional[int]:
+    return fsdp_dim(shape, dsize, 3 if _is_expert_leaf(shape, True) else 2)
+
+
+def fsdp_dims_tree(shapes: dict, dsize: int, skip: int, shift: int = 0,
+                   stage: bool = False) -> dict:
+    """JAX ``fsdp_dims_tree`` over a flat {name: shape} dict: each leaf's
+    sharded dim less ``shift``, -1 where none; with ``stage``, -1 for the
+    expert stacks too (`expert_axes` gives theirs)."""
+    def rule(shape):
+        if _is_expert_leaf(shape, stage):
+            return -1
+        fd = fsdp_dim(shape, dsize, skip)
+        return -1 if fd is None else fd - shift
+    return {name: rule(shape) for name, shape in shapes.items()}
+
+
+def expert_axes(stage_shapes: dict, dsize: int) -> dict:
+    """JAX ``expert_axes``: {"w_gate" | "w_up" | "w_down": the sharded
+    axis of one expert's weight, -1 where none} for the 5-D expert
+    stacks among ``stage_shapes`` (the ``stages`` leaves keyed by their
+    names under it: ``ffn.w_gate`` ...)."""
+    axes = {}
+    for name in ("w_gate", "w_up", "w_down"):
+        shape = stage_shapes.get("ffn." + name)
+        if shape is not None and len(shape) >= 5:
+            fd = _stage_fsdp_dim(shape, dsize)
+            axes[name] = -1 if fd is None else fd - 3
+    return axes
+
+
+def pipeline_leaves(cfg: ModelConfig, lay: StageLayout) -> list:
+    """The JAX pipeline tree's leaves in ``jax.tree.leaves`` order, as
+    (name, shape of one copy, copies): ``embed``, an audio model's
+    ``enc_layers.<layer param>`` (sorted; a copy a layer) and
+    ``enc_norm.scale``, ``final_norm.scale``, the untied ``head``, a MoE
+    model's ``prefix.<i>.*`` (its items in turn, each sorted), the
+    hybrid's ``shared_block.*`` (sorted), then ``stages.<block param>``
+    (sorted; K lps copies, dead padded layers included)."""
+    def sort(entries):
+        return sorted(entries, key=lambda x: tuple(x[0].split(".")))
+
+    def block_leaves(prefix, blk, copies):
+        return sort((prefix + n, tuple(p.shape), copies)
+                    for n, p in blk.named_parameters())
+
+    out = [("embed", (cfg.vocab_size, cfg.d_model), 1)]
+    if cfg.encoder_layers:
+        out += block_leaves("enc_layers.", Block(cfg, device="meta"),
+                            cfg.encoder_layers)
+        out.append(("enc_norm.scale", (cfg.d_model,), 1))
+    out.append(("final_norm.scale", (cfg.d_model,), 1))
+    if not cfg.tie_embeddings:
+        out.append(("head", (cfg.d_model, cfg.vocab_size), 1))
+    for i in range(cfg.first_dense_layers):
+        out += block_leaves(f"prefix.{i}.", Block(cfg, device="meta"), 1)
+    if lay.shared_attn:
+        out += block_leaves("shared_block.", Block(cfg, device="meta"), 1)
+    out += block_leaves("stages.", trunk_layer(cfg, device="meta"),
+                        lay.num_stages * lay.lps)
+    return out
+
+
+def pipeline_shapes(cfg: ModelConfig, lay: StageLayout) -> dict:
+    """{name: shape} of the JAX pipeline tree's leaves (`pipeline_leaves`;
+    ``stages.*`` (K, lps, ...), ``enc_layers.*`` (encoder_layers, ...))."""
+    out = {}
+    for name, shape, copies in pipeline_leaves(cfg, lay):
+        top = name.split(".")[0]
+        if top == "stages":
+            shape = (lay.num_stages, lay.lps, *shape)
+        elif top == "enc_layers":
+            shape = (copies, *shape)
+        out[name] = tuple(shape)
+    return out
+
+
+def shard_dims(cfg: ModelConfig, lay: StageLayout, dsize: int) -> dict:
+    """{pipeline leaf name: the dim the JAX package shards it along over
+    ``dsize`` data ranks, or None}: a ``stages`` leaf's
+    `_stage_fsdp_dim`, every other leaf's ``fsdp_dim(shape, D, 0)``
+    (`pipeline_param_specs`' data rule; its split of a last dim over
+    ``model`` is XLA's layout and is not copied)."""
+    return {name: _stage_fsdp_dim(shape, dsize)
+            if name.startswith("stages.") else fsdp_dim(shape, dsize, 0)
+            for name, shape in pipeline_shapes(cfg, lay).items()}
+
+
+@dataclass(frozen=True)
+class LeafShard:
+    """How a stage parameter lies over the ``parts`` data ranks: split
+    along ``dim`` into equal pieces, piece r on data rank r; or whole on
+    data rank ``owner`` alone (an audio encoder leaf, whose stacked
+    leaf the JAX package splits by layer)."""
+    shape: tuple                     # the whole leaf's
+    parts: int
+    dim: Optional[int] = None
+    owner: Optional[int] = None
+
+    def held(self, r: int) -> bool:
+        return self.owner is None or self.owner == r
+
+    def local_shape(self) -> tuple:
+        """The shape of a rank's part (an owner's: the whole leaf)."""
+        if self.dim is None:
+            return self.shape
+        s = list(self.shape)
+        s[self.dim] //= self.parts
+        return tuple(s)
+
+    def numel_on(self, r: int) -> int:
+        return _numel(self.local_shape()) if self.held(r) else 0
+
+    def local(self, whole: torch.Tensor, r: int) -> torch.Tensor:
+        """Data rank r's part of the whole leaf (a view)."""
+        if self.dim is None:
+            return whole
+        n = self.shape[self.dim] // self.parts
+        return whole.narrow(self.dim, r * n, n)
+
+
+def stage_shards(stage: "Stage", lay: StageLayout, dsize: int) -> dict:
+    """{stage parameter name: `LeafShard`} of the leaves the JAX package
+    shards over ``dsize`` data ranks (`shard_dims` on its pipeline
+    layout's shapes, mapped onto the stage's names): a layer's leaf
+    ``layers.<l>.<p>`` splits along dim ``fd - 2`` of the ``stages.<p>``
+    leaf's dim fd (the port keeps every leaf in the JAX orientation,
+    which `tests/test_torch_fsdp.py` holds), an encoder layer's along
+    ``fd - 1`` of its stacked leaf, or, where fd is the stack's dim 0,
+    lies whole on the data rank holding its layer; the other leaves
+    keep fd.  Leaves no dim of which D divides stay whole on every
+    rank and are not listed."""
+    dims = shard_dims(stage.cfg, lay, dsize)
+    out = {}
+    for name, p in stage.named_parameters():
+        top, _, rest = name.partition(".")
+        shape = tuple(p.shape)
+        if top == "layers":
+            fd = dims["stages." + rest.split(".", 1)[1]]
+            spec = None if fd is None else LeafShard(shape, dsize, fd - 2)
+        elif top == "enc_layers":
+            i, leaf = rest.split(".", 1)
+            fd = dims["enc_layers." + leaf]
+            per = stage.cfg.encoder_layers // dsize
+            spec = None if fd is None else \
+                LeafShard(shape, dsize, owner=int(i) // per) if fd == 0 \
+                else LeafShard(shape, dsize, fd - 1)
+        else:
+            fd = dims[name]
+            spec = None if fd is None else LeafShard(shape, dsize, fd)
+        if spec is not None:
+            out[name] = spec
+    return out
+
+
+EXPERT_STACKS = ("w_gate", "w_up", "w_down")
+
+
+def fsdp_units(shards: dict, expert_parallel: bool) -> tuple:
+    """The gather units of a stage's sharded leaves: ({unit: names}, {l:
+    names}).  A unit is gathered in one flat all-gather: ``layers.<l>``
+    (a layer), ``shared_block``, ``encoder`` (an audio model's encoder
+    layers and ``enc_norm``), ``prefix.<i>`` (a MoE model's dense
+    layer) or ``io`` (the embedding, ``final_norm`` and the head the
+    stage holds).  Under expert parallelism a MoE layer's expert stacks
+    leave its unit for the second dict, the weight all-to-all's."""
+    units, experts = {}, {}
+    for name in shards:
+        parts = name.split(".")
+        if parts[0] == "layers":
+            if expert_parallel and parts[2:4] in (["ffn", w]
+                                                 for w in EXPERT_STACKS):
+                experts.setdefault(int(parts[1]), []).append(name)
+                continue
+            unit = f"layers.{parts[1]}"
+        elif parts[0] in ("enc_layers", "enc_norm"):
+            unit = "encoder"
+        elif parts[0] == "prefix":
+            unit = f"prefix.{parts[1]}"
+        elif parts[0] == "shared_block":
+            unit = "shared_block"
+        else:
+            unit = "io"
+        units.setdefault(unit, []).append(name)
+    return units, experts
+
+
+def _param_slot(root: nn.Module, name: str) -> tuple:
+    """(module, attribute) holding ``root``'s parameter ``name``."""
+    mod, _, attr = name.rpartition(".")
+    return (root.get_submodule(mod) if mod else root), attr
+
+
+class StageFsdp:
+    """ZeRO-3 over one stage's data group (JAX ``gather_fsdp``, the
+    ``pipeline_param_specs`` layout): the rank keeps only its shard of
+    each leaf of `stage_shards` (`shard_`), and a unit's leaves
+    (`fsdp_units`) are all-gathered whole in one flat buffer where the
+    unit runs (`gather`, `whole`; `RingGroup.all_gather_sunk`, the
+    ``fsdp`` plane), and again wherever remat recomputes it.  Under
+    expert parallelism a MoE layer's sharded expert stacks are not
+    gathered: each rank receives its own experts' shards from every
+    rank by one weight all-to-all (`experts`, JAX ``ep_weights``).
+
+    A gathered weight's gradient is added whole into an f32 accumulator
+    of the leaf (`take_grads`), the one the whole-stage layout's
+    ``p.grad`` would be, so the DP bucket, its all-reduce and the DP
+    wire are unchanged and the losses stay bit for bit the whole-stage
+    layout's.  The shared block of a hybrid is gathered once a use, its
+    uses' gradients summed apart (``pending``) and added once a
+    microbatch (`flush`), as autograd sums a leaf's uses in one backward
+    before it adds them to ``p.grad``.  ``seconds``: the wall time spent
+    in the gathers and exchanges (the device synchronized first)."""
+
+    def __init__(self, stage: "Stage", lay: StageLayout, group,
+                 expert_parallel: bool = False):
+        self.group, self.r = group, group.index
+        self.shards = stage_shards(stage, lay, group.size)
+        self.units, self.expert_units = fsdp_units(self.shards,
+                                                   expert_parallel)
+        self.split_rows = sorted(n for n, s in self.shards.items()
+                                 if s.dim == len(s.shape) - 1)
+        self.acc, self.pending, self.seconds = {}, {}, 0.0
+        self._params, self._layout = {}, {}
+
+    @torch.no_grad()
+    def shard_(self, stage: "Stage") -> None:
+        """Replace each sharded parameter of ``stage`` by this rank's
+        shard (a new parameter), or drop it where another rank holds it
+        whole."""
+        for name, spec in self.shards.items():
+            mod, attr = _param_slot(stage, name)
+            p = mod._parameters[attr]
+            mod._parameters[attr] = nn.Parameter(
+                spec.local(p.detach(), self.r).clone()) \
+                if spec.held(self.r) else None
+            self._params[name] = mod._parameters[attr]
+
+    def local(self, name: str, whole: torch.Tensor) -> torch.Tensor:
+        """This rank's part of leaf ``name`` given whole."""
+        spec = self.shards.get(name)
+        return whole if spec is None else spec.local(whole, self.r)
+
+    def _offsets(self, unit: str) -> list:
+        """Per leaf of ``unit``, per data rank: (offset, numel) in that
+        rank's flat buffer."""
+        if unit not in self._layout:
+            n = self.group.size
+            ends, rows = [0] * n, []
+            for name in self.units[unit]:
+                row = []
+                for r in range(n):
+                    k = self.shards[name].numel_on(r)
+                    row.append((ends[r], k))
+                    ends[r] += k
+                rows.append(row)
+            if len(set(ends)) != 1:
+                raise ValueError(f"unit {unit}: the data ranks hold "
+                                 f"{ends} values")
+            self._layout[unit] = rows
+        return self._layout[unit]
+
+    def _timed(self, fn):
+        if self.group.transport.device.type == "cuda":
+            torch.cuda.synchronize(self.group.transport.device)
+        t0 = time.perf_counter()
+        out = fn()
+        self.seconds += time.perf_counter() - t0
+        return out
+
+    def gather(self, unit: str, pending: bool = False) -> dict:
+        """{name: whole leaf} of ``unit`` ({} if it has no sharded leaf),
+        all-gathered over the data group; their gradients go to the
+        accumulators (with ``pending``, first summed apart)."""
+        names = self.units.get(unit)
+        if not names:
+            return {}
+        rows = self._offsets(unit)
+
+        def assemble(out):
+            whole = []
+            for name, row in zip(names, rows):
+                spec = self.shards[name]
+                if spec.dim is None:
+                    o, k = row[spec.owner]
+                    whole.append(out[spec.owner, o:o + k].view(
+                        spec.shape).clone())
+                    continue
+                piece = spec.local_shape()
+                whole.append(torch.cat([out[r, o:o + k].view(piece)
+                                        for r, (o, k) in enumerate(row)],
+                                       spec.dim))
+            return whole
+
+        held = [self._params[n] for n in names if self.shards[n].held(self.r)]
+        sink = self._sink(names, self.pending if pending else self.acc)
+        full = self._timed(lambda: self.group.all_gather_sunk(
+            held, assemble, sink))
+        return dict(zip(names, full))
+
+    def experts(self, l: int) -> dict:
+        """{name: this rank's own experts (ne, ...) of layer ``l``'s
+        sharded expert stack}, by one weight all-to-all (JAX
+        ``ep_weights``: each rank sends its shard of expert e_j to the
+        rank j computing it, 1/D the bytes of a ZeRO-3 all-gather); the
+        gradients go to the owner's slots of the accumulators."""
+        names = self.expert_units.get(l)
+        if not names:
+            return {}
+        dd, r = self.group.size, self.r
+        e = self.shards[names[0]].shape[0]
+        ne = max(e // dd, 1)
+        idx = torch.tensor([(j * e) // dd + i for j in range(dd)
+                            for i in range(ne)],
+                           device=self.group.transport.device)
+        send = torch.cat([self._params[n][idx].reshape(dd, -1)
+                          for n in names], 1)
+        sizes = [ne * self.shards[n].numel_on(r) // e for n in names]
+
+        def assemble(recv):
+            whole, o = [], 0
+            for n, k in zip(names, sizes):
+                spec = self.shards[n]
+                piece = (ne, *spec.local_shape()[1:])
+                whole.append(torch.cat([recv[j, o:o + k].view(piece)
+                                        for j in range(dd)], spec.dim))
+                o += k
+            return whole
+
+        start = r * e // dd
+
+        def sink(grads):
+            for n, g in zip(names, grads):
+                if g is None:
+                    continue
+                if n not in self.acc:
+                    self.acc[n] = torch.zeros(self.shards[n].shape,
+                                              dtype=torch.float32,
+                                              device=g.device)
+                    self.acc[n][start:start + ne].copy_(g)
+                else:
+                    self.acc[n][start:start + ne] += g
+
+        full = self._timed(lambda: self.group.all_to_all_sunk(
+            send, assemble, sink))
+        return dict(zip(names, full))
+
+    @staticmethod
+    def _sink(names, store):
+        def sink(grads):
+            for n, g in zip(names, grads):
+                if g is None:
+                    continue
+                if n in store:
+                    store[n] += g
+                else:
+                    store[n] = g.detach().clone()
+        return sink
+
+    def flush(self) -> None:
+        """Add the shared block's summed uses into its accumulators (once
+        a microbatch's backward)."""
+        for n, g in self.pending.items():
+            if n in self.acc:
+                self.acc[n] += g
+            else:
+                self.acc[n] = g
+        self.pending = {}
+
+    def take_grads(self) -> dict:
+        """The step's accumulated whole gradients (name -> f32 tensor),
+        handed over and cleared."""
+        grads, self.acc = self.acc, {}
+        return grads
+
+    @contextlib.contextmanager
+    def whole(self, stage: "Stage", *units: str, layer: Optional[int] = None,
+              shared: bool = False):
+        """Within: ``units`` (and with ``layer`` its unit and, under
+        expert parallelism, its own experts; with ``shared`` the shared
+        block, summed apart) gathered whole and in place in ``stage``."""
+        full = {}
+        if layer is not None:
+            full.update(self.gather(f"layers.{layer}"))
+            full.update(self.experts(layer))
+        for unit in units:
+            full.update(self.gather(unit))
+        if shared:
+            full.update(self.gather("shared_block", pending=True))
+        with stage.swapped(full):
+            yield
+
+
 class Stage(nn.Module):
     """Pipeline stage k: its live layers (trunk layers k*lps ..), the
     embedding and a MoE model's dense ``prefix`` on the first stage, the
@@ -276,7 +793,14 @@ class Stage(nn.Module):
     tied, else the untied ``head``), and a hybrid's ``shared_block`` and
     an audio model's encoder (``enc_layers``, ``enc_norm``) on every
     stage.  Parameter names are the stage's own (``layers.<local>.*``,
-    ``prefix.<i>.*``, ``shared_block.*``, ``enc_layers.<i>.*``)."""
+    ``prefix.<i>.*``, ``shared_block.*``, ``enc_layers.<i>.*``).  With
+    ``fsdp`` (a `StageFsdp`, which `PipelineRank` sets where the data
+    group has more than one rank) the stage holds its shards, and each
+    unit runs on its weights gathered whole: a layer (with the shared
+    block after it) inside its remat unit, the encoder and a dense
+    prefix layer once a microbatch pass, and the embedding, final norm
+    and head once a microbatch pass, handed in by the caller (``io``:
+    a loss piece recomputes, it never gathers)."""
 
     def __init__(self, cfg: ModelConfig, lay: StageLayout, k: int,
                  device=None):
@@ -307,6 +831,27 @@ class Stage(nn.Module):
             if self.last and not tied else None
         self.final_norm = L.RMSNorm(cfg.d_model, cfg.norm_eps,
                                     device=device) if self.last else None
+        self.fsdp: Optional[StageFsdp] = None
+
+    @contextlib.contextmanager
+    def swapped(self, tensors: dict):
+        """Within: each parameter named in ``tensors`` replaced by its
+        tensor there (a unit's gathered whole weights)."""
+        slots = [(_param_slot(self, n), t) for n, t in tensors.items()]
+        old = [mod._parameters[a] for (mod, a), _ in slots]
+        for (mod, a), t in slots:
+            mod._parameters[a] = t
+        try:
+            yield
+        finally:
+            for ((mod, a), _), o in zip(slots, old):
+                mod._parameters[a] = o
+
+    def gather_io(self) -> dict:
+        """The embedding, final norm and head this stage holds, gathered
+        whole ({} without FSDP): once a microbatch pass, for
+        `embed_tokens` and `nll_sum`."""
+        return self.fsdp.gather("io") if self.fsdp is not None else {}
 
     @torch.no_grad()
     def load_from_model(self, model: Transformer) -> "Stage":
@@ -336,24 +881,42 @@ class Stage(nn.Module):
         return self
 
     def embed_tokens(self, tokens: torch.Tensor, block_k: int = 512,
-                     patches: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     patches: Optional[torch.Tensor] = None,
+                     io: Optional[dict] = None) -> torch.Tensor:
         """The first stage's input: the embedding (after a vlm model's
         ``patches``), then a MoE model's dense prefix
         (`models.model.prefix_forward`; ``block_k`` its attention
-        backward's key block)."""
-        h = embed_rows(self.cfg, self.embed, tokens, patches)
+        backward's key block).  ``io``: `gather_io`'s whole weights."""
+        with self.swapped(io or {}):
+            h = embed_rows(self.cfg, self.embed, tokens, patches)
         b, s = h.shape[0], h.shape[1]
         positions = torch.arange(s, dtype=torch.int32,
                                  device=h.device).expand(b, s)
-        return prefix_forward(self.cfg, self.prefix, h, positions, block_k)
+        fs = self.fsdp
+        around = None if fs is None else \
+            (lambda i: fs.whole(self, f"prefix.{i}"))
+        return prefix_forward(self.cfg, self.prefix, h, positions, block_k,
+                              around=around)
 
     def encode(self, frames: torch.Tensor,
                pcfg: PipelineConfig) -> torch.Tensor:
         """An audio model's encoder over one microbatch's frames (mb, Se,
         d), each layer a remat unit with ``pcfg.remat`` (JAX's
-        ``encode_audio`` under ``vmap``)."""
-        return encode(self.cfg, self.enc_layers, self.enc_norm, frames,
-                      remat=pcfg.remat, block_k=pcfg.block_k)
+        ``encode_audio`` under ``vmap``).  With FSDP the encoder is
+        gathered whole once, and each layer's unit (its recompute too)
+        runs on its part of it."""
+        if self.fsdp is None:
+            return encode(self.cfg, self.enc_layers, self.enc_norm, frames,
+                          remat=pcfg.remat, block_k=pcfg.block_k)
+        full = self.fsdp.gather("encoder")
+        per = [{n: t for n, t in full.items()
+                if n.startswith(f"enc_layers.{i}.")}
+               for i in range(len(self.enc_layers))]
+        with self.swapped({n: t for n, t in full.items()
+                           if n.startswith("enc_norm.")}):
+            return encode(self.cfg, self.enc_layers, self.enc_norm, frames,
+                          remat=pcfg.remat, block_k=pcfg.block_k,
+                          around=lambda i: self.swapped(per[i]))
 
     def trunk(self, h: torch.Tensor, pcfg: PipelineConfig,
               ep=None, enc: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -367,14 +930,23 @@ class Stage(nn.Module):
                                  device=h.device).expand(b, s)
         offset = self.cfg.first_dense_layers
 
+        def unit(l, fn, shared):
+            if self.fsdp is None:
+                return fn
+
+            def whole(x):
+                with self.fsdp.whole(self, layer=l, shared=shared):
+                    return fn(x)
+            return whole
+
         def run(x):
-            for i, blk, shared in zip(self.layer_ids, self.layers,
-                                      self.shared_after):
+            for l, (i, blk, shared) in enumerate(zip(
+                    self.layer_ids, self.layers, self.shared_after)):
                 fn = layer_fn(self.cfg, i + offset, blk, positions, s,
                               pcfg.block_k,
                               self.shared_block if shared else None, ep=ep,
                               enc=enc)
-                x = run_remat(fn, x, remat=pcfg.remat)[0]
+                x = run_remat(unit(l, fn, shared), x, remat=pcfg.remat)[0]
             return x
 
         if pcfg.remat and pcfg.remat_mode == "nested" and self.layers:
@@ -383,19 +955,21 @@ class Stage(nn.Module):
         return run(h)
 
     def nll_sum(self, h: torch.Tensor, targets: torch.Tensor,
-                mask: torch.Tensor, loss_chunks: int) -> torch.Tensor:
+                mask: torch.Tensor, loss_chunks: int,
+                io: Optional[dict] = None) -> torch.Tensor:
         """Summed masked next-token NLL of the head over h (mb, S, d),
         as JAX's ``chunk_loss``: over n pieces of the sequence, n the
         largest divisor of S at most ``loss_chunks``, each piece's
         logits recomputed in the backward; the pieces' sums added in
-        order."""
+        order.  ``io``: `gather_io`'s whole weights."""
         seq = h.shape[1]
         n = next(c for c in range(min(loss_chunks, seq), 0, -1)
                  if seq % c == 0)
 
         def piece(hh, tt, mm):
-            hh = self.final_norm(hh)
-            logits = head_logits(self.cfg, hh, self.embed, self.head)
+            with self.swapped(io or {}):
+                hh = self.final_norm(hh)
+                logits = head_logits(self.cfg, hh, self.embed, self.head)
             lse = torch.logsumexp(logits, dim=-1)
             gold = torch.gather(logits, -1, tt[..., None].long())[..., 0]
             return ((lse - gold) * mm).sum()
@@ -432,39 +1006,9 @@ class PipelineBucket:
 
     def __init__(self, cfg: ModelConfig, lay: StageLayout, group_d: int):
         self.lay, self.group_d = lay, group_d
-        block = trunk_layer(cfg, device="meta")
-        names = sorted((n for n, _ in block.named_parameters()),
-                       key=lambda n: tuple(n.split(".")))
-        shapes = dict((n, tuple(p.shape)) for n, p in
-                      block.named_parameters())
-
-        def sort(entries):
-            return sorted(entries, key=lambda x: tuple(x[0].split(".")))
-
-        # (name, shape of one copy, copies stacked in the slot)
-        top = [("embed", (cfg.vocab_size, cfg.d_model), 1)]
-        if cfg.encoder_layers:
-            top += sort(("enc_layers." + n, tuple(p.shape),
-                         cfg.encoder_layers)
-                        for n, p in Block(cfg, device="meta")
-                        .named_parameters())
-            top.append(("enc_norm.scale", (cfg.d_model,), 1))
-        top.append(("final_norm.scale", (cfg.d_model,), 1))
-        if not cfg.tie_embeddings:
-            top.append(("head", (cfg.d_model, cfg.vocab_size), 1))
-        dense = Block(cfg, device="meta")
-        for i in range(cfg.first_dense_layers):
-            top += sort((f"prefix.{i}.{n}", tuple(p.shape), 1)
-                        for n, p in dense.named_parameters())
-        if lay.shared_attn:
-            top += sort(("shared_block." + n, tuple(p.shape), 1)
-                        for n, p in Block(cfg, device="meta")
-                        .named_parameters())
-        top += [("stages." + n, shapes[n], lay.num_stages * lay.lps)
-                for n in names]
         off = 0
         self.offsets, self.sizes = {}, {}
-        for name, shape, copies in top:
+        for name, shape, copies in pipeline_leaves(cfg, lay):
             self.offsets[name], self.sizes[name] = off, _numel(shape)
             off += copies * _numel(shape)
         self.total = off
@@ -501,12 +1045,13 @@ class PipelineBucket:
         return out
 
     def views(self, stage: Stage, bucket: torch.Tensor, like: dict) -> dict:
-        """The stage's slices of a bucket, shaped like ``like``."""
+        """The stage's slices of a bucket, shaped like ``like`` (name ->
+        a tensor of the whole leaf's shape, or that shape)."""
         flat = bucket.reshape(-1)
         out = {}
         for name, t in like.items():
             off, n = self.slot(stage, name)
-            out[name] = flat[off:off + n].reshape(t.shape)
+            out[name] = flat[off:off + n].reshape(getattr(t, "shape", t))
         return out
 
 
@@ -727,13 +1272,24 @@ class PipelineRank:
     ``pipeline`` (the microbatches forward and backward, hops
     included), ``grad_allreduce``, ``dp_wire``, ``adamw`` and, under
     the ZeRO wire, ``param_gather`` (the all-gather and the copy into
-    the stage).  ``seq_len`` is the text's length; a vlm model's
-    message buffers span its ``num_patches`` rows too."""
+    the stage); with FSDP also ``fsdp_gather``, the part of
+    ``pipeline`` spent in the weight gathers (`StageFsdp.seconds`).
+    ``seq_len`` is the text's length; a vlm model's message buffers span
+    its ``num_patches`` rows too.
+
+    Where the data group has more than one rank the stage's parameters
+    and AdamW moments are sharded over it (`StageFsdp`, ZeRO-3, as the
+    JAX package's trainer always shards over ``data``): ``params`` and
+    ``opt`` hold this rank's shards, ``shapes`` every stage leaf's whole
+    shape.  ``whole_stage`` keeps every leaf whole on every rank: the
+    layout the sharded one is held to bit for bit in the tests (the
+    spec's private ``_whole_stage``; no launcher flag sets it)."""
 
     def __init__(self, cfg: ModelConfig, pcfg: PipelineConfig, mesh,
                  opt_cfg: adamw.AdamWConfig, *, num_samples: int,
                  seq_len: int, seed: int = 0,
-                 initial_params: Optional[dict] = None):
+                 initial_params: Optional[dict] = None,
+                 whole_stage: bool = False):
         self.cfg, self.pcfg, self.mesh, self.opt_cfg = cfg, pcfg, mesh, \
             opt_cfg
         self.seed, self.seq = seed, seq_len
@@ -759,6 +1315,12 @@ class PipelineRank:
             def load(st):
                 return st.load_from_model(model)
         load(self.stage)
+        self.shapes = {n: tuple(p.shape)
+                       for n, p in self.stage.named_parameters()}
+        if mesh.shape.data > 1 and not whole_stage:
+            self.stage.fsdp = StageFsdp(self.stage, self.lay,
+                                        mesh.data_group, self.ep is not None)
+            self.stage.fsdp.shard_(self.stage)
         self.params = dict(self.stage.named_parameters())
         if self.sharded:
             n = mesh.shape.data
@@ -816,14 +1378,18 @@ class PipelineRank:
         for p in self.params.values():
             p.grad = None
 
+        if st.fsdp is not None:
+            st.fsdp.seconds = 0.0
         terminals, loss = [], torch.zeros((), device=dev)
         for j in range(M):
             ids = t["sample_ids"][j].long()
             enc = st.encode(t["frames"][j], pcfg) if "frames" in t \
                 else None
+            io = st.gather_io()
             if k == 0:
                 h = st.embed_tokens(t["tokens"][j], pcfg.block_k,
-                                    t["patches"][j] if n_patch else None)
+                                    t["patches"][j] if n_patch else None,
+                                    io=io)
             else:
                 m_in_s = buffer_read(pcfg, self.m_in, ids,
                                      self.cfg.d_model) if aq else None
@@ -841,24 +1407,31 @@ class PipelineRank:
                 terminals.append(token)
             else:
                 nll = st.nll_sum(out[:, n_patch:], t["targets"][j],
-                                 t["mask"][j].float(),
-                                 pcfg.loss_chunks) / max(count, 1.0)
+                                 t["mask"][j].float(), pcfg.loss_chunks,
+                                 io=io) / max(count, 1.0)
                 terminals.append(nll)
                 loss = loss + nll.detach()
+            del io
         for term in reversed(terminals):
             term.backward()
+            if st.fsdp is not None:
+                st.fsdp.flush()
         del terminals
         self._lap("pipeline")
+        if st.fsdp is not None:
+            self.phase_seconds["fsdp_gather"] = st.fsdp.seconds
         self._update(step)
         total = mesh.transport.all_reduce(loss, dist.ReduceOp.SUM, None,
                                           "loss")
         return float(total)
 
     def _update(self, step: int) -> None:
-        """Full-tree f32 mean gradient, the DP wire, AdamW."""
-        mesh, comm = self.mesh, self.pcfg.comm
-        grads = {n: p.grad for n, p in self.params.items()
-                 if p.grad is not None}
+        """Full-tree f32 mean gradient, the DP wire, AdamW (on this rank's
+        shards with FSDP)."""
+        mesh, comm, fs = self.mesh, self.pcfg.comm, self.stage.fsdp
+        grads = fs.take_grads() if fs is not None else {}
+        grads.update({n: p.grad for n, p in self.params.items()
+                      if p.grad is not None})
         bucket = self.bucket.flatten(self.stage, grads)
         del grads
         for p in self.params.values():
@@ -888,9 +1461,21 @@ class PipelineRank:
         if self.sharded:
             self._sharded_update(mean)
             return
-        g = self.bucket.views(self.stage, mean, self.params)
+        whole = self.bucket.views(self.stage, mean, self.shapes)
+        g = {n: fs.local(n, whole[n]) if fs is not None else whole[n]
+             for n in self.params}
+        # 8-bit moments keep one scale a row of the whole leaf: a leaf
+        # split along its last dim takes its rows' maxima over the data
+        # group (one MAX all-reduce, the ``opt`` plane), so its codes are
+        # the whole leaf's
+        bits = self.opt_cfg.state_bits
+        rows = [n for n in fs.split_rows if n in self.params] \
+            if fs is not None and bits else []
+        adamw.widen_moments(self.opt, rows, bits)
         self.opt = adamw.apply_updates(self.opt_cfg, self.params, g,
                                        self.opt)
+        adamw.code_moments(self.opt, rows, bits, lambda m: fs.group.
+                           all_reduce(m, dist.ReduceOp.MAX, plane="opt"))
         self._lap("adamw")
 
     @torch.no_grad()
@@ -904,9 +1489,11 @@ class PipelineRank:
                                               seg_mean[None], self.opt)
         self._lap("adamw")
         group.all_gather(own, self.pbucket.view(group.size, seg, -1))
-        for name, v in self.bucket.views(self.stage, self.pbucket,
-                                         self.params).items():
-            self.params[name].copy_(v)
+        fs = self.stage.fsdp
+        whole = self.bucket.views(self.stage, self.pbucket, self.shapes)
+        for name, p in self.params.items():
+            p.copy_(fs.local(name, whole[name]) if fs is not None
+                    else whole[name])
         self._lap("param_gather")
 
     def _lap(self, name: str) -> None:
@@ -950,7 +1537,8 @@ def build_rank(rank: int, world: int, spec: dict) -> tuple:
     trainer = PipelineRank(cfg, pcfg, mesh, opt_cfg,
                            num_samples=ds.num_samples, seq_len=ds.dc.seq_len,
                            seed=spec["seed"],
-                           initial_params=spec.get("initial_params"))
+                           initial_params=spec.get("initial_params"),
+                           whole_stage=spec.get("_whole_stage", False))
     return trainer, ds
 
 
@@ -977,10 +1565,11 @@ def rank_ckpt_dir(ckpt_dir: str, mesh) -> str:
 
 def rank_state(trainer: PipelineRank) -> dict:
     """The rank's training state as a checkpoint tree, keyed by the
-    stage's own names: ``params``, ``opt`` (moments, f32 or b-bit codes
-    and scales, and ``step``), and where the rank has them ``dp_error``,
-    ``m_out``, ``m_in`` and the ZeRO wire's ``pbucket``.  The leaves are
-    the trainer's own tensors."""
+    stage's own names: ``params`` (its shards with FSDP), ``opt``
+    (their moments, f32 or b-bit codes and scales, and ``step``), and
+    where the rank has them ``dp_error``, ``m_out``, ``m_in`` and the
+    ZeRO wire's ``pbucket``.  The leaves are the trainer's own
+    tensors."""
     tree = {"params": trainer.params, "opt": trainer.opt}
     for name in ("dp_error", "m_out", "m_in", "pbucket"):
         if getattr(trainer, name, None) is not None:
@@ -1090,7 +1679,7 @@ def train_rank(rank: int, world: int, spec: dict) -> dict:
         tr = mesh.transport
         out["bytes"].append({p: tr.bytes_sent(p)
                              for p in ("fw", "bw", "dp", "dp-gather", "ep",
-                                       "grad")})
+                                       "grad", "fsdp", "opt")})
         out["manifests"].append(tr.manifest("dp"))
         out["replicas"].append(check_replicas(trainer))
         done = step_i + 1
@@ -1106,6 +1695,47 @@ def train_rank(rank: int, world: int, spec: dict) -> dict:
         out["peak_mem_bytes"] = torch.cuda.max_memory_allocated(dev)
     out["dp_bucket"] = list(trainer.bucket.shape)
     out["warm_steps"] = warm_steps
+    out["resident_bytes"] = resident_param_bytes(trainer)
+    return out
+
+
+def resident_param_bytes(trainer: PipelineRank) -> int:
+    """The bytes of the rank's parameters, AdamW moments (codes and
+    scales with 8-bit moments) and, under the ZeRO wire, parameter
+    bucket, as held (`rank_param_bytes` models them)."""
+    def nbytes(t):
+        if isinstance(t, dict):
+            return sum(nbytes(v) for v in t.values())
+        return t.numel() * t.element_size() \
+            if isinstance(t, torch.Tensor) else 0
+    total = nbytes(trainer.params) + nbytes(trainer.opt["mu"]) \
+        + nbytes(trainer.opt["nu"])
+    return total + (nbytes(trainer.pbucket) if trainer.sharded else 0)
+
+
+@torch.no_grad()
+def gather_whole(trainer: PipelineRank, tensors: dict) -> dict:
+    """Tensors keyed as ``trainer.params`` (this rank's shards, or
+    anything shaped like them), whole: each sharded leaf all-gathered
+    over the data group on the ``check`` plane, outside the wire planes,
+    and the encoder leaves other data ranks hold whole included; the
+    rest as given.  Every rank of the data group calls it at the same
+    point (the tests' view of the whole stage)."""
+    fs = trainer.stage.fsdp
+    if fs is None:
+        return dict(tensors)
+    group, out = fs.group, {}
+    for name, shape in trainer.shapes.items():
+        spec = fs.shards.get(name)
+        if spec is None:
+            out[name] = tensors[name]
+            continue
+        mine = tensors[name] if spec.held(fs.r) else torch.zeros(
+            shape, dtype=torch.float32, device=trainer.mesh.device)
+        got = group.all_gather(mine.contiguous(), mine.new_empty(
+            (group.size, *mine.shape)), plane="check")
+        out[name] = got[spec.owner] if spec.dim is None \
+            else torch.cat(list(got), spec.dim)
     return out
 
 

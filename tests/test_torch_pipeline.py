@@ -98,10 +98,13 @@ def step_batches(rank, world, spec, batches, warm_steps):
     """Train on the given global batches (the first ``warm_steps`` with
     the warm-up step); return the losses, replica checks, and this
     stage's parameters before the first step and after every step, and
-    the gradient AdamW was given at every step."""
+    the gradient AdamW was given at every step, each whole (the data
+    ranks' shards gathered: `PL.gather_whole`)."""
     trainer, _ = PL.build_rank(rank, world, spec)
-    numpy = lambda tensors: {n: t.detach().numpy().copy()
-                             for n, t in tensors.items()}
+
+    def numpy(tensors):
+        return {n: t.detach().numpy().copy()
+                for n, t in PL.gather_whole(trainer, tensors).items()}
     out = {"rank": rank, "model_rank": trainer.mesh.model_rank,
            "losses": [], "replicas": [], "grads": [],
            "params": [numpy(trainer.params)]}

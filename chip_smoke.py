@@ -274,10 +274,11 @@ hd 80, ``pad_ms`` the three copies timed apart, SDPA beside);
 ``[serve-mamba2]``: ``mamba2-1.3b`` at full size (48 layers, d 2048,
 64 SSM heads of 64, state 128), batch 8, prompt 2048, 32 decode steps,
 2 stage groups, ``--kv-bits 8`` passed through; ``[serve-zamba2]``:
-``zamba2-2.7b`` at full size (54 layers in 9 blocks), batch 2, prompt
+``zamba2-2.7b`` at full width (54 layers in 9 blocks; since the
+seeded distributed slice 18 of them, `Z_LAYERS`), batch 2, prompt
 4064 into 4096, 32 decode steps, 3 stage groups, kv bits 0; both with
 the launches checked exactly (B1 = B2 = steps x boundaries, B3 = B4 =
-0, B10 9 for zamba2's prefill and 0 for mamba2), the hop bytes as sent,
+0, B10 a block for zamba2's prefill and 0 for mamba2), the hop bytes as sent,
 the state bytes (ssm + conv) and zamba2's raw KV bytes against their
 byte models; ``[serve-mamba2-reference-check]`` and
 ``[serve-zamba2-reference-check]`` (SMOKE, zamba2 at head_dim 80, card
@@ -339,8 +340,27 @@ too; ``[dist-fsdp-check]`` runs `FSDP_CHECKS` (gpt2-xl-paper,
 zamba2-2.7b, deepseek-moe-16b in ``zero3`` and ``expert_parallel``,
 whisper-small) again on the card in the whole-stage layout in the same
 spawn, losses bit for bit; ``[dist-train-resume]`` holds each rank's
-checkpoint to its sharded state's reckoned bytes.  Each phase's line ends with ``at``, its seconds since
-the script started.
+checkpoint to its sharded state's reckoned bytes.  Since the seeded
+distributed slice the gathers come in the JAX package's units (a
+``zero3`` MoE layer's experts one at a time, the hybrid's shared block
+once a stage call): the checks hold each rank's calls by unit to
+`training.pipeline.fsdp_gathers` and ``[dist-fsdp-check]`` prints the
+largest gathered buffer beside `fsdp_largest_gather`.  The on-core noise
+knob in the distributed trainer: ``[dist-train-oncore]`` is
+``[dist-train]``'s spec at `RESUME_LAYERS` (2) of 48 layers with
+``ACSGD_ONCORE_PRNG=1``, in ``[dist-train-resume]``'s spawn, whose
+uninterrupted run is the same spec without the knob: every B1, B3 and
+B5 launch seeded (``oncore_uniform`` equal to their sum), the byte
+models, the replicas and the final loss within
+`DIST_ONCORE_FINAL_LOSS_RTOL`; ``[dist-seeded-check]`` (SMOKE, the same
+spawn): under the knob the psum, ring and ring-sharded wires give
+bit-equal losses, the chunked ring (``--dp-chunks 2``, the hop
+deterministic) gives the same bits with and without the knob, and a run
+stopped after step 2 and resumed gives the unbroken seeded run's
+losses; ``[train-resume-oncore]`` is ``[train-resume]`` with the knob,
+its children beside ``[train-resume]``'s, bit-equal to its own
+unbroken seeded run.  Each phase's line ends with ``at``, its seconds
+since the script started.
 
 B9a and B9b launch 0 times on every path but ``[legacy-dp-codec]``:
 no trainer or server runs the legacy pair, in the JAX package either.
@@ -351,7 +371,8 @@ each path's own count in ``launches_by_path``, ``serve_continuous``,
 ``serve_zamba2``, ``serve_deepseek_moe``, ``serve_mixtral``,
 ``serve_moe_continuous``, ``serve_whisper``, ``serve_pixtral``,
 ``train_zamba2``, ``train_moe``, ``train_whisper``, ``train_full_depth``,
-``train_resume``, ``train_fault`` and ``dist_resume`` among them), the
+``train_resume``, ``train_resume_oncore``, ``train_fault``,
+``dist_resume`` and ``dist_oncore`` among them), the
 card's name and
 power limit, and as the last line ``{"ok": true, "device": {...}}``.
 Any failure raises and exits non-zero; with no CUDA device it exits 1
@@ -523,25 +544,31 @@ G27_ARGS = ["--arch", "gemma2-27b", "--layers", str(G27_LAYERS), "--stages",
 # cache of 4096, 32 decode steps, 3 stage groups of 3 blocks (2 hop
 # boundaries), kv bits 0 (JAX's rule for the shared block).  State
 # bytes (ssm + conv, f32): 805,306,368 + 20,054,016 and 141,557,760 +
-# 6,801,408, whatever the prompt's length
+# 6,801,408, whatever the prompt's length.  Since the seeded
+# distributed phases joined, zamba2 serves 18 of its 54 layers
+# (`Z_LAYERS`: 3 blocks, one a stage group, as [serve-hybrid-continuous])
+# so the run stays inside its 1200 s: the host drew 2.34e9 weights
+# (20.3 s) for it
 M_BATCH, M_PROMPT, M_GEN, M_STAGES = 8, 2048, 32, 2
-Z_BATCH, Z_PROMPT, Z_GEN, Z_STAGES = 2, 4064, 32, 3
+Z_BATCH, Z_PROMPT, Z_GEN, Z_STAGES, Z_LAYERS = 2, 4064, 32, 3, 18
 Z_CACHE = Z_PROMPT + Z_GEN
 Z_HEADS, Z_HEAD_DIM = 32, 80
 MAMBA_ARGS = ["--arch", "mamba2-1.3b", "--stages", str(M_STAGES), "--mode",
               "aqsgd", "--fw-bits", "4", "--kv-bits", "8", "--batch",
               str(M_BATCH), "--prompt-len", str(M_PROMPT), "--gen",
               str(M_GEN), "--device", "cuda", "--seed", "0"]
-ZAMBA_ARGS = ["--arch", "zamba2-2.7b", "--stages", str(Z_STAGES), "--mode",
+ZAMBA_ARGS = ["--arch", "zamba2-2.7b", "--layers", str(Z_LAYERS),
+              "--stages", str(Z_STAGES), "--mode",
               "aqsgd", "--fw-bits", "4", "--kv-bits", "0", "--batch",
               str(Z_BATCH), "--prompt-len", str(Z_PROMPT), "--gen",
               str(Z_GEN), "--device", "cuda", "--seed", "0"]
-# tag -> (arch, launcher args, batch, prompt, decode steps, stage groups)
+# tag -> (arch, launcher args, batch, prompt, decode steps, stage groups,
+# layers served or None for all)
 SSM_CELLS = {
     "serve-mamba2": ("mamba2-1.3b", MAMBA_ARGS, M_BATCH, M_PROMPT, M_GEN,
-                     M_STAGES),
+                     M_STAGES, None),
     "serve-zamba2": ("zamba2-2.7b", ZAMBA_ARGS, Z_BATCH, Z_PROMPT, Z_GEN,
-                     Z_STAGES),
+                     Z_STAGES, Z_LAYERS),
 }
 # their SMOKE card-vs-CPU checks: a prompt past SMOKE's chunk of 32, 6
 # decode steps; zamba2 at head_dim 80, so the card's hd-80 B10 path runs
@@ -858,6 +885,21 @@ FAULT_RETRIES = 3
 # 3 (dp trips, back to 2), 2, 3, 4, 5 (bw trips, back to 4), 4, 5
 FAULT_STEPS_RUN = 11
 CKPT_ROOT = os.path.join(ROOT, "results", "chip_smoke_ckpt")
+# [dist-train-oncore]'s final loss against the same spec without the
+# knob (2 layers: [dist-train-resume]'s uninterrupted run), a bound set
+# before the first run on the card, as [train-oncore]'s
+DIST_ONCORE_FINAL_LOSS_RTOL = 2e-2
+# [dist-seeded-check]: SMOKE runs of the 2 x 2 mesh under the knob, 2
+# warm-up and 2 compressed steps, (tag, DP wire, chunks, knob, hop
+# stochastic, checkpoint role)
+SEEDED_STEPS = 4
+SEEDED_RUNS = [("psum", "psum", 1, "1", True, None),
+               ("ring", "ring", 1, "1", True, None),
+               ("ring-sharded", "ring-sharded", 1, "1", True, None),
+               ("chunks2-knob", "ring", 2, "1", False, None),
+               ("chunks2", "ring", 2, "0", False, None),
+               ("stop", "ring", 1, "1", True, "stop"),
+               ("resume", "ring", 1, "1", True, "resume")]
 # [train-resume-cli]: the launcher at SMOKE size on the card
 CLI_ARGS = ["--smoke", "--device", "cuda", "--stages", "2", "--steps", "12",
             "--batch", "4", "--samples", "16", "--seq", "32", "--mode",
@@ -3443,8 +3485,10 @@ def ssm_serve_phase(torch, qp, serve, tag):
     from repro_torch.configs.base import get_config
     from repro_torch.serving import DeltaHopCodec, delta
 
-    arch, args, batch, prompt, gen, stages = SSM_CELLS[tag]
+    arch, args, batch, prompt, gen, stages, layers = SSM_CELLS[tag]
     cfg = get_config(arch)
+    if layers:
+        cfg = cfg.with_(num_layers=layers)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     qp.reset_launches()
@@ -4061,8 +4105,23 @@ def dist_reference_checks(torch, checks=DIST_CHECKS):
         losses[dev] = [res[0]["losses"] for res in runs]
         for i, res in zip(twins, whole):
             sharded = [r["losses"] for r in runs[i]]
+            small = get_config(checks[i][1], smoke=True).with_(
+                num_layers=DIST_CHECK_LAYERS)
+            lay = PL.stage_layout(small, DIST_STAGES)
+            pcfg = PipelineConfig(microbatches=DIST_MICRO, **checks[i][3])
+            largest = [PL.fsdp_largest_gather(small, pcfg, lay, k, DIST_DATA)
+                       for k in range(DIST_STAGES)]
+            experts = {u: w for u, (_, _, w) in PL.fsdp_gathers(
+                small, pcfg, lay, 0, DIST_DATA).items()
+                if u.startswith("experts.")}
             phase("dist-fsdp-check", arch=checks[i][1], check=checks[i][0],
                   moe_mode=checks[i][3].get("moe_mode"),
+                  largest_gather_bytes_by_rank=json.dumps(
+                      [r["largest_gather"][-1] for r in runs[i]]),
+                  largest_gather_model_by_stage=json.dumps(largest),
+                  expert_gather_bytes_stage0=json.dumps(experts),
+                  fsdp_calls_rank0_step3=json.dumps(
+                      runs[i][0]["fsdp_gathers"][-1]),
                   losses_sharded=json.dumps(sharded[0]),
                   losses_whole_stage=json.dumps(res[0]["losses"]),
                   bit_equal=sharded == [r["losses"] for r in res],
@@ -4074,6 +4133,9 @@ def dist_reference_checks(torch, checks=DIST_CHECKS):
                       [r["resident_bytes"] for r in res]))
             assert sharded == [r["losses"] for r in res], checks[i]
             assert all(b["fsdp"] == 0 for r in res for b in r["bytes"])
+            for r in runs[i]:
+                assert r["largest_gather"] == [largest[r["model_rank"]]] \
+                    * len(r["largest_gather"]), (checks[i], r["largest_gather"])
         for i, ((_, arch, _, pipe), res) in enumerate(zip(checks, runs)):
             small = get_config(arch, smoke=True).with_(
                 num_layers=DIST_CHECK_LAYERS)
@@ -4084,6 +4146,11 @@ def dist_reference_checks(torch, checks=DIST_CHECKS):
                                             DIST_DATA, DIST_MICRO)
                 assert [b["fsdp"] for b in r["bytes"]] \
                     == [want] * len(r["bytes"]), (arch, pipe, want)
+                calls = {u: DIST_MICRO * c for u, (c, _, _) in
+                         PL.fsdp_gathers(small, pcfg, lay, r["model_rank"],
+                                         DIST_DATA).items()}
+                assert r["fsdp_gathers"] == [calls] * len(r["bytes"]), \
+                    (arch, pipe, r["fsdp_gathers"], calls)
             cfg = get_config(arch)
             if cfg.has_moe:
                 small = get_config(arch, smoke=True).with_(
@@ -4215,24 +4282,29 @@ def _need_disk(path: str, nbytes: int, what: str) -> None:
         raise RuntimeError(f"{path}: {free} B free, {what} needs {nbytes}")
 
 
-def resume_child(mode: str, ckpt_dir: str, log_path: str) -> None:
+def resume_child(mode: str, ckpt_dir: str, log_path: str,
+                 knob: str = "0") -> None:
     """A fresh process of [train-resume] (the spawn target): ``mode``
     "kill" checkpoints every `RESUME_SAVE_EVERY` steps and hard-exits
     with 17 after step `RESUME_KILL_AT`'s loss; "resume" resumes from
-    the newest checkpoint.  Every line the runner prints goes to
+    the newest checkpoint; ``knob`` "1" sets the on-core noise knob
+    ([train-resume-oncore]).  Every line the runner prints goes to
     ``log_path`` as JSON with the kernel launches so far, so the killed
     process leaves its record."""
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    from repro_torch import env
     from repro_torch.kernels import quant_pack as qp
     from repro_torch.launch import runner
 
+    os.environ[env.ONCORE_PRNG] = knob
+    tag = "train-resume-oncore" if knob == "1" else "train-resume"
     cfg, tcfg, ds = _resume_config()
     qp.reset_launches()
     with open(log_path, "w") as log:
         def emit(line: str) -> None:
-            print(f"[train-resume-{mode}] {line}", flush=True)
+            print(f"[{tag}-{mode}] {line}", flush=True)
             log.write(json.dumps({"line": line,
                                   "launches": dict(qp.LAUNCHES)}) + "\n")
             log.flush()
@@ -4261,26 +4333,41 @@ def _parse_run(lines: list) -> dict:
     return out
 
 
-def _spawn_child(mode: str, ckpt_dir: str) -> tuple:
-    """Run `resume_child` in a fresh spawned process; returns (exit
-    code, its records)."""
+def _start_children(mode: str, dirs: dict) -> dict:
+    """Start `resume_child` in fresh spawned processes side by side, one
+    a (knob, checkpoint directory) of ``dirs``."""
     import multiprocessing as mp
-    log_path = os.path.join(CKPT_ROOT, f"{mode}.jsonl")
-    proc = mp.get_context("spawn").Process(
-        target=resume_child, args=(mode, ckpt_dir, log_path))
-    proc.start()
-    proc.join(timeout=DIST_TIMEOUT)
-    if proc.is_alive():
-        proc.kill()
-        proc.join()
-        raise RuntimeError(f"[train-resume] {mode} child timed out")
-    with open(log_path) as f:
-        records = [json.loads(line) for line in f]
-    return proc.exitcode, records
+    procs = {}
+    for knob, ckpt_dir in dirs.items():
+        log_path = os.path.join(CKPT_ROOT, f"{mode}-{knob}.jsonl")
+        proc = mp.get_context("spawn").Process(
+            target=resume_child, args=(mode, ckpt_dir, log_path, knob))
+        proc.start()
+        procs[knob] = (proc, log_path, time.perf_counter())
+    return procs
 
 
-def train_resume_phase(torch, qp) -> dict:
-    """[train-resume] and [train-fault]; returns their launches."""
+def _join_children(mode: str, procs: dict) -> dict:
+    """Wait for `_start_children`' processes: {knob: (exit code, its
+    records, seconds from its start)}."""
+    out = {}
+    for knob, (proc, log_path, t0) in procs.items():
+        proc.join(timeout=DIST_TIMEOUT)
+        if proc.is_alive():
+            proc.kill()
+            proc.join()
+            raise RuntimeError(f"[train-resume] {mode} child timed out")
+        with open(log_path) as f:
+            records = [json.loads(line) for line in f]
+        out[knob] = (proc.exitcode, records, time.perf_counter() - t0)
+    return out
+
+
+def train_resume_phase(torch, qp, env) -> dict:
+    """[train-resume], [train-resume-oncore] (the same with the on-core
+    noise knob) and [train-fault]; the killed processes run beside the
+    uninterrupted runs and the fault run, which this process makes;
+    returns their launches."""
     import shutil
     from repro_torch.comm.faults import FaultPlan
     from repro_torch.launch import runner
@@ -4289,63 +4376,24 @@ def train_resume_phase(torch, qp) -> dict:
     per_step = _resume_launches_per_step()
     reckoned = reckoned_sim_bytes(cfg)
     shutil.rmtree(CKPT_ROOT, ignore_errors=True)
-    _need_disk(CKPT_ROOT, (RESUME_KEEP + 1) * reckoned, "train-resume")
+    _need_disk(CKPT_ROOT, 3 * (RESUME_KEEP + 1) * reckoned, "train-resume")
+    dirs = {knob: os.path.join(CKPT_ROOT, f"sim-{knob}") for knob in "01"}
+    kill_procs = _start_children("kill", dirs)
 
+    base, base_launches = {}, {}
+    for knob in dirs:
+        os.environ[env.ONCORE_PRNG] = knob
+        try:
+            torch.cuda.empty_cache()
+            qp.reset_launches()
+            _, base[knob] = runner.run_sim_training(
+                cfg, tcfg, ds, num_steps=RESUME_STEPS,
+                batch_size=TRAIN_BATCH, log_every=0, seed=0, device="cuda")
+            torch.cuda.synchronize()
+            base_launches[knob] = dict(qp.LAUNCHES)
+        finally:
+            del os.environ[env.ONCORE_PRNG]
     torch.cuda.empty_cache()
-    qp.reset_launches()
-    _, base = runner.run_sim_training(
-        cfg, tcfg, ds, num_steps=RESUME_STEPS, batch_size=TRAIN_BATCH,
-        log_every=0, seed=0, device="cuda")
-    torch.cuda.synchronize()
-    base_launches = dict(qp.LAUNCHES)
-    torch.cuda.empty_cache()
-
-    ckpt_dir = os.path.join(CKPT_ROOT, "sim")
-    t0 = time.perf_counter()
-    code, kill_rec = _spawn_child("kill", ckpt_dir)
-    kill_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    code_r, res_rec = _spawn_child("resume", ckpt_dir)
-    res_s = time.perf_counter() - t0
-    killed = _parse_run([r["line"] for r in kill_rec])
-    resumed = _parse_run([r["line"] for r in res_rec])
-    kill_launches, res_launches = kill_rec[-1]["launches"], \
-        res_rec[-1]["launches"]
-    phase("train-resume", layers=f"{RESUME_LAYERS}/48", d_model=cfg.d_model,
-          vocab=cfg.vocab_size, steps=RESUME_STEPS,
-          save_every=RESUME_SAVE_EVERY, kill_at=RESUME_KILL_AT,
-          keep=RESUME_KEEP, reckoned_bytes=reckoned,
-          losses_exact=json.dumps(base),
-          killed_losses=json.dumps(killed["losses"]),
-          resumed_losses=json.dumps(resumed["losses"]),
-          kill_exit=code, resume_exit=code_r,
-          saves=json.dumps(killed["saved"] + resumed["saved"]),
-          restores=json.dumps(resumed["restored"]),
-          kill_process_s=f"{kill_s:.1f}", resume_process_s=f"{res_s:.1f}",
-          launches=json.dumps(base_launches),
-          launches_killed=json.dumps(kill_launches),
-          launches_resumed=json.dumps(res_launches))
-    assert code == runner.KILL_EXIT_CODE == 17, code
-    assert code_r == 0, code_r
-    assert kill_rec[-1]["line"].startswith(
-        f"killing at step {RESUME_KILL_AT}"), kill_rec[-1]
-    assert [killed["losses"][i] for i in range(RESUME_KILL_AT + 1)] \
-        == base[:RESUME_KILL_AT + 1], (killed["losses"], base)
-    assert sorted(resumed["losses"]) == list(range(RESUME_KILL_AT,
-                                                   RESUME_STEPS))
-    assert [resumed["losses"][i] for i in sorted(resumed["losses"])] \
-        == base[RESUME_KILL_AT:], (resumed["losses"], base)
-    assert [c["step"] for c in killed["saved"]] == [0, 2, 4]
-    assert [c["step"] for c in resumed["restored"]] == [RESUME_KILL_AT]
-    for c in killed["saved"] + resumed["saved"] + resumed["restored"]:
-        assert reckoned < c["bytes"] < reckoned + 2 ** 20, (c, reckoned)
-    for name, n in per_step.items():
-        assert base_launches[name] == n * RESUME_STEPS, (name, base_launches)
-        assert kill_launches[name] == n * (RESUME_KILL_AT + 1), \
-            (name, kill_launches)
-        assert res_launches[name] == n * (RESUME_STEPS - RESUME_KILL_AT), \
-            (name, res_launches)
-    shutil.rmtree(ckpt_dir)
 
     # [train-fault]: the same run with a fault on fw, dp and bw
     lines = []
@@ -4365,11 +4413,12 @@ def train_resume_phase(torch, qp) -> dict:
     recovered = [ln for ln in lines if ln.startswith("recovered from")]
     phase("train-fault", plan=FAULT_PLAN, max_retries=FAULT_RETRIES,
           guard_lines=json.dumps(tripped), recoveries=json.dumps(recovered),
-          losses_exact=json.dumps(losses), losses_bit_equal=losses == base,
+          losses_exact=json.dumps(losses),
+          losses_bit_equal=losses == base["0"],
           saves=json.dumps(run["saved"]),
           restores=json.dumps(run["restored"]), wall_s=f"{wall:.1f}",
           steps_run=FAULT_STEPS_RUN, launches=json.dumps(fault_launches))
-    assert losses == base, (losses, base)
+    assert losses == base["0"], (losses, base["0"])
     want = [("fw", 2), ("dp", 3), ("bw", 5)]
     assert len(tripped) == len(want), tripped
     for line, (plane, step) in zip(tripped, want):
@@ -4381,21 +4430,172 @@ def train_resume_phase(torch, qp) -> dict:
     for name, n in per_step.items():
         assert fault_launches[name] == n * FAULT_STEPS_RUN, \
             (name, fault_launches)
+    shutil.rmtree(os.path.join(CKPT_ROOT, "fault"))
+
+    kills = _join_children("kill", kill_procs)
+    resumes = _join_children("resume", _start_children("resume", dirs))
+    both = {}
+    for knob, tag in (("0", "train-resume"), ("1", "train-resume-oncore")):
+        code, kill_rec, kill_s = kills[knob]
+        code_r, res_rec, res_s = resumes[knob]
+        killed = _parse_run([r["line"] for r in kill_rec])
+        resumed = _parse_run([r["line"] for r in res_rec])
+        kill_launches, res_launches = kill_rec[-1]["launches"], \
+            res_rec[-1]["launches"]
+        want = dict(per_step, oncore_uniform=sum(
+            per_step[n] for n in ONCORE_ENCODERS) if knob == "1" else 0)
+        phase(tag, layers=f"{RESUME_LAYERS}/48", d_model=cfg.d_model,
+              vocab=cfg.vocab_size, steps=RESUME_STEPS,
+              save_every=RESUME_SAVE_EVERY, kill_at=RESUME_KILL_AT,
+              keep=RESUME_KEEP, reckoned_bytes=reckoned,
+              losses_exact=json.dumps(base[knob]),
+              killed_losses=json.dumps(killed["losses"]),
+              resumed_losses=json.dumps(resumed["losses"]),
+              kill_exit=code, resume_exit=code_r,
+              saves=json.dumps(killed["saved"] + resumed["saved"]),
+              restores=json.dumps(resumed["restored"]),
+              kill_process_s=f"{kill_s:.1f}", resume_process_s=f"{res_s:.1f}",
+              launches=json.dumps(base_launches[knob]),
+              launches_killed=json.dumps(kill_launches),
+              launches_resumed=json.dumps(res_launches))
+        assert code == runner.KILL_EXIT_CODE == 17, code
+        assert code_r == 0, code_r
+        assert kill_rec[-1]["line"].startswith(
+            f"killing at step {RESUME_KILL_AT}"), kill_rec[-1]
+        assert [killed["losses"][i] for i in range(RESUME_KILL_AT + 1)] \
+            == base[knob][:RESUME_KILL_AT + 1], (killed["losses"], base)
+        assert sorted(resumed["losses"]) == list(range(RESUME_KILL_AT,
+                                                       RESUME_STEPS))
+        assert [resumed["losses"][i] for i in sorted(resumed["losses"])] \
+            == base[knob][RESUME_KILL_AT:], (resumed["losses"], base)
+        assert [c["step"] for c in killed["saved"]] == [0, 2, 4]
+        assert [c["step"] for c in resumed["restored"]] == [RESUME_KILL_AT]
+        for c in killed["saved"] + resumed["saved"] + resumed["restored"]:
+            assert reckoned < c["bytes"] < reckoned + 2 ** 20, (c, reckoned)
+        for name, n in want.items():
+            assert base_launches[knob].get(name, 0) == n * RESUME_STEPS, \
+                (name, base_launches[knob])
+            assert kill_launches.get(name, 0) == n * (RESUME_KILL_AT + 1), \
+                (name, kill_launches)
+            assert res_launches.get(name, 0) \
+                == n * (RESUME_STEPS - RESUME_KILL_AT), (name, res_launches)
+        both[knob] = {k: kill_launches.get(k, 0) + res_launches.get(k, 0)
+                      for k in base_launches[knob]}
+    assert base["1"] != base["0"], "the knob changed no bit"
     shutil.rmtree(CKPT_ROOT)
     torch.cuda.empty_cache()
-    both = {k: kill_launches.get(k, 0) + res_launches.get(k, 0)
-            for k in base_launches}
-    return {"train_resume": both, "train_fault": fault_launches}
+    return {"train_resume": both["0"], "train_resume_oncore": both["1"],
+            "train_fault": fault_launches}
+
+
+def knob_ranks(rank, world, runs):
+    """`training.pipeline.train_rank` of each (knob, spec) of ``runs`` in
+    turn in this process, the on-core noise knob set to ``knob`` ("1" or
+    "0") for each (`run_dist_knobs`' spawn target)."""
+    from repro_torch import env
+    from repro_torch.training import pipeline as PL
+    out = []
+    for knob, spec in runs:
+        os.environ[env.ONCORE_PRNG] = knob
+        out.append(PL.train_rank(rank, world, spec))
+    return out
+
+
+def run_dist_knobs(runs) -> list:
+    """`launch.train.run_distributed` of (knob, spec) pairs of one mesh
+    on the card: the kernels built first, one spawn; each spec's results
+    by rank."""
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import spawn
+    for name in build.SIGNATURES:
+        build.build(name)
+    world = runs[0][1]["data_par"] * runs[0][1]["stages"]
+    out = spawn(knob_ranks, world, (runs,), timeout=DIST_TIMEOUT,
+                threads=max(1, (os.cpu_count() or 1) // world))
+    return [[r[i] for r in out] for i in range(len(runs))]
+
+
+def _seeded_specs(torch, ckpt_dir) -> list:
+    """[dist-seeded-check]'s (knob, spec) pairs (`SEEDED_RUNS`): SMOKE,
+    `DIST_CHECK_LAYERS` layers, stochastic rounding on every plane or,
+    where the hop is deterministic, on the DP wire alone."""
+    import dataclasses
+    from repro_torch.comm.config import CommConfig
+    out = []
+    for _, wire, chunks, knob, hop, role in SEEDED_RUNS:
+        flags = ["--device", "cuda", "--smoke", "--steps", str(SEEDED_STEPS),
+                 "--batch", str(DIST_CHECK_BATCH), "--seq",
+                 str(DIST_CHECK_SEQ), "--samples", str(2 * DIST_CHECK_BATCH),
+                 "--dp-wire", wire, "--dp-chunks", str(chunks)]
+        if role == "stop":
+            flags += ["--ckpt-dir", ckpt_dir, "--save-every", "2"]
+        elif role == "resume":
+            flags += ["--ckpt-dir", ckpt_dir, "--resume"]
+        spec = _dist_spec(torch, flags, layers=DIST_CHECK_LAYERS)
+        if role == "stop":
+            spec["steps"] = 2          # the schedule stays SEEDED_STEPS
+        if not hop:
+            c = CommConfig.from_json(spec["comm"])
+            spec["comm"] = dataclasses.replace(
+                c, fw=c.fw.with_(stochastic=False),
+                bw=c.bw.with_(stochastic=False)).to_json()
+        out.append((knob, spec))
+    return out
+
+
+def dist_seeded_check(runs) -> dict:
+    """[dist-seeded-check] on the results of `_seeded_specs`' runs (in
+    `SEEDED_RUNS` order); returns the seeded ring's launches."""
+    res = {tag: r for (tag, *_), r in zip(SEEDED_RUNS, runs)}
+    losses = {tag: r[0]["losses"] for tag, r in res.items()}
+
+    def launches(tag):
+        return {k: sum(st[k] for r in res[tag] for st in r["launches"])
+                for k in res[tag][0]["launches"][0]}
+
+    seeded = {tag: {k: launches(tag)[k] for k in
+                    (*ONCORE_ENCODERS, "oncore_uniform")} for tag in res}
+    resumed = losses["stop"] + losses["resume"]
+    phase("dist-seeded-check", layers=DIST_CHECK_LAYERS,
+          steps=SEEDED_STEPS, losses=json.dumps(losses),
+          psum_ring_sharded_bit_equal=losses["psum"] == losses["ring"]
+          == losses["ring-sharded"],
+          chunks2_knob_bit_equal=losses["chunks2-knob"] == losses["chunks2"],
+          resumed_bit_equal=resumed == losses["ring"],
+          resumed_from=res["resume"][0]["start"],
+          launches=json.dumps(seeded))
+    for tag, r in res.items():
+        assert all(x["losses"] == r[0]["losses"] for x in r), tag
+        assert all(math.isfinite(x) for x in r[0]["losses"]), tag
+        got = seeded[tag]
+        if tag.startswith("chunks2"):
+            # deterministic hop, the chunked ring's noise tensor
+            assert got["oncore_uniform"] == 0, (tag, got)
+        else:
+            assert got["oncore_uniform"] == sum(
+                got[n] for n in ONCORE_ENCODERS) > 0, (tag, got)
+    assert losses["psum"] == losses["ring"] == losses["ring-sharded"], \
+        losses
+    assert losses["chunks2-knob"] == losses["chunks2"], losses
+    assert res["resume"][0]["start"] == 2
+    assert resumed == losses["ring"], (resumed, losses["ring"])
+    return launches("ring")
 
 
 def dist_resume_phase(torch) -> dict:
     """[dist-train-resume]: [dist-train]'s spec at 2 layers, run
     uninterrupted, stopped after step 2 with per-rank checkpoints, and
-    resumed, in one spawn; returns the stopped and resumed runs'
-    launches summed over the ranks."""
+    resumed; [dist-train-oncore], the uninterrupted run's spec with the
+    on-core noise knob; and [dist-seeded-check]'s SMOKE runs, all in one
+    spawn.  Returns the stopped and resumed runs' launches summed over
+    the ranks, [dist-train-oncore]'s, and the seeded SMOKE ring's."""
     import shutil
+    from repro_torch.comm.config import CommConfig
     from repro_torch.configs.base import get_config
-    from repro_torch.launch import train as launch_train
+    from repro_torch.core import collectives as C
+    from repro_torch.core import quantization as Q
+    from repro_torch.serving import DeltaHopCodec
+    from repro_torch.training import pipeline as PL
 
     cfg = get_config("gpt2-xl-paper").with_(num_layers=RESUME_LAYERS)
     reckoned = [reckoned_rank_bytes(cfg, k) for k in range(DIST_STAGES)]
@@ -4411,10 +4611,11 @@ def dist_resume_phase(torch) -> dict:
     stop["steps"] = 2          # the optimizer's schedule stays 4 steps
     resume = _dist_spec(torch, [*flags, "--ckpt-dir", d, "--resume"],
                         layers=RESUME_LAYERS)
+    seeded = _seeded_specs(torch, os.path.join(CKPT_ROOT, "seeded"))
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    b, st, rs = launch_train.run_distributed([base, stop, resume],
-                                             timeout=DIST_TIMEOUT)
+    b, st, rs, on, *smoke = run_dist_knobs(
+        [("0", base), ("0", stop), ("0", resume), ("1", base), *seeded])
     wall = time.perf_counter() - t0
     # launches a step summed over the ranks: the DP ring on every rank
     # every step, B10 2 a microbatch a rank (3 x 1 - 1 under nested
@@ -4425,17 +4626,18 @@ def dist_resume_phase(torch) -> dict:
     hop = DIST_DATA * DIST_MICRO
     comp = dict(warm, delta_quantize_pack=hop, dequant_unpack_accumulate=hop,
                 quantize_pack=hop, unpack_dequant=hop)
+    names = [*DIST_LAUNCHES, "oncore_uniform"]
 
     def summed(res, i):
         return {k: sum(r["launches"][i].get(k, 0) for r in res)
-                for k in DIST_LAUNCHES}
+                for k in names}
 
-    launches = {k: 0 for k in DIST_LAUNCHES}
+    launches = {k: 0 for k in names}
     for res, steps in ((st, (0, 1)), (rs, (2, 3))):
         for i, step in enumerate(steps):
             got = summed(res, i)
             want = {k: (warm if step < 2 else comp).get(k, 0)
-                    for k in DIST_LAUNCHES}
+                    for k in names}
             assert got == want, (step, got, want)
             assert got == summed(b, step), (step, got)
             for k in launches:
@@ -4452,7 +4654,7 @@ def dist_resume_phase(torch) -> dict:
               [rep for r in rs if r["model_rank"] == DIST_STAGES - 1
                for rep in r["replicas"]]),
           launches_stop_and_resume=json.dumps(launches),
-          wall_s_three_runs=f"{wall:.1f}")
+          wall_s_all_runs=f"{wall:.1f}")
     for r_b, r_s, r_r in zip(b, st, rs):
         assert r_s["losses"] == r_b["losses"][:2], (r_s["losses"],
                                                     r_b["losses"])
@@ -4468,8 +4670,70 @@ def dist_resume_phase(torch) -> dict:
             for rep in r_r["replicas"]:
                 assert rep["m_in_equal"] is True, rep
                 assert rep["embed_equal"] is True, rep
+
+    # [dist-train-oncore]: every seeded encoder's noise drawn in the
+    # kernel, the same bytes, replicas and launches otherwise
+    oncore = {k: sum(summed(on, i)[k] for i in range(DIST_STEPS))
+              for k in names}
+    plain = {k: sum(summed(b, i)[k] for i in range(DIST_STEPS))
+             for k in names}
+    encodes = sum(oncore[n] for n in ONCORE_ENCODERS)
+    lay = PL.stage_layout(cfg, DIST_STAGES)
+    bucket = PL.PipelineBucket(cfg, lay, 512).shape
+    mb = DIST_BATCH // DIST_DATA // DIST_MICRO
+    pcfg = PL.PipelineConfig(comm=CommConfig.from_json(base["comm"]))
+    want = {"fw_warm": DIST_MICRO * mb * DIST_SEQ * cfg.d_model * 4,
+            "fw": DIST_MICRO * DeltaHopCodec(mode="aqsgd", bits=4).hop_bytes(
+                mb * DIST_SEQ, cfg.d_model),
+            "bw": DIST_MICRO * Q.wire_bytes((mb, DIST_SEQ, cfg.d_model), 8),
+            "dp": C.ring_wire_bytes(bucket, 4, DIST_DATA),
+            "fsdp": [PL.fsdp_gather_bytes(cfg, pcfg, lay, k, DIST_DATA,
+                                          DIST_MICRO)
+                     for k in range(DIST_STAGES)]}
+    rel = abs(on[0]["losses"][-1] - b[0]["losses"][-1]) \
+        / abs(b[0]["losses"][-1])
+    phase("dist-train-oncore", mesh=f"{DIST_DATA}x{DIST_STAGES}",
+          layers=f"{RESUME_LAYERS}/48", d_model=cfg.d_model, dp_wire="ring",
+          dp_bucket=list(bucket), losses_exact=json.dumps(on[0]["losses"]),
+          losses_without_knob=json.dumps(b[0]["losses"]),
+          final_loss_rel_diff=rel, tolerance=DIST_ONCORE_FINAL_LOSS_RTOL,
+          oncore_uniform=oncore["oncore_uniform"], encodes=encodes,
+          noise_input_encodes=encodes - oncore["oncore_uniform"],
+          launches=json.dumps(oncore), launches_without_knob=json.dumps(plain),
+          bytes_rank0_by_step=json.dumps(on[0]["bytes"]),
+          bytes_rank1_by_step=json.dumps(on[1]["bytes"]),
+          bytes_models=json.dumps(want),
+          replicas_rank1=json.dumps(on[1]["replicas"]),
+          step_s_rank0=json.dumps([round(x, 4)
+                                   for x in on[0]["step_seconds"]]),
+          step_s_rank0_without_knob=json.dumps(
+              [round(x, 4) for x in b[0]["step_seconds"]]),
+          peak_mem_gib_by_rank=json.dumps(
+              [round(r["peak_mem_bytes"] / 2**30, 3) for r in on]))
+    assert all(r["losses"] == on[0]["losses"] for r in on), "ranks disagree"
+    assert all(math.isfinite(x) for x in on[0]["losses"]), on[0]["losses"]
+    assert oncore["oncore_uniform"] == encodes == sum(
+        DIST_LAUNCHES[n] for n in ONCORE_ENCODERS), oncore
+    assert plain["oncore_uniform"] == 0, plain
+    assert {k: v for k, v in oncore.items() if k != "oncore_uniform"} \
+        == {k: v for k, v in plain.items() if k != "oncore_uniform"}, oncore
+    for r in on:
+        for i, x in enumerate(r["bytes"]):
+            if r["model_rank"] == 0:
+                assert x["fw"] == want["fw_warm" if i < 2 else "fw"], x
+            else:
+                assert x["bw"] == want["fw_warm" if i < 2 else "bw"], x
+            assert x["dp"] == want["dp"], x
+            assert x["fsdp"] == want["fsdp"][r["model_rank"]], x
+        if r["model_rank"] == DIST_STAGES - 1:
+            for rep in r["replicas"]:
+                assert rep["m_in_equal"] is True, rep
+                assert rep["embed_equal"] is True, rep
+    assert rel <= DIST_ONCORE_FINAL_LOSS_RTOL, rel
+    seeded_launches = dist_seeded_check(smoke)
     shutil.rmtree(CKPT_ROOT)
-    return launches
+    return {"dist_resume": launches, "dist_oncore": oncore,
+            "dist_seeded_smoke": seeded_launches}
 
 
 def train_resume_cli_phase() -> None:
@@ -4686,7 +4950,7 @@ def main() -> int:
     whisper_train = train_phase(torch, qp, tag="train-whisper",
                                 layers=W_LAYERS, arch="whisper-small",
                                 stages=TW_STAGES, seq=TW_SEQ)
-    resume_launches = train_resume_phase(torch, qp)
+    resume_launches = train_resume_phase(torch, qp, env)
     dist_runs = dist_phases(torch)
     dist_launches = dist_runs["dist-train"]
     for name in DIST_LAUNCHES:
@@ -4712,7 +4976,9 @@ def main() -> int:
         train_reference_check(
             torch, arch, tag=f"train-{arch.split('-')[0]}-reference-check")
     dist_reference_checks(torch)
-    dist_resume_launches = dist_resume_phase(torch)
+    dist_resumes = dist_resume_phase(torch)
+    assert dist_resumes["dist_oncore"]["oncore_uniform"] > 0, \
+        "the seeded encoders were never launched on the distributed path"
     train_resume_cli_phase()
     # a row's launches are those of the path its time was taken at:
     # serving for the activation codecs and the attention kernel (gpt2-xl
@@ -4743,8 +5009,9 @@ def main() -> int:
                "dist_fp16": dist_runs["dist-train-fp16"],
                "dist_adam8": dist_runs["dist-train-adam8"],
                "train_resume": resume_launches["train_resume"],
+               "train_resume_oncore": resume_launches["train_resume_oncore"],
                "train_fault": resume_launches["train_fault"],
-               "dist_resume": dist_resume_launches,
+               **dist_resumes,
                "legacy_dp": legacy_launches}
     for name in LEGACY_KERNELS:
         assert all(by_path[p][name] == 0 for p in by_path

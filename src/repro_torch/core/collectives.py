@@ -37,6 +37,16 @@ same bytes and gives the same bits; the chunk encoder row-slices the
 one full-bucket noise draw and zeroes pad rows in code space, because
 quantize(0) under a shared scale is not 0.
 
+Noise.  Given a ``generator`` and no ``u``, the monolithic forms (the
+psum wire, and the ring and the ZeRO wire at ``chunks=1``) hand the
+generator to the one encode of the bucket (`grad_compress.ef_encode`),
+as the JAX package hands it the folded key: a draw of the bucket's
+shape, or, with the on-core noise knob on the cuda backend
+(`repro_torch.env.oncore_prng`), a (2,) seed for B5's own Philox
+stream.  The chunked ring draws its one full-bucket tensor either way
+(JAX's ``make_chunk_encoder`` passes ``noise=``, bypassing the on-core
+opt-in).
+
 This module holds every torch.distributed call of the data-parallel
 plane; the transport records each one (`Transport.calls`).
 """
@@ -138,8 +148,8 @@ def ef_psum_mean_bucket(v_grad, err, group, bits: int, *,
     v = v_grad.float() + err
     s = _shared_scale(v, group)
     _, codes, new_err = GC.ef_encode(
-        v, s, bits, stochastic=stochastic,
-        u=_noise(v, stochastic, u, generator), backend=backend)
+        v, s, bits, stochastic=stochastic, u=u, generator=generator,
+        backend=backend)
     total = group.all_reduce(codes) if n > 1 else codes
     return B.decode_sum_mean(total, s, bits=bits, n=n, backend=backend), \
         new_err
@@ -247,14 +257,13 @@ def ring_ef_reduce_scatter_bucket(v_grad, err, group, bits: int, *,
     v = v_grad.float() + err
     rows, d = v.shape
     s = _shared_scale(v, group)
-    u = _noise(v, stochastic, u, generator)
     if chunks != 1:
         # validate even where nothing overlaps (n == 1)
         ring_chunk_bounds(ring_segment_rows(rows, n), chunks)
     if chunks == 1 or n == 1:
         packed, codes, new_err = GC.ef_encode(
-            v, s, bits, stochastic=stochastic, u=u, backend=backend,
-            pack=True)
+            v, s, bits, stochastic=stochastic, u=u, generator=generator,
+            backend=backend, pack=True)
         if n == 1:
             return B.decode_sum_mean(codes, s, bits=bits, n=1,
                                      backend=backend), new_err
@@ -264,8 +273,8 @@ def ring_ef_reduce_scatter_bucket(v_grad, err, group, bits: int, *,
         del packed, codes
     else:
         acc, seg, new_err = _chunked_reduce_scatter(
-            v, s, u, group, bits, stochastic=stochastic, backend=backend,
-            chunks=chunks)
+            v, s, _noise(v, stochastic, u, generator), group, bits,
+            stochastic=stochastic, backend=backend, chunks=chunks)
     s_own = _rows_padded(s, i * seg, (i + 1) * seg)
     return B.decode_sum_mean(acc, s_own, bits=bits, n=n,
                              backend=backend), new_err
@@ -283,14 +292,13 @@ def ring_ef_reduce_mean_bucket(v_grad, err, group, bits: int, *,
     v = v_grad.float() + err
     rows, d = v.shape
     s = _shared_scale(v, group)
-    u = _noise(v, stochastic, u, generator)
     if chunks != 1:
         # validate even where nothing overlaps (n == 1)
         ring_chunk_bounds(ring_segment_rows(rows, n), chunks)
     if chunks == 1 or n == 1:
         packed, codes, new_err = GC.ef_encode(
-            v, s, bits, stochastic=stochastic, u=u, backend=backend,
-            pack=True)
+            v, s, bits, stochastic=stochastic, u=u, generator=generator,
+            backend=backend, pack=True)
         if n == 1:
             return B.decode_sum_mean(codes, s, bits=bits, n=1,
                                      backend=backend), new_err
@@ -300,9 +308,8 @@ def ring_ef_reduce_mean_bucket(v_grad, err, group, bits: int, *,
         del packed, codes
     else:
         acc, seg, new_err = _chunked_reduce_scatter(
-            v, s, u, group, bits, stochastic=stochastic, backend=backend,
-            chunks=chunks)
-    u = None
+            v, s, _noise(v, stochastic, u, generator), group, bits,
+            stochastic=stochastic, backend=backend, chunks=chunks)
 
     # all-gather: rotate the packed segment sums to every rank
     own = B.pack_sums(acc, bits=bits, n=n, backend=backend)

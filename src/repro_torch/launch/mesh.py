@@ -96,11 +96,13 @@ class Transport:
     and ``all-gather`` (recorded with the bytes this rank sends: its
     tensor to each other member of the group), and ``all-to-all``
     (recorded with the bytes this rank sends: its slices for the other
-    members)."""
+    members).  It also keeps the largest buffer an all-gather filled, by
+    plane (`largest_gather`)."""
 
     def __init__(self, device: torch.device):
         self.device = torch.device(device)
         self.calls: list = []
+        self.largest: dict = {}
 
     # -- staging ----------------------------------------------------------
 
@@ -170,6 +172,8 @@ class Transport:
         (gloo's own all-gather was the slower of the two between the
         ranks of one host).  Returns out."""
         self._record(plane, "all-gather", x, copies=len(ranks) - 1)
+        self.largest[plane] = max(self.largest.get(plane, 0),
+                                  out.numel() * out.element_size())
         me = dist.get_rank()
         hx = self.to_host(x)
         host = self._host_empty(out.shape, out.dtype)
@@ -211,8 +215,13 @@ class Transport:
                                 if p == plane and kind != "recv")
         return sorted((k, dt, b, n) for (k, dt, b), n in c.items())
 
+    def largest_gather(self, plane: str) -> int:
+        """The bytes of the largest buffer one all-gather of ``plane``
+        filled (the gathered whole, this rank's part included)."""
+        return self.largest.get(plane, 0)
+
     def reset(self) -> None:
-        self.calls = []
+        self.calls, self.largest = [], {}
 
 
 class RingGroup:

@@ -27,10 +27,10 @@ its own checkpoints (`repro_torch.training.pipeline`); as in the JAX
 package, ``--fault`` and ``--kill-at`` target the single-host trainer
 only.
 
-The on-core noise knob (`repro_torch.env.oncore_prng`) puts the
-simulated trainer's stochastic encodes on the card onto the kernels'
-own seeded noise; the distributed trainer refuses it (queue A "Seeded
-noise in the distributed trainer").
+The on-core noise knob (`repro_torch.env.oncore_prng`) puts both
+trainers' stochastic encodes on the card onto the kernels' own seeded
+noise (the distributed trainer's: its hop's and its monolithic DP
+wires', `repro_torch.training.pipeline`).
 
 Examples:
   python -m repro_torch.launch.train --device cpu --smoke --stages 2 \\
@@ -93,7 +93,6 @@ import numpy as np
 import torch
 
 from repro_torch import checkpoint as ckpt
-from repro_torch import env
 from repro_torch.comm import config as comm_cli
 from repro_torch.comm import wires as W
 from repro_torch.comm.faults import FaultPlan
@@ -282,8 +281,6 @@ def main(argv=None):
     if (args.resume or args.save_every or args.fault) \
             and not args.ckpt_dir:
         ap.error("--resume/--save-every/--fault need --ckpt-dir")
-    if args.distributed and env.oncore_prng():
-        ap.error(PL.ONCORE_REFUSAL)
     family = get_config(args.arch).family
     if args.distributed and family in ("audio", "vlm"):
         ap.error(f"--distributed --arch {args.arch}: {MEDIA_DIST_REFUSAL}")

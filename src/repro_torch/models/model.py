@@ -141,19 +141,20 @@ class Block(nn.Module):
 
     def forward(self, h, positions, window, k_cache=None, v_cache=None,
                 cache_index=0, block_k=512, *, per_sequence: bool = False,
-                ep=None, causal: bool = True, xkv=None):
+                ep=None, expert_map=None, causal: bool = True, xkv=None):
         """Returns (h, fresh_k, fresh_v, aux): aux the MoE router's
-        load-balance loss, 0.0 for an MLP.  ``per_sequence`` and ``ep``:
-        `moe.moe_ffn`'s; ``causal=False``: the whisper encoder's
-        self-attention; ``xkv``: a cross layer's keys and values of the
-        encoder's output (B, Se, Hk, hd) each, read after the FFN (JAX's
-        audio step)."""
+        load-balance loss, 0.0 for an MLP.  ``per_sequence``, ``ep`` and
+        ``expert_map``: `moe.moe_ffn`'s; ``causal=False``: the whisper
+        encoder's self-attention; ``xkv``: a cross layer's keys and
+        values of the encoder's output (B, Se, Hk, hd) each, read after
+        the FFN (JAX's audio step)."""
         a, k, v = self.attn(self.norm1(h), positions, window, k_cache,
                             v_cache, cache_index, block_k, causal)
         h = h + a
         hn = self.norm2(h)
         if self.is_moe:
-            f, aux = self.ffn(hn, per_sequence=per_sequence, ep=ep)
+            f, aux = self.ffn(hn, per_sequence=per_sequence, ep=ep,
+                              expert_map=expert_map)
         else:
             f, aux = self.ffn(hn), 0.0
         h = h + f
@@ -211,13 +212,16 @@ def trunk_layer(cfg: ModelConfig, device=None) -> nn.Module:
 def layer_fn(cfg: ModelConfig, i: int, blk: nn.Module,
              positions: torch.Tensor, seq: int, block_k: int,
              shared_block: Optional[Block] = None, ep=None,
-             enc: Optional[torch.Tensor] = None) -> Callable:
+             enc: Optional[torch.Tensor] = None,
+             expert_hook: Optional[Callable] = None) -> Callable:
     """Global layer ``i``'s training function h -> (h, aux) (JAX's scan
-    body), aux a MoE layer's router loss (``ep``: `moe.moe_ffn`'s) and
-    0.0 in any other layer: a dense or MoE layer at its window (an
-    audio layer with its cross attention over the encoder's output
-    ``enc``, its keys and values projected inside, as the pipeline's
-    ``_apply_layer`` does), or a mamba layer followed, where
+    body), aux a MoE layer's router loss (``ep``: `moe.moe_ffn`'s;
+    ``expert_hook(moe)``, called at each run of the layer: its
+    ``expert_map``) and 0.0 in any other layer: a dense or MoE layer at
+    its window (an audio layer with its cross attention over the
+    encoder's output ``enc``, its keys and values projected inside, as
+    the pipeline's ``_apply_layer`` does), or a mamba layer followed,
+    where
     ``shared_block`` is given, by the hybrid's shared block over the
     whole sequence (``cfg.sliding_window or seq``)."""
     if isinstance(blk, Block):
@@ -228,7 +232,10 @@ def layer_fn(cfg: ModelConfig, i: int, blk: nn.Module,
 
         def attn_layer(x):
             xkv = blk.xattn.cross_kv(enc) if blk.xattn is not None else None
-            out = blk(x, positions, window, block_k=block_k, ep=ep, xkv=xkv)
+            em = expert_hook(blk.ffn) \
+                if expert_hook is not None and blk.is_moe else None
+            out = blk(x, positions, window, block_k=block_k, ep=ep,
+                      expert_map=em, xkv=xkv)
             return out[0], out[3]
         return attn_layer
     if shared_block is None:

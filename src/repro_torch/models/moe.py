@@ -17,7 +17,13 @@ go to a sentinel row and are dropped.  ``per_sequence`` dispatches each
 sequence of the batch on its own (JAX's ``vmap`` over the batch, the
 aux averaged): the serving prefill, and the continuous batcher's pooled
 step, a row at a time.  The expert products are batched matmuls over
-the (E, groups cap, d) buffer in every dispatch.
+the (E, groups cap, d) buffer in every dispatch, or, given an
+``expert_map`` (JAX's hook), one expert after another, each expert's
+weights taken from the hook just before its product and its step
+checkpointed on its own (JAX's ``lax.scan`` over
+``jax.checkpoint(one_expert)``): the distributed trainer's ZeRO-3
+gathers one expert at a time there, and again in that expert's
+backward, so no more than one expert's gathered weights are live.
 
 The combine adds each token's kept contributions in expert order
 through the inverse of the sort, one explicit add after another: the
@@ -44,9 +50,11 @@ stand in the stacks' place, (E/D, ...) or (1, ...) instead of (E, ...).
 from __future__ import annotations
 
 import math
+from typing import Callable, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
 
@@ -82,11 +90,12 @@ class MoE(nn.Module):
             self.shared.reset_parameters(generator)
 
     def forward(self, x: torch.Tensor, *, per_sequence: bool = False,
-                ep=None):
+                ep=None, expert_map: Optional[Callable] = None):
         """x (B, S, d) -> (out (B, S, d), aux scalar)."""
         return moe_ffn(self, x, top_k=self.top_k,
                        capacity_factor=self.capacity_factor, act=self.act,
-                       per_sequence=per_sequence, ep=ep)
+                       per_sequence=per_sequence, ep=ep,
+                       expert_map=expert_map)
 
 
 def router_probs(p: MoE, x: torch.Tensor) -> torch.Tensor:
@@ -137,14 +146,38 @@ def _experts(fn, buf: torch.Tensor, wg, wu, wd) -> torch.Tensor:
     return (fn(buf @ wg) * (buf @ wu)) @ wd
 
 
+def _experts_in_turn(fn, buf: torch.Tensor, expert_map: Callable,
+                     dtype: torch.dtype) -> torch.Tensor:
+    """The gated expert MLPs over buf (E, C, d), one expert after
+    another: expert e's (w_gate, w_up, w_down) from ``expert_map(e)``
+    inside its own checkpoint, so its backward calls the hook again."""
+    def one(e, be):
+        wg, wu, wd = (w.to(dtype) for w in expert_map(e))
+        return _experts(fn, be, wg, wu, wd)
+    return torch.stack([checkpoint(one, e, buf[e], use_reentrant=False,
+                                   preserve_rng_state=False)
+                        for e in range(buf.shape[0])])
+
+
+def slice_experts(p: MoE) -> Callable:
+    """The ``expert_map`` of whole stacks: expert e's slices of one
+    ``unbind`` of each stack (its backward stacks the E gradients in
+    one op)."""
+    stacks = [w.unbind(0) for w in (p.w_gate, p.w_up, p.w_down)]
+    return lambda e: tuple(s[e] for s in stacks)
+
+
 def moe_ffn(p: MoE, x: torch.Tensor, *, top_k: int, capacity_factor: float,
-            act: str = "silu", per_sequence: bool = False, ep=None):
+            act: str = "silu", per_sequence: bool = False, ep=None,
+            expert_map: Optional[Callable] = None):
     """x (B, S, d) -> (out (B, S, d), aux scalar), JAX ``moe_ffn``.
 
     One dispatch over the B S tokens, or with ``per_sequence`` one a
     sequence (capacity counted per sequence, the aux averaged over
     them).  ``ep``: the data group the expert-parallel buffer crosses
-    (``size``, ``index``, ``all_to_all``), or None."""
+    (``size``, ``index``, ``all_to_all``), or None.  ``expert_map(e)``
+    -> expert e's whole (w_gate, w_up, w_down): the experts then run
+    one at a time (`_experts_in_turn`; the module docstring)."""
     b, s, d = x.shape
     groups, t = (b, s) if per_sequence else (1, b * s)
     if ep is not None and groups > 1:
@@ -167,12 +200,17 @@ def moe_ffn(p: MoE, x: torch.Tensor, *, top_k: int, capacity_factor: float,
     buf = buf[:, :e * cap].reshape(groups, e, cap, d)
 
     fn = L._act(act)
-    w = (p.w_gate.to(dtype), p.w_up.to(dtype), p.w_down.to(dtype))
     if ep is not None:
+        w = (p.w_gate.to(dtype), p.w_up.to(dtype), p.w_down.to(dtype))
         y = _expert_parallel_ffn(buf[0], w, fn, ep)[None]
     else:
         eb = buf.transpose(0, 1).reshape(e, groups * cap, d)
-        y = _experts(fn, eb, *w).reshape(e, groups, cap, d).transpose(0, 1)
+        if expert_map is None:
+            y = _experts(fn, eb, p.w_gate.to(dtype), p.w_up.to(dtype),
+                         p.w_down.to(dtype))
+        else:
+            y = _experts_in_turn(fn, eb, expert_map, dtype)
+        y = y.reshape(e, groups, cap, d).transpose(0, 1)
     y = torch.cat([y.reshape(groups, e * cap, d),
                    x.new_zeros((groups, 1, d))], dim=1)
 

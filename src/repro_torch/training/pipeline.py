@@ -17,8 +17,9 @@ embedding, before the pipeline), its gradients in the bucket under the
 ``prefix`` leaves.  As JAX's ``_apply_layer``, the stages drop the MoE
 router's auxiliary loss: the distributed loss is the cross-entropy.
 ``PipelineConfig.moe_mode`` is ``zero3`` (every rank computes with its
-stage's experts, each layer's expert stacks gathered whole with the
-layer, the bytes of JAX's one-expert-at-a-time gather) or
+stage's experts, one expert after another, as JAX's ``expert_map``
+scan: `models.moe.moe_ffn` with an ``expert_map``, each expert's step
+checkpointed on its own) or
 ``expert_parallel`` (each data rank computes its own experts on every
 data rank's tokens, which cross the data group by all-to-all,
 `models.moe._expert_parallel_ffn`, on the ``ep`` plane; their weights
@@ -121,28 +122,46 @@ rank keeps 1/D of every stage leaf the JAX package shards (its rule,
 stage dims, the expert dim skipped), and AdamW's moments of that shard.
 A unit's leaves are all-gathered whole, in one flat buffer staged
 through the host like every transport call (the ``fsdp`` plane), where
-the unit runs: a layer (with the shared block after it) inside its
-remat unit, so again in its recompute and in the nested stage
-recompute; the encoder, a dense prefix layer and the embedding, final
-norm and head once a microbatch pass.  The backward sends nothing: a
+the unit runs, in the JAX package's units: a layer inside its remat
+unit, so again in its recompute and in the nested stage recompute; in
+``zero3`` a MoE layer's expert stacks one expert at a time, inside that
+expert's own checkpoint (JAX's ``expert_map`` under
+``jax.checkpoint(one_expert)``), so again in its backward; the hybrid's
+shared block once a stage call, outside the nested checkpoint (JAX's
+``shared_full``: its optimized HLO gathers it in no backward loop), its
+uses' gradients summed by autograd; the encoder, a dense prefix layer
+and the embedding, final norm and head once a microbatch pass.  The
+backward sends nothing: a
 gathered weight's gradient is added whole into an f32 accumulator of
 the leaf, which takes ``p.grad``'s place in the DP bucket, so the
 bucket, its all-reduce and the DP wire (JAX's ``replicate_leaves``
 placement) are unchanged and the losses equal the whole-stage layout's
 bit for bit; AdamW then updates each rank's part.  8-bit moments of a
 leaf split along its last dim take their rows' scales over the data
-group (`adamw.code_moments`).  `fsdp_gather_bytes` and
-`rank_param_bytes` model the plane's bytes and a rank's resident
-state.
+group (`adamw.code_moments`).  `fsdp_gathers` counts the units'
+gathers, from which `fsdp_gather_bytes` and `fsdp_largest_gather` model
+the plane's bytes and its largest gathered buffer a step
+(`Transport.largest_gather`); `rank_param_bytes` models a rank's
+resident state.
 
-Not ported: the kernels' seeded noise: `build_rank` refuses
-the on-core noise knob (`repro_torch.env.oncore_prng`,
-`ONCORE_REFUSAL`).
+Seeded noise (the on-core noise knob, `repro_torch.env.oncore_prng`,
+as the JAX package's ``--distributed`` runs ``REPRO_ONCORE_PRNG=1``):
+the hop's generator and the DP wire's reach the encoders unchanged, so
+on the cuda backend with the knob on each stochastic encode that is
+given no noise tensor draws a (2,) seed from its generator and the
+kernel (B1, B3, B5) rounds with its own Philox stream: the hop's B1 and
+B3, and the monolithic DP wires' one B5 (psum, ring, ring-sharded at
+one chunk); the chunked ring keeps its full-bucket noise tensor, as
+JAX's does (`repro_torch.core.collectives`).  The wire's generator
+stays seeded by (seed, step, data rank), so every model column draws
+the same seed and the copies of a tied embedding stay equal.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
+import functools
 import os
 import time
 from dataclasses import InitVar, dataclass
@@ -155,7 +174,6 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import checkpoint as ckpt
-from repro_torch import env
 from repro_torch.comm import faults
 from repro_torch.comm.config import CommConfig, reject_legacy_comm
 from repro_torch.configs.base import ModelConfig
@@ -164,7 +182,7 @@ from repro_torch.core import grad_compress as GC
 from repro_torch.core import quantization as Q
 from repro_torch.data.pipeline import with_stub_media
 from repro_torch.models import layers as L
-from repro_torch.models.moe import capacity
+from repro_torch.models.moe import capacity, slice_experts
 from repro_torch.models.model import (FAMILIES, Block, Transformer,
                                       embed_rows, encode, head_logits,
                                       layer_fn, prefix_forward, run_remat,
@@ -229,15 +247,6 @@ class PipelineConfig:
                              f"{MOE_MODES}")
 
 
-# the distributed trainer's answer to the on-core noise knob: its hop
-# and DP wire keep noise tensors (the wire's noise seeded by (seed,
-# step, data rank), so both copies of the tied embedding stay equal)
-ONCORE_REFUSAL = (f'{env.ONCORE_PRNG}=1 (kernel-drawn noise) is not ported '
-                  f'to the distributed trainer yet (ROADMAP queue A, '
-                  f'"Seeded noise in the distributed trainer"); unset it '
-                  f'or run the simulated trainer')
-
-
 # ---------------------------------------------------------------------------
 # stage layout
 # ---------------------------------------------------------------------------
@@ -293,47 +302,68 @@ def _passes(pcfg: PipelineConfig, l: int, n_layers: int) -> int:
     return 1 + pcfg.remat + (nested and l < n_layers - 1)
 
 
+def fsdp_gathers(cfg: ModelConfig, pcfg: PipelineConfig, lay: StageLayout,
+                 k: int, data_par: int) -> dict:
+    """The ``fsdp`` plane's calls of a rank of stage ``k`` in one
+    microbatch over ``data_par`` data ranks (`StageFsdp`): {unit: (calls,
+    bytes the rank sends in one, the whole gathered buffer's bytes or
+    None for an all-to-all)}.  A gather sends the rank's f32 shards of
+    the unit to the D-1 others.  A layer's unit is gathered at each
+    forward run of the layer (`_passes`); in ``zero3`` each of a MoE
+    layer's experts (``experts.<l>``, E calls a run) at each forward
+    run of the layer and once more in its own backward recompute; the
+    shared block, the encoder, a dense prefix layer and the ``io`` unit
+    (embedding, final norm, head) once.  Under expert parallelism each
+    forward run of a MoE layer exchanges its sharded expert stacks by
+    one all-to-all instead, the rank's shard of each of the ne experts a
+    peer computes to each of the D-1 peers."""
+    st = Stage(cfg, lay, k, device="meta")
+    shards = stage_shards(st, lay, data_par)
+    units, experts = fsdp_units(shards)
+    n = len(st.layer_ids)
+
+    def flat(names, share=1):
+        return 4 * sum(shards[x].numel_on(0) // share for x in names)
+
+    out = {}
+    for unit, names in units.items():
+        kind, _, i = unit.partition(".")
+        runs = _passes(pcfg, int(i), n) if kind == "layers" else 1
+        out[unit] = (runs, (data_par - 1) * flat(names),
+                     data_par * flat(names))
+    e = cfg.n_experts
+    for l, names in experts.items():
+        one = flat(names, share=e)
+        if pcfg.moe_mode == "expert_parallel":
+            out[f"experts.{l}"] = (_passes(pcfg, l, n), (data_par - 1)
+                                   * max(e // data_par, 1) * one, None)
+        else:
+            out[f"experts.{l}"] = (e * (_passes(pcfg, l, n) + 1),
+                                   (data_par - 1) * one, data_par * one)
+    return out
+
+
 def fsdp_gather_bytes(cfg: ModelConfig, pcfg: PipelineConfig,
                       lay: StageLayout, k: int, data_par: int,
                       microbatches: int) -> int:
     """The ``fsdp`` plane's bytes a rank of stage ``k`` sends in a step
-    over ``data_par`` data ranks (`StageFsdp`): each gather of a unit
-    sends the rank's f32 shards of it to the D-1 others.  A layer's unit
-    (and the shared block, once a layer it follows) is gathered at each
-    forward run of the layer (`_passes`); the encoder, a dense prefix
-    layer and the ``io`` unit (embedding, final norm, head) once a
-    microbatch.  Under expert parallelism each forward run of a MoE
-    layer also exchanges its sharded expert stacks by one all-to-all,
-    the rank's shard of each of the ne experts a peer computes to each
-    of the D-1 peers."""
+    (`fsdp_gathers`, ``microbatches`` times)."""
     if data_par == 1:
         return 0
-    st = Stage(cfg, lay, k, device="meta")
-    shards = stage_shards(st, lay, data_par)
-    units, experts = fsdp_units(
-        shards, cfg.has_moe and pcfg.moe_mode == "expert_parallel")
-    n = len(st.layer_ids)
+    return microbatches * sum(
+        calls * sent for calls, sent, _ in
+        fsdp_gathers(cfg, pcfg, lay, k, data_par).values())
 
-    def sent(names, share=1):
-        return (data_par - 1) * 4 * sum(shards[x].numel_on(0) // share
-                                        for x in names)
 
-    total = 0
-    for unit, names in units.items():
-        kind, _, i = unit.partition(".")
-        if kind == "layers":
-            runs = _passes(pcfg, int(i), n)
-        elif kind == "shared_block":
-            runs = sum(_passes(pcfg, l, n)
-                       for l, f in enumerate(st.shared_after) if f)
-        else:
-            runs = 1
-        total += runs * sent(names)
-    for l, names in experts.items():
-        e = cfg.n_experts
-        total += _passes(pcfg, l, n) * max(e // data_par, 1) \
-            * sent(names, share=e)
-    return microbatches * total
+def fsdp_largest_gather(cfg: ModelConfig, pcfg: PipelineConfig,
+                        lay: StageLayout, k: int, data_par: int) -> int:
+    """The bytes of the largest buffer a rank of stage ``k`` gathers
+    whole in a step (`fsdp_gathers`; 0 with one data rank)."""
+    if data_par == 1:
+        return 0
+    return max((whole for _, _, whole in
+                fsdp_gathers(cfg, pcfg, lay, k, data_par).values()
+                if whole is not None), default=0)
 
 
 def rank_param_bytes(cfg: ModelConfig, pcfg: PipelineConfig,
@@ -551,20 +581,21 @@ def stage_shards(stage: "Stage", lay: StageLayout, dsize: int) -> dict:
 EXPERT_STACKS = ("w_gate", "w_up", "w_down")
 
 
-def fsdp_units(shards: dict, expert_parallel: bool) -> tuple:
+def fsdp_units(shards: dict) -> tuple:
     """The gather units of a stage's sharded leaves: ({unit: names}, {l:
     names}).  A unit is gathered in one flat all-gather: ``layers.<l>``
     (a layer), ``shared_block``, ``encoder`` (an audio model's encoder
     layers and ``enc_norm``), ``prefix.<i>`` (a MoE model's dense
     layer) or ``io`` (the embedding, ``final_norm`` and the head the
-    stage holds).  Under expert parallelism a MoE layer's expert stacks
-    leave its unit for the second dict, the weight all-to-all's."""
+    stage holds).  A MoE layer's expert stacks leave its unit for the
+    second dict: gathered one expert at a time in ``zero3``, exchanged
+    by the weight all-to-all under expert parallelism."""
     units, experts = {}, {}
     for name in shards:
         parts = name.split(".")
         if parts[0] == "layers":
-            if expert_parallel and parts[2:4] in (["ffn", w]
-                                                 for w in EXPERT_STACKS):
+            if parts[2:4] in (["ffn", w] for w in EXPERT_STACKS) \
+                    and len(shards[name].shape) == 3:
                 experts.setdefault(int(parts[1]), []).append(name)
                 continue
             unit = f"layers.{parts[1]}"
@@ -592,30 +623,31 @@ class StageFsdp:
     each leaf of `stage_shards` (`shard_`), and a unit's leaves
     (`fsdp_units`) are all-gathered whole in one flat buffer where the
     unit runs (`gather`, `whole`; `RingGroup.all_gather_sunk`, the
-    ``fsdp`` plane), and again wherever remat recomputes it.  Under
-    expert parallelism a MoE layer's sharded expert stacks are not
-    gathered: each rank receives its own experts' shards from every
-    rank by one weight all-to-all (`experts`, JAX ``ep_weights``).
+    ``fsdp`` plane), and again wherever remat recomputes it.  A MoE
+    layer's sharded expert stacks are gathered one expert at a time in
+    ``zero3`` (`expert`, `expert_map`); under expert parallelism each
+    rank receives its own experts' shards from every rank by one weight
+    all-to-all instead (`experts`, JAX ``ep_weights``).
 
     A gathered weight's gradient is added whole into an f32 accumulator
-    of the leaf (`take_grads`), the one the whole-stage layout's
-    ``p.grad`` would be, so the DP bucket, its all-reduce and the DP
-    wire are unchanged and the losses stay bit for bit the whole-stage
-    layout's.  The shared block of a hybrid is gathered once a use, its
-    uses' gradients summed apart (``pending``) and added once a
-    microbatch (`flush`), as autograd sums a leaf's uses in one backward
-    before it adds them to ``p.grad``.  ``seconds``: the wall time spent
-    in the gathers and exchanges (the device synchronized first)."""
+    of the leaf (`take_grads`; an expert's into its slot of the stack's),
+    the one the whole-stage layout's ``p.grad`` would be, so the DP
+    bucket, its all-reduce and the DP wire are unchanged and the losses
+    stay bit for bit the whole-stage layout's.  ``gathers`` counts the
+    step's calls by unit (an expert's under ``experts.<l>``), as
+    `fsdp_gathers` models them; ``seconds``: the wall time spent in the
+    gathers and exchanges (the device synchronized first)."""
 
     def __init__(self, stage: "Stage", lay: StageLayout, group,
                  expert_parallel: bool = False):
         self.group, self.r = group, group.index
+        self.expert_parallel = expert_parallel
         self.shards = stage_shards(stage, lay, group.size)
-        self.units, self.expert_units = fsdp_units(self.shards,
-                                                   expert_parallel)
+        self.units, self.expert_units = fsdp_units(self.shards)
         self.split_rows = sorted(n for n, s in self.shards.items()
                                  if s.dim == len(s.shape) - 1)
-        self.acc, self.pending, self.seconds = {}, {}, 0.0
+        self.acc, self.seconds = {}, 0.0
+        self.gathers = collections.Counter()
         self._params, self._layout = {}, {}
 
     @torch.no_grad()
@@ -636,24 +668,24 @@ class StageFsdp:
         spec = self.shards.get(name)
         return whole if spec is None else spec.local(whole, self.r)
 
-    def _offsets(self, unit: str) -> list:
-        """Per leaf of ``unit``, per data rank: (offset, numel) in that
-        rank's flat buffer."""
-        if unit not in self._layout:
+    def _offsets(self, key: str, specs: list) -> list:
+        """Per leaf (`LeafShard` of ``specs``), per data rank: (offset,
+        numel) in that rank's flat buffer of gather ``key``."""
+        if key not in self._layout:
             n = self.group.size
             ends, rows = [0] * n, []
-            for name in self.units[unit]:
+            for spec in specs:
                 row = []
                 for r in range(n):
-                    k = self.shards[name].numel_on(r)
+                    k = spec.numel_on(r)
                     row.append((ends[r], k))
                     ends[r] += k
                 rows.append(row)
             if len(set(ends)) != 1:
-                raise ValueError(f"unit {unit}: the data ranks hold "
+                raise ValueError(f"unit {key}: the data ranks hold "
                                  f"{ends} values")
-            self._layout[unit] = rows
-        return self._layout[unit]
+            self._layout[key] = rows
+        return self._layout[key]
 
     def _timed(self, fn):
         if self.group.transport.device.type == "cuda":
@@ -663,19 +695,17 @@ class StageFsdp:
         self.seconds += time.perf_counter() - t0
         return out
 
-    def gather(self, unit: str, pending: bool = False) -> dict:
-        """{name: whole leaf} of ``unit`` ({} if it has no sharded leaf),
-        all-gathered over the data group; their gradients go to the
-        accumulators (with ``pending``, first summed apart)."""
-        names = self.units.get(unit)
-        if not names:
-            return {}
-        rows = self._offsets(unit)
+    def _gather(self, key: str, names: list, specs: list, held: list,
+                sink) -> dict:
+        """{name: whole leaf}: ``held`` (this rank's parts of the leaves
+        ``specs`` describe) all-gathered in one flat buffer, counted under
+        ``key``'s unit; the backward hands the leaves' gradients to
+        ``sink``."""
+        rows = self._offsets(key, specs)
 
         def assemble(out):
             whole = []
-            for name, row in zip(names, rows):
-                spec = self.shards[name]
+            for spec, row in zip(specs, rows):
                 if spec.dim is None:
                     o, k = row[spec.owner]
                     whole.append(out[spec.owner, o:o + k].view(
@@ -687,11 +717,56 @@ class StageFsdp:
                                        spec.dim))
             return whole
 
-        held = [self._params[n] for n in names if self.shards[n].held(self.r)]
-        sink = self._sink(names, self.pending if pending else self.acc)
+        self.gathers[key] += 1
         full = self._timed(lambda: self.group.all_gather_sunk(
             held, assemble, sink))
         return dict(zip(names, full))
+
+    def gather(self, unit: str) -> dict:
+        """{name: whole leaf} of ``unit`` ({} if it has no sharded leaf),
+        all-gathered over the data group; their gradients go to the
+        accumulators."""
+        names = self.units.get(unit)
+        if not names:
+            return {}
+        held = [self._params[n] for n in names if self.shards[n].held(self.r)]
+        return self._gather(unit, names, [self.shards[n] for n in names],
+                            held, self._sink(names))
+
+    def expert(self, l: int, e: int) -> dict:
+        """{name: expert ``e``'s whole weight} of layer ``l``'s sharded
+        expert stacks, its three slices all-gathered in one flat buffer
+        (JAX ``expert_map``); the gradients go to slot ``e`` of the
+        stacks' accumulators."""
+        names = self.expert_units.get(l)
+        if not names:
+            return {}
+        specs = [LeafShard(s.shape[1:], s.parts, s.dim - 1)
+                 for s in (self.shards[n] for n in names)]
+
+        def sink(grads):
+            for n, g in zip(names, grads):
+                if g is None:
+                    continue
+                if n not in self.acc:
+                    self.acc[n] = torch.zeros(self.shards[n].shape,
+                                              dtype=torch.float32,
+                                              device=g.device)
+                self.acc[n][e] += g
+
+        return self._gather(f"experts.{l}", names, specs,
+                            [self._params[n][e] for n in names], sink)
+
+    def expert_map(self, l: int, moe: nn.Module):
+        """Layer ``l``'s `models.moe.moe_ffn` ``expert_map`` over ``moe``
+        (its `MoE`): expert e's (w_gate, w_up, w_down), the sharded ones
+        gathered by `expert` when the hook is called."""
+        def weights(e):
+            full = self.expert(l, e)
+            return tuple(full[f"layers.{l}.ffn.{w}"]
+                         if f"layers.{l}.ffn.{w}" in full
+                         else getattr(moe, w)[e] for w in EXPERT_STACKS)
+        return weights
 
     def experts(self, l: int) -> dict:
         """{name: this rank's own experts (ne, ...) of layer ``l``'s
@@ -736,31 +811,21 @@ class StageFsdp:
                 else:
                     self.acc[n][start:start + ne] += g
 
+        self.gathers[f"experts.{l}"] += 1
         full = self._timed(lambda: self.group.all_to_all_sunk(
             send, assemble, sink))
         return dict(zip(names, full))
 
-    @staticmethod
-    def _sink(names, store):
+    def _sink(self, names):
         def sink(grads):
             for n, g in zip(names, grads):
                 if g is None:
                     continue
-                if n in store:
-                    store[n] += g
+                if n in self.acc:
+                    self.acc[n] += g
                 else:
-                    store[n] = g.detach().clone()
+                    self.acc[n] = g.detach().clone()
         return sink
-
-    def flush(self) -> None:
-        """Add the shared block's summed uses into its accumulators (once
-        a microbatch's backward)."""
-        for n, g in self.pending.items():
-            if n in self.acc:
-                self.acc[n] += g
-            else:
-                self.acc[n] = g
-        self.pending = {}
 
     def take_grads(self) -> dict:
         """The step's accumulated whole gradients (name -> f32 tensor),
@@ -769,19 +834,17 @@ class StageFsdp:
         return grads
 
     @contextlib.contextmanager
-    def whole(self, stage: "Stage", *units: str, layer: Optional[int] = None,
-              shared: bool = False):
+    def whole(self, stage: "Stage", *units: str, layer: Optional[int] = None):
         """Within: ``units`` (and with ``layer`` its unit and, under
-        expert parallelism, its own experts; with ``shared`` the shared
-        block, summed apart) gathered whole and in place in ``stage``."""
+        expert parallelism, its own experts) gathered whole and in place
+        in ``stage``."""
         full = {}
         if layer is not None:
             full.update(self.gather(f"layers.{layer}"))
-            full.update(self.experts(layer))
+            if self.expert_parallel:
+                full.update(self.experts(layer))
         for unit in units:
             full.update(self.gather(unit))
-        if shared:
-            full.update(self.gather("shared_block", pending=True))
         with stage.swapped(full):
             yield
 
@@ -796,11 +859,12 @@ class Stage(nn.Module):
     ``prefix.<i>.*``, ``shared_block.*``, ``enc_layers.<i>.*``).  With
     ``fsdp`` (a `StageFsdp`, which `PipelineRank` sets where the data
     group has more than one rank) the stage holds its shards, and each
-    unit runs on its weights gathered whole: a layer (with the shared
-    block after it) inside its remat unit, the encoder and a dense
-    prefix layer once a microbatch pass, and the embedding, final norm
-    and head once a microbatch pass, handed in by the caller (``io``:
-    a loss piece recomputes, it never gathers)."""
+    unit runs on its weights gathered whole: a layer inside its remat
+    unit, in ``zero3`` a MoE layer's experts one at a time inside their
+    own checkpoints, the shared block once a `trunk` call, the encoder
+    and a dense prefix layer once a microbatch pass, and the embedding,
+    final norm and head once a microbatch pass, handed in by the caller
+    (``io``: a loss piece recomputes, it never gathers)."""
 
     def __init__(self, cfg: ModelConfig, lay: StageLayout, k: int,
                  device=None):
@@ -922,31 +986,44 @@ class Stage(nn.Module):
               ep=None, enc: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The stage's layers over one microbatch, checkpointed as
         ``pcfg`` says (`PipelineConfig`); a MoE layer's aux is dropped,
-        as JAX's ``_apply_layer`` drops it.  ``ep``: the data group of
+        as JAX's ``_apply_layer`` drops it, and in ``zero3`` (``ep``
+        None) its experts run one at a time, as JAX's pipeline passes
+        ``expert_map`` (`models.moe.moe_ffn`).  ``ep``: the data group of
         expert parallelism, or None; ``enc``: an audio model's encoder
-        output, which each layer's cross attention reads."""
+        output, which each layer's cross attention reads.  With FSDP the
+        shared block is gathered once here, before the nested
+        checkpoint, so no recompute gathers it again."""
         b, s = h.shape[0], h.shape[1]
         positions = torch.arange(s, dtype=torch.int32,
                                  device=h.device).expand(b, s)
         offset = self.cfg.first_dense_layers
+        fs = self.fsdp
+        shared = fs.gather("shared_block") \
+            if fs is not None and self.shared_block is not None else {}
 
-        def unit(l, fn, shared):
-            if self.fsdp is None:
+        def hook(l):
+            if not self.cfg.has_moe or ep is not None:
+                return None
+            return slice_experts if fs is None \
+                else functools.partial(fs.expert_map, l)
+
+        def unit(l, fn):
+            if fs is None:
                 return fn
 
             def whole(x):
-                with self.fsdp.whole(self, layer=l, shared=shared):
+                with self.swapped(shared), fs.whole(self, layer=l):
                     return fn(x)
             return whole
 
         def run(x):
-            for l, (i, blk, shared) in enumerate(zip(
+            for l, (i, blk, sh) in enumerate(zip(
                     self.layer_ids, self.layers, self.shared_after)):
                 fn = layer_fn(self.cfg, i + offset, blk, positions, s,
                               pcfg.block_k,
-                              self.shared_block if shared else None, ep=ep,
-                              enc=enc)
-                x = run_remat(unit(l, fn, shared), x, remat=pcfg.remat)[0]
+                              self.shared_block if sh else None, ep=ep,
+                              enc=enc, expert_hook=hook(l))
+                x = run_remat(unit(l, fn), x, remat=pcfg.remat)[0]
             return x
 
         if pcfg.remat and pcfg.remat_mode == "nested" and self.layers:
@@ -1379,7 +1456,7 @@ class PipelineRank:
             p.grad = None
 
         if st.fsdp is not None:
-            st.fsdp.seconds = 0.0
+            st.fsdp.seconds, st.fsdp.gathers = 0.0, collections.Counter()
         terminals, loss = [], torch.zeros((), device=dev)
         for j in range(M):
             ids = t["sample_ids"][j].long()
@@ -1414,8 +1491,6 @@ class PipelineRank:
             del io
         for term in reversed(terminals):
             term.backward()
-            if st.fsdp is not None:
-                st.fsdp.flush()
         del terminals
         self._lap("pipeline")
         if st.fsdp is not None:
@@ -1514,8 +1589,6 @@ def build_rank(rank: int, world: int, spec: dict) -> tuple:
     from repro_torch.data.pipeline import Dataset, DatasetConfig
     from repro_torch.launch.mesh import Mesh, MeshShape
 
-    if env.oncore_prng():
-        raise NotImplementedError(ONCORE_REFUSAL)
     shape = MeshShape(spec["data_par"], spec["stages"])
     if world != shape.world:
         raise ValueError(f"world {world} != mesh {shape.world}")
@@ -1616,7 +1689,9 @@ def train_rank(rank: int, world: int, spec: dict) -> dict:
     Returns the rank's losses (of the steps this call ran), the count
     of staged ``.tmp-*`` entries it removed from its checkpoint
     directory (``orphans_removed``), step and phase times, peak device
-    memory, kernel launches, transport bytes and manifests, replica
+    memory, kernel launches, transport bytes and manifests, the
+    ``fsdp`` plane's largest gathered buffer and its calls by unit
+    (`StageFsdp.gathers`), replica
     checks (after every step) and its checkpoints' saves and restores
     (``ckpt``: step, bytes, seconds), as plain data.  An audio or vlm
     model's global batches get stub frames or patches
@@ -1634,7 +1709,7 @@ def train_rank(rank: int, world: int, spec: dict) -> dict:
            "model_rank": mesh.model_rank, "losses": [], "step_seconds": [],
            "replicas": [], "bytes": [], "launches": [], "manifests": [],
            "phase_seconds": [], "ckpt": [], "start": 0,
-           "orphans_removed": 0}
+           "orphans_removed": 0, "largest_gather": [], "fsdp_gathers": []}
     ckpt_dir = spec.get("ckpt_dir", "")
     save_every = spec.get("save_every", 0)
     own = rank_ckpt_dir(ckpt_dir, mesh) if ckpt_dir else ""
@@ -1680,6 +1755,9 @@ def train_rank(rank: int, world: int, spec: dict) -> dict:
         out["bytes"].append({p: tr.bytes_sent(p)
                              for p in ("fw", "bw", "dp", "dp-gather", "ep",
                                        "grad", "fsdp", "opt")})
+        out["largest_gather"].append(tr.largest_gather("fsdp"))
+        fs = trainer.stage.fsdp
+        out["fsdp_gathers"].append({} if fs is None else dict(fs.gathers))
         out["manifests"].append(tr.manifest("dp"))
         out["replicas"].append(check_replicas(trainer))
         done = step_i + 1

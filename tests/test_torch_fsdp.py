@@ -22,7 +22,11 @@
   replicas hold; with 8-bit moments every moment's codes and scales
   are the twin's part of them, the leaves split along their last dim
   (whose rows' scales take a MAX over the data group, the ``opt``
-  plane) included.
+  plane) included.  The gathers come in the JAX package's units: each
+  rank's calls by unit equal `fsdp_gathers`' at every step (the hybrid's
+  shared block once a microbatch, a ``zero3`` MoE layer's experts one
+  at a time), and its largest gathered buffer `fsdp_largest_gather`,
+  in ``zero3`` no gather holding more than one expert's three weights.
 
 This module imports no JAX at import time: each spawned rank imports it
 for its worker function.
@@ -203,8 +207,9 @@ def fsdp_worker(rank, world, specs):
     for spec in specs:
         trainer, ds = PL.build_rank(rank, world, spec)
         tr = trainer.mesh.transport
+        fs = trainer.stage.fsdp
         res = {"model_rank": trainer.mesh.model_rank, "losses": [],
-               "bytes": [], "replicas": []}
+               "bytes": [], "replicas": [], "gathers": [], "largest": []}
         for i, batch in enumerate(ds.batches(spec["batch"], spec["steps"])):
             batch = with_stub_media(trainer.cfg, batch, seed=spec["seed"],
                                     step=i)
@@ -213,12 +218,13 @@ def fsdp_worker(rank, world, specs):
                                               i, warmup=i == 0))
             res["bytes"].append({p: tr.bytes_sent(p)
                                  for p in ("fsdp", "opt", "ep")})
+            res["gathers"].append({} if fs is None else dict(fs.gathers))
+            res["largest"].append(tr.largest_gather("fsdp"))
             res["replicas"].append(PL.check_replicas(trainer))
         res["resident"] = PL.resident_param_bytes(trainer)
         if spec["optimizer"]["state_bits"]:
             res["opt"] = _numpy({"mu": trainer.opt["mu"],
                                  "nu": trainer.opt["nu"]})
-            fs = trainer.stage.fsdp
             res["shards"] = {} if fs is None else {
                 n: (s.dim, s.owner) for n, s in fs.shards.items()}
             res["data_rank"] = trainer.mesh.data_rank
@@ -269,6 +275,42 @@ def test_sharded_equals_whole_stage(runs, name):
                                                else None)
                 assert rep["encoder_equal"] is (True if cfg.family == "audio"
                                                 else None)
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_gathers_in_the_reference_units(runs, name):
+    """Every step on every rank: the calls by unit equal `fsdp_gathers`'
+    (M times a microbatch's), the largest gathered buffer equals
+    `fsdp_largest_gather`; the shared block is gathered once a
+    microbatch, a ``zero3`` MoE layer's expert stacks are no layer
+    unit's and each of their gathers holds one expert's three weights;
+    the whole-stage twin gathers nothing."""
+    arch, wire, bits, pipe = CASES[name]
+    cfg = tget(arch, smoke=True).with_(num_layers=LAYERS)
+    lay = PL.stage_layout(cfg, K)
+    pcfg = PL.PipelineConfig(microbatches=M, comm=_comm(wire), **pipe)
+    sharded, whole = runs[name]
+    for sh, wh in zip(sharded, whole):
+        k = sh["model_rank"]
+        units = PL.fsdp_gathers(cfg, pcfg, lay, k, D)
+        assert sh["gathers"] == [{u: M * c for u, (c, _, _)
+                                  in units.items()}] * STEPS
+        largest = PL.fsdp_largest_gather(cfg, pcfg, lay, k, D)
+        assert largest > 0
+        assert sh["largest"] == [largest] * STEPS
+        assert wh["gathers"] == [{}] * STEPS and wh["largest"] == [0] * STEPS
+        if cfg.family == "hybrid":
+            assert units["shared_block"][0] == 1
+        experts = [u for u in units if u.startswith("experts.")]
+        assert bool(experts) == cfg.has_moe
+        for u in experts:
+            calls, sent, gathered = units[u]
+            if pipe["moe_mode"] == "zero3":
+                assert gathered == 4 * 3 * cfg.d_model * cfg.moe_d_ff
+                assert sent == gathered // D
+                assert calls % cfg.n_experts == 0
+            else:
+                assert gathered is None
 
 
 def test_adam8_codes_are_the_whole_stages(runs):

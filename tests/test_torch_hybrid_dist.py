@@ -14,7 +14,19 @@ are in tests/test_torch_hybrid.py).
   4-bit ring, deterministic, against the JAX package's pipeline
   ``train_step`` on a 2 x 2 mesh of host devices, run meanwhile in a
   subprocess (this file as a script); the shared block's copies
-  bit-equal on every stage after every step.
+  bit-equal on every stage after every step;
+* the ``fsdp`` plane against the all-gathers of that JAX step's
+  optimized HLO (read with `repro.launch.hlo_cost`'s parser, which
+  counts while-loop trips; the compressed step's text, from the
+  executable the run compiled): a layer's unit is JAX's per-layer
+  gather, and the port's trunk bytes a microbatch differ from JAX's a
+  pipeline tick by exactly the shared block (which XLA hoists out of
+  every loop, so no backward gathers it again: the port gathers it once
+  a stage call, outside the nested checkpoint) and one layer (the stage's
+  last, which JAX's nested recompute runs inside its layer scan and
+  torch's checkpoint stops before).  The transposes, reduce-scatters in
+  JAX, have no counterpart (the port's backward sends nothing on the
+  ``fsdp`` plane), so only the all-gathers are compared.
 """
 import json
 import os
@@ -41,6 +53,7 @@ from repro_torch.comm.config import PlaneConfig as TPlane
 from repro_torch.configs.base import get_config as tget
 from repro_torch.data import pipeline as TD
 from repro_torch.launch.mesh import spawn
+from repro_torch.training import pipeline as PL
 from repro_torch.training import simulated as TS
 from repro_torch.weights import stage_state_dict, to_pipeline_params
 from test_torch_checkpoint import (DC, LATER_STEP_RTOL, _configs,
@@ -133,12 +146,61 @@ def aqsgd_det_comm():
                  dp=TPlane(bits=4, wire="ring", stochastic=False))
 
 
+def loop_gathers(text):
+    """The all-gathers of an optimized HLO text: [{"loops": the trip
+    counts of the while loops around it, outermost first, "bytes": its
+    gathered buffer's, "dims": its shape}], through calls, fusions and
+    the branches of conditionals (`repro.launch.hlo_cost`'s parser)."""
+    from repro.launch import hlo_cost as H
+    comps, out = H.parse_hlo(text), []
+
+    def walk(comp, trips):
+        for ins in comp.instrs:
+            if ins.op == "while":
+                n = H._TRIP_RE.search(ins.line)
+                walk(comps[H._BODY_RE.search(ins.line).group(1)],
+                     trips + [int(n.group(1)) if n else 1])
+            elif ins.op == "conditional":
+                for b in H._OPERAND.findall(
+                        H._BRANCHES_RE.search(ins.line).group(1)):
+                    walk(comps[b], trips)
+            elif ins.op in ("fusion", "call", "async-start"):
+                m = H._CALLS_RE.search(ins.line) or H._TO_RE.search(ins.line)
+                if m and m.group(1) in comps:
+                    walk(comps[m.group(1)], trips)
+            elif ins.op in ("all-gather", "all-gather-start"):
+                out.append({"loops": trips,
+                            "bytes": H._type_bytes(ins.result_type),
+                            "dims": H._shape_dims(ins.result_type)})
+    walk(comps["__entry__"], [])
+    return out
+
+
+def per_tick(gathers, ticks):
+    """The bytes JAX's pipeline gathers a tick: every all-gather inside
+    the tick loops (outermost trip count ``ticks``: the forward's and
+    the backward's), times its inner loops' trips."""
+    return sum(g["bytes"] * int(np.prod(g["loops"][1:])) for g in gathers
+               if g["loops"] and g["loops"][0] == ticks)
+
+
+def trunk_gathers(cfg, pcfg, k):
+    """{unit: (calls a microbatch, gathered bytes)} of the port's stage
+    ``k`` trunk: its layers', experts' and shared block's units
+    (`PL.fsdp_gathers`; the embedding, head and a dense prefix run
+    outside JAX's stage function)."""
+    units = PL.fsdp_gathers(cfg, pcfg, PL.stage_layout(cfg, K), k, D)
+    return {u: (c, w) for u, (c, _, w) in units.items()
+            if u.split(".")[0] in ("layers", "experts", "shared_block")}
+
+
 def _jax_pipeline_losses(batches_path, out_path):
     """The JAX package's pipeline `train_step` on a 2 x 2 mesh of host
     devices (XLA_FLAGS must force 4 before JAX starts), zamba2 SMOKE from
     `arch_params`' weights, on the batches saved at ``batches_path``:
     the warm-up step, then compressed steps.  Writes the losses as JSON
-    to ``out_path``."""
+    to ``out_path`` and the compressed step's `loop_gathers` to
+    ``out_path + ".gathers"``."""
     jcfg, _, params, _ = arch_params(ARCH, {})
     comm = JComm.from_json(aqsgd_det_comm().to_json())
     mesh = make_debug_mesh(D, K)
@@ -170,6 +232,11 @@ def _jax_pipeline_losses(batches_path, out_path):
         losses.append(float(met["loss"]))
     with open(out_path, "w") as f:
         json.dump(losses, f)
+    # the executable the last step ran (a cache hit: no second build)
+    text = steps[False].lower(state, batch, jax.random.PRNGKey(0)) \
+        .compile().as_text()
+    with open(out_path + ".gathers", "w") as f:
+        json.dump(loop_gathers(text), f)
 
 
 @pytest.fixture(scope="module")
@@ -201,6 +268,8 @@ def dist_runs(tmp_path_factory):
     assert jax_proc.returncode == 0, log
     return {"fp32": [r[0] for r in out], "aqsgd": [r[1] for r in out],
             "jax-pipeline": json.loads((tmp / "losses.json").read_text()),
+            "jax-gathers": json.loads((tmp / "losses.json.gathers")
+                                      .read_text()),
             "jax": (jcfg, tcfg, params, np_params, batches)}
 
 
@@ -243,6 +312,37 @@ def test_shared_block_copies_stay_equal(dist_runs, run):
             assert rep["m_in_equal"] in (None, True), rep
         names = set(r["params"][0])
         assert any(n.startswith("shared_block.") for n in names)
+
+
+def test_fsdp_gathers_match_jax_hlo(dist_runs):
+    """aqsgd + the 4-bit ring, nested remat: every rank's ``fsdp`` bytes
+    equal `fsdp_gather_bytes` every step and its calls `fsdp_gathers`'
+    (the shared block once a microbatch); JAX's layer scan gathers one
+    layer unit three times an iteration (its backward loop); and the
+    port's trunk bytes a microbatch equal JAX's a tick less one layer
+    unit plus the shared block (the module docstring)."""
+    spec = dist_spec(ARCH, aqsgd_det_comm(), None)
+    m = spec["microbatches"]
+    cfg = tget(ARCH, smoke=True)
+    lay = PL.stage_layout(cfg, K)
+    pcfg = PL.PipelineConfig(microbatches=m, comm=aqsgd_det_comm())
+    gathers, ticks = dist_runs["jax-gathers"], m + K - 1
+    for r in dist_runs["aqsgd"]:
+        k = r["model_rank"]
+        units = PL.fsdp_gathers(cfg, pcfg, lay, k, D)
+        assert r["fsdp"] == [PL.fsdp_gather_bytes(cfg, pcfg, lay, k, D, m)] \
+            * len(r["losses"])
+        assert r["fsdp_gathers"] == [{u: m * c for u, (c, _, _)
+                                      in units.items()}] * len(r["losses"])
+        assert units["shared_block"][0] == 1
+        trunk = trunk_gathers(cfg, pcfg, k)
+        layer = trunk["layers.0"][1]
+        assert trunk["layers.1"][1] == layer
+        scan = [g for g in gathers if g["loops"] == [ticks, lay.lps]]
+        assert sum(g["bytes"] for g in scan) == 3 * layer
+        assert per_tick(gathers, ticks) == sum(
+            c * w for c, w in trunk.values()) \
+            - trunk["shared_block"][1] + layer
 
 
 if __name__ == "__main__":

@@ -9,18 +9,22 @@ column; the `Transport` stages every payload through host memory and
 records each call by plane, kind, dtype and bytes.
 
 This file imports no JAX, so the spawned ranks of
-tests/test_torch_ring.py, tests/test_torch_zero.py and
-tests/test_torch_moe_dist.py import their workers (`wire_worker`,
-`zero_worker`, `ep_worker`) from here without loading JAX in every
-process.  The all-to-all (`RingGroup.all_to_all`, an autograd function
+tests/test_torch_ring.py, tests/test_torch_zero.py,
+tests/test_torch_moe_dist.py and tests/test_torch_oncore.py import their
+workers (`wire_worker`, `zero_worker`, `ep_worker`, `knob_worker`) from
+here without loading JAX in every process.  The all-to-all (`RingGroup.all_to_all`, an autograd function
 whose backward is the inverse all-to-all) is tested here too.
 """
+import os
+
 import pytest
 import torch
 import torch.distributed as dist
 
 from repro_torch.comm import wires as TW
 from repro_torch.core import collectives as TC
+from repro_torch.env import ONCORE_PRNG
+from repro_torch.kernels import ref as TR
 from repro_torch.launch.mesh import Mesh, MeshShape, RingGroup, spawn
 
 
@@ -35,14 +39,66 @@ def _one_thread():
 SPAWN_TIMEOUT = 120
 # the DP wires held against the simulator: (wire, chunks)
 CASES = [("psum", 1), ("ring", 1), ("ring", 2), ("ring", 3)]
+# the wires driven with a generator under the on-core noise knob
+SEEDED = [("psum", 1), ("ring", 1), ("ring-sharded", 1), ("ring", 2),
+          ("ring", 3), ("ring-sharded", 2)]
+
+
+def wire_generator(step, rank):
+    """The generator a rank's DP wire is handed at ``step`` in
+    `wire_worker`'s seeded cases."""
+    return torch.Generator().manual_seed(1000 + 10 * step + rank)
+
+
+def _seeded_cases(mesh, rank, inputs) -> dict:
+    """Every wire of SEEDED, stochastic, two steps, handed
+    `wire_generator` and no noise: on the cuda backend (its plain
+    versions, these being CPU tensors) with the on-core noise knob on
+    (``"1"``) and off (``"0"``), and on the reference backend fed the
+    knob's stream (``"oncore-u"``: `oncore_uniform_ref` under the seed
+    the generator gives) and the generator's draw (``"drawn-u"``).
+    {(variant, wire, chunks): [(mean, carry) a step]}."""
+    shape, out = inputs["shape"], {}
+    was = os.environ.get(ONCORE_PRNG)
+    try:
+        for wire, chunks in SEEDED:
+            spec = TW.get_wire(wire)
+            kw = {"chunks": chunks} if spec.chunkable else {}
+            for variant in ("1", "0", "oncore-u", "drawn-u"):
+                os.environ[ONCORE_PRNG] = "1" if variant == "1" else "0"
+                err, got = torch.zeros(shape), []
+                for step in range(2):
+                    gen = wire_generator(step, rank)
+                    noise = {"generator": gen, "backend": "cuda"}
+                    if variant == "oncore-u":
+                        seed = torch.randint(-2 ** 31, 2 ** 31, (2,),
+                                             generator=gen,
+                                             dtype=torch.int32)
+                        noise = {"u": TR.oncore_uniform_ref(seed, *shape),
+                                 "backend": "reference"}
+                    elif variant == "drawn-u":
+                        noise = {"u": torch.rand(shape, generator=gen),
+                                 "backend": "reference"}
+                    mean, err = spec.collective(
+                        torch.from_numpy(inputs["v"][step][rank]), err,
+                        mesh.data_group, inputs["bits"], stochastic=True,
+                        **noise, **kw)
+                    got.append((mean.numpy(), err.numpy().copy()))
+                out[(variant, wire, chunks)] = got
+    finally:
+        if was is None:
+            os.environ.pop(ONCORE_PRNG, None)
+        else:
+            os.environ[ONCORE_PRNG] = was
+    return out
 
 
 def wire_worker(rank, world, inputs):
     """Rank ``rank`` of an n-rank ring: every case of CASES, two steps
-    each, deterministic then stochastic.  Returns means, carries, bytes
-    and manifests (numpy and plain data)."""
+    each, deterministic then stochastic, and `_seeded_cases`.  Returns
+    means, carries, bytes and manifests (numpy and plain data)."""
     mesh = Mesh(MeshShape(world, 1), rank, "cpu")
-    out = {}
+    out = _seeded_cases(mesh, rank, inputs)
     for stochastic in (False, True):
         for wire, chunks in CASES:
             spec = TW.get_wire(wire)
@@ -61,6 +117,24 @@ def wire_worker(rank, world, inputs):
                             mesh.transport.bytes_sent("dp"),
                             mesh.transport.manifest("dp")))
             out[(stochastic, wire, chunks)] = got
+    return out
+
+
+def knob_worker(rank, world, spec):
+    """The distributed trainer's run of ``spec`` on this rank
+    (`training.pipeline.train_rank`) with the on-core noise knob on,
+    then off: [losses, losses]."""
+    from repro_torch.training import pipeline as PL
+    was, out = os.environ.get(ONCORE_PRNG), []
+    try:
+        for knob in ("1", "0"):
+            os.environ[ONCORE_PRNG] = knob
+            out.append(PL.train_rank(rank, world, spec)["losses"])
+    finally:
+        if was is None:
+            os.environ.pop(ONCORE_PRNG, None)
+        else:
+            os.environ[ONCORE_PRNG] = was
     return out
 
 

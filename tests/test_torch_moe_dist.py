@@ -13,7 +13,13 @@ gradients within the dense tolerances of each other; aqsgd with the
 ``train_step`` with the same ``moe_mode`` on a 2 x 2 mesh of host
 devices, run meanwhile in subprocesses (this file as a script, one a
 mode); the ``ep`` plane's bytes under nested remat equal to
-`training.pipeline.ep_wire_bytes` exactly, 0 under ``zero3``.
+`training.pipeline.ep_wire_bytes` exactly, 0 under ``zero3``; in
+``zero3`` the ``fsdp`` plane against the all-gathers of the JAX step's
+optimized HLO (tests/test_torch_hybrid_dist.py's `loop_gathers`): JAX's
+expert scan gathers one expert's three weights an iteration, the port
+gathers the same unit, and its trunk bytes a microbatch equal JAX's a
+pipeline tick (only the all-gathers: JAX's transposes are
+reduce-scatters, the port's backward sends nothing).
 """
 import json
 import os
@@ -35,7 +41,8 @@ from repro_torch.configs.base import get_config as tget
 from repro_torch.launch.mesh import spawn
 from repro_torch.training import pipeline as PL
 from repro_torch.weights import stage_state_dict, to_pipeline_params
-from test_torch_hybrid_dist import aqsgd_det_comm
+from test_torch_hybrid_dist import (aqsgd_det_comm, loop_gathers, per_tick,
+                                    trunk_gathers)
 from test_torch_pipeline import run_scenarios
 from test_torch_ssm import (DIST_RTOL, SPAWN_TIMEOUT, arch_params,
                             dist_batches, dist_spec, fp32_comm)
@@ -66,7 +73,9 @@ def _jax_pipeline_losses(batches_path, out_path, mode):
     devices (XLA_FLAGS must force 4 before JAX starts), deepseek-moe-16b
     SMOKE from `arch_params`' weights, on the batches saved at
     ``batches_path``, with ``moe_mode`` ``mode``: the warm-up step, then
-    compressed steps.  Writes the losses as JSON to ``out_path``."""
+    compressed steps.  Writes the losses as JSON to ``out_path`` and, in
+    ``zero3``, the compressed step's `loop_gathers` to ``out_path +
+    ".gathers"``."""
     jcfg, _, params, _ = arch_params(ARCH, {})
     comm = JComm.from_json(aqsgd_det_comm().to_json())
     mesh = make_debug_mesh(D, K)
@@ -96,6 +105,12 @@ def _jax_pipeline_losses(batches_path, out_path, mode):
         losses.append(float(met["loss"]))
     with open(out_path, "w") as f:
         json.dump(losses, f)
+    if mode == "zero3":
+        # the executable the last step ran (a cache hit: no second build)
+        text = steps[False].lower(state, batch, jax.random.PRNGKey(0)) \
+            .compile().as_text()
+        with open(out_path + ".gathers", "w") as f:
+            json.dump(loop_gathers(text), f)
 
 
 def _jax_ce_reference(jcfg, params, batches):
@@ -159,6 +174,7 @@ def dist_runs(tmp_path_factory):
         runs[run, mode] = [r[len(MODES) + i] for r in out]
     runs["jax-pipeline"] = {mode: json.loads((tmp / f"{mode}.json")
                                              .read_text()) for mode in MODES}
+    runs["jax-gathers"] = json.loads((tmp / "zero3.json.gathers").read_text())
     runs["jax"] = (jcfg, tcfg, params, np_params, batches)
     return runs
 
@@ -235,6 +251,39 @@ def test_ep_bytes_match_the_byte_model(dist_runs, mode):
     np.testing.assert_allclose(
         runs[0]["losses"], dist_runs["bytes", "zero3"][0][0]["losses"],
         rtol=DIST_RTOL)
+
+
+def test_zero3_gathers_match_jax_hlo(dist_runs):
+    """``zero3``, aqsgd + the 4-bit ring, nested remat: each rank's
+    ``fsdp`` calls a step equal `fsdp_gathers`', the largest gather that
+    holds an expert's weights is one expert's w_gate, w_up and w_down
+    (E calls of it a forward run of the layer, and E more in the
+    experts' own backward); JAX's expert scan gathers exactly those
+    three weights three times an iteration, and the port's trunk bytes
+    a microbatch equal JAX's a tick."""
+    runs, spec = dist_runs["bytes", "zero3"]
+    cfg = tget(ARCH, smoke=True)
+    lay = PL.stage_layout(cfg, K)
+    m = spec["microbatches"]
+    pcfg = PL.PipelineConfig(microbatches=m, **spec["pipeline"])
+    d, ff, e = cfg.d_model, cfg.moe_d_ff, cfg.n_experts
+    gathers, ticks = dist_runs["jax-gathers"], m + K - 1
+    scan = [g for g in gathers if g["loops"] == [ticks, e]]
+    assert {tuple(g["dims"]) for g in scan} == {(d, ff), (ff, d)}
+    for r in runs:
+        k = r["model_rank"]
+        units = PL.fsdp_gathers(cfg, pcfg, lay, k, D)
+        assert r["fsdp_gathers"] == [{u: m * c for u, (c, _, _)
+                                      in units.items()}] * spec["steps"]
+        assert r["largest_gather"] == [PL.fsdp_largest_gather(
+            cfg, pcfg, lay, k, D)] * spec["steps"]
+        trunk = trunk_gathers(cfg, pcfg, k)
+        calls, one = trunk["experts.0"]
+        assert one == 4 * 3 * d * ff
+        assert calls == e * (PL._passes(pcfg, 0, lay.lps) + 1)
+        assert sum(g["bytes"] for g in scan) == 3 * one
+        assert per_tick(gathers, ticks) == sum(c * w
+                                               for c, w in trunk.values())
 
 
 if __name__ == "__main__":

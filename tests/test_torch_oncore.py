@@ -14,10 +14,12 @@ tests/test_grad_compress.py), as JAX's reference encoder does on the
 same numpy inputs.  The kernels themselves are held to the plain
 version bit for bit on the card (tests/test_torch_cuda.py,
 chip_smoke.py).  The knob (``ACSGD_ONCORE_PRNG``) changes nothing on
-the CPU and is refused by the distributed trainer.
+the CPU, in the distributed trainer too (whose seeded DP wires are
+tests/test_torch_ring.py's).
 
 Run: ``PYTHONPATH=src python -m pytest -q tests/test_torch_oncore.py``.
 """
+import json
 import pathlib
 
 import jax
@@ -38,7 +40,6 @@ from repro_torch.launch import serve as tserve
 from repro_torch.launch import train as tlaunch
 from repro_torch.models.model import Transformer
 from repro_torch.optim.adamw import AdamWConfig
-from repro_torch.training import pipeline as PL
 from repro_torch.training import simulated as TS
 
 
@@ -281,17 +282,43 @@ def test_knob_leaves_cpu_training_unchanged(monkeypatch):
     assert torch.equal(s0["buffers"]["m"], s1["buffers"]["m"])
 
 
-def test_distributed_trainer_refuses_the_knob(monkeypatch, capsys):
+DIST_ARGV = ["--device", "cpu", "--smoke", "--distributed", "--data-par",
+             "2", "--stages", "2", "--dp-grad-bits", "4", "--steps", "2",
+             "--seq", "16", "--samples", "8", "--batch", "4"]
+
+
+def test_distributed_launcher_takes_the_knob(monkeypatch, capsys):
+    """``--distributed`` runs with the knob on: the launcher hands its
+    spec to the spawn and prints the run's final loss."""
     monkeypatch.setenv(KNOB, "1")
-    argv = ["--device", "cpu", "--smoke", "--distributed", "--steps", "1"]
-    with pytest.raises(SystemExit):
-        tlaunch.main(argv)
-    assert "Seeded noise in the distributed trainer" in capsys.readouterr().err
-    spec = tlaunch.distributed_spec(tlaunch.build_parser().parse_args(argv),
-                                    torch.device("cpu"))
-    with pytest.raises(NotImplementedError,
-                       match="Seeded noise in the distributed trainer"):
-        PL.build_rank(0, 4, spec)
+    seen = []
+
+    def run(specs, timeout):
+        seen.extend(specs)
+        return [[{"losses": [1.5, 1.25], "start": 0, "orphans_removed": 0}]
+                * 4]
+    monkeypatch.setattr(tlaunch, "run_distributed", run)
+    _, losses = tlaunch.main(DIST_ARGV)
+    assert losses == [1.5, 1.25]
+    assert "final loss 1.2500" in capsys.readouterr().out
+    assert seen == [tlaunch.distributed_spec(
+        tlaunch.build_parser().parse_args(DIST_ARGV), torch.device("cpu"))]
+
+
+def test_distributed_knob_is_a_noop_on_the_cpu(tmp_path):
+    """The launcher's SMOKE run (stochastic aqsgd and the 4-bit ring
+    over a 2 x 2 gloo mesh) with the knob on and off, in one spawn:
+    the reference backend ignores it, so every rank's losses are
+    bit-equal."""
+    from repro_torch.launch.mesh import spawn
+    from test_torch_mesh import knob_worker
+    spec = tlaunch.distributed_spec(
+        tlaunch.build_parser().parse_args(DIST_ARGV), torch.device("cpu"))
+    assert json.loads(spec["comm"])["dp"]["stochastic"]
+    out = spawn(knob_worker, 4, (spec,), timeout=120, store_dir=tmp_path)
+    for on, off in out:
+        assert len(on) == 2 and np.isfinite(on).all()
+        assert on == off == out[0][0]
 
 
 def test_knob_is_read_only_in_env():

@@ -99,15 +99,17 @@ def step_batches(rank, world, spec, batches, warm_steps):
     the warm-up step); return the losses, replica checks, and this
     stage's parameters before the first step and after every step, and
     the gradient AdamW was given at every step, each whole (the data
-    ranks' shards gathered: `PL.gather_whole`)."""
+    ranks' shards gathered: `PL.gather_whole`), and each step's ``fsdp``
+    bytes and calls by unit (`PL.StageFsdp.gathers`)."""
     trainer, _ = PL.build_rank(rank, world, spec)
+    tr, fs = trainer.mesh.transport, trainer.stage.fsdp
 
     def numpy(tensors):
         return {n: t.detach().numpy().copy()
                 for n, t in PL.gather_whole(trainer, tensors).items()}
     out = {"rank": rank, "model_rank": trainer.mesh.model_rank,
-           "losses": [], "replicas": [], "grads": [],
-           "params": [numpy(trainer.params)]}
+           "losses": [], "replicas": [], "grads": [], "fsdp": [],
+           "fsdp_gathers": [], "params": [numpy(trainer.params)]}
     apply_updates = PL.adamw.apply_updates
 
     def spy(cfg, params, grads, state):
@@ -116,8 +118,11 @@ def step_batches(rank, world, spec, batches, warm_steps):
 
     PL.adamw.apply_updates = spy
     for i, batch in enumerate(batches):
+        tr.reset()
         out["losses"].append(trainer.step(PL.rank_batch(trainer, batch), i,
                                           warmup=i < warm_steps))
+        out["fsdp"].append(tr.bytes_sent("fsdp"))
+        out["fsdp_gathers"].append({} if fs is None else dict(fs.gathers))
         out["replicas"].append(PL.check_replicas(trainer))
         out["params"].append(numpy(trainer.params))
     PL.adamw.apply_updates = apply_updates

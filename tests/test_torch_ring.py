@@ -16,6 +16,15 @@ its own simulator, over gloo processes.
   once here and handed to both; each rank's bytes equal
   `ring_wire_bytes`, and its calls the registry's manifest (the gate of
   tests/workers/dp_grad_worker.py).
+* In the same processes, the seeded path (the on-core noise knob): the
+  wires handed a generator and no noise on the cuda backend (its plain
+  versions, on these CPU tensors) with the knob on equal, for the
+  monolithic ``psum``, ``ring`` and ``ring-sharded``, the reference wire
+  fed `oncore_uniform_ref` under the seed that generator gives, bit for
+  bit (mean and carry, two steps); the chunked ring and ZeRO wire do
+  not change with the knob (they keep one full-bucket noise tensor, as
+  JAX's chunk encoder does); and without the knob every wire equals the
+  reference wire fed the generator's own draw.
 """
 import collections
 
@@ -36,7 +45,7 @@ from repro_torch.core import quantization as TQ
 from repro_torch.kernels import quant_pack as TP
 from repro_torch.launch.mesh import spawn
 
-from test_torch_mesh import CASES, wire_worker
+from test_torch_mesh import CASES, SEEDED, wire_worker
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -187,8 +196,11 @@ def _merged(rows):
     return c
 
 
-@pytest.mark.parametrize("n", [2, 3, 5])
-def test_wires_match_simulator_over_gloo(n, tmp_path):
+@pytest.fixture(scope="module", params=[2, 3, 5])
+def wire_runs(request, tmp_path_factory):
+    """One spawn of `wire_worker` over n ranks: (n, bits, layout,
+    every rank's results)."""
+    n = request.param
     bits = 4 if n != 3 else 8          # n=3 at 8 bits: 16-bit sums
     lay = TG.bucket_layout(_trees(0, 1)[0], GROUP)
     assert lay.rows % n, lay.rows
@@ -202,7 +214,13 @@ def test_wires_match_simulator_over_gloo(n, tmp_path):
                                            generator=g).numpy()
                                 for _ in range(n)])
     results = spawn(wire_worker, n, (inputs,), timeout=SPAWN_TIMEOUT,
-                    store_dir=tmp_path)
+                    store_dir=tmp_path_factory.mktemp("ring"))
+    return n, bits, lay, results
+
+
+def test_wires_match_simulator_over_gloo(wire_runs):
+    n, bits, lay, results = wire_runs
+    inputs = {"shape": (lay.rows, lay.group_d)}
     for stochastic in (False, True):
         err_s = torch.zeros(n, lay.rows, lay.group_d)
         for step in range(2):
@@ -234,6 +252,25 @@ def test_wires_match_simulator_over_gloo(n, tmp_path):
                         assert _merged(manifest) == _merged(
                             spec.expected_collectives(inputs["shape"], bits,
                                                       n)), (r, case)
+
+
+def test_seeded_wires_over_gloo(wire_runs):
+    n, _, _, results = wire_runs
+
+    def same(a, b):
+        return all(np.array_equal(x.view(np.int32), y.view(np.int32))
+                   for p, q in zip(a, b) for x, y in zip(p, q))
+
+    for r in range(n):
+        for wire, chunks in SEEDED:
+            on, off, oncore, drawn = (results[r][(v, wire, chunks)] for v in
+                                      ("1", "0", "oncore-u", "drawn-u"))
+            assert same(off, drawn), (r, wire, chunks)
+            if chunks == 1:
+                assert same(on, oncore), (r, wire)
+                assert not same(on, off), (r, wire)
+            else:
+                assert same(on, off), (r, wire, chunks)
 
 
 def test_single_rank_ring_is_the_n1_codec():

@@ -1,15 +1,19 @@
 #!/usr/bin/env python3
 """chip_smoke's distributed phases alone, for one source tree.
 
-    python3 tools/dist_phases.py [--src TREE] [--checks]
+    python3 tools/dist_phases.py [--src TREE] [--checks] [--no-variants]
+                                 [--sim-resume]
 
 Runs the tree's own `chip_smoke.dist_phases` (``[dist-train]`` and its
 ``-sharded``, ``-fp16`` and ``-adam8`` variants: gpt2-xl-paper at full
 width, 8 of 48 layers, a 2 x 2 mesh of processes on the one card) and,
 with ``--checks``, its `dist_reference_checks` (the SMOKE checks, card
 against CPU, and where the tree has it ``[dist-fsdp-check]``) and
-`dist_resume_phase` (``[dist-train-resume]``), with their asserts,
-printing chip_smoke's lines for them.  ``--src`` (default: this
+`dist_resume_phase` (``[dist-train-resume]``, and where the tree has
+them ``[dist-train-oncore]`` and ``[dist-seeded-check]``), with their
+asserts, printing chip_smoke's lines for them.  ``--no-variants`` skips
+`dist_phases`; ``--sim-resume`` also runs `train_resume_phase`
+(``[train-resume]``, ``[train-resume-oncore]``, ``[train-fault]``).  ``--src`` (default: this
 checkout) is the root of a checkout, so one call on the card can run
 two versions in turns: unpack the other commit into a directory that
 ``.gitignore`` lists (``git archive <commit> | tar -x -C build/parent``)
@@ -28,6 +32,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--src", default=ROOT)
     ap.add_argument("--checks", action="store_true")
+    ap.add_argument("--no-variants", action="store_true")
+    ap.add_argument("--sim-resume", action="store_true")
     args = ap.parse_args(argv)
     sys.path.insert(0, os.path.abspath(args.src))
     import chip_smoke as cs          # the tree's, which puts its src first
@@ -39,10 +45,15 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     cs.phase("card", nvidia_smi=f"'{cs.nvidia_smi_line()}'",
              src=os.path.abspath(args.src), torch=torch.__version__)
-    cs.dist_phases(torch)
+    if not args.no_variants:
+        cs.dist_phases(torch)
     if args.checks:
         cs.dist_reference_checks(torch)
         cs.dist_resume_phase(torch)
+    if args.sim_resume:
+        from repro_torch import env
+        from repro_torch.kernels import quant_pack as qp
+        cs.train_resume_phase(torch, qp, env)
     return 0
 
 

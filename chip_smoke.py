@@ -146,8 +146,9 @@ Phases, each printed on its own line:
    the decode tolerance while the streams agree, KV codes within one,
    a fork allowed only at a near tie (printed), one at most;
    ``[serve-gemma2]``: the slice's own path, ``gemma2-9b`` at full
-   width, the first 10 of its 42 layers (`G_LAYERS`; all 42 until the
-   FSDP slice; d 3584, vocab 256000; local layers see 4096 keys,
+   width, the first 4 of its 42 layers, two local and two global
+   (`G_LAYERS`; all 42 until the FSDP slice, 10 until the distributed
+   checkpoint's; d 3584, vocab 256000; local layers see 4096 keys,
    softcaps 50 and 30, 16 query heads on 8 kv heads of 256),
    batch 2, a prompt of 8160 into a cache of 8192, 32 greedy decode
    steps, the same comm flags, the counters set to 0 just before and
@@ -247,13 +248,27 @@ Phases, each printed on its own line:
    step, each recovery is printed, the losses equal the clean run's bit
    for bit and the launches count every replayed step;
    ``[dist-train-resume]``: ``[dist-train]``'s spec at 2 layers, an
-   uninterrupted run of 4 steps, one stopped after step 2 with per-rank
-   checkpoints, and a resume, in one spawn: the resumed steps 2 and 3
-   equal the uninterrupted ones bit for bit on every rank, the replicas
-   hold, launches per step exact; ``[train-resume-cli]``: ``python -m
+   uninterrupted run of 4 steps, one stopped after step 2 with a
+   checkpoint in the JAX launcher's global layout (one state, written by
+   rank (0, 0) from the parts the ranks send it on the ``ckpt`` plane,
+   and read by it, which sends them their parts on the same plane,
+   `training.pipeline_state`, with the ``torch_rows`` sidecar), and a
+   resume, in one spawn: the resumed steps 2 and 3 equal the
+   uninterrupted ones bit for bit on every rank, the replicas hold,
+   launches per step exact; the ``ckpt`` plane's bytes a rank at the
+   save and at the restore, the bytes on disk against the reckoned
+   global state, save and restore seconds, and the manifest's
+   fingerprint beside the port's structure's
+   (`pipeline_state.global_structs`; the CPU tests hold that to JAX's);
+   ``[train-resume-cli]``: ``python -m
    repro_torch.launch.train --smoke --device cuda`` with ``--kill-at
    7`` (exit 17) and then ``--resume``, whose loss lines (the loss bits
-   in hex) equal an uninterrupted CLI run's.
+   in hex) equal an uninterrupted CLI run's;
+12. ``[examples]``: the port's examples on the card, in this process:
+   examples/torch_quickstart.py and torch_split_learning.py at their
+   own sizes with their asserts (AQ-SGD's final loss below DirectQ's)
+   and torch_serve_batched.py ``--tiny`` (every request DONE), their
+   seconds and final losses.
 
 B10 at head_dim 160 (stablelm-12b's) is in ``[flash-check]`` (ragged
 sweep cases, the tile edges, an odd stride, and stablelm's prefill
@@ -339,8 +354,9 @@ pipeline phase); the SMOKE checks hold the ``fsdp`` bytes to the model
 too; ``[dist-fsdp-check]`` runs `FSDP_CHECKS` (gpt2-xl-paper,
 zamba2-2.7b, deepseek-moe-16b in ``zero3`` and ``expert_parallel``,
 whisper-small) again on the card in the whole-stage layout in the same
-spawn, losses bit for bit; ``[dist-train-resume]`` holds each rank's
-checkpoint to its sharded state's reckoned bytes.  Since the seeded
+spawn, losses bit for bit; ``[dist-train-resume]`` gathers the ranks'
+shards into the one global checkpoint and holds its bytes on disk to
+the reckoned global state's.  Since the seeded
 distributed slice the gathers come in the JAX package's units (a
 ``zero3`` MoE layer's experts one at a time, the hybrid's shared block
 once a stage call): the checks hold each rank's calls by unit to
@@ -486,13 +502,14 @@ CONT_CHECK_WINDOW = {"gpt2-xl-paper": None, "gemma2-9b": 4,
 # last row and past the store (clamped to CACHE_LEN - 1)
 ROW_HEADS = (0, 5, 77, PROMPT, CACHE_LEN - 1, CACHE_LEN, CACHE_LEN + 40, 3)
 # the gemma2-9b serving slice at full width: a prompt past the 4096-key
-# window into a cache of the 8192-token context, the first 10 of its 42
-# layers (5 local, 5 global) since the FSDP slice, whose distributed
-# phases took the time the host spent drawing the other 32 (~51 s at
-# ~7.6 s a billion weights)
+# window into a cache of the 8192-token context, the first 4 of its 42
+# layers (2 local, 2 global): the FSDP slice cut it to 10 for its
+# distributed phases (the host spent ~51 s drawing the other 32 at
+# ~7.6 s a billion weights), the distributed checkpoint's slice to 4 for
+# its one-writer save and [examples] (6 layers, ~1.2e9 weights)
 G_BATCH, G_PROMPT, G_GEN = 2, 8160, 32
 G_CACHE = G_PROMPT + G_GEN
-G_LAYERS, G_D, G_VOCAB = 10, 3584, 256000
+G_LAYERS, G_D, G_VOCAB = 4, 3584, 256000
 G_HEADS, G_KV_HEADS, G_HEAD_DIM, G_WINDOW, G_CAP = 16, 8, 256, 4096, 50.0
 GEMMA_ARGS = ["--arch", "gemma2-9b", "--layers", str(G_LAYERS),
               "--stages", "2", "--mode", "aqsgd",
@@ -4255,21 +4272,20 @@ def reckoned_sim_bytes(cfg) -> int:
                                                      * 4 + 1) + 16 + 8)
 
 
-def reckoned_rank_bytes(cfg, k: int) -> int:
-    """A [dist-train-resume] rank of stage ``k``'s array bytes: its
-    shards of the stage's parameters (ZeRO-3 over the data ranks) in f32
-    with two f32 moments (`training.pipeline.rank_param_bytes`), the
-    carry over the pipeline's whole bucket, its side of the bf16
-    messages (stored as f32)."""
-    from repro_torch.training import pipeline as PL
+def reckoned_global_bytes(cfg) -> int:
+    """A [dist-train-resume] checkpoint's array bytes as stored, its main
+    step and its sidecar together: the whole model's parameters and two
+    AdamW moments in f32 (2 layers over 2 stages: no dead layer), each
+    data rank's f32 carry over the pipeline's whole bucket, the step
+    (an int32), and every stage's m_out and m_in (bf16, stored as f32)
+    of every rank's `DIST_SAMPLES` rows, ``DIST_SAMPLES // DIST_DATA``
+    a data rank in the main step and the rest in the sidecar."""
     n_model = cfg.vocab_size * cfg.d_model + cfg.d_model \
         + cfg.num_layers * _block_params(cfg)
     rows = -(-n_model // DP_BUCKET[1])
-    shards = PL.rank_param_bytes(cfg, PL.PipelineConfig(),
-                                 PL.stage_layout(cfg, DIST_STAGES), k,
-                                 DIST_DATA)
-    return (shards + rows * DP_BUCKET[1] * 4
-            + DIST_SAMPLES * DIST_SEQ * cfg.d_model * 4)
+    return (12 * n_model + DIST_DATA * rows * DP_BUCKET[1] * 4 + 4
+            + 2 * DIST_STAGES * DIST_DATA * DIST_SAMPLES * DIST_SEQ
+            * cfg.d_model * 4)
 
 
 def _need_disk(path: str, nbytes: int, what: str) -> None:
@@ -4584,8 +4600,9 @@ def dist_seeded_check(runs) -> dict:
 
 def dist_resume_phase(torch) -> dict:
     """[dist-train-resume]: [dist-train]'s spec at 2 layers, run
-    uninterrupted, stopped after step 2 with per-rank checkpoints, and
-    resumed; [dist-train-oncore], the uninterrupted run's spec with the
+    uninterrupted, stopped after step 2 with a checkpoint in the JAX
+    launcher's global layout, and resumed; [dist-train-oncore], the
+    uninterrupted run's spec with the
     on-core noise knob; and [dist-seeded-check]'s SMOKE runs, all in one
     spawn.  Returns the stopped and resumed runs' launches summed over
     the ranks, [dist-train-oncore]'s, and the seeded SMOKE ring's."""
@@ -4594,14 +4611,16 @@ def dist_resume_phase(torch) -> dict:
     from repro_torch.configs.base import get_config
     from repro_torch.core import collectives as C
     from repro_torch.core import quantization as Q
+    from repro_torch.checkpoint import tree_fingerprint
     from repro_torch.serving import DeltaHopCodec
     from repro_torch.training import pipeline as PL
+    from repro_torch.training import pipeline_state as PS
 
     cfg = get_config("gpt2-xl-paper").with_(num_layers=RESUME_LAYERS)
-    reckoned = [reckoned_rank_bytes(cfg, k) for k in range(DIST_STAGES)]
+    reckoned = reckoned_global_bytes(cfg)
     shutil.rmtree(CKPT_ROOT, ignore_errors=True)
     d = os.path.join(CKPT_ROOT, "dist")
-    _need_disk(CKPT_ROOT, DIST_DATA * sum(reckoned), "dist-train-resume")
+    _need_disk(CKPT_ROOT, reckoned + 2 ** 30, "dist-train-resume")
     flags = ["--device", "cuda", "--steps", str(DIST_STEPS), "--batch",
              str(DIST_BATCH), "--seq", str(DIST_SEQ), "--samples",
              str(DIST_SAMPLES)]
@@ -4617,6 +4636,9 @@ def dist_resume_phase(torch) -> dict:
     b, st, rs, on, *smoke = run_dist_knobs(
         [("0", base), ("0", stop), ("0", resume), ("1", base), *seeded])
     wall = time.perf_counter() - t0
+    with open(os.path.join(d, "step_%08d" % 2, "manifest.json")) as f:
+        manifest_fp = json.load(f)["body"]["fingerprint"]
+    struct_fp = tree_fingerprint(PS.global_structs(PS.spec_layout(stop)))
     # launches a step summed over the ranks: the DP ring on every rank
     # every step, B10 2 a microbatch a rank (3 x 1 - 1 under nested
     # remat), the hop kernels a microbatch a data rank once compressed
@@ -4642,19 +4664,45 @@ def dist_resume_phase(torch) -> dict:
             assert got == summed(b, step), (step, got)
             for k in launches:
                 launches[k] += got[k]
+    save = [r["ckpt"][0] for r in st]
+    restore = [r["ckpt"][0] for r in rs]
+    gb = save[0]["bytes"] / 1e9
     phase("dist-train-resume", mesh=f"{DIST_DATA}x{DIST_STAGES}",
           layers=RESUME_LAYERS, d_model=cfg.d_model, dp_wire="ring",
-          reckoned_bytes_by_stage=json.dumps(reckoned),
+          reckoned_bytes=reckoned, bytes_on_disk=save[0]["bytes"],
+          ckpt_plane_bytes_by_rank=json.dumps(
+              [c["ckpt_plane_bytes"] for c in save]),
+          restore_ckpt_plane_bytes_by_rank=json.dumps(
+              [c["ckpt_plane_bytes"] for c in restore]),
+          save_s_by_rank=json.dumps([round(c["seconds"], 3) for c in save]),
+          restore_s_by_rank=json.dumps(
+              [round(c["seconds"], 3) for c in restore]),
+          save_s_per_gb=f"{save[0]['seconds'] / gb:.3f}",
+          restore_s_per_gb=f"{max(c['seconds'] for c in restore) / gb:.3f}",
+          manifest_fingerprint=manifest_fp, structure_fingerprint=struct_fp,
           losses_exact=json.dumps(b[0]["losses"]),
           stopped_losses=json.dumps(st[0]["losses"]),
           resumed_losses=json.dumps(rs[0]["losses"]),
           resumed_from=rs[0]["start"],
-          ckpt_by_rank=json.dumps([r["ckpt"] for r in st + rs]),
           replicas_last_stage=json.dumps(
               [rep for r in rs if r["model_rank"] == DIST_STAGES - 1
                for rep in r["replicas"]]),
           launches_stop_and_resume=json.dumps(launches),
           wall_s_all_runs=f"{wall:.1f}")
+    assert manifest_fp == struct_fp, (manifest_fp, struct_fp)
+    # one writer: rank (0, 0) wrote the state the others sent it
+    assert reckoned < save[0]["bytes"] < reckoned + 2 ** 20, \
+        (save[0], reckoned)
+    assert save[0]["ckpt_plane_bytes"] == 0, save[0]
+    for c in save[1:]:
+        assert c["bytes"] == 0 and c["ckpt_plane_bytes"] > 0, c
+    # one reader: rank (0, 0) read it and sent the others their slices
+    assert restore[0]["bytes"] == save[0]["bytes"], restore[0]
+    assert restore[0]["ckpt_plane_bytes"] > 0, restore[0]
+    for c in restore[1:]:
+        assert c["bytes"] == 0 and c["ckpt_plane_bytes"] == 0, c
+    for c in restore:
+        assert c["rows"] is True, c
     for r_b, r_s, r_r in zip(b, st, rs):
         assert r_s["losses"] == r_b["losses"][:2], (r_s["losses"],
                                                     r_b["losses"])
@@ -4663,9 +4711,6 @@ def dist_resume_phase(torch) -> dict:
         assert [c["step"] for c in r_s["ckpt"]] == [2]
         assert [(c["op"], c["step"]) for c in r_r["ckpt"]] == [("restore",
                                                                 2)]
-        own = reckoned[r_s["model_rank"]]
-        for c in r_s["ckpt"] + r_r["ckpt"]:
-            assert 0 < c["bytes"] < own + 2 ** 20, (c, own)
         if r_r["model_rank"] == DIST_STAGES - 1:
             for rep in r_r["replicas"]:
                 assert rep["m_in_equal"] is True, rep
@@ -4788,6 +4833,49 @@ def train_resume_cli_phase() -> None:
     assert len(want) == 2 and loss_lines(resumed.stdout) == want, \
         (loss_lines(resumed.stdout), want)
     shutil.rmtree(CKPT_ROOT)
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the examples
+# ---------------------------------------------------------------------------
+
+def run_example(name: str, argv: list) -> tuple:
+    """examples/<name>.py's ``main(argv)`` in this process, its output
+    kept apart: (its result, seconds, its output)."""
+    import contextlib
+    import importlib.util
+    import io
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(ROOT, "examples", name + ".py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        res = module.main(argv)
+    return res, time.perf_counter() - t0, out.getvalue()
+
+
+def examples_phase() -> None:
+    """[examples]: the quickstart and split learning at their own sizes
+    (their asserts hold inside), serve_batched ``--tiny``."""
+    quick, quick_s, _ = run_example("torch_quickstart", ["--device", "cuda"])
+    split, split_s, _ = run_example("torch_split_learning",
+                                    ["--device", "cuda"])
+    reqs, serve_s, log = run_example("torch_serve_batched",
+                                     ["--tiny", "--device", "cuda"])
+    phase("examples", quickstart_s=f"{quick_s:.1f}",
+          split_learning_s=f"{split_s:.1f}",
+          serve_batched_tiny_s=f"{serve_s:.1f}",
+          total_s=f"{quick_s + split_s + serve_s:.1f}",
+          quickstart_final_losses=json.dumps(quick),
+          split_learning_final_losses=json.dumps(split),
+          requests_done=sum(r.state == "DONE" for r in reqs),
+          requests=len(reqs))
+    assert quick["aqsgd"] < quick["directq"], quick
+    assert split["aqsgd"] < split["directq"], split
+    assert all(math.isfinite(x) for x in [*quick.values(), *split.values()])
+    assert reqs and all(r.state == "DONE" for r in reqs), log
 
 
 # ---------------------------------------------------------------------------
@@ -4980,6 +5068,7 @@ def main() -> int:
     assert dist_resumes["dist_oncore"]["oncore_uniform"] > 0, \
         "the seeded encoders were never launched on the distributed path"
     train_resume_cli_phase()
+    examples_phase()
     # a row's launches are those of the path its time was taken at:
     # serving for the activation codecs and the attention kernel (gpt2-xl
     # prefill), training for the DP wire, the distributed path for the

@@ -14,6 +14,7 @@ from repro_torch.checkpoint.checkpoint import (  # noqa: F401
     clean_orphans,
     flatten_tree,
     latest_step,
+    read_manifest,
     resolve_checkpoint,
     restore,
     restore_state,
@@ -25,6 +26,6 @@ from repro_torch.checkpoint.checkpoint import (  # noqa: F401
 __all__ = [
     "ARRAYS_NAME", "MANIFEST_NAME", "CheckpointError",
     "checkpoint_nbytes", "checkpoint_steps", "clean_orphans",
-    "flatten_tree", "latest_step", "resolve_checkpoint", "restore",
-    "restore_state", "save", "save_state", "tree_fingerprint",
+    "flatten_tree", "latest_step", "read_manifest", "resolve_checkpoint",
+    "restore", "restore_state", "save", "save_state", "tree_fingerprint",
 ]

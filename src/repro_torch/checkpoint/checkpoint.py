@@ -20,7 +20,9 @@ walks them, so the paths, the fingerprint and the npz's order are the
 JAX package's.  A Python int leaf stands for a 0-d ``int32`` (JAX's
 ``opt/step``) and restores as an int.  Tensors come to the host once,
 in `flatten_tree`; a restored leaf goes to the device (and dtype) of
-its counterpart in ``like``.  Either package restores the other's
+its counterpart in ``like``, and to the host where that is a meta
+tensor: a tree of meta tensors is a structure, as JAX's
+``jax.eval_shape`` gives one.  Either package restores the other's
 checkpoint of the same structure.
 
 Write protocol (crash-safe): stage into a UNIQUE
@@ -158,12 +160,14 @@ def tree_fingerprint(tree: Any) -> str:
 
 def _like_leaf(arr: np.ndarray, leaf):
     """A stored array as a leaf like ``leaf``: a tensor on its device
-    and of its dtype, a numpy array of its dtype, or an int."""
+    (on the host for a meta tensor, a structure's leaf) and of its
+    dtype, a numpy array of its dtype, or an int."""
     if _is_int(leaf):
         return int(arr)
     if isinstance(leaf, torch.Tensor):
+        dev = "cpu" if leaf.is_meta else leaf.device
         return torch.from_numpy(arr.copy(order="C")).to(
-            device=leaf.device, dtype=leaf.dtype)
+            device=dev, dtype=leaf.dtype)
     return arr.astype(np.dtype(leaf.dtype))
 
 
@@ -428,6 +432,13 @@ def resolve_checkpoint(directory: str,
                               f"step {step}; available: "
                               f"{checkpoint_steps(directory)}")
     return path
+
+
+def read_manifest(directory: str, step: Optional[int] = None) -> dict:
+    """The manifest body of a committed checkpoint, found as
+    `resolve_checkpoint` finds it, its CRC and format checked; the
+    arrays are not read."""
+    return _load_manifest(resolve_checkpoint(directory, step))
 
 
 def checkpoint_nbytes(directory: str, step: Optional[int] = None) -> int:

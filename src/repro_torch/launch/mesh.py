@@ -133,13 +133,14 @@ class Transport:
         self._record(plane, "send", x)
         dist.send(self.to_host(x), dst)
 
-    def recv(self, shape, dtype, src: int, plane: str) -> torch.Tensor:
+    def recv(self, shape, dtype, src: int, plane: str, *,
+             host: bool = False) -> torch.Tensor:
         """Blocking receive of a (shape, dtype) tensor from global rank
-        src, on this rank's device."""
+        src, on this rank's device (with ``host``, in host memory)."""
         h = self._host_empty(shape, dtype)
         dist.recv(h, src)
         self._record(plane, "recv", h)
-        return self.to_device(h)
+        return h if host else self.to_device(h)
 
     def permute_start(self, x: torch.Tensor, dst: int, src: int,
                       plane: str) -> _Pending:

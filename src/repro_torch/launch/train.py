@@ -22,10 +22,13 @@ gloo; on one card every rank shares it), builds the CUDA kernels once
 before spawning, runs the warm-up step for the first
 ``--warmup-epochs`` epochs and the compressed step after, and stops
 every rank if the run outlasts ``JOIN_TIMEOUT`` seconds.  There
-``--ckpt-dir``/``--save-every``/``--resume``/``--keep`` give each rank
-its own checkpoints (`repro_torch.training.pipeline`); as in the JAX
-package, ``--fault`` and ``--kill-at`` target the single-host trainer
-only.
+``--ckpt-dir``/``--save-every``/``--resume``/``--keep`` checkpoint the
+JAX launcher's one global state in its layout,
+``<ckpt-dir>/step_<N>``, written and read by one rank, with the message
+rows JAX's layout has no place for in ``<ckpt-dir>/torch_rows/step_<N>``
+(`repro_torch.training.pipeline_state`): either package resumes the
+other's; as in the JAX package, ``--fault`` and ``--kill-at`` target
+the single-host trainer only.
 
 The on-core noise knob (`repro_torch.env.oncore_prng`) puts both
 trainers' stochastic encodes on the card onto the kernels' own seeded
@@ -104,6 +107,7 @@ from repro_torch.launch.mesh import spawn
 from repro_torch.launch.serve import resolve_device
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.training import pipeline as PL
+from repro_torch.training import pipeline_state as PS
 from repro_torch.training import simulated as sim
 from repro_torch.weights import to_jax_params
 
@@ -263,10 +267,11 @@ def main(argv=None):
     steps and ``final loss``: the mean of the last 5 on the single-host
     path, the last step's with ``--distributed``, as the JAX launcher
     prints them; ``--distributed`` also prints how many staged ``.tmp-*``
-    entries the ranks removed from their checkpoint directories, if
-    any.  Returns (state,
-    losses), or with --distributed (the ranks' results, losses); the
-    losses are those of the steps this call ran."""
+    entries were removed from the checkpoint directory and its sidecar,
+    if any, and, where a resume found no sidecar of the step's commit
+    (a JAX-written checkpoint), that those rows start at zero.  Returns
+    (state, losses), or with --distributed (the ranks' results,
+    losses); the losses are those of the steps this call ran."""
     ap = build_parser()
     args = ap.parse_args(argv)
     if args.list_wires:
@@ -295,6 +300,10 @@ def main(argv=None):
         removed = sum(r["orphans_removed"] for r in results)
         if removed:
             print(f"checkpoint: removed {removed} orphaned tmp entries")
+        if args.resume and not results[0]["ckpt"][0]["rows"]:
+            print(f"checkpoint: step {start} has no {PS.ROWS_DIR} sidecar "
+                  f"of its commit (the JAX package writes none): the "
+                  f"message rows past samples // data-par start at zero")
         if start:
             print(f"resumed from step {start}")
         for i, loss in enumerate(losses, start=start):

@@ -102,18 +102,17 @@ The hops (`_SendHop`, `_RecvHop`) and the message buffers stay outside
 every checkpoint, so a recompute never sends, draws or writes again.
 
 Checkpoints (the JAX launcher's ``--ckpt-dir``/``--save-every``/
-``--resume``): every rank writes its own state, in the manifest format
-of `repro_torch.checkpoint`, under ``<ckpt-dir>/rank_<data>_<model>/``
-(`rank_state`: its shards of the stage's parameters, AdamW's moments
-and step, the DP carry, ``m_out``/``m_in`` and, under the ZeRO wire,
-the full-model parameter bucket), so no rank ships another's state over
-the network.
-A resume takes the newest step that every rank committed
-(`common_step`, one MIN all-reduce of the ranks' committed steps) and
-replays the data stream by skipping; the warm-up choice and the
-per-step seeds take the global step index, so a stopped-and-resumed
-run gives the uninterrupted run's losses.  As in the JAX package there
-is no fault plan or guard on this path.
+``--resume``/``--keep``): the JAX launcher's one global state, in its
+layout, committed by rank (data 0, model 0) from the parts every rank
+sends it on the transport's ``ckpt`` plane, and restored by that rank,
+which sends each rank its slices on the same plane
+(`repro_torch.training.pipeline_state`; the message rows JAX's layout
+has no place for go to a sidecar beside it).  Either package resumes the other's checkpoint.  A resume takes
+the newest committed step, as JAX's does, and replays the data stream
+by skipping; the warm-up choice and the per-step seeds take the global
+step index, so a stopped-and-resumed run gives the uninterrupted run's
+losses.  As in the JAX package there is no fault plan or guard on this
+path.
 
 FSDP (ZeRO-3), as the JAX package's trainer always shards over its
 ``data`` axis (`StageFsdp`): where the data group has D > 1 ranks, each
@@ -162,7 +161,6 @@ import collections
 import contextlib
 import dataclasses
 import functools
-import os
 import time
 from dataclasses import InitVar, dataclass
 from typing import Optional
@@ -173,7 +171,6 @@ import torch.distributed as dist
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch import checkpoint as ckpt
 from repro_torch.comm import faults
 from repro_torch.comm.config import CommConfig, reject_legacy_comm
 from repro_torch.configs.base import ModelConfig
@@ -1369,7 +1366,7 @@ class PipelineRank:
                  whole_stage: bool = False):
         self.cfg, self.pcfg, self.mesh, self.opt_cfg = cfg, pcfg, mesh, \
             opt_cfg
-        self.seed, self.seq = seed, seq_len
+        self.seed, self.seq, self.num_samples = seed, seq_len, num_samples
         dev = mesh.device
         self.lay = stage_layout(cfg, mesh.shape.model)
         self.stage = Stage(cfg, self.lay, mesh.model_rank, device=dev)
@@ -1581,11 +1578,23 @@ class PipelineRank:
         self._t = now
 
 
+def spec_configs(spec: dict) -> tuple:
+    """(model config, `PipelineConfig`, `adamw.AdamWConfig`) of a run's
+    ``spec`` (`repro_torch.launch.train.distributed_spec`)."""
+    from repro_torch.configs.base import get_config
+    cfg = get_config(spec["arch"], smoke=spec["smoke"])
+    if spec.get("num_layers"):
+        cfg = cfg.with_(num_layers=spec["num_layers"])
+    pcfg = PipelineConfig(microbatches=spec["microbatches"],
+                          comm=CommConfig.from_json(spec["comm"]),
+                          **spec.get("pipeline", {}))
+    return cfg, pcfg, adamw.AdamWConfig(**spec["optimizer"])
+
+
 def build_rank(rank: int, world: int, spec: dict) -> tuple:
     """This process's `PipelineRank` and the run's `Dataset` for
     ``spec``, the run's plain-data description (see
     `repro_torch.launch.train.distributed_spec`)."""
-    from repro_torch.configs.base import get_config
     from repro_torch.data.pipeline import Dataset, DatasetConfig
     from repro_torch.launch.mesh import Mesh, MeshShape
 
@@ -1599,13 +1608,7 @@ def build_rank(rank: int, world: int, spec: dict) -> tuple:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     mesh = Mesh(shape, rank, dev)
-    cfg = get_config(spec["arch"], smoke=spec["smoke"])
-    if spec.get("num_layers"):
-        cfg = cfg.with_(num_layers=spec["num_layers"])
-    comm = CommConfig.from_json(spec["comm"])
-    pcfg = PipelineConfig(microbatches=spec["microbatches"], comm=comm,
-                          **spec.get("pipeline", {}))
-    opt_cfg = adamw.AdamWConfig(**spec["optimizer"])
+    cfg, pcfg, opt_cfg = spec_configs(spec)
     ds = Dataset(DatasetConfig(**spec["dataset"]))
     trainer = PipelineRank(cfg, pcfg, mesh, opt_cfg,
                            num_samples=ds.num_samples, seq_len=ds.dc.seq_len,
@@ -1626,82 +1629,29 @@ def rank_batch(trainer: PipelineRank, batch: dict) -> dict:
     return local
 
 
-# ---------------------------------------------------------------------------
-# per-rank checkpoints
-# ---------------------------------------------------------------------------
-
-def rank_ckpt_dir(ckpt_dir: str, mesh) -> str:
-    """This rank's checkpoint directory under the run's ``ckpt_dir``."""
-    return os.path.join(ckpt_dir,
-                        f"rank_{mesh.data_rank}_{mesh.model_rank}")
-
-
-def rank_state(trainer: PipelineRank) -> dict:
-    """The rank's training state as a checkpoint tree, keyed by the
-    stage's own names: ``params`` (its shards with FSDP), ``opt``
-    (their moments, f32 or b-bit codes and scales, and ``step``), and
-    where the rank has them ``dp_error``, ``m_out``, ``m_in`` and the
-    ZeRO wire's ``pbucket``.  The leaves are the trainer's own
-    tensors."""
-    tree = {"params": trainer.params, "opt": trainer.opt}
-    for name in ("dp_error", "m_out", "m_in", "pbucket"):
-        if getattr(trainer, name, None) is not None:
-            tree[name] = getattr(trainer, name)
-    return tree
-
-
-@torch.no_grad()
-def _copy_into(dst: dict, src: dict) -> None:
-    """Copy a restored tree into ``dst``'s tensors in place (ints, the
-    optimizer's step, by assignment)."""
-    for k, v in src.items():
-        if isinstance(v, dict):
-            _copy_into(dst[k], v)
-        elif isinstance(v, torch.Tensor):
-            dst[k].copy_(v)
-        else:
-            dst[k] = v
-
-
-def common_step(trainer: PipelineRank, directory: str, steps: int) -> int:
-    """The newest step of ``0..steps`` that every rank committed under
-    its own directory: one MIN all-reduce over every rank of each one's
-    committed steps.  Raises `CheckpointError` when there is none."""
-    mine = torch.zeros(steps + 1, dtype=torch.int32)
-    for s in ckpt.checkpoint_steps(directory):
-        if s <= steps:
-            mine[s] = 1
-    every = trainer.mesh.transport.all_reduce(mine, dist.ReduceOp.MIN, None,
-                                              "ckpt").cpu()
-    done = torch.nonzero(every).flatten().tolist()
-    if not done:
-        raise ckpt.CheckpointError(
-            f"{directory}: no checkpoint step that every rank committed "
-            f"(this rank has {ckpt.checkpoint_steps(directory)})")
-    return done[-1]
-
-
 def train_rank(rank: int, world: int, spec: dict) -> dict:
     """One process of a distributed run (`repro_torch.launch.mesh.spawn`
     target).  ``spec``: the run's plain-data description (see
     `repro_torch.launch.train.distributed_spec`; ``ckpt_dir``,
     ``save_every``, ``keep`` and ``resume`` are the checkpoint flags).
     Returns the rank's losses (of the steps this call ran), the count
-    of staged ``.tmp-*`` entries it removed from its checkpoint
-    directory (``orphans_removed``), step and phase times, peak device
-    memory, kernel launches, transport bytes and manifests, the
-    ``fsdp`` plane's largest gathered buffer and its calls by unit
-    (`StageFsdp.gathers`), replica
-    checks (after every step) and its checkpoints' saves and restores
-    (``ckpt``: step, bytes, seconds), as plain data.  An audio or vlm
+    of staged ``.tmp-*`` entries rank 0 removed from the checkpoint
+    directory and its sidecar (``orphans_removed``; 0 on the others),
+    step and phase times, peak device memory, kernel launches,
+    transport bytes and manifests, the ``fsdp`` plane's largest
+    gathered buffer and its calls by unit (`StageFsdp.gathers`),
+    replica checks (after every step) and the checkpoints' saves and
+    restores (``ckpt``: step, seconds, bytes on disk written or read,
+    and a save's ``ckpt`` plane bytes, `pipeline_state.save` and
+    `pipeline_state.restore`), as plain data.  An audio or vlm
     model's global batches get stub frames or patches
     (`data.pipeline.with_stub_media`, seeded by the run's seed), which
     the `Dataset` does not make and its step needs."""
     from repro_torch.kernels import quant_pack as qp
+    from repro_torch.training import pipeline_state as PS
 
     trainer, ds = build_rank(rank, world, spec)
     mesh, dev = trainer.mesh, trainer.mesh.device
-    comm = trainer.pcfg.comm
     steps, gb = spec["steps"], spec["batch"]
     warm_steps = max(ds.num_samples // gb, 1) * spec["warmup_epochs"] \
         if trainer.has_bufs else 0
@@ -1712,22 +1662,12 @@ def train_rank(rank: int, world: int, spec: dict) -> dict:
            "orphans_removed": 0, "largest_gather": [], "fsdp_gathers": []}
     ckpt_dir = spec.get("ckpt_dir", "")
     save_every = spec.get("save_every", 0)
-    own = rank_ckpt_dir(ckpt_dir, mesh) if ckpt_dir else ""
-    if own:
-        out["orphans_removed"] = len(ckpt.clean_orphans(own))
+    if ckpt_dir and rank == 0:
+        out["orphans_removed"] = PS.clean_orphans(ckpt_dir)
     if spec.get("resume"):
-        t0 = time.perf_counter()
-        at = common_step(trainer, own, steps)
-        tree, body = ckpt.restore_state(own, rank_state(trainer), step=at,
-                                        comm=comm)
-        _copy_into(rank_state(trainer), tree)
-        del tree
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        out["start"] = int(body["step"])
-        out["ckpt"].append({"op": "restore", "step": out["start"],
-                            "bytes": ckpt.checkpoint_nbytes(own, out["start"]),
-                            "seconds": time.perf_counter() - t0})
+        info = PS.restore(trainer, ckpt_dir)
+        out["start"] = info["step"]
+        out["ckpt"].append({"op": "restore", **info})
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
@@ -1761,14 +1701,9 @@ def train_rank(rank: int, world: int, spec: dict) -> dict:
         out["manifests"].append(tr.manifest("dp"))
         out["replicas"].append(check_replicas(trainer))
         done = step_i + 1
-        if own and save_every and done % save_every == 0:
-            t0 = time.perf_counter()
-            ckpt.save_state(own, rank_state(trainer), step=done, comm=comm,
-                            extra={"data_position": done},
-                            keep=spec.get("keep", 3))
-            out["ckpt"].append({"op": "save", "step": done,
-                                "bytes": ckpt.checkpoint_nbytes(own, done),
-                                "seconds": time.perf_counter() - t0})
+        if ckpt_dir and save_every and done % save_every == 0:
+            out["ckpt"].append({"op": "save", **PS.save(
+                trainer, ckpt_dir, done, keep=spec.get("keep", 3))})
     if dev.type == "cuda":
         out["peak_mem_bytes"] = torch.cuda.max_memory_allocated(dev)
     out["dp_bucket"] = list(trainer.bucket.shape)

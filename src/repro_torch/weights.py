@@ -160,6 +160,17 @@ def to_jax_params(model: Transformer) -> dict:
     return jax_tree({n: p.detach() for n, p in model.named_parameters()})
 
 
+def numpy_tree(tree):
+    """A tree of tensors (nested dicts and lists, as `to_jax_params`
+    gives) as numpy arrays on the host: a JAX params pytree to start a
+    trainer from (``initial_params``)."""
+    if isinstance(tree, dict):
+        return {k: numpy_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [numpy_tree(v) for v in tree]
+    return tree.detach().cpu().numpy()
+
+
 def load_jax_params(model: Transformer, np_tree: dict) -> Transformer:
     """Copy a JAX params pytree (numpy arrays) into an existing model,
     in place (the trainer's ``initial_params``)."""

@@ -2,7 +2,7 @@
 """chip_smoke's distributed phases alone, for one source tree.
 
     python3 tools/dist_phases.py [--src TREE] [--checks] [--no-variants]
-                                 [--sim-resume]
+                                 [--sim-resume] [--resume] [--examples]
 
 Runs the tree's own `chip_smoke.dist_phases` (``[dist-train]`` and its
 ``-sharded``, ``-fp16`` and ``-adam8`` variants: gpt2-xl-paper at full
@@ -13,7 +13,9 @@ against CPU, and where the tree has it ``[dist-fsdp-check]``) and
 them ``[dist-train-oncore]`` and ``[dist-seeded-check]``), with their
 asserts, printing chip_smoke's lines for them.  ``--no-variants`` skips
 `dist_phases`; ``--sim-resume`` also runs `train_resume_phase`
-(``[train-resume]``, ``[train-resume-oncore]``, ``[train-fault]``).  ``--src`` (default: this
+(``[train-resume]``, ``[train-resume-oncore]``, ``[train-fault]``); ``--resume`` runs
+`dist_resume_phase` without the SMOKE checks, and ``--examples`` the
+tree's `examples_phase` (``[examples]``).  ``--src`` (default: this
 checkout) is the root of a checkout, so one call on the card can run
 two versions in turns: unpack the other commit into a directory that
 ``.gitignore`` lists (``git archive <commit> | tar -x -C build/parent``)
@@ -34,6 +36,8 @@ def main(argv=None) -> int:
     ap.add_argument("--checks", action="store_true")
     ap.add_argument("--no-variants", action="store_true")
     ap.add_argument("--sim-resume", action="store_true")
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--examples", action="store_true")
     args = ap.parse_args(argv)
     sys.path.insert(0, os.path.abspath(args.src))
     import chip_smoke as cs          # the tree's, which puts its src first
@@ -49,7 +53,10 @@ def main(argv=None) -> int:
         cs.dist_phases(torch)
     if args.checks:
         cs.dist_reference_checks(torch)
+    if args.checks or args.resume:
         cs.dist_resume_phase(torch)
+    if args.examples:
+        cs.examples_phase()
     if args.sim_resume:
         from repro_torch import env
         from repro_torch.kernels import quant_pack as qp
